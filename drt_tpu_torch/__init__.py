@@ -1,0 +1,30 @@
+"""drt_tpu_torch — the PyTorch and CUDA port of drt_tpu.
+
+The same Monte-Carlo path tracer on an NVIDIA GPU: module names mirror
+`drt_tpu`'s so each has a counterpart there, plain tensor code is
+PyTorch, and each Pallas kernel of `drt_tpu` becomes a hand-written
+Hopper kernel under `csrc/` beside a plain PyTorch twin. This package
+imports torch and never jax.
+
+Ported so far: the forward render path (`parallel.render.make_renderer`
+with differentiable=False) over the fused tracer kernel.
+"""
+
+from drt_tpu_torch.camera import Camera, look_at
+from drt_tpu_torch.config import RenderConfig
+from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+from drt_tpu_torch.renderer import trace_rays
+from drt_tpu_torch.scene import Params, Scene, SceneBuilder, make_scene
+
+__all__ = [
+    "RenderConfig",
+    "Scene",
+    "Params",
+    "SceneBuilder",
+    "make_scene",
+    "Camera",
+    "look_at",
+    "trace_rays",
+    "make_renderer",
+    "resolve_backend",
+]

@@ -1,0 +1,91 @@
+"""Renderer routing: the port of `drt_tpu.parallel.render`'s
+`resolve_backend` and `make_renderer`, forward only and single device.
+
+Backends: "cuda" runs the fused tracer kernel (the port of the JAX
+"pallas" backend) and needs the scene on a CUDA device; "torch" runs its
+plain PyTorch twin on the scene's device. The JAX package's other
+backends raise NotImplementedError naming the ROADMAP item that brings
+them; so does a differentiable renderer, which is the next slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from drt_tpu_torch.camera import Camera
+from drt_tpu_torch.config import RenderConfig
+from drt_tpu_torch.ops.megakernel import MAX_SHAPES
+from drt_tpu_torch.scene import Params, Scene
+
+BACKENDS = ("cuda", "torch")
+
+# JAX backends not ported yet -> the ROADMAP item (queue A) that ports them.
+_LATER = {
+    "xla": "A4 (key-mode wavefront) and A8 (routing)",
+    "pallas-dyn": "A11 (memory-resident scenes, kernels B6-B9)",
+    "pallas-split": "A12 (lane splitting)",
+    "pallas-split-dyn": "A12 (lane splitting)",
+    "pallas-regen": "A13 (regeneration renderers, kernels B10-B11)",
+    "pallas-dyn-regen": "A13 (regeneration renderers, kernels B12-B13)",
+    "pallas-sharded": "A14 (multi-device)",
+    "pallas-dyn-sharded": "A14 (multi-device)",
+    "pallas-split-sharded": "A14 (multi-device)",
+    "pallas-split-dyn-sharded": "A14 (multi-device)",
+    "pallas-regen-sharded": "A14 (multi-device)",
+    "pallas-dyn-regen-sharded": "A14 (multi-device)",
+}
+
+
+def _not_yet(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+def resolve_backend(scene: Scene, cfg: RenderConfig,
+                    backend: str = "auto") -> str:
+    """Resolve "auto" to the backend make_renderer will use: "cuda" for
+    a float32 scene on a CUDA device, "torch" for a scene on the CPU.
+
+    A CUDA scene the kernel does not take (not float32, or more shapes
+    than its table holds) raises rather than silently running the plain
+    version on the card; pass backend="torch" to ask for that.
+    """
+    if backend != "auto":
+        return backend
+    if scene.device.type != "cuda":
+        return "torch"
+    if scene.shape_geo.dtype != torch.float32:
+        raise ValueError("the fused tracer kernel is float32; pass "
+                         "backend='torch' for the plain version on the "
+                         "card")
+    if scene.num_shapes > MAX_SHAPES:
+        raise _not_yet(f"a {scene.num_shapes}-shape scene on the card",
+                       _LATER["pallas-dyn"])
+    return "cuda"
+
+
+def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
+                  mesh=None, differentiable: bool = True,
+                  backend: str = "auto"):
+    """Build `render(params, seeds: i32[2]) -> image f32[H, W, 3]`.
+
+    Only the forward exists in this slice: differentiable=True (the
+    JAX default) raises, as does a device mesh.
+    """
+    if mesh is not None:
+        raise _not_yet("rendering over a device mesh", _LATER["pallas-sharded"])
+    if differentiable:
+        raise _not_yet("the differentiable renderer (radiative backprop, "
+                       "kernels B2-B4)", "A5 and A6 (slice 2)")
+    backend = resolve_backend(scene, cfg, backend)
+    if backend in _LATER:
+        raise _not_yet(f"backend {backend!r}", _LATER[backend])
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the port has "
+                         f"{BACKENDS}")
+    if backend == "cuda" and scene.device.type != "cuda":
+        raise ValueError("backend 'cuda' needs the scene on a CUDA device, "
+                         f"not {scene.device}")
+    from drt_tpu_torch.fused import make_fused_image_renderer
+
+    return make_fused_image_renderer(scene, cam, cfg,
+                                     plain=(backend == "torch"))

@@ -1,0 +1,102 @@
+"""Fixed-depth wavefront path tracer over flat SoA ray state, in tape mode.
+
+The port of `drt_tpu.renderer`'s `_bounce` and `trace_rays(tape=...)`:
+the reference's per-ray recursion (pathtracer.hpp:91-136) becomes a loop
+over bounces in which every bounce intersects the whole wavefront, adds
+emission, samples the BxDF and updates the throughput. Dead rays
+(absorbed by Russian roulette or missed) are masked, never branched on.
+
+Per-path estimator (what the adjoint of the next slice differentiates):
+
+    L = sum_b P_b * e_b,   P_b = prod_{j<=b} gate_j * prod_{j<b} w_j
+
+The uniforms come from a tape f[max_depth, 3, N] with slots (rr, u1, u2)
+per bounce, the reference's per-vertex order RR -> theta -> phi. The
+key-driven mode and per-vertex splitting (bsdf_samples > 1) of the JAX
+renderer come with ROADMAP item A12 and the next slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from drt_tpu_torch.config import RenderConfig
+from drt_tpu_torch.constants import RAY_EPS
+from drt_tpu_torch.ops.bxdf import eval_scale, sample_bxdf
+from drt_tpu_torch.ops.intersect import intersect_scene
+from drt_tpu_torch.ops.vecmath import V3, dotv, gatherv, wherev
+from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
+
+
+def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b: int, u):
+    """One wavefront bounce; carry = (o, d, T, L, alive).
+
+    A ray dies only when absorbed or on a miss, not when its throughput
+    reaches zero: the reference keeps recursing with a zero BRDF value
+    (pathtracer.hpp:17-35).
+    """
+    albedo_tab, emission_tab = tabs
+    o, d, T, L, alive = carry
+    n_emit = emission_tab.shape[0] - 1  # sentinel (zero) row index
+    u_rr, u1, u2 = u
+    dtype = u1.dtype
+
+    # Russian roulette at depth b (pathtracer.hpp:128-133).
+    do_rr = b >= cfg.min_bounces
+    if do_rr:
+        alive = alive & ~(u_rr < cfg.absorb_prob)
+    rr_scale = 1.0 / (1.0 - cfg.absorb_prob) if do_rr else 1.0
+
+    hit = intersect_scene(scene, o, d, emit_sentinel=n_emit)
+    alive = alive & hit.valid
+    gate = torch.where(alive, torch.tensor(rr_scale, dtype=dtype,
+                                           device=u1.device), 0.0)
+
+    # Emission at this vertex; the RR divide applies to it too
+    # (pathtracer.hpp:113-114, :133).
+    P = T * gate
+    e = gatherv(emission_tab, hit.emit)
+    L = L + P * e
+
+    mt = scene.mat_type[hit.mat]
+    mex = scene.mat_exponent[hit.mat].to(dtype)
+    aid = scene.mat_albedo[hit.mat]
+    d_in = -d
+    dir_out, pdf = sample_bxdf(mt, mex, hit.normal, d_in, u1, u2)
+    s = eval_scale(mt, mex, hit.normal, d_in, dir_out)
+    cos_t = dotv(hit.normal, dir_out)  # raw normal dot (pathtracer.hpp:103)
+    # Dead rays carry inf/NaN hit data; the pdf > 0 guard drops the f32
+    # samples whose pdf rounds to 0 (drt_tpu.renderer._bounce).
+    sc = torch.where(alive & (pdf > 0), s * cos_t / pdf, 0.0)
+    a = gatherv(albedo_tab, aid)
+    T_next = P * (a * sc)
+
+    o_next = wherev(alive, hit.point + dir_out * RAY_EPS, 0.0)
+    d_next = wherev(alive, dir_out, 0.0)
+    return o_next, d_next, T_next, L, alive
+
+
+def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
+               cfg: RenderConfig, tape: torch.Tensor) -> V3:
+    """Trace a wavefront of rays to radiance.
+
+    orig, dir: V3 of f[N] primary rays; tape: f[max_depth, 3, N] uniforms
+    with slots (rr, u1, u2) per bounce. Returns radiance as a V3 of f[N].
+    """
+    if cfg.bsdf_samples != 1:
+        raise NotImplementedError(
+            "bsdf_samples > 1 (per-vertex splitting) is key-driven in the "
+            "JAX renderer; it comes to the port with ROADMAP item A12")
+    dtype = dir.x.dtype
+    n = dir.x.shape[0]
+    dev = dir.x.device
+    tabs = (albedo_table(scene, params).to(dtype),
+            emission_table(scene, params).to(dtype))
+    one = torch.ones(n, dtype=dtype, device=dev)
+    zero = torch.zeros(n, dtype=dtype, device=dev)
+    carry = (orig, dir, V3(one, one, one), V3(zero, zero, zero),
+             torch.ones(n, dtype=torch.bool, device=dev))
+    for b in range(cfg.max_depth):
+        carry = _bounce(tabs, scene, cfg, carry, b,
+                        (tape[b, 0], tape[b, 1], tape[b, 2]))
+    return carry[3]

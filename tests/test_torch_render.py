@@ -1,0 +1,138 @@
+"""drt_tpu_torch's user surface on the CPU: routing
+(`parallel.render`), the image renderer and the `render` CLI."""
+
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from drt_tpu_torch import cli
+from drt_tpu_torch.config import RenderConfig
+from drt_tpu_torch.fused import (_resolve_fastmath, make_fused_image_renderer,
+                                 seeds_from_generator)
+from drt_tpu_torch.models import cbox
+from drt_tpu_torch.ops import megakernel as mk
+from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+from drt_tpu_torch.scene import albedo_table, emission_table
+
+CFG = RenderConfig(width=16, height=12, spp=4, spp_chunks=2, max_depth=4)
+
+
+def _seeds(seed=0):
+    return seeds_from_generator(torch.Generator().manual_seed(seed))
+
+
+def test_seeds_from_generator():
+    s = _seeds(7)
+    assert s.dtype == torch.int32 and s.shape == (2,)
+    assert torch.equal(s, _seeds(7)) and not torch.equal(s, _seeds(8))
+
+
+def test_cpu_render_reads_right():
+    """The image semantics of the reference scene: light at the top,
+    image-left red-dominant, image-right green-dominant (x-mirrored
+    camera); every value finite; the plain path counts no launch."""
+    scene, params, cam = cbox.build()
+    assert resolve_backend(scene, CFG) == "torch"
+    before = mk.fused_trace.launches
+    img = make_renderer(scene, CFG, cam, differentiable=False)(
+        params, _seeds())
+    assert mk.fused_trace.launches == before
+    assert img.shape == (12, 16, 3) and img.dtype == torch.float32
+    assert not img.requires_grad and torch.isfinite(img).all()
+    assert img[:3].mean() > 3 * img[-3:].mean()
+    left, right = img[:, :4].mean((0, 1)), img[:, -4:].mean((0, 1))
+    assert left[0] > 2 * left[1] and right[1] > 2 * right[0]
+    img2 = make_renderer(scene, CFG, cam, differentiable=False,
+                         backend="torch")(params, _seeds())
+    assert torch.equal(img, img2)
+
+
+def test_render_has_no_autograd_history():
+    scene, params, cam = cbox.build()
+    params = params._replace(albedo=params.albedo.requires_grad_())
+    img = make_renderer(scene, CFG, cam, differentiable=False)(
+        params, _seeds())
+    assert img.grad_fn is None and not img.requires_grad
+
+
+def test_tape_image_renderer_reduces_spp_outer():
+    """rng="tape": pixel p is the mean of rays p, p + W*H, ... of the
+    tracer's output; one tape per launch, biased only."""
+    cfg = RenderConfig(width=8, height=6, spp=2, max_depth=3)
+    scene, params, cam = cbox.build()
+    r = np.random.default_rng(5)
+    cam_u = torch.as_tensor(r.uniform(size=(2, 96)).astype(np.float32))
+    tape = torch.as_tensor(r.uniform(size=(3, 3, 96)).astype(np.float32))
+    img = make_fused_image_renderer(scene, cam, cfg, rng="tape")(
+        params, cam_u, tape)
+    L = mk.make_fused_tracer(scene, cam, cfg, rng="tape")(
+        albedo_table(scene, params), emission_table(scene, params),
+        cam_u, tape)
+    assert img.shape == (6, 8, 3) and L.mean() > 0
+    for y, x in ((0, 0), (2, 5), (5, 7)):
+        p = y * 8 + x
+        torch.testing.assert_close(img[y, x], (L[:, p] + L[:, p + 48]) / 2)
+    for bad in (dict(spp_chunks=2), dict(unbiased=True)):
+        with pytest.raises(ValueError, match="tape-mode"):
+            make_fused_image_renderer(scene, cam, RenderConfig(
+                width=8, height=6, spp=2, max_depth=3, **bad), rng="tape")
+
+
+@pytest.mark.parametrize("fastmath,rng,fast", [
+    ("auto", "internal", True), ("auto", "tape", False),
+    (True, "tape", True), (False, "internal", False)])
+def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
+    assert _resolve_fastmath(fastmath, rng) is fast
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(backend="cuda"), ValueError, "CUDA device"),
+    (dict(differentiable=True), NotImplementedError, "A5"),
+    (dict(mesh=object()), NotImplementedError, "A14"),
+    (dict(backend="pallas-dyn"), NotImplementedError, "A11"),
+    (dict(backend="pallas-regen"), NotImplementedError, "A13"),
+    (dict(backend="bogus"), ValueError, "unknown backend"),
+])
+def test_make_renderer_refuses(kw, err, match):
+    scene, _, cam = cbox.build()
+    kw.setdefault("differentiable", False)
+    with pytest.raises(err, match=match):
+        make_renderer(scene, CFG, cam, **kw)
+
+
+def test_cli_render_writes_png(tmp_path):
+    out = tmp_path / "cbox.png"
+    rc = cli.main(["render", "-x", "16", "-y", "12", "-n", "2",
+                   "--max-depth", "3", "--device", "cpu", "-o", str(out)])
+    assert rc == 0
+    data = out.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    w, h = struct.unpack(">II", data[16:24])
+    assert (w, h) == (16, 12)
+    raw = zlib.decompress(data[data.index(b"IDAT") + 4:-16])
+    px = np.frombuffer(raw, np.uint8).reshape(12, 1 + 16 * 3)[:, 1:]
+    assert px.max() > 0
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_image_writers_match_jax_package(tmp_path, channels):
+    """The numpy-only writers give drt_tpu.utils.image's PNG bytes, and
+    EXRs that its reader reads back to the half-rounded image."""
+    from drt_tpu.utils import image as jax_image
+    from drt_tpu_torch.utils import image
+
+    img = np.random.default_rng(3).uniform(
+        0, 1.5, (6, 5, channels)).astype(np.float32)
+    image.write_exr(str(tmp_path / "a.exr"), img)
+    back = jax_image.read_exr(str(tmp_path / "a.exr"))
+    np.testing.assert_array_equal(back[..., :channels],
+                                  img.astype(np.float16))
+    assert (back[..., 3] == 1.0).all() or channels == 4
+    rgb = img[..., :3]
+    image.write_png(str(tmp_path / "a.png"), rgb)
+    jax_image.write_png(str(tmp_path / "b.png"), rgb)
+    assert (tmp_path / "a.png").read_bytes() == \
+        (tmp_path / "b.png").read_bytes()
