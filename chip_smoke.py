@@ -1,23 +1,37 @@
-"""Drive drt_tpu_torch's forward render path on one NVIDIA GPU.
+"""Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--keep-going]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the fused tracer kernel from drt_tpu_torch/csrc;
-  3. hold the kernel against its plain PyTorch twin on the card: tape
-     mode, exact variant, on the cbox, glossy and tri scenes (64x48x4 spp,
-     depth 5); the fast variant against the exact one; the internal RNG
-     (32x24x8 spp, spp_chunks=2) against the twin fed the same hash tapes;
-     and the main path's own call (fast, internal RNG, all 16 chunks),
-     and the exact variant at that shape, against the twin;
-  4. the main path: the Cornell box at 640x480, 256 spp, depth 5,
+  2. build every kernel library of drt_tpu_torch/csrc, one nvcc each, all
+     at once; print each entry point's registers and spills;
+  3. hold the tracer kernel against its plain PyTorch twin on the card:
+     tape mode, exact variant, on the cbox, glossy and tri scenes (64x48x4
+     spp, depth 5); the fast variant against the exact one; the internal
+     RNG (32x24x8 spp, spp_chunks=2) against the twin fed the same hash
+     tapes; and the main path's own call (fast, internal RNG, all 16
+     chunks), and the exact variant at that shape, against the twin;
+  4. hold the collect tracer, the sweep adjoint and the retrace adjoint
+     against their twins at the same small shapes and at the main-path
+     shape: the collect tracer's radiance equals the tracer's bit for bit;
+     the retrace adjoint equals sweep(collect) bit for bit; two sweeps
+     give the same bits; the unbiased salted seed equals the twin fed
+     hash_tapes of that seed; time each kernel and twin;
+  5. the forward main path: the Cornell box at 640x480, 256 spp, depth 5,
      spp_chunks=16 through make_renderer(differentiable=False), one
-     warm-up and three seeds, with the launch counter reset just before
-     and read just after; the images are finite, read right, and their
-     means agree with the twin's at the same seeds;
-  5. a line {"kernels": [...]}, the nvidia-smi line, and last
+     warm-up and three seeds; the images are finite, read right, and
+     their means agree with the twin's at the same seeds;
+  6. the differentiable main path: make_renderer(scene, cfg, cam) ->
+     mean squared loss -> backward, in its stored, retrace and unbiased
+     forms, gradients against backend="torch" at the same seeds, seconds
+     per forward+backward step;
+  7. the trainer: optim.inverse_render, 5 Adam steps at the main shape
+     from a perturbed red-wall albedo towards a target render;
+  8. a line {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
+Before each of the paths of 5, 6 and 7 the launch counts are set to 0,
+and read just after.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -38,12 +52,44 @@ EXACT_TOL = dict(rtol=2e-5, atol=2e-6)
 FAST_TOL = dict(rtol=2e-3, atol=1e-4)
 MAX_SHARE_BEYOND = 1e-3
 MEAN_RTOL = 1e-5
+# Share of bounce-slots whose sampling weight may lie beyond EXACT_TOL at
+# the small shapes: the specular weight divides by sqrt(1 - cos_h^2), which
+# loses digits as cos_h -> 1, so two pow implementations differ there.
+RSC_SHARE_SMALL = 5e-3
+# Gradient tables against the twin, relative to the table's largest entry:
+# the same terms summed in another order (and, at the main shape, the few
+# ray slots whose path an ulp turns).
+GRAD_RTOL_SMALL = 2e-5
+GRAD_RTOL_MAIN = 1e-4
 MAIN = dict(width=640, height=480, spp=256, max_depth=5, spp_chunks=16)
+# The card's published peaks (H100 SXM data sheet): device memory rate and
+# float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# Operations the bound counts: per primary ray (camera + 2 hash draws), per
+# live bounce and shape kind of the nearest-hit loop, per live bounce of
+# shading (frame, sample, weight, 3 hash draws), and per live bounce of the
+# replay and reverse sweep. Counted from the kernels' source.
+OPS_CAMERA = 70
+OPS_SHAPE = {0: 13, 1: 27, 2: 50}  # plane, sphere, triangle
+OPS_SHADE = 170
+OPS_SWEEP = 20
+
+
+FAILED: list[str] = []
+KEEP_GOING = "--keep-going" in sys.argv[1:]
 
 
 def check(cond: bool, msg: str) -> None:
-    if not cond:
+    """Raise on a failed check; with --keep-going, note it and go on, so
+    that one run shows every failure (the run still ends non-zero and
+    prints no result line)."""
+    if cond:
+        return
+    if not KEEP_GOING:
         raise RuntimeError(msg)
+    FAILED.append(msg)
+    print(f"[FAILED] {msg}", flush=True)
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: dict,
@@ -66,6 +112,78 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: dict,
         check(mean_rel <= mean_rtol,
               f"{name}: means differ by {mean_rel:.3g} relative")
     return max_abs
+
+
+def compare_residuals(name: str, got, ref, tol: dict, max_share_best: float,
+                      max_share_sc: float) -> float:
+    """(rsc, rbest) of the collect tracer against the twin's: of the
+    bounce-slots that matter, at most max_share_best may differ in best,
+    at most max_share_sc more may have sc beyond `tol`, and at most
+    MAX_SHARE_BEYOND beyond FAST_TOL. Returns max |sc - ref| over the
+    slots whose best agrees.
+
+    Slots after a live bounce whose sc is 0 do not matter and are left
+    out: nothing depends on them (the throughput after that bounce and
+    the suffix radiance before it are both cut by the zero weight), and
+    what they hold is decided by an ulp. A ray that has hit the light
+    (null BxDF: sc = 0, dir_out = 0) goes on with a zero direction from a
+    point on the sphere, where the sign of |p - c|^2 - r^2 says hit or
+    miss."""
+    (sc, best), (sc_r, best_r) = got, ref
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(sc).all()), f"{name}: non-finite rsc")
+    zero = ((sc_r == 0) & (best_r > 0)).to(torch.int32)
+    matters = (zero.cumsum(dim=-2, dtype=torch.int32) - zero) == 0
+    del zero
+    same = matters & (best == best_r)
+    diff = torch.where(same, (sc - sc_r).abs(), 0.0)
+    n_matter = matters.sum().item()
+    share_best = (matters & (best != best_r)).sum().item() / n_matter
+    share_sc = (diff > tol["atol"] + tol["rtol"] * sc_r.abs()
+                ).sum().item() / n_matter
+    share_far = (diff > FAST_TOL["atol"] + FAST_TOL["rtol"] * sc_r.abs()
+                 ).sum().item() / n_matter
+    max_abs = diff.max().item()
+    print(f"[compare] {name}: of {n_matter} bounce-slots that matter (of "
+          f"{matters.numel()}) rbest_differs={share_best!r} "
+          f"rsc_beyond(rtol={tol['rtol']}, atol={tol['atol']})={share_sc!r} "
+          f"rsc_beyond(rtol={FAST_TOL['rtol']}, atol={FAST_TOL['atol']})="
+          f"{share_far!r} max_abs_rsc={max_abs!r}", flush=True)
+    check(share_best <= max_share_best,
+          f"{name}: rbest differs on {share_best:.3%} of bounce-slots")
+    check(share_sc <= max_share_sc,
+          f"{name}: rsc beyond tolerance on {share_sc:.3%} of bounce-slots")
+    check(share_far <= MAX_SHARE_BEYOND,
+          f"{name}: rsc beyond the fast tolerance on {share_far:.3%}")
+    return max_abs
+
+
+def compare_grads(name: str, got, ref, rtol: float) -> float:
+    """(d_albedo, d_emission) against the twin's, each table to
+    rtol * max|ref|. Returns the larger max abs error."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for label, g, r in zip(("d_albedo", "d_emission"), got, ref):
+        check(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {label}")
+        scale = r.abs().max().item()
+        err = (g - r).abs().max().item()
+        print(f"[compare] {name}: {label} max_abs={err!r} max|ref|="
+              f"{scale!r} rel={err / scale if scale else 0.0!r}",
+              flush=True)
+        check(scale > 0, f"{name}: {label} of the twin is all zero")
+        check(err <= rtol * scale,
+              f"{name}: {label} differs by {err:.3g} > {rtol} * {scale:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def same_bits(name: str, got, ref) -> None:
+    torch.cuda.synchronize()
+    for k, (g, r) in enumerate(zip(got, ref)):
+        check(torch.equal(g, r), f"{name}: output {k} is not bit-equal "
+              f"(max abs {(g - r).abs().max().item()!r})")
+    print(f"[compare] {name}: bit-equal", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1,
@@ -114,13 +232,14 @@ def main() -> int:
     import drt_tpu_torch
     check(Path(drt_tpu_torch.__file__).resolve().parent.parent == HERE,
           "drt_tpu_torch must be the package beside this script")
+    from drt_tpu_torch import fused, optim
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.fused import seeds_from_generator
     from drt_tpu_torch.models import cbox, gallery
     from drt_tpu_torch.ops import megakernel as mk
     from drt_tpu_torch.ops.rng import hash_tapes
     from drt_tpu_torch.parallel.render import make_renderer
-    from drt_tpu_torch.scene import albedo_table, emission_table
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
     from drt_tpu_torch.utils import native
 
     t_start = time.time()
@@ -137,16 +256,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    # Phase 2: build the kernel.
+    # Phase 2: build the kernels.
     t0 = time.time()
-    so = native.build(mk.SOURCE)
-    print(f"[build] {mk.SOURCE} -> {so.relative_to(HERE)} in "
+    built = native.build_all()
+    print(f"[build] {sorted(built)} -> "
+          f"{next(iter(built.values())).parent.relative_to(HERE)} in "
           f"{time.time() - t0:.1f}s", flush=True)
-    for line in (so.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}", flush=True)
+    for source in sorted(built):
+        for line in native.log_path(source).read_text().splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
+                print(f"[ptxas] {source}: {line.strip()}", flush=True)
 
-    # Phase 3: kernel against its twin.
+    # Phase 3: the tracer against its twin.
     def tables(scene, params):
         return albedo_table(scene, params), emission_table(scene, params)
 
@@ -155,9 +277,10 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(1)
     cam_u = torch.rand((2, n), generator=g, device=dev)
     tape = torch.rand((5, 3, n), generator=g, device=dev)
-    for label, build in (("cbox", cbox.build),
-                         ("glossy", gallery.build_glossy),
-                         ("tri", gallery.build_tri)):
+    g_small = torch.rand((3, n), generator=g, device=dev)
+    small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
+             ("tri", gallery.build_tri))
+    for label, build in small:
         scene, params, cam = build(device=dev)
         alb, emi = tables(scene, params)
         exact = mk.make_fused_tracer(scene, cam, cfg, rng="tape")
@@ -168,6 +291,39 @@ def main() -> int:
         fast = mk.make_fused_tracer(scene, cam, cfg, rng="tape",
                                     fastmath=True)(alb, emi, cam_u, tape)
         compare(f"tape fast vs exact, {label}", fast, got, FAST_TOL, None)
+
+        # Phase 4, small shapes: the collect tracer and the adjoints.
+        for fm, L_b1 in ((False, got), (True, fast)):
+            kw = dict(rng="tape", fastmath=fm)
+            L, rsc, rbest = mk.make_fused_collect_tracer(
+                scene, cam, cfg, **kw)(alb, emi, cam_u, tape)
+            same_bits(f"collect radiance = tracer's, {label}, fast={fm}",
+                      (L,), (L_b1,))
+            sweep = mk.make_fused_sweep_adjoint(scene, cfg)
+            d_sweep = sweep(alb, emi, rsc, rbest, g_small)
+            d_adj = mk.make_fused_adjoint(scene, cam, cfg, **kw)(
+                alb, emi, cam_u, tape, g_small)
+            same_bits(f"retrace adjoint = sweep(collect), {label}, "
+                      f"fast={fm}", d_adj, d_sweep)
+            if fm:
+                continue
+            _, rsc_r, rbest_r = mk.make_fused_collect_tracer(
+                scene, cam, cfg, rng="tape", plain=True)(alb, emi, cam_u,
+                                                         tape)
+            compare_residuals(f"collect exact vs twin, {label}",
+                              (rsc, rbest), (rsc_r, rbest_r), EXACT_TOL, 0.0,
+                              RSC_SHARE_SMALL)
+            compare_grads(f"sweep vs twin on the kernel's residuals, "
+                          f"{label}", d_sweep, mk.fused_sweep_plain(
+                              scene, cfg, alb, emi, rsc, rbest, g_small),
+                          GRAD_RTOL_SMALL)
+            compare_grads(f"retrace adjoint exact vs twin, {label}", d_adj,
+                          mk.make_fused_adjoint(
+                              scene, cam, cfg, rng="tape", plain=True)(
+                              alb, emi, cam_u, tape, g_small),
+                          GRAD_RTOL_SMALL)
+            same_bits(f"sweep twice, {label}",
+                      sweep(alb, emi, rsc, rbest, g_small), d_sweep)
 
     cfg_i = RenderConfig(width=32, height=24, spp=8, spp_chunks=2,
                          max_depth=5)
@@ -181,47 +337,144 @@ def main() -> int:
     compare("internal rng exact vs twin, cbox 32x24x8", got, ref, EXACT_TOL)
     # The twin fed explicit hash tapes gives the same thing per chunk.
     c_u, c_t = hash_tapes(seeds, 32 * 24, 4, 5, device=dev, sample_base=4)
-    one = mk.make_fused_tracer(scene, cam, RenderConfig(
-        width=32, height=24, spp=4, max_depth=5), rng="tape")(
+    cfg_1 = RenderConfig(width=32, height=24, spp=4, max_depth=5)
+    one = mk.make_fused_tracer(scene, cam, cfg_1, rng="tape")(
         alb, emi, c_u, c_t)
     first = mk.make_fused_tracer(scene, cam, cfg_i, n_chunks=1)(
         alb, emi, seeds)  # chunk 0 only
     compare("internal rng = tape of hash_tapes, chunks 0+1", first + one,
             got, EXACT_TOL)
+    # Unbiased mode: the retrace adjoint with the salted bounce seed of
+    # adjoint sample 1 is the tape adjoint fed hash_tapes of that seed
+    # (bit for bit), and agrees with the twin fed the same.
+    salted = fused._salted(seeds, 1)
+    g_pix = torch.rand((3, 32 * 24), generator=g, device=dev)
+    d_salt = mk.make_fused_adjoint(scene, cam, cfg_1)(alb, emi, salted,
+                                                      g_pix)
+    s_u, s_t = hash_tapes(salted, 32 * 24, 4, 5, device=dev)
+    check(torch.equal(s_u, hash_tapes(seeds, 32 * 24, 4, 5, device=dev)[0]),
+          "the salt must leave the camera stream alone")
+    same_bits("salted internal adjoint = tape adjoint of hash_tapes(salted)",
+              mk.make_fused_adjoint(scene, cam, cfg_1, rng="tape")(
+                  alb, emi, s_u, s_t, g_pix), d_salt)
+    compare_grads("salted retrace adjoint vs twin on hash_tapes(salted)",
+                  d_salt, mk.fused_adjoint_plain(
+                      scene, mk.camera_consts(cam, 32, 24), cfg_1, alb, emi,
+                      g_pix, cam_u=s_u, tape=s_t), GRAD_RTOL_SMALL)
 
-    # The main path's own call: fast variant, internal RNG, 16 chunks.
+    # The main path's own calls: fast variant, internal RNG, 16 chunks.
     cfg_m = RenderConfig(**MAIN)
     n_rays = cfg_m.width * cfg_m.height * cfg_m.spp
+    npix = cfg_m.width * cfg_m.height
+    n_slots = n_rays // cfg_m.spp_chunks
     scene, params, cam = cbox.build(device=dev)
     alb, emi = tables(scene, params)
     seeds = torch.tensor([7, 8], dtype=torch.int32)
-    main_trace = mk.make_fused_tracer(scene, cam, cfg_m, fastmath=True,
-                                      n_chunks=cfg_m.spp_chunks)
-    kernel_ms, kernel_windows, got = cuda_ms(
-        lambda: main_trace(alb, emi, seeds), reps=10, warmup=20, windows=3)
+    kw_m = dict(fastmath=True, n_chunks=cfg_m.spp_chunks)
+    main_trace = mk.make_fused_tracer(scene, cam, cfg_m, **kw_m)
+    timing = dict(reps=10, warmup=20, windows=3)
+    twin_timing = dict(reps=1, windows=3)
+    ms, windows, plain_ms, plain_windows, err = {}, {}, {}, {}, {}
+    ms["fused_tracer"], windows["fused_tracer"], got = cuda_ms(
+        lambda: main_trace(alb, emi, seeds), **timing)
     cc = mk.camera_consts(cam, cfg_m.width, cfg_m.height)
-    plain_ms, plain_windows, ref = cuda_ms(lambda: mk.fused_trace_plain(
-        scene, cc, cfg_m, alb, emi, seeds=seeds,
-        n_chunks=cfg_m.spp_chunks), reps=1, windows=3)
-    main_err = compare("main-path call (fast, internal, 640x480x256, 16 "
-                       "chunks) vs twin", got, ref, FAST_TOL)
+    plain_ms["fused_tracer"], plain_windows["fused_tracer"], ref = cuda_ms(
+        lambda: mk.fused_trace_plain(scene, cc, cfg_m, alb, emi, seeds=seeds,
+                                     n_chunks=cfg_m.spp_chunks),
+        **twin_timing)
+    err["fused_tracer"] = compare(
+        "main-path call (fast, internal, 640x480x256, 16 chunks) vs twin",
+        got, ref, FAST_TOL)
     exact = mk.make_fused_tracer(scene, cam, cfg_m, n_chunks=cfg_m.spp_chunks)
     compare("exact variant at the main-path shape vs twin",
             exact(alb, emi, seeds), ref, EXACT_TOL)
-    print(f"[time] fused tracer at the main-path shape: kernel "
-          f"{kernel_ms!r} ms ({n_rays / kernel_ms / 1e3!r} Mrays/s), "
-          f"plain twin {plain_ms!r} ms ({n_rays / plain_ms / 1e3!r} "
-          f"Mrays/s) on {smi_line}; window means: kernel "
-          f"{kernel_windows!r}, twin {plain_windows!r}", flush=True)
-    del got, ref
+    del ref, exact
 
-    # Phase 4: the main path through the user's entry point.
+    # Phase 4, main shape.
+    main_collect = mk.make_fused_collect_tracer(scene, cam, cfg_m, **kw_m)
+    ms["fused_collect"], windows["fused_collect"], (L, rsc, rbest) = cuda_ms(
+        lambda: main_collect(alb, emi, seeds), **timing)
+    same_bits("collect radiance = tracer's at the main-path shape", (L,),
+              (got,))
+    del got, L
+    live = int((rbest > 0).sum().item())  # live bounce-rays of this run
+    plain_ms["fused_collect"], plain_windows["fused_collect"], \
+        (_, rsc_r, rbest_r) = cuda_ms(
+            lambda: mk.fused_collect_plain(
+                scene, cc, cfg_m, alb, emi, seeds=seeds,
+                n_chunks=cfg_m.spp_chunks), **twin_timing)
+    err["fused_collect"] = compare_residuals(
+        "collect (fast) vs twin at the main-path shape", (rsc, rbest),
+        (rsc_r, rbest_r), FAST_TOL, MAX_SHARE_BEYOND, MAX_SHARE_BEYOND)
+    del rsc_r, rbest_r
+    g_main = torch.rand((3, npix), generator=g, device=dev) / cfg_m.spp
+    main_sweep = mk.make_fused_sweep_adjoint(scene, cfg_m,
+                                             n_chunks=cfg_m.spp_chunks)
+    ms["fused_sweep"], windows["fused_sweep"], d_sweep = cuda_ms(
+        lambda: main_sweep(alb, emi, rsc, rbest, g_main), **timing)
+    plain_ms["fused_sweep"], plain_windows["fused_sweep"], d_ref = cuda_ms(
+        lambda: mk.fused_sweep_plain(scene, cfg_m, alb, emi, rsc, rbest,
+                                     g_main), **twin_timing)
+    err["fused_sweep"] = compare_grads(
+        "sweep vs twin on the kernel's residuals at the main-path shape",
+        d_sweep, d_ref, GRAD_RTOL_MAIN)
+    same_bits("sweep twice at the main-path shape",
+              main_sweep(alb, emi, rsc, rbest, g_main), d_sweep)
+    del rsc, rbest
+    main_adj = mk.make_fused_adjoint(scene, cam, cfg_m, **kw_m)
+    ms["fused_adjoint"], windows["fused_adjoint"], d_adj = cuda_ms(
+        lambda: main_adj(alb, emi, seeds, g_main), **timing)
+    same_bits("retrace adjoint = sweep(collect) at the main-path shape",
+              d_adj, d_sweep)
+    plain_ms["fused_adjoint"], plain_windows["fused_adjoint"], d_ref = \
+        cuda_ms(lambda: mk.fused_adjoint_plain(
+            scene, cc, cfg_m, alb, emi, g_main, seeds=seeds,
+            n_chunks=cfg_m.spp_chunks), **twin_timing)
+    err["fused_adjoint"] = compare_grads(
+        "retrace adjoint (fast) vs twin at the main-path shape", d_adj,
+        d_ref, GRAD_RTOL_MAIN)
+    for name in ms:
+        print(f"[time] {name} at the main-path shape: kernel {ms[name]!r} "
+              f"ms ({n_rays / ms[name] / 1e3!r} Mrays/s), plain twin "
+              f"{plain_ms[name]!r} ms on {smi_line}; window means: kernel "
+              f"{windows[name]!r}, twin {plain_windows[name]!r}",
+              flush=True)
+
+    # The least time the card could take: bytes in and out once over the
+    # memory rate, or this run's operations over the float32 rate.
+    ops_hit = sum(OPS_SHAPE[t] for t in scene.shape_type.tolist())
+    ops_trace = n_rays * OPS_CAMERA + live * (ops_hit + OPS_SHADE)
+    table_bytes = 4 * (mk.scene_table(scene).numel() + alb.numel()
+                       + emi.numel())
+    res_bytes = 8 * n_rays * cfg_m.max_depth
+    grad_bytes = 4 * (alb.numel() + emi.numel())
+    work = {
+        "fused_tracer": (table_bytes + 12 * n_slots, ops_trace),
+        "fused_collect": (table_bytes + 12 * n_slots + res_bytes, ops_trace),
+        "fused_sweep": (table_bytes + res_bytes + 4 * g_main.numel()
+                        + grad_bytes, live * OPS_SWEEP),
+        "fused_adjoint": (table_bytes + 4 * g_main.numel() + grad_bytes,
+                          ops_trace + live * OPS_SWEEP),
+    }
+    bound = {}
+    for name, (n_bytes, n_ops) in work.items():
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        bound[name] = (max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[bound] {name}: bytes={n_bytes} ({t_bytes!r} ms at "
+              f"{PEAK_BYTES_PER_S:.3g} B/s) operations={n_ops} ({t_ops!r} "
+              f"ms at {PEAK_F32_OPS_PER_S:.3g} op/s) live bounce-rays="
+              f"{live} of {n_rays * cfg_m.max_depth}", flush=True)
+
+    # Phase 5: the forward main path through the user's entry point.
     render = make_renderer(scene, cfg_m, cam, differentiable=False)
     twin = make_renderer(scene, cfg_m, cam, differentiable=False,
                          backend="torch")
     seed_list = [seeds_from_generator(torch.Generator().manual_seed(s))
                  for s in (0, 1, 2, 3)]
-    mk.fused_trace.launches = 0
+    launches = {}
+    mk.reset_launch_counts()
     images = []
     t_imgs = []
     for s in seed_list:  # the first is the warm-up
@@ -229,11 +482,14 @@ def main() -> int:
         images.append(render(params, s))
         torch.cuda.synchronize()
         t_imgs.append(time.perf_counter() - t0)
-    launches = mk.fused_trace.launches
-    print(f"[main] make_renderer(cuda) 640x480x256spp depth 5: launches="
-          f"{launches} seconds={t_imgs[1:]!r} Mrays/s="
+    counts = mk.launch_counts()
+    launches["fused_tracer"] = counts["fused_tracer"]
+    print(f"[main] make_renderer(cuda, differentiable=False) 640x480x256spp "
+          f"depth 5: launches={counts} seconds={t_imgs[1:]!r} Mrays/s="
           f"{[n_rays / t / 1e6 for t in t_imgs[1:]]!r}", flush=True)
-    check(launches >= 1, "the main path launched no kernel")
+    check(counts == dict(fused_tracer=len(seed_list), fused_collect=0,
+                         fused_sweep=0, fused_adjoint=0),
+          f"the forward path launched {counts}")
     t_twin = []
     for s, img in zip(seed_list[1:], images[1:]):
         check(img.shape == (480, 640, 3) and img.dtype == torch.float32,
@@ -250,18 +506,135 @@ def main() -> int:
         check(rel <= MEAN_RTOL, f"image mean differs by {rel:.3g}")
     print(f"[main] make_renderer(torch) twin seconds={t_twin!r} Mrays/s="
           f"{[n_rays / t / 1e6 for t in t_twin]!r}", flush=True)
-    print(f"[total] {time.time() - t_start:.1f}s", flush=True)
+    target = images[1]
+    del images
 
+    # Phase 6: the differentiable main path, forward + backward.
+    def leaves_of(p):
+        return Params(*(t.detach().clone().requires_grad_() for t in p))
+
+    def step(render_fn, p, s):
+        p = leaves_of(p)
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - target) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad)
+
+    # Off the true parameters, so that the image loss has a gradient
+    # beyond the Monte-Carlo noise.
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    cfg_u = RenderConfig(**MAIN, unbiased=True, adjoint_samples=2)
+    forms = (
+        ("stored (default)", make_renderer(scene, cfg_m, cam),
+         make_renderer(scene, cfg_m, cam, backend="torch"),
+         dict(fused_tracer=0, fused_collect=1, fused_sweep=1,
+              fused_adjoint=0)),
+        ("retrace", fused.make_fused_image_renderer(
+            scene, cam, cfg_m, adjoint="retrace"),
+         fused.make_fused_image_renderer(scene, cam, cfg_m,
+                                         adjoint="retrace", plain=True),
+         dict(fused_tracer=1, fused_collect=0, fused_sweep=0,
+              fused_adjoint=1)),
+        ("unbiased, 2 adjoint samples", make_renderer(scene, cfg_u, cam),
+         make_renderer(scene, cfg_u, cam, backend="torch"),
+         dict(fused_tracer=1, fused_collect=0, fused_sweep=0,
+              fused_adjoint=2)),
+    )
+    check(fused._resolve_adjoint(cfg_m, "auto", dev) == "stored",
+          "adjoint='auto' must resolve to 'stored' at the main shape")
+    print(f"[main] residuals {fused.stored_bytes(cfg_m)} B of a budget of "
+          f"{fused.stored_budget_bytes(dev)} B", flush=True)
+    n_steps = 5
+    for label, render_fn, twin_fn, expected in forms:
+        step(render_fn, p_off, seed_list[0])  # warm-up
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        t_sync = []
+        for k in range(n_steps):
+            t0 = time.perf_counter()
+            loss, grads = step(render_fn, p_off, seed_list[1])
+            torch.cuda.synchronize()
+            t_sync.append(time.perf_counter() - t0)
+        counts = mk.launch_counts()
+        check(counts == {k: v * n_steps for k, v in expected.items()},
+              f"{label}: {n_steps} steps launched {counts}")
+        if label.startswith("retrace"):
+            launches["fused_adjoint"] = counts["fused_adjoint"]
+        t0 = time.perf_counter()
+        for k in range(n_steps):
+            step(render_fn, p_off, seed_list[1])
+        torch.cuda.synchronize()
+        t_pipe = (time.perf_counter() - t0) / n_steps
+        print(f"[grad] {label}: loss={loss.item()!r} launches per "
+              f"{n_steps} steps={counts} seconds per fwd+bwd step "
+              f"synchronized={t_sync!r} pipelined={t_pipe!r} "
+              f"({n_rays / t_pipe / 1e6!r} Mrays/s)", flush=True)
+        check(all(bool(torch.isfinite(x).all()) and bool((x != 0).any())
+                  for x in grads), f"{label}: gradients not finite, or zero")
+        t0 = time.perf_counter()
+        loss_t, grads_t = step(twin_fn, p_off, seed_list[1])
+        torch.cuda.synchronize()
+        print(f"[grad] {label}: twin loss={loss_t.item()!r} seconds="
+              f"{time.perf_counter() - t0!r}", flush=True)
+        compare_grads(f"{label}: make_renderer grads vs backend='torch'",
+                      grads, grads_t, GRAD_RTOL_MAIN)
+
+    # Phase 7: the trainer.
+    true_red = params.albedo[cbox.RED].clone()
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted, metrics = optim.inverse_render(
+        scene, cfg_m, cam, target, Params(start, params.emission),
+        torch.Generator().manual_seed(5), steps=n_steps)
+    torch.cuda.synchronize()
+    t_train = (time.perf_counter() - t0) / n_steps
+    counts = mk.launch_counts()
+    launches["fused_collect"] = counts["fused_collect"]
+    launches["fused_sweep"] = counts["fused_sweep"]
+    before = (start[cbox.RED] - true_red).norm().item()
+    after = (fitted.albedo[cbox.RED] - true_red).norm().item()
+    print(f"[train] inverse_render {n_steps} steps: launches={counts} "
+          f"seconds per step={t_train!r} loss={metrics['loss'].tolist()} "
+          f"grad_norm={metrics['grad_norm'].tolist()} red row "
+          f"{start[cbox.RED].tolist()} -> {fitted.albedo[cbox.RED].tolist()}"
+          f" (true {true_red.tolist()}): distance {before!r} -> {after!r}",
+          flush=True)
+    # The paired loss renders twice per step.
+    check(counts == dict(fused_tracer=0, fused_collect=2 * n_steps,
+                         fused_sweep=2 * n_steps, fused_adjoint=0),
+          f"the trainer launched {counts}")
+    check(bool(torch.isfinite(metrics["loss"]).all())
+          and bool(torch.isfinite(metrics["grad_norm"]).all()),
+          "the trainer's metrics are not finite")
+    check(after < before, "the perturbed albedo row moved away from its "
+          "true value")
+    print(f"[total] {time.time() - t_start:.1f}s", flush=True)
+    if FAILED:
+        raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
+
+    replaces = {"fused_tracer": ("fused_tracer.cu", 1024),
+                "fused_collect": ("fused_tracer.cu", 1211),
+                "fused_sweep": ("fused_adjoint.cu", 1387),
+                "fused_adjoint": ("fused_adjoint.cu", 1497)}
+    for name in replaces:
+        check(launches.get(name, 0) >= 1,
+              f"{name} was launched no time on its path")
     print(json.dumps({"kernels": [{
-        "name": "fused_tracer",
+        "name": name,
         "route": "cuda",
-        "source": "drt_tpu_torch/csrc/fused_tracer.cu",
-        "replaces": "drt_tpu/ops/megakernel.py:1024",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        "source": f"drt_tpu_torch/csrc/{source}",
+        "replaces": f"drt_tpu/ops/megakernel.py:{line}",
+        "launches": launches[name],
+        "max_abs_err": err[name],
+        "ms": ms[name],
+        "plain_ms": plain_ms[name],
+        "bound_ms": bound[name][0],
+        "bound_by": bound[name][1],
+        "library_ms": None,
+    } for name, (source, line) in replaces.items()]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,14 @@ PyTorch, and each Pallas kernel of `drt_tpu` becomes a hand-written
 Hopper kernel under `csrc/` beside a plain PyTorch twin. This package
 imports torch and never jax.
 
-Ported so far: the forward render path (`parallel.render.make_renderer`
-with differentiable=False) over the fused tracer kernel.
+Ported so far: the main render path, forward and backward
+(`parallel.render.make_renderer`, differentiable by radiative backprop
+over the fused tracer, collect tracer, sweep adjoint and retrace adjoint
+kernels), the tape forms of `adjoint.make_diff_renderer`, and the Adam
+loop of `optim`.
 """
 
+from drt_tpu_torch.adjoint import make_diff_image_renderer, make_diff_renderer
 from drt_tpu_torch.camera import Camera, look_at
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
@@ -25,6 +29,8 @@ __all__ = [
     "Camera",
     "look_at",
     "trace_rays",
+    "make_diff_renderer",
+    "make_diff_image_renderer",
     "make_renderer",
     "resolve_backend",
 ]

@@ -1,18 +1,21 @@
-"""Command-line renderer: the `render` subcommand of `drt_tpu.cli`.
+"""Command-line renderer: the `render` and `grad` subcommands of
+`drt_tpu.cli`.
 
 Reference flags and defaults (src/args.hpp:19-67: width 640, height 480,
 samples 100, min-bounces 1, absorb-prob 0.5, required output path) on the
 sample scene (src/render.cpp:26-65), plus max depth, spp chunking, seed,
-f64 tracing, backend and device. The `grad`, `grad-image` and `invert`
-subcommands come with the gradient slices (ROADMAP A10).
+f64 tracing, backend, device and the unbiased gradient mode. The
+`grad-image` and `invert` subcommands come with ROADMAP A8-A10.
 
 Usage:
   python -m drt_tpu_torch.cli render -o out.png [-x W -y H -n SPP ...]
+  python -m drt_tpu_torch.cli grad -o grads.json [-x W -y H -n SPP ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -41,6 +44,13 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda if a card is "
                         "visible, else cpu)")
+    p.add_argument("--unbiased", action="store_true",
+                   help="unbiased gradient mode: the backward retraces "
+                        "with fresh samples (integrate.hpp:39-52) instead "
+                        "of replaying the forward's")
+    p.add_argument("--adjoint-samples", type=int, default=1,
+                   help="fresh retraces averaged by the unbiased backward "
+                        "(integrate.hpp:15-19 n_samples)")
 
 
 def _build(args):
@@ -56,7 +66,9 @@ def _build(args):
                        spp=args.samples, min_bounces=args.min_bounces,
                        absorb_prob=args.absorb_prob,
                        max_depth=args.max_depth,
-                       spp_chunks=args.spp_chunks)
+                       spp_chunks=args.spp_chunks,
+                       unbiased=args.unbiased,
+                       adjoint_samples=args.adjoint_samples)
     return scene, params, cam, cfg
 
 
@@ -90,12 +102,47 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_grad(args) -> int:
+    """Render + parameter gradients of the mean image intensity, through
+    the backend the scene's device resolves to (`--backend` applies to
+    the gradients, not just the forward)."""
+    import torch
+
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+    from drt_tpu_torch.scene import Params
+
+    scene, params, cam, cfg = _build(args)
+    backend = resolve_backend(scene, cfg, args.backend)
+    print(f"gradient backend: {backend}", file=sys.stderr)
+    render = make_renderer(scene, cfg, cam, differentiable=True,
+                           backend=backend)
+    seeds = seeds_from_generator(torch.Generator().manual_seed(args.seed))
+    leaves = Params(*(p.clone().requires_grad_() for p in params))
+    val = render(leaves, seeds).mean()
+    d_albedo, d_emission = torch.autograd.grad(val, leaves)
+    out = {
+        "mean_intensity": float(val.detach()),
+        "d_albedo": d_albedo.cpu().tolist(),
+        "d_emission": d_emission.cpu().tolist(),
+        "backend": backend,
+        "unbiased": cfg.unbiased,
+    }
+    with open(args.output, "w") as f:
+        json.dump(out, f, indent=2)
+    print(f"gradients -> {args.output}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="drt_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="forward render the sample scene")
     _add_render_flags(pr)
     pr.set_defaults(fn=cmd_render)
+    pg = sub.add_parser("grad", help="parameter gradients of mean intensity")
+    _add_render_flags(pg)
+    pg.set_defaults(fn=cmd_grad)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -1,0 +1,383 @@
+// Radiative-backprop adjoints of the fused tracer for Hopper (sm_90a):
+// parameter gradients (d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of
+// sum_rays g . L from a per-ray (or per-pixel) cotangent g.
+//
+//  - drt_fused_sweep replaces drt_tpu/ops/megakernel.py:
+//    make_fused_sweep_adjoint (pallas_call at :1483): from the residuals
+//    (rsc, rbest) that the collect tracer of fused_tracer.cu stored, it
+//    replays gate_b = rr_b [best_b > 0], P_b = T_{b-1} gate_b,
+//    T_b = P_b a_b sc_b in the forward's op order (megakernel.py:1421-1440)
+//    and runs the reverse sweep. No geometry is touched.
+//  - drt_fused_adjoint replaces megakernel.py:make_fused_segment_adjoint
+//    (pallas_call at :1672, behind make_fused_adjoint) at b_start = 0,
+//    b_end = max_depth: it retraces the forward with the bounce body of
+//    fused_body.cuh, keeping P, sc, gate and best of every bounce in the
+//    thread, then runs the same reverse sweep. Unbiased mode calls it with
+//    a salted bounce seed.
+//
+// The reverse sweep (megakernel.py:_reverse_sweep, :611-637), per ray slot
+// and chunk, from the last bounce to the first, with S = 0 to start:
+//   d_emission[erow_b] += g P_b            (real rows only)
+//   d_albedo[arow_b]   += (g P_b) sc_b S   (real rows only)
+//   S = (e_b + a_b sc_b S) gate_b
+//
+// How the TPU design maps here:
+//  - The TPU sums a tile's contributions with masked jnp.sums and adds the
+//    tile's partials to SMEM accumulators over a grid that runs in order
+//    (_accumulate_grad_smem, :641-666). Blocks here run in no order, and a
+//    float atomic would make the sum depend on the order of arrival. So
+//    every thread owns one column of a [entries][128] accumulator in shared
+//    memory (entries = real albedo rows x 3 + real emission rows x 3) and
+//    adds its own contributions there, chunk after chunk and bounce after
+//    bounce, with no other thread involved; at the end the block sums each
+//    entry over its 128 columns in a fixed order (4 columns per lane, then
+//    a shuffle tree) and writes one row of partials; a second kernel sums
+//    the partials of all blocks per entry, again in a fixed order, and
+//    writes the gradient tables with their sentinel rows zero. Both adjoint
+//    kernels use the same block size, the same ray -> block map, the same
+//    chunk order and these same routines, so for equal residuals their
+//    gradients are equal bit for bit, and two runs give the same bits.
+//  - The accumulator takes (K + L) x 3 x 512 bytes: 6 KB for the Cornell
+//    box, 189 KB at the 63 + 63 real rows the tables can hold, which fits
+//    a block's 227 KB beside the 10 KB of tables (one block per SM then).
+//  - max_depth is a run-time value; the per-bounce values live in thread
+//    arrays of a compile-time size whose loops are unrolled, so that the
+//    sweep adjoint can keep them in registers: it is built for 8 bounces
+//    and for DRT_MAX_DEPTH = 32, and the launch takes the smaller that
+//    holds max_depth. The retrace adjoint indexes its arrays by the bounce
+//    counter of the shared body, so they live in local memory at either
+//    size and it is built for 32 only. Deeper paths are refused.
+//
+// What bounds them: the sweep adjoint is bound by device memory. It reads
+// 8 bytes per bounce-ray once (3.15 GB at 640x480x256 spp, depth 5) and
+// does about 20 f32 operations per bounce-ray, an order of magnitude below
+// what the card can do in the time the read takes; the ray slot is the
+// fastest index, so a warp reads whole 128-byte lines. The retrace adjoint
+// is bound like the tracer, by f32 and special-function issue and warp
+// divergence; the sweep adds a few percent to its work.
+
+#include "fused_body.cuh"
+
+#define DRT_MAX_DEPTH 32
+#define DRT_SMALL_DEPTH 8
+#define DRT_REDUCE_THREADS 256
+
+// Per-bounce values of one ray slot in one chunk.
+template <int DMAX>
+struct Residuals {
+  float P[DMAX][3];
+  float sc[DMAX];
+  float gate[DMAX];
+  int best[DMAX];
+};
+
+// The hook of the retrace adjoint.
+struct KeepResidual {
+  Residuals<DRT_MAX_DEPTH>& r;
+  __device__ __forceinline__ void operator()(int b, float Px, float Py,
+                                             float Pz, float sc, float gate,
+                                             int best) const {
+    r.P[b][0] = Px; r.P[b][1] = Py; r.P[b][2] = Pz;
+    r.sc[b] = sc;
+    r.gate[b] = gate;
+    r.best[b] = best;
+  }
+};
+
+// Accumulator entries: albedo rows first, then emission rows, 3 each.
+static __host__ __device__ __forceinline__ int n_entries(const DrtTrace& c) {
+  return (c.n_alb - 1 + c.n_emi - 1) * 3;
+}
+
+// Reverse sweep of one ray slot's chunk into the thread's accumulator
+// column `acc` (entry e lives at acc[e * DRT_BLOCK]).
+template <int DMAX>
+static __device__ __forceinline__ void reverse_sweep(
+    const DrtTrace& cfg, const DrtTables& tab, const Residuals<DMAX>& r,
+    float gx, float gy, float gz, float* acc) {
+  float Sx = 0.0f, Sy = 0.0f, Sz = 0.0f;
+  float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
+#pragma unroll
+  for (int b = DMAX - 1; b >= 0; --b) {
+    if (b >= cfg.max_depth) continue;
+    const int best = r.best[b];
+    const float sc = r.sc[b];
+    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+    float ax = 1.0f, ay = 1.0f, az = 1.0f;
+    int erow = -1, arow = -1;
+    if (best > 0) {
+      const float* rec = tab.scene + (best - 1) * DRT_REC;
+      const int er = (int)rec[R_EMI];
+      if (er < cfg.n_emi - 1) {
+        erow = er;
+        ex = tab.emi[er * 3 + 0];
+        ey = tab.emi[er * 3 + 1];
+        ez = tab.emi[er * 3 + 2];
+      }
+      const int ar = (int)rec[R_ALB];
+      if (ar < cfg.n_alb - 1) {
+        arow = ar;
+        ax = tab.alb[ar * 3 + 0];
+        ay = tab.alb[ar * 3 + 1];
+        az = tab.alb[ar * 3 + 2];
+      }
+    }
+    const float gPx = gx * r.P[b][0];
+    const float gPy = gy * r.P[b][1];
+    const float gPz = gz * r.P[b][2];
+    if (erow >= 0) {
+      float* p = acc_e + erow * 3 * DRT_BLOCK;
+      p[0] = p[0] + gPx;
+      p[DRT_BLOCK] = p[DRT_BLOCK] + gPy;
+      p[2 * DRT_BLOCK] = p[2 * DRT_BLOCK] + gPz;
+    }
+    if (arow >= 0) {
+      float* p = acc + arow * 3 * DRT_BLOCK;
+      p[0] = p[0] + gPx * sc * Sx;
+      p[DRT_BLOCK] = p[DRT_BLOCK] + gPy * sc * Sy;
+      p[2 * DRT_BLOCK] = p[2 * DRT_BLOCK] + gPz * sc * Sz;
+    }
+    const float gate = r.gate[b];
+    Sx = (ex + ax * sc * Sx) * gate;
+    Sy = (ey + ay * sc * Sy) * gate;
+    Sz = (ez + az * sc * Sz) * gate;
+  }
+}
+
+static __device__ __forceinline__ void zero_column(const DrtTrace& cfg,
+                                                   float* s_acc) {
+  const int E = n_entries(cfg);
+  for (int e = 0; e < E; ++e) s_acc[e * DRT_BLOCK + threadIdx.x] = 0.0f;
+}
+
+// Sum every entry over the block's columns in a fixed order and write the
+// block's row of partials. Every thread of the block calls this.
+static __device__ __forceinline__ void block_reduce_write(
+    const DrtTrace& cfg, const float* s_acc, float* __restrict__ partials) {
+  __syncthreads();
+  const int E = n_entries(cfg);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int e = warp; e < E; e += DRT_BLOCK / 32) {
+    const float* col = s_acc + e * DRT_BLOCK;
+    float v = col[lane];
+#pragma unroll
+    for (int k = 1; k < DRT_BLOCK / 32; ++k) v = v + col[lane + 32 * k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = v + __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) partials[(size_t)blockIdx.x * E + e] = v;
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(DRT_BLOCK)
+fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                   const float* __restrict__ alb,
+                   const float* __restrict__ emi,
+                   const float* __restrict__ rsc,
+                   const int* __restrict__ rbest,
+                   const float* __restrict__ g, int g_n,
+                   float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  zero_column(cfg, s_acc);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = cfg.n_rays;
+  if (i < N) {
+    const int gi = i % g_n;
+    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
+    for (int c = 0; c < cfg.n_chunks; ++c) {
+      Residuals<DMAX> r;
+      const size_t base = (size_t)c * cfg.max_depth * N + i;
+      float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
+#pragma unroll
+      for (int b = 0; b < DMAX; ++b) {
+        if (b >= cfg.max_depth) continue;
+        const float sc = rsc[base + (size_t)b * N];
+        const int best = rbest[base + (size_t)b * N];
+        const float rr = b >= cfg.min_bounces ? cfg.inv_keep : 1.0f;
+        const float gate = best > 0 ? rr : 0.0f;
+        const float Px = Tx * gate, Py = Ty * gate, Pz = Tz * gate;
+        float ax = 1.0f, ay = 1.0f, az = 1.0f;
+        if (best > 0) {
+          const int ar = (int)tab.scene[(best - 1) * DRT_REC + R_ALB];
+          if (ar < cfg.n_alb - 1) {
+            ax = tab.alb[ar * 3 + 0];
+            ay = tab.alb[ar * 3 + 1];
+            az = tab.alb[ar * 3 + 2];
+          }
+        }
+        Tx = Px * ax * sc;
+        Ty = Py * ay * sc;
+        Tz = Pz * az * sc;
+        r.P[b][0] = Px; r.P[b][1] = Py; r.P[b][2] = Pz;
+        r.sc[b] = sc;
+        r.gate[b] = gate;
+        r.best[b] = best;
+      }
+      reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
+    }
+  }
+  block_reduce_write(cfg, s_acc, partials);
+}
+
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+fused_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
+                     const float* __restrict__ scene,
+                     const float* __restrict__ alb,
+                     const float* __restrict__ emi,
+                     const float* __restrict__ cam_u,
+                     const float* __restrict__ tape,
+                     const float* __restrict__ g, int g_n,
+                     float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  zero_column(cfg, s_acc);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < cfg.n_rays) {
+    const int gi = i % g_n;
+    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
+    for (int c = 0; c < cfg.n_chunks; ++c) {
+      Residuals<DRT_MAX_DEPTH> r;
+      KeepResidual hook{r};
+      float lx, ly, lz;
+      trace_chunk<FAST, INTERNAL>(cfg, cam, tab, cam_u, tape, i, c, hook,
+                                  lx, ly, lz);
+      reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
+    }
+  }
+  block_reduce_write(cfg, s_acc, partials);
+}
+
+// One block per entry of the padded gradient tables: a sentinel row gets
+// 0, a real row the sum of its partials over the blocks, each thread
+// taking every 256th block in ascending order, then a fixed tree.
+__global__ void __launch_bounds__(DRT_REDUCE_THREADS)
+reduce_partials_kernel(DrtTrace cfg, const float* __restrict__ partials,
+                       int n_blocks, float* __restrict__ da,
+                       float* __restrict__ de) {
+  __shared__ float s[DRT_REDUCE_THREADS];
+  const int na3 = cfg.n_alb * 3;
+  const int t = blockIdx.x;  // entry of [da | de], sentinel rows included
+  const bool is_alb = t < na3;
+  const int row = (is_alb ? t : t - na3) / 3;
+  const int ch = (is_alb ? t : t - na3) % 3;
+  float* dst = is_alb ? da + t : de + (t - na3);
+  if (row >= (is_alb ? cfg.n_alb : cfg.n_emi) - 1) {
+    if (threadIdx.x == 0) *dst = 0.0f;
+    return;
+  }
+  const int E = n_entries(cfg);
+  const int e = (is_alb ? 0 : (cfg.n_alb - 1) * 3) + row * 3 + ch;
+  float v = 0.0f;
+  for (int j = threadIdx.x; j < n_blocks; j += DRT_REDUCE_THREADS)
+    v = v + partials[(size_t)j * E + e];
+  s[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = DRT_REDUCE_THREADS / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] = s[threadIdx.x] + s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *dst = s[0];
+}
+
+static int acc_bytes(const DrtTrace* cfg) {
+  return n_entries(*cfg) * DRT_BLOCK * (int)sizeof(float);
+}
+
+static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
+  return drt_cfg_ok(cfg) && cfg->max_depth >= 1 &&
+         cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0;
+}
+
+static int reduce_partials(const DrtTrace* cfg, const float* partials,
+                           float* da, float* de, cudaStream_t s) {
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  reduce_partials_kernel<<<(cfg->n_alb + cfg->n_emi) * 3,
+                           DRT_REDUCE_THREADS, 0, s>>>(*cfg, partials, grid,
+                                                       da, de);
+  return (int)cudaGetLastError();
+}
+
+template <class Kernel>
+static int allow_shared(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+extern "C" {
+
+int drt_adjoint_limits(int* max_shapes, int* max_rows, int* rec,
+                       int* max_depth, int* block) {
+  *max_shapes = DRT_MAX_SHAPES;
+  *max_rows = DRT_MAX_ROWS;
+  *rec = DRT_REC;
+  *max_depth = DRT_MAX_DEPTH;
+  *block = DRT_BLOCK;
+  return 0;
+}
+
+// Each entry point launches its adjoint kernel and the reduction of the
+// partials on `stream` and returns the first CUDA error (0 on success).
+// `partials` is scratch of ceil(n_rays / block) x entries floats; g is
+// f32[3, g_n] with g_n = n_rays (per ray) or width * height (per pixel).
+int drt_fused_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
+                    const float* emi, const float* rsc, const int* rbest,
+                    const float* g, int g_n, float* partials, float* da,
+                    float* de, void* stream) {
+  if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg);
+  int rc;
+#define DRT_LAUNCH(DMAX)                                                   \
+  rc = allow_shared(fused_sweep_kernel<DMAX>, bytes);                      \
+  if (rc) return rc;                                                       \
+  fused_sweep_kernel<DMAX><<<grid, DRT_BLOCK, bytes, s>>>(                 \
+      *cfg, scene, alb, emi, rsc, rbest, g, g_n, partials)
+  if (cfg->max_depth <= DRT_SMALL_DEPTH) { DRT_LAUNCH(DRT_SMALL_DEPTH); }
+  else { DRT_LAUNCH(DRT_MAX_DEPTH); }
+#undef DRT_LAUNCH
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg, partials, da, de, s);
+}
+
+int drt_fused_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
+                      const float* scene, const float* alb, const float* emi,
+                      const float* cam_u, const float* tape, const float* g,
+                      int g_n, float* partials, float* da, float* de,
+                      void* stream) {
+  if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg);
+  int rc;
+#define DRT_LAUNCH(F, I)                                                   \
+  rc = allow_shared(fused_adjoint_kernel<F, I>, bytes);                    \
+  if (rc) return rc;                                                       \
+  fused_adjoint_kernel<F, I><<<grid, DRT_BLOCK, bytes, s>>>(               \
+      *cfg, *cam, scene, alb, emi, cam_u, tape, g, g_n, partials)
+  if (cfg->fast) {
+    if (cfg->internal_rng) { DRT_LAUNCH(true, true); }
+    else { DRT_LAUNCH(true, false); }
+  } else {
+    if (cfg->internal_rng) { DRT_LAUNCH(false, true); }
+    else { DRT_LAUNCH(false, false); }
+  }
+#undef DRT_LAUNCH
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg, partials, da, de, s);
+}
+
+const char* drt_adjoint_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

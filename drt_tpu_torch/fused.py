@@ -1,11 +1,25 @@
-"""Image-level renderer over the fused tracer, forward only.
+"""Image-level differentiable renderer over the fused kernels.
 
-The port of the forward of `drt_tpu.fused.make_fused_image_renderer`:
-`render(params, seeds) -> image f32[H, W, 3]` over one launch of the
-fused tracer for all spp chunks (internal RNG), or `render(params, cam_u,
-tape)` over caller-given uniforms (tape mode). The image carries no
-autograd history: the radiative-backprop backward (kernels B2-B4 and
-`adjoint.py`) is the next slice (ROADMAP A5, A6).
+The port of `drt_tpu.fused.make_fused_image_renderer`: `render(params,
+seeds) -> image f32[H, W, 3]` over one launch of the fused tracer for all
+spp chunks (internal RNG), or `render(params, cam_u, tape)` over
+caller-given uniforms (tape mode), differentiable in `params` by radiative
+backprop as a `torch.autograd.Function` (reference semantics:
+include/drt/integrate.hpp:11-52; biased mode replays the forward's sample
+streams, unbiased mode redraws the bounce stream and keeps the primary
+rays).
+
+The backward is one of two kernels. adjoint="stored": the forward is the
+collect tracer, which writes 8 bytes per bounce-ray of residuals, and the
+backward is the sweep adjoint over them. adjoint="retrace": the forward
+keeps only (params, seeds) and the backward traces again inside the
+retrace adjoint kernel; the only form unbiased mode can take. When no
+parameter requires grad, or under `torch.no_grad()`, the forward is the
+plain tracer and nothing is kept.
+
+The internal RNG is the keyed hash of `ops.rng`: chunk c draws sample
+indices from `c * spp_c` on (where the TPU kernels step their seed words
+per chunk), so `drt_tpu.ops.regen.hash_tapes` rebuilds every sample.
 """
 
 from __future__ import annotations
@@ -14,8 +28,25 @@ import torch
 
 from drt_tpu_torch.camera import Camera
 from drt_tpu_torch.config import RenderConfig
-from drt_tpu_torch.ops.megakernel import make_fused_tracer
+from drt_tpu_torch.ops.megakernel import (make_fused_adjoint,
+                                          make_fused_collect_tracer,
+                                          make_fused_sweep_adjoint,
+                                          make_fused_tracer)
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
+
+# Bounce-seed offsets of the unbiased backward (drt_tpu/fused.py:45-46).
+_BWD_SALT = 0x0ADD
+_BWD_SAMPLE_STRIDE = 0x51ED  # per-adjoint-sample seed offset
+
+# The stored adjoint keeps the residuals of all spp chunks from the forward
+# to the backward, beside the radiance buffer and whatever else the caller
+# holds on the card. It may take a quarter of the device's total memory
+# (the total, not what is free now, so the choice is the same from run to
+# run): the paired loss of `optim` holds two renders' residuals at once,
+# which leaves half the card for everything else. A CPU tensor has no
+# device to ask; 4 GiB keeps test-sized renders stored.
+_STORED_SHARE = 0.25
+_STORED_BUDGET_CPU_BYTES = 4 << 30
 
 
 def seeds_from_generator(gen: torch.Generator) -> torch.Tensor:
@@ -24,8 +55,44 @@ def seeds_from_generator(gen: torch.Generator) -> torch.Tensor:
                          dtype=torch.int64).to(torch.int32)
 
 
+def stored_budget_bytes(device) -> int:
+    """What the stored adjoint's residuals may take on `device`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _STORED_BUDGET_CPU_BYTES
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(total * _STORED_SHARE)
+
+
+def stored_bytes(cfg: RenderConfig) -> int:
+    """The residual footprint of one render: 8 bytes (sc f32, best i32)
+    per bounce-ray over all chunks, with no padding."""
+    n = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
+    return n * cfg.spp_chunks * cfg.max_depth * 8
+
+
+def _resolve_adjoint(cfg: RenderConfig, adjoint: str, device="cpu") -> str:
+    """'auto' -> 'stored' (the forward writes the (sc, best) residuals,
+    the backward is a cheap reverse sweep) when the mode is biased and
+    `stored_bytes(cfg)` fits `stored_budget_bytes(device)`: a quarter of
+    the device's total memory, see `_STORED_SHARE`; 'retrace' otherwise.
+    The unbiased adjoint needs fresh retraces (integrate.hpp:11-24)."""
+    if adjoint not in ("auto", "stored", "retrace"):
+        raise ValueError(f"unknown adjoint mode {adjoint!r}")
+    if adjoint == "auto":
+        if cfg.unbiased:
+            return "retrace"
+        fits = stored_bytes(cfg) <= stored_budget_bytes(device)
+        return "stored" if fits else "retrace"
+    if adjoint == "stored" and cfg.unbiased:
+        raise ValueError("adjoint='stored' replays the forward's stream; "
+                         "unbiased mode requires retrace "
+                         "(integrate.hpp:11-24)")
+    return adjoint
+
+
 def _check_fused_cfg(cfg: RenderConfig) -> None:
-    """The fused tracer is the 1-sample-per-vertex estimator
+    """The fused kernels are the 1-sample-per-vertex estimator
     (pathtracer.hpp:111); per-vertex splitting is a later slice."""
     if cfg.bsdf_samples != 1:
         raise NotImplementedError(
@@ -41,23 +108,136 @@ def _resolve_fastmath(fastmath, rng: str) -> bool:
     return bool(fastmath)
 
 
+def _slice_dparams(params: Params, da, de) -> Params:
+    k = params.albedo.shape[0]
+    l = params.emission.shape[0]
+    return Params(albedo=da[:k].to(params.albedo.dtype),
+                  emission=de[:l].to(params.emission.dtype))
+
+
 def _chunk_img(L: torch.Tensor, spp_c: int, h: int, w: int) -> torch.Tensor:
     """Radiance f[3, N] -> per-pixel chunk image f[H, W, 3]. Rays are
     spp-outer, so the spp mean reduces over the major axis."""
     return L.reshape(3, spp_c, h, w).mean(dim=1).permute(1, 2, 0)
 
 
+def _g_pix_of(g: torch.Tensor, spp_c: int, n_chunks: int,
+              dtype) -> torch.Tensor:
+    """Image cotangent f[H, W, 3] -> per-pixel ray cotangent f[3, W*H]:
+    image = mean over chunks of per-pixel spp_c means, so every ray of a
+    pixel gets g[pixel] / (spp_c * n_chunks), in every chunk."""
+    g_pix = (g / (spp_c * n_chunks)).to(dtype)
+    return g_pix.permute(2, 0, 1).reshape(3, -1).contiguous()
+
+
+def _g_ray_of(g: torch.Tensor, spp_c: int, n_chunks: int,
+              dtype) -> torch.Tensor:
+    """Image cotangent -> per-ray cotangent f[3, N] for one chunk (ray i
+    covers pixel i % (W*H), spp-outer order). The adjoint kernels and
+    twins also take `_g_pix_of`'s per-pixel form and index it themselves,
+    which is what the renderers hand them."""
+    return _g_pix_of(g, spp_c, n_chunks, dtype).repeat(1, spp_c)
+
+
+def _salted(seeds, sample: int):
+    """The seed pair of adjoint sample `sample` in unbiased mode: a fresh
+    bounce stream, the same camera stream (integrate.hpp:39-52). The add
+    wraps mod 2^32 as the reference's i32 add does."""
+    s0, s1 = (int(v) for v in
+              (seeds.tolist() if torch.is_tensor(seeds) else seeds))
+    salt = _BWD_SALT + sample * _BWD_SAMPLE_STRIDE
+    return [s0 & 0xFFFFFFFF, (s1 + salt) & 0xFFFFFFFF]
+
+
+def _wants_grad(params: Params) -> bool:
+    return torch.is_grad_enabled() and (params.albedo.requires_grad
+                                        or params.emission.requires_grad)
+
+
+def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
+                    n_chunks: int, trace_fn, collect_fn, sweep_fn, adj_fn):
+    """`render(params, *uniforms) -> image` with the radiative-backprop
+    backward, for both RNG modes: `uniforms` is (seeds,) or (cam_u,
+    tape), handed to the kernel callables as given."""
+    w, h = cfg.width, cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    n_adj = cfg.adjoint_samples if cfg.unbiased else 1
+
+    def tables(albedo, emission):
+        params = Params(albedo, emission)
+        return (albedo_table(scene, params).contiguous(),
+                emission_table(scene, params).contiguous())
+
+    def image(L):
+        return _chunk_img(L, spp_c, h, w) / n_chunks
+
+    class Render(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, albedo, emission, *uniforms):
+            alb, emi = tables(albedo, emission)
+            ctx.n_uniforms = len(uniforms)
+            if adjoint == "stored":
+                L, rsc, rbest = collect_fn(alb, emi, *uniforms)
+                ctx.save_for_backward(albedo, emission, rsc, rbest)
+            else:
+                L = trace_fn(alb, emi, *uniforms)
+                ctx.save_for_backward(albedo, emission)
+                ctx.uniforms = uniforms  # seeds, or the caller's tapes
+            return image(L)
+
+        @staticmethod
+        def backward(ctx, g):
+            albedo, emission, *residuals = ctx.saved_tensors
+            params = Params(albedo, emission)
+            alb, emi = tables(albedo, emission)
+            g_pix = _g_pix_of(g, spp_c, n_chunks, alb.dtype)
+            if adjoint == "stored":
+                da, de = sweep_fn(alb, emi, *residuals, g_pix)
+            else:
+                da = de = 0.0
+                for s in range(n_adj):
+                    uniforms = ctx.uniforms
+                    if cfg.unbiased:
+                        uniforms = (_salted(uniforms[0], s),)
+                    da_s, de_s = adj_fn(alb, emi, *uniforms, g_pix)
+                    da = da + da_s / n_adj
+                    de = de + de_s / n_adj
+            d = _slice_dparams(params, da, de)
+            return (d.albedo, d.emission) + (None,) * ctx.n_uniforms
+
+    def render(params: Params, *uniforms) -> torch.Tensor:
+        if _wants_grad(params):
+            return Render.apply(params.albedo, params.emission, *uniforms)
+        with torch.no_grad():
+            return image(trace_fn(*tables(*params), *uniforms))
+
+    return render
+
+
 def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
-                              rng: str = "internal",
+                              rng: str = "internal", adjoint: str = "auto",
                               fastmath: bool | str = "auto",
-                              plain: bool = False):
+                              plain: bool = False,
+                              differentiable: bool = True):
     """Build `render(params, seeds: i32[2]) -> image f32[H, W, 3]`
     (rng="internal"; `seeds` from `seeds_from_generator`) or
     `render(params, cam_u: f[2, N], tape: f[D, 3, N]) -> image`
-    (rng="tape", N = W*H*spp, spp_chunks == 1).
+    (rng="tape", N = W*H*spp, spp_chunks == 1, biased only: the tape is
+    the sample stream). Differentiable in params.
 
-    The internal RNG renders all `cfg.spp_chunks` chunks in one launch.
-    plain=True runs the plain PyTorch twin on the tensors' device.
+    The internal RNG runs all `cfg.spp_chunks` chunks in one launch of
+    each kernel: a forward+backward step is two launches (stored) or
+    1 + adjoint_samples (retrace).
+
+    adjoint: "stored" writes the (sc, best) residuals in the forward and
+    makes the backward a reverse sweep over them; "retrace" rebuilds them
+    by tracing again in the adjoint kernel (no extra memory, the only
+    form for unbiased mode); both give the same gradient bits. "auto"
+    takes stored when the mode is biased and the residuals fit
+    (`_resolve_adjoint`).
+    plain=True runs the plain PyTorch twins on the tensors' device.
+    differentiable=False renders under `torch.no_grad()` whatever the
+    params ask for.
     """
     _check_fused_cfg(cfg)
     if rng == "tape":
@@ -67,18 +247,20 @@ def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
         if cfg.unbiased:
             raise ValueError("tape-mode fused renderer is biased-only: "
                              "the tape IS the sample stream")
+    adjoint = _resolve_adjoint(cfg, adjoint, scene.device)
     fm = _resolve_fastmath(fastmath, rng)
     n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    tracer = make_fused_tracer(scene, cam, cfg, rng=rng, fastmath=fm,
-                               n_chunks=n_chunks, plain=plain)
-    spp_c = cfg.spp // cfg.spp_chunks
-    h, w = cfg.height, cfg.width
-
-    @torch.no_grad()
-    def render(params: Params, *uniforms) -> torch.Tensor:
-        alb = albedo_table(scene, params).contiguous()
-        emi = emission_table(scene, params).contiguous()
-        return _chunk_img(tracer(alb, emi, *uniforms), spp_c, h,
-                          w) / n_chunks
-
-    return render
+    kw = dict(rng=rng, fastmath=fm, n_chunks=n_chunks, plain=plain)
+    tracer = make_fused_tracer(scene, cam, cfg, **kw)
+    collect = sweep = adj = None
+    if differentiable and adjoint == "stored":
+        collect = make_fused_collect_tracer(scene, cam, cfg, **kw)
+        sweep = make_fused_sweep_adjoint(scene, cfg, n_chunks=n_chunks,
+                                         plain=plain)
+    elif differentiable:
+        adj = make_fused_adjoint(scene, cam, cfg, **kw)
+    render = _build_renderer(scene, cfg, adjoint, n_chunks, tracer, collect,
+                             sweep, adj)
+    if differentiable:
+        return render
+    return torch.no_grad()(render)

@@ -34,6 +34,7 @@ class Hit(NamedTuple):
     mat: torch.Tensor  # i32[N] material row (null sentinel on miss)
     emit: torch.Tensor  # i32[N] emission row (zero sentinel on miss)
     valid: torch.Tensor  # bool[N]
+    shape: torch.Tensor  # i64[N] nearest shape's index (0 on miss)
 
 
 def _cv3(geo, i) -> V3:
@@ -121,4 +122,4 @@ def intersect_scene(scene: Scene, o: V3, d: V3, emit_sentinel: int) -> Hit:
     mat = torch.where(hit_valid, scene.shape_mat[best_i], null_mat)
     emit = torch.where(hit_valid, scene.shape_emit[best_i], emit_sentinel)
     return Hit(t=best_t, point=point, normal=normal, mat=mat, emit=emit,
-               valid=hit_valid)
+               valid=hit_valid, shape=best_i)

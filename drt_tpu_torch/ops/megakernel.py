@@ -1,11 +1,23 @@
-"""The fused forward tracer: a CUDA kernel and its plain PyTorch twin.
+"""The fused tracer and its adjoints: four CUDA kernels and their plain
+PyTorch twins.
 
-The port of `drt_tpu.ops.megakernel.make_fused_tracer` (the Pallas
-kernel `make_fused_segment_tracer` at full depth): camera ray generation,
-sampling and the whole `max_depth` bounce loop in one launch, radiance
-f32[3, N] out, N = W*H*spp/spp_chunks ray slots, summed over the spp
-chunks. The kernel is `csrc/fused_tracer.cu`; its source note says what
-bounds it and how its design differs from the TPU kernel's.
+The ports of `drt_tpu.ops.megakernel`'s full-depth fused kernels, with
+N = W*H*spp/spp_chunks ray slots, D = max_depth, C = n_chunks:
+  `make_fused_tracer` (Pallas `make_fused_segment_tracer`): camera ray
+    generation, sampling and the whole bounce loop in one launch, radiance
+    f32[3, N] out, summed over the spp chunks;
+  `make_fused_collect_tracer`: the same trace, which also writes the
+    residuals rsc f32[C, D, N] (the sampling weight sc) and rbest
+    i32[C, D, N] (hit shape + 1, 0 for a dead lane); [D, N] when C == 1;
+  `make_fused_sweep_adjoint`: (d_albedo f32[K+1, 3], d_emission f32[L+1,
+    3]) from those residuals and a cotangent g, by replaying the
+    throughput and a reverse sweep, no geometry;
+  `make_fused_adjoint` (Pallas `make_fused_segment_adjoint`): the same
+    gradients by retracing the forward in the kernel.
+The kernels are `csrc/fused_tracer.cu` (tracer, collect tracer) and
+`csrc/fused_adjoint.cu` (sweep and retrace adjoints) over the shared
+bounce body `csrc/fused_body.cuh`; the source notes say what bounds each
+and how the designs differ from the TPU kernels'.
 
 Where the TPU kernel bakes the scene in as literals, the port builds a
 small table from the scene arrays (`scene_table`, precomputed in f64 on
@@ -19,10 +31,15 @@ Uniforms, in spp-outer ray order (ray i is pixel i % (W*H)):
     chunk c these are `hash_tapes(seeds, W*H, spp_c, D, sample_base=c*spp_c)`;
   rng="tape": cam_u f32[2, N] and tape f32[D, 3, N] given by the caller.
 
-`fused_trace` is the wrapper: for tensors on the CPU it runs the plain
-twin (the fused camera math, then `renderer.trace_rays(tape=...)`, fed
-the same uniforms); for CUDA tensors it launches the kernel or raises.
-`fused_trace.launches` counts kernel launches.
+The cotangent g is f[3, N] per ray slot (identical across chunks), or
+f[3, W*H] per pixel, which the kernels index by pixel themselves.
+
+`fused_trace`, `fused_collect`, `fused_sweep` and `fused_adjoint` are the
+wrappers: for tensors on the CPU each runs its plain twin (the fused
+camera math, `renderer.trace_residuals`, and the replay and sweep in the
+kernels' op order, fed the same uniforms); for CUDA tensors it launches
+its kernel or raises. Each counts its launches in `<wrapper>.launches`;
+`launch_counts()` reads them all and `reset_launch_counts()` zeroes them.
 """
 
 from __future__ import annotations
@@ -36,14 +53,18 @@ import torch
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.ops.rng import hash_tapes
 from drt_tpu_torch.ops.vecmath import V3
-from drt_tpu_torch.renderer import trace_rays
+from drt_tpu_torch.renderer import trace_residuals, trace_rays
 from drt_tpu_torch.scene import Params, Scene, SPHERE, TRIANGLE
 
 SOURCE = "fused_tracer.cu"
-# Bounds of the kernel's shared-memory tables (DRT_* in the source).
+ADJOINT_SOURCE = "fused_adjoint.cu"
+# Bounds of the kernels' shared-memory tables (DRT_* in the sources), the
+# deepest path the adjoint kernels keep per thread, and their block size.
 MAX_SHAPES = 64
 MAX_ROWS = 64
 REC = 32
+MAX_DEPTH = 32
+BLOCK = 128
 # Shape record layout (R_* in the source).
 R_TYPE, R_MAT, R_ALB, R_EMI, R_GEO = 0, 1, 2, 3, 4
 R_E1, R_E2, R_TRI_N, R_R2 = 16, 19, 22, 25
@@ -138,28 +159,129 @@ def camera_ray_from_pix(cc: CameraConsts, pix: torch.Tensor,
     return o, V3(dx * inv, dy * inv, dz * inv)
 
 
+def _chunk_uniforms(cfg: RenderConfig, alb, seeds, cam_u, tape, c: int):
+    """Chunk c's (cam_u, tape): the hash tapes of the internal RNG, or
+    the caller's."""
+    if seeds is None:
+        return cam_u, tape
+    return hash_tapes(seeds, cfg.width * cfg.height,
+                      cfg.spp // cfg.spp_chunks, cfg.max_depth, alb.dtype,
+                      sample_base=c * (cfg.spp // cfg.spp_chunks),
+                      device=alb.device)
+
+
 def fused_trace_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
                       alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
                       cam_u=None, tape=None, n_chunks: int = 1
                       ) -> torch.Tensor:
-    """The plain PyTorch twin of the kernel, on the tensors' device.
+    """The plain PyTorch twin of the tracer, on the tensors' device.
     Pass `seeds` (internal RNG, any n_chunks) or `cam_u` and `tape`.
     Returns radiance f[3, N] summed over the chunks."""
     npix = cfg.width * cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-    n = npix * spp_c
+    n = npix * (cfg.spp // cfg.spp_chunks)
     params = Params(albedo=alb[:-1], emission=emi[:-1])
     pix = torch.arange(n, device=alb.device) % npix
     L = None
     for c in range(n_chunks):
-        if seeds is not None:
-            cam_u, tape = hash_tapes(seeds, npix, spp_c, cfg.max_depth,
-                                     alb.dtype, sample_base=c * spp_c,
-                                     device=alb.device)
-        o, d = camera_ray_from_pix(cc, pix, cam_u[0], cam_u[1])
-        Lc = torch.stack(trace_rays(params, scene, o, d, cfg, tape=tape))
+        cu, tp = _chunk_uniforms(cfg, alb, seeds, cam_u, tape, c)
+        o, d = camera_ray_from_pix(cc, pix, cu[0], cu[1])
+        Lc = torch.stack(trace_rays(params, scene, o, d, cfg, tape=tp))
         L = Lc if L is None else L + Lc
     return L
+
+
+def fused_collect_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
+                        alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
+                        cam_u=None, tape=None, n_chunks: int = 1):
+    """The plain twin of the collect tracer: (radiance f[3, N] summed over
+    the chunks, rsc f[C, D, N], rbest i32[C, D, N]), the chunk dimension
+    dropped when n_chunks == 1."""
+    npix = cfg.width * cfg.height
+    n = npix * (cfg.spp // cfg.spp_chunks)
+    params = Params(albedo=alb[:-1], emission=emi[:-1])
+    pix = torch.arange(n, device=alb.device) % npix
+    L = None
+    rsc, rbest = [], []
+    for c in range(n_chunks):
+        cu, tp = _chunk_uniforms(cfg, alb, seeds, cam_u, tape, c)
+        o, d = camera_ray_from_pix(cc, pix, cu[0], cu[1])
+        Lc, res, shape = trace_residuals(params, scene, o, d, cfg, tp)
+        Lc = torch.stack(Lc)
+        L = Lc if L is None else L + Lc
+        rsc.append(res.sc)
+        rbest.append(torch.where(res.gate > 0, shape + 1, 0)
+                     .to(torch.int32))
+    if n_chunks == 1:
+        return L, rsc[0], rbest[0]
+    return L, torch.stack(rsc), torch.stack(rbest)
+
+
+def _per_ray(g: torch.Tensor, n: int) -> torch.Tensor:
+    """Cotangent f[3, N], or f[3, W*H] tiled over the spp-outer slots."""
+    if g.shape[1] == n:
+        return g
+    return g.repeat(1, n // g.shape[1])
+
+
+def fused_sweep_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
+                      emi: torch.Tensor, rsc: torch.Tensor,
+                      rbest: torch.Tensor, g: torch.Tensor):
+    """The plain twin of the sweep adjoint: replay `gate = rr [best > 0]`,
+    `P = T gate`, `T = (P a) sc` from the residuals in the kernel's op
+    order, then the reverse sweep of `adjoint._param_grads`. Returns
+    (d_albedo f[K+1, 3], d_emission f[L+1, 3]), sentinel rows zero."""
+    if rsc.ndim == 2:
+        rsc, rbest = rsc[None], rbest[None]
+    n_chunks, D, n = rsc.shape
+    dtype, dev = alb.dtype, alb.device
+    n_alb, n_emi = alb.shape[0], emi.shape[0]
+    # Row of each table by best (0 = dead lane -> the sentinel rows).
+    arow_of = torch.tensor(
+        [n_alb - 1] + scene.mat_albedo[scene.shape_mat.long()].tolist(),
+        device=dev)
+    erow_of = torch.tensor([n_emi - 1] + scene.shape_emit.tolist(),
+                           device=dev)
+    g = _per_ray(g, n)
+    inv_keep = 1.0 / (1.0 - cfg.absorb_prob)
+    da = torch.zeros((n_alb, 3), dtype=dtype, device=dev)
+    de = torch.zeros((n_emi, 3), dtype=dtype, device=dev)
+
+    def add_rows(acc, rows, v, n_rows):
+        for k in range(n_rows - 1):  # the sentinel row stays zero
+            acc[k] += torch.where(rows == k, v, 0.0).sum(dim=1)
+
+    for c in range(n_chunks):
+        T = torch.ones((3, n), dtype=dtype, device=dev)
+        steps = []
+        for b in range(D):
+            best = rbest[c, b].long()
+            sc = rsc[c, b]
+            rr = inv_keep if b >= cfg.min_bounces else 1.0
+            gate = torch.where(best > 0, rr, 0.0).to(dtype)
+            P = T * gate
+            arow = arow_of[best]
+            a = alb[arow].T
+            T = P * a * sc
+            steps.append((P, sc, gate, arow, erow_of[best], a))
+        S = torch.zeros((3, n), dtype=dtype, device=dev)
+        for P, sc, gate, arow, erow, a in reversed(steps):
+            gP = g * P
+            add_rows(de, erow, gP, n_emi)
+            add_rows(da, arow, gP * sc * S, n_alb)
+            S = (emi[erow].T + a * sc * S) * gate
+    return da, de
+
+
+def fused_adjoint_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
+                        alb: torch.Tensor, emi: torch.Tensor,
+                        g: torch.Tensor, *, seeds=None, cam_u=None,
+                        tape=None, n_chunks: int = 1):
+    """The plain twin of the retrace adjoint: the collect twin, then the
+    sweep twin on its residuals."""
+    _, rsc, rbest = fused_collect_plain(scene, cc, cfg, alb, emi,
+                                        seeds=seeds, cam_u=cam_u, tape=tape,
+                                        n_chunks=n_chunks)
+    return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
 
 
 class _DrtCamera(ctypes.Structure):
@@ -176,36 +298,69 @@ class _DrtTrace(ctypes.Structure):
                     ("seed0", ctypes.c_uint32), ("seed1", ctypes.c_uint32)]
 
 
+def _bind(lib, name: str, n_pointers: int, structs=(), n_ints_at=()) -> None:
+    """argtypes of an entry point: `structs` first, then `n_pointers`
+    void pointers with a C int at the positions `n_ints_at` among them."""
+    vp = ctypes.c_void_p
+    args = [ctypes.POINTER(t) for t in structs]
+    args += [ctypes.c_int if k in n_ints_at else vp
+             for k in range(n_pointers)]
+    fn = getattr(lib, name)
+    fn.argtypes = args
+    fn.restype = ctypes.c_int
+
+
+def _check_limits(source: str, fn, expected: list) -> None:
+    got = [ctypes.c_int() for _ in expected]
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(expected)
+    fn.restype = ctypes.c_int
+    fn(*(ctypes.byref(v) for v in got))
+    if [v.value for v in got] != expected:
+        raise RuntimeError(f"{source} bounds {[v.value for v in got]} "
+                           f"differ from the wrapper's {expected}")
+
+
 def _library() -> ctypes.CDLL:
+    """The tracer library: drt_fused_trace, drt_fused_collect."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
     if lib.drt_fused_trace.argtypes is None:
-        vp = ctypes.c_void_p
-        lib.drt_fused_trace.argtypes = [ctypes.POINTER(_DrtTrace),
-                                        ctypes.POINTER(_DrtCamera),
-                                        vp, vp, vp, vp, vp, vp, vp]
-        lib.drt_fused_trace.restype = ctypes.c_int
+        both = (_DrtTrace, _DrtCamera)
+        # scene, alb, emi, cam_u, tape, out, [rsc, rbest,] stream
+        _bind(lib, "drt_fused_trace", 7, both)
+        _bind(lib, "drt_fused_collect", 9, both)
         lib.drt_error_string.argtypes = [ctypes.c_int]
         lib.drt_error_string.restype = ctypes.c_char_p
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.drt_limits.argtypes = [ip, ip, ip]
-        lib.drt_limits.restype = ctypes.c_int
-        got = [ctypes.c_int() for _ in range(3)]
-        lib.drt_limits(*(ctypes.byref(v) for v in got))
-        if [v.value for v in got] != [MAX_SHAPES, MAX_ROWS, REC]:
-            raise RuntimeError(f"{SOURCE} bounds {[v.value for v in got]} "
-                               f"differ from the wrapper's "
-                               f"{[MAX_SHAPES, MAX_ROWS, REC]}")
+        _check_limits(SOURCE, lib.drt_limits, [MAX_SHAPES, MAX_ROWS, REC])
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple,
-           device: torch.device) -> None:
+def _adjoint_library() -> ctypes.CDLL:
+    """The adjoint library: drt_fused_sweep, drt_fused_adjoint."""
+    from drt_tpu_torch.utils import native
+
+    lib = native.load(ADJOINT_SOURCE)
+    if lib.drt_fused_sweep.argtypes is None:
+        # scene, alb, emi, rsc, rbest, g, g_n, partials, da, de, stream
+        _bind(lib, "drt_fused_sweep", 11, (_DrtTrace,), n_ints_at=(6,))
+        # scene, alb, emi, cam_u, tape, g, g_n, partials, da, de, stream
+        _bind(lib, "drt_fused_adjoint", 11, (_DrtTrace, _DrtCamera),
+              n_ints_at=(6,))
+        lib.drt_adjoint_error_string.argtypes = [ctypes.c_int]
+        lib.drt_adjoint_error_string.restype = ctypes.c_char_p
+        _check_limits(ADJOINT_SOURCE, lib.drt_adjoint_limits,
+                      [MAX_SHAPES, MAX_ROWS, REC, MAX_DEPTH, BLOCK])
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).split('.')[-1]} on "
+                        f"the card, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
@@ -213,23 +368,19 @@ def _check(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
-                cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor, *,
-                seeds=None, cam_u=None, tape=None, fastmath: bool = False,
-                n_chunks: int = 1) -> torch.Tensor:
-    """Radiance f32[3, N] of the fused tracer. CPU tensors run the plain
-    twin (which has one form, so `fastmath` selects only the kernel's
-    variant); CUDA tensors launch the kernel or raise."""
-    if alb.device.type == "cpu":
-        return fused_trace_plain(scene, cc, cfg, alb, emi, seeds=seeds,
-                                 cam_u=cam_u, tape=tape, n_chunks=n_chunks)
-    if alb.device.type != "cuda":
-        raise ValueError(f"fused_trace runs on cpu or cuda, not "
+def _device_of(name: str, alb: torch.Tensor) -> str:
+    if alb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not "
                          f"{alb.device.type}")
+    return alb.device.type
+
+
+def _trace_config(cfg: RenderConfig, table, alb, emi, *, seeds=None,
+                  fastmath: bool = False, n_chunks: int = 1) -> _DrtTrace:
+    """Check the tables on the card and fill the kernels' config."""
     dev = alb.device
     spp_c = cfg.spp // cfg.spp_chunks
     n = cfg.width * cfg.height * spp_c
-    D = cfg.max_depth
     if alb.ndim != 2 or not 1 <= alb.shape[0] <= MAX_ROWS:
         raise ValueError(f"albedo table {tuple(alb.shape)}: 1..{MAX_ROWS} "
                          "rows of 3")
@@ -242,52 +393,214 @@ def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
         raise ValueError(f"scene table has {table.shape[0]} shapes; the "
                          f"kernel takes 1..{MAX_SHAPES}")
     _check("scene table", table, (table.shape[0], REC), dev)
-    internal = seeds is not None
-    if internal:
+    seed_words = [0, 0]
+    if seeds is not None:
         seed_words = [int(v) & 0xFFFFFFFF for v in
                       (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
         if len(seed_words) != 2:
             raise ValueError("seeds must hold 2 words (camera, bounce)")
         if n_chunks * spp_c >= 2 ** 31:
             raise ValueError("sample index exceeds 31 bits")
-        cu_ptr = tape_ptr = None
-    else:
-        if n_chunks != 1:
-            raise ValueError("tape mode traces one chunk per launch")
-        _check("cam_u", cam_u, (2, n), dev)
-        _check("tape", tape, (D, 3, n), dev)
-        seed_words = [0, 0]
-        cu_ptr, tape_ptr = cam_u.data_ptr(), tape.data_ptr()
     if 3 * n >= 2 ** 31:
         raise ValueError(f"{n} rays per chunk exceed the kernel's 32-bit "
                          "indexing; raise spp_chunks")
-
-    lib = _library()
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    tcfg = _DrtTrace(cfg.width, cfg.height, n, spp_c,
-                     n_chunks, D, cfg.min_bounces, table.shape[0],
-                     alb.shape[0], emi.shape[0], int(internal),
+    return _DrtTrace(cfg.width, cfg.height, n, spp_c, n_chunks,
+                     cfg.max_depth, cfg.min_bounces, table.shape[0],
+                     alb.shape[0], emi.shape[0], int(seeds is not None),
                      int(bool(fastmath)), cfg.absorb_prob,
                      1.0 / (1.0 - cfg.absorb_prob), *seed_words)
-    ccam = _DrtCamera((ctypes.c_float * 3)(*cc.eye),
+
+
+def _uniform_pointers(tcfg: _DrtTrace, seeds, cam_u, tape, dev):
+    """(cam_u, tape) device pointers of tape mode, checked; (None, None)
+    for the internal RNG."""
+    if seeds is not None:
+        return None, None
+    if tcfg.n_chunks != 1:
+        raise ValueError("tape mode traces one chunk per launch")
+    _check("cam_u", cam_u, (2, tcfg.n_rays), dev)
+    _check("tape", tape, (tcfg.max_depth, 3, tcfg.n_rays), dev)
+    return cam_u.data_ptr(), tape.data_ptr()
+
+
+def _camera_struct(cc: CameraConsts) -> _DrtCamera:
+    return _DrtCamera((ctypes.c_float * 3)(*cc.eye),
                       (ctypes.c_float * 3)(*cc.forward),
                       (ctypes.c_float * 3)(*cc.right),
                       (ctypes.c_float * 3)(*cc.up),
                       cc.aspect_half, cc.half)
+
+
+def _launch(wrapper, what: str, error_string, entry, dev, *args) -> None:
+    """Call a library entry point on the current stream of `dev`, raise
+    on a CUDA error, and count the launch on `wrapper`."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.drt_fused_trace(ctypes.byref(tcfg), ctypes.byref(ccam),
-                                 table.data_ptr(), alb.data_ptr(),
-                                 emi.data_ptr(), cu_ptr, tape_ptr,
-                                 out.data_ptr(), stream)
+        rc = entry(*args, stream)
     if rc != 0:
-        raise RuntimeError("fused tracer launch failed: "
-                           + lib.drt_error_string(rc).decode())
-    fused_trace.launches += 1
+        raise RuntimeError(f"{what} launch failed: "
+                           + error_string(rc).decode())
+    wrapper.launches += 1
+
+
+def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
+                cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor, *,
+                seeds=None, cam_u=None, tape=None, fastmath: bool = False,
+                n_chunks: int = 1) -> torch.Tensor:
+    """Radiance f32[3, N] of the fused tracer. CPU tensors run the plain
+    twin (which has one form, so `fastmath` selects only the kernel's
+    variant); CUDA tensors launch the kernel or raise."""
+    if _device_of("fused_trace", alb) == "cpu":
+        return fused_trace_plain(scene, cc, cfg, alb, emi, seeds=seeds,
+                                 cam_u=cam_u, tape=tape, n_chunks=n_chunks)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_chunks=n_chunks)
+    cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
+    lib = _library()
+    out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
+    _launch(fused_trace, "fused tracer", lib.drt_error_string,
+            lib.drt_fused_trace, dev, ctypes.byref(tcfg),
+            ctypes.byref(_camera_struct(cc)), table.data_ptr(),
+            alb.data_ptr(), emi.data_ptr(), cu_ptr, tape_ptr,
+            out.data_ptr())
     return out
 
 
-fused_trace.launches = 0
+def fused_collect(scene: Scene, table: torch.Tensor, cc: CameraConsts,
+                  cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
+                  *, seeds=None, cam_u=None, tape=None,
+                  fastmath: bool = False, n_chunks: int = 1):
+    """(radiance f32[3, N], rsc f32[C, D, N], rbest i32[C, D, N]) of the
+    collect tracer, the chunk dimension dropped when n_chunks == 1. The
+    radiance equals `fused_trace`'s bit for bit. CPU tensors run the
+    plain twin; CUDA tensors launch the kernel or raise."""
+    if _device_of("fused_collect", alb) == "cpu":
+        return fused_collect_plain(scene, cc, cfg, alb, emi, seeds=seeds,
+                                   cam_u=cam_u, tape=tape,
+                                   n_chunks=n_chunks)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_chunks=n_chunks)
+    cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
+    lib = _library()
+    n, D = tcfg.n_rays, cfg.max_depth
+    res_shape = (D, n) if n_chunks == 1 else (n_chunks, D, n)
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    rsc = torch.empty(res_shape, dtype=torch.float32, device=dev)
+    rbest = torch.empty(res_shape, dtype=torch.int32, device=dev)
+    _launch(fused_collect, "fused collect tracer", lib.drt_error_string,
+            lib.drt_fused_collect, dev, ctypes.byref(tcfg),
+            ctypes.byref(_camera_struct(cc)), table.data_ptr(),
+            alb.data_ptr(), emi.data_ptr(), cu_ptr, tape_ptr,
+            out.data_ptr(), rsc.data_ptr(), rbest.data_ptr())
+    return out, rsc, rbest
+
+
+def _adjoint_buffers(cfg: RenderConfig, tcfg: _DrtTrace, g: torch.Tensor,
+                     dev):
+    """Check depth and cotangent for the adjoint kernels; allocate the
+    per-block partials and the gradient tables."""
+    if cfg.max_depth > MAX_DEPTH:
+        raise ValueError(f"max_depth {cfg.max_depth} exceeds the "
+                         f"{MAX_DEPTH} bounces the adjoint kernels keep "
+                         "per thread")
+    npix = cfg.width * cfg.height
+    if g.ndim != 2 or g.shape[1] not in (tcfg.n_rays, npix):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected "
+                         f"(3, {tcfg.n_rays}) per ray or (3, {npix}) per "
+                         "pixel")
+    _check("g", g, (3, g.shape[1]), dev)
+    entries = (tcfg.n_alb - 1 + tcfg.n_emi - 1) * 3
+    n_blocks = -(-tcfg.n_rays // BLOCK)
+    partials = torch.empty((n_blocks, entries), dtype=torch.float32,
+                           device=dev)
+    da = torch.empty((tcfg.n_alb, 3), dtype=torch.float32, device=dev)
+    de = torch.empty((tcfg.n_emi, 3), dtype=torch.float32, device=dev)
+    return partials, da, de
+
+
+def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
+                alb: torch.Tensor, emi: torch.Tensor, rsc: torch.Tensor,
+                rbest: torch.Tensor, g: torch.Tensor, *, n_chunks: int = 1):
+    """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the sweep adjoint
+    from the collect tracer's residuals and a cotangent g. CPU tensors run
+    the plain twin; CUDA tensors launch the kernel or raise."""
+    if _device_of("fused_sweep", alb) == "cpu":
+        return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, n_chunks=n_chunks)
+    n, D = tcfg.n_rays, cfg.max_depth
+    res_shape = (D, n) if n_chunks == 1 else (n_chunks, D, n)
+    _check("rsc", rsc, res_shape, dev)
+    _check("rbest", rbest, res_shape, dev, torch.int32)
+    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    lib = _adjoint_library()
+    _launch(fused_sweep, "fused sweep adjoint",
+            lib.drt_adjoint_error_string, lib.drt_fused_sweep, dev,
+            ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
+            emi.data_ptr(), rsc.data_ptr(), rbest.data_ptr(), g.data_ptr(),
+            g.shape[1], partials.data_ptr(), da.data_ptr(), de.data_ptr())
+    return da, de
+
+
+def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
+                  cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
+                  g: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
+                  fastmath: bool = False, n_chunks: int = 1):
+    """(d_albedo, d_emission) of the retrace adjoint: the forward traced
+    again in the kernel from `seeds` (or `cam_u`, `tape`), then the sweep.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel or
+    raise."""
+    if _device_of("fused_adjoint", alb) == "cpu":
+        return fused_adjoint_plain(scene, cc, cfg, alb, emi, g, seeds=seeds,
+                                   cam_u=cam_u, tape=tape,
+                                   n_chunks=n_chunks)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_chunks=n_chunks)
+    cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
+    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    lib = _adjoint_library()
+    _launch(fused_adjoint, "fused retrace adjoint",
+            lib.drt_adjoint_error_string, lib.drt_fused_adjoint, dev,
+            ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)),
+            table.data_ptr(), alb.data_ptr(), emi.data_ptr(), cu_ptr,
+            tape_ptr, g.data_ptr(), g.shape[1], partials.data_ptr(),
+            da.data_ptr(), de.data_ptr())
+    return da, de
+
+
+WRAPPERS = {"fused_tracer": fused_trace, "fused_collect": fused_collect,
+            "fused_sweep": fused_sweep, "fused_adjoint": fused_adjoint}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+reset_launch_counts()
+
+
+def _check_rng(rng: str, n_chunks: int) -> None:
+    if rng not in ("internal", "tape"):
+        raise ValueError(f"unknown rng {rng!r}")
+    if n_chunks != 1 and rng != "internal":
+        raise ValueError("chunked tracing is internal-RNG only")
+
+
+def _uniform_kw(rng: str, args: tuple) -> dict:
+    if rng == "internal":
+        (seeds,) = args
+        return dict(seeds=seeds)
+    cam_u, tape = args
+    return dict(cam_u=cam_u, tape=tape)
 
 
 def make_fused_tracer(scene: Scene, cam, cfg: RenderConfig,
@@ -299,20 +612,12 @@ def make_fused_tracer(scene: Scene, cam, cfg: RenderConfig,
     n_chunks > 1 (internal RNG only) runs the spp chunks in one launch
     and sums their radiance per ray slot. plain=True runs the plain twin
     on whatever device the tensors lie on (the "torch" backend)."""
-    if rng not in ("internal", "tape"):
-        raise ValueError(f"unknown rng {rng!r}")
-    if n_chunks != 1 and rng != "internal":
-        raise ValueError("chunked tracing is internal-RNG only")
+    _check_rng(rng, n_chunks)
     cc = camera_consts(cam, cfg.width, cfg.height)
     table = None if plain else scene_table(scene)
 
     def trace(alb, emi, *args):
-        if rng == "internal":
-            (seeds,) = args
-            kw = dict(seeds=seeds)
-        else:
-            cam_u, tape = args
-            kw = dict(cam_u=cam_u, tape=tape)
+        kw = _uniform_kw(rng, args)
         if plain:
             return fused_trace_plain(scene, cc, cfg, alb, emi,
                                      n_chunks=n_chunks, **kw)
@@ -320,3 +625,64 @@ def make_fused_tracer(scene: Scene, cam, cfg: RenderConfig,
                            fastmath=fastmath, n_chunks=n_chunks, **kw)
 
     return trace
+
+
+def make_fused_collect_tracer(scene: Scene, cam, cfg: RenderConfig,
+                              rng: str = "internal", fastmath: bool = False,
+                              n_chunks: int = 1, plain: bool = False):
+    """Build `trace(alb, emi, seeds | cam_u, tape) -> (L f32[3, N], rsc,
+    rbest)`: the tracer that also stores the adjoint's residuals, 8 bytes
+    per bounce-ray (rsc f32, rbest i32, each [D, N], or [C, D, N] for
+    n_chunks > 1). L is `make_fused_tracer`'s radiance bit for bit."""
+    _check_rng(rng, n_chunks)
+    cc = camera_consts(cam, cfg.width, cfg.height)
+    table = None if plain else scene_table(scene)
+
+    def trace(alb, emi, *args):
+        kw = _uniform_kw(rng, args)
+        if plain:
+            return fused_collect_plain(scene, cc, cfg, alb, emi,
+                                       n_chunks=n_chunks, **kw)
+        return fused_collect(scene, table, cc, cfg, alb, emi,
+                             fastmath=fastmath, n_chunks=n_chunks, **kw)
+
+    return trace
+
+
+def make_fused_sweep_adjoint(scene: Scene, cfg: RenderConfig,
+                             n_chunks: int = 1, plain: bool = False):
+    """Build `sweep(alb, emi, rsc, rbest, g) -> (d_albedo, d_emission)`:
+    the backward from the collect tracer's residuals, with g f32[3, N]
+    per ray slot (identical across chunks) or f32[3, W*H] per pixel."""
+    table = None if plain else scene_table(scene)
+
+    def sweep(alb, emi, rsc, rbest, g):
+        if plain:
+            return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
+        return fused_sweep(scene, table, cfg, alb, emi, rsc, rbest, g,
+                           n_chunks=n_chunks)
+
+    return sweep
+
+
+def make_fused_adjoint(scene: Scene, cam, cfg: RenderConfig,
+                       rng: str = "internal", fastmath: bool = False,
+                       n_chunks: int = 1, plain: bool = False):
+    """Build `adj(alb, emi, seeds, g)` (rng="internal") or `adj(alb, emi,
+    cam_u, tape, g)` (rng="tape") -> (d_albedo, d_emission): the retrace
+    adjoint. Pass the forward's seeds for biased mode or a fresh seeds[1]
+    for unbiased mode (integrate.hpp:39-52)."""
+    _check_rng(rng, n_chunks)
+    cc = camera_consts(cam, cfg.width, cfg.height)
+    table = None if plain else scene_table(scene)
+
+    def adjoint(alb, emi, *args):
+        *uniforms, g = args
+        kw = _uniform_kw(rng, tuple(uniforms))
+        if plain:
+            return fused_adjoint_plain(scene, cc, cfg, alb, emi, g,
+                                       n_chunks=n_chunks, **kw)
+        return fused_adjoint(scene, table, cc, cfg, alb, emi, g,
+                             fastmath=fastmath, n_chunks=n_chunks, **kw)
+
+    return adjoint

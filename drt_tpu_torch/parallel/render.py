@@ -1,11 +1,10 @@
 """Renderer routing: the port of `drt_tpu.parallel.render`'s
-`resolve_backend` and `make_renderer`, forward only and single device.
+`resolve_backend` and `make_renderer` on a single device.
 
-Backends: "cuda" runs the fused tracer kernel (the port of the JAX
-"pallas" backend) and needs the scene on a CUDA device; "torch" runs its
-plain PyTorch twin on the scene's device. The JAX package's other
-backends raise NotImplementedError naming the ROADMAP item that brings
-them; so does a differentiable renderer, which is the next slice.
+Backends: "cuda" runs the fused kernels (the port of the JAX "pallas"
+backend) and needs the scene on a CUDA device; "torch" runs their plain
+PyTorch twins on the scene's device. The JAX package's other backends
+raise NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -68,14 +67,14 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
                   backend: str = "auto"):
     """Build `render(params, seeds: i32[2]) -> image f32[H, W, 3]`.
 
-    Only the forward exists in this slice: differentiable=True (the
-    JAX default) raises, as does a device mesh.
+    differentiable=True: the image carries the radiative-backprop
+    backward wherever a parameter requires grad (the stored or retrace
+    adjoint as `fused._resolve_adjoint` picks; unbiased mode retraces with
+    fresh samples). differentiable=False renders under `torch.no_grad()`.
+    A device mesh raises (ROADMAP A14).
     """
     if mesh is not None:
         raise _not_yet("rendering over a device mesh", _LATER["pallas-sharded"])
-    if differentiable:
-        raise _not_yet("the differentiable renderer (radiative backprop, "
-                       "kernels B2-B4)", "A5 and A6 (slice 2)")
     backend = resolve_backend(scene, cfg, backend)
     if backend in _LATER:
         raise _not_yet(f"backend {backend!r}", _LATER[backend])
@@ -88,4 +87,5 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
     from drt_tpu_torch.fused import make_fused_image_renderer
 
     return make_fused_image_renderer(scene, cam, cfg,
-                                     plain=(backend == "torch"))
+                                     plain=(backend == "torch"),
+                                     differentiable=differentiable)

@@ -1,22 +1,25 @@
 """Fixed-depth wavefront path tracer over flat SoA ray state, in tape mode.
 
-The port of `drt_tpu.renderer`'s `_bounce` and `trace_rays(tape=...)`:
+The port of `drt_tpu.renderer`'s `BounceResiduals`, `_bounce` and
+`trace_rays(tape=..., collect=...)`:
 the reference's per-ray recursion (pathtracer.hpp:91-136) becomes a loop
 over bounces in which every bounce intersects the whole wavefront, adds
 emission, samples the BxDF and updates the throughput. Dead rays
 (absorbed by Russian roulette or missed) are masked, never branched on.
 
-Per-path estimator (what the adjoint of the next slice differentiates):
+Per-path estimator (what `adjoint.py` differentiates analytically):
 
     L = sum_b P_b * e_b,   P_b = prod_{j<=b} gate_j * prod_{j<b} w_j
 
 The uniforms come from a tape f[max_depth, 3, N] with slots (rr, u1, u2)
 per bounce, the reference's per-vertex order RR -> theta -> phi. The
-key-driven mode and per-vertex splitting (bsdf_samples > 1) of the JAX
-renderer come with ROADMAP item A12 and the next slices.
+key-driven mode (`chunk_rays`, `render_image`) comes with ROADMAP item A4
+and per-vertex splitting (bsdf_samples > 1) with A12.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,8 +31,20 @@ from drt_tpu_torch.ops.vecmath import V3, dotv, gatherv, wherev
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
 
+class BounceResiduals(NamedTuple):
+    """Per-bounce values stacked over depth, consumed by the adjoint."""
+
+    P: V3  # V3 of f[D, N]: emission weight (gated throughput prefix)
+    sc: torch.Tensor  # f[D, N] scalar factor s*cos/pdf, w = albedo[aid]*sc
+    gate: torch.Tensor  # f[D, N] RR/liveness gate at this bounce
+    aid: torch.Tensor  # i32[D, N] albedo row of this bounce's material
+    eid: torch.Tensor  # i32[D, N] emission row of this bounce's emitter
+
+
 def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b: int, u):
-    """One wavefront bounce; carry = (o, d, T, L, alive).
+    """One wavefront bounce; carry = (o, d, T, L, alive). Returns the new
+    carry, the residuals (P, sc, gate, aid, eid) of this bounce, and the
+    hit (whose shape index the fused kernels' twins record).
 
     A ray dies only when absorbed or on a miss, not when its throughput
     reaches zero: the reference keeps recursing with a zero BRDF value
@@ -73,16 +88,15 @@ def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b: int, u):
 
     o_next = wherev(alive, hit.point + dir_out * RAY_EPS, 0.0)
     d_next = wherev(alive, dir_out, 0.0)
-    return o_next, d_next, T_next, L, alive
+    return ((o_next, d_next, T_next, L, alive),
+            (P, sc, gate, aid, hit.emit), hit)
 
 
-def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
-               cfg: RenderConfig, tape: torch.Tensor) -> V3:
-    """Trace a wavefront of rays to radiance.
-
-    orig, dir: V3 of f[N] primary rays; tape: f[max_depth, 3, N] uniforms
-    with slots (rr, u1, u2) per bounce. Returns radiance as a V3 of f[N].
-    """
+def trace_residuals(params: Params, scene: Scene, orig: V3, dir: V3,
+                    cfg: RenderConfig, tape: torch.Tensor):
+    """`trace_rays` that keeps every bounce: (radiance V3 of f[N],
+    BounceResiduals, nearest shape index i64[D, N], which is 0 on a miss
+    and meaningful only where gate > 0)."""
     if cfg.bsdf_samples != 1:
         raise NotImplementedError(
             "bsdf_samples > 1 (per-vertex splitting) is key-driven in the "
@@ -96,7 +110,26 @@ def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
     zero = torch.zeros(n, dtype=dtype, device=dev)
     carry = (orig, dir, V3(one, one, one), V3(zero, zero, zero),
              torch.ones(n, dtype=torch.bool, device=dev))
+    res, shapes = [], []
     for b in range(cfg.max_depth):
-        carry = _bounce(tabs, scene, cfg, carry, b,
-                        (tape[b, 0], tape[b, 1], tape[b, 2]))
-    return carry[3]
+        carry, res_b, hit = _bounce(tabs, scene, cfg, carry, b,
+                                    (tape[b, 0], tape[b, 1], tape[b, 2]))
+        res.append(res_b)
+        shapes.append(hit.shape)
+    P, sc, gate, aid, eid = zip(*res)
+    residuals = BounceResiduals(
+        V3(*(torch.stack(c) for c in zip(*P))), torch.stack(sc),
+        torch.stack(gate), torch.stack(aid), torch.stack(eid))
+    return carry[3], residuals, torch.stack(shapes)
+
+
+def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
+               cfg: RenderConfig, tape: torch.Tensor, collect: bool = False):
+    """Trace a wavefront of rays to radiance.
+
+    orig, dir: V3 of f[N] primary rays; tape: f[max_depth, 3, N] uniforms
+    with slots (rr, u1, u2) per bounce. Returns radiance as a V3 of f[N],
+    or with collect=True (radiance, BounceResiduals).
+    """
+    L, residuals, _ = trace_residuals(params, scene, orig, dir, cfg, tape)
+    return (L, residuals) if collect else L

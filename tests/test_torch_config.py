@@ -1,5 +1,5 @@
-"""drt_tpu_torch.config against drt_tpu.config, and the port's import
-boundary (it never imports jax)."""
+"""drt_tpu_torch.config against drt_tpu.config, the port's import
+boundary (it never imports jax), and the build key of its kernels."""
 
 import dataclasses
 import pkgutil
@@ -47,7 +47,9 @@ def test_import_leaves_jax_out():
     pulling in jax (or the JAX package)."""
     mods = [m.name for m in pkgutil.walk_packages(
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
-    assert "drt_tpu_torch.ops.megakernel" in mods
+    assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.adjoint",
+            "drt_tpu_torch.optim", "drt_tpu_torch.fused",
+            "drt_tpu_torch.cli", "drt_tpu_torch.utils.native"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -55,3 +57,28 @@ def test_import_leaves_jax_out():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    timeout=120)
+
+
+def test_build_key_covers_every_file_under_csrc(tmp_path, monkeypatch):
+    """An edit to a header shared by the kernels, or to the flags, moves
+    every library to a new build directory; nothing is compiled here."""
+    from drt_tpu_torch.utils import native
+
+    assert {"fused_tracer.cu", "fused_adjoint.cu"} <= set(native.sources())
+    assert (native.CSRC_DIR / "fused_body.cuh").exists()
+    a, b = native.library_path("fused_tracer.cu"), \
+        native.library_path("fused_adjoint.cu")
+    assert a.parent == b.parent and a.parent.parent == native.BUILD_DIR
+    assert a.name == "fused_tracer.so" and native.log_path(
+        "fused_tracer.cu").name == "fused_tracer.log"
+
+    monkeypatch.setattr(native, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    key = native.build_key()
+    assert native.build_key() == key and native.sources() == ["k.cu"]
+    (tmp_path / "h.cuh").write_text("// two\n")
+    key2 = native.build_key()
+    assert key2 != key
+    monkeypatch.setattr(native, "NVCC_FLAGS", native.NVCC_FLAGS + ["-g"])
+    assert native.build_key() not in (key, key2)

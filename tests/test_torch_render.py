@@ -1,6 +1,8 @@
 """drt_tpu_torch's user surface on the CPU: routing
-(`parallel.render`), the image renderer and the `render` CLI."""
+(`parallel.render`), the image renderer and the `render` and `grad`
+CLI commands."""
 
+import json
 import struct
 import zlib
 
@@ -90,7 +92,7 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(backend="cuda"), ValueError, "CUDA device"),
-    (dict(differentiable=True), NotImplementedError, "A5"),
+    (dict(backend="xla"), NotImplementedError, "A4"),
     (dict(mesh=object()), NotImplementedError, "A14"),
     (dict(backend="pallas-dyn"), NotImplementedError, "A11"),
     (dict(backend="pallas-regen"), NotImplementedError, "A13"),
@@ -115,6 +117,27 @@ def test_cli_render_writes_png(tmp_path):
     raw = zlib.decompress(data[data.index(b"IDAT") + 4:-16])
     px = np.frombuffer(raw, np.uint8).reshape(12, 1 + 16 * 3)[:, 1:]
     assert px.max() > 0
+
+
+@pytest.mark.parametrize("flags,unbiased", [([], False),
+                                            (["--unbiased",
+                                              "--adjoint-samples", "2"],
+                                             True)])
+def test_cli_grad_writes_parameter_gradients(tmp_path, flags, unbiased):
+    """`grad`: d mean(image) / d params through the differentiable
+    renderer; diffuse albedo grads are positive where the wall is seen."""
+    out = tmp_path / "grads.json"
+    rc = cli.main(["grad", "-x", "16", "-y", "12", "-n", "4",
+                   "--max-depth", "4", "--device", "cpu", *flags,
+                   "-o", str(out)])
+    assert rc == 0
+    got = json.loads(out.read_text())
+    assert got["backend"] == "torch" and got["unbiased"] is unbiased
+    assert got["mean_intensity"] > 0
+    d_alb, d_emi = np.array(got["d_albedo"]), np.array(got["d_emission"])
+    assert d_alb.shape == (3, 3) and d_emi.shape == (1, 3)
+    assert np.isfinite(d_alb).all() and (d_emi > 0).all()
+    assert d_alb[0, 0] > 0 and d_alb[1, 1] > 0  # red and green walls
 
 
 @pytest.mark.parametrize("channels", [3, 4])
