@@ -28,10 +28,28 @@ Phases (any failure raises, exits non-zero and prints no result line):
      per forward+backward step;
   7. the trainer: optim.inverse_render, 5 Adam steps at the main shape
      from a perturbed red-wall albedo towards a target render;
-  8. a line {"kernels": [...]}, the nvidia-smi line, and last
-     {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6 and 7 the launch counts are set to 0,
-and read just after.
+  8. the memory-resident ("dyn") kernels against their plain versions:
+     tape mode on cbox, glossy, tri and the 87-shape mesh (64x48x4 spp,
+     depth 5), exact and fast; the collect tracer's radiance equals the
+     tracer's, the retrace adjoint equals sweep(collect), two sweeps agree,
+     all bit for bit; culling on against off and two-level against
+     one-level on the 327- and 1287-shape meshes, bit for bit; the dyn
+     tracer on cbox against the fused tracer on cbox; the internal RNG and
+     the unbiased salted seed against hash tapes;
+  9. the dyn kernels at their main shape, the 1287-shape mesh at 640x480,
+     64 spp, depth 5, spp_chunks=4: time each kernel on the main path's
+     launch (all chunks); hold it against its plain version on one chunk
+     (tape mode fed that chunk's hash tapes: the plain version takes
+     seconds per chunk), timing both there; count the triangle loops the
+     cull skipped;
+ 10. the mesh main path through make_renderer, "auto" resolving to
+     "cuda-dyn": three seeds forward; a forward+backward step in the
+     stored, retrace and unbiased forms, gradients against
+     backend="torch-dyn" on one chunk; 5 optim.inverse_render steps;
+ 11. a line {"kernels": [...]} of eight entries, the nvidia-smi line, and
+     last {"ok": true, "device": {...}}.
+Before each of the paths of 5, 6, 7 and 10 the launch counts are set to
+0, and read just after.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -74,6 +92,11 @@ OPS_CAMERA = 70
 OPS_SHAPE = {0: 13, 1: 27, 2: 50}  # plane, sphere, triangle
 OPS_SHADE = 170
 OPS_SWEEP = 20
+OPS_BOX = 28  # one slab test of a cluster box
+# The dyn kernels' main shape: the 1287-shape mesh (gallery.build_mesh(3)).
+MESH_MAIN = dict(width=640, height=480, spp=64, max_depth=5, spp_chunks=4)
+KERNELS = ("fused_tracer", "fused_collect", "fused_sweep", "fused_adjoint",
+           "dyn_tracer", "dyn_collect", "dyn_sweep", "dyn_adjoint")
 
 
 FAILED: list[str] = []
@@ -115,8 +138,10 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: dict,
 
 
 def compare_residuals(name: str, got, ref, tol: dict, max_share_best: float,
-                      max_share_sc: float) -> float:
-    """(rsc, rbest) of the collect tracer against the twin's: of the
+                      max_share_sc: float,
+                      live_of=lambda best: best > 0) -> float:
+    """(rsc, rbest) of the collect tracer against the twin's (for the dyn
+    kernels (rsc, rrow), with `live_of` reading the live bit): of the
     bounce-slots that matter, at most max_share_best may differ in best,
     at most max_share_sc more may have sc beyond `tol`, and at most
     MAX_SHARE_BEYOND beyond FAST_TOL. Returns max |sc - ref| over the
@@ -132,7 +157,7 @@ def compare_residuals(name: str, got, ref, tol: dict, max_share_best: float,
     (sc, best), (sc_r, best_r) = got, ref
     torch.cuda.synchronize()
     check(bool(torch.isfinite(sc).all()), f"{name}: non-finite rsc")
-    zero = ((sc_r == 0) & (best_r > 0)).to(torch.int32)
+    zero = ((sc_r == 0) & live_of(best_r)).to(torch.int32)
     matters = (zero.cumsum(dim=-2, dtype=torch.int32) - zero) == 0
     del zero
     same = matters & (best == best_r)
@@ -208,6 +233,42 @@ def cuda_ms(fn, reps: int, warmup: int = 1,
     return sorted(means)[len(means) // 2], means, out
 
 
+def only(**launched) -> dict:
+    """The launch counts of a path that launched these kernels and no
+    other."""
+    return {name: launched.get(name, 0) for name in KERNELS}
+
+
+def time_steps(label, step, mk, expected: dict, n_rays: int,
+               n_steps: int = 5):
+    """n_steps synchronized steps with the launch counts read around them,
+    then n_steps pipelined ones. Returns (counts, last step's result)."""
+    step()  # warm-up
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    t_sync = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        t_sync.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    check(counts == {k: v * n_steps for k, v in expected.items()},
+          f"{label}: {n_steps} steps launched {counts}")
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    t_pipe = (time.perf_counter() - t0) / n_steps
+    print(f"[grad] {label}: loss={out[0].item()!r} launches per {n_steps} "
+          f"steps={counts} seconds per fwd+bwd step synchronized={t_sync!r} "
+          f"pipelined={t_pipe!r} ({n_rays / t_pipe / 1e6!r} Mrays/s)",
+          flush=True)
+    check(all(bool(torch.isfinite(x).all()) and bool((x != 0).any())
+              for x in out[1]), f"{label}: gradients not finite, or zero")
+    return counts, out
+
+
 def reads_right(img: torch.Tensor, name: str) -> None:
     """Light at the top rows; image-left red-dominant, image-right
     green-dominant (the reference camera's x-mirrored basis)."""
@@ -223,6 +284,451 @@ def reads_right(img: torch.Tensor, name: str) -> None:
     check(top > 2 * bottom, f"{name}: light is not at the top")
     check(left[0] > 1.5 * left[1], f"{name}: image-left is not red")
     check(right[1] > 1.5 * right[0], f"{name}: image-right is not green")
+
+
+def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
+    """Phases 8-10: the memory-resident kernels. Returns, per dyn kernel,
+    its row of the kernels line (launches, max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)."""
+    from drt_tpu_torch import fused, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops.rng import hash_tapes
+    from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    def tables(scene, params):
+        return albedo_table(scene, params), emission_table(scene, params)
+
+    def live_of(rrow):
+        return (rrow >> 16) > 0
+
+    def mesh(level):
+        return lambda device: gallery.build_mesh(level, device=device)
+
+    # Phase 8: small shapes.
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    n = 64 * 48 * 4
+    g = torch.Generator(device=dev).manual_seed(11)
+    cam_u = torch.rand((2, n), generator=g, device=dev)
+    tape = torch.rand((5, 3, n), generator=g, device=dev)
+    g_small = torch.rand((3, n), generator=g, device=dev)
+    for label, build in (("cbox", cbox.build),
+                         ("glossy", gallery.build_glossy),
+                         ("tri", gallery.build_tri), ("mesh87", mesh(1))):
+        scene, params, cam = build(device=dev)
+        ds = dk.DynScene(scene)
+        alb, emi = tables(scene, params)
+        radiance = {}
+        for fm in (False, True):
+            kw = dict(rng="tape", fastmath=fm)
+            radiance[fm] = dk.make_dyn_tracer(ds, cam, cfg, **kw)(
+                alb, emi, cam_u, tape)
+            L, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, cfg, **kw)(
+                alb, emi, cam_u, tape)
+            same_bits(f"dyn collect radiance = dyn tracer's, {label}, "
+                      f"fast={fm}", (L,), (radiance[fm],))
+            sweep = dk.make_dyn_sweep_adjoint(ds, cfg)
+            d_sweep = sweep(alb, emi, rsc, rrow, g_small)
+            d_adj = dk.make_dyn_adjoint(ds, cam, cfg, **kw)(
+                alb, emi, cam_u, tape, g_small)
+            same_bits(f"dyn retrace adjoint = dyn sweep(collect), {label}, "
+                      f"fast={fm}", d_adj, d_sweep)
+            if fm:
+                continue
+            plain = dict(rng="tape", plain=True)
+            compare(f"dyn tape exact vs plain, {label}", radiance[fm],
+                    dk.make_dyn_tracer(ds, cam, cfg, **plain)(
+                        alb, emi, cam_u, tape), EXACT_TOL)
+            _, rsc_r, rrow_r = dk.make_dyn_collect_tracer(
+                ds, cam, cfg, **plain)(alb, emi, cam_u, tape)
+            compare_residuals(f"dyn collect exact vs plain, {label}",
+                              (rsc, rrow), (rsc_r, rrow_r), EXACT_TOL, 0.0,
+                              RSC_SHARE_SMALL, live_of)
+            compare_grads(f"dyn sweep vs plain on the kernel's residuals, "
+                          f"{label}", d_sweep, dk.dyn_sweep_plain(
+                              cfg, alb, emi, rsc, rrow, g_small),
+                          GRAD_RTOL_SMALL)
+            compare_grads(f"dyn retrace adjoint exact vs plain, {label}",
+                          d_adj, dk.make_dyn_adjoint(ds, cam, cfg, **plain)(
+                              alb, emi, cam_u, tape, g_small),
+                          GRAD_RTOL_SMALL)
+            same_bits(f"dyn sweep twice, {label}",
+                      sweep(alb, emi, rsc, rrow, g_small), d_sweep)
+        compare(f"dyn tape fast vs exact, {label}", radiance[True],
+                radiance[False], FAST_TOL, None)
+        if label == "cbox":
+            compare("dyn tracer vs fused tracer (exact, same tapes), cbox",
+                    radiance[False], mk.make_fused_tracer(
+                        scene, cam, cfg, rng="tape")(alb, emi, cam_u, tape),
+                    EXACT_TOL)
+
+    # Culling on == off and two-level == one-level, bit for bit.
+    for label, build in (("mesh327", mesh(2)), ("mesh1287", mesh(3))):
+        scene, params, cam = build(device=dev)
+        alb, emi = tables(scene, params)
+        variants = (dk.DynScene(scene),
+                    dk.DynScene(scene, cluster_min_tris=10 ** 9),
+                    dk.DynScene(scene, super_m=1))
+        check(variants[0].n_super > 0 and variants[1].n_clusters == 0
+              and variants[2].n_super == 0 and variants[2].n_clusters > 0,
+              f"{label}: the three cluster layouts are not distinct")
+        for fm in (False, True):
+            kw = dict(rng="tape", fastmath=fm)
+            outs = [(dk.make_dyn_tracer(ds, cam, cfg, **kw)(
+                         alb, emi, cam_u, tape),
+                     *dk.make_dyn_adjoint(ds, cam, cfg, **kw)(
+                         alb, emi, cam_u, tape, g_small))
+                    for ds in variants]
+            check(outs[0][0].mean().item() > 0, f"{label}: black render")
+            same_bits(f"culling on = off (radiance, grads), {label}, "
+                      f"fast={fm}", outs[0], outs[1])
+            same_bits(f"two-level = one-level (radiance, grads), {label}, "
+                      f"fast={fm}", outs[0], outs[2])
+
+    # Internal RNG and the salted seed of unbiased mode, on the 87-shape
+    # mesh at 32x24x8 spp in 2 chunks.
+    cfg_i = RenderConfig(width=32, height=24, spp=8, spp_chunks=2,
+                         max_depth=5)
+    cfg_1 = RenderConfig(width=32, height=24, spp=4, max_depth=5)
+    scene, params, cam = gallery.build_mesh(1, device=dev)
+    ds = dk.DynScene(scene)
+    alb, emi = tables(scene, params)
+    cc = mk.camera_consts(cam, 32, 24)
+    seeds = torch.tensor([2024, -77], dtype=torch.int32)
+    got = dk.make_dyn_tracer(ds, cam, cfg_i, n_chunks=2)(alb, emi, seeds)
+    compare("dyn internal rng exact vs plain on hash tapes, mesh87 32x24x8",
+            got, dk.dyn_trace_plain(ds, cc, cfg_i, alb, emi, seeds=seeds,
+                                    n_chunks=2), EXACT_TOL)
+    c_u, c_t = hash_tapes(seeds, 32 * 24, 4, 5, device=dev, sample_base=4)
+    one = dk.make_dyn_tracer(ds, cam, cfg_1, rng="tape")(alb, emi, c_u, c_t)
+    first = dk.make_dyn_tracer(ds, cam, cfg_i, n_chunks=1)(alb, emi, seeds)
+    same_bits("dyn internal rng = tape of hash_tapes, chunks 0+1",
+              (first + one,), (got,))
+    salted = fused._salted(seeds, 1)
+    g_pix = torch.rand((3, 32 * 24), generator=g, device=dev)
+    d_salt = dk.make_dyn_adjoint(ds, cam, cfg_1)(alb, emi, salted, g_pix)
+    s_u, s_t = hash_tapes(salted, 32 * 24, 4, 5, device=dev)
+    same_bits("dyn salted internal adjoint = tape adjoint of "
+              "hash_tapes(salted)",
+              dk.make_dyn_adjoint(ds, cam, cfg_1, rng="tape")(
+                  alb, emi, s_u, s_t, g_pix), d_salt)
+    compare_grads("dyn salted retrace adjoint vs plain on hash_tapes(salted)",
+                  d_salt, dk.dyn_adjoint_plain(ds, cc, cfg_1, alb, emi, g_pix,
+                                               cam_u=s_u, tape=s_t),
+                  GRAD_RTOL_SMALL)
+
+    # Phase 9: the main shape. Each kernel is timed on the main path's own
+    # call (fast, internal RNG, all chunks in one launch) and held against
+    # its plain version on one chunk, in tape mode fed that chunk's hash
+    # tapes: the plain version tests triangles in [cluster_k, rays] batches
+    # and takes seconds per chunk.
+    cfg_m = RenderConfig(**MESH_MAIN)
+    C, D = cfg_m.spp_chunks, cfg_m.max_depth
+    npix = cfg_m.width * cfg_m.height
+    spp_c = cfg_m.spp // C
+    n_slots = npix * spp_c
+    n_rays = n_slots * C
+    cfg_c = RenderConfig(width=cfg_m.width, height=cfg_m.height, spp=spp_c,
+                         max_depth=D)
+    scene, params, cam = gallery.build_mesh(3, device=dev)
+    check(resolve_backend(scene, cfg_m) == "cuda-dyn",
+          f"'auto' resolved to {resolve_backend(scene, cfg_m)!r} for "
+          f"{scene.num_shapes} shapes")
+    ds = dk.DynScene(scene)
+    print(f"[mesh] {scene.num_shapes} shapes: {ds.n_plane} planes, "
+          f"{ds.n_sphere} spheres, {ds.n_tri} triangles in {ds.n_clusters} "
+          f"leaves of {ds.cluster_k} under {ds.n_super} super boxes of "
+          f"{ds.super_m}; operands "
+          f"{sum(t.numel() * 4 for t in ds.operands)} B", flush=True)
+    alb, emi = tables(scene, params)
+    cc = mk.camera_consts(cam, cfg_m.width, cfg_m.height)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    chunk = 1  # the chunk held against the plain version
+    c_u, c_t = hash_tapes(seeds, npix, spp_c, D, device=dev,
+                          sample_base=chunk * spp_c)
+    kw_m = dict(fastmath=True, n_chunks=C)
+    kw_c = dict(rng="tape", fastmath=True)
+    once = dict(reps=1, warmup=0, windows=1)
+    # ms: the main path's launch (all chunks); chunk_ms and plain_ms: the
+    # kernel and its plain version on the one chunk, the same inputs.
+    ms, windows, chunk_ms, plain_ms, err = {}, {}, {}, {}, {}
+
+    trace = dk.make_dyn_tracer(ds, cam, cfg_m, **kw_m)
+    ms["dyn_tracer"], windows["dyn_tracer"], L_all = cuda_ms(
+        lambda: trace(alb, emi, seeds), **timing)
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms["dyn_tracer"], _, ref = cuda_ms(
+        lambda: dk.dyn_trace_plain(ds, cc, cfg_c, alb, emi, cam_u=c_u,
+                                   tape=c_t, fastmath=True, stats=stats),
+        **once)
+    print(f"[mesh] peak device memory over the plain tracer on one chunk "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    chunk_trace = dk.make_dyn_tracer(ds, cam, cfg_c, **kw_c)
+    chunk_ms["dyn_tracer"], _, L_c = cuda_ms(
+        lambda: chunk_trace(alb, emi, c_u, c_t), **timing)
+    err["dyn_tracer"] = compare(
+        f"dyn tracer (fast) vs plain, mesh1287 640x480x{spp_c}, chunk "
+        f"{chunk}", L_c, ref, FAST_TOL)
+    compare("dyn tracer exact vs plain (fast forms but the camera's), same "
+            "chunk", dk.make_dyn_tracer(ds, cam, cfg_c, rng="tape")(
+                alb, emi, c_u, c_t), ref, FAST_TOL)
+    del ref
+
+    collect = dk.make_dyn_collect_tracer(ds, cam, cfg_m, **kw_m)
+    ms["dyn_collect"], windows["dyn_collect"], (L, rsc, rrow) = cuda_ms(
+        lambda: collect(alb, emi, seeds), **timing)
+    same_bits("dyn collect radiance = dyn tracer's at the main shape", (L,),
+              (L_all,))
+    del L
+    live = int(live_of(rrow).sum().item())
+    chunk_collect = dk.make_dyn_collect_tracer(ds, cam, cfg_c, **kw_c)
+    chunk_ms["dyn_collect"], _, (L, rsc_c, rrow_c) = cuda_ms(
+        lambda: chunk_collect(alb, emi, c_u, c_t), **timing)
+    same_bits(f"dyn collect in tape mode = chunk {chunk} of the chunked "
+              "launch (radiance of the tracer, residuals)",
+              (L, rsc_c, rrow_c), (L_c, rsc[chunk], rrow[chunk]))
+    plain_ms["dyn_collect"], _, (_, rsc_r, rrow_r) = cuda_ms(
+        lambda: dk.dyn_collect_plain(ds, cc, cfg_c, alb, emi, cam_u=c_u,
+                                     tape=c_t, fastmath=True), **once)
+    err["dyn_collect"] = compare_residuals(
+        f"dyn collect (fast) vs plain, chunk {chunk}", (rsc_c, rrow_c),
+        (rsc_r, rrow_r), FAST_TOL, MAX_SHARE_BEYOND, MAX_SHARE_BEYOND,
+        live_of)
+    del rsc_r, rrow_r, L, L_c
+
+    g_main = torch.rand((3, npix), generator=g, device=dev) / cfg_m.spp
+    sweep = dk.make_dyn_sweep_adjoint(ds, cfg_m, n_chunks=C)
+    ms["dyn_sweep"], windows["dyn_sweep"], d_sweep = cuda_ms(
+        lambda: sweep(alb, emi, rsc, rrow, g_main), **timing)
+    same_bits("dyn sweep twice at the main shape",
+              sweep(alb, emi, rsc, rrow, g_main), d_sweep)
+    chunk_sweep = dk.make_dyn_sweep_adjoint(ds, cfg_c)
+    chunk_ms["dyn_sweep"], _, d_sweep_c = cuda_ms(
+        lambda: chunk_sweep(alb, emi, rsc_c, rrow_c, g_main), **timing)
+    plain_ms["dyn_sweep"], _, d_ref = cuda_ms(
+        lambda: dk.dyn_sweep_plain(cfg_c, alb, emi, rsc_c, rrow_c, g_main),
+        **once)
+    err["dyn_sweep"] = compare_grads(
+        f"dyn sweep vs plain on the kernel's residuals, chunk {chunk}",
+        d_sweep_c, d_ref, GRAD_RTOL_MAIN)
+    del rsc, rrow, rsc_c, rrow_c
+
+    adj = dk.make_dyn_adjoint(ds, cam, cfg_m, **kw_m)
+    ms["dyn_adjoint"], windows["dyn_adjoint"], d_adj = cuda_ms(
+        lambda: adj(alb, emi, seeds, g_main), **timing)
+    same_bits("dyn retrace adjoint = dyn sweep(collect) at the main shape",
+              d_adj, d_sweep)
+    chunk_adj = dk.make_dyn_adjoint(ds, cam, cfg_c, **kw_c)
+    chunk_ms["dyn_adjoint"], _, d_adj_c = cuda_ms(
+        lambda: chunk_adj(alb, emi, c_u, c_t, g_main), **timing)
+    same_bits(f"dyn retrace adjoint = dyn sweep(collect), chunk {chunk}",
+              d_adj_c, d_sweep_c)
+    plain_ms["dyn_adjoint"], _, d_ref = cuda_ms(
+        lambda: dk.dyn_adjoint_plain(ds, cc, cfg_c, alb, emi, g_main,
+                                     cam_u=c_u, tape=c_t, fastmath=True),
+        **once)
+    err["dyn_adjoint"] = compare_grads(
+        f"dyn retrace adjoint (fast) vs plain, chunk {chunk}", d_adj_c,
+        d_ref, GRAD_RTOL_MAIN)
+    del c_u, c_t
+    for name in ms:
+        print(f"[time] {name} at the mesh main shape (1287 shapes, "
+              f"640x480x{cfg_m.spp}, {C} chunks): kernel {ms[name]!r} ms "
+              f"({n_rays / ms[name] / 1e3!r} Mrays/s); on chunk {chunk} "
+              f"alone (tape mode) kernel {chunk_ms[name]!r} ms, plain version "
+              f"{plain_ms[name]!r} ms on {smi_line}; window means: kernel "
+              f"{windows[name]!r}", flush=True)
+
+    # What the cull skipped, from the tracer's checking build. A group is
+    # the set of a warp's lanes that ran a piece of code together.
+    cs = dk.dyn_cull_stats(ds, cc, cfg_m, alb, emi, seeds, n_chunks=C)
+    same_bits("the checking build's radiance = the tracer's",
+              (cs.pop("radiance"),), (L_all,))
+    del L_all
+    warp_slots = -(-n_slots // 32) * C * D * ds.n_clusters
+    print(f"[cull] {cs}: of the {warp_slots} leaf triangle loops that "
+          f"{-(-n_slots // 32) * C * D} warp-bounces could run over "
+          f"{ds.n_clusters} leaves, lane groups ran {cs['warp_leaves']}: "
+          f"skipped share {1 - cs['warp_leaves'] / warp_slots!r}; a ray's own "
+          f"slab tests skip {1 - cs['lane_leaves'] / (cs['lane_bounces'] * ds.n_clusters)!r} "
+          f"of its {ds.n_clusters} leaves per live bounce; lanes at work "
+          f"per leaf triangle loop {cs['lane_leaves'] / cs['warp_leaves']!r} "
+          f"of 32; lanes per group entering the nearest-hit loop "
+          f"{cs['lane_bounces'] / cs['warp_bounces']!r}", flush=True)
+    # Every bounce-ray that the collect tracer stored as live went through
+    # the nearest-hit loop; the few more that did so missed (a ray that hit
+    # the light goes on with a zero direction).
+    check(live <= cs["lane_bounces"] <= 1.01 * live,
+          f"the checking build ran the nearest-hit loop for "
+          f"{cs['lane_bounces']} bounce-rays, the collect tracer stored "
+          f"{live} live ones")
+
+    # Bounds: bytes in and out once, or this run's operations: the tests
+    # the plain version counted on one chunk (planes, spheres, the boxes
+    # and the triangles of the leaves a ray's own slab test enters), times
+    # the number of chunks, with OPS_SHAPE per test and OPS_BOX per box.
+    ops_hit = C * (stats["plane"] * OPS_SHAPE[0] + stats["sphere"]
+                   * OPS_SHAPE[1] + stats["box"] * OPS_BOX
+                   + stats["tri"] * OPS_SHAPE[2])
+    ops_trace = n_rays * OPS_CAMERA + ops_hit + live * OPS_SHADE
+    scene_bytes = sum(t.numel() * 4 for t in ds.operands)
+    table_bytes = 4 * (alb.numel() + emi.numel())
+    res_bytes = 8 * n_rays * D
+    grad_bytes = table_bytes
+    work = {
+        "dyn_tracer": (scene_bytes + table_bytes + 12 * n_slots, ops_trace),
+        "dyn_collect": (scene_bytes + table_bytes + 12 * n_slots + res_bytes,
+                        ops_trace),
+        "dyn_sweep": (table_bytes + res_bytes + 4 * g_main.numel()
+                      + grad_bytes, live * OPS_SWEEP),
+        "dyn_adjoint": (scene_bytes + table_bytes + 4 * g_main.numel()
+                        + grad_bytes, ops_trace + live * OPS_SWEEP),
+    }
+    print(f"[bound] plain version's counts on chunk {chunk}: {stats}; live "
+          f"bounce-rays of the whole run {live} of {n_rays * D}", flush=True)
+    bound = {}
+    for name, (n_bytes, n_ops) in work.items():
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        bound[name] = (max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[bound] {name}: bytes={n_bytes} ({t_bytes!r} ms at "
+              f"{PEAK_BYTES_PER_S:.3g} B/s) operations={n_ops} ({t_ops!r} "
+              f"ms at {PEAK_F32_OPS_PER_S:.3g} op/s)", flush=True)
+
+    # Phase 10: the mesh main path through the user's entry points.
+    render = make_renderer(scene, cfg_m, cam, differentiable=False)
+    seed_list = [seeds_from_generator(torch.Generator().manual_seed(s))
+                 for s in (0, 1, 2, 3)]
+    launches = {}
+    mk.reset_launch_counts()
+    images, t_imgs = [], []
+    for s in seed_list:  # the first is the warm-up
+        t0 = time.perf_counter()
+        images.append(render(params, s))
+        torch.cuda.synchronize()
+        t_imgs.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    launches["dyn_tracer"] = counts["dyn_tracer"]
+    print(f"[mesh] make_renderer(auto -> cuda-dyn, differentiable=False) "
+          f"640x480x{cfg_m.spp}spp depth {D}: launches={counts} seconds="
+          f"{t_imgs[1:]!r} Mrays/s={[n_rays / t / 1e6 for t in t_imgs[1:]]!r}",
+          flush=True)
+    check(counts == only(dyn_tracer=len(seed_list)),
+          f"the mesh forward path launched {counts}")
+    for s, img in zip(seed_list[1:], images[1:]):
+        check(img.shape == (480, 640, 3) and img.dtype == torch.float32,
+              f"image {tuple(img.shape)} {img.dtype}")
+        reads_right(img, f"mesh, seed {s.tolist()}")
+    # The mesh's blue shows at the image centre, against the white back
+    # wall beside it.
+    centre = images[1][240:300, 290:350].mean((0, 1)).tolist()
+    print(f"[image] mesh centre rgb={centre}", flush=True)
+    check(centre[2] > 1.3 * centre[0], "the mesh at the centre is not blue")
+    target = images[1]
+    del images
+
+    def leaves_of(p):
+        return Params(*(t.detach().clone().requires_grad_() for t in p))
+
+    def step(render_fn, p, s, tgt):
+        p = leaves_of(p)
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - tgt) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad)
+
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    unbiased = dict(unbiased=True, adjoint_samples=2)
+    cfg_u = RenderConfig(**MESH_MAIN, **unbiased)
+    check(fused._resolve_adjoint(cfg_m, "auto", dev) == "stored",
+          "adjoint='auto' must resolve to 'stored' at the mesh main shape")
+    print(f"[mesh] residuals {fused.stored_bytes(cfg_m)} B of a budget of "
+          f"{fused.stored_budget_bytes(dev)} B", flush=True)
+    # Each form at full width for its time and launches; then on one chunk
+    # (640x480x16, spp_chunks=1) against backend="torch-dyn".
+    forms = (("stored (default)", cfg_m, {},
+              only(dyn_collect=1, dyn_sweep=1)),
+             ("retrace", cfg_m, dict(adjoint="retrace"),
+              only(dyn_tracer=1, dyn_adjoint=1)),
+             ("unbiased, 2 adjoint samples", cfg_u, {},
+              only(dyn_tracer=1, dyn_adjoint=2)))
+    for label, cfg_f, kw, expected in forms:
+        if kw:
+            render_fn = fused.make_dyn_image_renderer(scene, cam, cfg_f, **kw)
+        else:
+            render_fn = make_renderer(scene, cfg_f, cam)
+        counts, _ = time_steps(
+            f"mesh, {label}",
+            lambda: step(render_fn, p_off, seed_list[1], target), mk,
+            expected, n_rays)
+        if label == "retrace":
+            launches["dyn_adjoint"] = counts["dyn_adjoint"]
+        one = RenderConfig(width=cfg_m.width, height=cfg_m.height, spp=spp_c,
+                           max_depth=D, **(unbiased if cfg_f.unbiased
+                                           else {}))
+        pair = []
+        for plain in (False, True):
+            if kw:
+                fn = fused.make_dyn_image_renderer(scene, cam, one,
+                                                   plain=plain, **kw)
+            else:
+                fn = make_renderer(scene, one, cam, backend="torch-dyn"
+                                   if plain else "auto")
+            t0 = time.perf_counter()
+            pair.append(step(fn, p_off, seed_list[2], target))
+            torch.cuda.synchronize()
+            print(f"[grad] mesh, {label}, one chunk, "
+                  f"{'torch-dyn' if plain else 'cuda-dyn'}: loss="
+                  f"{pair[-1][0].item()!r} seconds="
+                  f"{time.perf_counter() - t0!r}", flush=True)
+        rel = abs(pair[0][0].item() / pair[1][0].item() - 1.0)
+        check(rel <= 1e-4, f"mesh, {label}: losses differ by {rel:.3g}")
+        compare_grads(f"mesh, {label}: grads vs backend='torch-dyn' on one "
+                      "chunk", pair[0][1], pair[1][1], GRAD_RTOL_MAIN)
+
+    # The trainer on the mesh: the icosphere's blue albedo, perturbed.
+    blue = 3
+    true_row = params.albedo[blue].clone()
+    start = params.albedo.clone()
+    start[blue] = torch.tensor([0.6, 0.2, 0.2], device=dev)
+    n_steps = 5
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted, metrics = optim.inverse_render(
+        scene, cfg_m, cam, target, Params(start, params.emission),
+        torch.Generator().manual_seed(5), steps=n_steps)
+    torch.cuda.synchronize()
+    t_train = (time.perf_counter() - t0) / n_steps
+    counts = mk.launch_counts()
+    launches["dyn_collect"] = counts["dyn_collect"]
+    launches["dyn_sweep"] = counts["dyn_sweep"]
+    before = (start[blue] - true_row).norm().item()
+    after = (fitted.albedo[blue] - true_row).norm().item()
+    print(f"[train] mesh inverse_render {n_steps} steps: launches={counts} "
+          f"seconds per step={t_train!r} loss={metrics['loss'].tolist()} "
+          f"grad_norm={metrics['grad_norm'].tolist()} blue row "
+          f"{start[blue].tolist()} -> {fitted.albedo[blue].tolist()} (true "
+          f"{true_row.tolist()}): distance {before!r} -> {after!r}",
+          flush=True)
+    check(counts == only(dyn_collect=2 * n_steps, dyn_sweep=2 * n_steps),
+          f"the mesh trainer launched {counts}")
+    check(bool(torch.isfinite(metrics["loss"]).all())
+          and bool(torch.isfinite(metrics["grad_norm"]).all()),
+          "the mesh trainer's metrics are not finite")
+    check(after < before, "the perturbed mesh albedo moved away from its "
+          "true value")
+    return {name: dict(launches=launches.get(name, 0), max_abs_err=err[name],
+                       ms=ms[name], plain_ms=plain_ms[name],
+                       bound_ms=bound[name][0], bound_by=bound[name][1],
+                       chunks=C, plain_ms_chunks=1,
+                       ms_one_chunk=chunk_ms[name]) for name in ms}
 
 
 def main() -> int:
@@ -487,8 +993,7 @@ def main() -> int:
     print(f"[main] make_renderer(cuda, differentiable=False) 640x480x256spp "
           f"depth 5: launches={counts} seconds={t_imgs[1:]!r} Mrays/s="
           f"{[n_rays / t / 1e6 for t in t_imgs[1:]]!r}", flush=True)
-    check(counts == dict(fused_tracer=len(seed_list), fused_collect=0,
-                         fused_sweep=0, fused_adjoint=0),
+    check(counts == only(fused_tracer=len(seed_list)),
           f"the forward path launched {counts}")
     t_twin = []
     for s, img in zip(seed_list[1:], images[1:]):
@@ -528,18 +1033,15 @@ def main() -> int:
     forms = (
         ("stored (default)", make_renderer(scene, cfg_m, cam),
          make_renderer(scene, cfg_m, cam, backend="torch"),
-         dict(fused_tracer=0, fused_collect=1, fused_sweep=1,
-              fused_adjoint=0)),
+         only(fused_collect=1, fused_sweep=1)),
         ("retrace", fused.make_fused_image_renderer(
             scene, cam, cfg_m, adjoint="retrace"),
          fused.make_fused_image_renderer(scene, cam, cfg_m,
                                          adjoint="retrace", plain=True),
-         dict(fused_tracer=1, fused_collect=0, fused_sweep=0,
-              fused_adjoint=1)),
+         only(fused_tracer=1, fused_adjoint=1)),
         ("unbiased, 2 adjoint samples", make_renderer(scene, cfg_u, cam),
          make_renderer(scene, cfg_u, cam, backend="torch"),
-         dict(fused_tracer=1, fused_collect=0, fused_sweep=0,
-              fused_adjoint=2)),
+         only(fused_tracer=1, fused_adjoint=2)),
     )
     check(fused._resolve_adjoint(cfg_m, "auto", dev) == "stored",
           "adjoint='auto' must resolve to 'stored' at the main shape")
@@ -547,31 +1049,11 @@ def main() -> int:
           f"{fused.stored_budget_bytes(dev)} B", flush=True)
     n_steps = 5
     for label, render_fn, twin_fn, expected in forms:
-        step(render_fn, p_off, seed_list[0])  # warm-up
-        torch.cuda.synchronize()
-        mk.reset_launch_counts()
-        t_sync = []
-        for k in range(n_steps):
-            t0 = time.perf_counter()
-            loss, grads = step(render_fn, p_off, seed_list[1])
-            torch.cuda.synchronize()
-            t_sync.append(time.perf_counter() - t0)
-        counts = mk.launch_counts()
-        check(counts == {k: v * n_steps for k, v in expected.items()},
-              f"{label}: {n_steps} steps launched {counts}")
+        counts, (loss, grads) = time_steps(
+            label, lambda: step(render_fn, p_off, seed_list[1]), mk,
+            expected, n_rays, n_steps)
         if label.startswith("retrace"):
             launches["fused_adjoint"] = counts["fused_adjoint"]
-        t0 = time.perf_counter()
-        for k in range(n_steps):
-            step(render_fn, p_off, seed_list[1])
-        torch.cuda.synchronize()
-        t_pipe = (time.perf_counter() - t0) / n_steps
-        print(f"[grad] {label}: loss={loss.item()!r} launches per "
-              f"{n_steps} steps={counts} seconds per fwd+bwd step "
-              f"synchronized={t_sync!r} pipelined={t_pipe!r} "
-              f"({n_rays / t_pipe / 1e6!r} Mrays/s)", flush=True)
-        check(all(bool(torch.isfinite(x).all()) and bool((x != 0).any())
-                  for x in grads), f"{label}: gradients not finite, or zero")
         t0 = time.perf_counter()
         loss_t, grads_t = step(twin_fn, p_off, seed_list[1])
         torch.cuda.synchronize()
@@ -603,38 +1085,53 @@ def main() -> int:
           f" (true {true_red.tolist()}): distance {before!r} -> {after!r}",
           flush=True)
     # The paired loss renders twice per step.
-    check(counts == dict(fused_tracer=0, fused_collect=2 * n_steps,
-                         fused_sweep=2 * n_steps, fused_adjoint=0),
+    check(counts == only(fused_collect=2 * n_steps,
+                         fused_sweep=2 * n_steps),
           f"the trainer launched {counts}")
     check(bool(torch.isfinite(metrics["loss"]).all())
           and bool(torch.isfinite(metrics["grad_norm"]).all()),
           "the trainer's metrics are not finite")
     check(after < before, "the perturbed albedo row moved away from its "
           "true value")
+    del target
+    torch.cuda.empty_cache()
+    dyn_rows = dyn_phases(dev, smi_line, dict(reps=10, warmup=10, windows=3))
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
 
-    replaces = {"fused_tracer": ("fused_tracer.cu", 1024),
-                "fused_collect": ("fused_tracer.cu", 1211),
-                "fused_sweep": ("fused_adjoint.cu", 1387),
-                "fused_adjoint": ("fused_adjoint.cu", 1497)}
-    for name in replaces:
-        check(launches.get(name, 0) >= 1,
+    rows = {name: dict(launches=launches.get(name, 0),
+                       max_abs_err=err[name], ms=ms[name],
+                       plain_ms=plain_ms[name], bound_ms=bound[name][0],
+                       bound_by=bound[name][1]) for name in ms}
+    rows.update(dyn_rows)
+    # name -> (source under csrc/, the TPU kernel's file and def line)
+    replaces = {"fused_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
+                "fused_collect": ("fused_tracer.cu", "megakernel.py:1211"),
+                "fused_sweep": ("fused_adjoint.cu", "megakernel.py:1387"),
+                "fused_adjoint": ("fused_adjoint.cu", "megakernel.py:1497"),
+                "dyn_tracer": ("dyn_tracer.cu", "dynkernel.py:937"),
+                "dyn_collect": ("dyn_tracer.cu", "dynkernel.py:1043"),
+                "dyn_sweep": ("dyn_adjoint.cu", "dynkernel.py:1193"),
+                "dyn_adjoint": ("dyn_adjoint.cu", "dynkernel.py:1300")}
+    check(tuple(replaces) == KERNELS and set(rows) == set(KERNELS),
+          f"kernels measured: {sorted(rows)}")
+    for name in KERNELS:
+        check(rows[name]["launches"] >= 1,
               f"{name} was launched no time on its path")
+    if FAILED:
+        raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
+    # No single PyTorch call computes any of these kernels: library_ms null.
+    # The dyn kernels' plain_ms is of one chunk of `chunks` (ms_one_chunk is
+    # the kernel on the same inputs); ms is the main path's launch.
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"drt_tpu_torch/csrc/{source}",
-        "replaces": f"drt_tpu/ops/megakernel.py:{line}",
-        "launches": launches[name],
-        "max_abs_err": err[name],
-        "ms": ms[name],
-        "plain_ms": plain_ms[name],
-        "bound_ms": bound[name][0],
-        "bound_by": bound[name][1],
+        "replaces": f"drt_tpu/ops/{tpu}",
+        **rows[name],
         "library_ms": None,
-    } for name, (source, line) in replaces.items()]}), flush=True)
+    } for name, (source, tpu) in replaces.items()]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,10 @@ imports torch and never jax.
 Ported so far: the main render path, forward and backward
 (`parallel.render.make_renderer`, differentiable by radiative backprop
 over the fused tracer, collect tracer, sweep adjoint and retrace adjoint
-kernels), the tape forms of `adjoint.make_diff_renderer`, and the Adam
-loop of `optim`.
+kernels), the same path over memory-resident scenes of up to 2048 shapes
+(`ops.dynkernel`: `DynScene` and four more kernels, for triangle meshes
+such as `models.gallery.build_mesh`), the tape forms of
+`adjoint.make_diff_renderer`, and the Adam loop of `optim`.
 """
 
 from drt_tpu_torch.adjoint import make_diff_image_renderer, make_diff_renderer

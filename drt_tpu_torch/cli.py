@@ -37,13 +37,15 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true",
                    help="trace in float64 (plain version on the CPU)")
-    p.add_argument("--backend", choices=("auto", "cuda", "torch"),
-                   default="auto",
-                   help="auto = the fused CUDA kernel on a card, the plain "
-                        "PyTorch version on the CPU")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda if a card is "
-                        "visible, else cpu)")
+    p.add_argument("--backend",
+                   choices=("auto", "cuda", "cuda-dyn", "torch",
+                            "torch-dyn"), default="auto",
+                   help="auto = the fused CUDA kernels for a scene on a "
+                        "card, the plain PyTorch version for one on the "
+                        "CPU")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; without a card the "
+                        "command fails unless --device cpu is given)")
     p.add_argument("--unbiased", action="store_true",
                    help="unbiased gradient mode: the backward retraces "
                         "with fresh samples (integrate.hpp:39-52) instead "
@@ -59,7 +61,11 @@ def _build(args):
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.models import cbox
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"drt_tpu_torch: no CUDA device is visible for "
+                         f"--device {device}; pass --device cpu to run the "
+                         "plain PyTorch version on the CPU")
     dtype = torch.float64 if args.f64 else torch.float32
     scene, params, cam = cbox.build(dtype=dtype, device=device)
     cfg = RenderConfig(width=args.width, height=args.height,

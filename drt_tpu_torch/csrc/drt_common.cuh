@@ -1,0 +1,248 @@
+// Device code shared by every tracer kernel of the port, scene-table
+// (fused_body.cuh) and memory-resident (dyn_body.cuh) alike: the launch
+// configuration, the keyed hash, the primary ray, the per-bounce uniforms
+// and the BxDF sample + weight of one hit.
+//
+// Every library is built with -fmad=false, so the same expression rounds
+// the same way in every instantiation: that is what makes a collect
+// tracer's radiance its tracer's, and a retrace adjoint's residuals the
+// collect tracer's, bit for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define DRT_BLOCK 128
+
+enum { PLANE = 0, SPHERE = 1, TRIANGLE = 2 };
+enum { DIFFUSE = 0, SPECULAR = 1, MIRROR = 2, NULL_BXDF = 3 };
+// Sign rule of pow(negative base, e): e not integral, even, odd.
+enum { POW_NONINT = 0, POW_EVEN = 1, POW_ODD = 2 };
+
+struct DrtCamera {
+  float eye[3], fwd[3], right[3], up[3];
+  float aspect_half, half;
+};
+
+struct DrtTrace {
+  int width, height, n_rays, spp_c, n_chunks, max_depth, min_bounces;
+  int n_shapes, n_alb, n_emi, internal_rng, fast;
+  float absorb, inv_keep;
+  uint32_t seed0, seed1;
+};
+
+static __device__ __forceinline__ uint32_t fmix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// drt_tpu/ops/regen.py:_hash_bits + _bits_to_open_unit.
+static __device__ __forceinline__ float hash_uniform(
+    uint32_t seed, uint32_t pix, uint32_t s, uint32_t b, uint32_t dim) {
+  uint32_t h = fmix(pix * 0x9E3779B9u + seed);
+  h = fmix(h ^ (s * 0x85EBCA6Bu) ^ (b * 0xC2B2AE35u) ^ (dim * 0x27D4EB2Fu));
+  int i23 = (int)(h >> 9);
+  return ((float)i23 + 0.5f) * (1.0f / 8388608.0f);
+}
+
+// max(x, 0) that keeps NaN, as jnp.maximum and torch.clamp do (fmaxf
+// would turn NaN into 0).
+static __device__ __forceinline__ float max0(float x) {
+  return x < 0.0f ? 0.0f : x;
+}
+
+template <bool FAST>
+static __device__ __forceinline__ float inv_sqrt(float x) {
+  return FAST ? rsqrtf(x) : 1.0f / sqrtf(x);
+}
+
+static __device__ __forceinline__ float dot3(float ax, float ay, float az,
+                                             float bx, float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+// Primary ray of ray slot i in spp chunk c
+// (megakernel.py:_camera_ray_from_pix; camera.hpp:51-60). Rays are
+// spp-outer: slot i covers pixel i % (W*H) and sample c*spp_c + i / (W*H).
+template <bool FAST, bool INTERNAL>
+static __device__ __forceinline__ void primary_ray(
+    const DrtTrace& cfg, const DrtCamera& cam,
+    const float* __restrict__ cam_u, int i, int c, int& pix, uint32_t& smp,
+    float& dx, float& dy, float& dz) {
+  const int npix = cfg.width * cfg.height;
+  pix = i % npix;
+  const int py = pix / cfg.width;
+  const int px = pix - py * cfg.width;
+  smp = (uint32_t)(c * cfg.spp_c + i / npix);
+  float us, ut;
+  if (INTERNAL) {
+    us = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 0u);
+    ut = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 1u);
+  } else {
+    us = cam_u[i];
+    ut = cam_u[cfg.n_rays + i];
+  }
+  float s = ((float)px + us) / (float)cfg.width;
+  float t = ((float)py + ut) / (float)cfg.height;
+  float a = (2.0f * s - 1.0f) * cam.aspect_half;
+  float b = (2.0f * t - 1.0f) * cam.half;
+  dx = (cam.fwd[0] + a * cam.right[0]) + b * (-cam.up[0]);
+  dy = (cam.fwd[1] + a * cam.right[1]) + b * (-cam.up[1]);
+  dz = (cam.fwd[2] + a * cam.right[2]) + b * (-cam.up[2]);
+  float inv = inv_sqrt<FAST>(dx * dx + dy * dy + dz * dz);
+  dx = dx * inv; dy = dy * inv; dz = dz * inv;
+}
+
+// The (rr, u1, u2) uniforms of bounce bnc.
+template <bool INTERNAL>
+static __device__ __forceinline__ void bounce_uniforms(
+    const DrtTrace& cfg, const float* __restrict__ tape, int i, int pix,
+    uint32_t smp, int bnc, float& u_rr, float& u1, float& u2) {
+  if (INTERNAL) {
+    u_rr = hash_uniform(cfg.seed1, (uint32_t)pix, smp, (uint32_t)bnc, 0u);
+    u1 = hash_uniform(cfg.seed1, (uint32_t)pix, smp, (uint32_t)bnc, 1u);
+    u2 = hash_uniform(cfg.seed1, (uint32_t)pix, smp, (uint32_t)bnc, 2u);
+  } else {
+    const int N = cfg.n_rays;
+    const float* ub = tape + (size_t)bnc * 3 * N;
+    u_rr = ub[i];
+    u1 = ub[N + i];
+    u2 = ub[2 * N + i];
+  }
+}
+
+// Shade (megakernel.py:_shade, dynkernel.py:_dyn_shade): sample dir_out
+// (wx, wy, wz) and sc = s * cos / pdf for material type mt about the raw
+// normal n, with d_in pointing away from the surface. `spec` gives the
+// specular exponent e (expo()), 1 / (e + 2) (inv_e2()) and the sign rule
+// of pow for it (pow_mode()); it is asked only in the specular branch.
+// mt < 0 (a dead lane) and NULL_BXDF keep dir_out = 0, sc = 0.
+template <bool FAST, class Spec>
+static __device__ __forceinline__ void shade(
+    int mt, const Spec& spec, float nx, float ny, float nz, float dinx,
+    float diny, float dinz, float u1, float u2, float& wx, float& wy,
+    float& wz, float& sc) {
+  const float PI_F = 3.14159265358979323846f;
+  const float TWO_PI_F = (float)(2.0 * 3.14159265358979323846);
+  const float INV_PI_F = (float)(1.0 / 3.14159265358979323846);
+  wx = 0.0f; wy = 0.0f; wz = 0.0f; sc = 0.0f;
+  if (mt == DIFFUSE || mt == SPECULAR) {
+    // Frame about the raw normal (bxdf.hpp:29-41).
+    const bool use_e1 = fabsf(nx) < fabsf(ny);
+    const float tvx = use_e1 ? 1.0f - nx * nx : -nx * ny;
+    const float tvy = use_e1 ? -ny * nx : 1.0f - ny * ny;
+    const float tvz = use_e1 ? -nz * nx : -nz * ny;
+    const float tinv = inv_sqrt<FAST>(dot3(tvx, tvy, tvz, tvx, tvy, tvz));
+    const float tx = tvx * tinv, ty = tvy * tinv, tz = tvz * tinv;
+    float bx = ny * tz - nz * ty;
+    float by = nz * tx - nx * tz;
+    float bz = nx * ty - ny * tx;
+    const float binv = inv_sqrt<FAST>(dot3(bx, by, bz, bx, by, bz));
+    bx = bx * binv; by = by * binv; bz = bz * binv;
+    const float cos_phi = cosf(TWO_PI_F * u2);
+    const float sin_phi = sinf(TWO_PI_F * u2);
+    if (mt == DIFFUSE) {
+      // theta = asin(sqrt(u1)): cos = sqrt(1-u1), sin = sqrt(u1).
+      const float cos_t = sqrtf(max0(1.0f - u1));
+      const float sin_t = sqrtf(u1);
+      const float fx = cos_phi * sin_t, fy = sin_phi * sin_t;
+      wx = (tx * fx + bx * fy) + nx * cos_t;
+      wy = (ty * fx + by * fy) + ny * cos_t;
+      wz = (tz * fx + bz * fy) + nz * cos_t;
+      const float cos_geom = dot3(nx, ny, nz, wx, wy, wz);
+      if (FAST) {
+        sc = u1 < 1.0f ? cos_geom * rsqrtf(1.0f - u1) : 0.0f;
+      } else {
+        const float pdf = cos_t / PI_F;
+        sc = pdf > 0.0f ? INV_PI_F * cos_geom / pdf : 0.0f;
+      }
+    } else {
+      // Half-vector sampling (bxdf.hpp:106-120): cos_h = u1^(1/(e+2)).
+      const float e = spec.expo();
+      const float cos_h = powf(u1, spec.inv_e2());
+      const float sin_h = sqrtf(max0(1.0f - cos_h * cos_h));
+      const float fx = cos_phi * sin_h, fy = sin_phi * sin_h;
+      float hx = (tx * fx + bx * fy) + nx * cos_h;
+      float hy = (ty * fx + by * fy) + ny * cos_h;
+      float hz = (tz * fx + bz * fy) + nz * cos_h;
+      if (dot3(hx, hy, hz, dinx, diny, dinz) < 0.0f) {
+        const float k = 2.0f * dot3(nx, ny, nz, hx, hy, hz);
+        hx = -hx + k * nx; hy = -hy + k * ny; hz = -hz + k * nz;
+      }
+      const float k = 2.0f * dot3(hx, hy, hz, dinx, diny, dinz);
+      wx = -dinx + k * hx; wy = -diny + k * hy; wz = -dinz + k * hz;
+      // eval (bxdf.hpp:93-104) with the halfway vector recomputed
+      // from dir_in and dir_out.
+      float hwx = dinx + wx, hwy = diny + wy, hwz = dinz + wz;
+      const float hw2 = dot3(hwx, hwy, hwz, hwx, hwy, hwz);
+      const float hinv = inv_sqrt<FAST>(hw2);
+      hwx = hwx * hinv; hwy = hwy * hinv; hwz = hwz * hinv;
+      const float cos_he = dot3(nx, ny, nz, hwx, hwy, hwz);
+      const float sin_he = sqrtf(max0(1.0f - cos_he * cos_he));
+      // C++ pow for a negative base (ops/bxdf.py:_pow_cpp).
+      const float mag = powf(fabsf(cos_he), e);
+      const int pow_mode = spec.pow_mode();
+      float powv;
+      if (pow_mode == POW_NONINT)
+        powv = cos_he < 0.0f ? __int_as_float(0x7fffffff) : mag;
+      else if (pow_mode == POW_ODD)
+        powv = mag * (cos_he < 0.0f ? -1.0f : 1.0f);
+      else
+        powv = mag;
+      const float cos_geom = dot3(nx, ny, nz, wx, wy, wz);
+      if (FAST) {
+        const float denom = powf(cos_h, e + 1.0f) * sin_h;
+        sc = (denom > 0.0f && hw2 > 0.0f)
+                 ? powv * sin_he * cos_geom / denom : 0.0f;
+      } else {
+        const float norm = (e + 2.0f) / TWO_PI_F;
+        const float pdf = norm * powf(cos_h, e + 1.0f) * sin_h;
+        float s_val = norm * powv * sin_he;
+        s_val = hw2 > 0.0f ? s_val : 0.0f;
+        sc = pdf > 0.0f ? s_val * cos_geom / pdf : 0.0f;
+      }
+    }
+  } else if (mt == MIRROR) {
+    const float k = 2.0f * dot3(nx, ny, nz, dinx, diny, dinz);
+    wx = -dinx + k * nx; wy = -diny + k * ny; wz = -dinz + k * nz;
+    const float cos_geom = dot3(nx, ny, nz, wx, wy, wz);
+    if (FAST)
+      sc = cos_geom != 0.0f ? 1.0f : 0.0f;
+    else
+      sc = cos_geom != 0.0f ? (1.0f / cos_geom) * cos_geom : 0.0f;
+  }
+}
+
+// One bounce of the reverse sweep (megakernel.py:_reverse_sweep,
+// dynkernel.py:_dyn_reverse_sweep) of one ray slot into its accumulator
+// column: entry k lives at acc[k * DRT_BLOCK], albedo rows first (acc_a),
+// then emission rows (acc_e), 3 entries each. arow / erow are the real
+// table rows of the bounce, or -1 for a sentinel row (a = 1, e = 0).
+//   d_emission[erow] += g P;  d_albedo[arow] += (g P) sc S
+//   S = (e + a sc S) gate
+static __device__ __forceinline__ void sweep_bounce(
+    float* acc_a, float* acc_e, int arow, int erow, const float a[3],
+    const float e[3], const float P[3], float sc, float gate,
+    const float g[3], float S[3]) {
+  const float gPx = g[0] * P[0], gPy = g[1] * P[1], gPz = g[2] * P[2];
+  if (erow >= 0) {
+    float* p = acc_e + erow * 3 * DRT_BLOCK;
+    p[0] = p[0] + gPx;
+    p[DRT_BLOCK] = p[DRT_BLOCK] + gPy;
+    p[2 * DRT_BLOCK] = p[2 * DRT_BLOCK] + gPz;
+  }
+  if (arow >= 0) {
+    float* p = acc_a + arow * 3 * DRT_BLOCK;
+    p[0] = p[0] + gPx * sc * S[0];
+    p[DRT_BLOCK] = p[DRT_BLOCK] + gPy * sc * S[1];
+    p[2 * DRT_BLOCK] = p[2 * DRT_BLOCK] + gPz * sc * S[2];
+  }
+  S[0] = (e[0] + a[0] * sc * S[0]) * gate;
+  S[1] = (e[1] + a[1] * sc * S[1]) * gate;
+  S[2] = (e[2] + a[2] * sc * S[2]) * gate;
+}

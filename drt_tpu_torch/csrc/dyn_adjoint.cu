@@ -1,0 +1,265 @@
+// Radiative-backprop adjoints over a memory-resident scene for Hopper
+// (sm_90a): parameter gradients (d_albedo f32[K+1, 3], d_emission
+// f32[L+1, 3]) of sum_rays g . L from a per-ray (or per-pixel) cotangent.
+//
+//  - drt_dyn_sweep replaces drt_tpu/ops/dynkernel.py:make_dyn_sweep_adjoint
+//    (pallas_call at dynkernel.py:1286): from the residuals (rsc, rrow)
+//    that the collect tracer of dyn_tracer.cu stored, it replays
+//    gate_b = rr_b [live_b], P_b = T_{b-1} gate_b, T_b = P_b a_b sc_b in
+//    the forward's op order and runs the reverse sweep. The residuals
+//    carry the table ROWS of every bounce (albedo row | emission row << 8
+//    | live << 16), so this kernel reads no scene at all.
+//  - drt_dyn_adjoint replaces dynkernel.py:make_dyn_adjoint (pallas_call
+//    at :1408): it retraces the forward with the bounce body of
+//    dyn_body.cuh, keeping P, sc, gate and the rows of every bounce in the
+//    thread, then runs the same reverse sweep. Unbiased mode calls it with
+//    a salted bounce seed.
+//
+// The reverse sweep is sweep_bounce of drt_common.cuh per bounce, from the
+// last to the first, and the gradient tables are accumulated without float
+// atomics by the routines of grad_accum.cuh, as in fused_adjoint.cu. Both
+// kernels here use the same block size, ray -> block map, chunk order and
+// routines, so the retrace adjoint equals the sweep adjoint fed the
+// collect tracer's residuals bit for bit, and two runs give the same bits.
+//
+// The accumulator takes (real albedo rows + real emission rows) x 3 x 512
+// bytes of dynamic shared memory beside the 6 KB of parameter tables: 6 KB
+// for a scene of 4 + 1 rows, and DYN_MAX_GRAD_ROWS = 144 real rows at the
+// 227 KB a block may have. The residual format allows 255 + 255; above 144
+// the launch is refused (the wrapper raises with the count).
+//
+// max_depth is a run-time value; the per-bounce values live in thread
+// arrays of a compile-time size. The sweep adjoint is built for 8 bounces
+// (registers) and for DRT_MAX_DEPTH = 32, and the launch takes the smaller
+// that holds max_depth; the retrace adjoint indexes its arrays by the
+// body's bounce counter, so they live in local memory and it is built for
+// 32 only. Deeper paths are refused.
+//
+// What bounds them: the sweep adjoint is bound by device memory, 8 bytes
+// per bounce-ray read once against about 20 f32 operations. The retrace
+// adjoint is bound like the tracer, by the triangle tests and warp
+// divergence; the sweep adds a few percent to its work.
+
+#include "dyn_body.cuh"
+#include "grad_accum.cuh"
+
+#define DRT_MAX_DEPTH 32
+#define DRT_SMALL_DEPTH 8
+#define DYN_MAX_GRAD_ROWS 144
+
+// Per-bounce values of one ray slot in one chunk; rows = albedo row |
+// emission row << 8.
+template <int DMAX>
+struct DynResiduals {
+  float P[DMAX][3];
+  float sc[DMAX];
+  float gate[DMAX];
+  int rows[DMAX];
+};
+
+// The hook of the retrace adjoint.
+struct DynKeepResidual {
+  DynResiduals<DRT_MAX_DEPTH>& r;
+  __device__ __forceinline__ void operator()(int b, float Px, float Py,
+                                             float Pz, float sc, float gate,
+                                             int arow, int erow, bool) const {
+    r.P[b][0] = Px; r.P[b][1] = Py; r.P[b][2] = Pz;
+    r.sc[b] = sc;
+    r.gate[b] = gate;
+    r.rows[b] = arow | (erow << DYN_ROW_BITS);
+  }
+};
+
+// Reverse sweep of one ray slot's chunk into the thread's accumulator
+// column `acc` (dynkernel.py:_dyn_reverse_sweep).
+template <int DMAX>
+static __device__ __forceinline__ void dyn_reverse_sweep(
+    const DrtTrace& cfg, const DynTables& tab, const DynResiduals<DMAX>& r,
+    float gx, float gy, float gz, float* acc) {
+  float S[3] = {0.0f, 0.0f, 0.0f};
+  const float g[3] = {gx, gy, gz};
+  float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
+#pragma unroll
+  for (int b = DMAX - 1; b >= 0; --b) {
+    if (b >= cfg.max_depth) continue;
+    const int ar = r.rows[b] & (DYN_MAX_ROWS - 1);
+    const int er = r.rows[b] >> DYN_ROW_BITS;
+    float e[3] = {0.0f, 0.0f, 0.0f};
+    float a[3] = {1.0f, 1.0f, 1.0f};
+    int erow = -1, arow = -1;
+    if (er < cfg.n_emi - 1) {
+      erow = er;
+      e[0] = tab.emi[er * 3 + 0];
+      e[1] = tab.emi[er * 3 + 1];
+      e[2] = tab.emi[er * 3 + 2];
+    }
+    if (ar < cfg.n_alb - 1) {
+      arow = ar;
+      a[0] = tab.alb[ar * 3 + 0];
+      a[1] = tab.alb[ar * 3 + 1];
+      a[2] = tab.alb[ar * 3 + 2];
+    }
+    sweep_bounce(acc, acc_e, arow, erow, a, e, r.P[b], r.sc[b], r.gate[b],
+                 g, S);
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(DRT_BLOCK)
+dyn_sweep_kernel(DrtTrace cfg, const float* __restrict__ alb,
+                 const float* __restrict__ emi,
+                 const float* __restrict__ rsc,
+                 const int* __restrict__ rrow, const float* __restrict__ g,
+                 int g_n, float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ DynTables tab;
+  dyn_stage_tables(cfg, alb, emi, tab);
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = cfg.n_rays;
+  if (i < N) {
+    const int gi = i % g_n;
+    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
+    for (int c = 0; c < cfg.n_chunks; ++c) {
+      DynResiduals<DMAX> r;
+      const size_t base = (size_t)c * cfg.max_depth * N + i;
+      float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
+#pragma unroll
+      for (int b = 0; b < DMAX; ++b) {
+        if (b >= cfg.max_depth) continue;
+        const float sc = rsc[base + (size_t)b * N];
+        const int pack = rrow[base + (size_t)b * N];
+        const bool live = (pack >> (2 * DYN_ROW_BITS)) > 0;
+        const int ar = pack & (DYN_MAX_ROWS - 1);
+        const float rr = b >= cfg.min_bounces ? cfg.inv_keep : 1.0f;
+        const float gate = live ? rr : 0.0f;
+        const float Px = Tx * gate, Py = Ty * gate, Pz = Tz * gate;
+        float ax = 1.0f, ay = 1.0f, az = 1.0f;
+        if (ar < cfg.n_alb - 1) {
+          ax = tab.alb[ar * 3 + 0];
+          ay = tab.alb[ar * 3 + 1];
+          az = tab.alb[ar * 3 + 2];
+        }
+        Tx = Px * ax * sc;
+        Ty = Py * ay * sc;
+        Tz = Pz * az * sc;
+        r.P[b][0] = Px; r.P[b][1] = Py; r.P[b][2] = Pz;
+        r.sc[b] = sc;
+        r.gate[b] = gate;
+        r.rows[b] = pack & ((1 << (2 * DYN_ROW_BITS)) - 1);
+      }
+      dyn_reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
+    }
+  }
+  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
+}
+
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+dyn_adjoint_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
+                   DynOperands scn, const float* __restrict__ alb,
+                   const float* __restrict__ emi,
+                   const float* __restrict__ cam_u,
+                   const float* __restrict__ tape,
+                   const float* __restrict__ g, int g_n,
+                   float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ DynTables tab;
+  dyn_stage_tables(cfg, alb, emi, tab);
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < cfg.n_rays) {
+    const int gi = i % g_n;
+    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
+    for (int c = 0; c < cfg.n_chunks; ++c) {
+      DynResiduals<DRT_MAX_DEPTH> r;
+      DynKeepResidual hook{r};
+      float lx, ly, lz;
+      dyn_trace_chunk<FAST, INTERNAL, false>(cfg, lay, cam, scn, tab, cam_u,
+                                             tape, i, c, hook, lx, ly, lz,
+                                             nullptr);
+      dyn_reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
+    }
+  }
+  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
+}
+
+static bool dyn_adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
+  return dyn_tables_ok(cfg) && cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0 &&
+         cfg->n_alb - 1 + cfg->n_emi - 1 <= DYN_MAX_GRAD_ROWS;
+}
+
+extern "C" {
+
+int drt_dyn_adjoint_limits(int* max_rows, int* max_grad_rows, int* max_depth,
+                           int* block) {
+  *max_rows = DYN_MAX_ROWS;
+  *max_grad_rows = DYN_MAX_GRAD_ROWS;
+  *max_depth = DRT_MAX_DEPTH;
+  *block = DRT_BLOCK;
+  return 0;
+}
+
+// Each entry point launches its adjoint kernel and the reduction of the
+// partials on `stream` and returns the first CUDA error (0 on success).
+// `partials` is scratch of ceil(n_rays / block) x entries floats; g is
+// f32[3, g_n] with g_n = n_rays (per ray) or width * height (per pixel).
+int drt_dyn_sweep(const DrtTrace* cfg, const float* alb, const float* emi,
+                  const float* rsc, const int* rrow, const float* g, int g_n,
+                  float* partials, float* da, float* de, void* stream) {
+  if (!dyn_adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
+  int rc;
+#define DRT_LAUNCH(DMAX)                                                   \
+  rc = allow_shared(dyn_sweep_kernel<DMAX>, bytes);                        \
+  if (rc) return rc;                                                       \
+  dyn_sweep_kernel<DMAX><<<grid, DRT_BLOCK, bytes, s>>>(                   \
+      *cfg, alb, emi, rsc, rrow, g, g_n, partials)
+  if (cfg->max_depth <= DRT_SMALL_DEPTH) { DRT_LAUNCH(DRT_SMALL_DEPTH); }
+  else { DRT_LAUNCH(DRT_MAX_DEPTH); }
+#undef DRT_LAUNCH
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
+int drt_dyn_adjoint(const DrtTrace* cfg, const DynLayout* lay,
+                    const DrtCamera* cam, const DynOperands* scn,
+                    const float* alb, const float* emi, const float* cam_u,
+                    const float* tape, const float* g, int g_n,
+                    float* partials, float* da, float* de, void* stream) {
+  if (!dyn_cfg_ok(cfg, lay) || !dyn_adjoint_cfg_ok(cfg, g_n))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
+  int rc;
+#define DRT_LAUNCH(F, I)                                                   \
+  rc = allow_shared(dyn_adjoint_kernel<F, I>, bytes);                      \
+  if (rc) return rc;                                                       \
+  dyn_adjoint_kernel<F, I><<<grid, DRT_BLOCK, bytes, s>>>(                 \
+      *cfg, *lay, *cam, *scn, alb, emi, cam_u, tape, g, g_n, partials)
+  if (cfg->fast) {
+    if (cfg->internal_rng) { DRT_LAUNCH(true, true); }
+    else { DRT_LAUNCH(true, false); }
+  } else {
+    if (cfg->internal_rng) { DRT_LAUNCH(false, true); }
+    else { DRT_LAUNCH(false, false); }
+  }
+#undef DRT_LAUNCH
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
+const char* drt_dyn_adjoint_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -22,21 +22,12 @@
 //   S = (e_b + a_b sc_b S) gate_b
 //
 // How the TPU design maps here:
-//  - The TPU sums a tile's contributions with masked jnp.sums and adds the
-//    tile's partials to SMEM accumulators over a grid that runs in order
-//    (_accumulate_grad_smem, :641-666). Blocks here run in no order, and a
-//    float atomic would make the sum depend on the order of arrival. So
-//    every thread owns one column of a [entries][128] accumulator in shared
-//    memory (entries = real albedo rows x 3 + real emission rows x 3) and
-//    adds its own contributions there, chunk after chunk and bounce after
-//    bounce, with no other thread involved; at the end the block sums each
-//    entry over its 128 columns in a fixed order (4 columns per lane, then
-//    a shuffle tree) and writes one row of partials; a second kernel sums
-//    the partials of all blocks per entry, again in a fixed order, and
-//    writes the gradient tables with their sentinel rows zero. Both adjoint
-//    kernels use the same block size, the same ray -> block map, the same
-//    chunk order and these same routines, so for equal residuals their
-//    gradients are equal bit for bit, and two runs give the same bits.
+//  - The gradient tables are accumulated without float atomics, by the
+//    routines of grad_accum.cuh (one shared-memory column per thread, a
+//    fixed-order block reduction, per-block partials, a second kernel).
+//    Both adjoint kernels use the same block size, the same ray -> block
+//    map, the same chunk order and these same routines, so for equal
+//    residuals their gradients are equal bit for bit.
 //  - The accumulator takes (K + L) x 3 x 512 bytes: 6 KB for the Cornell
 //    box, 189 KB at the 63 + 63 real rows the tables can hold, which fits
 //    a block's 227 KB beside the 10 KB of tables (one block per SM then).
@@ -57,10 +48,10 @@
 // divergence; the sweep adds a few percent to its work.
 
 #include "fused_body.cuh"
+#include "grad_accum.cuh"
 
 #define DRT_MAX_DEPTH 32
 #define DRT_SMALL_DEPTH 8
-#define DRT_REDUCE_THREADS 256
 
 // Per-bounce values of one ray slot in one chunk.
 template <int DMAX>
@@ -84,88 +75,41 @@ struct KeepResidual {
   }
 };
 
-// Accumulator entries: albedo rows first, then emission rows, 3 each.
-static __host__ __device__ __forceinline__ int n_entries(const DrtTrace& c) {
-  return (c.n_alb - 1 + c.n_emi - 1) * 3;
-}
-
 // Reverse sweep of one ray slot's chunk into the thread's accumulator
 // column `acc` (entry e lives at acc[e * DRT_BLOCK]).
 template <int DMAX>
 static __device__ __forceinline__ void reverse_sweep(
     const DrtTrace& cfg, const DrtTables& tab, const Residuals<DMAX>& r,
     float gx, float gy, float gz, float* acc) {
-  float Sx = 0.0f, Sy = 0.0f, Sz = 0.0f;
+  float S[3] = {0.0f, 0.0f, 0.0f};
+  const float g[3] = {gx, gy, gz};
   float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
 #pragma unroll
   for (int b = DMAX - 1; b >= 0; --b) {
     if (b >= cfg.max_depth) continue;
     const int best = r.best[b];
-    const float sc = r.sc[b];
-    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-    float ax = 1.0f, ay = 1.0f, az = 1.0f;
+    float e[3] = {0.0f, 0.0f, 0.0f};
+    float a[3] = {1.0f, 1.0f, 1.0f};
     int erow = -1, arow = -1;
     if (best > 0) {
       const float* rec = tab.scene + (best - 1) * DRT_REC;
       const int er = (int)rec[R_EMI];
       if (er < cfg.n_emi - 1) {
         erow = er;
-        ex = tab.emi[er * 3 + 0];
-        ey = tab.emi[er * 3 + 1];
-        ez = tab.emi[er * 3 + 2];
+        e[0] = tab.emi[er * 3 + 0];
+        e[1] = tab.emi[er * 3 + 1];
+        e[2] = tab.emi[er * 3 + 2];
       }
       const int ar = (int)rec[R_ALB];
       if (ar < cfg.n_alb - 1) {
         arow = ar;
-        ax = tab.alb[ar * 3 + 0];
-        ay = tab.alb[ar * 3 + 1];
-        az = tab.alb[ar * 3 + 2];
+        a[0] = tab.alb[ar * 3 + 0];
+        a[1] = tab.alb[ar * 3 + 1];
+        a[2] = tab.alb[ar * 3 + 2];
       }
     }
-    const float gPx = gx * r.P[b][0];
-    const float gPy = gy * r.P[b][1];
-    const float gPz = gz * r.P[b][2];
-    if (erow >= 0) {
-      float* p = acc_e + erow * 3 * DRT_BLOCK;
-      p[0] = p[0] + gPx;
-      p[DRT_BLOCK] = p[DRT_BLOCK] + gPy;
-      p[2 * DRT_BLOCK] = p[2 * DRT_BLOCK] + gPz;
-    }
-    if (arow >= 0) {
-      float* p = acc + arow * 3 * DRT_BLOCK;
-      p[0] = p[0] + gPx * sc * Sx;
-      p[DRT_BLOCK] = p[DRT_BLOCK] + gPy * sc * Sy;
-      p[2 * DRT_BLOCK] = p[2 * DRT_BLOCK] + gPz * sc * Sz;
-    }
-    const float gate = r.gate[b];
-    Sx = (ex + ax * sc * Sx) * gate;
-    Sy = (ey + ay * sc * Sy) * gate;
-    Sz = (ez + az * sc * Sz) * gate;
-  }
-}
-
-static __device__ __forceinline__ void zero_column(const DrtTrace& cfg,
-                                                   float* s_acc) {
-  const int E = n_entries(cfg);
-  for (int e = 0; e < E; ++e) s_acc[e * DRT_BLOCK + threadIdx.x] = 0.0f;
-}
-
-// Sum every entry over the block's columns in a fixed order and write the
-// block's row of partials. Every thread of the block calls this.
-static __device__ __forceinline__ void block_reduce_write(
-    const DrtTrace& cfg, const float* s_acc, float* __restrict__ partials) {
-  __syncthreads();
-  const int E = n_entries(cfg);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int e = warp; e < E; e += DRT_BLOCK / 32) {
-    const float* col = s_acc + e * DRT_BLOCK;
-    float v = col[lane];
-#pragma unroll
-    for (int k = 1; k < DRT_BLOCK / 32; ++k) v = v + col[lane + 32 * k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = v + __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) partials[(size_t)blockIdx.x * E + e] = v;
+    sweep_bounce(acc, acc_e, arow, erow, a, e, r.P[b], r.sc[b], r.gate[b],
+                 g, S);
   }
 }
 
@@ -181,7 +125,7 @@ fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
   extern __shared__ float s_acc[];
   __shared__ DrtTables tab;
   stage_tables(cfg, scene, alb, emi, tab);
-  zero_column(cfg, s_acc);
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int N = cfg.n_rays;
@@ -220,7 +164,7 @@ fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
       reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
     }
   }
-  block_reduce_write(cfg, s_acc, partials);
+  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
 template <bool FAST, bool INTERNAL>
@@ -236,7 +180,7 @@ fused_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
   extern __shared__ float s_acc[];
   __shared__ DrtTables tab;
   stage_tables(cfg, scene, alb, emi, tab);
-  zero_column(cfg, s_acc);
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < cfg.n_rays) {
@@ -251,63 +195,12 @@ fused_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
       reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
     }
   }
-  block_reduce_write(cfg, s_acc, partials);
-}
-
-// One block per entry of the padded gradient tables: a sentinel row gets
-// 0, a real row the sum of its partials over the blocks, each thread
-// taking every 256th block in ascending order, then a fixed tree.
-__global__ void __launch_bounds__(DRT_REDUCE_THREADS)
-reduce_partials_kernel(DrtTrace cfg, const float* __restrict__ partials,
-                       int n_blocks, float* __restrict__ da,
-                       float* __restrict__ de) {
-  __shared__ float s[DRT_REDUCE_THREADS];
-  const int na3 = cfg.n_alb * 3;
-  const int t = blockIdx.x;  // entry of [da | de], sentinel rows included
-  const bool is_alb = t < na3;
-  const int row = (is_alb ? t : t - na3) / 3;
-  const int ch = (is_alb ? t : t - na3) % 3;
-  float* dst = is_alb ? da + t : de + (t - na3);
-  if (row >= (is_alb ? cfg.n_alb : cfg.n_emi) - 1) {
-    if (threadIdx.x == 0) *dst = 0.0f;
-    return;
-  }
-  const int E = n_entries(cfg);
-  const int e = (is_alb ? 0 : (cfg.n_alb - 1) * 3) + row * 3 + ch;
-  float v = 0.0f;
-  for (int j = threadIdx.x; j < n_blocks; j += DRT_REDUCE_THREADS)
-    v = v + partials[(size_t)j * E + e];
-  s[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = DRT_REDUCE_THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] = s[threadIdx.x] + s[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *dst = s[0];
-}
-
-static int acc_bytes(const DrtTrace* cfg) {
-  return n_entries(*cfg) * DRT_BLOCK * (int)sizeof(float);
+  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
 static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
   return drt_cfg_ok(cfg) && cfg->max_depth >= 1 &&
          cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0;
-}
-
-static int reduce_partials(const DrtTrace* cfg, const float* partials,
-                           float* da, float* de, cudaStream_t s) {
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  reduce_partials_kernel<<<(cfg->n_alb + cfg->n_emi) * 3,
-                           DRT_REDUCE_THREADS, 0, s>>>(*cfg, partials, grid,
-                                                       da, de);
-  return (int)cudaGetLastError();
-}
-
-template <class Kernel>
-static int allow_shared(Kernel kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 extern "C" {
@@ -333,7 +226,7 @@ int drt_fused_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
   if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  const int bytes = acc_bytes(cfg);
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
   int rc;
 #define DRT_LAUNCH(DMAX)                                                   \
   rc = allow_shared(fused_sweep_kernel<DMAX>, bytes);                      \
@@ -345,7 +238,8 @@ int drt_fused_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
 #undef DRT_LAUNCH
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  return reduce_partials(cfg, partials, da, de, s);
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
 }
 
 int drt_fused_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
@@ -356,7 +250,7 @@ int drt_fused_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
   if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  const int bytes = acc_bytes(cfg);
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
   int rc;
 #define DRT_LAUNCH(F, I)                                                   \
   rc = allow_shared(fused_adjoint_kernel<F, I>, bytes);                    \
@@ -373,7 +267,8 @@ int drt_fused_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
 #undef DRT_LAUNCH
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  return reduce_partials(cfg, partials, da, de, s);
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
 }
 
 const char* drt_adjoint_error_string(int code) {

@@ -214,6 +214,39 @@ def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
     return render
 
 
+def _make_image_renderer(factories, scene: Scene, kernel_scene, cam: Camera,
+                         cfg: RenderConfig, rng: str, adjoint: str, fastmath,
+                         plain: bool, differentiable: bool):
+    """The image renderer over one kernel family: `factories` are its
+    (tracer, collect tracer, sweep adjoint, retrace adjoint) makers and
+    `kernel_scene` what they take for the scene."""
+    make_tracer, make_collect, make_sweep, make_adjoint = factories
+    _check_fused_cfg(cfg)
+    if rng == "tape":
+        if cfg.spp_chunks != 1:
+            raise ValueError("tape-mode fused renderer requires "
+                             "spp_chunks == 1 (one tape per launch)")
+        if cfg.unbiased:
+            raise ValueError("tape-mode fused renderer is biased-only: "
+                             "the tape IS the sample stream")
+    adjoint = _resolve_adjoint(cfg, adjoint, scene.device)
+    fm = _resolve_fastmath(fastmath, rng)
+    n_chunks = cfg.spp_chunks if rng == "internal" else 1
+    kw = dict(rng=rng, fastmath=fm, n_chunks=n_chunks, plain=plain)
+    tracer = make_tracer(kernel_scene, cam, cfg, **kw)
+    collect = sweep = adj = None
+    if differentiable and adjoint == "stored":
+        collect = make_collect(kernel_scene, cam, cfg, **kw)
+        sweep = make_sweep(kernel_scene, cfg, n_chunks=n_chunks, plain=plain)
+    elif differentiable:
+        adj = make_adjoint(kernel_scene, cam, cfg, **kw)
+    render = _build_renderer(scene, cfg, adjoint, n_chunks, tracer, collect,
+                             sweep, adj)
+    if differentiable:
+        return render
+    return torch.no_grad()(render)
+
+
 def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
                               rng: str = "internal", adjoint: str = "auto",
                               fastmath: bool | str = "auto",
@@ -239,28 +272,31 @@ def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
     differentiable=False renders under `torch.no_grad()` whatever the
     params ask for.
     """
-    _check_fused_cfg(cfg)
-    if rng == "tape":
-        if cfg.spp_chunks != 1:
-            raise ValueError("tape-mode fused renderer requires "
-                             "spp_chunks == 1 (one tape per launch)")
-        if cfg.unbiased:
-            raise ValueError("tape-mode fused renderer is biased-only: "
-                             "the tape IS the sample stream")
-    adjoint = _resolve_adjoint(cfg, adjoint, scene.device)
-    fm = _resolve_fastmath(fastmath, rng)
-    n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    kw = dict(rng=rng, fastmath=fm, n_chunks=n_chunks, plain=plain)
-    tracer = make_fused_tracer(scene, cam, cfg, **kw)
-    collect = sweep = adj = None
-    if differentiable and adjoint == "stored":
-        collect = make_fused_collect_tracer(scene, cam, cfg, **kw)
-        sweep = make_fused_sweep_adjoint(scene, cfg, n_chunks=n_chunks,
-                                         plain=plain)
-    elif differentiable:
-        adj = make_fused_adjoint(scene, cam, cfg, **kw)
-    render = _build_renderer(scene, cfg, adjoint, n_chunks, tracer, collect,
-                             sweep, adj)
-    if differentiable:
-        return render
-    return torch.no_grad()(render)
+    return _make_image_renderer(
+        (make_fused_tracer, make_fused_collect_tracer,
+         make_fused_sweep_adjoint, make_fused_adjoint), scene, scene, cam,
+        cfg, rng, adjoint, fastmath, plain, differentiable)
+
+
+def make_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
+                            rng: str = "internal", adjoint: str = "auto",
+                            fastmath: bool | str = "auto",
+                            plain: bool = False,
+                            differentiable: bool = True):
+    """`make_fused_image_renderer` over the memory-resident kernels
+    (`ops.dynkernel`): the same `render(params, seeds)` or `render(params,
+    cam_u, tape)`, RNG streams, adjoint modes and unbiased reseed, for
+    scenes of up to `MAX_DYN_SHAPES` shapes (triangle meshes), or whose
+    values change often. `scene` is a Scene or a prebuilt `DynScene`
+    (for a `cluster_k` of the caller's own). plain=True runs the plain
+    PyTorch versions (the "torch-dyn" backend)."""
+    from drt_tpu_torch.ops.dynkernel import (DynScene, make_dyn_adjoint,
+                                             make_dyn_collect_tracer,
+                                             make_dyn_sweep_adjoint,
+                                             make_dyn_tracer)
+
+    ds = DynScene.of(scene)
+    return _make_image_renderer(
+        (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
+         make_dyn_adjoint), ds.scene, ds, cam, cfg, rng, adjoint, fastmath,
+        plain, differentiable)

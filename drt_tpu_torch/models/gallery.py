@@ -1,12 +1,13 @@
 """Demo scenes that exercise the specular and mirror BRDFs
 (bxdf.hpp:85-144) and triangles, which the Cornell box never touches.
-Each is `drt_tpu.models.gallery`'s scene of the same name; the triangle
-mesh scene (`build_mesh`) belongs to the memory-resident kernels and
-waits for them.
+Each is `drt_tpu.models.gallery`'s scene of the same name. The triangle
+mesh scene (`build_mesh`) is the geometry class of the memory-resident
+kernels (`ops.dynkernel`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from drt_tpu_torch.camera import Camera, look_at
@@ -33,6 +34,79 @@ def build_glossy(dtype=torch.float32,
     b.plane([0.0, 1.0, 0.0], -3.0, b.diffuse(white))
     b.plane([0.0, -1.0, 0.0], -3.0, b.diffuse(white))
     b.sphere([0.0, 3.0, 3.0], 1.0, None, emission)
+
+    scene, params = b.build(dtype, device)
+    cam = look_at([0.0, 0.0, 0.0], [0.0, 0.0, 1.0], dtype=dtype,
+                  device=device)
+    return scene, params, cam
+
+
+def build_mesh(level: int = 1, dtype=torch.float32,
+               device=None) -> tuple[Scene, Params, Camera]:
+    """Triangle-mesh scene: a subdivided icosphere (20 * 4^level
+    triangles: 80, 320, 1280 at levels 1, 2, 3) in a Cornell-style box
+    under an area light, 87 / 327 / 1287 shapes in all. All mesh faces
+    share one diffuse material; the box walls give the usual red and
+    green gradient signal. The vertices are computed in float64 with
+    numpy, operation for operation as the JAX package does."""
+    # Icosahedron.
+    p = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, p, 0], [1, p, 0], [-1, -p, 0], [1, -p, 0],
+        [0, -1, p], [0, 1, p], [0, -1, -p], [0, 1, -p],
+        [p, 0, -1], [p, 0, 1], [-p, 0, -1], [-p, 0, 1],
+    ], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [
+        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+    ]
+    vlist = [tuple(v) for v in verts]
+
+    def midpoint(a, b):
+        m = (np.asarray(a) + np.asarray(b)) / 2.0
+        m /= np.linalg.norm(m)
+        return tuple(m)
+
+    for _ in range(level):
+        new_faces = []
+        for (a, b, c) in faces:
+            va, vb, vc = vlist[a], vlist[b], vlist[c]
+            ab, bc, ca = midpoint(va, vb), midpoint(vb, vc), \
+                midpoint(vc, va)
+            for v in (ab, bc, ca):
+                vlist.append(v)
+            i_ab, i_bc, i_ca = len(vlist) - 3, len(vlist) - 2, \
+                len(vlist) - 1
+            new_faces += [(a, i_ab, i_ca), (b, i_bc, i_ab),
+                          (c, i_ca, i_bc), (i_ab, i_bc, i_ca)]
+        faces = new_faces
+
+    b = SceneBuilder()
+    red = b.albedo_param([0.5, 0.1, 0.1])
+    green = b.albedo_param([0.1, 0.5, 0.1])
+    white = b.albedo_param([0.5, 0.5, 0.5])
+    blue = b.albedo_param([0.25, 0.3, 0.55])
+    emission = b.emission_param([2.0, 2.0, 2.0])
+    mesh_mat = b.diffuse(blue)
+
+    center = np.array([0.0, -0.6, 3.8])
+    radius = 1.2
+    for (i, j, k) in faces:
+        v0 = center + radius * np.asarray(vlist[i])
+        v1 = center + radius * np.asarray(vlist[j])
+        v2 = center + radius * np.asarray(vlist[k])
+        b.triangle(v0, v1, v2, mesh_mat)
+
+    b.plane([-1.0, 0.0, 0.0], -3.0, b.diffuse(red))
+    b.plane([1.0, 0.0, 0.0], -3.0, b.diffuse(green))
+    b.plane([0.0, 0.0, -1.0], -6.5, b.diffuse(white))
+    b.plane([0.0, 0.0, 1.0], 0.0, b.diffuse(white))
+    b.plane([0.0, 1.0, 0.0], -3.0, b.diffuse(white))
+    b.plane([0.0, -1.0, 0.0], -3.0, b.diffuse(white))
+    b.sphere([0.0, 2.9, 3.8], 0.8, None, emission)
 
     scene, params = b.build(dtype, device)
     cam = look_at([0.0, 0.0, 0.0], [0.0, 0.0, 1.0], dtype=dtype,

@@ -39,7 +39,9 @@ wrappers: for tensors on the CPU each runs its plain twin (the fused
 camera math, `renderer.trace_residuals`, and the replay and sweep in the
 kernels' op order, fed the same uniforms); for CUDA tensors it launches
 its kernel or raises. Each counts its launches in `<wrapper>.launches`;
-`launch_counts()` reads them all and `reset_launch_counts()` zeroes them.
+`launch_counts()` reads them all, with those of the memory-resident
+kernels (`ops.dynkernel`, which registers its wrappers here), and
+`reset_launch_counts()` zeroes them.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def scene_table(scene: Scene) -> torch.Tensor:
     if len(st) > MAX_SHAPES:
         raise ValueError(f"{len(st)} shapes exceed the fused tracer's "
                          f"table of {MAX_SHAPES}; larger scenes take the "
-                         "memory-resident kernels (ROADMAP A11, B6)")
+                         "memory-resident kernels (backend 'cuda-dyn')")
     geo = scene.shape_geo.detach().double().cpu().numpy()
     shape_mat = scene.shape_mat.tolist()
     shape_emit = scene.shape_emit.tolist()
@@ -223,24 +225,19 @@ def _per_ray(g: torch.Tensor, n: int) -> torch.Tensor:
     return g.repeat(1, n // g.shape[1])
 
 
-def fused_sweep_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
-                      emi: torch.Tensor, rsc: torch.Tensor,
-                      rbest: torch.Tensor, g: torch.Tensor):
-    """The plain twin of the sweep adjoint: replay `gate = rr [best > 0]`,
-    `P = T gate`, `T = (P a) sc` from the residuals in the kernel's op
-    order, then the reverse sweep of `adjoint._param_grads`. Returns
-    (d_albedo f[K+1, 3], d_emission f[L+1, 3]), sentinel rows zero."""
-    if rsc.ndim == 2:
-        rsc, rbest = rsc[None], rbest[None]
+def sweep_rows_plain(cfg: RenderConfig, alb: torch.Tensor,
+                     emi: torch.Tensor, rsc: torch.Tensor, rows_of,
+                     g: torch.Tensor):
+    """Replay and reverse sweep over residuals rsc f[C, D, n], shared by
+    the sweep twins of both kernel families: `rows_of(c, b)` gives (live
+    bool[n], albedo row i64[n], emission row i64[n]) of a bounce, the
+    sentinel rows on a dead lane. Replays `gate = rr [live]`, `P = T
+    gate`, `T = (P a) sc` in the kernels' op order, then the reverse sweep
+    of `adjoint._param_grads`. Returns (d_albedo f[K+1, 3], d_emission
+    f[L+1, 3]), sentinel rows zero."""
     n_chunks, D, n = rsc.shape
     dtype, dev = alb.dtype, alb.device
     n_alb, n_emi = alb.shape[0], emi.shape[0]
-    # Row of each table by best (0 = dead lane -> the sentinel rows).
-    arow_of = torch.tensor(
-        [n_alb - 1] + scene.mat_albedo[scene.shape_mat.long()].tolist(),
-        device=dev)
-    erow_of = torch.tensor([n_emi - 1] + scene.shape_emit.tolist(),
-                           device=dev)
     g = _per_ray(g, n)
     inv_keep = 1.0 / (1.0 - cfg.absorb_prob)
     da = torch.zeros((n_alb, 3), dtype=dtype, device=dev)
@@ -254,15 +251,14 @@ def fused_sweep_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
         T = torch.ones((3, n), dtype=dtype, device=dev)
         steps = []
         for b in range(D):
-            best = rbest[c, b].long()
+            live, arow, erow = rows_of(c, b)
             sc = rsc[c, b]
             rr = inv_keep if b >= cfg.min_bounces else 1.0
-            gate = torch.where(best > 0, rr, 0.0).to(dtype)
+            gate = torch.where(live, rr, 0.0).to(dtype)
             P = T * gate
-            arow = arow_of[best]
             a = alb[arow].T
             T = P * a * sc
-            steps.append((P, sc, gate, arow, erow_of[best], a))
+            steps.append((P, sc, gate, arow, erow, a))
         S = torch.zeros((3, n), dtype=dtype, device=dev)
         for P, sc, gate, arow, erow, a in reversed(steps):
             gP = g * P
@@ -270,6 +266,29 @@ def fused_sweep_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
             add_rows(da, arow, gP * sc * S, n_alb)
             S = (emi[erow].T + a * sc * S) * gate
     return da, de
+
+
+def fused_sweep_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
+                      emi: torch.Tensor, rsc: torch.Tensor,
+                      rbest: torch.Tensor, g: torch.Tensor):
+    """The plain twin of the sweep adjoint: `sweep_rows_plain` with the
+    rows of each bounce looked up from `rbest` (hit shape + 1, 0 for a
+    dead lane)."""
+    if rsc.ndim == 2:
+        rsc, rbest = rsc[None], rbest[None]
+    dev = alb.device
+    # Row of each table by best (0 = dead lane -> the sentinel rows).
+    arow_of = torch.tensor(
+        [alb.shape[0] - 1]
+        + scene.mat_albedo[scene.shape_mat.long()].tolist(), device=dev)
+    erow_of = torch.tensor([emi.shape[0] - 1] + scene.shape_emit.tolist(),
+                           device=dev)
+
+    def rows_of(c, b):
+        best = rbest[c, b].long()
+        return best > 0, arow_of[best], erow_of[best]
+
+    return sweep_rows_plain(cfg, alb, emi, rsc, rows_of, g)
 
 
 def fused_adjoint_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
@@ -375,6 +394,20 @@ def _device_of(name: str, alb: torch.Tensor) -> str:
     return alb.device.type
 
 
+def _seed_words(seeds, n_samples: int) -> list:
+    """The (camera, bounce) seed pair as two u32 words; [0, 0] in tape
+    mode."""
+    if seeds is None:
+        return [0, 0]
+    words = [int(v) & 0xFFFFFFFF for v in
+             (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
+    if len(words) != 2:
+        raise ValueError("seeds must hold 2 words (camera, bounce)")
+    if n_samples >= 2 ** 31:
+        raise ValueError("sample index exceeds 31 bits")
+    return words
+
+
 def _trace_config(cfg: RenderConfig, table, alb, emi, *, seeds=None,
                   fastmath: bool = False, n_chunks: int = 1) -> _DrtTrace:
     """Check the tables on the card and fill the kernels' config."""
@@ -393,14 +426,7 @@ def _trace_config(cfg: RenderConfig, table, alb, emi, *, seeds=None,
         raise ValueError(f"scene table has {table.shape[0]} shapes; the "
                          f"kernel takes 1..{MAX_SHAPES}")
     _check("scene table", table, (table.shape[0], REC), dev)
-    seed_words = [0, 0]
-    if seeds is not None:
-        seed_words = [int(v) & 0xFFFFFFFF for v in
-                      (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
-        if len(seed_words) != 2:
-            raise ValueError("seeds must hold 2 words (camera, bounce)")
-        if n_chunks * spp_c >= 2 ** 31:
-            raise ValueError("sample index exceeds 31 bits")
+    seed_words = _seed_words(seeds, n_chunks * spp_c)
     if 3 * n >= 2 ** 31:
         raise ValueError(f"{n} rays per chunk exceed the kernel's 32-bit "
                          "indexing; raise spp_chunks")
@@ -573,6 +599,13 @@ def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
 
 WRAPPERS = {"fused_tracer": fused_trace, "fused_collect": fused_collect,
             "fused_sweep": fused_sweep, "fused_adjoint": fused_adjoint}
+
+
+def register_wrappers(**wrappers) -> None:
+    """Join another kernel family's wrappers to the launch counts."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    WRAPPERS.update(wrappers)
 
 
 def reset_launch_counts() -> None:

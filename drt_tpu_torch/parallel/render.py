@@ -1,10 +1,13 @@
 """Renderer routing: the port of `drt_tpu.parallel.render`'s
 `resolve_backend` and `make_renderer` on a single device.
 
-Backends: "cuda" runs the fused kernels (the port of the JAX "pallas"
-backend) and needs the scene on a CUDA device; "torch" runs their plain
-PyTorch twins on the scene's device. The JAX package's other backends
-raise NotImplementedError naming the ROADMAP item that brings them.
+Backends: "cuda" runs the fused kernels over a scene table of at most
+`MAX_SHAPES` shapes (the port of the JAX "pallas" backend) and "cuda-dyn"
+the memory-resident kernels for up to `MAX_DYN_SHAPES` shapes (the port
+of "pallas-dyn"); both need the scene on a CUDA device. "torch" and
+"torch-dyn" run their plain PyTorch versions on the scene's device. The
+JAX package's other backends raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -13,15 +16,15 @@ import torch
 
 from drt_tpu_torch.camera import Camera
 from drt_tpu_torch.config import RenderConfig
+from drt_tpu_torch.ops.dynkernel import MAX_DYN_SHAPES
 from drt_tpu_torch.ops.megakernel import MAX_SHAPES
 from drt_tpu_torch.scene import Params, Scene
 
-BACKENDS = ("cuda", "torch")
+BACKENDS = ("cuda", "cuda-dyn", "torch", "torch-dyn")
 
 # JAX backends not ported yet -> the ROADMAP item (queue A) that ports them.
 _LATER = {
     "xla": "A4 (key-mode wavefront) and A8 (routing)",
-    "pallas-dyn": "A11 (memory-resident scenes, kernels B6-B9)",
     "pallas-split": "A12 (lane splitting)",
     "pallas-split-dyn": "A12 (lane splitting)",
     "pallas-regen": "A13 (regeneration renderers, kernels B10-B11)",
@@ -41,25 +44,29 @@ def _not_yet(what: str, item: str) -> NotImplementedError:
 
 def resolve_backend(scene: Scene, cfg: RenderConfig,
                     backend: str = "auto") -> str:
-    """Resolve "auto" to the backend make_renderer will use: "cuda" for
-    a float32 scene on a CUDA device, "torch" for a scene on the CPU.
+    """Resolve "auto" to the backend make_renderer will use. A scene on
+    the CPU takes "torch". A float32 scene on a CUDA device takes "cuda"
+    up to `MAX_SHAPES` shapes and "cuda-dyn" up to `MAX_DYN_SHAPES`.
 
-    A CUDA scene the kernel does not take (not float32, or more shapes
-    than its table holds) raises rather than silently running the plain
-    version on the card; pass backend="torch" to ask for that.
+    A CUDA scene the kernels do not take (not float32, or more shapes
+    than that) raises rather than silently running a plain version on the
+    card; pass backend="torch" to ask for that.
     """
     if backend != "auto":
         return backend
     if scene.device.type != "cuda":
         return "torch"
     if scene.shape_geo.dtype != torch.float32:
-        raise ValueError("the fused tracer kernel is float32; pass "
+        raise ValueError("the tracer kernels are float32; pass "
                          "backend='torch' for the plain version on the "
                          "card")
-    if scene.num_shapes > MAX_SHAPES:
-        raise _not_yet(f"a {scene.num_shapes}-shape scene on the card",
-                       _LATER["pallas-dyn"])
-    return "cuda"
+    if scene.num_shapes <= MAX_SHAPES:
+        return "cuda"
+    if scene.num_shapes <= MAX_DYN_SHAPES:
+        return "cuda-dyn"
+    raise _not_yet(f"a scene of {scene.num_shapes} shapes (more than the "
+                   f"{MAX_DYN_SHAPES} of backend 'cuda-dyn') on the card",
+                   _LATER["xla"])
 
 
 def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
@@ -79,13 +86,18 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
     if backend in _LATER:
         raise _not_yet(f"backend {backend!r}", _LATER[backend])
     if backend not in BACKENDS:
+        hint = (" (the JAX package's 'pallas' is 'cuda' here and "
+                "'pallas-dyn' is 'cuda-dyn')"
+                if backend in ("pallas", "pallas-dyn") else "")
         raise ValueError(f"unknown backend {backend!r}; the port has "
-                         f"{BACKENDS}")
-    if backend == "cuda" and scene.device.type != "cuda":
-        raise ValueError("backend 'cuda' needs the scene on a CUDA device, "
-                         f"not {scene.device}")
-    from drt_tpu_torch.fused import make_fused_image_renderer
+                         f"{BACKENDS}{hint}")
+    if backend.startswith("cuda") and scene.device.type != "cuda":
+        raise ValueError(f"backend {backend!r} needs the scene on a CUDA "
+                         f"device, not {scene.device}")
+    from drt_tpu_torch.fused import (make_dyn_image_renderer,
+                                     make_fused_image_renderer)
 
-    return make_fused_image_renderer(scene, cam, cfg,
-                                     plain=(backend == "torch"),
-                                     differentiable=differentiable)
+    make = (make_dyn_image_renderer if backend.endswith("-dyn")
+            else make_fused_image_renderer)
+    return make(scene, cam, cfg, plain=backend.startswith("torch"),
+                differentiable=differentiable)

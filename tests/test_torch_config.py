@@ -47,7 +47,8 @@ def test_import_leaves_jax_out():
     pulling in jax (or the JAX package)."""
     mods = [m.name for m in pkgutil.walk_packages(
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
-    assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.adjoint",
+    assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.ops.dynkernel",
+            "drt_tpu_torch.adjoint",
             "drt_tpu_torch.optim", "drt_tpu_torch.fused",
             "drt_tpu_torch.cli", "drt_tpu_torch.utils.native"} <= set(mods)
     code = ("import importlib, sys\n"
@@ -64,8 +65,11 @@ def test_build_key_covers_every_file_under_csrc(tmp_path, monkeypatch):
     every library to a new build directory; nothing is compiled here."""
     from drt_tpu_torch.utils import native
 
-    assert {"fused_tracer.cu", "fused_adjoint.cu"} <= set(native.sources())
-    assert (native.CSRC_DIR / "fused_body.cuh").exists()
+    assert native.sources() == ["dyn_adjoint.cu", "dyn_tracer.cu",
+                                "fused_adjoint.cu", "fused_tracer.cu"]
+    for header in ("drt_common.cuh", "grad_accum.cuh", "fused_body.cuh",
+                   "dyn_body.cuh"):
+        assert (native.CSRC_DIR / header).exists()
     a, b = native.library_path("fused_tracer.cu"), \
         native.library_path("fused_adjoint.cu")
     assert a.parent == b.parent and a.parent.parent == native.BUILD_DIR

@@ -1,5 +1,6 @@
-"""The fused CUDA kernels (tracer, collect tracer, sweep adjoint, retrace
-adjoint) against their plain PyTorch twins on the card. Every test needs
+"""The CUDA kernels of both families, scene-table ("fused") and
+memory-resident ("dyn"): tracer, collect tracer, sweep adjoint and retrace
+adjoint, against their plain PyTorch versions on the card. Every test needs
 an NVIDIA GPU, nvcc and sm_90a: marked `cuda`, they skip without a card.
 Run them there with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`
@@ -16,6 +17,7 @@ import torch
 
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.models import cbox, gallery
+from drt_tpu_torch.ops import dynkernel as dk
 from drt_tpu_torch.ops import megakernel as mk
 from drt_tpu_torch.ops.rng import hash_tapes
 from drt_tpu_torch.scene import albedo_table, emission_table
@@ -136,8 +138,9 @@ def test_collect_and_adjoints_are_bit_consistent(dev, make, fastmath):
                                                          tape, g)
     torch.cuda.synchronize()
     after = mk.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == dict(
-        fused_tracer=1, fused_collect=1, fused_sweep=2, fused_adjoint=1)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(fused_tracer=1, fused_collect=1, fused_sweep=2,
+                      fused_adjoint=1)
     assert torch.equal(L, L1)
     assert rbest.dtype == torch.int32 and rbest.max() <= scene.num_shapes
     for a, b, c in zip(d_sweep, d_again, d_adj):
@@ -226,4 +229,215 @@ def test_adjoint_wrappers_check_inputs(dev):
     g_pix = g[:, :64].contiguous()
     for a, b in zip(sweep(alb, emi, rsc, rbest, g_pix),
                     sweep(alb, emi, rsc, rbest, g_pix.repeat(1, 2))):
+        assert torch.equal(a, b)
+
+
+# The memory-resident kernels (ops.dynkernel).
+
+def _mesh(level):
+    def build(device=None):
+        return gallery.build_mesh(level, device=device)
+    return build
+
+
+DYN_SCENES = {"cbox": cbox.build, "glossy": gallery.build_glossy,
+              "tri": gallery.build_tri, "mesh87": _mesh(1)}
+DYN_CFG = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+DYN_N = 64 * 48 * 4
+
+
+@pytest.mark.parametrize("name", sorted(DYN_SCENES))
+def test_dyn_tape_exact_matches_plain(dev, name):
+    scene, params, cam, alb, emi = _setup(DYN_SCENES[name], dev)
+    cam_u, tape, _ = _tape_inputs(dev, DYN_N)
+    before = dk.dyn_trace.launches
+    got = dk.make_dyn_tracer(scene, cam, DYN_CFG, rng="tape")(
+        alb, emi, cam_u, tape)
+    torch.cuda.synchronize()
+    assert dk.dyn_trace.launches == before + 1
+    ref = dk.make_dyn_tracer(scene, cam, DYN_CFG, rng="tape", plain=True)(
+        alb, emi, cam_u, tape)
+    assert torch.isfinite(got).all() and ref.mean() > 0
+    assert _share_beyond(got, ref, 2e-5, 2e-6) <= 1e-3
+    assert abs(got.mean() / ref.mean() - 1) < 1e-5
+    fast = dk.make_dyn_tracer(scene, cam, DYN_CFG, rng="tape",
+                              fastmath=True)(alb, emi, cam_u, tape)
+    assert _share_beyond(fast, got, 2e-3, 1e-4) <= 1e-3
+
+
+def test_dyn_tracer_traces_the_fused_tracer_paths(dev):
+    """The same seeds give the same samples in both families."""
+    cfg = RenderConfig(width=32, height=24, spp=8, spp_chunks=2,
+                       max_depth=5)
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    seeds = torch.tensor([11, -12], dtype=torch.int32)
+    a = dk.make_dyn_tracer(scene, cam, cfg, n_chunks=2)(alb, emi, seeds)
+    b = mk.make_fused_tracer(scene, cam, cfg, n_chunks=2)(alb, emi, seeds)
+    assert _share_beyond(a, b, 2e-5, 2e-6) <= 1e-3
+    ref = dk.make_dyn_tracer(scene, cam, cfg, n_chunks=2, plain=True)(
+        alb, emi, seeds)
+    assert _share_beyond(a, ref, 2e-5, 2e-6) <= 1e-3
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("name", sorted(DYN_SCENES))
+def test_dyn_collect_and_adjoints_are_bit_consistent(dev, name, fastmath):
+    """The collect tracer's radiance is the tracer's; the retrace adjoint
+    is sweep(collect); two sweeps give the same bits."""
+    scene, params, cam, alb, emi = _setup(DYN_SCENES[name], dev)
+    ds = dk.DynScene(scene)
+    cam_u, tape, g = _tape_inputs(dev, DYN_N)
+    kw = dict(rng="tape", fastmath=fastmath)
+    before = mk.launch_counts()
+    L1 = dk.make_dyn_tracer(ds, cam, DYN_CFG, **kw)(alb, emi, cam_u, tape)
+    L, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, DYN_CFG, **kw)(
+        alb, emi, cam_u, tape)
+    sweep = dk.make_dyn_sweep_adjoint(ds, DYN_CFG)
+    d_sweep = sweep(alb, emi, rsc, rrow, g)
+    d_again = sweep(alb, emi, rsc, rrow, g)
+    d_adj = dk.make_dyn_adjoint(ds, cam, DYN_CFG, **kw)(alb, emi, cam_u,
+                                                        tape, g)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(dyn_tracer=1, dyn_collect=1, dyn_sweep=2,
+                      dyn_adjoint=1)
+    assert torch.equal(L, L1)
+    live = (rrow >> 16) > 0
+    dead = (alb.shape[0] - 1) | ((emi.shape[0] - 1) << 8)
+    assert rrow.dtype == torch.int32 and (rrow[~live] == dead).all()
+    for a, b, c in zip(d_sweep, d_again, d_adj):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert (a[-1] == 0).all()  # the sentinel row
+
+
+@pytest.mark.parametrize("name", ["glossy", "mesh87"])
+def test_dyn_adjoints_match_plain(dev, name):
+    scene, params, cam, alb, emi = _setup(DYN_SCENES[name], dev)
+    ds = dk.DynScene(scene)
+    cam_u, tape, g = _tape_inputs(dev, DYN_N)
+    _, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, DYN_CFG, rng="tape")(
+        alb, emi, cam_u, tape)
+    _, rsc_r, rrow_r = dk.make_dyn_collect_tracer(
+        ds, cam, DYN_CFG, rng="tape", plain=True)(alb, emi, cam_u, tape)
+    zero = ((rsc_r == 0) & ((rrow_r >> 16) > 0)).int()
+    matters = (zero.cumsum(0) - zero) == 0
+    assert torch.equal(rrow[matters], rrow_r[matters])
+    far = (rsc - rsc_r).abs() > 1e-4 + 2e-3 * rsc_r.abs()
+    assert (far & matters).float().mean() <= 1e-3
+    _grads_close(dk.make_dyn_sweep_adjoint(ds, DYN_CFG)(
+        alb, emi, rsc, rrow, g),
+        dk.dyn_sweep_plain(DYN_CFG, alb, emi, rsc, rrow, g))
+    _grads_close(dk.make_dyn_adjoint(ds, cam, DYN_CFG, rng="tape")(
+        alb, emi, cam_u, tape, g),
+        dk.make_dyn_adjoint(ds, cam, DYN_CFG, rng="tape", plain=True)(
+            alb, emi, cam_u, tape, g))
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("level", [2, 3])
+def test_dyn_culling_gives_the_same_bits(dev, level, fastmath):
+    """Two-level, one-level and no clustering: the same radiance and
+    gradients bit for bit."""
+    scene, params, cam, alb, emi = _setup(_mesh(level), dev)
+    cam_u, tape, g = _tape_inputs(dev, DYN_N)
+    kw = dict(rng="tape", fastmath=fastmath)
+    outs = []
+    for ds in (dk.DynScene(scene), dk.DynScene(scene, super_m=1),
+               dk.DynScene(scene, cluster_min_tris=10 ** 9),
+               dk.DynScene(scene, cluster_k=8, super_m=4)):
+        outs.append((dk.make_dyn_tracer(ds, cam, DYN_CFG, **kw)(
+            alb, emi, cam_u, tape), *dk.make_dyn_adjoint(
+                ds, cam, DYN_CFG, **kw)(alb, emi, cam_u, tape, g)))
+    assert outs[0][0].mean() > 0
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cfg_kw,adjoint", [
+    (dict(), "stored"), (dict(), "retrace"),
+    (dict(unbiased=True, adjoint_samples=2), "auto")])
+def test_dyn_renderer_backward_matches_plain(dev, cfg_kw, adjoint):
+    """make_dyn_image_renderer on the 87-shape mesh, internal RNG with 2
+    chunks: image and grads of the mean squared image against the plain
+    versions'."""
+    from drt_tpu_torch.fused import make_dyn_image_renderer
+    from drt_tpu_torch.scene import Params
+
+    cfg = RenderConfig(width=32, height=24, spp=8, spp_chunks=2,
+                       max_depth=5, **cfg_kw)
+    scene, params, cam, _, _ = _setup(_mesh(1), dev)
+    seeds = torch.tensor([11, -12], dtype=torch.int32)
+    out = []
+    for plain in (False, True):
+        p = Params(*(t.clone().requires_grad_() for t in params))
+        img = make_dyn_image_renderer(scene, cam, cfg, adjoint=adjoint,
+                                      fastmath=False, plain=plain)(p, seeds)
+        (img ** 2).mean().backward()
+        out.append((img.detach(), p.albedo.grad, p.emission.grad))
+    (img, *grads), (img_r, *grads_r) = out
+    assert _share_beyond(img.permute(2, 0, 1).reshape(3, -1),
+                         img_r.permute(2, 0, 1).reshape(3, -1),
+                         2e-5, 2e-6) <= 1e-3
+    _grads_close(grads, grads_r)
+
+
+def test_make_renderer_routes_a_mesh_to_the_dyn_kernels(dev):
+    from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+
+    cfg = RenderConfig(width=32, height=24, spp=4, spp_chunks=2,
+                       max_depth=4)
+    scene, params, cam, _, _ = _setup(_mesh(1), dev)
+    assert scene.num_shapes == 87
+    assert resolve_backend(scene, cfg) == "cuda-dyn"
+    small, _, _ = cbox.build(device=dev)
+    assert resolve_backend(small, cfg) == "cuda"
+    seeds = torch.tensor([3, 4], dtype=torch.int32)
+    before = mk.launch_counts()
+    img = make_renderer(scene, cfg, cam, differentiable=False)(params, seeds)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert after["dyn_tracer"] == before["dyn_tracer"] + 1
+    assert after["fused_tracer"] == before["fused_tracer"]
+    assert img.shape == (24, 32, 3) and torch.isfinite(img).all()
+    ref = make_renderer(scene, cfg, cam, differentiable=False,
+                        backend="torch-dyn")(params, seeds)
+    assert abs(img.mean() / ref.mean() - 1) < 1e-4
+
+
+def test_dyn_wrappers_check_inputs(dev):
+    cfg = RenderConfig(width=8, height=8, spp=2, max_depth=3)
+    scene, params, cam, alb, emi = _setup(_mesh(1), dev)
+    n = 128
+    cam_u, tape, g = _tape_inputs(dev, n, depth=3)
+    trace = dk.make_dyn_tracer(scene, cam, cfg, rng="tape")
+    with pytest.raises(TypeError, match="float32"):
+        trace(alb.double(), emi, cam_u, tape)
+    with pytest.raises(ValueError, match="shape"):
+        trace(alb, emi, cam_u[:, :32], tape)
+    with pytest.raises(ValueError, match="is on"):
+        trace(alb, emi, cam_u.cpu(), tape)
+    _, rsc, rrow = dk.make_dyn_collect_tracer(scene, cam, cfg, rng="tape")(
+        alb, emi, cam_u, tape)
+    sweep = dk.make_dyn_sweep_adjoint(scene, cfg)
+    with pytest.raises(TypeError, match="int32"):
+        sweep(alb, emi, rsc, rrow.long(), g)
+    with pytest.raises(ValueError, match="per ray or"):
+        sweep(alb, emi, rsc, rrow, g[:, :100])
+    # More parameter rows than the gradient accumulator holds.
+    wide = torch.cat([alb[:-1]] * 40 + [alb[-1:]])
+    assert wide.shape[0] - 1 + emi.shape[0] - 1 > dk.MAX_GRAD_ROWS
+    with pytest.raises(ValueError, match="accumulate at most 144"):
+        sweep(wide, emi, rsc, rrow, g)
+    # The forward kernels take them (up to 256 rows a table).
+    assert torch.isfinite(trace(wide, emi, cam_u, tape)).all()
+    deep = RenderConfig(width=8, height=8, spp=2, max_depth=mk.MAX_DEPTH + 1)
+    with pytest.raises(ValueError, match="exceeds the 32 bounces"):
+        dk.make_dyn_adjoint(scene, cam, deep)(
+            alb, emi, [1, 2], torch.rand((3, 64), device=dev))
+    # Per-pixel and per-ray cotangents agree bit for bit.
+    g_pix = g[:, :64].contiguous()
+    for a, b in zip(sweep(alb, emi, rsc, rrow, g_pix),
+                    sweep(alb, emi, rsc, rrow, g_pix.repeat(1, 2))):
         assert torch.equal(a, b)

@@ -94,7 +94,9 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
     (dict(backend="cuda"), ValueError, "CUDA device"),
     (dict(backend="xla"), NotImplementedError, "A4"),
     (dict(mesh=object()), NotImplementedError, "A14"),
-    (dict(backend="pallas-dyn"), NotImplementedError, "A11"),
+    (dict(backend="pallas-dyn"), ValueError, "'pallas-dyn' is 'cuda-dyn'"),
+    (dict(backend="cuda-dyn"), ValueError, "CUDA device"),
+    (dict(backend="pallas-dyn-sharded"), NotImplementedError, "A14"),
     (dict(backend="pallas-regen"), NotImplementedError, "A13"),
     (dict(backend="bogus"), ValueError, "unknown backend"),
 ])
@@ -117,6 +119,20 @@ def test_cli_render_writes_png(tmp_path):
     raw = zlib.decompress(data[data.index(b"IDAT") + 4:-16])
     px = np.frombuffer(raw, np.uint8).reshape(12, 1 + 16 * 3)[:, 1:]
     assert px.max() > 0
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):
+    """The default device is the card: without one the command fails and
+    names `--device cpu`; it does not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device works")
+    args = ["render", "-x", "8", "-y", "6", "-n", "1", "--max-depth", "2",
+            "-o", str(tmp_path / "a.png")]
+    with pytest.raises(SystemExit, match="no CUDA device.*--device cpu"):
+        cli.main(args)
+    assert not (tmp_path / "a.png").exists()
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    assert (tmp_path / "a.png").exists()
 
 
 @pytest.mark.parametrize("flags,unbiased", [([], False),
