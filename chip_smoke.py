@@ -1,6 +1,6 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--keep-going]
+  python3 chip_smoke.py [--keep-going] [--only=regen]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -46,10 +46,30 @@ Phases (any failure raises, exits non-zero and prints no result line):
      "cuda-dyn": three seeds forward; a forward+backward step in the
      stored, retrace and unbiased forms, gradients against
      backend="torch-dyn" on one chunk; 5 optim.inverse_render steps;
- 11. a line {"kernels": [...]} of eight entries, the nvidia-smi line, and
+ 11. the path-regeneration kernels of both families against their plain
+     versions at small shapes (cbox, glossy, tri, and for the dyn family
+     the 87-shape mesh; 64x48x4 spp in 2 chunks, depth 5, exact and fast),
+     and the equalities their design gives, all bit for bit: collect
+     radiance and trips = tracer's; one launch over the chunks = per-chunk
+     launches with sample_base; per-sample radiance = the lockstep
+     tracer's; the rows laid out by sample = the lockstep collect tracer's
+     residuals; two sweeps; a sweep over rows filled with NaN beyond each
+     pixel's trips; the retrace backward = the stored one launched per
+     chunk; and the dyn family on cbox against the scene-table family;
+ 12. the regeneration kernels at the two main shapes (Cornell box
+     640x480x256 in 16 chunks, 1287-shape mesh 640x480x64 in 4), timed on
+     the main path's launch, held against their plain versions on one
+     chunk, with the trip counters of the checking builds;
+ 13. make_renderer(backend="cuda-regen" | "cuda-dyn-regen"): three seeds
+     forward, the image against the lockstep image at the same seeds, a
+     forward+backward step stored and retrace against "torch-regen" /
+     "torch-dyn-regen" (the mesh on one chunk), 5 optim.inverse_render
+     steps on each;
+ 14. a line {"kernels": [...]} of twelve entries, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7 and 10 the launch counts are set to
-0, and read just after.
+Before each of the paths of 5, 6, 7, 10 and 13 the launch counts are set
+to 0, and read just after. --only=regen builds, runs phases 11-13 and
+stops without a result line (exit 1): a short run while working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -96,11 +116,22 @@ OPS_BOX = 28  # one slab test of a cluster box
 # The dyn kernels' main shape: the 1287-shape mesh (gallery.build_mesh(3)).
 MESH_MAIN = dict(width=640, height=480, spp=64, max_depth=5, spp_chunks=4)
 KERNELS = ("fused_tracer", "fused_collect", "fused_sweep", "fused_adjoint",
-           "dyn_tracer", "dyn_collect", "dyn_sweep", "dyn_adjoint")
+           "dyn_tracer", "dyn_collect", "dyn_sweep", "dyn_adjoint",
+           "regen_tracer", "regen_sweep", "dyn_regen_tracer",
+           "dyn_regen_sweep")
+# Every wrapper that counts its launches: the two forms of a regeneration
+# tracer (one TPU kernel, one entry of the kernels line) count apart.
+WRAPPERS = KERNELS + ("regen_collect", "dyn_regen_collect")
+# A regeneration image against the lockstep image of the same seeds, per
+# pixel relative to the larger of the pixel and the image mean: the same
+# samples summed in another order (in the thread, sample after sample,
+# against a tensor mean per chunk).
+REGEN_IMAGE_RTOL = 1e-6
 
 
 FAILED: list[str] = []
 KEEP_GOING = "--keep-going" in sys.argv[1:]
+ONLY_REGEN = "--only=regen" in sys.argv[1:]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -236,7 +267,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1,
 def only(**launched) -> dict:
     """The launch counts of a path that launched these kernels and no
     other."""
-    return {name: launched.get(name, 0) for name in KERNELS}
+    return {name: launched.get(name, 0) for name in WRAPPERS}
 
 
 def time_steps(label, step, mk, expected: dict, n_rays: int,
@@ -731,6 +762,570 @@ def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
                        ms_one_chunk=chunk_ms[name]) for name in ms}
 
 
+def regen_phases(dev, smi_line: str, timing: dict) -> dict:
+    """Phases 11-13: the path-regeneration kernels of both families.
+    Returns the rows of the kernels line of regen_tracer, regen_sweep,
+    dyn_regen_tracer and dyn_regen_sweep."""
+    from types import SimpleNamespace
+
+    from drt_tpu_torch import fused, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    def tables(scene, params):
+        return albedo_table(scene, params), emission_table(scene, params)
+
+    def dead_rows(alb, emi):
+        return (alb.shape[0] - 1) | ((emi.shape[0] - 1) << 8)
+
+    # What differs between the two families. `ks` is what a family's
+    # factories take for the scene: the Scene, or its DynScene.
+    table = SimpleNamespace(
+        name="regen", backend="cuda-regen", plain_backend="torch-regen",
+        prep=lambda scene: scene,
+        tracer=rg.make_regen_tracer, sweep=rg.make_regen_sweep_adjoint,
+        renderer=fused.make_regen_image_renderer,
+        lock_tracer=mk.make_fused_tracer,
+        lock_collect=mk.make_fused_collect_tracer,
+        lock_sweep=mk.make_fused_sweep_adjoint,
+        sweep_plain=rg.regen_sweep_plain, trace_plain=rg.regen_trace_plain,
+        collect_plain=rg.regen_collect_plain,
+        stats=lambda ks, cc, cfg, alb, emi, seeds, C: rg.regen_trip_stats(
+            ks, mk.scene_table(ks), cc, cfg, alb, emi, seeds, n_chunks=C),
+        want_bit=8, keep=0xFF, dead=lambda alb, emi: 0,
+        live_of=lambda best: best > 0)
+    dyn = SimpleNamespace(
+        name="dyn_regen", backend="cuda-dyn-regen",
+        plain_backend="torch-dyn-regen", prep=dk.DynScene,
+        tracer=dr.make_dyn_regen_tracer,
+        sweep=dr.make_dyn_regen_sweep_adjoint,
+        renderer=fused.make_dyn_regen_image_renderer,
+        lock_tracer=dk.make_dyn_tracer,
+        lock_collect=dk.make_dyn_collect_tracer,
+        lock_sweep=dk.make_dyn_sweep_adjoint,
+        sweep_plain=lambda ks, cfg, *a: dr.dyn_regen_sweep_plain(cfg, *a),
+        trace_plain=lambda ks, *a, **kw: dr.dyn_regen_trace_plain(
+            ks, *a, fastmath=True, **kw),
+        collect_plain=lambda ks, *a, **kw: dr.dyn_regen_collect_plain(
+            ks, *a, fastmath=True, **kw),
+        stats=lambda ks, cc, cfg, alb, emi, seeds, C:
+            dr.dyn_regen_trip_stats(ks, cc, cfg, alb, emi, seeds,
+                                    n_chunks=C),
+        want_bit=17, keep=0x1FFFF, dead=dead_rows,
+        live_of=lambda rrow: (rrow >> 16) > 0)
+
+    def by_sample(fam, cfg, alb, emi, rsc, rows, trips):
+        return rg.rows_by_sample(cfg, rsc, rows, trips, fam.want_bit,
+                                 fam.keep, fam.dead(alb, emi))
+
+    def nan_beyond(rsc, rows, trips):
+        """The rows with NaN (and all bits set) wherever a pixel's own
+        trips end."""
+        t = torch.arange(rsc.shape[1], device=rsc.device)[None, :, None]
+        own = t < trips[:, None, :]
+        return (torch.where(own, rsc, float("nan")).contiguous(),
+                torch.where(own, rows, -1).contiguous())
+
+    def leaves_of(p):
+        return Params(*(t.detach().clone().requires_grad_() for t in p))
+
+    def step(render_fn, p, s, tgt):
+        p = leaves_of(p)
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - tgt) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad), img.detach()
+
+    def mesh(level):
+        return lambda device: gallery.build_mesh(level, device=device)
+
+    # Phase 11: small shapes, 2 chunks of 2 samples.
+    cfg = RenderConfig(width=64, height=48, spp=4, spp_chunks=2, max_depth=5)
+    cfg_s = RenderConfig(width=64, height=48, spp=4, spp_chunks=4,
+                         max_depth=5)  # one sample per chunk
+    C, spp_c, npix = 2, 2, 64 * 48
+    seeds = torch.tensor([2024, -77], dtype=torch.int32)
+    g = torch.Generator(device=dev).manual_seed(21)
+    g_pix = torch.rand((3, npix), generator=g, device=dev)
+    small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
+             ("tri", gallery.build_tri), ("mesh87", mesh(1)))
+    cbox_radiance = {}
+    for fam in (table, dyn):
+        for label, build in small:
+            if fam is table and label == "mesh87":
+                continue  # 87 shapes: more than the scene table holds
+            scene, params, cam = build(device=dev)
+            ks = fam.prep(scene)
+            alb, emi = tables(scene, params)
+            tag = f"{fam.name}, {label}"
+            radiance = {}
+            for fm in (False, True):
+                t2 = f"{tag}, fast={fm}"
+                kw = dict(fastmath=fm)
+                L, trips = fam.tracer(ks, cam, cfg, n_chunks=C, **kw)(
+                    alb, emi, seeds)
+                radiance[fm] = L
+                Lc, rsc, rows, trips_c = fam.tracer(
+                    ks, cam, cfg, collect=True, n_chunks=C, **kw)(
+                    alb, emi, seeds)
+                same_bits(f"collect radiance and trips = tracer's, {t2}",
+                          (Lc, trips_c), (L, trips))
+                check(int(trips.min()) >= spp_c
+                      and int(trips.max()) <= rg.t_cap(cfg),
+                      f"{t2}: trips outside [spp_c, t_cap]")
+                one = fam.tracer(ks, cam, cfg, n_chunks=1, **kw)
+                one_c = fam.tracer(ks, cam, cfg, collect=True, n_chunks=1,
+                                   **kw)
+                parts = [one_c(alb, emi, seeds, c * spp_c) for c in range(C)]
+                same_bits(f"one launch over {C} chunks = {C} launches with "
+                          f"sample_base (radiance, trips), {t2}",
+                          (one(alb, emi, seeds, 0)[0]
+                           + one(alb, emi, seeds, spp_c)[0],
+                           torch.cat([p[3] for p in parts])), (L, trips))
+                sc_u, code_u = by_sample(fam, cfg, alb, emi, rsc, rows,
+                                         trips)
+                cfg_1 = RenderConfig(width=64, height=48, spp=spp_c,
+                                     max_depth=5)
+                per_chunk = [rg.rows_by_sample(
+                    cfg_1, p[1], p[2], p[3], fam.want_bit, fam.keep,
+                    fam.dead(alb, emi)) for p in parts]
+                same_bits(f"rows of one launch = rows of per-chunk launches, "
+                          f"{t2}", (sc_u, code_u),
+                          (torch.cat([p[0] for p in per_chunk]),
+                           torch.cat([p[1] for p in per_chunk])))
+                # Sample for sample the lockstep kernels' paths.
+                Ls, _ = fam.tracer(ks, cam, cfg_s, n_chunks=4, **kw)(
+                    alb, emi, seeds)
+                same_bits(f"per-sample radiance = lockstep tracer's, {t2}",
+                          (Ls,), (fam.lock_tracer(ks, cam, cfg_s, n_chunks=4,
+                                                  **kw)(alb, emi, seeds),))
+                _, rsc_l, rcode_l = fam.lock_collect(
+                    ks, cam, cfg, n_chunks=C, **kw)(alb, emi, seeds)
+                same_bits(f"rows by sample = lockstep collect's residuals, "
+                          f"{t2}", (sc_u, code_u), (rsc_l, rcode_l))
+                sweep = fam.sweep(ks, cfg, n_chunks=C)
+                d = sweep(alb, emi, rsc, rows, trips, g_pix)
+                same_bits(f"sweep twice, {t2}",
+                          sweep(alb, emi, rsc, rows, trips, g_pix), d)
+                same_bits(f"sweep over rows of NaN beyond each pixel's "
+                          f"trips, {t2}",
+                          sweep(alb, emi, *nan_beyond(rsc, rows, trips),
+                                trips, g_pix), d)
+                compare_grads(f"sweep vs lockstep sweep of the same "
+                              f"samples, {t2}", d,
+                              fam.lock_sweep(ks, cfg, n_chunks=C)(
+                                  alb, emi, rsc_l, rcode_l, g_pix),
+                              GRAD_RTOL_SMALL)
+                # The backward through the renderer: retrace = stored when
+                # both launch per chunk; one launch over the chunks sums
+                # in another order.
+                tgt = torch.zeros((48, 64, 3), device=dev)
+                outs = [step(fam.renderer(ks, cam, cfg, fastmath=fm, **rkw),
+                             params, seeds, tgt)
+                        for rkw in (dict(adjoint="retrace"),
+                                    dict(adjoint="stored", chunked=False),
+                                    dict(adjoint="stored"))]
+                same_bits(f"retrace backward = stored backward launched per "
+                          f"chunk (image, grads), {t2}",
+                          (outs[0][2], *outs[0][1]),
+                          (outs[1][2], *outs[1][1]))
+                same_bits(f"image of one launch = of per-chunk launches, "
+                          f"{t2}", (outs[2][2],), (outs[0][2],))
+                compare_grads(f"stored backward in one launch vs retrace, "
+                              f"{t2}", outs[2][1], outs[0][1],
+                              GRAD_RTOL_SMALL)
+                if fm:
+                    continue
+                Lp, rsc_p, rows_p, trips_p = fam.tracer(
+                    ks, cam, cfg, collect=True, n_chunks=C, plain=True)(
+                    alb, emi, seeds)
+                compare(f"radiance exact vs plain, {tag}", L, Lp, EXACT_TOL)
+                differ = (trips != trips_p).float().mean().item()
+                print(f"[compare] {tag}: trips differ from the plain "
+                      f"version's on {differ!r} of pixel-chunks; mean trips "
+                      f"per sample "
+                      f"{trips.float().mean().item() / spp_c!r} of 5",
+                      flush=True)
+                compare_residuals(
+                    f"rows by sample exact vs plain, {tag}", (sc_u, code_u),
+                    by_sample(fam, cfg, alb, emi, rsc_p, rows_p, trips_p),
+                    EXACT_TOL, 0.0, RSC_SHARE_SMALL, fam.live_of)
+                compare_grads(
+                    f"sweep vs plain on the kernel's rows, {tag}", d,
+                    fam.sweep_plain(ks, cfg, alb, emi, rsc, rows, trips,
+                                    g_pix), GRAD_RTOL_SMALL)
+            compare(f"radiance fast vs exact, {tag}", radiance[True],
+                    radiance[False], FAST_TOL, None)
+            if label == "cbox":
+                cbox_radiance[fam.name] = radiance[False]
+    compare("dyn regen tracer vs regen tracer (exact, same seeds), cbox",
+            cbox_radiance["dyn_regen"], cbox_radiance["regen"], EXACT_TOL)
+
+    # Phases 12 and 13 at a main shape.
+    def main_shape(fam, label, scene, params, cam, cfg_m, plain_full,
+                   true_row, start_row, lock_backend):
+        C, D = cfg_m.spp_chunks, cfg_m.max_depth
+        npix = cfg_m.width * cfg_m.height
+        spp_c = cfg_m.spp // C
+        n_rays = npix * cfg_m.spp
+        ks = fam.prep(scene)
+        alb, emi = tables(scene, params)
+        cc = mk.camera_consts(cam, cfg_m.width, cfg_m.height)
+        seeds = torch.tensor([7, 8], dtype=torch.int32)
+        tr, sw = f"{fam.name}_tracer", f"{fam.name}_sweep"
+        kw_m = dict(fastmath=True, n_chunks=C)
+        once = dict(reps=1, warmup=0, windows=1)
+        ms, windows, chunk_ms, plain_ms, err = {}, {}, {}, {}, {}
+
+        # Phase 12: the main path's launches.
+        trace = fam.tracer(ks, cam, cfg_m, **kw_m)
+        ms[tr], windows[tr], (L_all, trips_all) = cuda_ms(
+            lambda: trace(alb, emi, seeds), **timing)
+        collect = fam.tracer(ks, cam, cfg_m, collect=True, **kw_m)
+        collect_ms, collect_windows, (Lc, rsc, rows, trips) = cuda_ms(
+            lambda: collect(alb, emi, seeds), **timing)
+        same_bits(f"{label}: collect radiance and trips = tracer's at the "
+                  "main shape", (Lc, trips), (L_all, trips_all))
+        del Lc, trips_all
+        one = fam.tracer(ks, cam, cfg_m, fastmath=True, n_chunks=1)
+        L_sum = one(alb, emi, seeds, 0)[0]
+        for c in range(1, C):
+            L_sum = L_sum + one(alb, emi, seeds, c * spp_c)[0]
+        same_bits(f"{label}: one launch over {C} chunks = {C} launches with "
+                  "sample_base", (L_sum,), (L_all,))
+        del L_sum
+        cfg_ps = RenderConfig(width=cfg_m.width, height=cfg_m.height, spp=C,
+                              spp_chunks=C, max_depth=D)
+        same_bits(f"{label}: per-sample radiance = lockstep tracer's "
+                  f"(640x480, {C} chunks of one sample)",
+                  (fam.tracer(ks, cam, cfg_ps, **kw_m)(alb, emi, seeds)[0],),
+                  (fam.lock_tracer(ks, cam, cfg_ps, **kw_m)(alb, emi,
+                                                            seeds),))
+        # The lockstep kernels on the same seeds: the residuals, sample
+        # for sample, and the per-pixel sums.
+        L_lock, rsc_l, rcode_l = fam.lock_collect(ks, cam, cfg_m, **kw_m)(
+            alb, emi, seeds)
+        same_bits(f"{label}: rows by sample = lockstep collect's residuals "
+                  "at the main shape",
+                  by_sample(fam, cfg_m, alb, emi, rsc, rows, trips),
+                  (rsc_l, rcode_l))
+        live = int(fam.live_of(rcode_l).sum().item())
+        lock_sum = L_lock.reshape(3, spp_c, npix).sum(dim=1)
+        rel = ((L_all - lock_sum).abs()
+               / lock_sum.clamp_min(lock_sum.mean())).max().item()
+        print(f"[compare] {label}: per-pixel radiance sums vs the lockstep "
+              f"tracer's summed per pixel: max rel (to the larger of pixel "
+              f"and mean) {rel!r}", flush=True)
+        del L_lock, lock_sum
+        g_main = torch.rand((3, npix), generator=g, device=dev) / cfg_m.spp
+        sweep = fam.sweep(ks, cfg_m, n_chunks=C)
+        ms[sw], windows[sw], d_sweep = cuda_ms(
+            lambda: sweep(alb, emi, rsc, rows, trips, g_main), **timing)
+        same_bits(f"{label}: sweep twice at the main shape",
+                  sweep(alb, emi, rsc, rows, trips, g_main), d_sweep)
+        compare_grads(f"{label}: sweep vs lockstep sweep of the same samples "
+                      "at the main shape", d_sweep,
+                      fam.lock_sweep(ks, cfg_m, n_chunks=C)(
+                          alb, emi, rsc_l, rcode_l, g_main), GRAD_RTOL_MAIN)
+        del rsc_l, rcode_l
+        rsc_n, rows_n = nan_beyond(rsc, rows, trips)
+        same_bits(f"{label}: sweep over rows of NaN beyond each pixel's "
+                  "trips at the main shape",
+                  sweep(alb, emi, rsc_n, rows_n, trips, g_main), d_sweep)
+        del rsc_n, rows_n, rsc, rows
+
+        # One chunk against the plain versions.
+        chunk = 1
+        sb = chunk * spp_c
+        one_c = fam.tracer(ks, cam, cfg_m, collect=True, fastmath=True,
+                           n_chunks=1)
+        chunk_ms[tr], _, (L_k, _) = cuda_ms(
+            lambda: one(alb, emi, seeds, sb), **timing)
+        chunk_collect_ms, _, (_, rsc_k, rows_k, trips_k) = cuda_ms(
+            lambda: one_c(alb, emi, seeds, sb), **timing)
+        stats: dict = {}
+        plain_kw = dict(n_chunks=1, sample_base=sb)
+        if fam is dyn:
+            plain_kw["stats"] = stats
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms[tr], _, (L_p, _) = cuda_ms(
+            lambda: fam.trace_plain(ks, cc, cfg_m, alb, emi, seeds,
+                                    **plain_kw), **once)
+        print(f"[{fam.name}] peak device memory over the plain tracer on one "
+              f"chunk {torch.cuda.max_memory_allocated()} B", flush=True)
+        err[tr] = compare(f"{label}: tracer (fast) vs plain, chunk {chunk}",
+                          L_k, L_p, FAST_TOL)
+        del L_p
+        plain_collect_ms, _, (_, rsc_p, rows_p, trips_p) = cuda_ms(
+            lambda: fam.collect_plain(ks, cc, cfg_m, alb, emi, seeds,
+                                      n_chunks=1, sample_base=sb), **once)
+        cfg_c = RenderConfig(width=cfg_m.width, height=cfg_m.height,
+                             spp=spp_c, max_depth=D)
+        collect_err = compare_residuals(
+            f"{label}: rows by sample (fast) vs plain, chunk {chunk}",
+            by_sample(fam, cfg_c, alb, emi, rsc_k, rows_k, trips_k),
+            by_sample(fam, cfg_c, alb, emi, rsc_p, rows_p, trips_p),
+            FAST_TOL, MAX_SHARE_BEYOND, MAX_SHARE_BEYOND, fam.live_of)
+        print(f"[compare] {label}: trips differ from the plain version's on "
+              f"{(trips_k != trips_p).float().mean().item()!r} of the pixels "
+              f"of chunk {chunk}", flush=True)
+        del rsc_p, rows_p, trips_p
+        sweep_1 = fam.sweep(ks, cfg_c, n_chunks=1)
+        chunk_ms[sw], _, d_k = cuda_ms(
+            lambda: sweep_1(alb, emi, rsc_k, rows_k, trips_k, g_main),
+            **timing)
+        plain_ms[sw], _, d_p = cuda_ms(
+            lambda: fam.sweep_plain(ks, cfg_c, alb, emi, rsc_k, rows_k,
+                                    trips_k, g_main), **once)
+        err[sw] = compare_grads(
+            f"{label}: sweep vs plain on the kernel's rows, chunk {chunk}",
+            d_k, d_p, GRAD_RTOL_MAIN)
+        del rsc_k, rows_k
+        print(f"[time] {label} ({C} chunks of {spp_c} samples): {tr} "
+              f"{ms[tr]!r} ms ({n_rays / ms[tr] / 1e3!r} Mrays/s), its "
+              f"collect form {collect_ms!r} ms, {sw} {ms[sw]!r} ms; on chunk "
+              f"{chunk} alone: tracer {chunk_ms[tr]!r} ms, plain "
+              f"{plain_ms[tr]!r} ms; collect form {chunk_collect_ms!r} ms, "
+              f"plain {plain_collect_ms!r} ms; sweep {chunk_ms[sw]!r} ms, "
+              f"plain {plain_ms[sw]!r} ms on {smi_line}; window means: "
+              f"tracer {windows[tr]!r} collect {collect_windows!r} sweep "
+              f"{windows[sw]!r}", flush=True)
+
+        # The trip counters of the tracer's checking build.
+        st = fam.stats(ks, cc, cfg_m, alb, emi, seeds, C)
+        same_bits(f"{label}: the checking build's radiance = the tracer's",
+                  (st.pop("radiance"),), (L_all,))
+        trips_sum = int(trips.sum().item())
+        check(st["lane_trips"] == trips_sum == st["trips_sum"],
+              f"{label}: the checking build counted {st['lane_trips']} "
+              f"lane-trips, trips sum to {trips_sum}")
+        check(live <= st["live_trips"] <= 1.01 * live,
+              f"{label}: {st['live_trips']} live trips, the lockstep "
+              f"collect tracer stored {live} live bounce-rays")
+        warps = -(-npix // 32)
+        print(f"[trips] {label}: {st}: {trips_sum} lane-trips for {n_rays} "
+              f"samples = {trips_sum / n_rays!r} trips per sample (a "
+              f"lockstep sample takes {D} slots: {n_rays * D}); live share "
+              f"of lane-trips {st['live_trips'] / trips_sum!r} (lockstep: "
+              f"{live / (n_rays * D)!r} of slots); a warp runs until its "
+              f"slowest pixel has done all {C} chunks: at least "
+              f"{st['warp_trips']} warp-trips over {warps} warps = "
+              f"{st['warp_trips'] / warps!r} each of at most "
+              f"{C * rg.t_cap(cfg_m)} ({st['warp_trips_by_chunk']} if the "
+              f"threads of a warp waited for each other after every chunk), "
+              f"against {-(-n_rays // 32) * D} lockstep warp-bounces; lanes "
+              f"at work per warp-trip at best "
+              f"{trips_sum / st['warp_trips']!r} of 32; the lane groups that "
+              f"ran a trip together: {st['group_trips']}, "
+              f"{trips_sum / st['group_trips']!r} lanes each; slowest pixel "
+              f"{st['trips_max']} trips in a chunk", flush=True)
+        check(st["group_trips"] >= st["warp_trips"],
+              f"{label}: {st['group_trips']} lane groups ran the trips, "
+              f"fewer than the {st['warp_trips']} the warps need")
+        if fam is dyn:
+            print(f"[trips] {label}: leaf triangle loops "
+                  f"{st['warp_leaves']} with "
+                  f"{st['lane_leaves'] / st['warp_leaves']!r} of 32 lanes at "
+                  f"work; nearest-hit loops entered by "
+                  f"{st['lane_bounces'] / st['warp_bounces']!r} lanes "
+                  "together", flush=True)
+
+        # Bounds: the operations of this run's live bounces (as the
+        # lockstep kernels count them) and one camera ray per sample; the
+        # bytes of the rows actually written, 8 per trip run.
+        if fam is dyn:
+            ops_hit = C * (stats["plane"] * OPS_SHAPE[0] + stats["sphere"]
+                           * OPS_SHAPE[1] + stats["box"] * OPS_BOX
+                           + stats["tri"] * OPS_SHAPE[2])
+            scene_bytes = sum(t.numel() * 4 for t in ks.operands)
+            print(f"[bound] {label}: plain version's counts on chunk "
+                  f"{chunk}: {stats}", flush=True)
+        else:
+            ops_hit = live * sum(OPS_SHAPE[t]
+                                 for t in scene.shape_type.tolist())
+            scene_bytes = 4 * mk.scene_table(scene).numel()
+        ops_trace = n_rays * OPS_CAMERA + ops_hit + live * OPS_SHADE
+        table_bytes = 4 * (alb.numel() + emi.numel())
+        io_bytes = scene_bytes + table_bytes + 12 * npix + 4 * npix * C
+        row_bytes = 8 * trips_sum
+        work = {
+            tr: (io_bytes, ops_trace),
+            tr + " (collect form)": (io_bytes + row_bytes, ops_trace),
+            sw: (table_bytes + row_bytes + 4 * npix * C + 4 * g_main.numel()
+                 + table_bytes, live * OPS_SWEEP),
+        }
+        bound = {}
+        for name, (n_bytes, n_ops) in work.items():
+            t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+            bound[name] = (max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations")
+            print(f"[bound] {name}: bytes={n_bytes} ({t_bytes!r} ms at "
+                  f"{PEAK_BYTES_PER_S:.3g} B/s) operations={n_ops} "
+                  f"({t_ops!r} ms at {PEAK_F32_OPS_PER_S:.3g} op/s)",
+                  flush=True)
+        del L_all, trips
+
+        # Phase 13: through the user's entry points.
+        col = f"{fam.name}_collect"
+        render = make_renderer(scene, cfg_m, cam, differentiable=False,
+                               backend=fam.backend)
+        lock_render = make_renderer(scene, cfg_m, cam, differentiable=False,
+                                    backend=lock_backend)
+        seed_list = [seeds_from_generator(torch.Generator().manual_seed(s))
+                     for s in (0, 1, 2, 3)]
+        launches = {}
+        mk.reset_launch_counts()
+        images, t_imgs = [], []
+        for s in seed_list:  # the first is the warm-up
+            t0 = time.perf_counter()
+            images.append(render(params, s))
+            torch.cuda.synchronize()
+            t_imgs.append(time.perf_counter() - t0)
+        counts = mk.launch_counts()
+        launches[tr] = counts[tr]
+        print(f"[{fam.name}] make_renderer({fam.backend}, "
+              f"differentiable=False) 640x480x{cfg_m.spp}spp depth {D}: "
+              f"launches={counts} seconds={t_imgs[1:]!r} Mrays/s="
+              f"{[n_rays / t / 1e6 for t in t_imgs[1:]]!r}", flush=True)
+        check(counts == only(**{tr: len(seed_list)}),
+              f"{label}: the forward path launched {counts}")
+        for s, img in zip(seed_list[1:], images[1:]):
+            check(img.shape == (480, 640, 3) and img.dtype == torch.float32,
+                  f"image {tuple(img.shape)} {img.dtype}")
+            reads_right(img, f"{label}, seed {s.tolist()}")
+            ref = lock_render(params, s)
+            rel = ((img - ref).abs()
+                   / ref.clamp_min(ref.mean())).max().item()
+            print(f"[compare] {label}, seed {s.tolist()}: image vs the "
+                  f"lockstep image ({lock_backend}): max rel (to the larger "
+                  f"of pixel and image mean) {rel!r}, means "
+                  f"{img.mean().item()!r} {ref.mean().item()!r}", flush=True)
+            check(rel <= REGEN_IMAGE_RTOL,
+                  f"{label}: image differs from the lockstep image by "
+                  f"{rel:.3g}")
+        target = images[1]
+        del images
+
+        p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+        check(fused._resolve_adjoint(cfg_m, "auto", dev) == "stored",
+              f"{label}: adjoint='auto' must resolve to 'stored'")
+        forms = (("stored (default)", {},
+                  only(**{col: 1, sw: 1})),
+                 ("retrace", dict(adjoint="retrace"),
+                  only(**{tr: 1, col: C, sw: C})))
+        cfg_p = cfg_m if plain_full else RenderConfig(
+            width=cfg_m.width, height=cfg_m.height, spp=spp_c, max_depth=D)
+        grads_of = {}
+        for form, kw, expected in forms:
+            if kw:
+                render_fn = fam.renderer(ks, cam, cfg_m, **kw)
+            else:
+                render_fn = make_renderer(scene, cfg_m, cam,
+                                          backend=fam.backend)
+            counts, out = time_steps(
+                f"{label}, {form}",
+                lambda: step(render_fn, p_off, seed_list[1], target), mk,
+                expected, n_rays)
+            grads_of[form] = out[1]
+            if form == "retrace":
+                launches[tr] += counts[tr]
+            # Against the plain backend: at full width, or on one chunk.
+            pair = []
+            for plain in (False, True):
+                if kw:
+                    fn = fam.renderer(ks, cam, cfg_p, plain=plain, **kw)
+                else:
+                    fn = make_renderer(scene, cfg_p, cam,
+                                       backend=fam.plain_backend if plain
+                                       else fam.backend)
+                t0 = time.perf_counter()
+                pair.append(step(fn, p_off, seed_list[2], target))
+                torch.cuda.synchronize()
+                print(f"[grad] {label}, {form}, "
+                      f"{'all chunks' if plain_full else 'one chunk'}, "
+                      f"{fam.plain_backend if plain else fam.backend}: loss="
+                      f"{pair[-1][0].item()!r} seconds="
+                      f"{time.perf_counter() - t0!r}", flush=True)
+            rel = abs(pair[0][0].item() / pair[1][0].item() - 1.0)
+            check(rel <= 1e-4, f"{label}, {form}: losses differ by {rel:.3g}")
+            compare_grads(f"{label}, {form}: grads vs backend="
+                          f"'{fam.plain_backend}'", pair[0][1], pair[1][1],
+                          GRAD_RTOL_MAIN)
+        compare_grads(f"{label}: stored grads (one launch) vs retrace grads "
+                      "(per chunk)", grads_of["stored (default)"],
+                      grads_of["retrace"], GRAD_RTOL_SMALL)
+
+        # The trainer.
+        row = true_row[0]
+        truth = params.albedo[row].clone()
+        start = params.albedo.clone()
+        start[row] = torch.tensor(start_row, device=dev)
+        n_steps = 5
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        fitted, metrics = optim.inverse_render(
+            scene, cfg_m, cam, target, Params(start, params.emission),
+            torch.Generator().manual_seed(5), steps=n_steps,
+            backend=fam.backend)
+        torch.cuda.synchronize()
+        t_train = (time.perf_counter() - t0) / n_steps
+        counts = mk.launch_counts()
+        launches[col] = counts[col]
+        launches[sw] = counts[sw]
+        before = (start[row] - truth).norm().item()
+        after = (fitted.albedo[row] - truth).norm().item()
+        print(f"[train] {label} inverse_render(backend={fam.backend!r}) "
+              f"{n_steps} steps: launches={counts} seconds per step="
+              f"{t_train!r} loss={metrics['loss'].tolist()} grad_norm="
+              f"{metrics['grad_norm'].tolist()} row {row} "
+              f"{start[row].tolist()} -> {fitted.albedo[row].tolist()} (true "
+              f"{truth.tolist()}): distance {before!r} -> {after!r}",
+              flush=True)
+        check(counts == only(**{col: 2 * n_steps, sw: 2 * n_steps}),
+              f"{label}: the trainer launched {counts}")
+        check(bool(torch.isfinite(metrics["loss"]).all())
+              and bool(torch.isfinite(metrics["grad_norm"]).all()),
+              f"{label}: the trainer's metrics are not finite")
+        check(after < before, f"{label}: the perturbed albedo row moved "
+              "away from its true value")
+        common = dict(chunks=C, plain_ms_chunks=1)
+        return {
+            tr: dict(launches=launches[tr], max_abs_err=err[tr], ms=ms[tr],
+                     plain_ms=plain_ms[tr], bound_ms=bound[tr][0],
+                     bound_by=bound[tr][1], ms_one_chunk=chunk_ms[tr],
+                     collect_launches=launches[col], collect_ms=collect_ms,
+                     collect_max_abs_err=collect_err,
+                     collect_plain_ms=plain_collect_ms,
+                     collect_ms_one_chunk=chunk_collect_ms,
+                     collect_bound_ms=bound[tr + " (collect form)"][0],
+                     collect_bound_by=bound[tr + " (collect form)"][1],
+                     **common),
+            sw: dict(launches=launches[sw], max_abs_err=err[sw], ms=ms[sw],
+                     plain_ms=plain_ms[sw], bound_ms=bound[sw][0],
+                     bound_by=bound[sw][1], ms_one_chunk=chunk_ms[sw],
+                     **common)}
+
+    scene, params, cam = cbox.build(device=dev)
+    rows = main_shape(table, "regen, Cornell box 640x480x256", scene, params,
+                      cam, RenderConfig(**MAIN), True, (cbox.RED,),
+                      [0.2, 0.15, 0.1], "cuda")
+    torch.cuda.empty_cache()
+    scene, params, cam = gallery.build_mesh(3, device=dev)
+    rows.update(main_shape(dyn, "dyn regen, mesh1287 640x480x64", scene,
+                           params, cam, RenderConfig(**MESH_MAIN), False,
+                           (3,), [0.6, 0.2, 0.2], "cuda-dyn"))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -742,6 +1337,9 @@ def main() -> int:
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.fused import seeds_from_generator
     from drt_tpu_torch.models import cbox, gallery
+    # Importing them joins the regeneration wrappers to the launch counts.
+    import drt_tpu_torch.ops.dynregen  # noqa: F401
+    import drt_tpu_torch.ops.regen  # noqa: F401
     from drt_tpu_torch.ops import megakernel as mk
     from drt_tpu_torch.ops.rng import hash_tapes
     from drt_tpu_torch.parallel.render import make_renderer
@@ -773,6 +1371,12 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill")):
                 print(f"[ptxas] {source}: {line.strip()}", flush=True)
+
+    if ONLY_REGEN:
+        regen_phases(dev, smi_line, dict(reps=10, warmup=10, windows=3))
+        print(f"[partial] phases 11-13 only, {time.time() - t_start:.1f}s; "
+              f"failed checks: {FAILED}", flush=True)
+        return 1
 
     # Phase 3: the tracer against its twin.
     def tables(scene, params):
@@ -1096,6 +1700,9 @@ def main() -> int:
     del target
     torch.cuda.empty_cache()
     dyn_rows = dyn_phases(dev, smi_line, dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
+    regen_rows = regen_phases(dev, smi_line,
+                              dict(reps=10, warmup=10, windows=3))
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -1105,6 +1712,7 @@ def main() -> int:
                        plain_ms=plain_ms[name], bound_ms=bound[name][0],
                        bound_by=bound[name][1]) for name in ms}
     rows.update(dyn_rows)
+    rows.update(regen_rows)
     # name -> (source under csrc/, the TPU kernel's file and def line)
     replaces = {"fused_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
                 "fused_collect": ("fused_tracer.cu", "megakernel.py:1211"),
@@ -1113,17 +1721,26 @@ def main() -> int:
                 "dyn_tracer": ("dyn_tracer.cu", "dynkernel.py:937"),
                 "dyn_collect": ("dyn_tracer.cu", "dynkernel.py:1043"),
                 "dyn_sweep": ("dyn_adjoint.cu", "dynkernel.py:1193"),
-                "dyn_adjoint": ("dyn_adjoint.cu", "dynkernel.py:1300")}
+                "dyn_adjoint": ("dyn_adjoint.cu", "dynkernel.py:1300"),
+                "regen_tracer": ("regen_tracer.cu", "regen.py:141"),
+                "regen_sweep": ("regen_adjoint.cu", "regen.py:421"),
+                "dyn_regen_tracer": ("dyn_regen_tracer.cu",
+                                     "dynregen.py:46"),
+                "dyn_regen_sweep": ("dyn_regen_adjoint.cu",
+                                    "dynregen.py:316")}
     check(tuple(replaces) == KERNELS and set(rows) == set(KERNELS),
           f"kernels measured: {sorted(rows)}")
     for name in KERNELS:
-        check(rows[name]["launches"] >= 1,
+        check(rows[name]["launches"] >= 1
+              and rows[name].get("collect_launches", 1) >= 1,
               f"{name} was launched no time on its path")
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
     # No single PyTorch call computes any of these kernels: library_ms null.
-    # The dyn kernels' plain_ms is of one chunk of `chunks` (ms_one_chunk is
-    # the kernel on the same inputs); ms is the main path's launch.
+    # The dyn and regeneration kernels' plain_ms is of one chunk of `chunks`
+    # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
+    # launch. A regeneration tracer's entry is its forward form; collect_*
+    # are its collect form's numbers.
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

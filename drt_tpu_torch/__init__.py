@@ -11,8 +11,10 @@ Ported so far: the main render path, forward and backward
 over the fused tracer, collect tracer, sweep adjoint and retrace adjoint
 kernels), the same path over memory-resident scenes of up to 2048 shapes
 (`ops.dynkernel`: `DynScene` and four more kernels, for triangle meshes
-such as `models.gallery.build_mesh`), the tape forms of
-`adjoint.make_diff_renderer`, and the Adam loop of `optim`.
+such as `models.gallery.build_mesh`), the path-regeneration renderers of
+both families (`ops.regen`, `ops.dynregen`: backends "cuda-regen" and
+"cuda-dyn-regen"), the tape forms of `adjoint.make_diff_renderer`, and
+the Adam loop of `optim`.
 """
 
 from drt_tpu_torch.adjoint import make_diff_image_renderer, make_diff_renderer

@@ -38,11 +38,14 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--f64", action="store_true",
                    help="trace in float64 (plain version on the CPU)")
     p.add_argument("--backend",
-                   choices=("auto", "cuda", "cuda-dyn", "torch",
-                            "torch-dyn"), default="auto",
+                   choices=("auto", "cuda", "cuda-dyn", "cuda-regen",
+                            "cuda-dyn-regen", "torch", "torch-dyn",
+                            "torch-regen", "torch-dyn-regen"),
+                   default="auto",
                    help="auto = the fused CUDA kernels for a scene on a "
                         "card, the plain PyTorch version for one on the "
-                        "CPU")
+                        "CPU; the -regen backends (path regeneration) are "
+                        "taken only when asked for")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda; without a card the "
                         "command fails unless --device cpu is given)")

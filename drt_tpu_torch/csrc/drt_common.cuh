@@ -1,7 +1,8 @@
 // Device code shared by every tracer kernel of the port, scene-table
 // (fused_body.cuh) and memory-resident (dyn_body.cuh) alike: the launch
-// configuration, the keyed hash, the primary ray, the per-bounce uniforms
-// and the BxDF sample + weight of one hit.
+// configuration, the state of a path, the keyed hash, the primary ray, the
+// per-bounce uniforms, the BxDF sample + weight of one hit, one bounce of
+// the reverse sweep and the counter of the checking builds.
 //
 // Every library is built with -fmad=false, so the same expression rounds
 // the same way in every instantiation: that is what makes a collect
@@ -66,27 +67,23 @@ static __device__ __forceinline__ float dot3(float ax, float ay, float az,
   return ax * bx + ay * by + az * bz;
 }
 
-// Primary ray of ray slot i in spp chunk c
-// (megakernel.py:_camera_ray_from_pix; camera.hpp:51-60). Rays are
-// spp-outer: slot i covers pixel i % (W*H) and sample c*spp_c + i / (W*H).
-template <bool FAST, bool INTERNAL>
-static __device__ __forceinline__ void primary_ray(
-    const DrtTrace& cfg, const DrtCamera& cam,
-    const float* __restrict__ cam_u, int i, int c, int& pix, uint32_t& smp,
+// The state of one path between two bounces: the ray, the throughput,
+// the radiance gathered so far and whether the path lives.
+struct PathState {
+  float ox, oy, oz, dx, dy, dz;
+  float Tx, Ty, Tz;
+  float lx, ly, lz;
+  bool alive;
+};
+
+// Direction of the primary ray through pixel pix at the sub-pixel offsets
+// (us, ut) (megakernel.py:_camera_ray_from_pix; camera.hpp:51-60).
+template <bool FAST>
+static __device__ __forceinline__ void primary_dir(
+    const DrtTrace& cfg, const DrtCamera& cam, int pix, float us, float ut,
     float& dx, float& dy, float& dz) {
-  const int npix = cfg.width * cfg.height;
-  pix = i % npix;
   const int py = pix / cfg.width;
   const int px = pix - py * cfg.width;
-  smp = (uint32_t)(c * cfg.spp_c + i / npix);
-  float us, ut;
-  if (INTERNAL) {
-    us = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 0u);
-    ut = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 1u);
-  } else {
-    us = cam_u[i];
-    ut = cam_u[cfg.n_rays + i];
-  }
   float s = ((float)px + us) / (float)cfg.width;
   float t = ((float)py + ut) / (float)cfg.height;
   float a = (2.0f * s - 1.0f) * cam.aspect_half;
@@ -96,6 +93,33 @@ static __device__ __forceinline__ void primary_ray(
   dz = (cam.fwd[2] + a * cam.right[2]) + b * (-cam.up[2]);
   float inv = inv_sqrt<FAST>(dx * dx + dy * dy + dz * dz);
   dx = dx * inv; dy = dy * inv; dz = dz * inv;
+}
+
+// The camera's two keyed draws of sample smp of pixel pix.
+static __device__ __forceinline__ void camera_uniforms(
+    const DrtTrace& cfg, int pix, uint32_t smp, float& us, float& ut) {
+  us = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 0u);
+  ut = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 1u);
+}
+
+// Primary ray of ray slot i in spp chunk c. Rays are spp-outer: slot i
+// covers pixel i % (W*H) and sample c*spp_c + i / (W*H).
+template <bool FAST, bool INTERNAL>
+static __device__ __forceinline__ void primary_ray(
+    const DrtTrace& cfg, const DrtCamera& cam,
+    const float* __restrict__ cam_u, int i, int c, int& pix, uint32_t& smp,
+    float& dx, float& dy, float& dz) {
+  const int npix = cfg.width * cfg.height;
+  pix = i % npix;
+  smp = (uint32_t)(c * cfg.spp_c + i / npix);
+  float us, ut;
+  if (INTERNAL) {
+    camera_uniforms(cfg, pix, smp, us, ut);
+  } else {
+    us = cam_u[i];
+    ut = cam_u[cfg.n_rays + i];
+  }
+  primary_dir<FAST>(cfg, cam, pix, us, ut, dx, dy, dz);
 }
 
 // The (rr, u1, u2) uniforms of bounce bnc.
@@ -215,6 +239,19 @@ static __device__ __forceinline__ void shade(
       sc = cos_geom != 0.0f ? 1.0f : 0.0f;
     else
       sc = cos_geom != 0.0f ? (1.0f / cos_geom) * cos_geom : 0.0f;
+  }
+}
+
+// Counting in a checking build: called by the lanes of a warp that run a
+// piece of code together, it adds their number to stats[per_lane] and one
+// to stats[per_group].
+static __device__ __forceinline__ void count_group(unsigned long long* stats,
+                                                   int per_lane,
+                                                   int per_group) {
+  const unsigned m = __activemask();
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+    atomicAdd(stats + per_lane, (unsigned long long)__popc(m));
+    atomicAdd(stats + per_group, 1ull);
   }
 }
 

@@ -2,7 +2,8 @@
 // hit over a scene read from device memory at run time, with two-level
 // cluster-AABB culling of the triangles, and the bounce loop of one ray
 // slot over one spp chunk (dyn_trace_chunk) with a per-bounce residual
-// hook. It is what drt_tpu/ops/dynkernel.py computes in _dyn_intersect,
+// hook; the bounce itself is the text of dyn_bounce.inc, which dyn_bounce
+// also wraps for the regeneration tracer (dyn_regen_tracer.cu). It is what drt_tpu/ops/dynkernel.py computes in _dyn_intersect,
 // _dyn_shade and _dyn_wavefront_body, over the six DynScene operands
 // (drt_tpu_torch/ops/dynkernel.py): geo f32[S',12] (triangle rows as v0,
 // e1, e2), aux f32[S',3] (normal source), orig i32[S'] (original shape
@@ -98,16 +99,6 @@ static __host__ __device__ __forceinline__ int dyn_pack_meta(int arow,
 // and leaf triangle loops the warps ran.
 enum { STAT_LANE_BOUNCES = 0, STAT_WARP_BOUNCES = 1, STAT_LANE_LEAVES = 2,
        STAT_WARP_LEAVES = 3, DYN_N_STATS = 4 };
-
-// Called by the lanes of a warp that run a piece of code together.
-static __device__ __forceinline__ void dyn_count(unsigned long long* stats,
-                                                 int per_lane, int per_warp) {
-  const unsigned m = __activemask();
-  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
-    atomicAdd(stats + per_lane, (unsigned long long)__popc(m));
-    atomicAdd(stats + per_warp, 1ull);
-  }
-}
 
 // The running nearest hit: t = num / den (den == 1 unless FAST), the
 // winner's original shape index and its row in the operands.
@@ -259,7 +250,7 @@ static __device__ __forceinline__ void dyn_intersect(
     float oz, float dx, float dy, float dz, DynBest& best,
     unsigned long long* stats) {
   if (COUNT)
-    dyn_count(stats, STAT_LANE_BOUNCES, STAT_WARP_BOUNCES);
+    count_group(stats, STAT_LANE_BOUNCES, STAT_WARP_BOUNCES);
   int lo = 0;
   for (int i = lo; i < lo + lay.n_plane; ++i)
     dyn_plane<FAST>(best, s, i, ox, oy, oz, dx, dy, dz);
@@ -292,7 +283,7 @@ static __device__ __forceinline__ void dyn_intersect(
       if (!dyn_slab_enter<FAST>(best, s.caabb, c, ox, oy, oz, ivx, ivy, ivz))
         continue;
       if (COUNT)
-        dyn_count(stats, STAT_LANE_LEAVES, STAT_WARP_LEAVES);
+        count_group(stats, STAT_LANE_LEAVES, STAT_WARP_LEAVES);
       const int t0 = lo + c * K;
       for (int k = 0; k < K; ++k)
         dyn_triangle<FAST>(best, s, t0 + k, ox, oy, oz, dx, dy, dz);
@@ -350,91 +341,33 @@ static __device__ __forceinline__ void dyn_trace_chunk(
   bool alive = true;
 
   for (int bnc = 0; bnc < cfg.max_depth; ++bnc) {
-    float u_rr, u1, u2;
-    bounce_uniforms<INTERNAL>(cfg, tape, i, pix, smp, bnc, u_rr, u1, u2);
-    float rr_scale = 1.0f;
-    if (bnc >= cfg.min_bounces) {
-      alive = alive && !(u_rr < cfg.absorb);
-      rr_scale = cfg.inv_keep;
-    }
+#include "dyn_bounce.inc"
+  }
+}
 
-    // A lane that is already dead skips the loop: whatever it found would
-    // be masked out below.
-    DynBest best = {INF, 1.0f, cfg.n_shapes, 0};
-    if (alive)
-      dyn_intersect<FAST, COUNT>(lay, scn, ox, oy, oz, dx, dy, dz, best,
-                                 stats);
-    alive = alive && best.num < INF;
-    // The one divide per ray of the ratio form.
-    const float best_t = FAST ? best.num / best.den : best.num;
-    const float gate = alive ? rr_scale : 0.0f;
-
-    // The winner's attributes, sanitized on dead lanes: sentinel rows,
-    // null material, zero normal source.
-    const int meta = alive ? __ldg(scn.meta + best.row) : dead_meta;
-    const int arow = meta & row_mask;
-    const int erow = (meta >> DYN_ROW_BITS) & row_mask;
-    const int mt = (meta >> (2 * DYN_ROW_BITS)) & 3;
-    const int st = meta >> (2 * DYN_ROW_BITS + 2);
-    float auxx = 0.0f, auxy = 0.0f, auxz = 0.0f, expo = 0.0f;
-    if (alive) {
-      auxx = __ldg(scn.aux + 3 * best.row);
-      auxy = __ldg(scn.aux + 3 * best.row + 1);
-      auxz = __ldg(scn.aux + 3 * best.row + 2);
-      expo = __ldg(scn.expo + best.row);
-    }
-
-    const float Px = Tx * gate, Py = Ty * gate, Pz = Tz * gate;
-    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-    if (erow < cfg.n_emi - 1) {
-      ex = tab.emi[erow * 3 + 0];
-      ey = tab.emi[erow * 3 + 1];
-      ez = tab.emi[erow * 3 + 2];
-    }
-    lx = lx + Px * ex;
-    ly = ly + Py * ey;
-    lz = lz + Pz * ez;
-
-    float pxh = 0.0f, pyh = 0.0f, pzh = 0.0f;
-    if (alive) {
-      pxh = ox + dx * best_t;
-      pyh = oy + dy * best_t;
-      pzh = oz + dz * best_t;
-    }
-    // Normal: the raw plane normal or the unit triangle normal straight
-    // from aux; for a sphere normalize(p - center).
-    float nx = auxx, ny = auxy, nz = auxz;
-    if (st == SPHERE) {
-      const float sx = pxh - auxx, sy = pyh - auxy, sz = pzh - auxz;
-      const float sinv = inv_sqrt<FAST>(dot3(sx, sy, sz, sx, sy, sz));
-      nx = sx * sinv; ny = sy * sinv; nz = sz * sinv;
-    }
-
-    float wx, wy, wz, sc;
-    shade<FAST>(mt, DynSpecular{expo}, nx, ny, nz, -dx, -dy, -dz, u1, u2,
-                wx, wy, wz, sc);
-    if (!alive) sc = 0.0f;
-
-    hook(bnc, Px, Py, Pz, sc, gate, arow, erow, alive);
-
-    float ax = 1.0f, ay = 1.0f, az = 1.0f;
-    if (arow < cfg.n_alb - 1) {
-      ax = tab.alb[arow * 3 + 0];
-      ay = tab.alb[arow * 3 + 1];
-      az = tab.alb[arow * 3 + 2];
-    }
-    Tx = Px * ax * sc;
-    Ty = Py * ay * sc;
-    Tz = Pz * az * sc;
-    if (alive) {
-      ox = pxh + wx * RAY_EPS_F;
-      oy = pyh + wy * RAY_EPS_F;
-      oz = pzh + wz * RAY_EPS_F;
-      dx = wx; dy = wy; dz = wz;
-    } else {
-      ox = oy = oz = 0.0f;
-      dx = dy = dz = 0.0f;
-    }
+// dyn_bounce.inc as a routine on a PathState, with the keyed hash: one
+// bounce of sample smp of pixel pix at depth bnc. The regeneration kernels
+// (dyn_regen_tracer.cu) call it at each thread's own depth.
+template <bool FAST, bool COUNT, class Hook>
+static __device__ __forceinline__ void dyn_bounce(
+    const DrtTrace& cfg, const DynLayout& lay, const DynOperands& scn,
+    const DynTables& tab, int pix, uint32_t smp, int bnc, Hook& hook,
+    PathState& p, unsigned long long* stats) {
+  constexpr bool INTERNAL = true;
+  const float INF = __int_as_float(0x7f800000);
+  const float RAY_EPS_F = 1e-3f;
+  const int row_mask = DYN_MAX_ROWS - 1;
+  const int dead_meta =
+      dyn_pack_meta(cfg.n_alb - 1, cfg.n_emi - 1, NULL_BXDF, PLANE);
+  const float* tape = nullptr;
+  const int i = pix;
+  float &ox = p.ox, &oy = p.oy, &oz = p.oz;
+  float &dx = p.dx, &dy = p.dy, &dz = p.dz;
+  float &Tx = p.Tx, &Ty = p.Ty, &Tz = p.Tz;
+  float &lx = p.lx, &ly = p.ly, &lz = p.lz;
+  bool& alive = p.alive;
+  {
+#include "dyn_bounce.inc"
   }
 }
 

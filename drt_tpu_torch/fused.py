@@ -20,6 +20,10 @@ plain tracer and nothing is kept.
 The internal RNG is the keyed hash of `ops.rng`: chunk c draws sample
 indices from `c * spp_c` on (where the TPU kernels step their seed words
 per chunk), so `drt_tpu.ops.regen.hash_tapes` rebuilds every sample.
+
+`make_regen_image_renderer` and `make_dyn_regen_image_renderer` are the
+ports of the JAX package's regeneration renderers over `ops.regen` and
+`ops.dynregen`: the same samples, one thread per pixel.
 """
 
 from __future__ import annotations
@@ -300,3 +304,176 @@ def make_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
         (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
          make_dyn_adjoint), ds.scene, ds, cam, cfg, rng, adjoint, fastmath,
         plain, differentiable)
+
+
+def _check_regen_cfg(cfg: RenderConfig, adjoint: str, device) -> str:
+    """The regeneration renderers' limits, and the adjoint they take:
+    biased mode only (the stored or replayed keyed streams ARE the
+    sample). The residual footprint is the lockstep one (`stored_bytes`:
+    t_cap rows per pixel and chunk), so 'auto' resolves as there."""
+    _check_fused_cfg(cfg)
+    if cfg.unbiased:
+        raise ValueError(
+            "the regen renderer is biased-only (stored/replayed keyed "
+            "streams); use the lockstep cuda or cuda-dyn backend for "
+            "unbiased gradients (integrate.hpp:11-24)")
+    return _resolve_adjoint(cfg, adjoint, device)
+
+
+def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
+                          trace_fn, collect_fn, sweep_fn, n_chunks: int,
+                          bwd_chunks: int):
+    """`render(params, seeds) -> image` over a regeneration kernel family
+    (drt_tpu/fused.py:_build_regen_renderer):
+      trace_fn(alb, emi, seeds, sample_base) -> (L f[3, n_pix], trips)
+      collect_fn(...) -> (L, rsc, rows, trips)
+      sweep_fn(alb, emi, rsc, rows, trips, g f[3, n_pix]) -> (da, de)
+    n_chunks == cfg.spp_chunks: the tracer covers every chunk in one
+    launch; n_chunks == 1: a host loop of cfg.spp_chunks launches with
+    sample_base = c * spp_c. bwd_chunks is the same switch for the collect
+    and sweep pair; the retrace backward keeps it at 1, so that one
+    chunk's residuals are alive at a time."""
+    w, h = cfg.width, cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    assert n_chunks in (1, cfg.spp_chunks)
+    assert bwd_chunks in (1, cfg.spp_chunks)
+
+    def tables(albedo, emission):
+        params = Params(albedo, emission)
+        return (albedo_table(scene, params).contiguous(),
+                emission_table(scene, params).contiguous())
+
+    def image(L):
+        return L.reshape(3, h, w).permute(1, 2, 0) / cfg.spp
+
+    def bases(chunks):
+        """sample_base of each launch that together cover all chunks."""
+        if chunks == cfg.spp_chunks:
+            return (0,)
+        return tuple(c * spp_c for c in range(cfg.spp_chunks))
+
+    def trace(alb, emi, seeds):
+        L = 0.0
+        for sb in bases(n_chunks):
+            L = L + trace_fn(alb, emi, seeds, sb)[0]
+        return L
+
+    class Render(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, albedo, emission, seeds):
+            alb, emi = tables(albedo, emission)
+            ctx.seeds = seeds
+            if adjoint != "stored":
+                ctx.save_for_backward(albedo, emission)
+                return image(trace(alb, emi, seeds))
+            L = 0.0
+            residuals = []
+            for sb in bases(bwd_chunks):
+                L_c, *rows = collect_fn(alb, emi, seeds, sb)
+                residuals += rows
+                L = L + L_c
+            ctx.save_for_backward(albedo, emission, *residuals)
+            return image(L)
+
+        @staticmethod
+        def backward(ctx, g):
+            albedo, emission, *residuals = ctx.saved_tensors
+            params = Params(albedo, emission)
+            alb, emi = tables(albedo, emission)
+            # Lanes are pixels: one cotangent per pixel, the same for all
+            # of its samples (image = sum over all spp of radiance / spp).
+            g_pix = (g / cfg.spp).to(alb.dtype).permute(2, 0, 1) \
+                .reshape(3, -1).contiguous()
+            da = de = 0.0
+            for k, sb in enumerate(bases(bwd_chunks)):
+                if adjoint == "stored":
+                    rows = residuals[3 * k:3 * k + 3]
+                else:
+                    rows = collect_fn(alb, emi, ctx.seeds, sb)[1:]
+                da_c, de_c = sweep_fn(alb, emi, *rows, g_pix)
+                da = da + da_c
+                de = de + de_c
+            d = _slice_dparams(params, da, de)
+            return d.albedo, d.emission, None
+
+    def render(params: Params, seeds) -> torch.Tensor:
+        if _wants_grad(params):
+            return Render.apply(params.albedo, params.emission, seeds)
+        with torch.no_grad():
+            return image(trace(*tables(*params), seeds))
+
+    return render
+
+
+def _make_regen_renderer(make_tracer, make_sweep, scene: Scene, kernel_scene,
+                         cam: Camera, cfg: RenderConfig, adjoint: str,
+                         fastmath, chunked: bool, plain: bool,
+                         differentiable: bool):
+    """The image renderer over one regeneration kernel family."""
+    adjoint = _check_regen_cfg(cfg, adjoint, scene.device)
+    fm = _resolve_fastmath(fastmath, "internal")
+    n_chunks = cfg.spp_chunks if chunked else 1
+    # The retrace backward exists to hold one chunk's residuals at a time:
+    # its collect and sweep stay per-chunk launches.
+    bwd_chunks = n_chunks if adjoint == "stored" else 1
+    kw = dict(fastmath=fm, plain=plain)
+    tracer = make_tracer(kernel_scene, cam, cfg, n_chunks=n_chunks, **kw)
+    collect = sweep = None
+    if differentiable:
+        collect = make_tracer(kernel_scene, cam, cfg, collect=True,
+                              n_chunks=bwd_chunks, **kw)
+        sweep = make_sweep(kernel_scene, cfg, n_chunks=bwd_chunks,
+                           plain=plain)
+    render = _build_regen_renderer(scene, cfg, adjoint, tracer, collect,
+                                   sweep, n_chunks, bwd_chunks)
+    if differentiable:
+        return render
+    return torch.no_grad()(render)
+
+
+def make_regen_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
+                              adjoint: str = "auto",
+                              fastmath: bool | str = "auto",
+                              chunked: bool = True, plain: bool = False,
+                              differentiable: bool = True):
+    """Build `render(params, seeds: i32[2]) -> image f32[H, W, 3]` on the
+    path-regeneration kernels (`ops.regen`): one thread per pixel renders
+    the pixel's samples one after the other and starts the next sample in
+    the trip after its path died. The samples are the lockstep
+    renderer's at the same seeds; the image differs by the order in which
+    a pixel's samples are summed. Keyed-hash RNG and biased mode only.
+
+    adjoint: "stored" keeps one row per trip from the forward (the collect
+    form) and sweeps them in the backward: two launches a step. "retrace"
+    keeps (params, seeds) and, per chunk, runs the collect form and the
+    sweep inside the backward, one chunk's rows alive at a time: 1 + 2 *
+    spp_chunks launches. "auto" as `_resolve_adjoint`.
+    chunked=True runs all chunks in one launch; False keeps one launch per
+    chunk with `sample_base = c * spp_c` (the same bits).
+    plain=True runs the plain PyTorch versions on the tensors' device.
+    """
+    from drt_tpu_torch.ops.regen import (make_regen_sweep_adjoint,
+                                         make_regen_tracer)
+
+    return _make_regen_renderer(make_regen_tracer, make_regen_sweep_adjoint,
+                                scene, scene, cam, cfg, adjoint, fastmath,
+                                chunked, plain, differentiable)
+
+
+def make_dyn_regen_image_renderer(scene, cam: Camera, cfg: RenderConfig,
+                                  adjoint: str = "auto",
+                                  fastmath: bool | str = "auto",
+                                  chunked: bool = True, plain: bool = False,
+                                  differentiable: bool = True):
+    """`make_regen_image_renderer` over the memory-resident kernels
+    (`ops.dynregen`), for scenes of up to `MAX_DYN_SHAPES` shapes. `scene`
+    is a Scene or a prebuilt `DynScene`."""
+    from drt_tpu_torch.ops.dynkernel import DynScene
+    from drt_tpu_torch.ops.dynregen import (make_dyn_regen_sweep_adjoint,
+                                            make_dyn_regen_tracer)
+
+    ds = DynScene.of(scene)
+    return _make_regen_renderer(make_dyn_regen_tracer,
+                                make_dyn_regen_sweep_adjoint, ds.scene, ds,
+                                cam, cfg, adjoint, fastmath, chunked, plain,
+                                differentiable)

@@ -584,21 +584,18 @@ def dyn_shade(ds: DynScene, mt, ex, normal, d_in, u1, u2,
     return out, sc
 
 
-def _dyn_body(ds: DynScene, cfg: RenderConfig, alb, emi, o, d, tape,
-              fastmath: bool = False, on_residual=None,
-              stats: dict | None = None):
-    """All max_depth bounces of rays (o, d) over the operands
-    (dynkernel.py:_dyn_wavefront_body). Returns radiance f[3, n].
-    on_residual(b, P f[3, n], sc, gate, arow, erow, alive) sees every
-    bounce with sanitized rows (the sentinel rows on dead lanes)."""
+def _dyn_bounce(ds: DynScene, cfg: RenderConfig, alb, emi, state, b, u,
+                fastmath: bool = False, stats: dict | None = None):
+    """One bounce over the operands (dynkernel.py:_dyn_wavefront_body) of
+    state = (o, d, T f[3, n], L f[3, n], alive), o and d tuples of three
+    f[n], at depth b: the wavefront's bounce, or i64[n] where every ray
+    has its own depth (`ops.dynregen`). u = (u_rr, u1, u2). Returns (the
+    new state, (P f[3, n], sc, gate, albedo row, emission row, alive)),
+    the rows sanitized (the sentinel rows on dead lanes)."""
     _, aux_t, _, meta_t, expo_t, _ = ds.operands
-    ox, oy, oz = o
-    dx, dy, dz = d
-    n = dx.shape[0]
-    dtype, dev = dx.dtype, dx.device
-    T = torch.ones((3, n), dtype=dtype, device=dev)
-    L = torch.zeros((3, n), dtype=dtype, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    (ox, oy, oz), (dx, dy, dz), T, L, alive = state
+    u_rr, u1, u2 = u
+    dtype = dx.dtype
     inv_keep = 1.0 / (1.0 - cfg.absorb_prob)
     dead_meta = _pack_meta(alb.shape[0] - 1, emi.shape[0] - 1, NULL_BXDF,
                            PLANE)
@@ -606,55 +603,71 @@ def _dyn_body(ds: DynScene, cfg: RenderConfig, alb, emi, o, d, tape,
     def inv_sqrt(x):
         return torch.rsqrt(x) if fastmath else 1.0 / torch.sqrt(x)
 
-    for b in range(cfg.max_depth):
-        u_rr, u1, u2 = tape[b, 0], tape[b, 1], tape[b, 2]
+    if torch.is_tensor(b):
+        rr_on = b >= cfg.min_bounces
+        alive = alive & ~(rr_on & (u_rr < cfg.absorb_prob))
+        rr_scale = torch.where(rr_on, inv_keep, 1.0)
+    else:
         rr_scale = 1.0
         if b >= cfg.min_bounces:
             alive = alive & ~(u_rr < cfg.absorb_prob)
             rr_scale = inv_keep
 
-        best_t, hit, row = dyn_intersect(ds, (ox, oy, oz), (dx, dy, dz),
-                                         fastmath=fastmath, alive=alive,
-                                         stats=stats)
-        alive = alive & hit
-        gate = torch.where(alive, rr_scale, 0.0).to(dtype)
-        # The winner's attributes, sanitized on dead lanes: sentinel rows,
-        # null material, zero normal source.
-        meta = torch.where(alive, meta_t[row].long(), dead_meta)
-        ar, er, mt, st = _unpack_meta(meta)
-        aux = torch.where(alive, aux_t[row].T, 0.0)
-        ex = torch.where(alive, expo_t[row], 0.0)
+    best_t, hit, row = dyn_intersect(ds, (ox, oy, oz), (dx, dy, dz),
+                                     fastmath=fastmath, alive=alive,
+                                     stats=stats)
+    alive = alive & hit
+    gate = torch.where(alive, rr_scale, 0.0).to(dtype)
+    # The winner's attributes, sanitized on dead lanes: sentinel rows,
+    # null material, zero normal source.
+    meta = torch.where(alive, meta_t[row].long(), dead_meta)
+    ar, er, mt, st = _unpack_meta(meta)
+    aux = torch.where(alive, aux_t[row].T, 0.0)
+    ex = torch.where(alive, expo_t[row], 0.0)
 
-        P = T * gate
-        L = L + P * _rows_select(emi, er, 0.0)
+    P = T * gate
+    L = L + P * _rows_select(emi, er, 0.0)
 
-        px = torch.where(alive, ox + dx * best_t, 0.0)
-        py = torch.where(alive, oy + dy * best_t, 0.0)
-        pz = torch.where(alive, oz + dz * best_t, 0.0)
-        # Normal: the raw plane normal or the unit triangle normal straight
-        # from aux; for a sphere normalize(p - center).
-        sx, sy, sz = px - aux[0], py - aux[1], pz - aux[2]
-        sinv = inv_sqrt(sx * sx + sy * sy + sz * sz)
-        is_sph = st == SPHERE
-        normal = (torch.where(is_sph, sx * sinv, aux[0]),
-                  torch.where(is_sph, sy * sinv, aux[1]),
-                  torch.where(is_sph, sz * sinv, aux[2]))
+    px = torch.where(alive, ox + dx * best_t, 0.0)
+    py = torch.where(alive, oy + dy * best_t, 0.0)
+    pz = torch.where(alive, oz + dz * best_t, 0.0)
+    # Normal: the raw plane normal or the unit triangle normal straight
+    # from aux; for a sphere normalize(p - center).
+    sx, sy, sz = px - aux[0], py - aux[1], pz - aux[2]
+    sinv = inv_sqrt(sx * sx + sy * sy + sz * sz)
+    is_sph = st == SPHERE
+    normal = (torch.where(is_sph, sx * sinv, aux[0]),
+              torch.where(is_sph, sy * sinv, aux[1]),
+              torch.where(is_sph, sz * sinv, aux[2]))
 
-        w, sc_raw = dyn_shade(ds, mt, ex, normal, (-dx, -dy, -dz), u1, u2,
-                              fastmath=fastmath)
-        sc = torch.where(alive, sc_raw, 0.0)
+    w, sc_raw = dyn_shade(ds, mt, ex, normal, (-dx, -dy, -dz), u1, u2,
+                          fastmath=fastmath)
+    sc = torch.where(alive, sc_raw, 0.0)
 
+    T = P * _rows_select(alb, ar, 1.0) * sc
+    o = tuple(torch.where(alive, q + wk * RAY_EPS, 0.0)
+              for q, wk in zip((px, py, pz), w))
+    d = tuple(torch.where(alive, wk, 0.0) for wk in w)
+    return (o, d, T, L, alive), (P, sc, gate, ar, er, alive)
+
+
+def _dyn_body(ds: DynScene, cfg: RenderConfig, alb, emi, o, d, tape,
+              fastmath: bool = False, on_residual=None,
+              stats: dict | None = None):
+    """All max_depth bounces of rays (o, d) over the operands. Returns
+    radiance f[3, n]. on_residual(b, P f[3, n], sc, gate, arow, erow,
+    alive) sees every bounce."""
+    n = d[0].shape[0]
+    dtype, dev = d[0].dtype, d[0].device
+    state = (o, d, torch.ones((3, n), dtype=dtype, device=dev),
+             torch.zeros((3, n), dtype=dtype, device=dev),
+             torch.ones(n, dtype=torch.bool, device=dev))
+    for b in range(cfg.max_depth):
+        state, residual = _dyn_bounce(ds, cfg, alb, emi, state, b, tape[b],
+                                      fastmath=fastmath, stats=stats)
         if on_residual is not None:
-            on_residual(b, P, sc, gate, ar, er, alive)
-
-        T = P * _rows_select(alb, ar, 1.0) * sc
-        ox = torch.where(alive, px + w[0] * RAY_EPS, 0.0)
-        oy = torch.where(alive, py + w[1] * RAY_EPS, 0.0)
-        oz = torch.where(alive, pz + w[2] * RAY_EPS, 0.0)
-        dx = torch.where(alive, w[0], 0.0)
-        dy = torch.where(alive, w[1], 0.0)
-        dz = torch.where(alive, w[2], 0.0)
-    return L
+            on_residual(b, *residual)
+    return state[3]
 
 
 # Rays per pass of a plain version: it tests a leaf's triangles as one

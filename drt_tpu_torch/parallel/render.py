@@ -4,10 +4,13 @@
 Backends: "cuda" runs the fused kernels over a scene table of at most
 `MAX_SHAPES` shapes (the port of the JAX "pallas" backend) and "cuda-dyn"
 the memory-resident kernels for up to `MAX_DYN_SHAPES` shapes (the port
-of "pallas-dyn"); both need the scene on a CUDA device. "torch" and
-"torch-dyn" run their plain PyTorch versions on the scene's device. The
-JAX package's other backends raise NotImplementedError naming the ROADMAP
-item that brings them.
+of "pallas-dyn"); "cuda-regen" and "cuda-dyn-regen" run the
+path-regeneration kernels of the same two families (the ports of
+"pallas-regen" and "pallas-dyn-regen"; "auto" never picks them, as in the
+JAX package). All four need the scene on a CUDA device. "torch",
+"torch-dyn", "torch-regen" and "torch-dyn-regen" run their plain PyTorch
+versions on the scene's device. The JAX package's other backends raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -20,15 +23,14 @@ from drt_tpu_torch.ops.dynkernel import MAX_DYN_SHAPES
 from drt_tpu_torch.ops.megakernel import MAX_SHAPES
 from drt_tpu_torch.scene import Params, Scene
 
-BACKENDS = ("cuda", "cuda-dyn", "torch", "torch-dyn")
+BACKENDS = ("cuda", "cuda-dyn", "cuda-regen", "cuda-dyn-regen", "torch",
+            "torch-dyn", "torch-regen", "torch-dyn-regen")
 
 # JAX backends not ported yet -> the ROADMAP item (queue A) that ports them.
 _LATER = {
     "xla": "A4 (key-mode wavefront) and A8 (routing)",
     "pallas-split": "A12 (lane splitting)",
     "pallas-split-dyn": "A12 (lane splitting)",
-    "pallas-regen": "A13 (regeneration renderers, kernels B10-B11)",
-    "pallas-dyn-regen": "A13 (regeneration renderers, kernels B12-B13)",
     "pallas-sharded": "A14 (multi-device)",
     "pallas-dyn-sharded": "A14 (multi-device)",
     "pallas-split-sharded": "A14 (multi-device)",
@@ -86,18 +88,21 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
     if backend in _LATER:
         raise _not_yet(f"backend {backend!r}", _LATER[backend])
     if backend not in BACKENDS:
-        hint = (" (the JAX package's 'pallas' is 'cuda' here and "
-                "'pallas-dyn' is 'cuda-dyn')"
-                if backend in ("pallas", "pallas-dyn") else "")
+        hint = (f" (the JAX package's {backend!r} is "
+                f"{'cuda' + backend[len('pallas'):]!r} here)"
+                if "cuda" + backend[len("pallas"):] in BACKENDS
+                and backend.startswith("pallas") else "")
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{BACKENDS}{hint}")
     if backend.startswith("cuda") and scene.device.type != "cuda":
         raise ValueError(f"backend {backend!r} needs the scene on a CUDA "
                          f"device, not {scene.device}")
-    from drt_tpu_torch.fused import (make_dyn_image_renderer,
-                                     make_fused_image_renderer)
+    from drt_tpu_torch import fused
 
-    make = (make_dyn_image_renderer if backend.endswith("-dyn")
-            else make_fused_image_renderer)
+    family = backend.split("-", 1)[1] if "-" in backend else ""
+    make = {"": fused.make_fused_image_renderer,
+            "dyn": fused.make_dyn_image_renderer,
+            "regen": fused.make_regen_image_renderer,
+            "dyn-regen": fused.make_dyn_regen_image_renderer}[family]
     return make(scene, cam, cfg, plain=backend.startswith("torch"),
                 differentiable=differentiable)

@@ -41,7 +41,7 @@ class BounceResiduals(NamedTuple):
     eid: torch.Tensor  # i32[D, N] emission row of this bounce's emitter
 
 
-def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b: int, u):
+def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b, u):
     """One wavefront bounce; carry = (o, d, T, L, alive). Returns the new
     carry, the residuals (P, sc, gate, aid, eid) of this bounce, and the
     hit (whose shape index the fused kernels' twins record).
@@ -56,16 +56,24 @@ def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b: int, u):
     u_rr, u1, u2 = u
     dtype = u1.dtype
 
-    # Russian roulette at depth b (pathtracer.hpp:128-133).
-    do_rr = b >= cfg.min_bounces
-    if do_rr:
-        alive = alive & ~(u_rr < cfg.absorb_prob)
-    rr_scale = 1.0 / (1.0 - cfg.absorb_prob) if do_rr else 1.0
+    # Russian roulette at depth b (pathtracer.hpp:128-133); b is the
+    # wavefront's bounce, or i[N] where every ray has its own depth (the
+    # regeneration kernels' plain versions, ops/regen.py).
+    inv_keep = 1.0 / (1.0 - cfg.absorb_prob)
+    if torch.is_tensor(b):
+        rr_on = b >= cfg.min_bounces
+        alive = alive & ~(rr_on & (u_rr < cfg.absorb_prob))
+        rr_scale = torch.where(rr_on, inv_keep, 1.0).to(dtype)
+    else:
+        do_rr = b >= cfg.min_bounces
+        if do_rr:
+            alive = alive & ~(u_rr < cfg.absorb_prob)
+        rr_scale = torch.tensor(inv_keep if do_rr else 1.0, dtype=dtype,
+                                device=u1.device)
 
     hit = intersect_scene(scene, o, d, emit_sentinel=n_emit)
     alive = alive & hit.valid
-    gate = torch.where(alive, torch.tensor(rr_scale, dtype=dtype,
-                                           device=u1.device), 0.0)
+    gate = torch.where(alive, rr_scale, 0.0)
 
     # Emission at this vertex; the RR divide applies to it too
     # (pathtracer.hpp:113-114, :133).

@@ -48,6 +48,7 @@ def test_import_leaves_jax_out():
     mods = [m.name for m in pkgutil.walk_packages(
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
     assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.ops.dynkernel",
+            "drt_tpu_torch.ops.regen", "drt_tpu_torch.ops.dynregen",
             "drt_tpu_torch.adjoint",
             "drt_tpu_torch.optim", "drt_tpu_torch.fused",
             "drt_tpu_torch.cli", "drt_tpu_torch.utils.native"} <= set(mods)
@@ -65,10 +66,13 @@ def test_build_key_covers_every_file_under_csrc(tmp_path, monkeypatch):
     every library to a new build directory; nothing is compiled here."""
     from drt_tpu_torch.utils import native
 
-    assert native.sources() == ["dyn_adjoint.cu", "dyn_tracer.cu",
-                                "fused_adjoint.cu", "fused_tracer.cu"]
+    assert native.sources() == [
+        "dyn_adjoint.cu", "dyn_regen_adjoint.cu", "dyn_regen_tracer.cu",
+        "dyn_tracer.cu", "fused_adjoint.cu", "fused_tracer.cu",
+        "regen_adjoint.cu", "regen_tracer.cu"]
     for header in ("drt_common.cuh", "grad_accum.cuh", "fused_body.cuh",
-                   "dyn_body.cuh"):
+                   "dyn_body.cuh", "regen_body.cuh", "fused_bounce.inc",
+                   "dyn_bounce.inc"):
         assert (native.CSRC_DIR / header).exists()
     a, b = native.library_path("fused_tracer.cu"), \
         native.library_path("fused_adjoint.cu")
@@ -78,10 +82,11 @@ def test_build_key_covers_every_file_under_csrc(tmp_path, monkeypatch):
 
     monkeypatch.setattr(native, "CSRC_DIR", tmp_path)
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
-    (tmp_path / "h.cuh").write_text("// one\n")
+    (tmp_path / "h.cuh").write_text('#include "b.inc"\n')
+    (tmp_path / "b.inc").write_text("// one\n")
     key = native.build_key()
     assert native.build_key() == key and native.sources() == ["k.cu"]
-    (tmp_path / "h.cuh").write_text("// two\n")
+    (tmp_path / "b.inc").write_text("// two\n")
     key2 = native.build_key()
     assert key2 != key
     monkeypatch.setattr(native, "NVCC_FLAGS", native.NVCC_FLAGS + ["-g"])

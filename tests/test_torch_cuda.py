@@ -1,6 +1,7 @@
 """The CUDA kernels of both families, scene-table ("fused") and
 memory-resident ("dyn"): tracer, collect tracer, sweep adjoint and retrace
-adjoint, against their plain PyTorch versions on the card. Every test needs
+adjoint, and the path-regeneration tracers and sweep adjoints of both,
+against their plain PyTorch versions on the card. Every test needs
 an NVIDIA GPU, nvcc and sm_90a: marked `cuda`, they skip without a card.
 Run them there with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`
@@ -441,3 +442,207 @@ def test_dyn_wrappers_check_inputs(dev):
     for a, b in zip(sweep(alb, emi, rsc, rrow, g_pix),
                     sweep(alb, emi, rsc, rrow, g_pix.repeat(1, 2))):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The path-regeneration kernels of both families (ops.regen, ops.dynregen).
+
+def _regen_family(name):
+    """(prepare the scene, tracer factory, sweep factory, sweep's plain
+    version, lockstep tracer and collect factories, want bit, kept bits,
+    dead code of (alb, emi))."""
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import regen as rg
+
+    if name == "regen":
+        return (lambda scene: scene, rg.make_regen_tracer,
+                rg.make_regen_sweep_adjoint,
+                lambda ks, cfg, *a: rg.regen_sweep_plain(ks, cfg, *a),
+                mk.make_fused_tracer, mk.make_fused_collect_tracer, 8, 0xFF,
+                lambda alb, emi: 0)
+    return (dk.DynScene, dr.make_dyn_regen_tracer,
+            dr.make_dyn_regen_sweep_adjoint,
+            lambda ks, cfg, *a: dr.dyn_regen_sweep_plain(cfg, *a),
+            dk.make_dyn_tracer, dk.make_dyn_collect_tracer, 17, 0x1FFFF,
+            lambda alb, emi: (alb.shape[0] - 1) | ((emi.shape[0] - 1) << 8))
+
+
+REGEN_CASES = [("regen", cbox.build), ("regen", gallery.build_glossy),
+               ("regen", gallery.build_tri), ("dyn_regen", cbox.build),
+               ("dyn_regen", gallery.build_glossy),
+               ("dyn_regen", lambda device: gallery.build_mesh(
+                   1, device=device))]
+REGEN_IDS = ["regen-cbox", "regen-glossy", "regen-tri", "dyn-cbox",
+             "dyn-glossy", "dyn-mesh87"]
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("family,make", REGEN_CASES, ids=REGEN_IDS)
+def test_regen_kernels_are_bit_consistent(dev, family, make, fastmath):
+    """Collect radiance and trips = tracer's; one launch over the chunks =
+    per-chunk launches with sample_base; per-sample radiance = the
+    lockstep tracer's; the rows by sample = the lockstep collect tracer's
+    residuals; two sweeps, and a sweep over rows of NaN beyond each
+    pixel's trips, give the same bits."""
+    from drt_tpu_torch.ops import regen as rg
+
+    prep, tracer, sweeper, _, lock_tracer, lock_collect, want_bit, keep, \
+        dead = _regen_family(family)
+    cfg = RenderConfig(width=64, height=48, spp=4, spp_chunks=2, max_depth=5)
+    cfg_s = RenderConfig(width=64, height=48, spp=4, spp_chunks=4,
+                         max_depth=5)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    ks = prep(scene)
+    seeds = torch.tensor([2024, -77], dtype=torch.int32)
+    kw = dict(fastmath=fastmath)
+    before = mk.launch_counts()
+    L, trips = tracer(ks, cam, cfg, n_chunks=2, **kw)(alb, emi, seeds)
+    Lc, rsc, rows, trips_c = tracer(ks, cam, cfg, collect=True, n_chunks=2,
+                                    **kw)(alb, emi, seeds)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert after[f"{family}_tracer"] == before[f"{family}_tracer"] + 1
+    assert after[f"{family}_collect"] == before[f"{family}_collect"] + 1
+    assert torch.equal(Lc, L) and torch.equal(trips_c, trips)
+    assert int(trips.min()) >= 2 and int(trips.max()) <= rg.t_cap(cfg)
+    one = tracer(ks, cam, cfg, n_chunks=1, **kw)
+    assert torch.equal(one(alb, emi, seeds, 0)[0]
+                       + one(alb, emi, seeds, 2)[0], L)
+    Ls, _ = tracer(ks, cam, cfg_s, n_chunks=4, **kw)(alb, emi, seeds)
+    assert torch.equal(Ls, lock_tracer(ks, cam, cfg_s, n_chunks=4, **kw)(
+        alb, emi, seeds))
+    sc_u, code_u = rg.rows_by_sample(cfg, rsc, rows, trips, want_bit, keep,
+                                     dead(alb, emi))
+    _, rsc_l, rcode_l = lock_collect(ks, cam, cfg, n_chunks=2, **kw)(
+        alb, emi, seeds)
+    assert torch.equal(sc_u, rsc_l) and torch.equal(code_u, rcode_l)
+    g = torch.rand((3, 64 * 48), device=dev)
+    sweep = sweeper(ks, cfg, n_chunks=2)
+    d = sweep(alb, emi, rsc, rows, trips, g)
+    own = torch.arange(rg.t_cap(cfg), device=dev)[None, :, None] \
+        < trips[:, None, :]
+    d_nan = sweep(alb, emi, torch.where(own, rsc, float("nan")).contiguous(),
+                  torch.where(own, rows, -1).contiguous(), trips, g)
+    for a, b, c in zip(d, sweep(alb, emi, rsc, rows, trips, g), d_nan):
+        assert torch.isfinite(a).all() and (a[-1] == 0).all()
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("family,make", REGEN_CASES, ids=REGEN_IDS)
+def test_regen_kernels_match_plain_versions(dev, family, make):
+    from drt_tpu_torch.ops import regen as rg
+
+    prep, tracer, sweeper, sweep_plain, _, _, want_bit, keep, dead = \
+        _regen_family(family)
+    cfg = RenderConfig(width=64, height=48, spp=4, spp_chunks=2, max_depth=5)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    ks = prep(scene)
+    seeds = torch.tensor([2024, -77], dtype=torch.int32)
+    L, rsc, rows, trips = tracer(ks, cam, cfg, collect=True, n_chunks=2)(
+        alb, emi, seeds)
+    Lp, rsc_p, rows_p, trips_p = tracer(ks, cam, cfg, collect=True,
+                                        n_chunks=2, plain=True)(
+        alb, emi, seeds)
+    assert Lp.mean() > 0 and _share_beyond(L, Lp, 2e-5, 2e-6) <= 1e-3
+    assert (trips != trips_p).float().mean() <= 1e-2
+    # Sample by sample, on the slots with no earlier live bounce of zero
+    # weight (what follows one is decided by an ulp).
+    args = (want_bit, keep, dead(alb, emi))
+    sc_u, code_u = rg.rows_by_sample(cfg, rsc, rows, trips, *args)
+    sc_r, code_r = rg.rows_by_sample(cfg, rsc_p, rows_p, trips_p, *args)
+    live = code_r > 0 if family == "regen" else (code_r >> 16) > 0
+    zero = ((sc_r == 0) & live).to(torch.int32)
+    matters = (zero.cumsum(dim=1) - zero) == 0
+    assert torch.equal(code_u[matters], code_r[matters])
+    diff = (sc_u - sc_r).abs()[matters]
+    ref = sc_r.abs()[matters]
+    assert (diff > 2e-6 + 2e-5 * ref).float().mean() <= 5e-3
+    assert (diff > 1e-4 + 2e-3 * ref).float().mean() <= 1e-3
+    g = torch.rand((3, 64 * 48), device=dev)
+    _grads_close(sweeper(ks, cfg, n_chunks=2)(alb, emi, rsc, rows, trips, g),
+                 sweep_plain(ks, cfg, alb, emi, rsc, rows, trips, g))
+
+
+@pytest.mark.parametrize("backend,plain_backend,make", [
+    ("cuda-regen", "torch-regen", cbox.build),
+    ("cuda-dyn-regen", "torch-dyn-regen",
+     lambda device: gallery.build_mesh(1, device=device))],
+    ids=["regen-cbox", "dyn-mesh87"])
+def test_regen_renderers_through_make_renderer(dev, backend, plain_backend,
+                                               make):
+    """Stored and retrace steps launch 2 and 1 + 2 * spp_chunks kernels;
+    the retrace backward equals the stored one launched per chunk bit for
+    bit; gradients agree with the plain backend; the image is the
+    lockstep image up to the order of the per-pixel sum."""
+    from drt_tpu_torch import fused
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params
+
+    cfg = RenderConfig(width=64, height=48, spp=8, spp_chunks=2, max_depth=5)
+    scene, params, cam, _, _ = _setup(make, dev)
+    seeds = torch.tensor([3, 4], dtype=torch.int32)
+    family = "dyn_regen" if "dyn" in backend else "regen"
+    make_image = (fused.make_dyn_regen_image_renderer if "dyn" in backend
+                  else fused.make_regen_image_renderer)
+
+    def step(render):
+        p = Params(*(t.detach().clone().requires_grad_() for t in params))
+        img = render(p, seeds)
+        (img ** 2).mean().backward()
+        torch.cuda.synchronize()
+        return img.detach(), p.albedo.grad, p.emission.grad
+
+    mk.reset_launch_counts()
+    stored = step(make_renderer(scene, cfg, cam, backend=backend))
+    counts = {k: v for k, v in mk.launch_counts().items() if v}
+    assert counts == {f"{family}_collect": 1, f"{family}_sweep": 1}
+    mk.reset_launch_counts()
+    retrace = step(make_image(scene, cam, cfg, adjoint="retrace"))
+    counts = {k: v for k, v in mk.launch_counts().items() if v}
+    assert counts == {f"{family}_tracer": 1, f"{family}_collect": 2,
+                      f"{family}_sweep": 2}
+    per_chunk = step(make_image(scene, cam, cfg, adjoint="stored",
+                                chunked=False))
+    for a, b in zip(retrace, per_chunk):
+        assert torch.equal(a, b)
+    assert torch.equal(stored[0], retrace[0])
+    _grads_close(stored[1:], retrace[1:])
+    plain = step(make_renderer(scene, cfg, cam, backend=plain_backend))
+    _grads_close(stored[1:], plain[1:], rtol=1e-4)
+    lock = make_renderer(scene, cfg, cam, differentiable=False)(params,
+                                                                 seeds)
+    rel = (stored[0] - lock).abs() / lock.clamp_min(lock.mean())
+    assert float(rel.max()) <= 1e-6
+    with pytest.raises(ValueError, match="biased-only"):
+        make_renderer(scene, RenderConfig(width=8, height=8, spp=2,
+                                          max_depth=2, unbiased=True), cam,
+                      backend=backend)
+
+
+def test_regen_wrappers_check_inputs(dev):
+    from drt_tpu_torch.ops import regen as rg
+
+    cfg = RenderConfig(width=8, height=8, spp=2, max_depth=2)
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    seeds = torch.tensor([1, 2], dtype=torch.int32)
+    trace = rg.make_regen_tracer(scene, cam, cfg, collect=True)
+    with pytest.raises(TypeError, match="float32"):
+        trace(alb.double(), emi, seeds)
+    with pytest.raises(ValueError, match="31 bits"):
+        trace(alb, emi, seeds, -3)
+    _, rsc, rmeta, trips = trace(alb, emi, seeds)
+    sweep = rg.make_regen_sweep_adjoint(scene, cfg)
+    g = torch.rand((3, 64), device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        sweep(alb, emi, rsc[:, :2], rmeta, trips, g)
+    with pytest.raises(TypeError, match="int32"):
+        sweep(alb, emi, rsc, rmeta, trips.long(), g)
+    with pytest.raises(ValueError, match="shape"):
+        sweep(alb, emi, rsc, rmeta, trips, g.repeat(1, 2))
+    deep = RenderConfig(width=8, height=8, spp=1, max_depth=33,
+                        min_bounces=1)
+    _, rsc, rmeta, trips = rg.make_regen_tracer(scene, cam, deep,
+                                                collect=True)(alb, emi, seeds)
+    with pytest.raises(ValueError, match="32 bounces"):
+        rg.make_regen_sweep_adjoint(scene, deep)(alb, emi, rsc, rmeta, trips,
+                                                 g)

@@ -97,7 +97,14 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
     (dict(backend="pallas-dyn"), ValueError, "'pallas-dyn' is 'cuda-dyn'"),
     (dict(backend="cuda-dyn"), ValueError, "CUDA device"),
     (dict(backend="pallas-dyn-sharded"), NotImplementedError, "A14"),
-    (dict(backend="pallas-regen"), NotImplementedError, "A13"),
+    (dict(backend="pallas-regen"), ValueError,
+     "'pallas-regen' is 'cuda-regen'"),
+    (dict(backend="pallas-dyn-regen"), ValueError,
+     "'pallas-dyn-regen' is 'cuda-dyn-regen'"),
+    (dict(backend="cuda-regen"), ValueError, "CUDA device"),
+    (dict(backend="cuda-dyn-regen"), ValueError, "CUDA device"),
+    (dict(backend="pallas-regen-sharded"), NotImplementedError, "A14"),
+    (dict(backend="pallas-split"), NotImplementedError, "A12"),
     (dict(backend="bogus"), ValueError, "unknown backend"),
 ])
 def test_make_renderer_refuses(kw, err, match):
@@ -154,6 +161,28 @@ def test_cli_grad_writes_parameter_gradients(tmp_path, flags, unbiased):
     assert d_alb.shape == (3, 3) and d_emi.shape == (1, 3)
     assert np.isfinite(d_alb).all() and (d_emi > 0).all()
     assert d_alb[0, 0] > 0 and d_alb[1, 1] > 0  # red and green walls
+
+
+@pytest.mark.parametrize("backend", ["torch-regen", "torch-dyn-regen"])
+def test_regen_backends_route_and_render(tmp_path, backend):
+    """The plain regeneration backends render the lockstep backends'
+    samples ("auto" never picks them); `--backend` of the CLI takes their
+    names."""
+    scene, params, cam = cbox.build()
+    assert resolve_backend(scene, CFG, backend) == backend
+    assert resolve_backend(scene, CFG) == "torch"
+    img = make_renderer(scene, CFG, cam, differentiable=False,
+                        backend=backend)(params, _seeds())
+    lock = make_renderer(scene, CFG, cam, differentiable=False,
+                         backend=backend.replace("-regen", ""))(
+        params, _seeds())
+    assert img.shape == (12, 16, 3) and lock.mean() > 0
+    torch.testing.assert_close(img, lock, rtol=1e-5, atol=1e-7)
+    out = tmp_path / "a.png"
+    assert cli.main(["render", "-x", "8", "-y", "6", "-n", "2",
+                     "--max-depth", "2", "--device", "cpu", "--backend",
+                     backend, "-o", str(out)]) == 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 @pytest.mark.parametrize("channels", [3, 4])
