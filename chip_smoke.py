@@ -1,6 +1,6 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--keep-going] [--only=regen]
+  python3 chip_smoke.py [--keep-going] [--only=regen|wavefront]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -65,11 +65,23 @@ Phases (any failure raises, exits non-zero and prints no result line):
      forward+backward step stored and retrace against "torch-regen" /
      "torch-dyn-regen" (the mesh on one chunk), 5 optim.inverse_render
      steps on each;
- 14. a line {"kernels": [...]} of twelve entries, the nvidia-smi line, and
-     last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7, 10 and 13 the launch counts are set
-to 0, and read just after. --only=regen builds, runs phases 11-13 and
-stops without a result line (exit 1): a short run while working on them.
+ 14. the key-driven wavefront kernels (wavefront tracer B5a and adjoint
+     B5b) against their plain twins on cbox, glossy and tri (64x48x4 spp,
+     depth 5), on the fused tracer's own rays and tape against B1 and B4
+     (bit for bit where the rays are the same bits), boundary tapes and
+     rays that miss everything; both kernels timed on one chunk of the
+     main shape beside the per-chunk ray generation and keyed draws; then
+     make_renderer(backend="cuda-wavefront") at the main shape: three
+     seeds forward against the fused tracer's exact image at the same
+     seeds, forward+backward steps biased and unbiased against the "cuda"
+     retrace form and against "torch-wavefront" on one chunk, 5
+     optim.inverse_render steps, and gradcheck.check_gradients at 64x48x4;
+ 15. a line {"kernels": [...]} of fourteen entries, the nvidia-smi line,
+     and last {"ok": true, "device": {...}}.
+Before each of the paths of 5, 6, 7, 10, 13 and 14 the launch counts are
+set to 0, and read just after. --only=regen (phases 11-13) and
+--only=wavefront (phase 14) build, run those phases and stop without a
+result line (exit 1): short runs while working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -118,7 +130,7 @@ MESH_MAIN = dict(width=640, height=480, spp=64, max_depth=5, spp_chunks=4)
 KERNELS = ("fused_tracer", "fused_collect", "fused_sweep", "fused_adjoint",
            "dyn_tracer", "dyn_collect", "dyn_sweep", "dyn_adjoint",
            "regen_tracer", "regen_sweep", "dyn_regen_tracer",
-           "dyn_regen_sweep")
+           "dyn_regen_sweep", "ray_tracer", "ray_adjoint")
 # Every wrapper that counts its launches: the two forms of a regeneration
 # tracer (one TPU kernel, one entry of the kernels line) count apart.
 WRAPPERS = KERNELS + ("regen_collect", "dyn_regen_collect")
@@ -131,7 +143,8 @@ REGEN_IMAGE_RTOL = 1e-6
 
 FAILED: list[str] = []
 KEEP_GOING = "--keep-going" in sys.argv[1:]
-ONLY_REGEN = "--only=regen" in sys.argv[1:]
+ONLY = next((a.split("=", 1)[1] for a in sys.argv[1:]
+             if a.startswith("--only=")), None)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1326,6 +1339,324 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
     return rows
 
 
+def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 14: the key-driven wavefront kernels, B5a (`ray_tracer`) and
+    B5b (`ray_adjoint`). Returns their rows of the kernels line."""
+    from drt_tpu_torch import fused, gradcheck, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops.rng import bounce_tape
+    from drt_tpu_torch.ops.vecmath import V3
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.renderer import (chunk_pixel_ids, chunk_rays,
+                                        chunk_sample_ids, trace_rays)
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    def tables(scene, params):
+        return albedo_table(scene, params), emission_table(scene, params)
+
+    def fused_rays(cam, cfg, cam_u, exact_division):
+        """The fused tracer's primary rays f32[3, N] through
+        camera_ray_from_pix (its op order). A tensor divided by a Python
+        number is multiplied by the number's reciprocal on the card; with
+        exact_division the divisors are tensors, as in the kernel."""
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        if exact_division:
+            cc = cc._replace(width=torch.tensor(cfg.width, device=dev),
+                             height=torch.tensor(cfg.height, device=dev))
+        pix = torch.arange(cam_u.shape[1], device=dev) % (cfg.width
+                                                           * cfg.height)
+        o, d = mk.camera_ray_from_pix(cc, pix, cam_u[0], cam_u[1])
+        return torch.stack(tuple(o)), torch.stack(tuple(d))
+
+    def leaves_of(p):
+        return Params(*(t.detach().clone().requires_grad_() for t in p))
+
+    def step(render_fn, p, s, tgt):
+        p = leaves_of(p)
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - tgt) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad)
+
+    # Small shapes.
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    n = 64 * 48 * 4
+    g = torch.Generator(device=dev).manual_seed(31)
+    cam_u = torch.rand((2, n), generator=g, device=dev)
+    tape = torch.rand((5, 3, n), generator=g, device=dev)
+    g_ray = torch.rand((3, n), generator=g, device=dev)
+    small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
+             ("tri", gallery.build_tri))
+    for label, build in small:
+        scene, params, cam = build(device=dev)
+        alb, emi = tables(scene, params)
+        trace = mk.make_pallas_tracer(scene, cfg)
+        adj = mk.make_pallas_adjoint(scene, cfg)
+        o, d = fused_rays(cam, cfg, cam_u, False)
+        L = trace(alb, emi, o, d, tape)
+        compare(f"wavefront tracer vs twin, {label}", L,
+                mk.make_pallas_tracer(scene, cfg, plain=True)(
+                    alb, emi, o, d, tape), EXACT_TOL)
+        d_adj = adj(alb, emi, o, d, tape, g_ray)
+        compare_grads(f"wavefront adjoint vs twin, {label}", d_adj,
+                      mk.make_pallas_adjoint(scene, cfg, plain=True)(
+                          alb, emi, o, d, tape, g_ray), GRAD_RTOL_SMALL)
+        same_bits(f"wavefront adjoint twice, {label}",
+                  adj(alb, emi, o, d, tape, g_ray), d_adj)
+        # The fused tracer's own rays and tape: B1's tape form, B4's.
+        L_b1 = mk.make_fused_tracer(scene, cam, cfg, rng="tape")(
+            alb, emi, cam_u, tape)
+        d_b4 = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(
+            alb, emi, cam_u, tape, g_ray)
+        o2, d2 = fused_rays(cam, cfg, cam_u, True)
+        torch.cuda.synchronize()
+        print(f"[compare] {label}: rays of camera_ray_from_pix (x * (1/w)) "
+              f"differ from the kernel's camera (x / w) on "
+              f"{int((d != d2).any(dim=0).sum())!r} of {n} directions; "
+              f"B5a on them differs from B1 on "
+              f"{int((L != L_b1).any(dim=0).sum())!r} rays, max abs "
+              f"{(L - L_b1).abs().max().item()!r}", flush=True)
+        same_bits(f"wavefront tracer on B1's rays and tape = B1 (tape), "
+                  f"{label}", (trace(alb, emi, o2, d2, tape),), (L_b1,))
+        same_bits(f"wavefront adjoint on B4's rays, tape and g = B4 (tape), "
+                  f"{label}", adj(alb, emi, o2, d2, tape, g_ray), d_b4)
+    # Boundary tapes (entries exactly 0 and 1) and rays that miss all.
+    scene, params, cam = gallery.build_glossy(device=dev)
+    alb, emi = tables(scene, params)
+    u = tape.clone()
+    u[:, 1, ::7] = 1.0
+    u[:, 1, 3::11] = 0.0
+    u[:, 2, 5::13] = 0.0
+    u[:, 0, 2::9] = 0.0
+    o, d = fused_rays(cam, cfg, cam_u, False)
+    L = mk.make_pallas_tracer(scene, cfg)(alb, emi, o, d, u)
+    grads = mk.make_pallas_adjoint(scene, cfg)(alb, emi, o, d, u, g_ray)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(L).all()) and L.mean().item() > 0
+          and all(bool(torch.isfinite(t).all()) for t in grads),
+          "boundary tapes: non-finite radiance or gradients")
+    print(f"[compare] boundary tapes, glossy: radiance finite, mean "
+          f"{L.mean().item()!r}; gradients finite", flush=True)
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = tables(scene, params)
+    away = torch.rand((3, n), generator=g, device=dev) + 0.1
+    away[2] = -away[2]
+    away = (away / away.norm(dim=0)).contiguous()
+    far = torch.tensor([[100.0], [100.0], [-100.0]], device=dev).repeat(1, n)
+    L = mk.make_pallas_tracer(scene, cfg)(alb, emi, far, away, tape)
+    grads = mk.make_pallas_adjoint(scene, cfg)(alb, emi, far, away, tape,
+                                               g_ray)
+    torch.cuda.synchronize()
+    check(not L.any() and not any(t.any() for t in grads),
+          "rays that miss everything: non-zero radiance or gradients")
+    print("[compare] rays that miss everything, cbox: radiance and "
+          "gradients exactly 0", flush=True)
+
+    # The kernels at the main shape, one chunk (one launch) of rays.
+    cfg_m = RenderConfig(**MAIN)
+    C, D = cfg_m.spp_chunks, cfg_m.max_depth
+    spp_c = cfg_m.spp // C
+    npix = cfg_m.width * cfg_m.height
+    n_chunk = npix * spp_c
+    n_rays = npix * cfg_m.spp
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    trace = mk.make_pallas_tracer(scene, cfg_m)
+    adj = mk.make_pallas_adjoint(scene, cfg_m)
+    xy = chunk_pixel_ids(cfg_m, dev)
+    chunk = 1
+    pix, smp = chunk_sample_ids(cfg_m, xy, chunk)
+    once = dict(reps=1, warmup=0, windows=1)
+    rays_ms, rays_win, (o, d, _) = cuda_ms(
+        lambda: chunk_rays(cam, cfg_m, xy, seeds, chunk), **timing)
+    draw_ms, draw_win, u = cuda_ms(
+        lambda: bounce_tape(int(seeds[1]), pix, smp, D), **timing)
+    o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+    g_main = torch.rand((3, n_chunk), generator=g, device=dev) / cfg_m.spp
+    ms, windows, plain_ms, err = {}, {}, {}, {}
+    ms["ray_tracer"], windows["ray_tracer"], L = cuda_ms(
+        lambda: trace(alb, emi, o, d, u), **timing)
+    plain_ms["ray_tracer"], _, L_p = cuda_ms(
+        lambda: mk.ray_trace_plain(scene, cfg_m, alb, emi, o, d, u), **once)
+    err["ray_tracer"] = compare(
+        f"wavefront tracer vs twin at the main shape, chunk {chunk}", L, L_p,
+        EXACT_TOL)
+    del L_p
+    ms["ray_adjoint"], windows["ray_adjoint"], d_k = cuda_ms(
+        lambda: adj(alb, emi, o, d, u, g_main), **timing)
+    plain_ms["ray_adjoint"], _, d_p = cuda_ms(
+        lambda: mk.ray_adjoint_plain(scene, cfg_m, alb, emi, o, d, u,
+                                     g_main), **once)
+    err["ray_adjoint"] = compare_grads(
+        f"wavefront adjoint vs twin at the main shape, chunk {chunk}", d_k,
+        d_p, GRAD_RTOL_MAIN)
+    same_bits("wavefront adjoint twice at the main shape",
+              adj(alb, emi, o, d, u, g_main), d_k)
+    print(f"[time] one chunk of {n_chunk} rays at the main shape: "
+          f"ray_tracer {ms['ray_tracer']!r} ms, plain "
+          f"{plain_ms['ray_tracer']!r} ms; ray_adjoint "
+          f"{ms['ray_adjoint']!r} ms, plain {plain_ms['ray_adjoint']!r} ms; "
+          f"per-chunk work outside the kernels: chunk_rays {rays_ms!r} ms, "
+          f"the keyed draw of the tape ({D}x3 rows) {draw_ms!r} ms; on "
+          f"{smi_line}; window means: tracer {windows['ray_tracer']!r} "
+          f"adjoint {windows['ray_adjoint']!r} rays {rays_win!r} draw "
+          f"{draw_win!r}", flush=True)
+    # Bounds: each input read once and each output written once (o, d
+    # 24 B, the tape 12 D B, radiance or g 12 B per ray), or this chunk's
+    # live bounces' operations (no camera, no draws in these kernels).
+    _, res = trace_rays(Params(alb[:-1], emi[:-1]), scene, V3(*o), V3(*d),
+                        cfg_m, tape=u, collect=True)
+    live = int((res.gate > 0).sum().item())
+    del res
+    ops_hit = sum(OPS_SHAPE[t] for t in scene.shape_type.tolist())
+    table_bytes = 4 * (mk.scene_table(scene).numel() + alb.numel()
+                       + emi.numel())
+    ray_bytes = n_chunk * (24 + 12 * D + 12)
+    work = {"ray_tracer": (table_bytes + ray_bytes,
+                           live * (ops_hit + OPS_SHADE)),
+            "ray_adjoint": (table_bytes + ray_bytes + 4 * (alb.numel()
+                                                           + emi.numel()),
+                            live * (ops_hit + OPS_SHADE + OPS_SWEEP))}
+    bound = {}
+    for name, (n_bytes, n_ops) in work.items():
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        bound[name] = (max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[bound] {name}: bytes={n_bytes} ({t_bytes!r} ms at "
+              f"{PEAK_BYTES_PER_S:.3g} B/s) operations={n_ops} ({t_ops!r} "
+              f"ms at {PEAK_F32_OPS_PER_S:.3g} op/s) live bounce-rays="
+              f"{live} of {n_chunk * D}", flush=True)
+    del o, d, u, L, g_main
+
+    # The main path through make_renderer(backend="cuda-wavefront").
+    launches = {}
+    render = make_renderer(scene, cfg_m, cam, differentiable=False,
+                           backend="cuda-wavefront")
+    exact = fused.make_fused_image_renderer(scene, cam, cfg_m,
+                                            fastmath=False,
+                                            differentiable=False)
+    seed_list = [seeds_from_generator(torch.Generator().manual_seed(s))
+                 for s in (0, 1, 2, 3)]
+    mk.reset_launch_counts()
+    images, t_imgs = [], []
+    for s in seed_list:  # the first is the warm-up
+        t0 = time.perf_counter()
+        images.append(render(params, s))
+        torch.cuda.synchronize()
+        t_imgs.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    launches["ray_tracer"] = counts["ray_tracer"]
+    check(counts == only(ray_tracer=C * len(seed_list)),
+          f"the wavefront forward launched {counts}")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        render(params, seed_list[1])
+    torch.cuda.synchronize()
+    t_pipe = (time.perf_counter() - t0) / 5
+    print(f"[wavefront] make_renderer(cuda-wavefront, differentiable=False) "
+          f"640x480x256spp depth 5, {C} chunks: launches={counts} seconds "
+          f"synchronized={t_imgs[1:]!r} pipelined={t_pipe!r} "
+          f"({n_rays / t_pipe / 1e6!r} Mrays/s) on {smi_line}", flush=True)
+    for s, img in zip(seed_list[1:], images[1:]):
+        check(img.shape == (480, 640, 3) and img.dtype == torch.float32,
+              f"image {tuple(img.shape)} {img.dtype}")
+        reads_right(img, f"wavefront, seed {s.tolist()}")
+        ref = exact(params, s)
+        compare(f"wavefront image vs the fused tracer's exact image, seed "
+                f"{s.tolist()} (per pixel)", img.permute(2, 0, 1)
+                .reshape(3, -1), ref.permute(2, 0, 1).reshape(3, -1),
+                EXACT_TOL)
+    target = images[1]
+    del images
+
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    cfg_u = RenderConfig(**MAIN, unbiased=True, adjoint_samples=2)
+    forms = (("biased", cfg_m, only(ray_tracer=C, ray_adjoint=C)),
+             ("unbiased, 2 adjoint samples", cfg_u,
+              only(ray_tracer=C, ray_adjoint=2 * C)))
+    for label, cfg_f, expected in forms:
+        render_fn = make_renderer(scene, cfg_f, cam, backend="cuda-wavefront")
+        counts, (_, grads) = time_steps(
+            f"wavefront, {label}",
+            lambda: step(render_fn, p_off, seed_list[1], target), mk,
+            expected, n_rays)
+        if label == "biased":
+            launches["ray_adjoint"] = counts["ray_adjoint"]
+        # The same samples through the fused kernels' retrace form (exact
+        # variant), and through the plain backend on one chunk.
+        ref = step(fused.make_fused_image_renderer(
+            scene, cam, cfg_f, adjoint="retrace", fastmath=False), p_off,
+            seed_list[1], target)
+        compare_grads(f"wavefront, {label}: grads vs 'cuda' retrace (exact) "
+                      "at the same seeds", grads, ref[1], GRAD_RTOL_MAIN)
+        cfg_1 = RenderConfig(width=cfg_f.width, height=cfg_f.height,
+                             spp=spp_c, max_depth=D, unbiased=cfg_f.unbiased,
+                             adjoint_samples=cfg_f.adjoint_samples)
+        pair = []
+        for backend in ("cuda-wavefront", "torch-wavefront"):
+            t0 = time.perf_counter()
+            pair.append(step(make_renderer(scene, cfg_1, cam,
+                                           backend=backend), p_off,
+                             seed_list[2], target))
+            torch.cuda.synchronize()
+            print(f"[grad] wavefront, {label}, one chunk, {backend}: loss="
+                  f"{pair[-1][0].item()!r} seconds="
+                  f"{time.perf_counter() - t0!r}", flush=True)
+        compare_grads(f"wavefront, {label}: grads vs 'torch-wavefront' on "
+                      "one chunk", pair[0][1], pair[1][1], GRAD_RTOL_MAIN)
+
+    # The trainer.
+    true_red = params.albedo[cbox.RED].clone()
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+    n_steps = 5
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted, metrics = optim.inverse_render(
+        scene, cfg_m, cam, target, Params(start, params.emission),
+        torch.Generator().manual_seed(5), steps=n_steps,
+        backend="cuda-wavefront")
+    torch.cuda.synchronize()
+    t_train = (time.perf_counter() - t0) / n_steps
+    counts = mk.launch_counts()
+    before = (start[cbox.RED] - true_red).norm().item()
+    after = (fitted.albedo[cbox.RED] - true_red).norm().item()
+    print(f"[train] inverse_render(backend='cuda-wavefront') {n_steps} steps: "
+          f"launches={counts} seconds per step={t_train!r} "
+          f"loss={metrics['loss'].tolist()} red row "
+          f"{start[cbox.RED].tolist()} -> {fitted.albedo[cbox.RED].tolist()}"
+          f": distance {before!r} -> {after!r} on {smi_line}", flush=True)
+    check(counts == only(ray_tracer=2 * C * n_steps,
+                         ray_adjoint=2 * C * n_steps),
+          f"the wavefront trainer launched {counts}")
+    check(bool(torch.isfinite(metrics["loss"]).all()),
+          "the wavefront trainer's losses are not finite")
+    check(after < before, "the perturbed albedo row moved away from its "
+          "true value")
+
+    # The gradient check: the kernel VJP against the plain jvp.
+    cfg_g = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gradcheck.check_gradients(scene, cam, cfg_g, params, seeds,
+                                    rtol=1e-4)
+    counts = mk.launch_counts()
+    print(f"[gradcheck] check_gradients 64x48x4 f32 on the card, rtol 1e-4: "
+          f"(vjp dot, jvp tangent) {res!r}; launches={counts}; "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    check(counts == only(ray_tracer=1, ray_adjoint=1),
+          f"check_gradients launched {counts}")
+    return {name: dict(launches=launches[name], max_abs_err=err[name],
+                       ms=ms[name], plain_ms=plain_ms[name],
+                       bound_ms=bound[name][0], bound_by=bound[name][1],
+                       rays=n_chunk, chunks=C)
+            for name in ("ray_tracer", "ray_adjoint")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1372,9 +1703,10 @@ def main() -> int:
                                        "spill")):
                 print(f"[ptxas] {source}: {line.strip()}", flush=True)
 
-    if ONLY_REGEN:
-        regen_phases(dev, smi_line, dict(reps=10, warmup=10, windows=3))
-        print(f"[partial] phases 11-13 only, {time.time() - t_start:.1f}s; "
+    if ONLY:
+        phase = {"regen": regen_phases, "wavefront": wavefront_phase}[ONLY]
+        phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
+        print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
         return 1
 
@@ -1703,6 +2035,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     regen_rows = regen_phases(dev, smi_line,
                               dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
+    wave_rows = wavefront_phase(dev, smi_line,
+                                dict(reps=10, warmup=10, windows=3))
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -1713,6 +2048,7 @@ def main() -> int:
                        bound_by=bound[name][1]) for name in ms}
     rows.update(dyn_rows)
     rows.update(regen_rows)
+    rows.update(wave_rows)
     # name -> (source under csrc/, the TPU kernel's file and def line)
     replaces = {"fused_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
                 "fused_collect": ("fused_tracer.cu", "megakernel.py:1211"),
@@ -1727,7 +2063,9 @@ def main() -> int:
                 "dyn_regen_tracer": ("dyn_regen_tracer.cu",
                                      "dynregen.py:46"),
                 "dyn_regen_sweep": ("dyn_regen_adjoint.cu",
-                                    "dynregen.py:316")}
+                                    "dynregen.py:316"),
+                "ray_tracer": ("fused_tracer.cu", "megakernel.py:683"),
+                "ray_adjoint": ("fused_adjoint.cu", "megakernel.py:912")}
     check(tuple(replaces) == KERNELS and set(rows) == set(KERNELS),
           f"kernels measured: {sorted(rows)}")
     for name in KERNELS:
@@ -1740,7 +2078,8 @@ def main() -> int:
     # The dyn and regeneration kernels' plain_ms is of one chunk of `chunks`
     # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
     # launch. A regeneration tracer's entry is its forward form; collect_*
-    # are its collect form's numbers.
+    # are its collect form's numbers. The wavefront kernels launch once per
+    # chunk: their ms and plain_ms are of one chunk.
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

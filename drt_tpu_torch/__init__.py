@@ -13,15 +13,17 @@ kernels), the same path over memory-resident scenes of up to 2048 shapes
 (`ops.dynkernel`: `DynScene` and four more kernels, for triangle meshes
 such as `models.gallery.build_mesh`), the path-regeneration renderers of
 both families (`ops.regen`, `ops.dynregen`: backends "cuda-regen" and
-"cuda-dyn-regen"), the tape forms of `adjoint.make_diff_renderer`, and
-the Adam loop of `optim`.
+"cuda-dyn-regen"), the key-driven wavefront (`renderer.render_image`,
+`adjoint.make_diff_image_renderer` over the wavefront tracer and adjoint
+kernels: backend "cuda-wavefront"), `adjoint.make_diff_renderer`,
+`gradcheck`, `integrate`, and the Adam loop of `optim`.
 """
 
 from drt_tpu_torch.adjoint import make_diff_image_renderer, make_diff_renderer
-from drt_tpu_torch.camera import Camera, look_at
+from drt_tpu_torch.camera import Camera, default_camera, look_at
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
-from drt_tpu_torch.renderer import trace_rays
+from drt_tpu_torch.renderer import render_image, trace_rays
 from drt_tpu_torch.scene import Params, Scene, SceneBuilder, make_scene
 
 __all__ = [
@@ -31,8 +33,10 @@ __all__ = [
     "SceneBuilder",
     "make_scene",
     "Camera",
+    "default_camera",
     "look_at",
     "trace_rays",
+    "render_image",
     "make_diff_renderer",
     "make_diff_image_renderer",
     "make_renderer",

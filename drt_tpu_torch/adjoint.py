@@ -1,9 +1,10 @@
 """Radiative backpropagation as a `torch.autograd.Function`.
 
-The port of `drt_tpu.adjoint` in its tape forms. The forward saves no
-per-bounce state, only its inputs; the backward retraces the wavefront on
-a tape (the forward's in biased mode, integrate.hpp:26-37; a second,
-fresh one in unbiased mode, integrate.hpp:11-24, 39-52), collects the
+The port of `drt_tpu.adjoint`. The forward saves no per-bounce state,
+only its inputs; the backward retraces the wavefront on the forward's
+samples (biased mode, integrate.hpp:26-37) or on fresh ones (unbiased
+mode, integrate.hpp:11-24, 39-52: a second tape, or the bounce seed
+salted by `fused._salted`, which keeps the camera stream), collects the
 per-bounce residuals and closes the gradient analytically from the
 path-estimator factorization
 
@@ -18,28 +19,43 @@ reverse-mode autograd through `renderer.trace_rays`
 (tests/test_torch_adjoint.py). This module is the pure-tensor oracle of
 the sweep and retrace adjoint kernels (`ops/megakernel.py`).
 
-The key-driven forms (`use_tape=False`, `make_diff_image_renderer`) need
-the key-mode wavefront tracer and come with ROADMAP item A4.
+`make_diff_image_renderer` is the key-driven wavefront image renderer:
+each spp chunk's rays from `renderer.chunk_rays`, traced by the wavefront
+tracer kernel (`ops.megakernel.make_pallas_tracer`) and differentiated by
+the wavefront adjoint kernel (`make_pallas_adjoint`) when the scene is on
+the card, by their plain twins when it is on the CPU or plain=True.
 """
 
 from __future__ import annotations
 
 import torch
 
+from drt_tpu_torch.camera import Camera
 from drt_tpu_torch.config import RenderConfig
+from drt_tpu_torch.fused import _salted
+from drt_tpu_torch.ops.megakernel import (make_pallas_adjoint,
+                                          make_pallas_tracer)
+from drt_tpu_torch.ops.rng import bounce_tape
 from drt_tpu_torch.ops.vecmath import V3, gatherv
-from drt_tpu_torch.renderer import BounceResiduals, trace_rays
+from drt_tpu_torch.renderer import (BounceResiduals, chunk_pixel_ids,
+                                    chunk_rays, chunk_sample_ids,
+                                    render_image, trace_rays)
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
 
-def _lane_cotangent(g: V3, cfg: RenderConfig) -> V3:
-    """Per-ray cotangent -> per-lane cotangent of the splitting tracer.
-    The identity at bsdf_samples == 1, the only estimator the port's
-    tracer has until ROADMAP item A12."""
+def _check_lanes(cfg: RenderConfig) -> None:
+    """One lane per ray: the port's tracer has no per-vertex splitting
+    until ROADMAP item A12."""
     if cfg.bsdf_samples != 1:
         raise NotImplementedError(
             "bsdf_samples > 1 (per-vertex splitting) comes to the port "
             "with ROADMAP item A12")
+
+
+def _lane_cotangent(g: V3, cfg: RenderConfig) -> V3:
+    """Per-ray cotangent -> per-lane cotangent of the splitting tracer:
+    the identity at bsdf_samples == 1 (`_check_lanes`)."""
+    _check_lanes(cfg)
     return g
 
 
@@ -81,20 +97,31 @@ def _param_grads(params: Params, scene: Scene, residuals: BounceResiduals,
                   emission=de.to_array()[:l].to(params.emission.dtype))
 
 
+def _bwd_seeds(cfg: RenderConfig, seeds) -> list:
+    """The seed pairs of the backward's retraces: the forward's in biased
+    mode, `adjoint_samples` salted ones in unbiased mode (a fresh bounce
+    stream each, the same camera stream)."""
+    if not cfg.unbiased:
+        return [seeds]
+    return [_salted(seeds, s) for s in range(cfg.adjoint_samples)]
+
+
 def make_diff_renderer(scene: Scene, cfg: RenderConfig,
                        use_tape: bool = False, bwd_tape: bool = False):
     """Build the differentiable radiance estimator for a scene.
 
-    use_tape=True: `f(params, orig, dir, tape) -> radiance V3 of f[N]`
-    with an injected uniform tape f[max_depth, 3, N]; differentiable in
-    `params` by radiative backprop, upstream cotangents flow per ray.
+    use_tape=False: `f(params, orig, dir, seeds) -> radiance V3 of f[N]`
+    for the seed pair `seeds` (key-mode `trace_rays`: ray i draws as pixel
+    i at sample 0); the backward replays the forward's draws (biased) or
+    averages `adjoint_samples` retraces on salted bounce seeds (unbiased).
+
+    use_tape=True: `f(params, orig, dir, tape)` with an injected uniform
+    tape f[max_depth, 3, N]; differentiable in `params` by radiative
+    backprop, upstream cotangents flow per ray.
 
     bwd_tape=True (needs use_tape=True and cfg.unbiased): `f(params, orig,
     dir, tape_fwd, tape_bwd)`, whose backward retraces on the second tape.
     With tape_bwd == tape_fwd it reduces exactly to the biased replay.
-
-    use_tape=False draws from a PRNG key in the JAX package; that form
-    waits for the key-mode tracer (ROADMAP item A4).
     """
     if bwd_tape:
         if not (use_tape and cfg.unbiased):
@@ -103,54 +130,149 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
         if cfg.bsdf_samples != 1:
             raise ValueError("bwd_tape mode is single-BSDF-sample only "
                              "(a 1-stream tape cannot drive a tree)")
-    if not use_tape:
-        raise NotImplementedError(
-            "the key-driven differentiable renderer is not ported yet: "
-            "ROADMAP A4 (key-mode wavefront); pass use_tape=True")
+    _check_lanes(cfg)
 
     class DiffTrace(torch.autograd.Function):
         @staticmethod
         def forward(ctx, albedo, emission, ox, oy, oz, dx, dy, dz, tape_f,
-                    tape_b):
-            ctx.save_for_backward(albedo, emission, ox, oy, oz, dx, dy, dz,
-                                  tape_b)
+                    bwd_tapes):
+            ctx.save_for_backward(albedo, emission, ox, oy, oz, dx, dy, dz)
+            ctx.bwd_tapes = bwd_tapes
             return tuple(trace_rays(Params(albedo, emission), scene,
                                     V3(ox, oy, oz), V3(dx, dy, dz), cfg,
                                     tape=tape_f))
 
         @staticmethod
         def backward(ctx, gx, gy, gz):
-            albedo, emission, ox, oy, oz, dx, dy, dz, tape_b = \
-                ctx.saved_tensors
+            albedo, emission, ox, oy, oz, dx, dy, dz = ctx.saved_tensors
             params = Params(albedo, emission)
             g = _lane_cotangent(V3(gx, gy, gz), cfg)
+            da = de = 0.0
             with torch.no_grad():
-                _, residuals = trace_rays(params, scene, V3(ox, oy, oz),
-                                          V3(dx, dy, dz), cfg, tape=tape_b,
-                                          collect=True)
-                d = _param_grads(params, scene, residuals, g, ox.dtype)
-            return (d.albedo, d.emission) + (None,) * 8
+                tapes = ctx.bwd_tapes()
+                for tape in tapes:
+                    _, residuals = trace_rays(params, scene, V3(ox, oy, oz),
+                                              V3(dx, dy, dz), cfg, tape=tape,
+                                              collect=True)
+                    d = _param_grads(params, scene, residuals, g, ox.dtype)
+                    da = da + d.albedo
+                    de = de + d.emission
+                if len(tapes) > 1:
+                    da, de = da / len(tapes), de / len(tapes)
+            return (da, de) + (None,) * 8
 
     def diff_trace(params: Params, orig: V3, dir: V3, tape_f, tape_b=None):
-        if bwd_tape and tape_b is None:
-            raise TypeError("bwd_tape=True takes (params, orig, dir, "
-                            "tape_fwd, tape_bwd)")
-        if not bwd_tape:
+        if not use_tape:
+            if tape_b is not None:
+                raise TypeError("key mode takes (params, orig, dir, seeds)")
+            seeds, n = tape_f, dir.x.shape[0]
+            pix = torch.arange(n, device=dir.x.device)
+            smp = torch.zeros_like(pix)
+
+            def tape_of(sd):
+                return bounce_tape(int(sd[1]), pix, smp, cfg.max_depth,
+                                   dir.x.dtype)
+
+            tape_f = tape_of(seeds)
+            bwd = (lambda: [tape_of(sd) for sd in _bwd_seeds(cfg, seeds)])
+        elif bwd_tape:
+            if tape_b is None:
+                raise TypeError("bwd_tape=True takes (params, orig, dir, "
+                                "tape_fwd, tape_bwd)")
+            bwd = (lambda: [tape_b])
+        else:
             if tape_b is not None:
                 raise TypeError("a second tape needs bwd_tape=True")
-            tape_b = tape_f  # biased: replay the forward's samples
+            bwd = (lambda: [tape_f])  # biased: replay the forward's samples
         return V3(*DiffTrace.apply(params.albedo, params.emission, *orig,
-                                   *dir, tape_f, tape_b))
+                                   *dir, tape_f, bwd))
 
     return diff_trace
 
 
-def make_diff_image_renderer(scene: Scene, cam, cfg: RenderConfig,
-                             constrain=None):
-    """The key-driven image renderer of the JAX package (`render(params,
-    rng) -> image`); its rays come from `chunk_rays`, which waits for the
-    key-mode tracer."""
-    raise NotImplementedError(
-        "make_diff_image_renderer is key-driven and not ported yet: "
-        "ROADMAP A4 (key-mode wavefront); the differentiable image "
-        "renderer of the port is fused.make_fused_image_renderer")
+def make_wavefront_trace_fn(scene: Scene, cfg: RenderConfig,
+                            plain: bool = False):
+    """The `trace_fn` of `renderer.render_image` over the wavefront tracer
+    kernel (B5a; its plain twin for a CPU scene or plain=True): a chunk's
+    bounce tape drawn from seeds[1] for its rays (pix, sample), then one
+    launch on the chunk's rays."""
+    _check_lanes(cfg)
+    trace = make_pallas_tracer(scene, cfg, plain=plain)
+
+    def trace_fn(params, o, d, seeds, pix, s):
+        alb = albedo_table(scene, params).contiguous()
+        emi = emission_table(scene, params).contiguous()
+        return trace(alb, emi, o, d,
+                     bounce_tape(int(seeds[1]), pix, s, cfg.max_depth,
+                                 d.x.dtype))
+
+    return trace_fn
+
+
+def make_diff_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
+                             plain: bool = False):
+    """Build `render(params, seeds: i32[2]) -> image f[H, W, 3]`,
+    differentiable in params, with the spp-chunk loop inside one
+    `torch.autograd.Function`: the forward keeps only (params, seeds),
+    nothing per ray, and renders `render_image` with the wavefront tracer
+    kernel (B5a) chunk by chunk; the backward rebuilds each chunk's rays
+    and tape from the seeds and runs the wavefront adjoint kernel (B5b) on
+    them, one launch per chunk, or `adjoint_samples` launches on salted
+    bounce seeds in unbiased mode (the samples the "cuda" backend's
+    retrace draws). The kernels take scenes of at most 64 shapes on the
+    card, float32; a CPU scene, or plain=True, runs their plain twins on
+    the scene's device. The JAX package's mesh sharding constraint
+    (`constrain`) comes with ROADMAP A14.
+    """
+    _check_lanes(cfg)
+    spp_c = cfg.spp // cfg.spp_chunks
+    trace_fn = make_wavefront_trace_fn(scene, cfg, plain=plain)
+    adjoint = make_pallas_adjoint(scene, cfg, plain=plain)
+
+    def image(params, seeds):
+        return render_image(params, scene, cam, seeds, cfg,
+                            trace_fn=trace_fn)
+
+    class Render(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, albedo, emission, seeds):
+            ctx.save_for_backward(albedo, emission)
+            ctx.seeds = seeds
+            return image(Params(albedo, emission), seeds)
+
+        @staticmethod
+        def backward(ctx, g):
+            albedo, emission = ctx.saved_tensors
+            params = Params(albedo, emission)
+            alb = albedo_table(scene, params).contiguous()
+            emi = emission_table(scene, params).contiguous()
+            dtype = cam.forward.dtype
+            xy_rep = chunk_pixel_ids(cfg, cam.forward.device)
+            # image = mean over chunks of per-pixel spp_c means, so every
+            # ray of a pixel gets g[pixel] / (spp_c * chunks * pdf).
+            g_pix = (g / (spp_c * cfg.spp_chunks)).to(dtype)
+            g_planes = g_pix.permute(2, 0, 1).reshape(3, -1)
+            bwd_seeds = _bwd_seeds(cfg, ctx.seeds)
+            da = de = 0.0
+            for c in range(cfg.spp_chunks):
+                pix, s = chunk_sample_ids(cfg, xy_rep, c)
+                o, d, pdf = chunk_rays(cam, cfg, xy_rep, ctx.seeds, c)
+                g_ray = g_planes[:, pix] / pdf
+                for sd in bwd_seeds:
+                    da_s, de_s = adjoint(
+                        alb, emi, o, d,
+                        bounce_tape(int(sd[1]), pix, s, cfg.max_depth, dtype),
+                        g_ray)
+                    da = da + da_s / len(bwd_seeds)
+                    de = de + de_s / len(bwd_seeds)
+            k, l = albedo.shape[0], emission.shape[0]
+            return da[:k].to(albedo.dtype), de[:l].to(emission.dtype), None
+
+    def render(params: Params, seeds) -> torch.Tensor:
+        if torch.is_grad_enabled() and (params.albedo.requires_grad
+                                        or params.emission.requires_grad):
+            return Render.apply(params.albedo, params.emission, seeds)
+        with torch.no_grad():
+            return image(params, seeds)
+
+    return render

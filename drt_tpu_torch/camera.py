@@ -35,6 +35,18 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[0] * b[1] - a[1] * b[0]])
 
 
+def default_camera(dtype=torch.float32, vfov: float = 1.3963,
+                   device=None) -> Camera:
+    """Reference defaults (camera.hpp:15-19): eye at the origin, forward
+    -z."""
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    return Camera(eye=torch.zeros(3, dtype=dtype, device=device),
+                  forward=t([0.0, 0.0, -1.0]), right=t([1.0, 0.0, 0.0]),
+                  up=t([0.0, 1.0, 0.0]), vfov=t(vfov))
+
+
 def look_at(eye, at, up=(0.0, 1.0, 0.0), vfov: float = 1.3963,
             dtype=torch.float32, device=None) -> Camera:
     """Build a camera basis (reference: camera.hpp:29-37)."""

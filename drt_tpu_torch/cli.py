@@ -1,21 +1,23 @@
-"""Command-line renderer: the `render` and `grad` subcommands of
-`drt_tpu.cli`.
+"""Command-line renderer: the `render`, `grad` and `grad-image`
+subcommands of `drt_tpu.cli`.
 
 Reference flags and defaults (src/args.hpp:19-67: width 640, height 480,
 samples 100, min-bounces 1, absorb-prob 0.5, required output path) on the
 sample scene (src/render.cpp:26-65), plus max depth, spp chunking, seed,
-f64 tracing, backend, device and the unbiased gradient mode. The
-`grad-image` and `invert` subcommands come with ROADMAP A8-A10.
+f64 tracing (on the CPU), backend, device and the unbiased gradient mode.
+The `invert` subcommand comes with ROADMAP A9-A10.
 
 Usage:
   python -m drt_tpu_torch.cli render -o out.png [-x W -y H -n SPP ...]
   python -m drt_tpu_torch.cli grad -o grads.json [-x W -y H -n SPP ...]
+  python -m drt_tpu_torch.cli grad-image -o grad.exr [--param albedo:0 ...]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -36,19 +38,23 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--spp-chunks", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true",
-                   help="trace in float64 (plain version on the CPU)")
+                   help="trace in float64: the plain version on the CPU "
+                        "(the CPU validation mode; implies --device cpu)")
     p.add_argument("--backend",
                    choices=("auto", "cuda", "cuda-dyn", "cuda-regen",
-                            "cuda-dyn-regen", "torch", "torch-dyn",
-                            "torch-regen", "torch-dyn-regen"),
+                            "cuda-dyn-regen", "cuda-wavefront", "torch",
+                            "torch-dyn", "torch-regen", "torch-dyn-regen",
+                            "torch-wavefront"),
                    default="auto",
                    help="auto = the fused CUDA kernels for a scene on a "
                         "card, the plain PyTorch version for one on the "
-                        "CPU; the -regen backends (path regeneration) are "
-                        "taken only when asked for")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default: cuda; without a card the "
-                        "command fails unless --device cpu is given)")
+                        "CPU; the -regen backends (path regeneration) and "
+                        "the -wavefront backends (the key-driven "
+                        "wavefront) are taken only when asked for")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, or cpu with --f64; "
+                        "without a card the command fails unless --device "
+                        "cpu is given)")
     p.add_argument("--unbiased", action="store_true",
                    help="unbiased gradient mode: the backward retraces "
                         "with fresh samples (integrate.hpp:39-52) instead "
@@ -64,7 +70,11 @@ def _build(args):
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.models import cbox
 
-    device = args.device
+    device = args.device or ("cpu" if args.f64 else "cuda")
+    if args.f64 and torch.device(device).type != "cpu":
+        raise SystemExit(f"drt_tpu_torch: --f64 runs the plain version on "
+                         f"the CPU (the kernels are float32); drop "
+                         f"--device {device}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"drt_tpu_torch: no CUDA device is visible for "
                          f"--device {device}; pass --device cpu to run the "
@@ -143,6 +153,51 @@ def cmd_grad(args) -> int:
     return 0
 
 
+def cmd_grad_image(args) -> int:
+    """The per-pixel gradient image d(pixel)/d(param row), the reference's
+    headline validation artifact (README.md:138-145), rendered both by
+    radiative backprop and by forward-mode AD (the dual-number ground
+    truth) through the plain wavefront on the chosen device, and written
+    side by side."""
+    import torch
+
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.gradcheck import grad_image, grad_image_fwd
+    from drt_tpu_torch.utils.image import write_png
+
+    if args.backend not in ("auto", "torch-wavefront"):
+        # Both images come from the plain wavefront (the jvp ground truth
+        # has no kernel); honouring another backend here would mislead.
+        print("grad-image runs the plain wavefront (the jvp ground truth "
+              "has no kernel): use --backend auto or torch-wavefront, or "
+              "`grad` for the kernels' gradients", file=sys.stderr)
+        return 2
+    scene, params, cam, cfg = _build(args)
+    seeds = seeds_from_generator(torch.Generator().manual_seed(args.seed))
+    g_bp = grad_image(scene, cam, cfg, params, seeds,
+                      args.param).cpu().numpy()
+    g_fw = grad_image_fwd(scene, cam, cfg, params, seeds,
+                          args.param).cpu().numpy()
+    diff = np.abs(g_bp - g_fw).max()
+    scale = max(np.abs(g_fw).max(), 1e-12)
+
+    def write_pair(path, img):
+        if path.endswith(".png"):
+            # A signed map around mid-grey.
+            write_png(path, 0.5 + 0.5 * img / scale, gamma=1.0)
+        else:
+            _write(path, img)
+
+    stem, ext = os.path.splitext(args.output)
+    gt_path = f"{stem}-gt{ext}"
+    write_pair(args.output, g_bp)
+    write_pair(gt_path, g_fw)
+    print(f"grad image d(pixel)/d({args.param}) -> {args.output}; jvp "
+          f"ground truth -> {gt_path}; max |backprop - jvp| = {diff:.3e} "
+          f"(scale {scale:.3e})", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="drt_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -152,6 +207,14 @@ def main(argv=None) -> int:
     pg = sub.add_parser("grad", help="parameter gradients of mean intensity")
     _add_render_flags(pg)
     pg.set_defaults(fn=cmd_grad)
+    pgi = sub.add_parser(
+        "grad-image",
+        help="per-pixel gradient image d(pixel)/d(param row), with the "
+             "forward-mode (dual-number) ground-truth image beside it")
+    _add_render_flags(pgi)
+    pgi.add_argument("--param", default="albedo:0",
+                     help="parameter row, e.g. albedo:0 or emission:0")
+    pgi.set_defaults(fn=cmd_grad_image)
     args = parser.parse_args(argv)
     return args.fn(args)
 

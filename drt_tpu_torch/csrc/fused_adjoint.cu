@@ -14,6 +14,16 @@
 //    fused_body.cuh, keeping P, sc, gate and best of every bounce in the
 //    thread, then runs the same reverse sweep. Unbiased mode calls it with
 //    a salted bounce seed.
+//  - drt_ray_adjoint replaces megakernel.py:make_pallas_adjoint
+//    (pallas_call at :966), the backward of the key-driven wavefront: the
+//    retrace of drt_ray_trace (fused_tracer.cu) on the input rays o, d and
+//    tape, the reverse sweep with a per-ray cotangent g f32[3, N] and the
+//    reduction; trace_rays(collect=True) + adjoint._param_grads as one
+//    kernel. It runs B4's retrace, sweep and accumulation on a ray read
+//    from memory where B4 makes it from the camera, so on B4's own rays,
+//    tape and cotangent its tables are B4's bit for bit. Exact variant,
+//    built for 32 bounces like B4; bound like B4 (it reads 96 bytes per
+//    ray at depth 5, 0.14 ms of the card's memory rate at 4.9 M rays).
 //
 // The reverse sweep (megakernel.py:_reverse_sweep, :611-637), per ray slot
 // and chunk, from the last bounce to the first, with S = 0 to start:
@@ -198,6 +208,32 @@ fused_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
+__global__ void __launch_bounds__(DRT_BLOCK)
+ray_adjoint_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                   const float* __restrict__ alb,
+                   const float* __restrict__ emi,
+                   const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ tape,
+                   const float* __restrict__ g,
+                   float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = cfg.n_rays;
+  if (i < N) {
+    Residuals<DRT_MAX_DEPTH> r;
+    KeepResidual hook{r};
+    float lx, ly, lz;
+    trace_ray(cfg, tab, o, d, tape, i, hook, lx, ly, lz);
+    reverse_sweep(cfg, tab, r, g[i], g[N + i], g[2 * N + i],
+                  s_acc + threadIdx.x);
+  }
+  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
+}
+
 static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
   return drt_cfg_ok(cfg) && cfg->max_depth >= 1 &&
          cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0;
@@ -265,6 +301,28 @@ int drt_fused_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
     else { DRT_LAUNCH(false, false); }
   }
 #undef DRT_LAUNCH
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
+// g is f32[3, n_rays], one cotangent per ray; one chunk, exact variant,
+// tape mode only.
+int drt_ray_adjoint(const DrtTrace* cfg, const float* scene, const float* alb,
+                    const float* emi, const float* o, const float* d,
+                    const float* tape, const float* g, float* partials,
+                    float* da, float* de, void* stream) {
+  if (!adjoint_cfg_ok(cfg, cfg->n_rays) || cfg->n_chunks != 1 ||
+      cfg->internal_rng || cfg->fast)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
+  int rc = allow_shared(ray_adjoint_kernel, bytes);
+  if (rc) return rc;
+  ray_adjoint_kernel<<<grid, DRT_BLOCK, bytes, s>>>(
+      *cfg, scene, alb, emi, o, d, tape, g, partials);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,

@@ -5,8 +5,9 @@
 // fused_bounce.inc, which fused_bounce also wraps for the regeneration
 // tracer (regen_tracer.cu).
 //
-// The forward tracer, the collect tracer (fused_tracer.cu) and the
-// retrace adjoint (fused_adjoint.cu) all run this one body, so their
+// The forward tracer, the collect tracer, the wavefront tracer
+// (fused_tracer.cu), the retrace and the wavefront adjoint
+// (fused_adjoint.cu) all run this one body, so their
 // radiance and residuals are the same f32 values bit for bit: the library
 // is built with -fmad=false, so no a*b+c is contracted differently from
 // one instantiation to the next. The hook sees, per bounce, what the
@@ -85,6 +86,37 @@ static __device__ __forceinline__ void trace_chunk(
   float dx, dy, dz;
   primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, c, pix, smp, dx, dy, dz);
   float ox = cam.eye[0], oy = cam.eye[1], oz = cam.eye[2];
+  float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
+  lx = 0.0f; ly = 0.0f; lz = 0.0f;
+  bool alive = true;
+
+  for (int bnc = 0; bnc < cfg.max_depth; ++bnc) {
+#include "fused_bounce.inc"
+  }
+}
+
+// Radiance (lx, ly, lz) of ray i of a wavefront whose primary rays are
+// inputs: origin o and direction d (f32[3, n_rays] each) and the tape
+// (f32[D, 3, n_rays], ray index fastest), all max_depth bounces. The loop
+// of trace_chunk with the ray read from (o, d) where trace_chunk calls
+// primary_ray; the exact variant, tape mode: bounce_uniforms<false> reads
+// slot i of the tape.
+template <class Hook>
+static __device__ __forceinline__ void trace_ray(
+    const DrtTrace& cfg, const DrtTables& tab, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ tape, int i,
+    Hook& hook, float& lx, float& ly, float& lz) {
+  constexpr bool FAST = false, INTERNAL = false;
+  const float RAY_EPS_F = 1e-3f;
+  const float* s_scene = tab.scene;
+  const float* s_alb = tab.alb;
+  const float* s_emi = tab.emi;
+
+  const int n = cfg.n_rays;
+  const int pix = i;  // read only by the keyed draws, which tape mode skips
+  const uint32_t smp = 0u;
+  float ox = o[i], oy = o[n + i], oz = o[2 * n + i];
+  float dx = d[i], dy = d[n + i], dz = d[2 * n + i];
   float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
   lx = 0.0f; ly = 0.0f; lz = 0.0f;
   bool alive = true;

@@ -1,7 +1,6 @@
 // Fused forward path tracers for Hopper (sm_90a): camera ray, sampling and
 // the whole max_depth bounce loop of one ray per thread, in one launch.
-// Two entry points over one kernel template and the bounce body of
-// fused_body.cuh:
+// Three entry points over the bounce body of fused_body.cuh:
 //  - drt_fused_trace replaces drt_tpu/ops/megakernel.py:
 //    make_fused_segment_tracer (the Pallas kernel behind make_fused_tracer,
 //    pallas_call at megakernel.py:1194) at b_start = 0, b_end = max_depth;
@@ -9,7 +8,17 @@
 //    (pallas_call at :1366): the same trace, which also writes the adjoint's
 //    residuals rsc f32[C, D, n] and rbest i32[C, D, n] (hit shape + 1, 0 for
 //    a dead lane), 8 bytes per bounce-ray, for the sweep adjoint of
-//    fused_adjoint.cu. Its radiance is the tracer's bit for bit.
+//    fused_adjoint.cu. Its radiance is the tracer's bit for bit;
+//  - drt_ray_trace replaces megakernel.py:make_pallas_tracer (pallas_call
+//    at :723), the forward of the key-driven wavefront: the same loop on
+//    primary rays o, d f32[3, N] and a tape f32[D, 3, N] that are inputs
+//    (no camera, no RNG), radiance f32[3, N] out; trace_rays(tape=u) as
+//    one kernel. Exact variant only. On the fused tracer's own primary
+//    rays and tape its radiance is the fused tracer's bit for bit. It reads
+//    84 bytes per ray at depth 5 where the fused tracer reads none, which
+//    at the main shape (4.9 M rays a launch) is 0.14 ms of the card's
+//    memory rate against ~0.7 ms of bounce work: bound like the fused
+//    tracer, by issue and divergence, and every read is a coalesced line.
 //
 // What the body computes is the TPU kernel's
 // _camera_ray_from_pix + _wavefront_body: the same op order, the same
@@ -113,6 +122,26 @@ fused_trace_kernel(DrtTrace cfg, DrtCamera cam,
   out[2 * N + i] = Lz;
 }
 
+__global__ void __launch_bounds__(DRT_BLOCK)
+ray_trace_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                 const float* __restrict__ alb,
+                 const float* __restrict__ emi,
+                 const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ tape, float* __restrict__ out) {
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = cfg.n_rays;
+  if (i >= N) return;
+  NoResidual hook;
+  float lx, ly, lz;
+  trace_ray(cfg, tab, o, d, tape, i, hook, lx, ly, lz);
+  out[i] = lx;
+  out[N + i] = ly;
+  out[2 * N + i] = lz;
+}
+
 template <bool COLLECT>
 static int launch(const DrtTrace* cfg, const DrtCamera* cam,
                   const float* scene, const float* alb, const float* emi,
@@ -160,6 +189,20 @@ int drt_fused_collect(const DrtTrace* cfg, const DrtCamera* cam,
                       float* rsc, int* rbest, void* stream) {
   return launch<true>(cfg, cam, scene, alb, emi, cam_u, tape, out, rsc,
                       rbest, stream);
+}
+
+// The wavefront tracer takes one chunk of rays, the exact variant and a
+// tape: a config asking for anything else is refused.
+int drt_ray_trace(const DrtTrace* cfg, const float* scene, const float* alb,
+                  const float* emi, const float* o, const float* d,
+                  const float* tape, float* out, void* stream) {
+  if (!drt_cfg_ok(cfg) || cfg->n_chunks != 1 || cfg->internal_rng ||
+      cfg->fast)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  ray_trace_kernel<<<grid, DRT_BLOCK, 0, (cudaStream_t)stream>>>(
+      *cfg, scene, alb, emi, o, d, tape, out);
+  return (int)cudaGetLastError();
 }
 
 const char* drt_error_string(int code) {

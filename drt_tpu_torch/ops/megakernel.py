@@ -1,4 +1,4 @@
-"""The fused tracer and its adjoints: four CUDA kernels and their plain
+"""The fused tracer and its adjoints: six CUDA kernels and their plain
 PyTorch twins.
 
 The ports of `drt_tpu.ops.megakernel`'s full-depth fused kernels, with
@@ -13,11 +13,17 @@ N = W*H*spp/spp_chunks ray slots, D = max_depth, C = n_chunks:
     3]) from those residuals and a cotangent g, by replaying the
     throughput and a reverse sweep, no geometry;
   `make_fused_adjoint` (Pallas `make_fused_segment_adjoint`): the same
-    gradients by retracing the forward in the kernel.
-The kernels are `csrc/fused_tracer.cu` (tracer, collect tracer) and
-`csrc/fused_adjoint.cu` (sweep and retrace adjoints) over the shared
-bounce body `csrc/fused_body.cuh`; the source notes say what bounds each
-and how the designs differ from the TPU kernels'.
+    gradients by retracing the forward in the kernel;
+  `make_pallas_tracer` (Pallas `make_pallas_tracer`): the bounce loop on
+    primary rays and a tape given as inputs, no camera and no RNG inside,
+    radiance f32[3, N] out: `renderer.trace_rays(tape=u)` as one kernel,
+    the forward of the key-driven wavefront (`adjoint.py`);
+  `make_pallas_adjoint` (Pallas `make_pallas_adjoint`): its backward,
+    `trace_rays(collect=True)` + `adjoint._param_grads` as one kernel.
+The kernels are `csrc/fused_tracer.cu` (tracer, collect tracer, wavefront
+tracer) and `csrc/fused_adjoint.cu` (sweep, retrace and wavefront adjoints)
+over the shared bounce body `csrc/fused_body.cuh`; the source notes say
+what bounds each and how the designs differ from the TPU kernels'.
 
 Where the TPU kernel bakes the scene in as literals, the port builds a
 small table from the scene arrays (`scene_table`, precomputed in f64 on
@@ -34,11 +40,11 @@ Uniforms, in spp-outer ray order (ray i is pixel i % (W*H)):
 The cotangent g is f[3, N] per ray slot (identical across chunks), or
 f[3, W*H] per pixel, which the kernels index by pixel themselves.
 
-`fused_trace`, `fused_collect`, `fused_sweep` and `fused_adjoint` are the
-wrappers: for tensors on the CPU each runs its plain twin (the fused
-camera math, `renderer.trace_residuals`, and the replay and sweep in the
-kernels' op order, fed the same uniforms); for CUDA tensors it launches
-its kernel or raises. Each counts its launches in `<wrapper>.launches`;
+`fused_trace`, `fused_collect`, `fused_sweep`, `fused_adjoint`, `ray_trace`
+and `ray_adjoint` are the wrappers: for tensors on the CPU each runs its
+plain twin (the fused camera math, `renderer.trace_residuals`, and the
+replay and sweep in the kernels' op order, fed the same uniforms); for
+CUDA tensors it launches its kernel or raises. Each counts its launches in `<wrapper>.launches`;
 `launch_counts()` reads them all, with those of the memory-resident
 kernels (`ops.dynkernel`, which registers its wrappers here), and
 `reset_launch_counts()` zeroes them.
@@ -349,6 +355,8 @@ def _library() -> ctypes.CDLL:
         # scene, alb, emi, cam_u, tape, out, [rsc, rbest,] stream
         _bind(lib, "drt_fused_trace", 7, both)
         _bind(lib, "drt_fused_collect", 9, both)
+        # scene, alb, emi, o, d, tape, out, stream
+        _bind(lib, "drt_ray_trace", 8, (_DrtTrace,))
         lib.drt_error_string.argtypes = [ctypes.c_int]
         lib.drt_error_string.restype = ctypes.c_char_p
         _check_limits(SOURCE, lib.drt_limits, [MAX_SHAPES, MAX_ROWS, REC])
@@ -366,6 +374,8 @@ def _adjoint_library() -> ctypes.CDLL:
         # scene, alb, emi, cam_u, tape, g, g_n, partials, da, de, stream
         _bind(lib, "drt_fused_adjoint", 11, (_DrtTrace, _DrtCamera),
               n_ints_at=(6,))
+        # scene, alb, emi, o, d, tape, g, partials, da, de, stream
+        _bind(lib, "drt_ray_adjoint", 11, (_DrtTrace,))
         lib.drt_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.drt_adjoint_error_string.restype = ctypes.c_char_p
         _check_limits(ADJOINT_SOURCE, lib.drt_adjoint_limits,
@@ -409,11 +419,13 @@ def _seed_words(seeds, n_samples: int) -> list:
 
 
 def _trace_config(cfg: RenderConfig, table, alb, emi, *, seeds=None,
-                  fastmath: bool = False, n_chunks: int = 1) -> _DrtTrace:
-    """Check the tables on the card and fill the kernels' config."""
+                  fastmath: bool = False, n_chunks: int = 1,
+                  n_rays: int | None = None) -> _DrtTrace:
+    """Check the tables on the card and fill the kernels' config; n_rays
+    defaults to the ray slots of one chunk of the image."""
     dev = alb.device
     spp_c = cfg.spp // cfg.spp_chunks
-    n = cfg.width * cfg.height * spp_c
+    n = cfg.width * cfg.height * spp_c if n_rays is None else n_rays
     if alb.ndim != 2 or not 1 <= alb.shape[0] <= MAX_ROWS:
         raise ValueError(f"albedo table {tuple(alb.shape)}: 1..{MAX_ROWS} "
                          "rows of 3")
@@ -597,8 +609,93 @@ def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
     return da, de
 
 
+def _stack3(v) -> torch.Tensor:
+    """A V3 of f[N] (or an f[3, N] tensor) as one f[3, N] tensor."""
+    return v if torch.is_tensor(v) else torch.stack(tuple(v))
+
+
+def ray_trace_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
+                    emi: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the wavefront tracer: `renderer.trace_rays` on
+    rays o, d f[3, N] and the tape u f[D, 3, N]; radiance f[3, N]."""
+    params = Params(albedo=alb[:-1], emission=emi[:-1])
+    return torch.stack(trace_rays(params, scene, V3(*o), V3(*d), cfg,
+                                  tape=u))
+
+
+def ray_adjoint_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
+                      emi: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                      u: torch.Tensor, g: torch.Tensor):
+    """The plain twin of the wavefront adjoint: `trace_rays(collect=True)`
+    and `adjoint._param_grads` with the per-ray cotangent g f[3, N], on
+    tables padded to the kernel's (d_albedo f[K+1, 3], d_emission f[L+1,
+    3]) with zero sentinel rows."""
+    from drt_tpu_torch.adjoint import _param_grads
+
+    params = Params(albedo=alb[:-1], emission=emi[:-1])
+    _, res = trace_rays(params, scene, V3(*o), V3(*d), cfg, tape=u,
+                        collect=True)
+    grads = _param_grads(params, scene, res, V3(*g), alb.dtype)
+    zero = alb.new_zeros((1, 3))
+    return (torch.cat([grads.albedo, zero]),
+            torch.cat([grads.emission, zero]))
+
+
+def _ray_inputs(tcfg: _DrtTrace, o, d, u, dev) -> None:
+    n = tcfg.n_rays
+    _check("o", o, (3, n), dev)
+    _check("d", d, (3, n), dev)
+    _check("tape", u, (tcfg.max_depth, 3, n), dev)
+
+
+def ray_trace(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
+              alb: torch.Tensor, emi: torch.Tensor, o: torch.Tensor,
+              d: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Radiance f32[3, N] of the wavefront tracer on rays o, d f32[3, N]
+    and the tape u f32[D, 3, N]. CPU tensors run the plain twin; CUDA
+    tensors launch the kernel (exact variant, the only one) or raise."""
+    if _device_of("ray_trace", alb) == "cpu":
+        return ray_trace_plain(scene, cfg, alb, emi, o, d, u)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, n_rays=o.shape[-1])
+    _ray_inputs(tcfg, o, d, u, dev)
+    lib = _library()
+    out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
+    _launch(ray_trace, "wavefront tracer", lib.drt_error_string,
+            lib.drt_ray_trace, dev, ctypes.byref(tcfg), table.data_ptr(),
+            alb.data_ptr(), emi.data_ptr(), o.data_ptr(), d.data_ptr(),
+            u.data_ptr(), out.data_ptr())
+    return out
+
+
+def ray_adjoint(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
+                alb: torch.Tensor, emi: torch.Tensor, o: torch.Tensor,
+                d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
+    """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the wavefront
+    adjoint: the wavefront tracer's paths retraced, swept back with the
+    per-ray cotangent g f32[3, N] and reduced in one launch (and the
+    partials' second kernel). CPU tensors run the plain twin; CUDA tensors
+    launch the kernel or raise."""
+    if _device_of("ray_adjoint", alb) == "cpu":
+        return ray_adjoint_plain(scene, cfg, alb, emi, o, d, u, g)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, n_rays=o.shape[-1])
+    _ray_inputs(tcfg, o, d, u, dev)
+    _check("g", g, (3, tcfg.n_rays), dev)  # one cotangent per ray
+    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    lib = _adjoint_library()
+    _launch(ray_adjoint, "wavefront adjoint", lib.drt_adjoint_error_string,
+            lib.drt_ray_adjoint, dev, ctypes.byref(tcfg), table.data_ptr(),
+            alb.data_ptr(), emi.data_ptr(), o.data_ptr(), d.data_ptr(),
+            u.data_ptr(), g.data_ptr(), partials.data_ptr(), da.data_ptr(),
+            de.data_ptr())
+    return da, de
+
+
 WRAPPERS = {"fused_tracer": fused_trace, "fused_collect": fused_collect,
-            "fused_sweep": fused_sweep, "fused_adjoint": fused_adjoint}
+            "fused_sweep": fused_sweep, "fused_adjoint": fused_adjoint,
+            "ray_tracer": ray_trace, "ray_adjoint": ray_adjoint}
 
 
 def register_wrappers(**wrappers) -> None:
@@ -717,5 +814,41 @@ def make_fused_adjoint(scene: Scene, cam, cfg: RenderConfig,
                                        n_chunks=n_chunks, **kw)
         return fused_adjoint(scene, table, cc, cfg, alb, emi, g,
                              fastmath=fastmath, n_chunks=n_chunks, **kw)
+
+    return adjoint
+
+
+def make_pallas_tracer(scene: Scene, cfg: RenderConfig, plain: bool = False):
+    """Build `trace(alb, emi, o, d, u) -> radiance f32[3, N]`: the bounce
+    loop on the primary rays o, d (V3 of f32[N], or f32[3, N]) and the
+    uniform tape u f32[D, 3, N], the same as `renderer.trace_rays(...,
+    tape=u)` (the JAX package's signature, tests/test_megakernel.py). The
+    kernel is the exact variant, at most `MAX_SHAPES` shapes and
+    `MAX_ROWS` table rows. plain=True runs the plain twin on whatever
+    device the tensors lie on (the "torch-wavefront" backend)."""
+    table = None if plain else scene_table(scene)
+
+    def trace(alb, emi, o, d, u):
+        o, d = _stack3(o), _stack3(d)
+        if plain:
+            return ray_trace_plain(scene, cfg, alb, emi, o, d, u)
+        return ray_trace(scene, table, cfg, alb, emi, o, d, u)
+
+    return trace
+
+
+def make_pallas_adjoint(scene: Scene, cfg: RenderConfig, plain: bool = False):
+    """Build `adj(alb, emi, o, d, u, g) -> (d_albedo f32[K+1, 3],
+    d_emission f32[L+1, 3])`: the parameter gradients of sum_rays g . L
+    for the rays and tape of `make_pallas_tracer` and a per-ray cotangent
+    g (V3 of f32[N], or f32[3, N]), sentinel rows zero; at most
+    `MAX_DEPTH` bounces on the card."""
+    table = None if plain else scene_table(scene)
+
+    def adjoint(alb, emi, o, d, u, g):
+        o, d, g = _stack3(o), _stack3(d), _stack3(g)
+        if plain:
+            return ray_adjoint_plain(scene, cfg, alb, emi, o, d, u, g)
+        return ray_adjoint(scene, table, cfg, alb, emi, o, d, u, g)
 
     return adjoint

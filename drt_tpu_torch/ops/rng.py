@@ -40,9 +40,13 @@ def _fmix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _u32(v, device) -> torch.Tensor:
-    """An i32 or u32 value (int or tensor) as its 32-bit word in int64."""
-    return torch.as_tensor(v, device=device).to(torch.int64) & MASK32
+def _u32(v, device):
+    """An i32 or u32 value as its 32-bit word: a tensor as int64 on
+    `device`, a Python number as a Python int (moving a scalar to the card
+    would wait for the card's queue)."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.int64) & MASK32
+    return int(v) & MASK32
 
 
 def hash_bits(seed, pix, s, b, dim: int, device=None) -> torch.Tensor:
@@ -58,8 +62,26 @@ def hash_uniform(seed, pix, s, b, dim: int, dtype=torch.float32,
     """The open-interval uniform (i23 + 0.5) * 2^-23 of the top 23 hash
     bits: a draw of exactly 0 or 1 would zero a sampling pdf
     (drt_tpu/ops/megakernel.py:817-837)."""
-    i23 = hash_bits(seed, pix, s, b, dim, device) >> 9
+    i23 = torch.as_tensor(hash_bits(seed, pix, s, b, dim, device) >> 9,
+                          device=device)
     return (i23.to(dtype) + 0.5) * (1.0 / (1 << 23))
+
+
+def camera_draws(seed, pix, s, dtype=torch.float32) -> torch.Tensor:
+    """The camera's two draws f[2, N] of rays (pix, s): dims 0 and 1 of
+    bounce 0 of `seed` (the camera seed, seeds[0])."""
+    return torch.stack([hash_uniform(seed, pix, s, 0, dim, dtype, pix.device)
+                        for dim in (0, 1)])
+
+
+def bounce_tape(seed, pix, s, depth: int, dtype=torch.float32
+                ) -> torch.Tensor:
+    """The bounce draws f[depth, 3, N] of rays (pix, s), slots (rr, u1,
+    u2) per bounce, from `seed` (the bounce seed, seeds[1])."""
+    return torch.stack([
+        torch.stack([hash_uniform(seed, pix, s, b, dim, dtype, pix.device)
+                     for dim in (0, 1, 2)])
+        for b in range(depth)])
 
 
 def hash_tapes(seeds, npix: int, spp: int, depth: int, dtype=torch.float32,
@@ -72,10 +94,5 @@ def hash_tapes(seeds, npix: int, spp: int, depth: int, dtype=torch.float32,
     i = torch.arange(npix * spp, dtype=torch.int64, device=device)
     pix = i % npix
     s = i // npix + sample_base
-    cam = torch.stack([hash_uniform(seeds[0], pix, s, 0, dim, dtype, device)
-                       for dim in (0, 1)])
-    tape = torch.stack([
-        torch.stack([hash_uniform(seeds[1], pix, s, b, dim, dtype, device)
-                     for dim in (0, 1, 2)])
-        for b in range(depth)])
-    return cam, tape
+    return (camera_draws(seeds[0], pix, s, dtype),
+            bounce_tape(seeds[1], pix, s, depth, dtype))

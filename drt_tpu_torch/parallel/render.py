@@ -7,10 +7,14 @@ the memory-resident kernels for up to `MAX_DYN_SHAPES` shapes (the port
 of "pallas-dyn"); "cuda-regen" and "cuda-dyn-regen" run the
 path-regeneration kernels of the same two families (the ports of
 "pallas-regen" and "pallas-dyn-regen"; "auto" never picks them, as in the
-JAX package). All four need the scene on a CUDA device. "torch",
-"torch-dyn", "torch-regen" and "torch-dyn-regen" run their plain PyTorch
-versions on the scene's device. The JAX package's other backends raise
-NotImplementedError naming the ROADMAP item that brings them.
+JAX package); "cuda-wavefront" runs the key-driven wavefront (the port of
+"xla": `renderer.render_image` and `adjoint.make_diff_image_renderer`)
+over the wavefront tracer and adjoint kernels, for at most `MAX_SHAPES`
+shapes. These five need the scene on a CUDA device. "torch", "torch-dyn",
+"torch-regen", "torch-dyn-regen" and "torch-wavefront" run their plain
+PyTorch versions on the scene's device; "torch-wavefront" takes a scene
+of any size. The JAX package's other backends raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -23,12 +27,12 @@ from drt_tpu_torch.ops.dynkernel import MAX_DYN_SHAPES
 from drt_tpu_torch.ops.megakernel import MAX_SHAPES
 from drt_tpu_torch.scene import Params, Scene
 
-BACKENDS = ("cuda", "cuda-dyn", "cuda-regen", "cuda-dyn-regen", "torch",
-            "torch-dyn", "torch-regen", "torch-dyn-regen")
+BACKENDS = ("cuda", "cuda-dyn", "cuda-regen", "cuda-dyn-regen",
+            "cuda-wavefront", "torch", "torch-dyn", "torch-regen",
+            "torch-dyn-regen", "torch-wavefront")
 
 # JAX backends not ported yet -> the ROADMAP item (queue A) that ports them.
 _LATER = {
-    "xla": "A4 (key-mode wavefront) and A8 (routing)",
     "pallas-split": "A12 (lane splitting)",
     "pallas-split-dyn": "A12 (lane splitting)",
     "pallas-sharded": "A14 (multi-device)",
@@ -52,7 +56,8 @@ def resolve_backend(scene: Scene, cfg: RenderConfig,
 
     A CUDA scene the kernels do not take (not float32, or more shapes
     than that) raises rather than silently running a plain version on the
-    card; pass backend="torch" to ask for that.
+    card; pass backend="torch" (or "torch-wavefront", which takes any
+    number of shapes) to ask for that.
     """
     if backend != "auto":
         return backend
@@ -66,9 +71,10 @@ def resolve_backend(scene: Scene, cfg: RenderConfig,
         return "cuda"
     if scene.num_shapes <= MAX_DYN_SHAPES:
         return "cuda-dyn"
-    raise _not_yet(f"a scene of {scene.num_shapes} shapes (more than the "
-                   f"{MAX_DYN_SHAPES} of backend 'cuda-dyn') on the card",
-                   _LATER["xla"])
+    raise ValueError(f"a scene of {scene.num_shapes} shapes is more than "
+                     f"the {MAX_DYN_SHAPES} the kernels take; pass "
+                     "backend='torch-wavefront' for the plain version on "
+                     "the card")
 
 
 def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
@@ -92,6 +98,9 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
                 f"{'cuda' + backend[len('pallas'):]!r} here)"
                 if "cuda" + backend[len("pallas"):] in BACKENDS
                 and backend.startswith("pallas") else "")
+        if backend == "xla":
+            hint = (" (the JAX package's 'xla' is 'cuda-wavefront' or "
+                    "'torch-wavefront' here)")
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{BACKENDS}{hint}")
     if backend.startswith("cuda") and scene.device.type != "cuda":
@@ -99,6 +108,22 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
                          f"device, not {scene.device}")
     from drt_tpu_torch import fused
 
+    if backend.endswith("wavefront"):
+        from drt_tpu_torch.adjoint import (make_diff_image_renderer,
+                                           make_wavefront_trace_fn)
+        from drt_tpu_torch.renderer import render_image
+
+        plain = backend.startswith("torch")
+        if differentiable:
+            return make_diff_image_renderer(scene, cam, cfg, plain=plain)
+        trace_fn = make_wavefront_trace_fn(scene, cfg, plain=plain)
+
+        @torch.no_grad()
+        def render(params: Params, seeds) -> torch.Tensor:
+            return render_image(params, scene, cam, seeds, cfg,
+                                trace_fn=trace_fn)
+
+        return render
     family = backend.split("-", 1)[1] if "-" in backend else ""
     make = {"": fused.make_fused_image_renderer,
             "dyn": fused.make_dyn_image_renderer,

@@ -12,9 +12,19 @@ Per-path estimator (what `adjoint.py` differentiates analytically):
     L = sum_b P_b * e_b,   P_b = prod_{j<=b} gate_j * prod_{j<b} w_j
 
 The uniforms come from a tape f[max_depth, 3, N] with slots (rr, u1, u2)
-per bounce, the reference's per-vertex order RR -> theta -> phi. The
-key-driven mode (`chunk_rays`, `render_image`) comes with ROADMAP item A4
-and per-vertex splitting (bsdf_samples > 1) with A12.
+per bounce, the reference's per-vertex order RR -> theta -> phi, or, in
+key mode, from the keyed hash of `ops.rng` under the seed pair `seeds:
+i32[2]` that every renderer of the port takes (`fused.seeds_from_generator`).
+The JAX package draws key mode from threefry (`fold_in(key, bounce)`),
+which is not reproduced here: the port's draws are the ones its fused
+kernels take, and the JAX side of a test is fed them as a tape.
+
+Key mode: ray r of chunk c (`chunk_pixel_ids`: pixel-major, spp-minor) at
+pixel p and in-chunk sample j is sample s = c*spp_c + j of pixel p. Its
+camera offsets are draws (seeds[0], p, s, 0, dim 0|1) and its bounce slots
+(rr, u1, u2) draws (seeds[1], p, s, b, dim 0|1|2): the samples the fused
+tracer's internal RNG draws, in another ray order. Per-vertex splitting
+(bsdf_samples > 1) comes with ROADMAP item A12.
 """
 
 from __future__ import annotations
@@ -23,10 +33,12 @@ from typing import NamedTuple
 
 import torch
 
+from drt_tpu_torch.camera import Camera, camera_rays, pixel_grid
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.constants import RAY_EPS
 from drt_tpu_torch.ops.bxdf import eval_scale, sample_bxdf
 from drt_tpu_torch.ops.intersect import intersect_scene
+from drt_tpu_torch.ops.rng import bounce_tape, camera_draws
 from drt_tpu_torch.ops.vecmath import V3, dotv, gatherv, wherev
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
@@ -132,12 +144,89 @@ def trace_residuals(params: Params, scene: Scene, orig: V3, dir: V3,
 
 
 def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
-               cfg: RenderConfig, tape: torch.Tensor, collect: bool = False):
-    """Trace a wavefront of rays to radiance.
+               cfg: RenderConfig, tape: torch.Tensor | None = None,
+               collect: bool = False, *, seeds=None, pix=None, sample=None):
+    """Trace a wavefront of rays to radiance, in plain PyTorch on the
+    tensors' device (the fused kernels' plain versions are built on it).
 
     orig, dir: V3 of f[N] primary rays; tape: f[max_depth, 3, N] uniforms
-    with slots (rr, u1, u2) per bounce. Returns radiance as a V3 of f[N],
-    or with collect=True (radiance, BounceResiduals).
+    with slots (rr, u1, u2) per bounce. Without a tape (key mode) the
+    slots are drawn from `seeds` for rays (pix, sample) (i64[N] each); by
+    default ray i is pixel i at sample 0. Returns radiance as a V3 of
+    f[N], or with collect=True (radiance, BounceResiduals).
     """
+    if tape is None:
+        if seeds is None:
+            raise TypeError("trace_rays takes a tape or seeds")
+        n = dir.x.shape[0]
+        if pix is None:
+            pix = torch.arange(n, device=dir.x.device)
+        if sample is None:
+            sample = torch.zeros_like(pix)
+        tape = bounce_tape(int(seeds[1]), pix, sample, cfg.max_depth,
+                           dir.x.dtype)
     L, residuals, _ = trace_residuals(params, scene, orig, dir, cfg, tape)
     return (L, residuals) if collect else L
+
+
+def chunk_pixel_ids(cfg: RenderConfig, device=None) -> torch.Tensor:
+    """i32[N_c, 2] pixel coordinates for one spp chunk (spp-minor within a
+    pixel, pixels in the reference's raster order)."""
+    assert cfg.spp % cfg.spp_chunks == 0
+    spp_c = cfg.spp // cfg.spp_chunks
+    return torch.repeat_interleave(pixel_grid(cfg.width, cfg.height, device),
+                                   spp_c, dim=0)
+
+
+def chunk_sample_ids(cfg: RenderConfig, xy_rep: torch.Tensor, chunk: int):
+    """(pixel i64[N_c], sample i64[N_c]) of the rays of chunk `chunk`, laid
+    out as `chunk_pixel_ids`: ray r is sample chunk*spp_c + r % spp_c of
+    its pixel."""
+    spp_c = cfg.spp // cfg.spp_chunks
+    pix = xy_rep[:, 1].long() * cfg.width + xy_rep[:, 0].long()
+    j = torch.arange(xy_rep.shape[0], device=xy_rep.device) % spp_c
+    return pix, chunk * spp_c + j
+
+
+def chunk_rays(cam: Camera, cfg: RenderConfig, xy_rep: torch.Tensor, seeds,
+               chunk: int):
+    """Primary rays (orig, dir, pdf) of spp chunk `chunk` (deterministic in
+    seeds[0]); xy_rep is `chunk_pixel_ids(cfg)`."""
+    pix, s = chunk_sample_ids(cfg, xy_rep, chunk)
+    cam_u = camera_draws(int(seeds[0]), pix, s, cam.forward.dtype)
+    return camera_rays(cam, cfg.width, cfg.height, xy_rep, cam_u.T)
+
+
+def render_image(params: Params, scene: Scene, cam: Camera, seeds,
+                 cfg: RenderConfig, trace_fn=None) -> torch.Tensor:
+    """Render an image f[H, W, 3]: the mean over spp of per-sample radiance
+    / camera pdf (src/render.cpp:72-87; the camera pdf is 1), the spp
+    chunks one after another, each chunk's image the mean of its pixels'
+    spp_c samples and the image the mean of the chunk images.
+
+    trace_fn: a replacement for key-mode `trace_rays`, `trace_fn(params,
+    orig, dir, seeds, pix, sample) -> radiance` (V3 of f[N], or f[3, N]),
+    such as `adjoint.make_wavefront_trace_fn`'s over the kernels.
+
+    Autograd through this function keeps every chunk's residuals; the
+    differentiable form is `adjoint.make_diff_image_renderer`, whose
+    backward retraces chunk by chunk.
+    """
+    w, h = cfg.width, cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    xy_rep = chunk_pixel_ids(cfg, cam.forward.device)
+    if trace_fn is None:
+        def trace_fn(p, o, d, sd, pix, s):
+            return trace_rays(p, scene, o, d, cfg, seeds=sd, pix=pix,
+                              sample=s)
+
+    images = []
+    for c in range(cfg.spp_chunks):
+        pix, s = chunk_sample_ids(cfg, xy_rep, c)
+        o, d, pdf = chunk_rays(cam, cfg, xy_rep, seeds, c)
+        radiance = trace_fn(params, o, d, seeds, pix, s)
+        images.append(torch.stack([(ch / pdf).reshape(h, w, spp_c).mean(dim=2)
+                                   for ch in radiance], dim=-1))
+    if len(images) == 1:
+        return images[0]
+    return torch.stack(images).mean(dim=0)

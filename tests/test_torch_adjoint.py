@@ -182,9 +182,12 @@ def test_bwd_tape_unbiased_matches_jax_and_reduces_to_biased():
 
 
 @pytest.mark.parametrize("build,err,match", [
-    (lambda s, c: make_diff_renderer(s, CFG), NotImplementedError, "A4"),
-    (lambda s, c: make_diff_image_renderer(s, c, CFG), NotImplementedError,
-     "A4"),
+    (lambda s, c: make_diff_renderer(
+        s, dataclasses.replace(CFG, bsdf_samples=2)), NotImplementedError,
+     "A12"),
+    (lambda s, c: make_diff_image_renderer(
+        s, c, dataclasses.replace(CFG, bsdf_samples=2)), NotImplementedError,
+     "A12"),
     (lambda s, c: make_diff_renderer(s, CFG, use_tape=True, bwd_tape=True),
      ValueError, "bwd_tape requires"),
     (lambda s, c: make_diff_renderer(

@@ -49,7 +49,8 @@ def test_import_leaves_jax_out():
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
     assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.ops.dynkernel",
             "drt_tpu_torch.ops.regen", "drt_tpu_torch.ops.dynregen",
-            "drt_tpu_torch.adjoint",
+            "drt_tpu_torch.adjoint", "drt_tpu_torch.gradcheck",
+            "drt_tpu_torch.integrate", "drt_tpu_torch.renderer",
             "drt_tpu_torch.optim", "drt_tpu_torch.fused",
             "drt_tpu_torch.cli", "drt_tpu_torch.utils.native"} <= set(mods)
     code = ("import importlib, sys\n"

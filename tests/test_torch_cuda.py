@@ -1,7 +1,8 @@
 """The CUDA kernels of both families, scene-table ("fused") and
 memory-resident ("dyn"): tracer, collect tracer, sweep adjoint and retrace
-adjoint, and the path-regeneration tracers and sweep adjoints of both,
-against their plain PyTorch versions on the card. Every test needs
+adjoint, the path-regeneration tracers and sweep adjoints of both, and
+the key-driven wavefront tracer and adjoint, against their plain PyTorch
+versions on the card. Every test needs
 an NVIDIA GPU, nvcc and sm_90a: marked `cuda`, they skip without a card.
 Run them there with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`
@@ -646,3 +647,108 @@ def test_regen_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="32 bounces"):
         rg.make_regen_sweep_adjoint(scene, deep)(alb, emi, rsc, rmeta, trips,
                                                  g)
+
+
+def _wavefront_rays(cam, cfg, cam_u, exact_division=False):
+    """Primary rays f32[3, N] (o, d) of spp-outer ray slots through
+    `ops.megakernel.camera_ray_from_pix`, the fused tracer's camera in its
+    op order. On the card a tensor divided by a Python number is
+    multiplied by the number's reciprocal; exact_division=True divides by
+    a tensor, as the kernel does, so that the rays are the fused tracer's
+    own bit for bit."""
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    if exact_division:
+        cc = cc._replace(width=torch.tensor(cfg.width, device=cam_u.device),
+                         height=torch.tensor(cfg.height,
+                                             device=cam_u.device))
+    pix = torch.arange(cam_u.shape[1], device=cam_u.device) % (
+        cfg.width * cfg.height)
+    o, d = mk.camera_ray_from_pix(cc, pix, cam_u[0], cam_u[1])
+    return torch.stack(tuple(o)), torch.stack(tuple(d))
+
+
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                     gallery.build_tri])
+def test_wavefront_kernels_match_twins(dev, make):
+    """The wavefront tracer and adjoint (B5a, B5b) against their plain
+    twins on rays from the camera and a random tape."""
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cam_u, tape, g = _tape_inputs(dev, 64 * 48 * 4, seed=5)
+    o, d = _wavefront_rays(cam, cfg, cam_u)
+    before = (mk.ray_trace.launches, mk.ray_adjoint.launches)
+    L = mk.make_pallas_tracer(scene, cfg)(alb, emi, o, d, tape)
+    grads = mk.make_pallas_adjoint(scene, cfg)(alb, emi, o, d, tape, g)
+    torch.cuda.synchronize()
+    assert (mk.ray_trace.launches, mk.ray_adjoint.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = mk.make_pallas_tracer(scene, cfg, plain=True)(alb, emi, o, d,
+                                                        tape)
+    assert torch.isfinite(L).all() and ref.mean() > 0
+    assert _share_beyond(L, ref, 2e-5, 2e-6) <= 1e-3
+    _grads_close(grads, mk.make_pallas_adjoint(scene, cfg, plain=True)(
+        alb, emi, o, d, tape, g))
+
+
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                     gallery.build_tri])
+def test_wavefront_kernels_on_fused_rays_are_bit_equal(dev, make):
+    """On the fused tracer's own primary rays and tape, B5a's radiance is
+    B1's and B5b's tables are B4's, bit for bit: the same bounce text,
+    sweep and accumulation on a ray read from memory."""
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cam_u, tape, g = _tape_inputs(dev, 64 * 48 * 4, seed=6)
+    o, d = _wavefront_rays(cam, cfg, cam_u, exact_division=True)
+    L = mk.make_pallas_tracer(scene, cfg)(alb, emi, o, d, tape)
+    assert torch.equal(L, mk.make_fused_tracer(scene, cam, cfg, rng="tape")(
+        alb, emi, cam_u, tape))
+    got = mk.make_pallas_adjoint(scene, cfg)(alb, emi, o, d, tape, g)
+    ref = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(alb, emi, cam_u,
+                                                             tape, g)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_wavefront_renderer_matches_plain_backend(dev):
+    """make_renderer(backend="cuda-wavefront") against "torch-wavefront"
+    at the same seeds: the image, and the biased and unbiased gradients."""
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params
+
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    seeds = torch.tensor([3, -4], dtype=torch.int32)
+    for cfg in (RenderConfig(width=32, height=24, spp=4, spp_chunks=2,
+                             max_depth=5),
+                RenderConfig(width=32, height=24, spp=4, spp_chunks=2,
+                             max_depth=5, unbiased=True, adjoint_samples=2)):
+        out = []
+        for backend in ("cuda-wavefront", "torch-wavefront"):
+            p = Params(*(t.detach().clone().requires_grad_() for t in params))
+            img = make_renderer(scene, cfg, cam, backend=backend)(p, seeds)
+            (img * img).sum().backward()
+            out.append((img.detach(), p.albedo.grad, p.emission.grad))
+        assert _share_beyond(out[0][0].reshape(-1, 3).T,
+                             out[1][0].reshape(-1, 3).T, 2e-5, 2e-6) <= 1e-3
+        _grads_close(out[0][1:], out[1][1:], 1e-4)
+
+
+def test_wavefront_wrappers_check_inputs(dev):
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2)
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cam_u, tape, g = _tape_inputs(dev, 64, depth=2)
+    o, d = _wavefront_rays(cam, cfg, cam_u)
+    trace = mk.make_pallas_tracer(scene, cfg)
+    adj = mk.make_pallas_adjoint(scene, cfg)
+    with pytest.raises(TypeError, match="float32"):
+        trace(alb, emi, o.double(), d, tape)
+    with pytest.raises(ValueError, match="shape"):
+        trace(alb, emi, o, d[:, :32], tape)
+    with pytest.raises(ValueError, match="shape"):
+        adj(alb, emi, o, d, tape, g[:, :32])
+    with pytest.raises(ValueError, match="is on"):
+        adj(alb, emi, o, d, tape.cpu(), g)
+    deep = RenderConfig(width=8, height=8, spp=1, max_depth=33)
+    with pytest.raises(ValueError, match="32 bounces"):
+        mk.make_pallas_adjoint(scene, deep)(
+            alb, emi, o, d, torch.rand((33, 3, 64), device=dev), g)

@@ -542,7 +542,7 @@ def test_routing_of_mesh_scenes():
     assert resolve_backend(on_card(mk.MAX_SHAPES), CFG_I) == "cuda"
     assert resolve_backend(on_card(mk.MAX_SHAPES + 1), CFG_I) == "cuda-dyn"
     assert resolve_backend(on_card(MAX_DYN_SHAPES), CFG_I) == "cuda-dyn"
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="backend='torch-wavefront'"):
         resolve_backend(on_card(MAX_DYN_SHAPES + 1), CFG_I)
     with pytest.raises(ValueError, match="float32"):
         resolve_backend(on_card(100, torch.float64), CFG_I)

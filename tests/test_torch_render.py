@@ -2,6 +2,7 @@
 (`parallel.render`), the image renderer and the `render` and `grad`
 CLI commands."""
 
+import argparse
 import json
 import struct
 import zlib
@@ -92,7 +93,7 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(backend="cuda"), ValueError, "CUDA device"),
-    (dict(backend="xla"), NotImplementedError, "A4"),
+    (dict(backend="xla"), ValueError, "'xla' is 'cuda-wavefront'"),
     (dict(mesh=object()), NotImplementedError, "A14"),
     (dict(backend="pallas-dyn"), ValueError, "'pallas-dyn' is 'cuda-dyn'"),
     (dict(backend="cuda-dyn"), ValueError, "CUDA device"),
@@ -140,6 +141,25 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     assert not (tmp_path / "a.png").exists()
     assert cli.main(args + ["--device", "cpu"]) == 0
     assert (tmp_path / "a.png").exists()
+
+
+def test_cli_f64_runs_the_plain_version_on_the_cpu(tmp_path):
+    """`--f64` is the CPU validation mode: it implies `--device cpu`
+    (with or without a card), and asking for the card with it fails
+    naming `--f64`."""
+    out = tmp_path / "f64.exr"
+    args = ["-x", "8", "-y", "6", "-n", "2", "--max-depth", "3", "--f64",
+            "-o", str(out)]
+    assert cli.main(["render", *args]) == 0 and out.exists()
+    parser = argparse.ArgumentParser()
+    cli._add_render_flags(parser)
+    scene, _, _, cfg = cli._build(parser.parse_args(args))
+    assert scene.device.type == "cpu"
+    assert scene.shape_geo.dtype == torch.float64
+    assert resolve_backend(scene, cfg) == "torch"
+    with pytest.raises(SystemExit, match="--f64 runs the plain version on "
+                       "the CPU"):
+        cli.main(["render", *args, "--device", "cuda"])
 
 
 @pytest.mark.parametrize("flags,unbiased", [([], False),
