@@ -1,6 +1,6 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--keep-going] [--only=regen|wavefront]
+  python3 chip_smoke.py [--keep-going] [--only=regen|wavefront|compact]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -76,12 +76,31 @@ Phases (any failure raises, exits non-zero and prints no result line):
      seeds, forward+backward steps biased and unbiased against the "cuda"
      retrace form and against "torch-wavefront" on one chunk, 5
      optim.inverse_render steps, and gradcheck.check_gradients at 64x48x4;
- 15. a line {"kernels": [...]} of fourteen entries, the nvidia-smi line,
+ 15. segment chaining and ray compaction: the segment tracer and segment
+     adjoint (the segment forms of the tracer and the retrace adjoint)
+     against their twins in tape mode, exact variant, on cbox, glossy and
+     tri (64x48x4 spp, depth 5) split at (2,) and (1, 3) with the live
+     lanes compacted between segments, each segment on the kernel chain's
+     state; the split radiance scattered back against the tracer and the
+     stitched adjoints against the retrace adjoint; bit for bit the
+     segment [0, 5) and the tracer, and the early-exit tracer and the
+     exact tracer (tape mode at the small shapes; the internal RNG at the
+     main shape and at 640x480x32, depths 8 and 16, where both are timed
+     in turns); one chunk of the compacted chain at the main shape timed
+     (segment before the split, the compaction, segment after it, both
+     adjoints) and held against the twins, the tracer and the retrace
+     adjoint on that chunk; then make_compacted_image_renderer at the
+     main shape: three seeds forward against the fused tracer's exact
+     image, a forward+backward step against the "cuda" retrace form
+     (exact), the bytes it keeps, and 5 Adam steps of optim's paired loss
+     over it;
+ 16. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7, 10, 13 and 14 the launch counts are
-set to 0, and read just after. --only=regen (phases 11-13) and
---only=wavefront (phase 14) build, run those phases and stop without a
-result line (exit 1): short runs while working on them.
+Before each of the paths of 5, 6, 7, 10, 13, 14 and 15 the launch counts
+are set to 0, and read just after. --only=regen (phases 11-13),
+--only=wavefront (phase 14) and --only=compact (phase 15) build, run
+those phases and stop without a result line (exit 1): short runs while
+working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -130,7 +149,15 @@ MESH_MAIN = dict(width=640, height=480, spp=64, max_depth=5, spp_chunks=4)
 KERNELS = ("fused_tracer", "fused_collect", "fused_sweep", "fused_adjoint",
            "dyn_tracer", "dyn_collect", "dyn_sweep", "dyn_adjoint",
            "regen_tracer", "regen_sweep", "dyn_regen_tracer",
-           "dyn_regen_sweep", "ray_tracer", "ray_adjoint")
+           "dyn_regen_sweep", "ray_tracer", "ray_adjoint", "segment_tracer",
+           "segment_adjoint", "earlyexit_tracer")
+# B14 is timed against the exact tracer at the main shape and in the
+# configurations of tools/bench_earlyexit.py (one chunk of 32 spp).
+EARLYEXIT_CELLS = (
+    ("main shape, depth 5", MAIN),
+    ("640x480x32, depth 8", dict(width=640, height=480, spp=32, max_depth=8)),
+    ("640x480x32, depth 16", dict(width=640, height=480, spp=32,
+                                  max_depth=16)))
 # Every wrapper that counts its launches: the two forms of a regeneration
 # tracer (one TPU kernel, one entry of the kernels line) count apart.
 WRAPPERS = KERNELS + ("regen_collect", "dyn_regen_collect")
@@ -169,7 +196,9 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: dict,
     share = bad.any(dim=0).float().mean().item()
     max_abs = diff.max().item()
     max_rel = (diff / ref.abs().clamp_min(1e-6)).max().item()
-    mean_rel = abs(got.mean().item() / ref.mean().item() - 1.0)
+    ref_mean = ref.mean().item()
+    mean_rel = (abs(got.mean().item() / ref_mean - 1.0) if ref_mean
+                else abs(got.mean().item()))
     print(f"[compare] {name}: max_abs={max_abs!r} max_rel={max_rel!r} "
           f"share_beyond(rtol={tol['rtol']}, atol={tol['atol']})="
           f"{share!r} mean_rel={mean_rel!r}", flush=True)
@@ -1657,6 +1686,546 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
             for name in ("ray_tracer", "ray_adjoint")}
 
 
+def profile_forward(fn, smi_line: str) -> None:
+    """One call of fn under torch.profiler: the device time of its kernels
+    by name, their sum against the wall, and the host time between."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad(), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                               count + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(f"[profile] one compacted forward under torch.profiler: wall "
+          f"{wall!r} ms, kernels {busy!r} ms ({busy / wall!r} of the wall) "
+          f"on {smi_line}; by name (ms, launches): "
+          + "; ".join(f"{name[:60]} {ms!r} x{n}" for name, (ms, n) in top),
+          flush=True)
+
+
+def compact_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 15: the segment forms of B1 and B4 (`segment_tracer`,
+    `segment_adjoint`), the early-exit tracer B14 (`earlyexit_tracer`) and
+    make_compacted_image_renderer. Returns their rows of the kernels
+    line."""
+    from drt_tpu_torch import fused, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import earlyexit
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    def tables(scene, params):
+        return albedo_table(scene, params), emission_table(scene, params)
+
+    def carries(ray):
+        """Lanes whose throughput is not all zero: a path that hit the
+        light goes on with throughput 0 and a zero direction, and an ulp
+        decides its hit or miss (ROADMAP C.4); nothing depends on it."""
+        return (ray[6:9] != 0).any(dim=0)
+
+    def compare_state(name, got, ref, share):
+        """An exit state (ray f[9, K], alive i32[K]) against the twin's,
+        per lane: throughput to EXACT_TOL, origin and direction to
+        EXACT_TOL with the atol scaled to each lane's vector (the origin
+        p + w eps carries the error of p = o + d t, relative to |p| and
+        not to a coordinate near 0; the direction is a unit vector),
+        liveness equal, on the lanes that carry; at most `share` of the
+        lanes beyond (paths an ulp of libm turns: the sampling weight of
+        a specular bounce, RSC_SHARE_SMALL)."""
+        (ray, alive), (ray_r, alive_r) = got, ref
+        torch.cuda.synchronize()
+        on = carries(ray_r)
+        n_on = int(on.sum())
+        diff = (ray - ray_r).abs()
+        rtol, atol = EXACT_TOL["rtol"], EXACT_TOL["atol"]
+        bad = torch.zeros_like(on)
+        line = []
+        for label, rows in (("throughput", (6, 9)), ("origin", (0, 3)),
+                            ("direction", (3, 6))):
+            d, r = diff[rows[0]:rows[1]], ray_r[rows[0]:rows[1]]
+            a = atol if label == "throughput" else (
+                atol + rtol * r.norm(dim=0))
+            beyond = (d > a + rtol * r.abs()).any(dim=0)
+            bad |= beyond & (on if label != "throughput" else True)
+            line.append(f"{label} max_abs={d[:, on].max().item()!r}")
+        bad |= on & (alive != alive_r)
+        frac = int(bad.sum()) / max(n_on, 1)
+        print(f"[compare] {name}: exit state of the {n_on!r} lanes that "
+              f"carry: {'; '.join(line)}; alive differs on "
+              f"{int((on & (alive != alive_r)).sum())!r}; share of lanes "
+              f"beyond {frac!r}", flush=True)
+        check(frac <= share, f"{name}: {frac:.3%} of lanes beyond")
+
+    def segment_grads(name, got, ref, rtol):
+        """compare_grads, where a table of the twin may be all zero (a
+        segment of an open scene whose paths reach no light): the
+        kernel's table must then be zero too."""
+        torch.cuda.synchronize()
+        if all(bool(r.any()) for r in ref):
+            return compare_grads(name, got, ref, rtol)
+        worst = 0.0
+        for label, a, r in zip(("d_albedo", "d_emission"), got, ref):
+            if not r.any():
+                same_bits(f"{name}: {label} (all zero)", (a,), (r,))
+                continue
+            scale = r.abs().max().item()
+            err = (a - r).abs().max().item()
+            print(f"[compare] {name}: {label} max_abs={err!r} max|ref|="
+                  f"{scale!r} rel={err / scale!r}", flush=True)
+            check(err <= rtol * scale, f"{name}: {label} differs by "
+                  f"{err:.3g} > {rtol} * {scale:.3g}")
+            worst = max(worst, err)
+        return worst
+
+    def gather_lanes(idx, *rows):
+        """rows f[R, K] (or i32[K]) at lanes idx, the pad slot K zero."""
+        return [torch.nn.functional.pad(r, (0, 1))[..., idx] for r in rows]
+
+    # Small shapes: tape mode, exact variant, each segment's kernel and
+    # twin on the kernel chain's compacted state.
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    n = 64 * 48 * 4
+    g = torch.Generator(device=dev).manual_seed(41)
+    cam_u = torch.rand((2, n), generator=g, device=dev)
+    tape = torch.rand((5, 3, n), generator=g, device=dev)
+    g_ray = torch.rand((3, n), generator=g, device=dev)
+    small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
+             ("tri", gallery.build_tri))
+    for label, build in small:
+        scene, params, cam = build(device=dev)
+        alb, emi = tables(scene, params)
+        L_b1 = mk.make_fused_tracer(scene, cam, cfg, rng="tape")(
+            alb, emi, cam_u, tape)
+        d_b4 = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(
+            alb, emi, cam_u, tape, g_ray)
+        same_bits(f"segment tracer [0, 5) = B1 (tape), {label}",
+                  (mk.make_fused_segment_tracer(scene, cam, cfg, 0, 5,
+                                                rng="tape")(
+                      alb, emi, cam_u, tape),), (L_b1,))
+        same_bits(f"early-exit tracer = B1 exact (tape), {label}",
+                  (earlyexit.make_earlyexit_tracer(scene, cam, cfg,
+                                                   rng="tape")(
+                      alb, emi, cam_u, tape),), (L_b1,))
+        compare(f"early-exit tracer vs twin (tape), {label}",
+                earlyexit.make_earlyexit_tracer(scene, cam, cfg, rng="tape")(
+                    alb, emi, cam_u, tape),
+                earlyexit.make_earlyexit_tracer(scene, cam, cfg, rng="tape",
+                                                plain=True)(
+                    alb, emi, cam_u, tape), EXACT_TOL)
+        for splits in ((2,), (1, 3)):
+            caps = fused.compacted_capacities(cfg, splits)
+            bounds = [0, *splits, 5]
+            tag = f"{label}, splits {splits}, lanes {caps}"
+            full = torch.zeros((3, n + 1), device=dev)
+            segs, state, cidx = [], (), None
+            for k, (b0, b1) in enumerate(zip(bounds, bounds[1:])):
+                u = (tape[b0:b1] if cidx is None else
+                     gather_lanes(cidx.long(), tape[b0:b1])[0]).contiguous()
+                args = ((cam_u,) if k == 0 else ()) + (u,) + tuple(state)
+                kw = dict(n_rays=caps[k], rng="tape")
+                out = mk.make_fused_segment_tracer(scene, cam, cfg, b0, b1,
+                                                   **kw)(alb, emi, *args)
+                ref = mk.make_fused_segment_tracer(
+                    scene, cam, cfg, b0, b1, plain=True, **kw)(alb, emi,
+                                                               *args)
+                final = b1 == 5
+                L, L_r = (out, ref) if final else (out[0], ref[0])
+                compare(f"segment tracer [{b0}, {b1}) vs twin, {tag}", L,
+                        L_r, EXACT_TOL, None)
+                if cidx is None:
+                    full[:, :n] += L
+                else:
+                    full.index_add_(1, cidx.long(), L)
+                g_k = (g_ray if cidx is None else
+                       gather_lanes(cidx.long(), g_ray)[0].contiguous())
+                segs.append((b0, b1, args, g_k, cidx, kw))
+                if final:
+                    break
+                compare_state(f"segment tracer [{b0}, {b1}) vs twin, {tag}",
+                              out[1], ref[1], RSC_SHARE_SMALL)
+                ray, alive = out[1]
+                on = alive > 0
+                check(int(on.sum()) <= caps[k + 1],
+                      f"{tag}: {int(on.sum())} live lanes > {caps[k + 1]}")
+                idx = fused.compact_lanes(on, caps[k + 1], caps[k])
+                segs[-1] += (idx,)
+                state = [t.contiguous() for t in gather_lanes(idx, ray,
+                                                              alive)]
+                cidx = (idx if cidx is None else torch.nn.functional.pad(
+                    cidx.long(), (0, 1), value=n)[idx]).to(torch.int32)
+            compare(f"split radiance scattered back vs B1 (tape), {tag}",
+                    full[:, :n], L_b1, EXACT_TOL)
+            S, da, de = None, 0.0, 0.0
+            for j in reversed(range(len(segs))):
+                b0, b1, args, g_k, _, kw = segs[j][:6]
+                tail = () if S is None else (S,)
+                out = mk.make_fused_segment_adjoint(scene, cam, cfg, b0, b1,
+                                                    **kw)(alb, emi, *args,
+                                                          g_k, *tail)
+                ref = mk.make_fused_segment_adjoint(
+                    scene, cam, cfg, b0, b1, plain=True, **kw)(
+                    alb, emi, *args, g_k, *tail)
+                segment_grads(f"segment adjoint [{b0}, {b1}) vs twin, {tag}",
+                              out[:2], ref[:2], GRAD_RTOL_SMALL)
+                da, de = da + out[0], de + out[1]
+                S = None
+                if b0 > 0:
+                    on = carries(args[-2])
+                    compare(f"segment adjoint [{b0}, {b1}) S_start vs twin "
+                            f"on the lanes that carry, {tag}", out[2][:, on],
+                            ref[2][:, on], EXACT_TOL, None)
+                    prev = segs[j - 1]
+                    S = torch.zeros((3, prev[5]["n_rays"] + 1), device=dev)
+                    S[:, prev[6]] = out[2]
+                    S = S[:, :prev[5]["n_rays"]].contiguous()
+            compare_grads(f"stitched segment adjoints vs B4 (tape), {tag}",
+                          (da, de), d_b4, GRAD_RTOL_SMALL)
+
+    # The main shape: one chunk of the compacted renderer's chain, timed.
+    cfg_m = RenderConfig(**MAIN)
+    C, D = cfg_m.spp_chunks, cfg_m.max_depth
+    spp_c = cfg_m.spp // C
+    npix = cfg_m.width * cfg_m.height
+    n_chunk = npix * spp_c
+    n_rays = npix * cfg_m.spp
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = tables(scene, params)
+    cc = mk.camera_consts(cam, cfg_m.width, cfg_m.height)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    splits = (min(cfg_m.min_bounces + 1, D - 1),)
+    caps = fused.compacted_capacities(cfg_m, splits)
+    print(f"[compact] main shape: splits {splits}, lanes {caps} (rays of a "
+          f"chunk, then after the split)", flush=True)
+    check(caps[1] < caps[0], f"capacities {caps}: nothing to compact")
+    b = splits[0]
+    segA = mk.make_fused_segment_tracer(scene, cam, cfg_m, 0, b)
+    segB = mk.make_fused_segment_tracer(scene, cam, cfg_m, b, D,
+                                        n_rays=caps[1])
+    adjA = mk.make_fused_segment_adjoint(scene, cam, cfg_m, 0, b)
+    adjB = mk.make_fused_segment_adjoint(scene, cam, cfg_m, b, D,
+                                         n_rays=caps[1])
+    chunk = 1
+    once = dict(reps=1, warmup=0, windows=1)
+    ms, plain_ms, err = {}, {}, {}
+    msA, winA, (LA, (ray, alive)) = cuda_ms(
+        lambda: segA(alb, emi, seeds, chunk=chunk), **timing)
+
+    def compaction():
+        on = alive > 0
+        idx = fused.compact_lanes(on, caps[1], caps[0])
+        r, a = gather_lanes(idx, ray, alive)
+        return on.sum(), idx, r.contiguous(), a.contiguous(), idx.to(
+            torch.int32)
+
+    ms_c, win_c, (n_live, idx, rayB, aliveB, cidx) = cuda_ms(compaction,
+                                                           **timing)
+    n_live = int(n_live)
+    msB, winB, LB = cuda_ms(lambda: segB(alb, emi, seeds, rayB, aliveB, cidx,
+                                         chunk=chunk), **timing)
+    print(f"[compact] chunk {chunk}: {n_live!r} live lanes of {caps[1]} at "
+          f"the split before bounce {b} ({n_live / n_chunk!r} of the "
+          f"chunk's rays)", flush=True)
+    check(n_live <= caps[1], "live lanes beyond the capacity")
+    # The compaction's index against a prefix sum and a scatter.
+    on = alive > 0
+    pos = torch.cumsum(on, 0) - 1
+    ref_idx = torch.full((caps[1] + 1,), caps[0], dtype=torch.int64,
+                         device=dev)
+    ref_idx.scatter_(0, torch.where(on & (pos < caps[1]), pos, caps[1]),
+                     torch.arange(caps[0], device=dev))
+    same_bits("compact_lanes = a prefix sum and a scatter", (idx,),
+              (ref_idx[:caps[1]],))
+    idx_ms, _, _ = cuda_ms(lambda: fused.compact_lanes(on, caps[1], caps[0]),
+                           **timing)
+    print(f"[compact] the index alone (torch.nonzero_static): {idx_ms!r} ms",
+          flush=True)
+    del on, pos, ref_idx
+    # Twins on the same inputs, with the live bounce-rays they count.
+    tA, _, refA = cuda_ms(lambda: mk.segment_trace_plain(
+        scene, cc, cfg_m, 0, b, alb, emi, seeds=seeds, chunk=chunk), **once)
+    tB, _, refB = cuda_ms(lambda: mk.segment_trace_plain(
+        scene, cc, cfg_m, b, D, alb, emi, seeds=seeds, ray=rayB,
+        alive=aliveB, ray_idx=cidx, chunk=chunk, n_rays=caps[1]), **once)
+    err["segment_tracer"] = max(
+        compare(f"segment tracer [0, {b}) vs twin at the main shape, chunk "
+                f"{chunk}", LA, refA[0], EXACT_TOL),
+        compare(f"segment tracer [{b}, {D}) vs twin at the main shape, "
+                f"chunk {chunk}", LB, refB, EXACT_TOL))
+    compare_state(f"segment tracer [0, {b}) vs twin at the main shape",
+                  (ray, alive), refA[1], MAX_SHARE_BEYOND)
+    del refA, refB
+    live = []
+    for b0, b1, kw in ((0, b, {}), (b, D, dict(ray=rayB, alive=aliveB,
+                                               ray_idx=cidx,
+                                               n_rays=caps[1]))):
+        _, res = mk.segment_trace_plain(scene, cc, cfg_m, b0, b1, alb, emi,
+                                        seeds=seeds, chunk=chunk,
+                                        collect=True, **kw)
+        live.append(int((res.gate > 0).sum()))
+        del res
+    ms["segment_tracer"], plain_ms["segment_tracer"] = msA + msB, tA + tB
+    # [0, D) on chunk 0 is B1 on one chunk, bit for bit.
+    whole = mk.make_fused_segment_tracer(scene, cam, cfg_m, 0, D)
+    same_bits("segment tracer [0, 5) = B1 exact on chunk 0 at the main "
+              "shape", (whole(alb, emi, seeds, chunk=0),),
+              (mk.make_fused_tracer(scene, cam, cfg_m)(alb, emi, seeds),))
+    # The split radiance scattered back against B1 on this chunk.
+    cu, tp = mk.hash_tapes(seeds, npix, spp_c, D, sample_base=chunk * spp_c,
+                           device=dev)
+    L_b1 = mk.make_fused_tracer(scene, cam, cfg_m, rng="tape")(alb, emi, cu,
+                                                               tp)
+    full = torch.zeros((3, n_chunk + 1), device=dev)
+    full[:, :n_chunk] += LA
+    full.index_add_(1, cidx.long(), LB)
+    compare("split and compacted radiance scattered back vs B1 on chunk "
+            f"{chunk} at the main shape (per ray)", full[:, :n_chunk], L_b1,
+            EXACT_TOL)
+    del full, cu, tp
+    # The adjoints on this chunk, stitched, against B4 on it.
+    g_pix = torch.rand((3, npix), generator=g, device=dev) / cfg_m.spp
+    g_lane = g_pix[:, cidx.long() % npix].contiguous()
+    msB_adj, winB_adj, (daB, deB, S_B) = cuda_ms(
+        lambda: adjB(alb, emi, seeds, rayB, aliveB, cidx, g_lane,
+                     chunk=chunk), **timing)
+    S_A = torch.zeros((3, caps[0] + 1), device=dev)
+    S_A[:, idx] = S_B
+    S_A = S_A[:, :caps[0]].contiguous()
+    msA_adj, winA_adj, (daA, deA) = cuda_ms(
+        lambda: adjA(alb, emi, seeds, g_pix, S_A, chunk=chunk), **timing)
+    tA_adj, _, refA = cuda_ms(lambda: mk.segment_adjoint_plain(
+        scene, cc, cfg_m, 0, b, alb, emi, g_pix, S_end=S_A, seeds=seeds,
+        chunk=chunk), **once)
+    tB_adj, _, refB = cuda_ms(lambda: mk.segment_adjoint_plain(
+        scene, cc, cfg_m, b, D, alb, emi, g_lane, seeds=seeds, ray=rayB,
+        alive=aliveB, ray_idx=cidx, chunk=chunk, n_rays=caps[1]), **once)
+    err["segment_adjoint"] = max(
+        compare_grads(f"segment adjoint [0, {b}) vs twin at the main shape",
+                      (daA, deA), refA, GRAD_RTOL_MAIN),
+        compare_grads(f"segment adjoint [{b}, {D}) vs twin at the main "
+                      "shape", (daB, deB), refB[:2], GRAD_RTOL_MAIN))
+    cu, tp = mk.hash_tapes(seeds, npix, spp_c, D, sample_base=chunk * spp_c,
+                           device=dev)
+    compare_grads(f"stitched segment adjoints vs B4 on chunk {chunk} at the "
+                  "main shape", (daA + daB, deA + deB),
+                  mk.make_fused_adjoint(scene, cam, cfg_m, rng="tape")(
+                      alb, emi, cu, tp, g_pix), GRAD_RTOL_MAIN)
+    del refA, refB, cu, tp
+    ms["segment_adjoint"] = msA_adj + msB_adj
+    plain_ms["segment_adjoint"] = tA_adj + tB_adj
+    print(f"[time] one chunk of {n_chunk} rays at the main shape, split "
+          f"{splits}: segment tracer [0, {b}) {msA!r} ms, the compaction "
+          f"{ms_c!r} ms, segment tracer [{b}, {D}) on {caps[1]} lanes "
+          f"{msB!r} ms; segment adjoints [{b}, {D}) {msB_adj!r} ms, "
+          f"[0, {b}) {msA_adj!r} ms; twins {tA!r} + {tB!r} ms and "
+          f"{tA_adj!r} + {tB_adj!r} ms; on {smi_line}; window means: "
+          f"{winA!r} {win_c!r} {winB!r} {winB_adj!r} {winA_adj!r}",
+          flush=True)
+
+    # Bounds of one chunk's two launches: each input read once and each
+    # output written once (the state 40 B a lane, ray_idx 4, radiance 12,
+    # g 12 a lane or a pixel, S 12), and this chunk's live bounces.
+    ops_hit = sum(OPS_SHAPE[t] for t in scene.shape_type.tolist())
+    table_bytes = 4 * (mk.scene_table(scene).numel() + alb.numel()
+                       + emi.numel())
+    grad_bytes = 4 * (alb.numel() + emi.numel())
+    K = caps[1]
+    trace_ops = n_chunk * OPS_CAMERA + sum(live) * (ops_hit + OPS_SHADE)
+    work = {
+        "segment_tracer": (2 * table_bytes + n_chunk * (12 + 40)
+                           + K * (40 + 4 + 12), trace_ops),
+        "segment_adjoint": (2 * (table_bytes + grad_bytes) + 12 * npix
+                            + 12 * n_chunk + K * (40 + 4 + 12 + 12),
+                            trace_ops + sum(live) * OPS_SWEEP),
+    }
+    bound = {}
+
+    def bound_of(name, n_bytes, n_ops, note):
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        bound[name] = (max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[bound] {name}: bytes={n_bytes} ({t_bytes!r} ms at "
+              f"{PEAK_BYTES_PER_S:.3g} B/s) operations={n_ops} ({t_ops!r} "
+              f"ms at {PEAK_F32_OPS_PER_S:.3g} op/s) {note}", flush=True)
+
+    for name, (n_bytes, n_ops) in work.items():
+        bound_of(name, n_bytes, n_ops, f"live bounce-rays {live} of "
+                 f"{n_chunk * b} and {K * (D - b)} lane-bounces")
+    del ray, alive, rayB, aliveB, idx, cidx, LA, LB
+
+    # B14 against B1 exact: the main shape, then 640x480x32 (one chunk)
+    # at depths 8 and 16 (the configurations of tools/bench_earlyexit.py).
+    launches = {}
+    ee_ms = {}
+    for label, kw in EARLYEXIT_CELLS:
+        cfg_e = RenderConfig(**kw)
+        b1 = mk.make_fused_tracer(scene, cam, cfg_e,
+                                  n_chunks=cfg_e.spp_chunks)
+        ee = earlyexit.make_earlyexit_tracer(scene, cam, cfg_e,
+                                             n_chunks=cfg_e.spp_chunks)
+        mk.reset_launch_counts()
+        L_ee = ee(alb, emi, seeds)
+        torch.cuda.synchronize()
+        counts = mk.launch_counts()
+        check(counts == only(earlyexit_tracer=1),
+              f"the early-exit tracer's call launched {counts}")
+        launches.setdefault("earlyexit_tracer", counts["earlyexit_tracer"])
+        same_bits(f"early-exit tracer = B1 exact, {label} (internal RNG)",
+                  (L_ee,), (b1(alb, emi, seeds),))
+        t_b1, w_b1, _ = cuda_ms(lambda: b1(alb, emi, seeds), **timing)
+        t_ee, w_ee, _ = cuda_ms(lambda: ee(alb, emi, seeds), **timing)
+        t_ee2, w_ee2, _ = cuda_ms(lambda: ee(alb, emi, seeds), **timing)
+        t_b12, w_b12, _ = cuda_ms(lambda: b1(alb, emi, seeds), **timing)
+        ee_ms[label] = (t_ee, t_ee2, t_b1, t_b12)
+        print(f"[time] {label}: B1 exact {t_b1!r} / {t_b12!r} ms, early-exit "
+              f"{t_ee!r} / {t_ee2!r} ms (B1, B14, B14, B1; ratio B1/B14 "
+              f"{(t_b1 + t_b12) / (t_ee + t_ee2)!r}) on {smi_line}; window "
+              f"means {w_b1!r} {w_ee!r} {w_ee2!r} {w_b12!r}", flush=True)
+        if kw == MAIN:
+            ms["earlyexit_tracer"] = t_ee
+            t_p, _, ref = cuda_ms(lambda: earlyexit.earlyexit_trace_plain(
+                scene, cc, cfg_e, alb, emi, seeds=seeds,
+                n_chunks=cfg_e.spp_chunks), **once)
+            plain_ms["earlyexit_tracer"] = t_p
+            err["earlyexit_tracer"] = compare(
+                "early-exit tracer vs twin at the main shape", L_ee, ref,
+                EXACT_TOL)
+            del ref
+            # The live bounce-rays of this run, from the collect tracer.
+            _, _, rbest = mk.make_fused_collect_tracer(
+                scene, cam, cfg_e, n_chunks=cfg_e.spp_chunks)(alb, emi,
+                                                              seeds)
+            live_e = int((rbest > 0).sum())
+            del rbest
+            bound_of("earlyexit_tracer", table_bytes
+                     + 12 * npix * spp_c, n_rays * OPS_CAMERA
+                     + live_e * (ops_hit + OPS_SHADE),
+                     f"live bounce-rays {live_e} of {n_rays * D}")
+        del L_ee
+
+    # The compacted renderer at the main shape.
+    render = fused.make_compacted_image_renderer(scene, cam, cfg_m)
+    exact = fused.make_fused_image_renderer(scene, cam, cfg_m,
+                                            fastmath=False,
+                                            differentiable=False)
+    seed_list = [seeds_from_generator(torch.Generator().manual_seed(s))
+                 for s in (0, 1, 2, 3)]
+    mk.reset_launch_counts()
+    images, t_imgs = [], []
+    with torch.no_grad():
+        for s in seed_list:  # the first is the warm-up
+            t0 = time.perf_counter()
+            images.append(render(params, s))
+            torch.cuda.synchronize()
+            t_imgs.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    launches["segment_tracer"] = counts["segment_tracer"]
+    check(counts == only(segment_tracer=2 * C * len(seed_list)),
+          f"the compacted forward launched {counts}")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(5):
+            render(params, seed_list[1])
+    torch.cuda.synchronize()
+    t_pipe = (time.perf_counter() - t0) / 5
+    print(f"[compact] make_compacted_image_renderer forward 640x480x256spp "
+          f"depth 5, {C} chunks: launches={counts} seconds synchronized="
+          f"{t_imgs[1:]!r} pipelined={t_pipe!r} ({n_rays / t_pipe / 1e6!r} "
+          f"Mrays/s) on {smi_line}", flush=True)
+    profile_forward(lambda: render(params, seed_list[1]), smi_line)
+    for s, img in zip(seed_list[1:], images[1:]):
+        check(img.shape == (480, 640, 3) and img.dtype == torch.float32,
+              f"image {tuple(img.shape)} {img.dtype}")
+        reads_right(img, f"compacted, seed {s.tolist()}")
+        ref = exact(params, s)
+        compare(f"compacted image vs the fused tracer's exact image, seed "
+                f"{s.tolist()} (per pixel)", img.permute(2, 0, 1)
+                .reshape(3, -1), ref.permute(2, 0, 1).reshape(3, -1),
+                EXACT_TOL)
+    target = images[1]
+    del images
+
+    def step(render_fn, p, s):
+        p = Params(*(t.detach().clone().requires_grad_() for t in p))
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - target) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad)
+
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    counts, (_, grads) = time_steps(
+        "compacted", lambda: step(render, p_off, seed_list[1]), mk,
+        only(segment_tracer=2 * C, segment_adjoint=2 * C), n_rays)
+    launches["segment_adjoint"] = counts["segment_adjoint"]
+    p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
+    before = torch.cuda.memory_allocated(dev)
+    img = render(p, seed_list[1])
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated(dev) - before - img.numel() * 4
+    del img, p
+    print(f"[compact] bytes the forward keeps for the backward: {kept!r} "
+          f"({C} chunks x (idx i64, cidx i32, state 40 B) x {caps[1]} lanes "
+          f"= {C * caps[1] * 52!r}); peak allocated in the steps "
+          f"{torch.cuda.max_memory_allocated(dev) - base!r} B", flush=True)
+    ref = step(fused.make_fused_image_renderer(
+        scene, cam, cfg_m, adjoint="retrace", fastmath=False), p_off,
+        seed_list[1])
+    compare_grads("compacted: grads vs 'cuda' retrace (exact) at the same "
+                  "seeds", grads, ref[1], GRAD_RTOL_MAIN)
+
+    # Five Adam steps of optim's paired loss over the compacted render.
+    true_red = params.albedo[cbox.RED].clone()
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+    step_fn = optim.make_train_step(scene, cfg_m, cam, target,
+                                    optim.Adam(2e-2), render=render)
+    state = optim.init_state(Params(start, params.emission))
+    gen = torch.Generator().manual_seed(5)
+    n_steps = 5
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n_steps):
+        state, metrics = step_fn(state, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t_train = (time.perf_counter() - t0) / n_steps
+    counts = mk.launch_counts()
+    losses = torch.stack(losses)
+    before = (start[cbox.RED] - true_red).norm().item()
+    after = (state.params.albedo[cbox.RED] - true_red).norm().item()
+    print(f"[train] 5 Adam steps over the compacted render: launches="
+          f"{counts} seconds per step={t_train!r} loss={losses.tolist()} "
+          f"red row distance {before!r} -> {after!r} on {smi_line}",
+          flush=True)
+    check(counts == only(segment_tracer=4 * C * n_steps,
+                         segment_adjoint=4 * C * n_steps),
+          f"the compacted trainer launched {counts}")
+    check(bool(torch.isfinite(losses).all()), "the losses are not finite")
+    check(after < before, "the perturbed albedo row moved away from its "
+          "true value")
+    return {name: dict(launches=launches[name], max_abs_err=err[name],
+                       ms=ms[name], plain_ms=plain_ms[name],
+                       bound_ms=bound[name][0], bound_by=bound[name][1])
+            for name in ("segment_tracer", "segment_adjoint",
+                         "earlyexit_tracer")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1670,6 +2239,7 @@ def main() -> int:
     from drt_tpu_torch.models import cbox, gallery
     # Importing them joins the regeneration wrappers to the launch counts.
     import drt_tpu_torch.ops.dynregen  # noqa: F401
+    import drt_tpu_torch.ops.earlyexit  # noqa: F401
     import drt_tpu_torch.ops.regen  # noqa: F401
     from drt_tpu_torch.ops import megakernel as mk
     from drt_tpu_torch.ops.rng import hash_tapes
@@ -1704,7 +2274,8 @@ def main() -> int:
                 print(f"[ptxas] {source}: {line.strip()}", flush=True)
 
     if ONLY:
-        phase = {"regen": regen_phases, "wavefront": wavefront_phase}[ONLY]
+        phase = {"regen": regen_phases, "wavefront": wavefront_phase,
+                 "compact": compact_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -2038,6 +2609,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     wave_rows = wavefront_phase(dev, smi_line,
                                 dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
+    compact_rows = compact_phase(dev, smi_line,
+                                 dict(reps=10, warmup=10, windows=3))
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -2049,6 +2623,7 @@ def main() -> int:
     rows.update(dyn_rows)
     rows.update(regen_rows)
     rows.update(wave_rows)
+    rows.update(compact_rows)
     # name -> (source under csrc/, the TPU kernel's file and def line)
     replaces = {"fused_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
                 "fused_collect": ("fused_tracer.cu", "megakernel.py:1211"),
@@ -2065,7 +2640,11 @@ def main() -> int:
                 "dyn_regen_sweep": ("dyn_regen_adjoint.cu",
                                     "dynregen.py:316"),
                 "ray_tracer": ("fused_tracer.cu", "megakernel.py:683"),
-                "ray_adjoint": ("fused_adjoint.cu", "megakernel.py:912")}
+                "ray_adjoint": ("fused_adjoint.cu", "megakernel.py:912"),
+                "segment_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
+                "segment_adjoint": ("fused_adjoint.cu",
+                                    "megakernel.py:1497"),
+                "earlyexit_tracer": ("fused_tracer.cu", "earlyexit.py:40")}
     check(tuple(replaces) == KERNELS and set(rows) == set(KERNELS),
           f"kernels measured: {sorted(rows)}")
     for name in KERNELS:
@@ -2079,7 +2658,9 @@ def main() -> int:
     # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
     # launch. A regeneration tracer's entry is its forward form; collect_*
     # are its collect form's numbers. The wavefront kernels launch once per
-    # chunk: their ms and plain_ms are of one chunk.
+    # chunk: their ms and plain_ms are of one chunk. The segment kernels'
+    # ms, plain_ms and bound are of one chunk's two launches (the segments
+    # before and after the split).
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

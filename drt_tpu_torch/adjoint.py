@@ -68,16 +68,20 @@ def _segv(data: V3, ids: torch.Tensor, num: int) -> V3:
     return V3(seg1(data.x), seg1(data.y), seg1(data.z))
 
 
-def _param_grads(params: Params, scene: Scene, residuals: BounceResiduals,
-                 g: V3, dtype) -> Params:
-    """Close the gradient from per-bounce residuals by a reverse scan.
-    g: V3 of f[N] per-ray cotangent."""
-    albedo_tab = albedo_table(scene, params).to(dtype)  # [K+1, 3]
-    emission_tab = emission_table(scene, params).to(dtype)  # [L+1, 3]
+def _reverse_sweep(albedo_tab: torch.Tensor, emission_tab: torch.Tensor,
+                   residuals: BounceResiduals, g: V3, S: V3 | None = None):
+    """The reverse scan over per-bounce residuals into the padded tables
+    (d_albedo, d_emission as V3 of f[K+1] and f[L+1], sentinel rows
+    included), seeded by the suffix radiance S after the last bounce (0
+    for a path's end, a later segment's S at its entry for a segment:
+    drt_tpu/ops/megakernel.py:_reverse_sweep). Returns (d_albedo,
+    d_emission, S at the first bounce)."""
+    dtype = albedo_tab.dtype
     n_alb = albedo_tab.shape[0]
     n_emit = emission_tab.shape[0]
     dev = g.x.device
-    S = V3(*(torch.zeros_like(g.x) for _ in range(3)))
+    if S is None:
+        S = V3(*(torch.zeros_like(g.x) for _ in range(3)))
     da = V3(*(torch.zeros(n_alb, dtype=dtype, device=dev) for _ in range(3)))
     de = V3(*(torch.zeros(n_emit, dtype=dtype, device=dev)
               for _ in range(3)))
@@ -91,6 +95,16 @@ def _param_grads(params: Params, scene: Scene, residuals: BounceResiduals,
         da = da + _segv(gP * sc * S, aid, n_alb)
         w = gatherv(albedo_tab, aid) * sc
         S = (e + w * S) * gate
+    return da, de, S
+
+
+def _param_grads(params: Params, scene: Scene, residuals: BounceResiduals,
+                 g: V3, dtype) -> Params:
+    """Close the gradient from per-bounce residuals by a reverse scan.
+    g: V3 of f[N] per-ray cotangent."""
+    da, de, _ = _reverse_sweep(albedo_table(scene, params).to(dtype),
+                               emission_table(scene, params).to(dtype),
+                               residuals, g)
     k = params.albedo.shape[0]
     l = params.emission.shape[0]
     return Params(albedo=da.to_array()[:k].to(params.albedo.dtype),

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from drt_tpu_torch.ops.vecmath import V3, normalizev
+from drt_tpu_torch.scene import DEFAULT_DEVICE, checked_device
 
 
 class Camera(NamedTuple):
@@ -36,9 +37,11 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def default_camera(dtype=torch.float32, vfov: float = 1.3963,
-                   device=None) -> Camera:
+                   device=DEFAULT_DEVICE) -> Camera:
     """Reference defaults (camera.hpp:15-19): eye at the origin, forward
     -z."""
+    device = checked_device(device)
+
     def t(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
 
@@ -48,8 +51,10 @@ def default_camera(dtype=torch.float32, vfov: float = 1.3963,
 
 
 def look_at(eye, at, up=(0.0, 1.0, 0.0), vfov: float = 1.3963,
-            dtype=torch.float32, device=None) -> Camera:
+            dtype=torch.float32, device=DEFAULT_DEVICE) -> Camera:
     """Build a camera basis (reference: camera.hpp:29-37)."""
+    device = checked_device(device)
+
     def t(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
 

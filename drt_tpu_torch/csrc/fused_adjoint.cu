@@ -24,6 +24,16 @@
 //    tape and cotangent its tables are B4's bit for bit. Exact variant,
 //    built for 32 bounces like B4; bound like B4 (it reads 96 bytes per
 //    ray at depth 5, 0.14 ms of the card's memory rate at 4.9 M rays).
+//  - drt_fused_segment_adjoint replaces make_fused_segment_adjoint at any
+//    [b_start, b_end): the segment of drt_fused_segment_trace
+//    (fused_tracer.cu) retraced from the camera or its entry state, its
+//    bounces kept per thread by segment-local bounce, then the reverse
+//    sweep seeded by the next segment's S at its entry (S_end, zero for
+//    the last segment), which writes S at this segment's entry (S_start)
+//    when b_start > 0: S_b = gate_b (e_b + w_b S_{b+1})
+//    (megakernel.py:_reverse_sweep). The gradients go through the same
+//    accumulator routines as B4's. Bound like B4; the state, g, S_end and
+//    S_start add 68 bytes per lane at most.
 //
 // The reverse sweep (megakernel.py:_reverse_sweep, :611-637), per ray slot
 // and chunk, from the last bounce to the first, with S = 0 to start:
@@ -234,6 +244,99 @@ ray_adjoint_kernel(DrtTrace cfg, const float* __restrict__ scene,
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
+// The hook of the segment adjoint: bounce b of a segment that starts at
+// b0 is row b - b0.
+struct KeepSegmentResidual {
+  Residuals<DRT_MAX_DEPTH>& r;
+  int b0;
+  __device__ __forceinline__ void operator()(int b, float Px, float Py,
+                                             float Pz, float sc, float gate,
+                                             int best) const {
+    const int k = b - b0;
+    r.P[k][0] = Px; r.P[k][1] = Py; r.P[k][2] = Pz;
+    r.sc[k] = sc;
+    r.gate[k] = gate;
+    r.best[k] = best;
+  }
+};
+
+// reverse_sweep over the n rows of a segment, from the suffix radiance S
+// after its last bounce; leaves S at its first bounce in S.
+static __device__ __forceinline__ void segment_sweep(
+    const DrtTrace& cfg, const DrtTables& tab,
+    const Residuals<DRT_MAX_DEPTH>& r, int n, const float g[3], float S[3],
+    float* acc) {
+  float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
+  for (int b = n - 1; b >= 0; --b) {
+    const int best = r.best[b];
+    float e[3] = {0.0f, 0.0f, 0.0f};
+    float a[3] = {1.0f, 1.0f, 1.0f};
+    int erow = -1, arow = -1;
+    if (best > 0) {
+      const float* rec = tab.scene + (best - 1) * DRT_REC;
+      const int er = (int)rec[R_EMI];
+      if (er < cfg.n_emi - 1) {
+        erow = er;
+        e[0] = tab.emi[er * 3 + 0];
+        e[1] = tab.emi[er * 3 + 1];
+        e[2] = tab.emi[er * 3 + 2];
+      }
+      const int ar = (int)rec[R_ALB];
+      if (ar < cfg.n_alb - 1) {
+        arow = ar;
+        a[0] = tab.alb[ar * 3 + 0];
+        a[1] = tab.alb[ar * 3 + 1];
+        a[2] = tab.alb[ar * 3 + 2];
+      }
+    }
+    sweep_bounce(acc, acc_e, arow, erow, a, e, r.P[b], r.sc[b], r.gate[b],
+                 g, S);
+  }
+}
+
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_adjoint_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1,
+                       int chunk, const float* __restrict__ scene,
+                       const float* __restrict__ alb,
+                       const float* __restrict__ emi,
+                       const float* __restrict__ cam_u,
+                       const float* __restrict__ tape,
+                       const float* __restrict__ ray,
+                       const int* __restrict__ alive_in,
+                       const int* __restrict__ ray_idx,
+                       const float* __restrict__ g, int g_n,
+                       const float* __restrict__ s_end,
+                       float* __restrict__ partials,
+                       float* __restrict__ s_start) {
+  extern __shared__ float s_acc[];
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int K = cfg.n_rays;
+  if (i < K) {
+    Residuals<DRT_MAX_DEPTH> r;
+    KeepSegmentResidual hook{r, b0};
+    PathState p;
+    trace_segment<FAST, INTERNAL>(cfg, cam, tab, cam_u,
+                                  SegmentTape{tape, b0}, ray, alive_in,
+                                  ray_idx, b1, i, chunk, hook, p);
+    const int gi = i % g_n;
+    const float gv[3] = {g[gi], g[g_n + gi], g[2 * g_n + gi]};
+    float S[3] = {0.0f, 0.0f, 0.0f};
+    if (s_end != nullptr) {
+      S[0] = s_end[i]; S[1] = s_end[K + i]; S[2] = s_end[2 * K + i];
+    }
+    segment_sweep(cfg, tab, r, b1 - b0, gv, S, s_acc + threadIdx.x);
+    if (s_start != nullptr) {
+      s_start[i] = S[0]; s_start[K + i] = S[1]; s_start[2 * K + i] = S[2];
+    }
+  }
+  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
+}
+
 static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
   return drt_cfg_ok(cfg) && cfg->max_depth >= 1 &&
          cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0;
@@ -323,6 +426,54 @@ int drt_ray_adjoint(const DrtTrace* cfg, const float* scene, const float* alb,
   if (rc) return rc;
   ray_adjoint_kernel<<<grid, DRT_BLOCK, bytes, s>>>(
       *cfg, scene, alb, emi, o, d, tape, g, partials);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
+// Bounces [b_start, b_end) of chunk `chunk`, inputs as
+// drt_fused_segment_trace's; g is f32[3, g_n], read at lane % g_n (g_n =
+// n_rays per lane, or W*H per pixel when b_start == 0); s_end f32[3,
+// n_rays] is read iff b_end < max_depth and s_start written iff
+// b_start > 0.
+int drt_fused_segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
+                              int b_start, int b_end, int chunk,
+                              const float* scene, const float* alb,
+                              const float* emi, const float* cam_u,
+                              const float* tape, const float* ray,
+                              const int* alive, const int* ray_idx,
+                              const float* g, int g_n, const float* s_end,
+                              float* partials, float* da, float* de,
+                              float* s_start, void* stream) {
+  const bool entry = b_start == 0, final = b_end == cfg->max_depth;
+  if (!adjoint_cfg_ok(cfg, g_n) || cfg->n_chunks != 1 || b_start < 0 ||
+      b_end <= b_start || b_end > cfg->max_depth || chunk < 0 ||
+      (!cfg->internal_rng && (tape == nullptr || (entry && !cam_u))) ||
+      (!entry && (!ray || !alive || (cfg->internal_rng && !ray_idx) ||
+                  !s_start || g_n != cfg->n_rays)) ||
+      (!final && !s_end))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
+  const float* se = final ? nullptr : s_end;
+  float* ss = entry ? nullptr : s_start;
+  int rc;
+#define DRT_LAUNCH(F, I)                                                   \
+  rc = allow_shared(segment_adjoint_kernel<F, I>, bytes);                  \
+  if (rc) return rc;                                                       \
+  segment_adjoint_kernel<F, I><<<grid, DRT_BLOCK, bytes, s>>>(             \
+      *cfg, *cam, b_start, b_end, chunk, scene, alb, emi, cam_u, tape,     \
+      ray, alive, ray_idx, g, g_n, se, partials, ss)
+  if (cfg->fast) {
+    if (cfg->internal_rng) { DRT_LAUNCH(true, true); }
+    else { DRT_LAUNCH(true, false); }
+  } else {
+    if (cfg->internal_rng) { DRT_LAUNCH(false, true); }
+    else { DRT_LAUNCH(false, false); }
+  }
+#undef DRT_LAUNCH
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,

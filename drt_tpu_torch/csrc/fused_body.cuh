@@ -126,6 +126,108 @@ static __device__ __forceinline__ void trace_ray(
   }
 }
 
+// The early-exit form of trace_chunk (drt_tpu/ops/earlyexit.py): before
+// each bounce the warp votes, and a warp none of whose lanes lives leaves
+// the chunk's bounce loop. A dead lane adds P e = 0, so the radiance is
+// trace_chunk's bit for bit. Every lane of the warp must reach the vote:
+// `lane` is false for a thread past the last ray slot, which traces slot i
+// (the caller's last valid slot) as a dead path and writes nothing.
+template <bool FAST, bool INTERNAL, class Hook>
+static __device__ __forceinline__ void trace_chunk_vote(
+    const DrtTrace& cfg, const DrtCamera& cam, const DrtTables& tab,
+    const float* __restrict__ cam_u, const float* __restrict__ tape,
+    int i, bool lane, int c, Hook& hook, float& lx, float& ly, float& lz) {
+  const float RAY_EPS_F = 1e-3f;
+  const float* s_scene = tab.scene;
+  const float* s_alb = tab.alb;
+  const float* s_emi = tab.emi;
+
+  int pix;
+  uint32_t smp;
+  float dx, dy, dz;
+  primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, c, pix, smp, dx, dy, dz);
+  float ox = cam.eye[0], oy = cam.eye[1], oz = cam.eye[2];
+  float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
+  lx = 0.0f; ly = 0.0f; lz = 0.0f;
+  bool alive = lane;
+
+  for (int bnc = 0; bnc < cfg.max_depth; ++bnc) {
+    if (!__any_sync(0xffffffffu, alive)) break;
+#include "fused_bounce.inc"
+  }
+}
+
+// The tape of a segment [b0, b1): f32[b1 - b0, 3, n_rays], row bnc - b0 at
+// bounce bnc. Inside trace_segment the bounce text's bounce_uniforms call
+// resolves to the overload below by the type of `tape`.
+struct SegmentTape {
+  const float* p;
+  int b0;
+};
+
+template <bool INTERNAL>
+static __device__ __forceinline__ void bounce_uniforms(
+    const DrtTrace& cfg, const SegmentTape& tape, int i, int pix,
+    uint32_t smp, int bnc, float& u_rr, float& u1, float& u2) {
+  const float* rows =
+      INTERNAL ? nullptr : tape.p + (size_t)(bnc - tape.b0) * 3 * cfg.n_rays;
+  bounce_uniforms<INTERNAL>(cfg, rows, i, pix, smp, INTERNAL ? bnc : 0,
+                            u_rr, u1, u2);
+}
+
+// Bounces [tape.b0, b1) of lane i of one chunk c: the segment forms of
+// trace_chunk (megakernel.py:_wavefront_body(b_start, b_end, T, alive,
+// full_output=True)). At b0 == 0 the lane is ray slot i and starts from
+// the camera as in trace_chunk; past it the lane reads its state from ray
+// f32[9, n_rays] (o, d, T rows) and alive i32[n_rays], and with the
+// internal RNG its ray slot from ray_idx. Russian roulette and the keyed
+// draws take the absolute bounce, the tape and the hook's residual row the
+// segment's own. p holds the segment's radiance and the exit state.
+template <bool FAST, bool INTERNAL, class Hook>
+static __device__ __forceinline__ void trace_segment(
+    const DrtTrace& cfg, const DrtCamera& cam, const DrtTables& tab,
+    const float* __restrict__ cam_u, const SegmentTape& tape,
+    const float* __restrict__ ray, const int* __restrict__ alive_in,
+    const int* __restrict__ ray_idx, int b1, int i, int c, Hook& hook,
+    PathState& p) {
+  const float RAY_EPS_F = 1e-3f;
+  const float* s_scene = tab.scene;
+  const float* s_alb = tab.alb;
+  const float* s_emi = tab.emi;
+  float &ox = p.ox, &oy = p.oy, &oz = p.oz;
+  float &dx = p.dx, &dy = p.dy, &dz = p.dz;
+  float &Tx = p.Tx, &Ty = p.Ty, &Tz = p.Tz;
+  float &lx = p.lx, &ly = p.ly, &lz = p.lz;
+  bool& alive = p.alive;
+
+  int pix = 0;
+  uint32_t smp = 0u;
+  if (tape.b0 == 0) {
+    primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, c, pix, smp, dx, dy,
+                                dz);
+    ox = cam.eye[0]; oy = cam.eye[1]; oz = cam.eye[2];
+    Tx = 1.0f; Ty = 1.0f; Tz = 1.0f;
+    alive = true;
+  } else {
+    const size_t n = (size_t)cfg.n_rays;
+    ox = ray[i]; oy = ray[n + i]; oz = ray[2 * n + i];
+    dx = ray[3 * n + i]; dy = ray[4 * n + i]; dz = ray[5 * n + i];
+    Tx = ray[6 * n + i]; Ty = ray[7 * n + i]; Tz = ray[8 * n + i];
+    alive = alive_in[i] > 0;
+    if (INTERNAL) {
+      const int npix = cfg.width * cfg.height;
+      const int r = ray_idx[i];
+      pix = r % npix;
+      smp = (uint32_t)(c * cfg.spp_c + r / npix);
+    }
+  }
+  lx = 0.0f; ly = 0.0f; lz = 0.0f;
+
+  for (int bnc = tape.b0; bnc < b1; ++bnc) {
+#include "fused_bounce.inc"
+  }
+}
+
 // fused_bounce.inc as a routine on a PathState, with the keyed hash: one
 // bounce of sample smp of pixel pix at depth bnc. The regeneration kernels
 // (regen_tracer.cu) call it at each thread's own depth.

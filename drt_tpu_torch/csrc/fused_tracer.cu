@@ -18,7 +18,28 @@
 //    84 bytes per ray at depth 5 where the fused tracer reads none, which
 //    at the main shape (4.9 M rays a launch) is 0.14 ms of the card's
 //    memory rate against ~0.7 ms of bounce work: bound like the fused
-//    tracer, by issue and divergence, and every read is a coalesced line.
+//    tracer, by issue and divergence, and every read is a coalesced line;
+//  - drt_fused_segment_trace replaces make_fused_segment_tracer (pallas_call
+//    at :1194) at any [b_start, b_end): bounces b_start..b_end-1 of one
+//    chunk, entered from the camera (b_start == 0) or from a state (o, d,
+//    T rows f32[9, K], alive i32[K]) and, unless b_end == max_depth, left
+//    into the same; with the internal RNG each lane draws from the keyed
+//    hash at its ray slot ray_idx i32[K] and the absolute bounce, where the
+//    TPU kernel reseeds its PRNG per compacted tile, so that a compacted
+//    wavefront follows the lockstep tracer's paths. Radiance f32[3, K] of
+//    the segment. At [0, max_depth) it is the tracer's on one chunk bit for
+//    bit. Bound like the tracer (the state costs 44 bytes per lane in and
+//    52 out, 0.08 ms per 4.9 M lanes at the card's memory rate, against
+//    0.25 ms or more of bounce work); the compaction between segments is
+//    the caller's (fused.make_compacted_image_renderer);
+//  - drt_earlyexit_trace replaces drt_tpu/ops/earlyexit.py:
+//    make_earlyexit_tracer (pallas_call at :170): the tracer with a warp
+//    vote before each bounce, so that a warp whose 32 lanes are all dead
+//    leaves the chunk's bounce loop (the TPU kernel skips a tile of 128 or
+//    more lanes with pl.when). Exact variant; its radiance is the exact
+//    tracer's bit for bit. It saves the bounces after a warp's last lane
+//    dies, which at depth 5 are few (Russian roulette starts at
+//    min_bounces) and at depth 16 most.
 //
 // What the body computes is the TPU kernel's
 // _camera_ray_from_pix + _wavefront_body: the same op order, the same
@@ -142,6 +163,78 @@ ray_trace_kernel(DrtTrace cfg, const float* __restrict__ scene,
   out[2 * N + i] = lz;
 }
 
+// The early-exit tracer: every thread of the grid stays in the bounce loop
+// up to the warp's vote (a thread past the last ray slot as a dead path),
+// so the vote always sees the whole warp.
+template <bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+earlyexit_trace_kernel(DrtTrace cfg, DrtCamera cam,
+                       const float* __restrict__ scene,
+                       const float* __restrict__ alb,
+                       const float* __restrict__ emi,
+                       const float* __restrict__ cam_u,
+                       const float* __restrict__ tape,
+                       float* __restrict__ out) {
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+
+  const int N = cfg.n_rays;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool lane = slot < N;
+  const int i = lane ? slot : N - 1;
+  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // summed over chunks
+  for (int c = 0; c < cfg.n_chunks; ++c) {
+    NoResidual hook;
+    float lx, ly, lz;
+    trace_chunk_vote<false, INTERNAL>(cfg, cam, tab, cam_u, tape, i, lane,
+                                      c, hook, lx, ly, lz);
+    Lx = Lx + lx;
+    Ly = Ly + ly;
+    Lz = Lz + lz;
+  }
+  if (!lane) return;
+  out[i] = Lx;
+  out[N + i] = Ly;
+  out[2 * N + i] = Lz;
+}
+
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_trace_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1, int chunk,
+                     const float* __restrict__ scene,
+                     const float* __restrict__ alb,
+                     const float* __restrict__ emi,
+                     const float* __restrict__ cam_u,
+                     const float* __restrict__ tape,
+                     const float* __restrict__ ray,
+                     const int* __restrict__ alive_in,
+                     const int* __restrict__ ray_idx,
+                     float* __restrict__ out, float* __restrict__ ray_out,
+                     int* __restrict__ alive_out) {
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int K = cfg.n_rays;
+  if (i >= K) return;
+  NoResidual hook;
+  PathState p;
+  trace_segment<FAST, INTERNAL>(cfg, cam, tab, cam_u, SegmentTape{tape, b0},
+                                ray, alive_in, ray_idx, b1, i, chunk, hook,
+                                p);
+  out[i] = p.lx;
+  out[K + i] = p.ly;
+  out[2 * K + i] = p.lz;
+  if (ray_out == nullptr) return;
+  const size_t n = (size_t)K;
+  ray_out[i] = p.ox; ray_out[n + i] = p.oy; ray_out[2 * n + i] = p.oz;
+  ray_out[3 * n + i] = p.dx; ray_out[4 * n + i] = p.dy;
+  ray_out[5 * n + i] = p.dz;
+  ray_out[6 * n + i] = p.Tx; ray_out[7 * n + i] = p.Ty;
+  ray_out[8 * n + i] = p.Tz;
+  alive_out[i] = p.alive ? 1 : 0;
+}
+
 template <bool COLLECT>
 static int launch(const DrtTrace* cfg, const DrtCamera* cam,
                   const float* scene, const float* alb, const float* emi,
@@ -202,6 +295,60 @@ int drt_ray_trace(const DrtTrace* cfg, const float* scene, const float* alb,
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
   ray_trace_kernel<<<grid, DRT_BLOCK, 0, (cudaStream_t)stream>>>(
       *cfg, scene, alb, emi, o, d, tape, out);
+  return (int)cudaGetLastError();
+}
+
+// Bounces [b_start, b_end) of chunk `chunk` over cfg->n_rays lanes. The
+// camera's uniforms (tape mode) are read iff b_start == 0, the state
+// (ray, alive) iff b_start > 0, ray_idx iff b_start > 0 with the internal
+// RNG; the exit state is written iff b_end < max_depth. The tape is
+// f32[b_end - b_start, 3, n_rays].
+int drt_fused_segment_trace(const DrtTrace* cfg, const DrtCamera* cam,
+                            int b_start, int b_end, int chunk,
+                            const float* scene, const float* alb,
+                            const float* emi, const float* cam_u,
+                            const float* tape, const float* ray,
+                            const int* alive, const int* ray_idx, float* out,
+                            float* ray_out, int* alive_out, void* stream) {
+  const bool entry = b_start == 0, final = b_end == cfg->max_depth;
+  if (!drt_cfg_ok(cfg) || cfg->n_chunks != 1 || b_start < 0 ||
+      b_end <= b_start || b_end > cfg->max_depth || chunk < 0 ||
+      (!cfg->internal_rng && (tape == nullptr || (entry && !cam_u))) ||
+      (!entry && (!ray || !alive || (cfg->internal_rng && !ray_idx))) ||
+      (!final && (!ray_out || !alive_out)))
+    return (int)cudaErrorInvalidValue;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* ro = final ? nullptr : ray_out;
+#define DRT_LAUNCH(F, I)                                                  \
+  segment_trace_kernel<F, I><<<grid, DRT_BLOCK, 0, s>>>(                  \
+      *cfg, *cam, b_start, b_end, chunk, scene, alb, emi, cam_u, tape,    \
+      ray, alive, ray_idx, out, ro, alive_out)
+  if (cfg->fast) {
+    if (cfg->internal_rng) DRT_LAUNCH(true, true);
+    else DRT_LAUNCH(true, false);
+  } else {
+    if (cfg->internal_rng) DRT_LAUNCH(false, true);
+    else DRT_LAUNCH(false, false);
+  }
+#undef DRT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The early-exit tracer: drt_fused_trace's call, exact variant only.
+int drt_earlyexit_trace(const DrtTrace* cfg, const DrtCamera* cam,
+                        const float* scene, const float* alb,
+                        const float* emi, const float* cam_u,
+                        const float* tape, float* out, void* stream) {
+  if (!drt_cfg_ok(cfg) || cfg->fast) return (int)cudaErrorInvalidValue;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cfg->internal_rng)
+    earlyexit_trace_kernel<true><<<grid, DRT_BLOCK, 0, s>>>(
+        *cfg, *cam, scene, alb, emi, cam_u, tape, out);
+  else
+    earlyexit_trace_kernel<false><<<grid, DRT_BLOCK, 0, s>>>(
+        *cfg, *cam, scene, alb, emi, cam_u, tape, out);
   return (int)cudaGetLastError();
 }
 

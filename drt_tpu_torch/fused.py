@@ -28,6 +28,9 @@ ports of the JAX package's regeneration renderers over `ops.regen` and
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
 from drt_tpu_torch.camera import Camera
@@ -477,3 +480,207 @@ def make_dyn_regen_image_renderer(scene, cam: Camera, cfg: RenderConfig,
                                 make_dyn_regen_sweep_adjoint, ds.scene, ds,
                                 cam, cfg, adjoint, fastmath, chunked, plain,
                                 differentiable)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def compact_lanes(live: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """The indices i64[size] of the first `size` true entries of `live`
+    (bool[K]) in ascending order, `fill` in the slots beyond them, on the
+    tensor's device and without reading anything back to the host."""
+    return torch.nonzero_static(live, size=size, fill_value=fill)[:, 0]
+
+
+def _spread(idx: torch.Tensor, pad: int) -> torch.Tensor:
+    """Compacted lane -> slot indices with each fill lane (idx == pad) sent
+    to a slot of its own past the pad slot, pad + lane: a scatter to them
+    has no two writes to one address (hundreds of thousands of fill lanes
+    adding to one slot serialize on the card's atomics)."""
+    lane = torch.arange(idx.shape[0], device=idx.device)
+    return torch.where(idx < pad, idx, pad + lane)
+
+
+def compacted_capacities(cfg: RenderConfig, splits, tile_rows: int = 32,
+                         margin: float = 0.05) -> list:
+    """Lanes of each segment (drt_tpu/fused.py:875-882): one chunk's rays
+    first, then after each split the Russian-roulette survival bound
+    (1 - absorb)^(split - min_bounces) plus `margin`, rounded up to
+    tile_rows * 128 lanes and at most the chunk's rays."""
+    n = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
+    caps = [n]
+    for s in splits:
+        frac = (1.0 - cfg.absorb_prob) ** max(0, s - cfg.min_bounces)
+        caps.append(min(n, _round_up(int(np.ceil(n * (frac + margin))),
+                                     tile_rows * 128)))
+    return caps
+
+
+def make_compacted_image_renderer(scene: Scene, cam: Camera,
+                                  cfg: RenderConfig, splits=None,
+                                  tile_rows: int = 32, margin: float = 0.05,
+                                  plain: bool = False):
+    """Build `render(params, seeds: i32[2]) -> image f32[H, W, 3]` over
+    segments of the bounce loop with the dead rays compacted away between
+    them (drt_tpu/fused.py:make_compacted_image_renderer), differentiable
+    in params by radiative backprop.
+
+    Each spp chunk runs the segment tracer over [0, splits[0]) on all of
+    its rays; at each split the live lanes, the first K of them in
+    ascending order, are gathered into the next segment's K lanes
+    (`compacted_capacities`), the lanes beyond them point at a pad slot
+    whose state is zero and dead; each segment's radiance is scatter-added
+    back to its rays. The backward runs the segment adjoints from the last
+    segment to the first, scattering each one's S at its entry back as the
+    previous one's S_end. The forward keeps each chunk's (idx, cidx,
+    state) per split, so the backward traces no extra forward; under
+    torch.no_grad(), or when no parameter requires grad, nothing is kept.
+
+    The kernels are the exact variant, as the reference builds them, and
+    the mode is biased only: the unbiased adjoint draws new paths, which
+    the kept compaction no longer fits (cfg.unbiased raises ValueError).
+    More live rays at a split than its capacity are dropped, as in the
+    reference, and reported by a warning with the numbers; the live lanes
+    are counted on the device and read once per forward.
+
+    The one deliberate difference from the reference: the draws. The TPU
+    kernels reseed their PRNG per (seed, segment, compacted tile), so a
+    compacted path draws other samples than the unsplit one. Here every
+    lane draws from the keyed hash at its ray slot (cidx, composed across
+    the splits) and the absolute bounce, so the paths are those of the
+    "cuda" backend's tracer at the same seeds sample for sample, and the
+    image equals its exact image up to where the per-ray sum is split.
+    plain=True runs the plain PyTorch twins on the tensors' device.
+    """
+    from drt_tpu_torch.ops.megakernel import (make_fused_segment_adjoint,
+                                              make_fused_segment_tracer)
+
+    if cfg.unbiased:
+        raise ValueError("compacted renderer supports biased mode only")
+    _check_fused_cfg(cfg)
+    D = cfg.max_depth
+    if splits is None:
+        splits = (min(cfg.min_bounces + 1, D - 1),)
+    splits = tuple(sorted(splits))
+    if not all(0 < s < D for s in splits):
+        raise ValueError(f"splits {splits} must lie inside (0, {D})")
+    bounds = [0, *splits, D]
+    w, h = cfg.width, cfg.height
+    npix = w * h
+    spp_c = cfg.spp // cfg.spp_chunks
+    n = npix * spp_c
+    caps = compacted_capacities(cfg, splits, tile_rows, margin)
+    kw = dict(rng="internal", fastmath=False, plain=plain)
+    tracers = [make_fused_segment_tracer(scene, cam, cfg, b0, b1,
+                                         n_rays=caps[k], **kw)
+               for k, (b0, b1) in enumerate(zip(bounds, bounds[1:]))]
+    adjoints = [make_fused_segment_adjoint(scene, cam, cfg, b0, b1,
+                                           n_rays=caps[k], **kw)
+                for k, (b0, b1) in enumerate(zip(bounds, bounds[1:]))]
+
+    def tables(albedo, emission):
+        params = Params(albedo, emission)
+        return (albedo_table(scene, params).contiguous(),
+                emission_table(scene, params).contiguous())
+
+    def forward_chunk(alb, emi, seeds, c, acc, live, keep):
+        """Chunk c's radiance added into acc f[3, n + K] (the slots past n
+        take the fill lanes' zeros); its live-lane counts appended to
+        `live`; its residuals [(idx, cidx, ray, alive)] per split returned
+        if `keep`."""
+        residuals = []
+        out = tracers[0](alb, emi, seeds, chunk=c)
+        cidx = None
+        for k in range(len(tracers)):
+            if k > 0:
+                out = tracers[k](alb, emi, seeds, ray, alive, cidx,
+                                 chunk=c)
+            L, state = (out, None) if k == len(tracers) - 1 else out
+            if cidx is None:
+                acc[:, :n] += L
+            else:
+                # One add per slot, so their order changes nothing.
+                acc.scatter_add_(1, _spread(cidx.long(), n).expand(3, -1), L)
+            if state is None:
+                break
+            ray_k, alive_k = state
+            on = alive_k > 0
+            live.append(on.sum())
+            idx = compact_lanes(on, caps[k + 1], caps[k])
+            ray = torch.nn.functional.pad(ray_k, (0, 1))[:, idx]
+            alive = torch.nn.functional.pad(alive_k, (0, 1))[idx]
+            cidx = (idx if cidx is None else torch.nn.functional.pad(
+                cidx.long(), (0, 1), value=n)[idx]).to(torch.int32)
+            if keep:
+                residuals.append((idx, cidx, ray, alive))
+        return residuals
+
+    def trace(alb, emi, seeds, keep):
+        acc = torch.zeros((3, n + max(caps[1:])), dtype=alb.dtype,
+                          device=alb.device)
+        live, residuals = [], []
+        for c in range(cfg.spp_chunks):
+            residuals.append(forward_chunk(alb, emi, seeds, c, acc, live,
+                                           keep))
+        counts = torch.stack(live).tolist()  # the forward's one read-back
+        for c in range(cfg.spp_chunks):
+            for k, count in enumerate(counts[c * len(splits):
+                                             (c + 1) * len(splits)]):
+                if count > caps[k + 1]:
+                    warnings.warn(
+                        f"compacted renderer: {count} alive rays > capacity "
+                        f"{caps[k + 1]} at the split before bounce "
+                        f"{splits[k]} (chunk {c}); the rays beyond it are "
+                        "dropped and the image and gradients biased: "
+                        "increase `margin`")
+        img = acc[:, :n].reshape(3, spp_c, h, w).mean(dim=1) \
+            .permute(1, 2, 0) / cfg.spp_chunks
+        return img, residuals
+
+    class Render(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, albedo, emission, seeds):
+            alb, emi = tables(albedo, emission)
+            img, residuals = trace(alb, emi, seeds, keep=True)
+            ctx.save_for_backward(albedo, emission)
+            ctx.seeds = seeds
+            ctx.residuals = residuals
+            return img
+
+        @staticmethod
+        def backward(ctx, g):
+            albedo, emission = ctx.saved_tensors
+            params = Params(albedo, emission)
+            alb, emi = tables(albedo, emission)
+            g_pix = _g_pix_of(g, spp_c, cfg.spp_chunks, alb.dtype)
+            da = de = 0.0
+            for c, residuals in enumerate(ctx.residuals):
+                S = None
+                for k in reversed(range(len(adjoints))):
+                    tail = () if S is None else (S,)
+                    if k == 0:
+                        da_k, de_k = adjoints[0](alb, emi, ctx.seeds, g_pix,
+                                                 *tail, chunk=c)
+                    else:
+                        idx, cidx, ray, alive = residuals[k - 1]
+                        g_k = g_pix[:, cidx.long() % npix]
+                        da_k, de_k, S_k = adjoints[k](
+                            alb, emi, ctx.seeds, ray, alive, cidx, g_k,
+                            *tail, chunk=c)
+                        S = torch.zeros((3, caps[k - 1] + caps[k]),
+                                        dtype=alb.dtype, device=alb.device)
+                        S.index_copy_(1, _spread(idx, caps[k - 1]), S_k)
+                        S = S[:, :caps[k - 1]].contiguous()
+                    da = da + da_k
+                    de = de + de_k
+            d = _slice_dparams(params, da, de)
+            return d.albedo, d.emission, None
+
+    def render(params: Params, seeds) -> torch.Tensor:
+        if _wants_grad(params):
+            return Render.apply(params.albedo, params.emission, seeds)
+        with torch.no_grad():
+            return trace(*tables(*params), seeds, keep=False)[0]
+
+    return render

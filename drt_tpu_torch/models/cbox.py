@@ -11,14 +11,15 @@ from __future__ import annotations
 import torch
 
 from drt_tpu_torch.camera import Camera, look_at
-from drt_tpu_torch.scene import Params, Scene, SceneBuilder
+from drt_tpu_torch.scene import DEFAULT_DEVICE, Params, Scene, SceneBuilder
 
 # Albedo/emission parameter row indices (src/render.cpp:26-29).
 RED, GREEN, WHITE = 0, 1, 2
 EMISSION = 0
 
 
-def build(dtype=torch.float32, device=None) -> tuple[Scene, Params, Camera]:
+def build(dtype=torch.float32,
+          device=DEFAULT_DEVICE) -> tuple[Scene, Params, Camera]:
     b = SceneBuilder()
     red = b.albedo_param([0.5, 0.0, 0.0])
     green = b.albedo_param([0.0, 0.5, 0.0])

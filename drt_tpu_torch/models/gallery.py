@@ -11,11 +11,11 @@ import numpy as np
 import torch
 
 from drt_tpu_torch.camera import Camera, look_at
-from drt_tpu_torch.scene import Params, Scene, SceneBuilder
+from drt_tpu_torch.scene import DEFAULT_DEVICE, Params, Scene, SceneBuilder
 
 
 def build_glossy(dtype=torch.float32,
-                 device=None) -> tuple[Scene, Params, Camera]:
+                 device=DEFAULT_DEVICE) -> tuple[Scene, Params, Camera]:
     """Cornell-style box with a glossy (specular) sphere and a mirror
     sphere."""
     b = SceneBuilder()
@@ -42,7 +42,7 @@ def build_glossy(dtype=torch.float32,
 
 
 def build_mesh(level: int = 1, dtype=torch.float32,
-               device=None) -> tuple[Scene, Params, Camera]:
+               device=DEFAULT_DEVICE) -> tuple[Scene, Params, Camera]:
     """Triangle-mesh scene: a subdivided icosphere (20 * 4^level
     triangles: 80, 320, 1280 at levels 1, 2, 3) in a Cornell-style box
     under an area light, 87 / 327 / 1287 shapes in all. All mesh faces
@@ -115,7 +115,7 @@ def build_mesh(level: int = 1, dtype=torch.float32,
 
 
 def build_tri(dtype=torch.float32,
-              device=None) -> tuple[Scene, Params, Camera]:
+              device=DEFAULT_DEVICE) -> tuple[Scene, Params, Camera]:
     """A tetrahedron over a ground plane under an area light."""
     b = SceneBuilder()
     white = b.albedo_param([0.5, 0.5, 0.5])

@@ -59,9 +59,9 @@ import numpy as np
 import torch
 
 from drt_tpu_torch.config import RenderConfig
-from drt_tpu_torch.ops.rng import hash_tapes
+from drt_tpu_torch.ops.rng import bounce_tape, camera_draws, hash_tapes
 from drt_tpu_torch.ops.vecmath import V3
-from drt_tpu_torch.renderer import trace_residuals, trace_rays
+from drt_tpu_torch.renderer import trace_residuals, trace_rays, trace_segment
 from drt_tpu_torch.scene import Params, Scene, SPHERE, TRIANGLE
 
 SOURCE = "fused_tracer.cu"
@@ -346,7 +346,8 @@ def _check_limits(source: str, fn, expected: list) -> None:
 
 
 def _library() -> ctypes.CDLL:
-    """The tracer library: drt_fused_trace, drt_fused_collect."""
+    """The tracer library: drt_fused_trace, drt_fused_collect,
+    drt_ray_trace, drt_fused_segment_trace, drt_earlyexit_trace."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
@@ -357,6 +358,10 @@ def _library() -> ctypes.CDLL:
         _bind(lib, "drt_fused_collect", 9, both)
         # scene, alb, emi, o, d, tape, out, stream
         _bind(lib, "drt_ray_trace", 8, (_DrtTrace,))
+        # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
+        # ray_idx, out, ray_out, alive_out, stream
+        _bind(lib, "drt_fused_segment_trace", 15, both, n_ints_at=(0, 1, 2))
+        _bind(lib, "drt_earlyexit_trace", 7, both)
         lib.drt_error_string.argtypes = [ctypes.c_int]
         lib.drt_error_string.restype = ctypes.c_char_p
         _check_limits(SOURCE, lib.drt_limits, [MAX_SHAPES, MAX_ROWS, REC])
@@ -364,7 +369,8 @@ def _library() -> ctypes.CDLL:
 
 
 def _adjoint_library() -> ctypes.CDLL:
-    """The adjoint library: drt_fused_sweep, drt_fused_adjoint."""
+    """The adjoint library: drt_fused_sweep, drt_fused_adjoint,
+    drt_ray_adjoint, drt_fused_segment_adjoint."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(ADJOINT_SOURCE)
@@ -376,6 +382,10 @@ def _adjoint_library() -> ctypes.CDLL:
               n_ints_at=(6,))
         # scene, alb, emi, o, d, tape, g, partials, da, de, stream
         _bind(lib, "drt_ray_adjoint", 11, (_DrtTrace,))
+        # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
+        # ray_idx, g, g_n, s_end, partials, da, de, s_start, stream
+        _bind(lib, "drt_fused_segment_adjoint", 19, (_DrtTrace, _DrtCamera),
+              n_ints_at=(0, 1, 2, 12))
         lib.drt_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.drt_adjoint_error_string.restype = ctypes.c_char_p
         _check_limits(ADJOINT_SOURCE, lib.drt_adjoint_limits,
@@ -693,9 +703,223 @@ def ray_adjoint(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     return da, de
 
 
+# ---------------------------------------------------------------------------
+# Segment forms [b_start, b_end) of the tracer and the retrace adjoint.
+#
+# A segment is entered from the camera (b_start == 0: lane i is ray slot i)
+# or from a state: ray f32[9, K] (origin, direction, throughput rows) and
+# alive i32[K], as the previous segment left it, and it leaves that state
+# unless b_end == max_depth. With the internal RNG a lane draws bounce b's
+# uniforms from the keyed hash at the absolute bounce b, for the ray slot
+# ray_idx i32[K] of chunk `chunk` (pixel ray_idx % (W*H), sample
+# chunk * spp_c + ray_idx // (W*H)); so a compacted wavefront follows the
+# paths of the lockstep tracer sample for sample. Tape mode reads row
+# b - b_start of a segment tape f[b_end - b_start, 3, K] at the lane.
+# ---------------------------------------------------------------------------
+
+def _check_segment(cfg: RenderConfig, b_start: int, b_end: int) -> None:
+    if not 0 <= b_start < b_end <= cfg.max_depth:
+        raise ValueError(f"segment [{b_start}, {b_end}) is not inside "
+                         f"[0, {cfg.max_depth})")
+
+
+def _segment_entry(cc: CameraConsts, cfg: RenderConfig, b_start: int,
+                   K: int, seeds, cam_u, ray, alive, ray_idx, chunk: int,
+                   dtype, dev):
+    """A segment's lanes at entry: (o, d, T, alive bool[K]; T and alive
+    None for fresh camera rays) and their (pixel, sample) i64[K], None in
+    tape mode past the camera."""
+    npix = cfg.width * cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    r = (torch.arange(K, device=dev) if b_start == 0 else
+         None if ray_idx is None else ray_idx.long())
+    pix = smp = None
+    if r is not None:
+        pix = r % npix
+        smp = chunk * spp_c + r // npix
+    if b_start == 0:
+        if seeds is not None:
+            cam_u = camera_draws(_seed_words(seeds, 0)[0], pix, smp, dtype)
+        o, d = camera_ray_from_pix(cc, pix, cam_u[0], cam_u[1])
+        return o, d, None, None, pix, smp
+    return (V3(*ray[0:3]), V3(*ray[3:6]), V3(*ray[6:9]), alive > 0, pix,
+            smp)
+
+
+def segment_trace_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
+                        b_start: int, b_end: int, alb: torch.Tensor,
+                        emi: torch.Tensor, *, seeds=None, cam_u=None,
+                        tape=None, ray=None, alive=None, ray_idx=None,
+                        chunk: int = 0, n_rays: int | None = None,
+                        collect: bool = False):
+    """The plain twin of the segment tracer: `renderer.trace_segment` on
+    the segment's entry state and uniforms. Returns radiance f[3, K], with
+    the exit state (ray f[9, K], alive i32[K]) unless b_end == max_depth;
+    collect=True returns (radiance, BounceResiduals) instead."""
+    _check_segment(cfg, b_start, b_end)
+    K = (cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
+         if n_rays is None else n_rays)
+    o, d, T, live, pix, smp = _segment_entry(
+        cc, cfg, b_start, K, seeds, cam_u, ray, alive, ray_idx, chunk,
+        alb.dtype, alb.device)
+    if seeds is not None:
+        tape = bounce_tape(_seed_words(seeds, 0)[1], pix, smp, b_end,
+                           alb.dtype, first=b_start)
+    L, (o, d, T, live), res, _ = trace_segment(
+        Params(albedo=alb[:-1], emission=emi[:-1]), scene, cfg, b_start,
+        b_end, o, d, T, live, tape)
+    L = torch.stack(tuple(L))
+    if collect:
+        return L, res
+    if b_end == cfg.max_depth:
+        return L
+    return L, (torch.stack([*o, *d, *T]), live.to(torch.int32))
+
+
+def segment_adjoint_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
+                          b_start: int, b_end: int, alb: torch.Tensor,
+                          emi: torch.Tensor, g: torch.Tensor, *,
+                          S_end=None, **entry):
+    """The plain twin of the segment adjoint: the segment retraced
+    (`segment_trace_plain(collect=True)`, fed `entry`: the uniforms,
+    state, ray index, chunk and lane count), then the reverse sweep
+    (`adjoint._reverse_sweep`) seeded by S_end f[3, K] (zero for the last
+    segment). g is f[3, K] per lane, or f[3, W*H] per pixel when
+    b_start == 0. Returns (d_albedo f[K+1, 3], d_emission f[L+1, 3]),
+    sentinel rows zero, and S_start f[3, K] when b_start > 0."""
+    from drt_tpu_torch.adjoint import _reverse_sweep
+
+    _, res = segment_trace_plain(scene, cc, cfg, b_start, b_end, alb, emi,
+                                 collect=True, **entry)
+    K = res.sc.shape[1]
+    S = None if S_end is None else V3(*S_end)
+    da, de, S = _reverse_sweep(alb, emi, res, V3(*_per_ray(g, K)), S)
+    da, de = da.to_array(), de.to_array()
+    da[-1] = 0.0
+    de[-1] = 0.0
+    if b_start == 0:
+        return da, de
+    return da, de, torch.stack(tuple(S))
+
+
+def _segment_pointers(cfg: RenderConfig, tcfg: _DrtTrace, b_start: int,
+                      b_end: int, seeds, cam_u, tape, ray, alive, ray_idx,
+                      chunk: int, dev) -> list:
+    """Check a segment's inputs on the card; their pointers (cam_u, tape,
+    ray, alive, ray_idx), None where the form takes no such input."""
+    K = tcfg.n_rays
+    if not 0 <= chunk < cfg.spp_chunks:
+        raise ValueError(f"chunk {chunk} outside [0, {cfg.spp_chunks})")
+    ptrs = [None] * 5
+    if seeds is None:
+        if b_start == 0:
+            _check("cam_u", cam_u, (2, K), dev)
+            ptrs[0] = cam_u.data_ptr()
+        _check("tape", tape, (b_end - b_start, 3, K), dev)
+        ptrs[1] = tape.data_ptr()
+    if b_start > 0:
+        _check("ray", ray, (9, K), dev)
+        _check("alive", alive, (K,), dev, torch.int32)
+        ptrs[2:4] = ray.data_ptr(), alive.data_ptr()
+        if seeds is not None:
+            _check("ray_idx", ray_idx, (K,), dev, torch.int32)
+            ptrs[4] = ray_idx.data_ptr()
+    return ptrs
+
+
+def fused_segment_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
+                        cfg: RenderConfig, b_start: int, b_end: int,
+                        alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
+                        cam_u=None, tape=None, ray=None, alive=None,
+                        ray_idx=None, chunk: int = 0,
+                        n_rays: int | None = None, fastmath: bool = False):
+    """Radiance f32[3, K] of bounces [b_start, b_end) of one chunk, with
+    the exit state (ray f32[9, K], alive i32[K]) unless b_end ==
+    max_depth. CPU tensors run the plain twin; CUDA tensors launch the
+    kernel or raise."""
+    if _device_of("fused_segment_trace", alb) == "cpu":
+        return segment_trace_plain(scene, cc, cfg, b_start, b_end, alb, emi,
+                                   seeds=seeds, cam_u=cam_u, tape=tape,
+                                   ray=ray, alive=alive, ray_idx=ray_idx,
+                                   chunk=chunk, n_rays=n_rays)
+    _check_segment(cfg, b_start, b_end)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_rays=n_rays)
+    ptrs = _segment_pointers(cfg, tcfg, b_start, b_end, seeds, cam_u, tape,
+                             ray, alive, ray_idx, chunk, dev)
+    K = tcfg.n_rays
+    final = b_end == cfg.max_depth
+    out = torch.empty((3, K), dtype=torch.float32, device=dev)
+    ray_out = alive_out = None
+    if not final:
+        ray_out = torch.empty((9, K), dtype=torch.float32, device=dev)
+        alive_out = torch.empty((K,), dtype=torch.int32, device=dev)
+    lib = _library()
+    _launch(fused_segment_trace, "fused segment tracer", lib.drt_error_string,
+            lib.drt_fused_segment_trace, dev, ctypes.byref(tcfg),
+            ctypes.byref(_camera_struct(cc)), b_start, b_end, chunk,
+            table.data_ptr(), alb.data_ptr(), emi.data_ptr(), *ptrs,
+            out.data_ptr(), None if final else ray_out.data_ptr(),
+            None if final else alive_out.data_ptr())
+    return out if final else (out, (ray_out, alive_out))
+
+
+def fused_segment_adjoint(scene: Scene, table: torch.Tensor,
+                          cc: CameraConsts, cfg: RenderConfig, b_start: int,
+                          b_end: int, alb: torch.Tensor, emi: torch.Tensor,
+                          g: torch.Tensor, *, S_end=None, seeds=None,
+                          cam_u=None, tape=None, ray=None, alive=None,
+                          ray_idx=None, chunk: int = 0,
+                          n_rays: int | None = None,
+                          fastmath: bool = False):
+    """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3][, S_start f32[3, K]])
+    of bounces [b_start, b_end): the segment retraced in the kernel, the
+    reverse sweep seeded by S_end (given iff b_end < max_depth), S at the
+    segment's entry returned iff b_start > 0. g is f32[3, K] per lane, or
+    f32[3, W*H] per pixel when b_start == 0. CPU tensors run the plain
+    twin; CUDA tensors launch the kernel or raise."""
+    final = b_end == cfg.max_depth
+    if (S_end is None) != final:
+        raise ValueError("S_end is given iff the segment ends before "
+                         "max_depth")
+    if _device_of("fused_segment_adjoint", alb) == "cpu":
+        return segment_adjoint_plain(scene, cc, cfg, b_start, b_end, alb,
+                                     emi, g, S_end=S_end, seeds=seeds,
+                                     cam_u=cam_u, tape=tape, ray=ray,
+                                     alive=alive, ray_idx=ray_idx,
+                                     chunk=chunk, n_rays=n_rays)
+    _check_segment(cfg, b_start, b_end)
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_rays=n_rays)
+    ptrs = _segment_pointers(cfg, tcfg, b_start, b_end, seeds, cam_u, tape,
+                             ray, alive, ray_idx, chunk, dev)
+    K = tcfg.n_rays
+    if b_start > 0:
+        _check("g", g, (3, K), dev)  # one cotangent per lane
+    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    if not final:
+        _check("S_end", S_end, (3, K), dev)
+    s_start = (None if b_start == 0 else
+               torch.empty((3, K), dtype=torch.float32, device=dev))
+    lib = _adjoint_library()
+    _launch(fused_segment_adjoint, "fused segment adjoint",
+            lib.drt_adjoint_error_string, lib.drt_fused_segment_adjoint, dev,
+            ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)), b_start,
+            b_end, chunk, table.data_ptr(), alb.data_ptr(), emi.data_ptr(),
+            *ptrs, g.data_ptr(), g.shape[1],
+            None if final else S_end.data_ptr(), partials.data_ptr(),
+            da.data_ptr(), de.data_ptr(),
+            None if s_start is None else s_start.data_ptr())
+    return (da, de) if s_start is None else (da, de, s_start)
+
+
 WRAPPERS = {"fused_tracer": fused_trace, "fused_collect": fused_collect,
             "fused_sweep": fused_sweep, "fused_adjoint": fused_adjoint,
-            "ray_tracer": ray_trace, "ray_adjoint": ray_adjoint}
+            "ray_tracer": ray_trace, "ray_adjoint": ray_adjoint,
+            "segment_tracer": fused_segment_trace,
+            "segment_adjoint": fused_segment_adjoint}
 
 
 def register_wrappers(**wrappers) -> None:
@@ -850,5 +1074,100 @@ def make_pallas_adjoint(scene: Scene, cfg: RenderConfig, plain: bool = False):
         if plain:
             return ray_adjoint_plain(scene, cfg, alb, emi, o, d, u, g)
         return ray_adjoint(scene, table, cfg, alb, emi, o, d, u, g)
+
+    return adjoint
+
+
+def _segment_args(rng: str, b_start: int, args: tuple):
+    """A segment call's leading positional arguments as keywords: the
+    uniforms (seeds, or [cam_u,] u), then, past the camera, the state
+    (ray, alive) and, with the internal RNG, ray_idx. Returns (keywords,
+    the remaining arguments)."""
+    it = iter(args)
+    kw = {}
+    if rng == "internal":
+        kw["seeds"] = next(it)
+    else:
+        if b_start == 0:
+            kw["cam_u"] = next(it)
+        kw["tape"] = next(it)
+    if b_start > 0:
+        kw["ray"] = next(it)
+        kw["alive"] = next(it)
+        if rng == "internal":
+            kw["ray_idx"] = next(it)
+    return kw, list(it)
+
+
+def make_fused_segment_tracer(scene: Scene, cam, cfg: RenderConfig,
+                              b_start: int, b_end: int,
+                              n_rays: int | None = None,
+                              rng: str = "internal", fastmath: bool = False,
+                              plain: bool = False):
+    """Build the tracer of bounces [b_start, b_end) over K = n_rays lanes
+    (default one chunk's W*H*spp_c), the call forms of the JAX package's
+    `make_fused_segment_tracer` with the state as (ray f32[9, K], alive
+    i32[K]) and, with the internal RNG, each lane's ray slot ray_idx
+    i32[K]:
+      internal: trace(alb, emi, seeds[, ray, alive, ray_idx], chunk=0)
+      tape:     trace(alb, emi[, cam_u], u[, ray, alive])
+    (the state iff b_start > 0, cam_u iff b_start == 0, u f32[b_end -
+    b_start, 3, K]). Returns radiance f32[3, K], and (L, (ray, alive)) iff
+    b_end < max_depth. plain=True runs the plain twin on the tensors'
+    device."""
+    _check_segment(cfg, b_start, b_end)
+    _check_rng(rng, 1)
+    cc = camera_consts(cam, cfg.width, cfg.height)
+    table = None if plain else scene_table(scene)
+
+    def trace(alb, emi, *args, chunk: int = 0):
+        kw, rest = _segment_args(rng, b_start, args)
+        if rest:
+            raise TypeError(f"{len(rest)} arguments too many for segment "
+                            f"[{b_start}, {b_end})")
+        if plain:
+            return segment_trace_plain(scene, cc, cfg, b_start, b_end, alb,
+                                       emi, chunk=chunk, n_rays=n_rays, **kw)
+        return fused_segment_trace(scene, table, cc, cfg, b_start, b_end,
+                                   alb, emi, chunk=chunk, n_rays=n_rays,
+                                   fastmath=fastmath, **kw)
+
+    return trace
+
+
+def make_fused_segment_adjoint(scene: Scene, cam, cfg: RenderConfig,
+                               b_start: int, b_end: int,
+                               n_rays: int | None = None,
+                               rng: str = "internal", fastmath: bool = False,
+                               plain: bool = False):
+    """Build the retrace adjoint of bounces [b_start, b_end), the call
+    forms of the JAX package's `make_fused_segment_adjoint`:
+      internal: adj(alb, emi, seeds[, ray, alive, ray_idx], g[, S_end],
+                    chunk=0)
+      tape:     adj(alb, emi[, cam_u], u[, ray, alive], g[, S_end])
+    with S_end f32[3, K] iff b_end < max_depth; g f32[3, K] per lane, or
+    f32[3, W*H] per pixel when b_start == 0. Returns (d_albedo,
+    d_emission), with S_start f32[3, K] after them iff b_start > 0."""
+    _check_segment(cfg, b_start, b_end)
+    _check_rng(rng, 1)
+    cc = camera_consts(cam, cfg.width, cfg.height)
+    table = None if plain else scene_table(scene)
+    final = b_end == cfg.max_depth
+
+    def adjoint(alb, emi, *args, chunk: int = 0):
+        kw, rest = _segment_args(rng, b_start, args)
+        if len(rest) != (1 if final else 2):
+            raise TypeError(f"segment [{b_start}, {b_end}) takes g"
+                            + ("" if final else " and S_end")
+                            + " after the state")
+        g, *S_end = rest
+        S_end = S_end[0] if S_end else None
+        if plain:
+            return segment_adjoint_plain(scene, cc, cfg, b_start, b_end, alb,
+                                         emi, g, S_end=S_end, chunk=chunk,
+                                         n_rays=n_rays, **kw)
+        return fused_segment_adjoint(scene, table, cc, cfg, b_start, b_end,
+                                     alb, emi, g, S_end=S_end, chunk=chunk,
+                                     n_rays=n_rays, fastmath=fastmath, **kw)
 
     return adjoint

@@ -74,14 +74,15 @@ def camera_draws(seed, pix, s, dtype=torch.float32) -> torch.Tensor:
                         for dim in (0, 1)])
 
 
-def bounce_tape(seed, pix, s, depth: int, dtype=torch.float32
-                ) -> torch.Tensor:
-    """The bounce draws f[depth, 3, N] of rays (pix, s), slots (rr, u1,
-    u2) per bounce, from `seed` (the bounce seed, seeds[1])."""
+def bounce_tape(seed, pix, s, depth: int, dtype=torch.float32,
+                first: int = 0) -> torch.Tensor:
+    """The bounce draws f[depth - first, 3, N] of rays (pix, s) at the
+    bounces first..depth-1, slots (rr, u1, u2) per bounce, from `seed`
+    (the bounce seed, seeds[1])."""
     return torch.stack([
         torch.stack([hash_uniform(seed, pix, s, b, dim, dtype, pix.device)
                      for dim in (0, 1, 2)])
-        for b in range(depth)])
+        for b in range(first, depth)])
 
 
 def hash_tapes(seeds, npix: int, spp: int, depth: int, dtype=torch.float32,

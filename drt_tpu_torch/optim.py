@@ -18,7 +18,8 @@ from drt_tpu_torch.camera import Camera
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.fused import seeds_from_generator
 from drt_tpu_torch.parallel.render import make_renderer
-from drt_tpu_torch.scene import Params, Scene
+from drt_tpu_torch.scene import (DEFAULT_DEVICE, Params, Scene,
+                                 checked_device)
 
 
 class Adam(NamedTuple):
@@ -49,9 +50,11 @@ def init_state(params: Params, optimizer: Adam | None = None) -> TrainState:
                       AdamState(zeros, zeros), 0)
 
 
-def state_from_numpy(albedo, emission, device=None) -> TrainState:
+def state_from_numpy(albedo, emission,
+                     device=DEFAULT_DEVICE) -> TrainState:
     """A fresh `TrainState` (moments zero, step 0) from numpy parameter
     arrays, dtypes kept: the start a JAX/optax trajectory also takes."""
+    device = checked_device(device)
     return init_state(Params(
         torch.as_tensor(np.array(albedo), device=device),
         torch.as_tensor(np.array(emission), device=device)))

@@ -112,11 +112,23 @@ def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b, u):
             (P, sc, gate, aid, hit.emit), hit)
 
 
-def trace_residuals(params: Params, scene: Scene, orig: V3, dir: V3,
-                    cfg: RenderConfig, tape: torch.Tensor):
-    """`trace_rays` that keeps every bounce: (radiance V3 of f[N],
-    BounceResiduals, nearest shape index i64[D, N], which is 0 on a miss
-    and meaningful only where gate > 0)."""
+def trace_segment(params: Params, scene: Scene, cfg: RenderConfig,
+                  b_start: int, b_end: int, orig: V3, dir: V3, T: V3 | None,
+                  alive: torch.Tensor | None, tape: torch.Tensor,
+                  early_exit: bool = False):
+    """Bounces [b_start, b_end) of a wavefront entered in state (orig,
+    dir, throughput T, alive bool[K]); T and alive None are a fresh path
+    (unit throughput, alive). The tape f[b_end - b_start, 3, K] is indexed
+    by the segment-local bounce, Russian roulette by the absolute one
+    (drt_tpu/ops/megakernel.py:_wavefront_body(b_start, b_end, T, alive,
+    full_output=True)). early_exit=True stops at the first bounce where no
+    ray lives, which changes nothing of the radiance (a dead ray adds
+    P e = 0) and leaves the residuals of the skipped bounces out.
+
+    Returns (segment radiance V3 of f[K], exit state (orig, dir, T, alive),
+    BounceResiduals of the segment's bounces, nearest shape index
+    i64[b_end - b_start, K], which is 0 on a miss and meaningful only where
+    gate > 0)."""
     if cfg.bsdf_samples != 1:
         raise NotImplementedError(
             "bsdf_samples > 1 (per-vertex splitting) is key-driven in the "
@@ -126,21 +138,41 @@ def trace_residuals(params: Params, scene: Scene, orig: V3, dir: V3,
     dev = dir.x.device
     tabs = (albedo_table(scene, params).to(dtype),
             emission_table(scene, params).to(dtype))
-    one = torch.ones(n, dtype=dtype, device=dev)
+    if T is None:
+        one = torch.ones(n, dtype=dtype, device=dev)
+        T = V3(one, one, one)
+    if alive is None:
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
     zero = torch.zeros(n, dtype=dtype, device=dev)
-    carry = (orig, dir, V3(one, one, one), V3(zero, zero, zero),
-             torch.ones(n, dtype=torch.bool, device=dev))
+    carry = (orig, dir, T, V3(zero, zero, zero), alive)
     res, shapes = [], []
-    for b in range(cfg.max_depth):
+    for b in range(b_start, b_end):
+        if early_exit and not bool(carry[4].any()):
+            break
+        u = tape[b - b_start]
         carry, res_b, hit = _bounce(tabs, scene, cfg, carry, b,
-                                    (tape[b, 0], tape[b, 1], tape[b, 2]))
+                                    (u[0], u[1], u[2]))
         res.append(res_b)
         shapes.append(hit.shape)
+    o, d, T, L, alive = carry
+    if not res:
+        return L, (o, d, T, alive), None, None
     P, sc, gate, aid, eid = zip(*res)
     residuals = BounceResiduals(
         V3(*(torch.stack(c) for c in zip(*P))), torch.stack(sc),
         torch.stack(gate), torch.stack(aid), torch.stack(eid))
-    return carry[3], residuals, torch.stack(shapes)
+    return L, (o, d, T, alive), residuals, torch.stack(shapes)
+
+
+def trace_residuals(params: Params, scene: Scene, orig: V3, dir: V3,
+                    cfg: RenderConfig, tape: torch.Tensor):
+    """`trace_rays` that keeps every bounce: (radiance V3 of f[N],
+    BounceResiduals, nearest shape index i64[D, N], which is 0 on a miss
+    and meaningful only where gate > 0)."""
+    L, _, residuals, shapes = trace_segment(params, scene, cfg, 0,
+                                            cfg.max_depth, orig, dir, None,
+                                            None, tape)
+    return L, residuals, shapes
 
 
 def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,

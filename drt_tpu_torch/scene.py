@@ -34,6 +34,22 @@ NULL_BXDF = 3
 
 GEO_WIDTH = 12  # plane: n(3)+offset; sphere: c(3)+r; triangle: v0,v1,v2
 
+# Where the constructors put a scene, its params and its camera unless the
+# caller names a device: the card, as every entry point of the port.
+DEFAULT_DEVICE = "cuda"
+
+
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device where none is visible
+    raises, naming the way to the CPU, rather than falling back to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: the scene constructors put the "
+            "scene on the card; pass device='cpu' for the plain PyTorch "
+            "version on the CPU")
+    return device
+
 
 class Params(NamedTuple):
     """Differentiable shading parameters (reference: the `VariableNode`
@@ -154,7 +170,8 @@ class SceneBuilder:
         return len(self._shape_type) - 1
 
     def build(self, dtype=torch.float32,
-              device=None) -> tuple[Scene, Params]:
+              device=DEFAULT_DEVICE) -> tuple[Scene, Params]:
+        device = checked_device(device)
         n_mat = len(self._mat_type)
         n_alb = len(self._albedo)
         n_emit = len(self._emission)
@@ -189,7 +206,7 @@ class SceneBuilder:
 
 
 def make_scene(shapes_spec, dtype=torch.float32,
-               device=None) -> tuple[Scene, Params]:
+               device=DEFAULT_DEVICE) -> tuple[Scene, Params]:
     """Build a scene from a declarative list of dicts: {"kind":
     "plane"|"sphere"|"triangle", geometry kwargs, optional
     "diffuse"/"specular"/"mirror" material, optional "emission" rgb}."""
@@ -218,11 +235,14 @@ def make_scene(shapes_spec, dtype=torch.float32,
     return b.build(dtype, device)
 
 
-def from_numpy(scene_arrays, params_arrays, camera_arrays, device=None):
+def from_numpy(scene_arrays, params_arrays, camera_arrays,
+               device=DEFAULT_DEVICE):
     """The JAX package's `Scene`, `Params` and `Camera` fields, given as
     numpy arrays in field order, as the port's (scene, params, camera) on
     `device`. Dtypes are kept, so an f64 scene stays f64."""
     from drt_tpu_torch.camera import Camera
+
+    device = checked_device(device)
 
     def t(a):
         return torch.as_tensor(np.array(a), device=device)

@@ -42,7 +42,7 @@ def _setup(model, seed=11):
     """Both packages' scene, and numpy rays, tapes and a cotangent."""
     js, jp, jc = SCENES[model](dtype=jnp.float64)
     scene, params, _ = from_numpy(*([np.asarray(a) for a in t]
-                                    for t in (js, jp, jc)))
+                                    for t in (js, jp, jc)), device="cpu")
     r = np.random.default_rng(seed)
     cam_u = r.uniform(size=(N, 2))
     tape = r.uniform(size=(CFG.max_depth, 3, N))
@@ -197,7 +197,7 @@ def test_bwd_tape_unbiased_matches_jax_and_reduces_to_biased():
 def test_forms_not_ported_or_invalid_raise(build, err, match):
     from drt_tpu_torch.models import cbox
 
-    scene, _, cam = cbox.build()
+    scene, _, cam = cbox.build(device="cpu")
     with pytest.raises(err, match=match):
         build(scene, cam)
 

@@ -44,11 +44,13 @@ def test_validation_errors_match(kw):
 
 def test_import_leaves_jax_out():
     """Every module of the port imports in a fresh interpreter without
-    pulling in jax (or the JAX package)."""
+    pulling in jax (or the JAX package): among them the early-exit tracer
+    and the segment forms (`ops.megakernel`, `fused`)."""
     mods = [m.name for m in pkgutil.walk_packages(
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
     assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.ops.dynkernel",
             "drt_tpu_torch.ops.regen", "drt_tpu_torch.ops.dynregen",
+            "drt_tpu_torch.ops.earlyexit",
             "drt_tpu_torch.adjoint", "drt_tpu_torch.gradcheck",
             "drt_tpu_torch.integrate", "drt_tpu_torch.renderer",
             "drt_tpu_torch.optim", "drt_tpu_torch.fused",

@@ -1,8 +1,9 @@
 """The CUDA kernels of both families, scene-table ("fused") and
 memory-resident ("dyn"): tracer, collect tracer, sweep adjoint and retrace
-adjoint, the path-regeneration tracers and sweep adjoints of both, and
-the key-driven wavefront tracer and adjoint, against their plain PyTorch
-versions on the card. Every test needs
+adjoint, the path-regeneration tracers and sweep adjoints of both, the
+key-driven wavefront tracer and adjoint, the segment forms of the tracer
+and the retrace adjoint and the early-exit tracer, against their plain
+PyTorch versions on the card. Every test needs
 an NVIDIA GPU, nvcc and sm_90a: marked `cuda`, they skip without a card.
 Run them there with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`
@@ -752,3 +753,135 @@ def test_wavefront_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="32 bounces"):
         mk.make_pallas_adjoint(scene, deep)(
             alb, emi, o, d, torch.rand((33, 3, 64), device=dev), g)
+
+
+def test_constructors_default_to_the_card(dev):
+    from drt_tpu_torch.camera import default_camera
+
+    scene, params, cam = cbox.build()
+    assert all(t.device.type == "cuda"
+               for t in (*scene, *params, *cam, *default_camera()))
+
+
+def _split_chain(scene, cam, cfg, alb, emi, cam_u, tape, splits, plain):
+    """The segments of a split chain in tape mode, each fed the kernel
+    chain's state (no compaction): per segment (inputs, outputs)."""
+    bounds = [0, *splits, cfg.max_depth]
+    state, chain = (), []
+    for b0, b1 in zip(bounds, bounds[1:]):
+        head = (cam_u,) if b0 == 0 else ()
+        args = (*head, tape[b0:b1].contiguous(), *state)
+        out = mk.make_fused_segment_tracer(scene, cam, cfg, b0, b1,
+                                           rng="tape", plain=plain)(
+            alb, emi, *args)
+        chain.append((args, out))
+        if b1 < cfg.max_depth:
+            state = out[1]
+    return chain
+
+
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                     gallery.build_tri])
+def test_segment_kernels_match_twins(dev, make):
+    """Tape mode, exact variant, split at (1, 3): each segment tracer and
+    segment adjoint on the kernel chain's state against its twin; the
+    segments' radiance sums to B1's, [0, D) is B1 bit for bit, and the
+    stitched adjoints give B4's tables."""
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cam_u, tape, g = _tape_inputs(dev, 64 * 48 * 4, seed=7)
+    before = (mk.fused_segment_trace.launches,
+              mk.fused_segment_adjoint.launches)
+    chain = _split_chain(scene, cam, cfg, alb, emi, cam_u, tape, (1, 3),
+                         False)
+    L_b1 = mk.make_fused_tracer(scene, cam, cfg, rng="tape")(alb, emi, cam_u,
+                                                             tape)
+    total = 0.0
+    for (args, out), (b0, b1) in zip(chain, ((0, 1), (1, 3), (3, 5))):
+        ref = mk.make_fused_segment_tracer(scene, cam, cfg, b0, b1,
+                                           rng="tape", plain=True)(
+            alb, emi, *args)
+        L, L_ref = (out, ref) if b1 == 5 else (out[0], ref[0])
+        assert _share_beyond(L, L_ref, 2e-5, 2e-6) <= 1e-3
+        total = total + L
+    assert _share_beyond(total, L_b1, 2e-5, 2e-6) <= 1e-3
+    whole = mk.make_fused_segment_tracer(scene, cam, cfg, 0, 5, rng="tape")(
+        alb, emi, cam_u, tape)
+    assert torch.equal(whole, L_b1)
+    S, da, de = None, 0.0, 0.0
+    for (args, _), (b0, b1) in reversed(list(zip(chain, ((0, 1), (1, 3),
+                                                          (3, 5))))):
+        tail = () if S is None else (S,)
+        for plain in (False, True):
+            out = mk.make_fused_segment_adjoint(scene, cam, cfg, b0, b1,
+                                                rng="tape", plain=plain)(
+                alb, emi, *args, g, *tail)
+            if not plain:
+                got = out
+        for a, r in zip(got[:2], out[:2]):
+            # tri's last segment: no path of an open scene reaches the
+            # light after bounce 3, and the twin's table is all zero.
+            if r.any():
+                _grads_close((a,), (r,))
+            else:
+                assert torch.equal(a, r)
+        da, de = da + got[0], de + got[1]
+        S = got[2] if b0 > 0 else None
+    _grads_close((da, de), mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(
+        alb, emi, cam_u, tape, g), 1e-4)
+    torch.cuda.synchronize()
+    assert (mk.fused_segment_trace.launches,
+            mk.fused_segment_adjoint.launches) == (before[0] + 4,
+                                                   before[1] + 3)
+
+
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                     gallery.build_tri])
+def test_earlyexit_kernel_is_b1(dev, make):
+    """B14 against B1 exact, bit for bit: tape mode at depth 5 and the
+    internal RNG over 2 chunks at depth 16."""
+    from drt_tpu_torch.ops import earlyexit
+
+    cfg = RenderConfig(width=64, height=48, spp=4, max_depth=5)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cam_u, tape, _ = _tape_inputs(dev, 64 * 48 * 4, seed=8)
+    before = earlyexit.earlyexit_trace.launches
+    got = earlyexit.make_earlyexit_tracer(scene, cam, cfg, rng="tape")(
+        alb, emi, cam_u, tape)
+    assert torch.equal(got, mk.make_fused_tracer(scene, cam, cfg,
+                                                 rng="tape")(
+        alb, emi, cam_u, tape))
+    deep = RenderConfig(width=64, height=48, spp=8, spp_chunks=2,
+                        max_depth=16)
+    seeds = torch.tensor([5, 6], dtype=torch.int32)
+    got = earlyexit.make_earlyexit_tracer(scene, cam, deep, n_chunks=2)(
+        alb, emi, seeds)
+    assert torch.equal(got, mk.make_fused_tracer(scene, cam, deep,
+                                                 n_chunks=2)(alb, emi, seeds))
+    torch.cuda.synchronize()
+    assert earlyexit.earlyexit_trace.launches == before + 2
+
+
+def test_compacted_renderer_matches_fused_exact(dev):
+    """make_compacted_image_renderer against the fused renderer's exact
+    retrace form at the same seeds: the image, and the gradients."""
+    from drt_tpu_torch import fused
+    from drt_tpu_torch.scene import Params
+
+    cfg = RenderConfig(width=64, height=48, spp=8, spp_chunks=2,
+                       max_depth=5)
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    seeds = torch.tensor([9, -10], dtype=torch.int32)
+    out = []
+    for fn in (fused.make_compacted_image_renderer(scene, cam, cfg,
+                                                   tile_rows=1),
+               fused.make_fused_image_renderer(scene, cam, cfg,
+                                               adjoint="retrace",
+                                               fastmath=False)):
+        p = Params(*(t.detach().clone().requires_grad_() for t in params))
+        img = fn(p, seeds)
+        (img * img).sum().backward()
+        out.append((img.detach(), p.albedo.grad, p.emission.grad))
+    assert _share_beyond(out[0][0].reshape(-1, 3).T,
+                         out[1][0].reshape(-1, 3).T, 2e-5, 2e-6) <= 1e-3
+    _grads_close(out[0][1:], out[1][1:], 1e-4)

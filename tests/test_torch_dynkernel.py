@@ -67,7 +67,8 @@ def _jcfg(cfg=CFG, **kw):
 
 def _both(name):
     js, jp, jc = SCENES[name]()
-    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)))
+    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)),
+                      device="cpu")
     return (js, jp, jc), port
 
 
@@ -271,7 +272,7 @@ def test_culling_and_levels_give_the_same_bits(level, fastmath):
     slots never win (tests/test_dynkernel.py:246-362). Level 2 has 20
     leaves padded to 24 under 3 super boxes; level 1 has 5 leaves and no
     second level."""
-    scene, params, cam = gallery.build_mesh(level)
+    scene, params, cam = gallery.build_mesh(level, device="cpu")
     alb, emi = _tables(scene, params)
     cam_u, tape, g = (torch.as_tensor(x) for x in _inputs(3))
     variants = (dk.DynScene(scene), dk.DynScene(scene, super_m=1),
@@ -317,7 +318,7 @@ def test_tie_goes_to_the_lower_original_index(fastmath):
     b.triangle(*tri, first)
     b.triangle(*tri, second)
     b.plane([0.0, 0.0, -1.0], -6.0, first)
-    scene, _ = b.build()
+    scene, _ = b.build(device="cpu")
     ds = dk.DynScene(scene)
     assert ds.operands[2].tolist() == [2, 0, 1]  # plane, then the two
     o, d = _rays_at([0.0, 0.0, 4.0])
@@ -341,7 +342,7 @@ def test_padded_rows_never_produce_a_hit(fastmath):
     """Level 2: 20 leaves padded to 24 with inverted boxes, which a min/max
     slab test does not reject; their triangle slots are degenerate and the
     leaf rows are skipped by index."""
-    scene, _, _ = gallery.build_mesh(2)
+    scene, _, _ = gallery.build_mesh(2, device="cpu")
     ds = dk.DynScene(scene)
     assert ds.n_clusters_pad > ds.n_clusters
     t0 = ds.n_plane + ds.n_sphere
@@ -497,7 +498,7 @@ def test_dyn_and_fused_families_trace_the_same_paths():
     b = mk.make_fused_tracer(scene, cam, CFG_I, n_chunks=2)(alb, emi, seeds)
     assert a.mean() > 0
     np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
-    mesh, mesh_params, mesh_cam = gallery.build_mesh(1)
+    mesh, mesh_params, mesh_cam = gallery.build_mesh(1, device="cpu")
     img = fused.make_dyn_image_renderer(mesh, mesh_cam, CFG_I)(mesh_params,
                                                                seeds)
     own = fused.make_dyn_image_renderer(
@@ -515,7 +516,7 @@ def test_routing_of_mesh_scenes():
     "torch" image (the same samples); "cuda-dyn" needs a card. On a card,
     "auto" takes "cuda" up to 64 shapes, "cuda-dyn" up to 2048, and raises
     above."""
-    scene, params, cam = gallery.build_mesh(1)
+    scene, params, cam = gallery.build_mesh(1, device="cpu")
     seeds = torch.tensor(SEEDS, dtype=torch.int32)
     assert resolve_backend(scene, CFG_I) == "torch"
     img = make_renderer(scene, CFG_I, cam, differentiable=False)(params,
@@ -554,7 +555,7 @@ def test_wrappers_run_plain_versions_only_on_cpu_and_check_limits():
     branch that need no card (they are checked before a library loads):
     2048 shapes, 256 table rows, and the rows whose gradient accumulator
     fits a block's shared memory."""
-    scene, params, cam = gallery.build_mesh(1)
+    scene, params, cam = gallery.build_mesh(1, device="cpu")
     ds = dk.DynScene(scene)
     alb, emi = _tables(scene, params)
     cfg = RenderConfig(width=4, height=4, spp=1, max_depth=2)
@@ -571,7 +572,7 @@ def test_wrappers_run_plain_versions_only_on_cpu_and_check_limits():
     for k in range(MAX_DYN_SHAPES + 1):
         b.plane([0.0, 1.0, 0.0], -1.0 - k, mat)
     with pytest.raises(ValueError, match="2049 shapes exceed the 2048"):
-        dk._scene_structs(dk.DynScene(b.build()[0]), alb.device)
+        dk._scene_structs(dk.DynScene(b.build(device="cpu")[0]), alb.device)
 
     wide = torch.zeros((dk._ROW_CAP + 1, 3))
     with pytest.raises(ValueError, match="pack rows into 8 bits: 257 albedo"):

@@ -14,6 +14,7 @@ families take. Float32 throughout. The kernels themselves are tested on
 the card by tests/test_torch_cuda.py and chip_smoke.py."""
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import pytest
@@ -73,7 +74,8 @@ def _by_sample(cfg, alb, emi, rsc, rrow, trips):
 @pytest.fixture(scope="module")
 def glossy():
     js, jp, jc = jax_gallery.build_glossy(dtype=jnp.float32)
-    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)))
+    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)),
+                      device="cpu")
     return (js, jp, jc), port
 
 
@@ -187,8 +189,8 @@ def test_sweep_reads_nothing_beyond_a_pixels_trips(glossy, plain):
         assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
-SCENES = {"glossy": gallery.build_glossy, "mesh87":
-          lambda: gallery.build_mesh(1)}
+SCENES = {"glossy": partial(gallery.build_glossy, device="cpu"), "mesh87":
+          lambda: gallery.build_mesh(1, device="cpu")}
 
 
 @pytest.mark.parametrize("fastmath", [False, True])
@@ -235,7 +237,7 @@ def test_dyn_family_on_cbox_is_the_scene_table_family():
     """The Cornell box through both families on the same seeds: radiance
     sums within the kernels' tolerance, gradients through the renderers
     too."""
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     outs = []
     for backend in ("torch-dyn-regen", "torch-regen"):
         p = Params(*(t.clone().requires_grad_() for t in params))

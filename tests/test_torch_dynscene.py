@@ -4,6 +4,8 @@ JAX package: `models.gallery.build_mesh` array for array, and
 `drt_tpu.ops.dynkernel.DynScene`'s bit for bit so that both packages trace
 the same scene. Everything here is numpy on both sides; no kernel runs."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -26,11 +28,12 @@ JAX_SCENES = {
     "mesh3": lambda: jax_gallery.build_mesh(level=3, dtype=jnp.float32),
 }
 PORT_SCENES = {
-    "cbox": cbox.build, "glossy": gallery.build_glossy,
-    "tri": gallery.build_tri,
-    "mesh1": lambda: gallery.build_mesh(level=1),
-    "mesh2": lambda: gallery.build_mesh(level=2),
-    "mesh3": lambda: gallery.build_mesh(level=3),
+    "cbox": partial(cbox.build, device="cpu"),
+    "glossy": partial(gallery.build_glossy, device="cpu"),
+    "tri": partial(gallery.build_tri, device="cpu"),
+    "mesh1": lambda: gallery.build_mesh(level=1, device="cpu"),
+    "mesh2": lambda: gallery.build_mesh(level=2, device="cpu"),
+    "mesh3": lambda: gallery.build_mesh(level=3, device="cpu"),
 }
 FACTS = ("n_plane", "n_sphere", "n_tri", "n_tri_pad", "n_shapes",
          "cluster_k", "n_clusters", "n_clusters_pad", "n_super", "super_m",
@@ -53,7 +56,7 @@ def _assert_same(ds, jds):
 @pytest.mark.parametrize("level,shapes", [(1, 87), (2, 327), (3, 1287)])
 def test_build_mesh_equals_jax(level, shapes):
     jax_out = jax_gallery.build_mesh(level=level, dtype=jnp.float32)
-    port_out = gallery.build_mesh(level=level)
+    port_out = gallery.build_mesh(level=level, device="cpu")
     assert port_out[0].num_shapes == shapes
     for port_t, jax_t in zip(port_out, jax_out):
         for name, got, ref in zip(jax_t._fields, port_t, jax_t):
@@ -69,7 +72,7 @@ def test_operands_equal_jax_bit_for_bit(name):
     jds = jax_dk.DynScene(js)
     _assert_same(dk.DynScene(PORT_SCENES[name]()[0]), jds)
     carried, _, _ = from_numpy(*([np.asarray(a) for a in t]
-                                 for t in (js, jp, jc)))
+                                 for t in (js, jp, jc)), device="cpu")
     _assert_same(dk.DynScene(carried), jds)
 
 
@@ -156,7 +159,7 @@ def test_supercluster_build_invariants():
 
 
 def test_dynscene_rejects_f64():
-    scene, _, _ = cbox.build(dtype=torch.float64)
+    scene, _, _ = cbox.build(dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="f32"):
         dk.DynScene(scene)
 
@@ -164,17 +167,17 @@ def test_dynscene_rejects_f64():
 def test_dynscene_rejects_more_than_256_rows():
     """Row indices are packed into 8 bits; the message is the JAX
     package's."""
-    def many(cls):
+    def many(cls, **kw):
         b = cls()
         for k in range(257):
             b.plane([0.0, 1.0, 0.0], -1.0 - k,
                     b.diffuse(b.albedo_param([0.5, 0.5, 0.5])))
-        return b.build()[0]
+        return b.build(**kw)[0]
 
     from drt_tpu.scene import SceneBuilder as JaxSceneBuilder
 
     with pytest.raises(ValueError) as port_err:
-        dk.DynScene(many(SceneBuilder))
+        dk.DynScene(many(SceneBuilder, device="cpu"))
     with pytest.raises(ValueError) as jax_err:
         jax_dk.DynScene(many(JaxSceneBuilder))
     assert str(port_err.value) == str(jax_err.value)

@@ -54,7 +54,8 @@ def _jcfg(cfg=CFG, **kw):
 
 def _both(model):
     js, jp, jc = SCENES[model](dtype=jnp.float32)
-    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)))
+    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)),
+                      device="cpu")
     return (js, jp, jc), port
 
 

@@ -43,7 +43,7 @@ SEEDS = torch.tensor([7, -8], dtype=torch.int32)
 @pytest.fixture(scope="module")
 def images():
     """Both gradient images of the port for two rows, float64."""
-    scene, params, cam = cbox.build(dtype=torch.float64)
+    scene, params, cam = cbox.build(dtype=torch.float64, device="cpu")
     out = {}
     for param in ("albedo:0", "emission:0"):
         out[param] = (grad_image(scene, cam, CFG, params, SEEDS, param),
@@ -94,7 +94,7 @@ def test_grad_image_fwd_equals_jax_jvp(images):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
                                         (torch.float32, 1e-4)])
 def test_check_gradients_passes(dtype, rtol):
-    scene, params, cam = cbox.build(dtype=dtype)
+    scene, params, cam = cbox.build(dtype=dtype, device="cpu")
     res = check_gradients(scene, cam, CFG, params, SEEDS, n_directions=3,
                           rtol=rtol)
     assert len(res) == 3 and all(math.isfinite(a) for a, _ in res)
@@ -103,7 +103,7 @@ def test_check_gradients_passes(dtype, rtol):
 
 @pytest.mark.parametrize("fn", [grad_image, grad_image_fwd, check_gradients])
 def test_biased_only_and_one_lane(fn):
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     with pytest.raises(ValueError, match="unbiased=False"):
         fn(scene, cam, dataclasses.replace(CFG, unbiased=True), params,
            SEEDS)
@@ -115,7 +115,7 @@ def test_biased_only_and_one_lane(fn):
 @pytest.mark.parametrize("param", ["albedo:3", "albedo:-1", "emission:1",
                                    "normal:0"])
 def test_parse_param_errors_match_jax(param):
-    _, params, _ = cbox.build()
+    _, params, _ = cbox.build(device="cpu")
     _, jp, _ = jax_cbox.build()
     with pytest.raises(ValueError) as port_err:
         _parse_param(params, param)

@@ -34,7 +34,8 @@ TOL = dict(rtol=2e-5, atol=2e-6)
 
 def _both(builder):
     js, jp, jc = builder(dtype=jnp.float32)
-    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)))
+    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)),
+                      device="cpu")
     return (js, jp, jc), port
 
 

@@ -62,7 +62,7 @@ def test_intersect_matches():
     d = _unit(r, n)
     d[:, :8] = [[0.0] * 8, [0.0] * 8, [1.0] * 8]  # axis-aligned rays
     js, _ = jax_make_scene(SPEC, jnp.float64)
-    scene, _ = make_scene(SPEC, torch.float64)
+    scene, _ = make_scene(SPEC, torch.float64, device="cpu")
     ref = jax_intersect.intersect_scene(js, _jv3(o), _jv3(d),
                                         emit_sentinel=1)
     hit = intersect.intersect_scene(scene, _v3(o), _v3(d), emit_sentinel=1)
@@ -82,7 +82,7 @@ def test_intersect_ties_keep_first():
              "diffuse": [0.1, 0.1, 0.1]},
             {"kind": "plane", "normal": [0, 0, -1], "offset": -5.0,
              "diffuse": [0.9, 0.9, 0.9], "emission": [1, 1, 1]}]
-    scene, _ = make_scene(spec, torch.float64)
+    scene, _ = make_scene(spec, torch.float64, device="cpu")
     o = _v3(np.zeros((3, 4)))
     d = _v3(np.tile([[0.0], [0.0], [1.0]], (1, 4)))
     hit = intersect.intersect_scene(scene, o, d, emit_sentinel=1)

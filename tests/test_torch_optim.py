@@ -38,7 +38,7 @@ def _tapes(seed):
 def test_adam_steps_match_optax_on_a_tape_loss():
     js, jp, jc = jax_cbox.build(dtype=jnp.float32)
     scene, params, cam = from_numpy(*([np.asarray(a) for a in t]
-                                      for t in (js, jp, jc)))
+                                      for t in (js, jp, jc)), device="cpu")
     cam_u, tape = _tapes(0)
     tcu, ttp = torch.as_tensor(cam_u), torch.as_tensor(tape)
     tape_render = make_fused_image_renderer(scene, cam, CFG, rng="tape")
@@ -52,7 +52,7 @@ def test_adam_steps_match_optax_on_a_tape_loss():
     step = optim.make_train_step(
         scene, CFG, cam, target, optim.Adam(lr), paired=False,
         render=lambda p, seeds: tape_render(p, tcu, ttp))
-    state = optim.state_from_numpy(start_alb, start_emi)
+    state = optim.state_from_numpy(start_alb, start_emi, device="cpu")
     assert state.step == 0 and not state.opt_state.mu.albedo.any()
     gen = torch.Generator().manual_seed(0)
     got = []
@@ -102,7 +102,7 @@ def test_step_clips_to_the_physical_range():
     """albedo in [0, 1], emission >= 0, whatever the update. The first
     Adam step moves every entry by the learning rate against the sign of
     its gradient."""
-    scene, _, cam = cbox.build()
+    scene, _, cam = cbox.build(device="cpu")
     shape = (CFG.height, CFG.width, 3)
 
     def render(p, seeds):  # an image that grows with every parameter
@@ -125,7 +125,7 @@ def test_step_clips_to_the_physical_range():
 
 @pytest.mark.parametrize("paired", [True, False])
 def test_train_block_is_the_step_loop(paired):
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     cfg = RenderConfig(width=8, height=6, spp=2, spp_chunks=2, max_depth=3)
     from drt_tpu_torch.parallel.render import make_renderer
     target = make_renderer(scene, cfg, cam, differentiable=False)(
@@ -148,7 +148,7 @@ def test_train_block_is_the_step_loop(paired):
 
 
 def test_inverse_render_returns_stacked_metrics():
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     cfg = RenderConfig(width=8, height=6, spp=4, spp_chunks=2, max_depth=3)
     from drt_tpu_torch.parallel.render import make_renderer
     target = make_renderer(scene, cfg, cam, differentiable=False)(

@@ -65,7 +65,8 @@ def _np3(L):
 @pytest.fixture(scope="module")
 def both():
     js, jp, jc = jax_cbox.build(dtype=jnp.float32)
-    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)))
+    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)),
+                      device="cpu")
     return (js, jp, jc), port
 
 

@@ -37,7 +37,7 @@ def test_cpu_render_reads_right():
     """The image semantics of the reference scene: light at the top,
     image-left red-dominant, image-right green-dominant (x-mirrored
     camera); every value finite; the plain path counts no launch."""
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     assert resolve_backend(scene, CFG) == "torch"
     before = mk.fused_trace.launches
     img = make_renderer(scene, CFG, cam, differentiable=False)(
@@ -54,7 +54,7 @@ def test_cpu_render_reads_right():
 
 
 def test_render_has_no_autograd_history():
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     params = params._replace(albedo=params.albedo.requires_grad_())
     img = make_renderer(scene, CFG, cam, differentiable=False)(
         params, _seeds())
@@ -65,7 +65,7 @@ def test_tape_image_renderer_reduces_spp_outer():
     """rng="tape": pixel p is the mean of rays p, p + W*H, ... of the
     tracer's output; one tape per launch, biased only."""
     cfg = RenderConfig(width=8, height=6, spp=2, max_depth=3)
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     r = np.random.default_rng(5)
     cam_u = torch.as_tensor(r.uniform(size=(2, 96)).astype(np.float32))
     tape = torch.as_tensor(r.uniform(size=(3, 3, 96)).astype(np.float32))
@@ -109,7 +109,7 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
     (dict(backend="bogus"), ValueError, "unknown backend"),
 ])
 def test_make_renderer_refuses(kw, err, match):
-    scene, _, cam = cbox.build()
+    scene, _, cam = cbox.build(device="cpu")
     kw.setdefault("differentiable", False)
     with pytest.raises(err, match=match):
         make_renderer(scene, CFG, cam, **kw)
@@ -188,7 +188,7 @@ def test_regen_backends_route_and_render(tmp_path, backend):
     """The plain regeneration backends render the lockstep backends'
     samples ("auto" never picks them); `--backend` of the CLI takes their
     names."""
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     assert resolve_backend(scene, CFG, backend) == backend
     assert resolve_backend(scene, CFG) == "torch"
     img = make_renderer(scene, CFG, cam, differentiable=False,

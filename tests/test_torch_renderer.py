@@ -35,7 +35,7 @@ def test_trace_rays_tape_matches(model, dtype):
     n = cfg.width * cfg.height * cfg.spp
     js, jp, jc = BUILDERS[model](dtype=getattr(jnp, dtype))
     scene, params, _ = from_numpy(*([np.asarray(a) for a in t]
-                                    for t in (js, jp, jc)))
+                                    for t in (js, jp, jc)), device="cpu")
     r = np.random.default_rng(11)
     cam_u = r.uniform(size=(n, 2)).astype(dtype)
     tape = r.uniform(size=(cfg.max_depth, 3, n)).astype(dtype)
@@ -62,7 +62,7 @@ def test_trace_rays_tape_matches(model, dtype):
 def test_bsdf_splitting_not_ported():
     from drt_tpu_torch.models import cbox
 
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     cfg = RenderConfig(width=4, height=4, spp=1, max_depth=2,
                        bsdf_samples=2)
     z = torch.zeros(16)

@@ -1,5 +1,7 @@
 """drt_tpu_torch scene, camera and model builders against drt_tpu's."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -11,15 +13,18 @@ from drt_tpu.camera import pixel_grid as jax_pixel_grid
 from drt_tpu.models import cbox as jax_cbox
 from drt_tpu.models import gallery as jax_gallery
 from drt_tpu.scene import make_scene as jax_make_scene
-from drt_tpu_torch.camera import camera_rays, pixel_grid
+from drt_tpu_torch import optim
+from drt_tpu_torch.camera import (camera_rays, default_camera, look_at,
+                                  pixel_grid)
 from drt_tpu_torch.models import cbox, gallery
-from drt_tpu_torch.scene import (albedo_table, emission_table, from_numpy,
-                                 make_scene)
+from drt_tpu_torch.scene import (SceneBuilder, albedo_table, emission_table,
+                                 from_numpy, make_scene)
 
 MODELS = {
-    "cbox": (jax_cbox.build, cbox.build),
-    "glossy": (jax_gallery.build_glossy, gallery.build_glossy),
-    "tri": (jax_gallery.build_tri, gallery.build_tri),
+    "cbox": (jax_cbox.build, partial(cbox.build, device="cpu")),
+    "glossy": (jax_gallery.build_glossy,
+               partial(gallery.build_glossy, device="cpu")),
+    "tri": (jax_gallery.build_tri, partial(gallery.build_tri, device="cpu")),
 }
 
 
@@ -42,8 +47,8 @@ def test_model_arrays_match(model, dtype):
 def test_from_numpy_and_padded_tables():
     js, jp, jc = jax_gallery.build_glossy(dtype=jnp.float32)
     scene, params, cam = from_numpy(*([np.asarray(a) for a in t]
-                                      for t in (js, jp, jc)))
-    ref = _flat(*gallery.build_glossy(dtype=torch.float32))
+                                      for t in (js, jp, jc)), device="cpu")
+    ref = _flat(*gallery.build_glossy(dtype=torch.float32, device="cpu"))
     for g, r in zip(_flat(scene, params, cam), ref):
         np.testing.assert_array_equal(g, r)
     alb = albedo_table(scene, params).numpy()
@@ -66,7 +71,8 @@ def test_make_scene_matches():
     ]
     ref = [np.asarray(a) for t in jax_make_scene(spec, jnp.float64)
            for a in t]
-    got = [a.numpy() for t in make_scene(spec, torch.float64) for a in t]
+    got = [a.numpy() for t in make_scene(spec, torch.float64, device="cpu")
+           for a in t]
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
     with pytest.raises(ValueError, match="unknown shape kind"):
@@ -93,3 +99,52 @@ def test_camera_rays_match(model, dtype, rtol):
     for g, r in zip((*o, *d, p), (*ro, *rd, rp)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=rtol,
                                    atol=rtol * 1e-2)
+
+
+def _sphere_builder(**kw):
+    b = SceneBuilder()
+    b.sphere([0.0, 0.0, 3.0], 1.0, b.diffuse(b.albedo_param([0.5] * 3)))
+    return b.build(**kw)
+
+
+# The public constructors of a scene, its parameters and its camera.
+CONSTRUCTORS = {
+    "cbox.build": cbox.build,
+    "gallery.build_glossy": gallery.build_glossy,
+    "gallery.build_mesh": partial(gallery.build_mesh, 1),
+    "gallery.build_tri": gallery.build_tri,
+    "make_scene": partial(make_scene, [{"kind": "sphere", "center": [0, 0, 3],
+                                        "radius": 1.0}]),
+    "SceneBuilder.build": _sphere_builder,
+    "from_numpy": lambda **kw: from_numpy(
+        *([np.asarray(a) for a in t] for t in jax_cbox.build()), **kw),
+    "default_camera": default_camera,
+    "look_at": partial(look_at, [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+    "state_from_numpy": partial(optim.state_from_numpy,
+                                np.full((3, 3), 0.5, np.float32),
+                                np.ones((1, 3), np.float32)),
+}
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructors_put_tensors_on_the_card_by_default(name):
+    """Without a card a constructor asked for no device raises, naming
+    device='cpu', instead of building on the CPU; with device='cpu' every
+    tensor it returns lies there. tests/test_torch_cuda.py checks the
+    default on the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default is checked on it by "
+                    "tests/test_torch_cuda.py")
+    build = CONSTRUCTORS[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    got = _tensors(build(device="cpu"))
+    assert got and all(t.device.type == "cpu" for t in got)

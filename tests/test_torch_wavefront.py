@@ -11,6 +11,7 @@ backends. The kernels themselves are tested on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import pytest
@@ -54,7 +55,8 @@ SEEDS = torch.tensor([123, -456], dtype=torch.int32)
 
 def _both(builder, dtype=jnp.float64):
     js, jp, jc = builder(dtype=dtype)
-    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)))
+    port = from_numpy(*([np.asarray(a) for a in t] for t in (js, jp, jc)),
+                      device="cpu")
     return (js, jp, jc), port
 
 
@@ -95,7 +97,7 @@ def jax_ref():
 def test_default_camera_matches_jax():
     for dtype, jdtype in ((torch.float32, jnp.float32),
                           (torch.float64, jnp.float64)):
-        got = default_camera(dtype=dtype, vfov=1.1)
+        got = default_camera(dtype=dtype, vfov=1.1, device="cpu")
         ref = jax_default_camera(dtype=jdtype, vfov=1.1)
         for g, r in zip(got, ref):
             assert g.dtype == dtype
@@ -140,7 +142,7 @@ def test_key_draws_are_the_keyed_hash():
             np.testing.assert_array_equal(tape[b, dim].numpy(), np.asarray(
                 jax_regen.hash_uniform(-456, jpix, js_, b, dim,
                                        jnp.float32)))
-    scene, params, _ = cbox.build()
+    scene, params, _ = cbox.build(device="cpu")
     r = np.random.default_rng(1)
     o = V3(*(torch.zeros(50) for _ in range(3)))
     dn = r.normal(size=(3, 50))
@@ -243,7 +245,9 @@ def _image_grads(render, params, w):
     return p.albedo.grad, p.emission.grad
 
 
-@pytest.mark.parametrize("builder", [cbox.build, gallery.build_glossy])
+@pytest.mark.parametrize("builder", [partial(cbox.build, device="cpu"),
+                                     partial(gallery.build_glossy,
+                                             device="cpu")])
 def test_diff_image_renderer_matches_autograd(builder):
     """Biased: the chunk loop inside one autograd.Function (nothing per
     ray saved, the adjoint twin per chunk) equals autograd through the
@@ -268,7 +272,7 @@ def test_unbiased_retraces_on_salted_seeds():
     """Unbiased with 2 adjoint samples: the mean of the plain retraces on
     `fused._salted(seeds, s)`, which keep the camera stream, so each is
     autograd through render_image at the salted seeds."""
-    scene, params, cam = cbox.build(dtype=torch.float64)
+    scene, params, cam = cbox.build(dtype=torch.float64, device="cpu")
     cfg = dataclasses.replace(CFG, unbiased=True, adjoint_samples=2)
     w = torch.rand((12, 16, 3), dtype=torch.float64,
                    generator=torch.Generator().manual_seed(1))
@@ -290,7 +294,7 @@ def test_key_mode_diff_renderer():
     """make_diff_renderer(use_tape=False): the tape form fed the keyed
     tape of ray i at sample 0 (biased), and the mean over salted tapes
     (unbiased); both against autograd through trace_rays."""
-    scene, params, cam = cbox.build(dtype=torch.float64)
+    scene, params, cam = cbox.build(dtype=torch.float64, device="cpu")
     xy = chunk_pixel_ids(CFG)
     o, d, _ = chunk_rays(cam, CFG, xy, SEEDS, 0)
     n = d.x.shape[0]
@@ -331,7 +335,7 @@ def test_key_mode_diff_renderer():
 def test_boundary_tapes_stay_finite():
     """Tape entries of exactly 0 and 1 zero a sampling pdf; the guarded
     estimator drops those samples (tests/test_fused.py:117-152)."""
-    scene, params, cam = gallery.build_glossy()
+    scene, params, cam = gallery.build_glossy(device="cpu")
     cfg = RenderConfig(width=8, height=6, spp=4, max_depth=4)
     xy = chunk_pixel_ids(cfg)
     o, d, _ = chunk_rays(cam, cfg, xy, SEEDS, 0)
@@ -355,7 +359,7 @@ def test_rays_that_miss_everything():
     """Rays from outside the box pointing away from every shape: the dead
     lanes' hit data is zeroed before use, so radiance and gradients are
     exactly zero and finite."""
-    scene, params, _ = cbox.build()
+    scene, params, _ = cbox.build(device="cpu")
     cfg = RenderConfig(width=8, height=6, spp=1, max_depth=4)
     n = 40
     r = np.random.default_rng(3)
@@ -377,7 +381,7 @@ def test_routing_of_the_wavefront_backends():
     """"cuda-wavefront" needs the scene on a card; the JAX package's "xla"
     is named by its two ports; "torch-wavefront" renders with no history
     when not differentiable and counts no launch."""
-    scene, params, cam = cbox.build()
+    scene, params, cam = cbox.build(device="cpu")
     with pytest.raises(ValueError, match="'cuda-wavefront' needs the scene "
                        "on a CUDA device"):
         make_renderer(scene, CFG, cam, backend="cuda-wavefront")
@@ -398,7 +402,7 @@ def test_routing_of_the_wavefront_backends():
 def test_wrappers_run_twins_only_on_cpu():
     """CPU tensors take the plain twins without counting a launch; other
     devices are refused, with no fallback."""
-    scene, params, _ = cbox.build()
+    scene, params, _ = cbox.build(device="cpu")
     cfg = RenderConfig(width=4, height=4, spp=1, max_depth=2)
     alb, emi = albedo_table(scene, params), emission_table(scene, params)
     table = mk.scene_table(scene)
