@@ -1,6 +1,6 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--keep-going] [--only=regen|wavefront|compact]
+  python3 chip_smoke.py [--keep-going] [--only=dyn|regen|wavefront|compact]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -97,10 +97,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
  16. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
 Before each of the paths of 5, 6, 7, 10, 13, 14 and 15 the launch counts
-are set to 0, and read just after. --only=regen (phases 11-13),
---only=wavefront (phase 14) and --only=compact (phase 15) build, run
-those phases and stop without a result line (exit 1): short runs while
-working on them.
+are set to 0, and read just after. --only=dyn (phases 8-10),
+--only=regen (phases 11-13), --only=wavefront (phase 14) and
+--only=compact (phase 15) build, run those phases and stop without a
+result line (exit 1): short runs while working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -617,21 +617,21 @@ def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
               f"{plain_ms[name]!r} ms on {smi_line}; window means: kernel "
               f"{windows[name]!r}", flush=True)
 
-    # What the cull skipped, from the tracer's checking build. A group is
-    # the set of a warp's lanes that ran a piece of code together.
+    # What the cull skipped, from the tracer's checking build: the warps
+    # test a leaf together, for the rays of their lanes that entered it.
     cs = dk.dyn_cull_stats(ds, cc, cfg_m, alb, emi, seeds, n_chunks=C)
     same_bits("the checking build's radiance = the tracer's",
               (cs.pop("radiance"),), (L_all,))
     del L_all
     warp_slots = -(-n_slots // 32) * C * D * ds.n_clusters
-    print(f"[cull] {cs}: of the {warp_slots} leaf triangle loops that "
+    print(f"[cull] {cs}: of the {warp_slots} leaf tests that "
           f"{-(-n_slots // 32) * C * D} warp-bounces could run over "
-          f"{ds.n_clusters} leaves, lane groups ran {cs['warp_leaves']}: "
+          f"{ds.n_clusters} leaves, the warps ran {cs['warp_leaves']}: "
           f"skipped share {1 - cs['warp_leaves'] / warp_slots!r}; a ray's own "
           f"slab tests skip {1 - cs['lane_leaves'] / (cs['lane_bounces'] * ds.n_clusters)!r} "
-          f"of its {ds.n_clusters} leaves per live bounce; lanes at work "
-          f"per leaf triangle loop {cs['lane_leaves'] / cs['warp_leaves']!r} "
-          f"of 32; lanes per group entering the nearest-hit loop "
+          f"of its {ds.n_clusters} leaves per live bounce; rays per leaf a "
+          f"warp tests {cs['lane_leaves'] / cs['warp_leaves']!r} of 32; "
+          f"rays per warp-bounce that ran the nearest hit "
           f"{cs['lane_bounces'] / cs['warp_bounces']!r}", flush=True)
     # Every bounce-ray that the collect tracer stored as live went through
     # the nearest-hit loop; the few more that did so missed (a ray that hit
@@ -2274,8 +2274,8 @@ def main() -> int:
                 print(f"[ptxas] {source}: {line.strip()}", flush=True)
 
     if ONLY:
-        phase = {"regen": regen_phases, "wavefront": wavefront_phase,
-                 "compact": compact_phase}[ONLY]
+        phase = {"dyn": dyn_phases, "regen": regen_phases,
+                 "wavefront": wavefront_phase, "compact": compact_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)

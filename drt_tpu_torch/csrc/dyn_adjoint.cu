@@ -177,9 +177,9 @@ dyn_adjoint_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
       DynResiduals<DRT_MAX_DEPTH> r;
       DynKeepResidual hook{r};
       float lx, ly, lz;
-      dyn_trace_chunk<FAST, INTERNAL, false>(cfg, lay, cam, scn, tab, cam_u,
-                                             tape, i, c, hook, lx, ly, lz,
-                                             nullptr);
+      dyn_trace_chunk<FAST, INTERNAL, false, false>(cfg, lay, cam, scn, tab,
+                                                    cam_u, tape, i, true, c,
+                                                    hook, lx, ly, lz, nullptr);
       dyn_reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
     }
   }

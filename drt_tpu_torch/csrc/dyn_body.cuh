@@ -3,7 +3,8 @@
 // cluster-AABB culling of the triangles, and the bounce loop of one ray
 // slot over one spp chunk (dyn_trace_chunk) with a per-bounce residual
 // hook; the bounce itself is the text of dyn_bounce.inc, which dyn_bounce
-// also wraps for the regeneration tracer (dyn_regen_tracer.cu). It is what drt_tpu/ops/dynkernel.py computes in _dyn_intersect,
+// also wraps for the regeneration tracer (dyn_regen_tracer.cu). It is
+// what drt_tpu/ops/dynkernel.py computes in _dyn_intersect,
 // _dyn_shade and _dyn_wavefront_body, over the six DynScene operands
 // (drt_tpu_torch/ops/dynkernel.py): geo f32[S',12] (triangle rows as v0,
 // e1, e2), aux f32[S',3] (normal source), orig i32[S'] (original shape
@@ -14,28 +15,47 @@
 // How the TPU design maps here:
 //  - Where the scene lives. The TPU kernels read the operands as scalars
 //    from SMEM. Here they stay in device memory and are read through the
-//    read-only path (__ldg): the lanes of a warp that are in the loop read
-//    the same row at the same time, which is one broadcast transaction
-//    from L1, and the 93 KB of a 1287-shape scene (147 KB at 2048 shapes)
-//    stay resident in the SM's L1. Staging them in shared memory instead
-//    would take most of the 227 KB a block may have and leave one
-//    128-thread block per SM; as it is, shared memory holds only the two
-//    parameter tables (6 KB) and occupancy is set by registers.
+//    read-only path (__ldg): a leaf is one coalesced read of its rows by
+//    the warp (dyn_leaf_warp), the other rows are broadcast reads by the
+//    lanes that test them, and the 93 KB of a 1287-shape scene (147 KB at
+//    2048 shapes) stay resident in the SM's L1. Staging them in shared
+//    memory instead would take most of the 227 KB a block may have and
+//    leave one 128-thread block per SM; as it is, shared memory holds only
+//    the two parameter tables (6 KB) and occupancy is set by registers.
 //  - Culling. The TPU skips a cluster when no lane of its 1024-lane tile
-//    enters the cluster's box. Here each thread branches on its own slab
-//    test, and the hardware runs a cluster's triangle loop while any lane
-//    of the warp is in it: the unit of the skip is the warp. The result
-//    does not depend on it: the winner is the lexicographic (t, original
-//    index) minimum over every triangle a ray can reach, the slab test is
-//    conservative (<= with slack), padded leaf rows are skipped by index
-//    (an inverted box passes a min/max slab test), and padded triangle
-//    slots are degenerate rows (det == 0) that never win. So the nearest
-//    hit is the same bits with culling on, off, or one level deep.
-//    Walking the boxes in lockstep by warp votes (__any_sync on the slab
-//    tests) was tried on an H100 and changed the tracer's time by under
-//    3% either way: the lanes that enter a leaf already share its
-//    triangle loop, and that loop runs with about 2 of 32 lanes at work
-//    on the 1287-shape mesh, which is where the time goes.
+//    enters the cluster's box. Here each ray takes its own slab tests,
+//    against its own running best, and the unit of the skip is the warp.
+//    The slab test is conservative (<= with slack), padded leaf rows are
+//    skipped by index (an inverted box passes a min/max slab test), and
+//    padded triangle slots are degenerate rows (det == 0) that never win.
+//    In the exact variant the winner is the lexicographic (t, original
+//    index) minimum over every triangle a ray can reach, so the nearest
+//    hit is the same bits with culling on, off, or one level deep. The
+//    fast variant compares candidates by rounded cross-products, an order
+//    that is not transitive on near-ties: there the winner depends on the
+//    set of candidates and their order (the JAX kernel's semantics too),
+//    and a ray aimed at a mesh vertex may get another winner on another
+//    layout. Every kernel here keeps one visit order, each ray's own
+//    boxes in row order and each entered leaf's triangles in index order,
+//    so on one layout all of them agree bit for bit.
+//  - The leaf loop (dyn_intersect_warp, the tracer and collect tracer of
+//    dyn_tracer.cu). After the first bounce the rays of a warp point
+//    everywhere and about 2 of 32 lanes enter a given leaf of the
+//    1287-shape mesh; a loop over the leaf's triangles per thread ran
+//    with the other 30 idle. So the warp tests a leaf together: every
+//    lane takes part (a dead lane or one past the last ray slot as "no
+//    ray"), the lanes walk the boxes in a loop of the same bounds, lane k
+//    loads the leaf's triangle k once (one coalesced read of the leaf),
+//    and for each ray that entered, in ascending lane order, the ray is
+//    broadcast by shuffles, every lane tests its own triangle, and the
+//    valid candidates are folded into that ray's best in ascending
+//    triangle index, one dyn_update each. An invalid candidate is a no-op
+//    of dyn_update, so this is the per-thread loop's sequence of updates
+//    and gives its bits in both variants (a shuffle-tree minimum would
+//    not, in the fast one). A leaf of more than 32 triangles takes passes
+//    of 32 in index order. The retrace adjoint (dyn_adjoint.cu) and the
+//    regeneration tracer (dyn_regen_tracer.cu), whose warps split by trip,
+//    keep the loop per thread (dyn_intersect), over the same text.
 //  - The carry. The TPU sweep carries the winner's attributes through
 //    masked selects. A thread here carries (t, original index, row) and
 //    reads the winner's aux, meta and exponent once after the loop.
@@ -96,7 +116,7 @@ static __host__ __device__ __forceinline__ int dyn_pack_meta(int arow,
 
 // Counters of a checking build (COUNT): lane-bounces and warp-bounces
 // that ran the nearest-hit loop, leaf clusters entered summed over lanes,
-// and leaf triangle loops the warps ran.
+// and leaves the warps tested (for at least one ray).
 enum { STAT_LANE_BOUNCES = 0, STAT_WARP_BOUNCES = 1, STAT_LANE_LEAVES = 2,
        STAT_WARP_LEAVES = 3, DYN_N_STATS = 4 };
 
@@ -166,13 +186,13 @@ static __device__ __forceinline__ void dyn_sphere(
   dyn_update<FAST>(b, s.orig, i, t, 1.0f, disc >= 0.0f && t > 0.0f);
 }
 
-// Moller-Trumbore on the (v0, e1, e2) edge form.
+// Moller-Trumbore on the (v0, e1, e2) edge form of the triangle row
+// (ga, gb, gc): the candidate (num, den, valid) that dyn_update takes.
 template <bool FAST>
-static __device__ __forceinline__ void dyn_triangle(
-    DynBest& b, const DynOperands& s, int i, float ox, float oy, float oz,
-    float dx, float dy, float dz) {
-  const float4* g4 = reinterpret_cast<const float4*>(s.geo) + 3 * i;
-  const float4 ga = __ldg(g4), gb = __ldg(g4 + 1), gc = __ldg(g4 + 2);
+static __device__ __forceinline__ void dyn_tri_candidate(
+    const float4& ga, const float4& gb, const float4& gc, float ox,
+    float oy, float oz, float dx, float dy, float dz, float& num,
+    float& den, bool& valid) {
   const float v0x = ga.x, v0y = ga.y, v0z = ga.z;
   const float e1x = ga.w, e1y = gb.x, e1z = gb.y;
   const float e2x = gb.z, e2y = gb.w, e2z = gc.x;
@@ -190,22 +210,34 @@ static __device__ __forceinline__ void dyn_triangle(
   if (FAST) {
     // Sign-normalized numerators over den = |det| > 0: no divide.
     const bool neg = det < 0.0f;
-    const float den = fabsf(det);
+    den = fabsf(det);
     const float u_n = neg ? -u_raw : u_raw;
     const float v_n = neg ? -v_raw : v_raw;
-    const float t_n = neg ? -t_raw : t_raw;
-    const bool valid = den > 1e-9f && u_n >= 0.0f && v_n >= 0.0f &&
-                       u_n + v_n <= den && t_n > 0.0f;
-    dyn_update<FAST>(b, s.orig, i, t_n, den, valid);
+    num = neg ? -t_raw : t_raw;
+    valid = den > 1e-9f && u_n >= 0.0f && v_n >= 0.0f && u_n + v_n <= den &&
+            num > 0.0f;
   } else {
     const float inv = 1.0f / det;
     const float u = u_raw * inv;
     const float v = v_raw * inv;
-    const float t = t_raw * inv;
-    const bool valid = fabsf(det) > 1e-9f && u >= 0.0f && v >= 0.0f &&
-                       u + v <= 1.0f && t > 0.0f;
-    dyn_update<FAST>(b, s.orig, i, t, 1.0f, valid);
+    num = t_raw * inv;
+    den = 1.0f;
+    valid = fabsf(det) > 1e-9f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+            num > 0.0f;
   }
+}
+
+template <bool FAST>
+static __device__ __forceinline__ void dyn_triangle(
+    DynBest& b, const DynOperands& s, int i, float ox, float oy, float oz,
+    float dx, float dy, float dz) {
+  const float4* g4 = reinterpret_cast<const float4*>(s.geo) + 3 * i;
+  const float4 ga = __ldg(g4), gb = __ldg(g4 + 1), gc = __ldg(g4 + 2);
+  float num, den;
+  bool valid;
+  dyn_tri_candidate<FAST>(ga, gb, gc, ox, oy, oz, dx, dy, dz, num, den,
+                          valid);
+  dyn_update<FAST>(b, s.orig, i, num, den, valid);
 }
 
 // 1 / c with near-zero components clamped, so that the reciprocal stays
@@ -243,14 +275,12 @@ static __device__ __forceinline__ bool dyn_slab_enter(
   return tmax >= tmin && tmax > 0.0f && bound;
 }
 
-// Nearest hit of one live ray over the whole scene, into `best`.
-template <bool FAST, bool COUNT>
-static __device__ __forceinline__ void dyn_intersect(
+// The planes, the spheres and, when the scene is not clustered, the
+// triangles of one live ray, per thread. Returns the first triangle row.
+template <bool FAST>
+static __device__ __forceinline__ int dyn_intersect_flat(
     const DynLayout& lay, const DynOperands& s, float ox, float oy,
-    float oz, float dx, float dy, float dz, DynBest& best,
-    unsigned long long* stats) {
-  if (COUNT)
-    count_group(stats, STAT_LANE_BOUNCES, STAT_WARP_BOUNCES);
+    float oz, float dx, float dy, float dz, DynBest& best) {
   int lo = 0;
   for (int i = lo; i < lo + lay.n_plane; ++i)
     dyn_plane<FAST>(best, s, i, ox, oy, oz, dx, dy, dz);
@@ -261,8 +291,22 @@ static __device__ __forceinline__ void dyn_intersect(
   if (lay.n_clusters == 0) {
     for (int i = lo; i < lo + lay.n_tri; ++i)
       dyn_triangle<FAST>(best, s, i, ox, oy, oz, dx, dy, dz);
-    return;
   }
+  return lo;
+}
+
+// Nearest hit of one live ray over the whole scene, into `best`, with the
+// leaves' triangles tested per thread.
+template <bool FAST, bool COUNT>
+static __device__ __forceinline__ void dyn_intersect(
+    const DynLayout& lay, const DynOperands& s, float ox, float oy,
+    float oz, float dx, float dy, float dz, DynBest& best,
+    unsigned long long* stats) {
+  if (COUNT)
+    count_group(stats, STAT_LANE_BOUNCES, STAT_WARP_BOUNCES);
+  const int lo =
+      dyn_intersect_flat<FAST>(lay, s, ox, oy, oz, dx, dy, dz, best);
+  if (lay.n_clusters == 0) return;
   const float ivx = dyn_safe_inv(dx), ivy = dyn_safe_inv(dy),
               ivz = dyn_safe_inv(dz);
   const int K = lay.cluster_k;
@@ -287,6 +331,105 @@ static __device__ __forceinline__ void dyn_intersect(
       const int t0 = lo + c * K;
       for (int k = 0; k < K; ++k)
         dyn_triangle<FAST>(best, s, t0 + k, ox, oy, oz, dx, dy, dz);
+    }
+  }
+}
+
+// The K triangles from row t0 of a leaf that the rays of the lanes in
+// `rays` entered, tested by the whole warp: in passes of 32 triangles in
+// index order, lane k holds triangle k of the pass; for each ray in
+// ascending lane order every lane tests its triangle against the ray
+// broadcast from its lane, and the ray's lane folds the valid candidates
+// in ascending triangle index.
+template <bool FAST>
+static __device__ __forceinline__ void dyn_leaf_warp(
+    const DynOperands& s, int t0, int K, unsigned rays, float ox, float oy,
+    float oz, float dx, float dy, float dz, DynBest& best) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < K; base += 32) {
+    const bool has = base + lane < K;
+    float4 ga = make_float4(0.0f, 0.0f, 0.0f, 0.0f), gb = ga, gc = ga;
+    if (has) {
+      const float4* g4 =
+          reinterpret_cast<const float4*>(s.geo) + 3 * (t0 + base + lane);
+      ga = __ldg(g4);
+      gb = __ldg(g4 + 1);
+      gc = __ldg(g4 + 2);
+    }
+    for (unsigned m = rays; m; m &= m - 1) {
+      const int r = __ffs(m) - 1;
+      const float rox = __shfl_sync(FULL, ox, r);
+      const float roy = __shfl_sync(FULL, oy, r);
+      const float roz = __shfl_sync(FULL, oz, r);
+      const float rdx = __shfl_sync(FULL, dx, r);
+      const float rdy = __shfl_sync(FULL, dy, r);
+      const float rdz = __shfl_sync(FULL, dz, r);
+      float num, den;
+      bool valid;
+      dyn_tri_candidate<FAST>(ga, gb, gc, rox, roy, roz, rdx, rdy, rdz, num,
+                              den, valid);
+      for (unsigned v = __ballot_sync(FULL, has && valid); v; v &= v - 1) {
+        const int k = __ffs(v) - 1;
+        const float num_k = __shfl_sync(FULL, num, k);
+        const float den_k = FAST ? __shfl_sync(FULL, den, k) : 1.0f;
+        if (lane == r)
+          dyn_update<FAST>(best, s.orig, t0 + base + k, num_k, den_k, true);
+      }
+    }
+  }
+}
+
+// dyn_intersect with the leaves tested by the warp (dyn_leaf_warp). Every
+// lane of the warp calls it; `ray` is false for a lane with no ray (a dead
+// path, or a thread past the last ray slot), which tests nothing and
+// leaves `best` as it is. Each ray tests the boxes, and so enters the
+// leaves, that dyn_intersect would: the lanes walk the groups and leaves
+// in a loop of the same bounds, each with its own slab tests against its
+// own running best. The counters count by ballot, as count_group would
+// for the lanes with a ray.
+template <bool FAST, bool COUNT>
+static __device__ __forceinline__ void dyn_intersect_warp(
+    const DynLayout& lay, const DynOperands& s, bool ray, float ox,
+    float oy, float oz, float dx, float dy, float dz, DynBest& best,
+    unsigned long long* stats) {
+  const unsigned FULL = 0xffffffffu;
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (COUNT) {
+    const unsigned a = __ballot_sync(FULL, ray);
+    if (a && lead) {
+      atomicAdd(stats + STAT_LANE_BOUNCES, (unsigned long long)__popc(a));
+      atomicAdd(stats + STAT_WARP_BOUNCES, 1ull);
+    }
+  }
+  if (ray) dyn_intersect_flat<FAST>(lay, s, ox, oy, oz, dx, dy, dz, best);
+  if (lay.n_clusters == 0) return;
+  const int lo = lay.n_plane + lay.n_sphere;
+  const float ivx = dyn_safe_inv(dx), ivy = dyn_safe_inv(dy),
+              ivz = dyn_safe_inv(dz);
+  const int K = lay.cluster_k;
+  const int M = lay.n_super ? lay.super_m : 1;
+  const int n_groups = lay.n_super ? lay.n_super : lay.n_clusters;
+  for (int g = 0; g < n_groups; ++g) {
+    const bool in_group =
+        ray && (!lay.n_super ||
+                dyn_slab_enter<FAST>(best, s.caabb, lay.n_clusters_pad + g,
+                                     ox, oy, oz, ivx, ivy, ivz));
+    if (!__any_sync(FULL, in_group)) continue;
+    for (int j = 0; j < M; ++j) {
+      const int c = g * M + j;
+      if (c >= lay.n_clusters) break;
+      const bool enter =
+          in_group && dyn_slab_enter<FAST>(best, s.caabb, c, ox, oy, oz, ivx,
+                                           ivy, ivz);
+      const unsigned rays = __ballot_sync(FULL, enter);
+      if (!rays) continue;
+      if (COUNT && lead) {
+        atomicAdd(stats + STAT_LANE_LEAVES, (unsigned long long)__popc(rays));
+        atomicAdd(stats + STAT_WARP_LEAVES, 1ull);
+      }
+      dyn_leaf_warp<FAST>(s, lo + c * K, K, rays, ox, oy, oz, dx, dy, dz,
+                          best);
     }
   }
 }
@@ -318,12 +461,16 @@ struct DynNoResidual {
 // Radiance (lx, ly, lz) of ray slot i in spp chunk c, all max_depth
 // bounces. hook(b, Px, Py, Pz, sc, gate, arow, erow, alive) is called
 // once per bounce with sanitized rows (the sentinel rows on a dead lane).
-template <bool FAST, bool INTERNAL, bool COUNT, class Hook>
+// WARP: the nearest hit is dyn_intersect_warp, which every lane of the
+// warp must reach: `lane` is false for a thread past the last ray slot,
+// which traces slot i (the caller's last valid slot) as a dead path.
+// Otherwise it is dyn_intersect, taken by the live lanes alone.
+template <bool FAST, bool INTERNAL, bool COUNT, bool WARP, class Hook>
 static __device__ __forceinline__ void dyn_trace_chunk(
     const DrtTrace& cfg, const DynLayout& lay, const DrtCamera& cam,
     const DynOperands& scn, const DynTables& tab,
     const float* __restrict__ cam_u, const float* __restrict__ tape, int i,
-    int c, Hook& hook, float& lx, float& ly, float& lz,
+    bool lane, int c, Hook& hook, float& lx, float& ly, float& lz,
     unsigned long long* stats) {
   const float INF = __int_as_float(0x7f800000);
   const float RAY_EPS_F = 1e-3f;
@@ -338,7 +485,7 @@ static __device__ __forceinline__ void dyn_trace_chunk(
   float ox = cam.eye[0], oy = cam.eye[1], oz = cam.eye[2];
   float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
   lx = 0.0f; ly = 0.0f; lz = 0.0f;
-  bool alive = true;
+  bool alive = lane;
 
   for (int bnc = 0; bnc < cfg.max_depth; ++bnc) {
 #include "dyn_bounce.inc"
@@ -354,6 +501,7 @@ static __device__ __forceinline__ void dyn_bounce(
     const DynTables& tab, int pix, uint32_t smp, int bnc, Hook& hook,
     PathState& p, unsigned long long* stats) {
   constexpr bool INTERNAL = true;
+  constexpr bool WARP = false;
   const float INF = __int_as_float(0x7f800000);
   const float RAY_EPS_F = 1e-3f;
   const int row_mask = DYN_MAX_ROWS - 1;

@@ -12,31 +12,31 @@
 //    per bounce-ray, for the sweep adjoint of dyn_adjoint.cu. Its radiance
 //    is the tracer's bit for bit;
 //  - drt_dyn_cull_stats runs the tracer in a checking build that counts
-//    how many leaf-cluster triangle loops the warps ran.
+//    the lane-bounces that ran the nearest hit and the leaves the rays and
+//    the warps entered.
 //
 // One thread per ray slot with the spp-chunk loop inside the thread, the
 // keyed hash for the internal RNG and the spp-outer ray order, exactly as
 // the scene-table tracer (fused_tracer.cu): the same seeds give the same
 // samples in both families.
 //
-// What bounds it: operations, and among them the triangle tests. Per
-// live bounce a ray tests every plane and sphere, one box per super
-// cluster, one per leaf of an entered super cluster and cluster_k
-// triangles per entered leaf (about 50 f32 operations each); it moves 12
-// bytes per ray slot (plus 8 per bounce-ray in the collect tracer), which
-// the card does in well under a millisecond. The scene rows are broadcast
-// reads from L1 (dyn_body.cuh says why they are not staged in shared
-// memory), so shared memory holds 6 KB of parameter tables and occupancy
-// is set by registers: ptxas gives 56 for every build (32-56 bytes of
-// stack), which at 128 threads a block is 9 blocks, 1152 of an SM's 2048
-// threads. A warp runs a leaf's triangle loop while any of its lanes has
-// entered the leaf, and after the first bounce the rays of a warp point
-// everywhere: on the 1287-shape mesh at 640x480x64 spp a leaf loop runs
-// with about 2 of 32 lanes at work (the counters of the checking build),
-// and those loops are most of the kernel's time. That, and the lanes
-// Russian roulette has killed, is what a later tuning would attack
-// (testing a leaf's triangles across the warp, smaller leaves, sorting
-// or compacting rays). This first version is simple and exact.
+// What bounds it: operations. Per live bounce a ray tests every plane and
+// sphere, one box per super cluster, one per leaf of an entered super
+// cluster and cluster_k triangles per entered leaf (about 50 f32
+// operations each); it moves 12 bytes per ray slot (plus 8 per bounce-ray
+// in the collect tracer), which the card does in well under a
+// millisecond. After the first bounce the rays of a warp point
+// everywhere: on the 1287-shape mesh at 640x480x64 spp about 2 of 32
+// lanes enter a given leaf (the counters of the checking build), so a
+// leaf's triangle loop run per thread kept 30 lanes idle and took most of
+// the kernel's time. The leaves are therefore tested by the whole warp,
+// one entered ray at a time, each lane on its own triangle, with the
+// valid candidates folded in index order (the head of dyn_body.cuh says
+// why that keeps the bits): every thread of the grid reaches that loop,
+// the threads past the last ray slot as dead paths that store nothing.
+// What is left per thread is the box walk, the shading and the lanes that
+// Russian roulette has killed. Shared memory holds 6 KB of parameter
+// tables and occupancy is set by registers (the ptxas report).
 //
 // Variants: FAST = false keeps the reference forms, FAST = true takes
 // rsqrt, the cancelled shading quotients and the ratio form of the
@@ -44,14 +44,18 @@
 
 #include "dyn_body.cuh"
 
-// The hook of the collect tracer: bounce b of this ray slot and chunk.
+// The hook of the collect tracer: bounce b of this ray slot and chunk. A
+// thread past the last ray slot (lane false) stores nothing: its sentinel
+// rows would overwrite the last slot's.
 struct DynStoreResidual {
   float* sc;  // rsc + (c * D) * N + i
   int* row;   // rrow likewise
   size_t n;
+  bool lane;
   __device__ __forceinline__ void operator()(int b, float, float, float,
                                              float sc_b, float, int arow,
                                              int erow, bool alive) const {
+    if (!lane) return;
     sc[(size_t)b * n] = sc_b;
     row[(size_t)b * n] = arow + (erow << DYN_ROW_BITS) +
                          (alive ? 1 << (2 * DYN_ROW_BITS) : 0);
@@ -69,29 +73,33 @@ dyn_trace_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam, DynOperands scn,
   __shared__ DynTables tab;
   dyn_stage_tables(cfg, alb, emi, tab);
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // Every thread of the warp takes part in its leaf loop: one past the
+  // last ray slot traces slot N - 1 as a dead path and writes nothing.
   const int N = cfg.n_rays;
-  if (i >= N) return;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool lane = slot < N;
+  const int i = lane ? slot : N - 1;
 
   float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // summed over chunks
   for (int c = 0; c < cfg.n_chunks; ++c) {
     float lx, ly, lz;
     if constexpr (COLLECT) {
       const size_t base = (size_t)c * cfg.max_depth * N + i;
-      DynStoreResidual hook{rsc + base, rrow + base, (size_t)N};
-      dyn_trace_chunk<FAST, INTERNAL, COUNT>(cfg, lay, cam, scn, tab, cam_u,
-                                             tape, i, c, hook, lx, ly, lz,
-                                             stats);
+      DynStoreResidual hook{rsc + base, rrow + base, (size_t)N, lane};
+      dyn_trace_chunk<FAST, INTERNAL, COUNT, true>(cfg, lay, cam, scn, tab,
+                                                   cam_u, tape, i, lane, c,
+                                                   hook, lx, ly, lz, stats);
     } else {
       DynNoResidual hook;
-      dyn_trace_chunk<FAST, INTERNAL, COUNT>(cfg, lay, cam, scn, tab, cam_u,
-                                             tape, i, c, hook, lx, ly, lz,
-                                             stats);
+      dyn_trace_chunk<FAST, INTERNAL, COUNT, true>(cfg, lay, cam, scn, tab,
+                                                   cam_u, tape, i, lane, c,
+                                                   hook, lx, ly, lz, stats);
     }
     Lx = Lx + lx;
     Ly = Ly + ly;
     Lz = Lz + lz;
   }
+  if (!lane) return;
   out[i] = Lx;
   out[N + i] = Ly;
   out[2 * N + i] = Lz;

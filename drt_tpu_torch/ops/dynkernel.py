@@ -26,7 +26,8 @@ the per-shape attributes, and clusters the triangles into leaves of
 `cluster_k` with conservative boxes and, past `super_m` leaves, a second
 level of boxes. It is numpy on the host and gives the JAX package's
 operands bit for bit. The nearest hit is the lexicographic (t, original
-shape index) minimum, so it is the same with culling on or off.
+shape index) minimum, so in the exact variant it is the same with culling
+on or off (`dyn_intersect` says where the fast variant's is not).
 
 `dyn_trace`, `dyn_collect`, `dyn_sweep` and `dyn_adjoint` are the
 wrappers: for tensors on the CPU each runs its plain version
@@ -303,10 +304,16 @@ def dyn_intersect(ds: DynScene, o, d, fastmath: bool = False, alive=None,
     operands (meaningless where `hit` is false).
 
     The winner is the lexicographic (t, original index) minimum: the
-    keep-first rule of the reference scan (pathtracer.hpp:78-80) whatever
-    the visit order. With `fastmath` the best hit is carried as a ratio
-    (numerator, denominator > 0), candidates compare by
-    cross-multiplication and one divide per ray recovers t after the loop.
+    keep-first rule of the reference scan (pathtracer.hpp:78-80), whatever
+    the visit order in the exact variant. With `fastmath` the best hit is
+    carried as a ratio (numerator, denominator > 0), candidates compare by
+    cross-multiplication and one divide per ray recovers t after the loop;
+    that order of rounded products is not transitive on near-ties, so
+    there the winner may depend on the visit order (a ray aimed at a mesh
+    vertex may get another winner on another cluster layout), as in the
+    JAX kernel. Rays visit the boxes in row order and each entered leaf's
+    triangles in index order, as the kernels do, so on one layout this
+    and the kernels agree bit for bit in both variants.
     Each ray skips the clusters its own slab test does not enter; rays
     with `alive` false skip everything. `stats`, when given, gains this
     call's counts of rays and of plane, sphere, box and triangle tests.
@@ -901,8 +908,8 @@ def dyn_cull_stats(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
     """Run the tracer's checking build (fast variant, internal RNG) on
     the card and return its counters: the lane-bounces and warp-bounces
     that ran the nearest-hit loop, the leaf clusters entered summed over
-    lanes, and the leaf triangle loops the warps ran. Not counted as a
-    launch of the tracer."""
+    lanes, and the leaves the warps tested (for at least one ray). Not
+    counted as a launch of the tracer."""
     dev = alb.device
     tcfg = _dyn_config(cfg, ds.n_shapes, alb, emi, seeds=seeds,
                        fastmath=True, n_chunks=n_chunks)

@@ -340,8 +340,8 @@ def test_dyn_adjoints_match_plain(dev, name):
 @pytest.mark.parametrize("fastmath", [False, True])
 @pytest.mark.parametrize("level", [2, 3])
 def test_dyn_culling_gives_the_same_bits(dev, level, fastmath):
-    """Two-level, one-level and no clustering: the same radiance and
-    gradients bit for bit."""
+    """Two-level, one-level and no clustering: the same radiance, collect
+    residuals and gradients bit for bit."""
     scene, params, cam, alb, emi = _setup(_mesh(level), dev)
     cam_u, tape, g = _tape_inputs(dev, DYN_N)
     kw = dict(rng="tape", fastmath=fastmath)
@@ -350,9 +350,98 @@ def test_dyn_culling_gives_the_same_bits(dev, level, fastmath):
                dk.DynScene(scene, cluster_min_tris=10 ** 9),
                dk.DynScene(scene, cluster_k=8, super_m=4)):
         outs.append((dk.make_dyn_tracer(ds, cam, DYN_CFG, **kw)(
-            alb, emi, cam_u, tape), *dk.make_dyn_adjoint(
-                ds, cam, DYN_CFG, **kw)(alb, emi, cam_u, tape, g)))
+            alb, emi, cam_u, tape), *dk.make_dyn_collect_tracer(
+                ds, cam, DYN_CFG, **kw)(alb, emi, cam_u, tape),
+            *dk.make_dyn_adjoint(ds, cam, DYN_CFG, **kw)(
+                alb, emi, cam_u, tape, g)))
     assert outs[0][0].mean() > 0
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def _dyn_family(ds, cam, cfg, kw, alb, emi, cam_u, tape, g):
+    """B6's radiance, B7's (radiance, rsc, rrow), B8 on B7's residuals and
+    B9, on one layout."""
+    L1 = dk.make_dyn_tracer(ds, cam, cfg, **kw)(alb, emi, cam_u, tape)
+    L, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, cfg, **kw)(
+        alb, emi, cam_u, tape)
+    d_sweep = dk.make_dyn_sweep_adjoint(ds, cfg)(alb, emi, rsc, rrow, g)
+    d_adj = dk.make_dyn_adjoint(ds, cam, cfg, **kw)(alb, emi, cam_u, tape,
+                                                    g)
+    torch.cuda.synchronize()
+    return L1, (L, rsc, rrow), d_sweep, d_adj
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+def test_dyn_tracers_with_a_partial_last_warp(dev, fastmath):
+    """61x47x3 = 8601 ray slots, 25 in the last warp: every thread of a
+    warp takes part in the warp's leaf loop, those past the last slot as
+    dead paths that write nothing. B6 and B7 against the plain versions
+    (exact variant) and against each other and B9 (the per-thread leaf
+    loop), and the last slot's residuals are its own."""
+    cfg = RenderConfig(width=61, height=47, spp=3, max_depth=5)
+    n = 61 * 47 * 3
+    assert n % 32 == 25
+    scene, params, cam, alb, emi = _setup(_mesh(2), dev)
+    ds = dk.DynScene(scene)
+    cam_u, tape, g = _tape_inputs(dev, n, seed=4)
+    kw = dict(rng="tape", fastmath=fastmath)
+    L1, (L, rsc, rrow), d_sweep, d_adj = _dyn_family(
+        ds, cam, cfg, kw, alb, emi, cam_u, tape, g)
+    assert L1.shape == (3, n) and rrow.shape == (5, n)
+    assert torch.equal(L, L1)
+    for a, b in zip(d_adj, d_sweep):
+        assert torch.equal(a, b)
+    # The last slot's primary ray hits the box: live at bounce 0, not the
+    # sentinel rows of a dead path.
+    assert (rrow[0, -1] >> 16) == 1
+    if fastmath:
+        return
+    plain = dict(rng="tape", plain=True)
+    ref = dk.make_dyn_tracer(ds, cam, cfg, **plain)(alb, emi, cam_u, tape)
+    assert torch.isfinite(L1).all() and ref.mean() > 0
+    assert _share_beyond(L1, ref, 2e-5, 2e-6) <= 1e-3
+    assert abs(L1.mean() / ref.mean() - 1) < 1e-5
+    _, rsc_r, rrow_r = dk.make_dyn_collect_tracer(ds, cam, cfg, **plain)(
+        alb, emi, cam_u, tape)
+    zero = ((rsc_r == 0) & ((rrow_r >> 16) > 0)).int()
+    matters = (zero.cumsum(0) - zero) == 0
+    assert torch.equal(rrow[matters], rrow_r[matters])
+    beyond = (rsc - rsc_r).abs() > 2e-6 + 2e-5 * rsc_r.abs()
+    assert (beyond & matters).float().sum() <= 5e-3 * matters.sum()
+    last = matters[:, -1]
+    assert torch.equal(rrow[:, -1][last], rrow_r[:, -1][last])
+    assert torch.allclose(rsc[:, -1][last], rsc_r[:, -1][last], rtol=2e-5,
+                          atol=2e-6)
+    assert torch.allclose(L1[:, -1], ref[:, -1], rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+def test_dyn_cluster_sizes_give_the_same_bits(dev, fastmath):
+    """Leaves of 8, 16, 32 and 48 triangles (48: two passes of the warp)
+    on the 327-shape mesh. On each layout B7's radiance is B6's and B9 is
+    B8 on B7's residuals, bit for bit: B9 tests its leaves per thread, so
+    this holds the warp's fold order to the per-thread loop's. In the
+    exact variant every layout, and no clustering, give the same bits."""
+    scene, params, cam, alb, emi = _setup(_mesh(2), dev)
+    cam_u, tape, g = _tape_inputs(dev, DYN_N, seed=5)
+    kw = dict(rng="tape", fastmath=fastmath)
+    layouts = [dk.DynScene(scene, cluster_k=k) for k in (8, 16, 32, 48)]
+    layouts.append(dk.DynScene(scene, cluster_min_tris=10 ** 9))
+    assert [ds.cluster_k for ds in layouts[:4]] == [8, 16, 32, 48]
+    assert all(ds.n_clusters > 0 for ds in layouts[:4])
+    assert layouts[4].n_clusters == 0
+    outs = []
+    for ds in layouts:
+        L1, (L, rsc, rrow), d_sweep, d_adj = _dyn_family(
+            ds, cam, DYN_CFG, kw, alb, emi, cam_u, tape, g)
+        assert L1.mean() > 0 and torch.equal(L, L1)
+        for a, b in zip(d_adj, d_sweep):
+            assert torch.equal(a, b)
+        outs.append((L1, rsc, rrow, *d_adj))
+    if fastmath:
+        return
     for other in outs[1:]:
         for a, b in zip(outs[0], other):
             assert torch.equal(a, b)

@@ -43,8 +43,8 @@ from drt_tpu_torch.ops import megakernel as mk
 from drt_tpu_torch.ops.rng import hash_tapes
 from drt_tpu_torch.parallel.render import (MAX_DYN_SHAPES, make_renderer,
                                            resolve_backend)
-from drt_tpu_torch.scene import (Params, SceneBuilder, albedo_table,
-                                 emission_table, from_numpy)
+from drt_tpu_torch.scene import (TRIANGLE, Params, SceneBuilder,
+                                 albedo_table, emission_table, from_numpy)
 
 SCENES = {
     "cbox": lambda: jax_cbox.build(dtype=jnp.float32),
@@ -267,11 +267,14 @@ def test_plain_adjoints_match_pallas(pallas, which):
 @pytest.mark.parametrize("level", [1, 2])
 def test_culling_and_levels_give_the_same_bits(level, fastmath):
     """Cluster culling only skips work: two-level, one-level and no
-    clustering give bit-equal radiance and gradients, because the winner
-    is the (t, original index) minimum whatever the visit order and padded
-    slots never win (tests/test_dynkernel.py:246-362). Level 2 has 20
-    leaves padded to 24 under 3 super boxes; level 1 has 5 leaves and no
-    second level."""
+    clustering give bit-equal radiance and gradients on these rays. In the
+    exact variant the winner is the (t, original index) minimum whatever
+    the visit order, and padded slots never win
+    (tests/test_dynkernel.py:246-362); the fast variant's order is not
+    transitive on near-ties, which random camera rays rarely meet (rays
+    aimed at mesh vertices do: test_nearest_hit_across_layouts). Level 2
+    has 20 leaves padded to 24 under 3 super boxes; level 1 has 5 leaves
+    and no second level."""
     scene, params, cam = gallery.build_mesh(level, device="cpu")
     alb, emi = _tables(scene, params)
     cam_u, tape, g = (torch.as_tensor(x) for x in _inputs(3))
@@ -292,6 +295,61 @@ def test_culling_and_levels_give_the_same_bits(level, fastmath):
     for other in outs[1:]:
         for a, b in zip(outs[0], other):
             assert torch.equal(a, b)
+
+
+def _rays_at_mesh_vertices(scene, seed):
+    """Rays from points near the box centre (inside the icosphere) towards
+    each face's first vertex and its three edge midpoints: 4 per face, and
+    each target is shared by two or more faces."""
+    geo = scene.shape_geo.numpy().astype(np.float64)
+    tri = geo[scene.shape_type.numpy() == TRIANGLE]
+    v0, v1, v2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    targets = np.concatenate([v0, (v0 + v1) / 2, (v1 + v2) / 2,
+                              (v2 + v0) / 2])
+    r = np.random.default_rng(seed)
+    o = np.array([0.0, 0.0, 3.25]) + r.uniform(-0.05, 0.05, targets.shape)
+    d = targets - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tuple(tuple(torch.from_numpy(np.ascontiguousarray(a[:, k],
+                                                             np.float32))
+                       for k in range(3)) for a in (o, d))
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("level", [2, 3])
+def test_nearest_hit_across_layouts(level, fastmath):
+    """The nearest hit of rays aimed at the mesh's vertices and edge
+    midpoints, where several triangles tie, on the default, one-level,
+    unclustered and 8-triangle-leaf layouts. The exact variant gives the
+    same (t, winner) bits on all of them: its winner is the (t, original
+    index) minimum. The fast variant compares candidates by rounded
+    cross-products, an order that is not transitive on near-ties, so its
+    winner may depend on the visit order (as in the JAX kernel); the
+    kernels keep one visit order, so they agree with each other on one
+    layout. Here at most 0.5% of the rays differ across layouts, and then
+    both winners' t agree to 2e-7 relative."""
+    scene, _, _ = gallery.build_mesh(level, device="cpu")
+    layouts = (dk.DynScene(scene), dk.DynScene(scene, super_m=1),
+               dk.DynScene(scene, cluster_min_tris=10 ** 9),
+               dk.DynScene(scene, cluster_k=8))
+    o, d = _rays_at_mesh_vertices(scene, seed=level)
+    n = d[0].shape[0]
+    assert n == 4 * layouts[0].n_tri
+    assert layouts[0].n_super > 0 and layouts[1].n_super == 0
+    assert layouts[2].n_clusters == 0 and layouts[3].cluster_k == 8
+    hits = []
+    for ds in layouts:
+        t, hit, row = dk.dyn_intersect(ds, o, d, fastmath=fastmath)
+        assert hit.all()
+        hits.append((t, ds.operands[2][row]))
+    t_ref, w_ref = hits[0]
+    for t, w in hits[1:]:
+        differ = (t != t_ref) | (w != w_ref)
+        if not fastmath:
+            assert not differ.any()
+            continue
+        assert differ.sum() <= 0.005 * n
+        assert ((t - t_ref).abs() <= 2e-7 * t_ref).all()
 
 
 def _rays_at(target, n=64, seed=0):
