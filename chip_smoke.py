@@ -32,7 +32,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
      tape mode on cbox, glossy, tri and the 87-shape mesh (64x48x4 spp,
      depth 5), exact and fast; the collect tracer's radiance equals the
      tracer's, the retrace adjoint equals sweep(collect), two sweeps agree,
-     all bit for bit; culling on against off and two-level against
+     all bit for bit; the tracer against its per-thread reference build
+     (the leaves tested per thread), bit for bit, here and at the main
+     shape; culling on against off and two-level against
      one-level on the 327- and 1287-shape meshes, bit for bit; the dyn
      tracer on cbox against the fused tracer on cbox; the internal RNG and
      the unbiased salted seed against hash tapes;
@@ -59,7 +61,8 @@ Phases (any failure raises, exits non-zero and prints no result line):
  12. the regeneration kernels at the two main shapes (Cornell box
      640x480x256 in 16 chunks, 1287-shape mesh 640x480x64 in 4), timed on
      the main path's launch, held against their plain versions on one
-     chunk, with the trip counters of the checking builds;
+     chunk, with the trip counters of the checking builds (the
+     memory-resident tracer runs exactly the warp-trips its warps need);
  13. make_renderer(backend="cuda-regen" | "cuda-dyn-regen"): three seeds
      forward, the image against the lockstep image at the same seeds, a
      forward+backward step stored and retrace against "torch-regen" /
@@ -395,11 +398,16 @@ def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
         scene, params, cam = build(device=dev)
         ds = dk.DynScene(scene)
         alb, emi = tables(scene, params)
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
         radiance = {}
         for fm in (False, True):
             kw = dict(rng="tape", fastmath=fm)
             radiance[fm] = dk.make_dyn_tracer(ds, cam, cfg, **kw)(
                 alb, emi, cam_u, tape)
+            same_bits(f"dyn tracer = its per-thread reference build, "
+                      f"{label}, fast={fm}", (radiance[fm],),
+                      (dk.dyn_trace_lanes(ds, cc, cfg, alb, emi, cam_u=cam_u,
+                                          tape=tape, fastmath=fm),))
             L, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, cfg, **kw)(
                 alb, emi, cam_u, tape)
             same_bits(f"dyn collect radiance = dyn tracer's, {label}, "
@@ -533,6 +541,15 @@ def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
     trace = dk.make_dyn_tracer(ds, cam, cfg_m, **kw_m)
     ms["dyn_tracer"], windows["dyn_tracer"], L_all = cuda_ms(
         lambda: trace(alb, emi, seeds), **timing)
+    lanes_ms, lanes_windows, L_lanes = cuda_ms(
+        lambda: dk.dyn_trace_lanes(ds, cc, cfg_m, alb, emi, seeds=seeds,
+                                   **kw_m), **timing)
+    same_bits("dyn tracer = its per-thread reference build at the main "
+              "shape", (L_all,), (L_lanes,))
+    del L_lanes
+    print(f"[time] dyn tracer's per-thread reference build at the mesh main "
+          f"shape: {lanes_ms!r} ms on {smi_line}; window means "
+          f"{lanes_windows!r}", flush=True)
     stats: dict = {}
     torch.cuda.reset_peak_memory_stats()
     plain_ms["dyn_tracer"], _, ref = cuda_ms(
@@ -1169,16 +1186,22 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
               f"ran a trip together: {st['group_trips']}, "
               f"{trips_sum / st['group_trips']!r} lanes each; slowest pixel "
               f"{st['trips_max']} trips in a chunk", flush=True)
-        check(st["group_trips"] >= st["warp_trips"],
-              f"{label}: {st['group_trips']} lane groups ran the trips, "
-              f"fewer than the {st['warp_trips']} the warps need")
+        # The memory-resident tracer's warps step through their trip loop
+        # together: they run exactly the warp-trips they need.
         if fam is dyn:
-            print(f"[trips] {label}: leaf triangle loops "
-                  f"{st['warp_leaves']} with "
-                  f"{st['lane_leaves'] / st['warp_leaves']!r} of 32 lanes at "
-                  f"work; nearest-hit loops entered by "
-                  f"{st['lane_bounces'] / st['warp_bounces']!r} lanes "
-                  "together", flush=True)
+            check(st["group_trips"] == st["warp_trips"],
+                  f"{label}: the warps ran {st['group_trips']} warp-trips, "
+                  f"not the {st['warp_trips']} they need")
+        else:
+            check(st["group_trips"] >= st["warp_trips"],
+                  f"{label}: {st['group_trips']} lane groups ran the trips, "
+                  f"fewer than the {st['warp_trips']} the warps need")
+        if fam is dyn:
+            print(f"[trips] {label}: leaves the warps tested "
+                  f"{st['warp_leaves']}, for "
+                  f"{st['lane_leaves'] / st['warp_leaves']!r} rays each of "
+                  f"32; rays per warp-trip that ran the nearest hit "
+                  f"{st['lane_bounces'] / st['warp_bounces']!r}", flush=True)
 
         # Bounds: the operations of this run's live bounces (as the
         # lockstep kernels count them) and one camera ray per sample; the

@@ -37,8 +37,13 @@
 //
 // What bounds them: the sweep adjoint is bound by device memory, 8 bytes
 // per bounce-ray read once against about 20 f32 operations. The retrace
-// adjoint is bound like the tracer, by the triangle tests and warp
-// divergence; the sweep adds a few percent to its work.
+// adjoint is bound like the tracer, by operations: it traces with the
+// tracer's warp-wide leaf test (dyn_body.cuh:dyn_intersect_warp), so every
+// thread of the grid reaches the bounce loop, a thread past the last ray
+// slot as a dead path that sweeps nothing. What is left per thread is the
+// box walk, the shading, the lanes that Russian roulette has killed and
+// the residuals, which live in local memory; the sweep adds a few percent
+// to its work.
 
 #include "dyn_body.cuh"
 #include "grad_accum.cuh"
@@ -169,19 +174,23 @@ dyn_adjoint_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
   dyn_stage_tables(cfg, alb, emi, tab);
   zero_column(cfg.n_alb, cfg.n_emi, s_acc);
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < cfg.n_rays) {
-    const int gi = i % g_n;
-    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
-    for (int c = 0; c < cfg.n_chunks; ++c) {
-      DynResiduals<DRT_MAX_DEPTH> r;
-      DynKeepResidual hook{r};
-      float lx, ly, lz;
-      dyn_trace_chunk<FAST, INTERNAL, false, false>(cfg, lay, cam, scn, tab,
-                                                    cam_u, tape, i, true, c,
-                                                    hook, lx, ly, lz, nullptr);
-      dyn_reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
-    }
+  // Every thread of the warp takes part in its leaf loop: one past the
+  // last ray slot traces slot N - 1 as a dead path and sweeps nothing, so
+  // its accumulator column stays zero.
+  const int N = cfg.n_rays;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool lane = slot < N;
+  const int i = lane ? slot : N - 1;
+  const int gi = i % g_n;
+  const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
+  for (int c = 0; c < cfg.n_chunks; ++c) {
+    DynResiduals<DRT_MAX_DEPTH> r;
+    DynKeepResidual hook{r};
+    float lx, ly, lz;
+    dyn_trace_chunk<FAST, INTERNAL, false, true>(cfg, lay, cam, scn, tab,
+                                                 cam_u, tape, i, lane, c,
+                                                 hook, lx, ly, lz, nullptr);
+    if (lane) dyn_reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
   }
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }

@@ -38,8 +38,8 @@
 //    layout. Every kernel here keeps one visit order, each ray's own
 //    boxes in row order and each entered leaf's triangles in index order,
 //    so on one layout all of them agree bit for bit.
-//  - The leaf loop (dyn_intersect_warp, the tracer and collect tracer of
-//    dyn_tracer.cu). After the first bounce the rays of a warp point
+//  - The leaf loop (dyn_intersect_warp, in every kernel of the family
+//    that traces). After the first bounce the rays of a warp point
 //    everywhere and about 2 of 32 lanes enter a given leaf of the
 //    1287-shape mesh; a loop over the leaf's triangles per thread ran
 //    with the other 30 idle. So the warp tests a leaf together: every
@@ -53,9 +53,11 @@
 //    of dyn_update, so this is the per-thread loop's sequence of updates
 //    and gives its bits in both variants (a shuffle-tree minimum would
 //    not, in the fast one). A leaf of more than 32 triangles takes passes
-//    of 32 in index order. The retrace adjoint (dyn_adjoint.cu) and the
-//    regeneration tracer (dyn_regen_tracer.cu), whose warps split by trip,
-//    keep the loop per thread (dyn_intersect), over the same text.
+//    of 32 in index order. The tracers and the retrace adjoint keep their
+//    warps together for it; the regeneration tracer (dyn_regen_tracer.cu)
+//    runs a trip loop that the warp steps through together. The loop per
+//    thread (dyn_intersect) is left in one checking build of the tracer
+//    (drt_dyn_trace_lanes), the reference that the warp's fold is held to.
 //  - The carry. The TPU sweep carries the winner's attributes through
 //    masked selects. A thread here carries (t, original index, row) and
 //    reads the winner's aux, meta and exponent once after the loop.
@@ -296,14 +298,11 @@ static __device__ __forceinline__ int dyn_intersect_flat(
 }
 
 // Nearest hit of one live ray over the whole scene, into `best`, with the
-// leaves' triangles tested per thread.
-template <bool FAST, bool COUNT>
+// leaves' triangles tested per thread: the reference build's loop.
+template <bool FAST>
 static __device__ __forceinline__ void dyn_intersect(
     const DynLayout& lay, const DynOperands& s, float ox, float oy,
-    float oz, float dx, float dy, float dz, DynBest& best,
-    unsigned long long* stats) {
-  if (COUNT)
-    count_group(stats, STAT_LANE_BOUNCES, STAT_WARP_BOUNCES);
+    float oz, float dx, float dy, float dz, DynBest& best) {
   const int lo =
       dyn_intersect_flat<FAST>(lay, s, ox, oy, oz, dx, dy, dz, best);
   if (lay.n_clusters == 0) return;
@@ -326,8 +325,6 @@ static __device__ __forceinline__ void dyn_intersect(
       if (c >= lay.n_clusters) break;
       if (!dyn_slab_enter<FAST>(best, s.caabb, c, ox, oy, oz, ivx, ivy, ivz))
         continue;
-      if (COUNT)
-        count_group(stats, STAT_LANE_LEAVES, STAT_WARP_LEAVES);
       const int t0 = lo + c * K;
       for (int k = 0; k < K; ++k)
         dyn_triangle<FAST>(best, s, t0 + k, ox, oy, oz, dx, dy, dz);
@@ -493,15 +490,17 @@ static __device__ __forceinline__ void dyn_trace_chunk(
 }
 
 // dyn_bounce.inc as a routine on a PathState, with the keyed hash: one
-// bounce of sample smp of pixel pix at depth bnc. The regeneration kernels
-// (dyn_regen_tracer.cu) call it at each thread's own depth.
+// bounce of sample smp of pixel pix at depth bnc. The regeneration tracer
+// (dyn_regen_tracer.cu) calls it at each thread's own depth. The nearest
+// hit is dyn_intersect_warp, so every lane of the warp calls it together:
+// a lane whose p.alive is false takes part with no ray.
 template <bool FAST, bool COUNT, class Hook>
 static __device__ __forceinline__ void dyn_bounce(
     const DrtTrace& cfg, const DynLayout& lay, const DynOperands& scn,
     const DynTables& tab, int pix, uint32_t smp, int bnc, Hook& hook,
     PathState& p, unsigned long long* stats) {
   constexpr bool INTERNAL = true;
-  constexpr bool WARP = false;
+  constexpr bool WARP = true;
   const float INF = __int_as_float(0x7f800000);
   const float RAY_EPS_F = 1e-3f;
   const int row_mask = DYN_MAX_ROWS - 1;

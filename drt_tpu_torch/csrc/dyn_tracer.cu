@@ -13,7 +13,11 @@
 //    is the tracer's bit for bit;
 //  - drt_dyn_cull_stats runs the tracer in a checking build that counts
 //    the lane-bounces that ran the nearest hit and the leaves the rays and
-//    the warps entered.
+//    the warps entered;
+//  - drt_dyn_trace_lanes runs the tracer in a checking build that tests
+//    the leaves per thread (dyn_intersect), the reference that the warp's
+//    leaf test is held to: its radiance is drt_dyn_trace's bit for bit on
+//    every layout, in both variants. No renderer launches it.
 //
 // One thread per ray slot with the spp-chunk loop inside the thread, the
 // keyed hash for the internal RNG and the spp-outer ray order, exactly as
@@ -105,6 +109,38 @@ dyn_trace_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam, DynOperands scn,
   out[2 * N + i] = Lz;
 }
 
+// The per-thread reference build: each thread traces its own ray slot
+// alone, the leaves' triangles in a loop of its own.
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+dyn_trace_lanes_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
+                       DynOperands scn, const float* __restrict__ alb,
+                       const float* __restrict__ emi,
+                       const float* __restrict__ cam_u,
+                       const float* __restrict__ tape,
+                       float* __restrict__ out) {
+  __shared__ DynTables tab;
+  dyn_stage_tables(cfg, alb, emi, tab);
+
+  const int N = cfg.n_rays;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // summed over chunks
+  for (int c = 0; c < cfg.n_chunks; ++c) {
+    float lx, ly, lz;
+    DynNoResidual hook;
+    dyn_trace_chunk<FAST, INTERNAL, false, false>(cfg, lay, cam, scn, tab,
+                                                  cam_u, tape, i, true, c,
+                                                  hook, lx, ly, lz, nullptr);
+    Lx = Lx + lx;
+    Ly = Ly + ly;
+    Lz = Lz + lz;
+  }
+  out[i] = Lx;
+  out[N + i] = Ly;
+  out[2 * N + i] = Lz;
+}
+
 template <bool COLLECT>
 static int launch(const DrtTrace* cfg, const DynLayout* lay,
                   const DrtCamera* cam, const DynOperands* scn,
@@ -170,6 +206,29 @@ int drt_dyn_cull_stats(const DrtTrace* cfg, const DynLayout* lay,
       <<<grid, DRT_BLOCK, 0, (cudaStream_t)stream>>>(
           *cfg, *lay, *cam, *scn, alb, emi, nullptr, nullptr, out, nullptr,
           nullptr, stats);
+  return (int)cudaGetLastError();
+}
+
+// The per-thread reference build of drt_dyn_trace, with its arguments.
+int drt_dyn_trace_lanes(const DrtTrace* cfg, const DynLayout* lay,
+                        const DrtCamera* cam, const DynOperands* scn,
+                        const float* alb, const float* emi,
+                        const float* cam_u, const float* tape, float* out,
+                        void* stream) {
+  if (!dyn_cfg_ok(cfg, lay)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+#define DRT_LAUNCH(F, I)                                                  \
+  dyn_trace_lanes_kernel<F, I><<<grid, DRT_BLOCK, 0, s>>>(                \
+      *cfg, *lay, *cam, *scn, alb, emi, cam_u, tape, out)
+  if (cfg->fast) {
+    if (cfg->internal_rng) DRT_LAUNCH(true, true);
+    else DRT_LAUNCH(true, false);
+  } else {
+    if (cfg->internal_rng) DRT_LAUNCH(false, true);
+    else DRT_LAUNCH(false, false);
+  }
+#undef DRT_LAUNCH
   return (int)cudaGetLastError();
 }
 

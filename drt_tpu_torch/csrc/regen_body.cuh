@@ -1,9 +1,10 @@
 // Shared device code of the path-regeneration kernels of both families
 // (regen_tracer.cu and regen_adjoint.cu over the scene table,
 // dyn_regen_tracer.cu and dyn_regen_adjoint.cu over a memory-resident
-// scene): the trip loop of one pixel over one spp chunk (regen_chunk) and
-// the replay and reverse sweep of one pixel's stored rows
-// (regen_sweep_chunk).
+// scene): the trip loop of one pixel over one spp chunk of the scene-table
+// tracer (regen_chunk; dyn_regen_tracer.cu runs the same trips in a loop
+// of the warp's), the replay and reverse sweep of one pixel's stored rows
+// (regen_sweep_chunk) and the counters of the checking builds.
 //
 // What they compute is drt_tpu/ops/regen.py and drt_tpu/ops/dynregen.py:
 // one thread is one PIXEL and renders its spp_c samples one after the
@@ -18,8 +19,12 @@
 // tile's slowest lane is done, and `trips` is per tile. Here every thread
 // has its own trip counter and writes exactly its own rows, `trips` is per
 // pixel (i32[C, n_pix]), and rows past a pixel's count are never written
-// nor read. The hardware still runs a warp until its slowest thread is
-// done: the checking builds count how many lanes were at work.
+// nor read. A warp still runs until its slowest thread is done: in the
+// scene-table tracer the hardware runs it so, and its lanes split into
+// groups by trip; the memory-resident tracer runs it so by design, one
+// trip of every lane at a time over all chunks (the tile's counter carried
+// to the warp), since its leaves are tested by the whole warp. The
+// checking builds count how many lanes were at work.
 //
 // Every draw is the keyed hash of (seed, pixel, sample, bounce, dim) with
 // chunk c starting at sample sample_base + c * spp_c, the stream of the
@@ -31,8 +36,8 @@
 #include "drt_common.cuh"
 
 // Counters of a checking build, after the four of dyn_body.cuh: lane-trips
-// run and the lane groups that ran them together, and of those the trips
-// that ended live (gate > 0).
+// run and the lane groups (in the memory-resident tracer: warp-trips) that
+// ran them together, and of those the trips that ended live (gate > 0).
 enum { STAT_LANE_TRIPS = 4, STAT_GROUP_TRIPS = 5, STAT_LIVE_TRIPS = 6,
        STAT_LIVE_GROUPS = 7, REGEN_N_STATS = 8 };
 

@@ -34,6 +34,9 @@ wrappers: for tensors on the CPU each runs its plain version
 (`dyn_*_plain`, written in the kernels' op order on the operands); for
 CUDA tensors it launches its kernel or raises. Each counts its launches;
 `ops.megakernel.launch_counts()` reads them with the fused kernels'.
+`dyn_cull_stats` and `dyn_trace_lanes` run checking builds of the tracer
+(the cull's counters; the leaves tested per thread, the reference that
+the kernels' warp-wide leaf test is held to), which are not counted.
 """
 
 from __future__ import annotations
@@ -796,7 +799,7 @@ class _DynOperands(ctypes.Structure):
 
 def _library() -> ctypes.CDLL:
     """The tracer library: drt_dyn_trace, drt_dyn_collect,
-    drt_dyn_cull_stats."""
+    drt_dyn_cull_stats, drt_dyn_trace_lanes."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
@@ -804,6 +807,7 @@ def _library() -> ctypes.CDLL:
         structs = (mk._DrtTrace, _DynLayout, mk._DrtCamera, _DynOperands)
         # alb, emi, cam_u, tape, out, [rsc, rrow,] stream
         mk._bind(lib, "drt_dyn_trace", 6, structs)
+        mk._bind(lib, "drt_dyn_trace_lanes", 6, structs)
         mk._bind(lib, "drt_dyn_collect", 8, structs)
         # alb, emi, out, stats, stream
         mk._bind(lib, "drt_dyn_cull_stats", 5, structs)
@@ -879,6 +883,26 @@ def _scene_structs(ds: DynScene, dev):
     return lay, _DynOperands(*(t.data_ptr() for t in ds.operands))
 
 
+def _launch_trace(wrapper, what: str, entry_name: str, ds: DynScene, cc,
+                  cfg: RenderConfig, alb, emi, seeds, cam_u, tape,
+                  fastmath: bool, n_chunks: int) -> torch.Tensor:
+    """Launch one of the tracer library's radiance-only entry points and
+    return its radiance f32[3, N]."""
+    dev = alb.device
+    tcfg = _dyn_config(cfg, ds.n_shapes, alb, emi, seeds=seeds,
+                       fastmath=fastmath, n_chunks=n_chunks)
+    cu_ptr, tape_ptr = mk._uniform_pointers(tcfg, seeds, cam_u, tape, dev)
+    lay, ops = _scene_structs(ds, dev)
+    lib = _library()
+    out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
+    mk._launch(wrapper, what, lib.drt_dyn_error_string,
+               getattr(lib, entry_name), dev, ctypes.byref(tcfg),
+               ctypes.byref(lay), ctypes.byref(mk._camera_struct(cc)),
+               ctypes.byref(ops), alb.data_ptr(), emi.data_ptr(), cu_ptr,
+               tape_ptr, out.data_ptr())
+    return out
+
+
 def dyn_trace(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
               emi: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
               fastmath: bool = False, n_chunks: int = 1) -> torch.Tensor:
@@ -888,19 +912,30 @@ def dyn_trace(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
         return dyn_trace_plain(ds, cc, cfg, alb, emi, seeds=seeds,
                                cam_u=cam_u, tape=tape, n_chunks=n_chunks,
                                fastmath=fastmath)
-    dev = alb.device
-    tcfg = _dyn_config(cfg, ds.n_shapes, alb, emi, seeds=seeds,
-                       fastmath=fastmath, n_chunks=n_chunks)
-    cu_ptr, tape_ptr = mk._uniform_pointers(tcfg, seeds, cam_u, tape, dev)
-    lay, ops = _scene_structs(ds, dev)
-    lib = _library()
-    out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
-    mk._launch(dyn_trace, "dyn tracer", lib.drt_dyn_error_string,
-               lib.drt_dyn_trace, dev, ctypes.byref(tcfg), ctypes.byref(lay),
-               ctypes.byref(mk._camera_struct(cc)), ctypes.byref(ops),
-               alb.data_ptr(), emi.data_ptr(), cu_ptr, tape_ptr,
-               out.data_ptr())
-    return out
+    return _launch_trace(dyn_trace, "dyn tracer", "drt_dyn_trace", ds, cc,
+                         cfg, alb, emi, seeds, cam_u, tape, fastmath,
+                         n_chunks)
+
+
+def dyn_trace_lanes(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
+                    emi: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
+                    fastmath: bool = False,
+                    n_chunks: int = 1) -> torch.Tensor:
+    """Radiance f32[3, N] of the dyn tracer's per-thread reference build
+    (`drt_dyn_trace_lanes`): each thread tests the triangles of the
+    leaves its ray enters alone, as the kernels did before the warp-wide
+    leaf test. Its radiance is `dyn_trace`'s bit for bit on every layout,
+    in both variants, which holds the warp's fold order to the per-thread
+    loop's. A checking build: no renderer routes to it and its launches
+    are not counted. CPU tensors run the plain version; CUDA tensors
+    launch the build or raise."""
+    if mk._device_of("dyn_trace_lanes", alb) == "cpu":
+        return dyn_trace_plain(ds, cc, cfg, alb, emi, seeds=seeds,
+                               cam_u=cam_u, tape=tape, n_chunks=n_chunks,
+                               fastmath=fastmath)
+    return _launch_trace(None, "dyn per-thread reference tracer",
+                         "drt_dyn_trace_lanes", ds, cc, cfg, alb, emi, seeds,
+                         cam_u, tape, fastmath, n_chunks)
 
 
 def dyn_cull_stats(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
@@ -917,15 +952,11 @@ def dyn_cull_stats(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
     lib = _library()
     out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
     stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.drt_dyn_cull_stats(
-            ctypes.byref(tcfg), ctypes.byref(lay),
-            ctypes.byref(mk._camera_struct(cc)), ctypes.byref(ops),
-            alb.data_ptr(), emi.data_ptr(), out.data_ptr(),
-            stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("dyn cull-stats launch failed: "
-                           + lib.drt_dyn_error_string(rc).decode())
+    mk._launch(None, "dyn cull-stats", lib.drt_dyn_error_string,
+               lib.drt_dyn_cull_stats, dev, ctypes.byref(tcfg),
+               ctypes.byref(lay), ctypes.byref(mk._camera_struct(cc)),
+               ctypes.byref(ops), alb.data_ptr(), emi.data_ptr(),
+               out.data_ptr(), stats.data_ptr())
     lane_bounces, warp_bounces, lane_leaves, warp_leaves = stats.tolist()
     return dict(lane_bounces=lane_bounces, warp_bounces=warp_bounces,
                 lane_leaves=lane_leaves, warp_leaves=warp_leaves,

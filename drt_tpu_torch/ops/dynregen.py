@@ -154,7 +154,8 @@ def _launch_tracer(wrapper, what: str, entry_name: str, ds: DynScene, cc,
                    cfg: RenderConfig, alb, emi, seeds, fastmath: bool,
                    n_chunks: int, sample_base: int, buffers) -> None:
     """Launch one of the tracer library's forms into `buffers` (out,
-    trips and, for the collect form, rsc and rrow) and count it."""
+    trips and, for the collect form, rsc and rrow; for the checking
+    build, stats) and count it on `wrapper` (None: not counted)."""
     dev = alb.device
     tcfg = rg.per_pixel(dk._dyn_config(cfg, ds.n_shapes, alb, emi,
                                        seeds=seeds, fastmath=fastmath,
@@ -217,27 +218,15 @@ def dyn_regen_trip_stats(ds: DynScene, cc, cfg: RenderConfig,
                          alb: torch.Tensor, emi: torch.Tensor, seeds, *,
                          n_chunks: int = 1) -> dict:
     """Run the tracer's checking build (fast variant) on the card and
-    return its counters (`ops.regen.stats_dict`), the cull's among them.
-    Not counted as a launch of the tracer."""
+    return its counters (`ops.regen.stats_dict`), the cull's among them:
+    `group_trips` counts the warp-trips, which equal `warp_trips`. Not
+    counted as a launch of the tracer."""
     rg.check_regen_args(cfg, seeds, n_chunks, 0)
-    dev = alb.device
-    tcfg = rg.per_pixel(dk._dyn_config(cfg, ds.n_shapes, alb, emi,
-                                       seeds=seeds, fastmath=True,
-                                       n_chunks=n_chunks), cfg)
-    lay, ops = dk._scene_structs(ds, dev)
-    lib = _library()
-    out, trips = rg.trip_buffers(cfg, n_chunks, False, dev)
-    stats = torch.zeros(rg.N_STATS, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.drt_dyn_regen_stats(
-            ctypes.byref(tcfg), ctypes.byref(lay),
-            ctypes.byref(mk._camera_struct(cc)), ctypes.byref(ops),
-            alb.data_ptr(), emi.data_ptr(), 0, out.data_ptr(),
-            trips.data_ptr(), stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("dyn regeneration trip-stats launch failed: "
-                           + lib.drt_dyn_regen_error_string(rc).decode())
+    out, trips = rg.trip_buffers(cfg, n_chunks, False, alb.device)
+    stats = torch.zeros(rg.N_STATS, dtype=torch.int64, device=alb.device)
+    _launch_tracer(None, "dyn regeneration trip-stats", "drt_dyn_regen_stats",
+                   ds, cc, cfg, alb, emi, seeds, True, n_chunks, 0,
+                   (out, trips, stats))
     return rg.stats_dict(stats, trips, out)
 
 

@@ -481,14 +481,16 @@ def _camera_struct(cc: CameraConsts) -> _DrtCamera:
 
 def _launch(wrapper, what: str, error_string, entry, dev, *args) -> None:
     """Call a library entry point on the current stream of `dev`, raise
-    on a CUDA error, and count the launch on `wrapper`."""
+    on a CUDA error, and count the launch on `wrapper` (None for a
+    checking build, which is not counted)."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = entry(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
                            + error_string(rc).decode())
-    wrapper.launches += 1
+    if wrapper is not None:
+        wrapper.launches += 1
 
 
 def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,

@@ -384,8 +384,10 @@ def stats_dict(stats: torch.Tensor, trips: torch.Tensor, out) -> dict:
     radiance. `warp_trips` is the least number of trips the warps of a
     launch must run: a warp (32 consecutive pixels; a block is 128) runs
     until the pixel with the most trips over all chunks is done, since a
-    thread goes on to its next chunk without waiting for its warp.
-    `warp_trips_by_chunk` is what they would run if they did wait."""
+    thread goes on to its next chunk without waiting for its warp. The
+    memory-resident tracer's warps run exactly that many (its checking
+    build's `group_trips`). `warp_trips_by_chunk` is what they would run
+    if they did wait."""
     d = dict(zip(STAT_NAMES, stats.tolist()))
     n_chunks, npix = trips.shape
     per_warp = torch.nn.functional.pad(trips, (0, -npix % 32)).reshape(
@@ -403,7 +405,8 @@ def _launch_tracer(wrapper, what: str, entry_name: str,
                    cfg: RenderConfig, alb, emi, seeds, fastmath: bool,
                    n_chunks: int, sample_base: int, buffers) -> None:
     """Launch one of the tracer library's forms into `buffers` (out, trips
-    and, for the collect form, rsc and rmeta) and count it."""
+    and, for the collect form, rsc and rmeta; for the checking build,
+    stats) and count it on `wrapper` (None: not counted)."""
     dev = alb.device
     tcfg = per_pixel(mk._trace_config(cfg, table, alb, emi, seeds=seeds,
                                       fastmath=fastmath, n_chunks=n_chunks),
@@ -462,21 +465,11 @@ def regen_trip_stats(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
     return its counters (`stats_dict`). Not counted as a launch of the
     tracer."""
     check_regen_args(cfg, seeds, n_chunks, 0)
-    dev = alb.device
-    tcfg = per_pixel(mk._trace_config(cfg, table, alb, emi, seeds=seeds,
-                                      fastmath=True, n_chunks=n_chunks), cfg)
-    lib = _library()
-    out, trips = trip_buffers(cfg, n_chunks, False, dev)
-    stats = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.drt_regen_stats(
-            ctypes.byref(tcfg), ctypes.byref(mk._camera_struct(cc)),
-            table.data_ptr(), alb.data_ptr(), emi.data_ptr(), 0,
-            out.data_ptr(), trips.data_ptr(), stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("regeneration trip-stats launch failed: "
-                           + lib.drt_regen_error_string(rc).decode())
+    out, trips = trip_buffers(cfg, n_chunks, False, alb.device)
+    stats = torch.zeros(N_STATS, dtype=torch.int64, device=alb.device)
+    _launch_tracer(None, "regeneration trip-stats", "drt_regen_stats", table,
+                   cc, cfg, alb, emi, seeds, True, n_chunks, 0,
+                   (out, trips, stats))
     return stats_dict(stats, trips, out)
 
 

@@ -377,9 +377,10 @@ def _dyn_family(ds, cam, cfg, kw, alb, emi, cam_u, tape, g):
 def test_dyn_tracers_with_a_partial_last_warp(dev, fastmath):
     """61x47x3 = 8601 ray slots, 25 in the last warp: every thread of a
     warp takes part in the warp's leaf loop, those past the last slot as
-    dead paths that write nothing. B6 and B7 against the plain versions
-    (exact variant) and against each other and B9 (the per-thread leaf
-    loop), and the last slot's residuals are its own."""
+    dead paths that write nothing (B6, B7) or sweep nothing (B9). B6 and
+    B7 against the plain versions (exact variant), against each other
+    and against the per-thread reference build, B9 against B8 on B7's
+    residuals, and the last slot's residuals are its own."""
     cfg = RenderConfig(width=61, height=47, spp=3, max_depth=5)
     n = 61 * 47 * 3
     assert n % 32 == 25
@@ -391,6 +392,9 @@ def test_dyn_tracers_with_a_partial_last_warp(dev, fastmath):
         ds, cam, cfg, kw, alb, emi, cam_u, tape, g)
     assert L1.shape == (3, n) and rrow.shape == (5, n)
     assert torch.equal(L, L1)
+    cc = mk.camera_consts(cam, 61, 47)
+    assert torch.equal(L1, dk.dyn_trace_lanes(
+        ds, cc, cfg, alb, emi, cam_u=cam_u, tape=tape, fastmath=fastmath))
     for a, b in zip(d_adj, d_sweep):
         assert torch.equal(a, b)
     # The last slot's primary ray hits the box: live at bounce 0, not the
@@ -420,13 +424,21 @@ def test_dyn_tracers_with_a_partial_last_warp(dev, fastmath):
 @pytest.mark.parametrize("fastmath", [False, True])
 def test_dyn_cluster_sizes_give_the_same_bits(dev, fastmath):
     """Leaves of 8, 16, 32 and 48 triangles (48: two passes of the warp)
-    on the 327-shape mesh. On each layout B7's radiance is B6's and B9 is
-    B8 on B7's residuals, bit for bit: B9 tests its leaves per thread, so
-    this holds the warp's fold order to the per-thread loop's. In the
-    exact variant every layout, and no clustering, give the same bits."""
+    on the 327-shape mesh. On each layout, bit for bit: B6's radiance is
+    the per-thread reference build's (each thread tests its leaves alone),
+    which holds the warp's fold order to the per-thread loop's; B7's
+    radiance is B6's and B9 is B8 on B7's residuals; and B12, one sample
+    per chunk, is B6 on the same seeds. In the exact variant every
+    layout, and no clustering, give the same bits."""
+    from drt_tpu_torch.ops import dynregen as dr
+
     scene, params, cam, alb, emi = _setup(_mesh(2), dev)
     cam_u, tape, g = _tape_inputs(dev, DYN_N, seed=5)
     kw = dict(rng="tape", fastmath=fastmath)
+    cc = mk.camera_consts(cam, DYN_CFG.width, DYN_CFG.height)
+    cfg_s = RenderConfig(width=64, height=48, spp=4, spp_chunks=4,
+                         max_depth=5)  # one sample per chunk
+    seeds = torch.tensor([31, -5], dtype=torch.int32)
     layouts = [dk.DynScene(scene, cluster_k=k) for k in (8, 16, 32, 48)]
     layouts.append(dk.DynScene(scene, cluster_min_tris=10 ** 9))
     assert [ds.cluster_k for ds in layouts[:4]] == [8, 16, 32, 48]
@@ -437,8 +449,19 @@ def test_dyn_cluster_sizes_give_the_same_bits(dev, fastmath):
         L1, (L, rsc, rrow), d_sweep, d_adj = _dyn_family(
             ds, cam, DYN_CFG, kw, alb, emi, cam_u, tape, g)
         assert L1.mean() > 0 and torch.equal(L, L1)
+        assert torch.equal(L1, dk.dyn_trace_lanes(
+            ds, cc, DYN_CFG, alb, emi, cam_u=cam_u, tape=tape,
+            fastmath=fastmath))
         for a, b in zip(d_adj, d_sweep):
             assert torch.equal(a, b)
+        L6 = dk.make_dyn_tracer(ds, cam, cfg_s, fastmath=fastmath,
+                                n_chunks=4)(alb, emi, seeds)
+        assert torch.equal(L6, dk.dyn_trace_lanes(
+            ds, cc, cfg_s, alb, emi, seeds=seeds, fastmath=fastmath,
+            n_chunks=4))
+        L12, _ = dr.make_dyn_regen_tracer(ds, cam, cfg_s, fastmath=fastmath,
+                                          n_chunks=4)(alb, emi, seeds)
+        assert torch.equal(L12, L6)
         outs.append((L1, rsc, rrow, *d_adj))
     if fastmath:
         return
@@ -617,6 +640,83 @@ def test_regen_kernels_are_bit_consistent(dev, family, make, fastmath):
     for a, b, c in zip(d, sweep(alb, emi, rsc, rows, trips, g), d_nan):
         assert torch.isfinite(a).all() and (a[-1] == 0).all()
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+def test_dyn_regen_with_a_partial_last_warp(dev, fastmath):
+    """B12 at 61x47 = 2867 pixels, 19 in the last warp, 2 chunks of 2
+    samples: the warp steps through one trip loop over all chunks, and the
+    threads past the last pixel take part with no work and write nothing.
+    Radiance and trips = the collect form's and the per-chunk launches';
+    per-sample radiance = B6's; rows by sample = B7's residuals and the
+    per-chunk launches'; the last pixel's outputs are its own (against the
+    plain version in the exact variant); the checking build runs exactly
+    the warp-trips that `stats_dict` says the warps need."""
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import regen as rg
+
+    W, H = 61, 47
+    npix = W * H
+    assert npix % 32 == 19
+    cfg = RenderConfig(width=W, height=H, spp=4, spp_chunks=2, max_depth=5)
+    cfg_1 = RenderConfig(width=W, height=H, spp=2, max_depth=5)
+    cfg_s = RenderConfig(width=W, height=H, spp=4, spp_chunks=4,
+                         max_depth=5)
+    scene, params, cam, alb, emi = _setup(_mesh(2), dev)
+    ds = dk.DynScene(scene)
+    seeds = torch.tensor([606, 17], dtype=torch.int32)
+    kw = dict(fastmath=fastmath)
+    dead = (alb.shape[0] - 1) | ((emi.shape[0] - 1) << 8)
+
+    def by_sample(c, rsc, rows, trips):
+        return rg.rows_by_sample(c, rsc, rows, trips, 17, 0x1FFFF, dead)
+
+    L, trips = dr.make_dyn_regen_tracer(ds, cam, cfg, n_chunks=2, **kw)(
+        alb, emi, seeds)
+    Lc, rsc, rows, trips_c = dr.make_dyn_regen_tracer(
+        ds, cam, cfg, collect=True, n_chunks=2, **kw)(alb, emi, seeds)
+    assert L.shape == (3, npix) and trips.shape == (2, npix)
+    assert torch.equal(Lc, L) and torch.equal(trips_c, trips)
+    assert int(trips.min()) >= 2 and int(trips.max()) <= rg.t_cap(cfg)
+    one = dr.make_dyn_regen_tracer(ds, cam, cfg, collect=True, n_chunks=1,
+                                   **kw)
+    parts = [one(alb, emi, seeds, 2 * c) for c in range(2)]
+    assert torch.equal(parts[0][0] + parts[1][0], L)
+    assert torch.equal(torch.cat([q[3] for q in parts]), trips)
+    sc_u, code_u = by_sample(cfg, rsc, rows, trips)
+    per_chunk = [by_sample(cfg_1, q[1], q[2], q[3]) for q in parts]
+    assert torch.equal(sc_u, torch.cat([q[0] for q in per_chunk]))
+    assert torch.equal(code_u, torch.cat([q[1] for q in per_chunk]))
+    _, rsc_l, rcode_l = dk.make_dyn_collect_tracer(
+        ds, cam, cfg, n_chunks=2, **kw)(alb, emi, seeds)
+    assert torch.equal(sc_u, rsc_l) and torch.equal(code_u, rcode_l)
+    Ls, _ = dr.make_dyn_regen_tracer(ds, cam, cfg_s, n_chunks=4, **kw)(
+        alb, emi, seeds)
+    assert torch.equal(Ls, dk.make_dyn_tracer(ds, cam, cfg_s, n_chunks=4,
+                                              **kw)(alb, emi, seeds))
+    # The last pixel (slots npix - 1 and 2 npix - 1 of a chunk): its rows
+    # are its samples' lockstep residuals, live at bounce 0, and its trips
+    # are what those say: live bounces + 1, at most max_depth, a sample.
+    last = [npix - 1, 2 * npix - 1]
+    assert torch.equal(code_u[:, :, last], rcode_l[:, :, last])
+    live = (rcode_l[:, :, last] >> 16) & 1
+    assert (live[:, 0] == 1).all()
+    assert torch.equal(trips[:, -1], (live.sum(dim=1) + 1).clamp_max(5)
+                       .sum(dim=1).to(torch.int32))
+    if fastmath:
+        st = dr.dyn_regen_trip_stats(ds, mk.camera_consts(cam, W, H), cfg,
+                                     alb, emi, seeds, n_chunks=2)
+        assert torch.equal(st.pop("radiance"), L)
+        assert st["trips_sum"] == int(trips.sum())
+        assert st["lane_trips"] == st["trips_sum"]
+        assert st["group_trips"] == st["warp_trips"]
+        assert st["live_trips"] <= st["lane_trips"]
+        return
+    Lp, trips_p = dr.make_dyn_regen_tracer(ds, cam, cfg, n_chunks=2,
+                                           plain=True)(alb, emi, seeds)
+    assert _share_beyond(L, Lp, 2e-5, 2e-6) <= 1e-3
+    assert (trips != trips_p).float().mean() <= 1e-2
+    assert torch.allclose(L[:, -1], Lp[:, -1], rtol=2e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("family,make", REGEN_CASES, ids=REGEN_IDS)

@@ -373,3 +373,32 @@ def test_regen_renderers_refuse(both, make, kw, err, match):
             fused.make_regen_image_renderer(scene, cam, cfg, **kw)
         else:
             make_renderer(scene, cfg, cam, **kw)
+
+
+def test_stats_dict_counts_the_warp_trips():
+    """`stats_dict`'s warp-trips from per-pixel trips, against a loop
+    written out: 40 pixels (a warp of 32 and a partial one of 8) over 2
+    chunks whose slowest pixels differ. The memory-resident regeneration
+    tracer's checking build must run exactly `warp_trips`."""
+    trips = torch.full((2, 40), 2, dtype=torch.int32)
+    trips[0, 3] = 9     # warp 0's slowest pixel in chunk 0
+    trips[1, 7] = 8     # ... and in chunk 1
+    trips[1, 3] = 4
+    trips[0, 35] = 6    # the partial warp
+    trips[1, 38] = 7
+    trips[1, 35] = 3
+    stats = torch.arange(rg.N_STATS, dtype=torch.int64)
+    d = rg.stats_dict(stats, trips, "radiance")
+    warp_trips = by_chunk = 0
+    for w0 in range(0, 40, 32):
+        pixels = range(w0, min(w0 + 32, 40))
+        warp_trips += max(int(trips[0, p]) + int(trips[1, p])
+                          for p in pixels)
+        by_chunk += sum(max(int(trips[c, p]) for p in pixels)
+                        for c in range(2))
+    assert (warp_trips, by_chunk) == (13 + 9, 17 + 13)
+    assert d["warp_trips"] == warp_trips
+    assert d["warp_trips_by_chunk"] == by_chunk
+    assert d["trips_sum"] == int(trips.sum()) and d["trips_max"] == 9
+    assert [d[k] for k in rg.STAT_NAMES] == list(range(rg.N_STATS))
+    assert d["radiance"] == "radiance"

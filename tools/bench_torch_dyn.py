@@ -8,19 +8,23 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
   - "ptxas": each entry function's registers, stack and spills, per
     library, from the compiler's report;
   - "kernel": B6 (dyn tracer), B7 (dyn collect tracer), B8 (dyn sweep), B9
-    (dyn retrace adjoint), B12 (dyn regeneration tracer) and B13 (its
-    sweep, on B12's collect form's rows) at the mesh
+    (dyn retrace adjoint), B12 (dyn regeneration tracer), its collect form
+    and B13 (its sweep, on B12's collect form's rows) at the mesh
     main shape of chip_smoke.py (the 1287-shape mesh, 640x480, 64 spp,
     depth 5, 4 chunks, fast variant, internal RNG, seeds (7, 8)): device
     ms per launch, the median of 3 windows of 10 launches after 20
     warm-ups (CUDA events), with the window means;
-  - "digest": SHA-256 of the bytes of B6's radiance and of B7's radiance,
-    rsc and rrow at those seeds: equal digests across checkouts mean
-    bit-equal outputs;
+  - "digest": SHA-256 of the bytes of B6's radiance, of B7's radiance, rsc
+    and rrow, of B9's (d_albedo, d_emission), of B12's radiance and trips
+    and of its collect form's rsc and rrow (the rows beyond each pixel's
+    trips, which the kernel never writes, set to 0) at those seeds: equal
+    digests across checkouts mean bit-equal outputs;
   - "path": the mesh through the user's entry points, seconds on the host
     clock with a synchronize: make_renderer forward, a forward+backward
     step of the mean squared image loss in the stored and the retrace
-    forms (median of 5 after 2 warm-ups), and the trainer step of
+    forms and unbiased with 2 adjoint samples (median of 5 after 2
+    warm-ups), the same forward and stored and retrace steps through
+    backend "cuda-dyn-regen", and the trainer step of
     optim.inverse_render: a call of 10 steps less a call of 5, over 5
     (each call builds its renderer first);
   - "card": nvidia-smi's name and power limit.
@@ -97,7 +101,8 @@ def main() -> int:
     assert Path(drt_tpu_torch.__file__).resolve().parent.parent == root
     from drt_tpu_torch import optim
     from drt_tpu_torch.config import RenderConfig
-    from drt_tpu_torch.fused import make_dyn_image_renderer
+    from drt_tpu_torch.fused import (make_dyn_image_renderer,
+                                     make_dyn_regen_image_renderer)
     from drt_tpu_torch.models import gallery
     from drt_tpu_torch.ops import dynkernel as dk
     from drt_tpu_torch.ops import dynregen as dr
@@ -146,12 +151,28 @@ def main() -> int:
     ms, windows, _ = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rrow, g_pix))
     emit("kernel", label, name="dyn_sweep", ms=ms, windows=windows)
     del L, rsc, rrow
-    ms, windows, _ = cuda_ms(torch, lambda: adjoint(alb, emi, seeds, g_pix))
+    ms, windows, grads = cuda_ms(torch,
+                                 lambda: adjoint(alb, emi, seeds, g_pix))
     emit("kernel", label, name="dyn_adjoint", ms=ms, windows=windows)
-    ms, windows, _ = cuda_ms(torch, lambda: regen(alb, emi, seeds))
+    for what, t in zip(("d_albedo", "d_emission"), grads):
+        emit("digest", label, name=f"dyn_adjoint {what}", sha256=digest(t))
+    ms, windows, (L, trips) = cuda_ms(torch, lambda: regen(alb, emi, seeds))
     emit("kernel", label, name="dyn_regen_tracer", ms=ms, windows=windows)
-    _, rsc, rrow, trips = dr.make_dyn_regen_tracer(
-        ds, cam, cfg, collect=True, **kw)(alb, emi, seeds)
+    for what, t in (("radiance", L), ("trips", trips)):
+        emit("digest", label, name=f"dyn_regen_tracer {what}",
+             sha256=digest(t))
+    del L, trips
+    regen_collect = dr.make_dyn_regen_tracer(ds, cam, cfg, collect=True,
+                                             **kw)
+    ms, windows, (_, rsc, rrow, trips) = cuda_ms(
+        torch, lambda: regen_collect(alb, emi, seeds))
+    emit("kernel", label, name="dyn_regen_collect", ms=ms, windows=windows)
+    own = torch.arange(rsc.shape[1], device=dev)[None, :, None] \
+        < trips[:, None, :]
+    for what, t in (("rsc", rsc), ("rrow", rrow)):
+        emit("digest", label, name=f"dyn_regen_collect {what}",
+             sha256=digest(torch.where(own, t, 0)))
+    del own
     regen_sweep = dr.make_dyn_regen_sweep_adjoint(ds, cfg, n_chunks=C)
     ms, windows, _ = cuda_ms(
         torch, lambda: regen_sweep(alb, emi, rsc, rrow, trips, g_pix))
@@ -169,12 +190,26 @@ def main() -> int:
         p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
         ((render_fn(p, s_img) - target) ** 2).mean().backward()
 
+    cfg_u = RenderConfig(**MESH_MAIN, unbiased=True, adjoint_samples=2)
     for form, fn in (("stored", make_renderer(scene, cfg, cam)),
                      ("retrace", make_dyn_image_renderer(
-                         scene, cam, cfg, adjoint="retrace"))):
+                         scene, cam, cfg, adjoint="retrace")),
+                     ("unbiased x2", make_renderer(scene, cfg_u, cam))):
         med, times = host_s(torch, lambda: step(fn))
         emit("path", label, name=f"fwd+bwd step, {form}", s=med,
              times=times)
+    regen_render = make_renderer(scene, cfg, cam, backend="cuda-dyn-regen",
+                                 differentiable=False)
+    med, times = host_s(torch, lambda: regen_render(params, s_img))
+    emit("path", label, name="cuda-dyn-regen make_renderer forward", s=med,
+         times=times)
+    for form, fn in (("stored", make_renderer(scene, cfg, cam,
+                                              backend="cuda-dyn-regen")),
+                     ("retrace", make_dyn_regen_image_renderer(
+                         ds, cam, cfg, adjoint="retrace"))):
+        med, times = host_s(torch, lambda: step(fn))
+        emit("path", label, name=f"cuda-dyn-regen fwd+bwd step, {form}",
+             s=med, times=times)
     start = params.albedo.clone()
     start[3] = torch.tensor([0.6, 0.2, 0.2], device=dev)
 
