@@ -1,6 +1,7 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--keep-going] [--only=dyn|regen|wavefront|compact]
+  python3 chip_smoke.py [--keep-going]
+                        [--only=dyn|regen|wavefront|compact|fused]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -97,13 +98,24 @@ Phases (any failure raises, exits non-zero and prints no result line):
      image, a forward+backward step against the "cuda" retrace form
      (exact), the bytes it keeps, and 5 Adam steps of optim's paired loss
      over it;
- 16. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
+ 16. the queue of the tracer and the collect tracer (one live bounce a
+     trip) against their lockstep checking builds, bit for bit: radiance,
+     rsc and rbest on cbox, glossy and tri (30x20x4 spp, so that a warp's
+     last round is partial), exact and fast, tape mode and the internal
+     RNG in 1, 3, 4 and 16 chunks, depths 1, 5 and 32, and at the main shape
+     and the CLI's default 640x480x100 at depth 32, where both loops are
+     timed; the retrace adjoint = sweep(collect) on the queue's rows; the
+     dyn tracer on cbox against the queue's B1; the lane-trip counter of
+     the checking build against trip_counts_plain; and the breakdown:
+     clock64() cycles per section of a step of the lockstep loop, of the
+     queue and of B10's trips;
+ 17. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
 Before each of the paths of 5, 6, 7, 10, 13, 14 and 15 the launch counts
 are set to 0, and read just after. --only=dyn (phases 8-10),
---only=regen (phases 11-13), --only=wavefront (phase 14) and
---only=compact (phase 15) build, run those phases and stop without a
-result line (exit 1): short runs while working on them.
+--only=regen (phases 11-13), --only=wavefront (phase 14), --only=compact
+(phase 15) and --only=fused (phase 16) build, run those phases and stop
+without a result line (exit 1): short runs while working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -2249,6 +2261,186 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
                          "earlyexit_tracer")}
 
 
+def fused_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 16: the queue of the tracer B1 and the collect tracer B2
+    against their lockstep checking builds, bit for bit; their trip
+    counter against trip_counts_plain; the section breakdown of both loops
+    and of B10's trips. Returns extra keys of the kernels line for B1 and
+    B2: their time at the CLI's default shape and their lockstep builds'
+    times."""
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.scene import albedo_table, emission_table
+
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def runs(scene, alb, emi, cfg, fast, uniforms, n_chunks):
+        """B1 and B2 in both loops on one input: the queue's outputs and
+        the lockstep builds'."""
+        table = mk.scene_table(scene)
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        kw = dict(fastmath=fast, n_chunks=n_chunks, **uniforms)
+        out = {}
+        for build in ("queue", "lockstep"):
+            out[build] = (
+                mk.fused_trace(scene, table, cc, cfg, alb, emi, build=build,
+                               **kw),
+                *mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                  build=build, **kw))
+        return out
+
+    def hold(label, out):
+        same_bits(f"B1 queue = lockstep build, {label}", out["queue"][:1],
+                  out["lockstep"][:1])
+        same_bits(f"B2 queue = lockstep build (radiance, rsc, rbest), "
+                  f"{label}", out["queue"][1:], out["lockstep"][1:])
+        same_bits(f"B2 radiance = B1's, {label}", out["queue"][1:2],
+                  out["queue"][:1])
+
+    small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
+             ("tri", gallery.build_tri))
+    for label, build in small:
+        scene, params, cam = build(device=dev)
+        alb, emi = albedo_table(scene, params), emission_table(scene, params)
+        table = mk.scene_table(scene)
+        for depth in (1, 5, 32):
+            # 30x20: a warp's last round of the queue is partial.
+            cfg_t = RenderConfig(width=30, height=20, spp=4, max_depth=depth)
+            n = 30 * 20 * 4
+            cam_u = torch.rand((2, n), generator=g, device=dev)
+            tape = torch.rand((depth, 3, n), generator=g, device=dev)
+            seeds = torch.tensor([depth, -3], dtype=torch.int32)
+            g_t = torch.rand((3, n), generator=g, device=dev)
+            for fast in (False, True):
+                tag = f"{label}, depth {depth}, fast={fast}"
+                out = runs(scene, alb, emi, cfg_t, fast,
+                           dict(cam_u=cam_u, tape=tape), 1)
+                hold(f"tape, {tag}", out)
+                if depth > 1:  # B4's retrace = sweep(collect), as before
+                    kw = dict(rng="tape", fastmath=fast)
+                    _, _, rsc, rbest = out["queue"]
+                    same_bits(f"retrace adjoint = sweep(collect), tape, {tag}",
+                              mk.make_fused_adjoint(scene, cam, cfg_t, **kw)(
+                                  alb, emi, cam_u, tape, g_t),
+                              mk.make_fused_sweep_adjoint(scene, cfg_t)(
+                                  alb, emi, rsc, rbest, g_t))
+                for chunks in (1, 3, 4, 16):
+                    cfg_i = RenderConfig(width=30, height=20, spp=4 * chunks,
+                                         spp_chunks=chunks, max_depth=depth)
+                    out = runs(scene, alb, emi, cfg_i, fast,
+                               dict(seeds=seeds), chunks)
+                    hold(f"internal, {chunks} chunks, {tag}", out)
+                    st = mk.fused_trace_stats(
+                        scene, table, mk.camera_consts(cam, 30, 20), cfg_i,
+                        alb, emi, seeds, fastmath=fast, n_chunks=chunks,
+                        collect=True)
+                    ref = mk.trip_counts_plain(cfg_i, out["queue"][3],
+                                               seeds=seeds)
+                    check(torch.equal(st["trips"], ref)
+                          and st["lane_steps"] == int(ref.sum()),
+                          f"trip counter != trip_counts_plain, {tag}")
+                    same_bits(f"the counting build = B2, internal, {chunks} "
+                              f"chunks, {tag}",
+                              (st["radiance"], st["rsc"], st["rbest"]),
+                              out["queue"][1:])
+                    print(f"[trips] internal, {chunks} chunks, {tag}: "
+                          f"lane-trips {st['lane_steps']} = "
+                          f"trip_counts_plain, warp-trips "
+                          f"{st['warp_steps']}", flush=True)
+        if label == "cbox":  # the dyn tracer on cbox against B1, as before
+            cfg_t = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+            compare("dyn tracer vs the queue's B1 (exact, same tapes), cbox",
+                    dk.make_dyn_tracer(dk.DynScene(scene), cam, cfg_t,
+                                       rng="tape")(alb, emi, cam_u, tape[:5]),
+                    mk.make_fused_tracer(scene, cam, cfg_t, rng="tape")(
+                        alb, emi, cam_u, tape[:5]), EXACT_TOL)
+
+    # The main shape and the CLI's default shape.
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    table = mk.scene_table(scene)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    extra = {"fused_tracer": {}, "fused_collect": {}}
+    cli = dict(width=640, height=480, spp=100, max_depth=32, spp_chunks=1)
+    for shape, kw_cfg in (("main shape", MAIN), ("CLI default shape", cli)):
+        cfg = RenderConfig(**kw_cfg)
+        C = cfg.spp_chunks
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        for fast in ((True, False) if shape == "main shape" else (True,)):
+            out = runs(scene, alb, emi, cfg, fast, dict(seeds=seeds), C)
+            hold(f"{shape}, {'fast' if fast else 'exact'}", out)
+            del out
+        kw = dict(seeds=seeds, fastmath=True, n_chunks=C)
+        times = {}
+        for name, fn in (
+                ("B1", lambda: mk.fused_trace(scene, table, cc, cfg, alb,
+                                              emi, **kw)),
+                ("B1 lockstep", lambda: mk.fused_trace(
+                    scene, table, cc, cfg, alb, emi, build="lockstep", **kw)),
+                ("B2", lambda: mk.fused_collect(scene, table, cc, cfg, alb,
+                                                emi, **kw)),
+                ("B2 lockstep", lambda: mk.fused_collect(
+                    scene, table, cc, cfg, alb, emi, build="lockstep",
+                    **kw))):
+            times[name], win, _ = cuda_ms(fn, **timing)
+            print(f"[time] {name} at the {shape}: {times[name]!r} ms, "
+                  f"window means {win!r}, on {smi_line}", flush=True)
+        pre = "" if shape == "main shape" else "cli_"
+        for name, b in (("fused_tracer", "B1"), ("fused_collect", "B2")):
+            if pre:
+                extra[name]["cli_ms"] = times[b]
+            extra[name][f"{pre}lockstep_ms"] = times[f"{b} lockstep"]
+        print(f"[time] {shape}: B1 {times['B1'] / times['B1 lockstep']!r}, "
+              f"B2 {times['B2'] / times['B2 lockstep']!r} of the lockstep "
+              f"builds' time", flush=True)
+        st = mk.fused_trace_stats(scene, table, cc, cfg, alb, emi, seeds,
+                                  n_chunks=C, collect=True)
+        ref = mk.trip_counts_plain(cfg, st["rbest"], seeds=seeds)
+        check(torch.equal(st["trips"], ref),
+              f"trip counter != trip_counts_plain at the {shape}")
+        n_items = cfg.width * cfg.height * cfg.spp
+        print(f"[trips] {shape}: lane-trips {st['lane_steps']} = "
+              f"trip_counts_plain ({st['lane_steps'] / n_items!r} a path), "
+              f"warp-trips {st['warp_steps']} "
+              f"({st['warp_steps'] * 32 / st['lane_steps']!r} of lane-trips "
+              f"/ 32), live after the bounce {st['live_lanes']}",
+              flush=True)
+        del st, ref
+        torch.cuda.empty_cache()
+
+    # The breakdown (Step 1 of the design): cycles per section of a step.
+    cfg = RenderConfig(**MAIN)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    for what, fn in (
+            ("B1 lockstep (per warp-bounce)", lambda: mk.fused_trace_stats(
+                scene, table, cc, cfg, alb, emi, seeds, queue=False,
+                n_chunks=cfg.spp_chunks)),
+            ("B1 queue (per warp-trip)", lambda: mk.fused_trace_stats(
+                scene, table, cc, cfg, alb, emi, seeds,
+                n_chunks=cfg.spp_chunks)),
+            ("B10 (per lane-group trip)", lambda: rg.regen_sections(
+                scene, table, cc, cfg, alb, emi, seeds,
+                n_chunks=cfg.spp_chunks))):
+        fn()
+        st = fn()
+        steps = st.get("warp_steps") or rg.regen_trip_stats(
+            scene, table, cc, cfg, alb, emi, seeds,
+            n_chunks=cfg.spp_chunks)["group_trips"]
+        per = {k: round(v / steps, 1) for k, v in st["cycles"].items()}
+        print(f"[breakdown] {what}: {steps} steps; clock64 cycles per step "
+              f"by section {per} (total {sum(per.values())!r}) on "
+              f"{smi_line}", flush=True)
+        if "live_hist" in st and st["trips"] is None:
+            h = st["live_hist"].double()
+            k = torch.arange(33, dtype=torch.float64, device=h.device)
+            print(f"[breakdown] live lanes per warp-bounce by bounce: "
+                  f"{((h * k).sum(1) / h.sum(1)).tolist()}", flush=True)
+    return extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2298,7 +2490,8 @@ def main() -> int:
 
     if ONLY:
         phase = {"dyn": dyn_phases, "regen": regen_phases,
-                 "wavefront": wavefront_phase, "compact": compact_phase}[ONLY]
+                 "wavefront": wavefront_phase, "compact": compact_phase,
+                 "fused": fused_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -2625,6 +2818,9 @@ def main() -> int:
           "true value")
     del target
     torch.cuda.empty_cache()
+    fused_extra = fused_phase(dev, smi_line,
+                              dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
     dyn_rows = dyn_phases(dev, smi_line, dict(reps=10, warmup=10, windows=3))
     torch.cuda.empty_cache()
     regen_rows = regen_phases(dev, smi_line,
@@ -2642,7 +2838,8 @@ def main() -> int:
     rows = {name: dict(launches=launches.get(name, 0),
                        max_abs_err=err[name], ms=ms[name],
                        plain_ms=plain_ms[name], bound_ms=bound[name][0],
-                       bound_by=bound[name][1]) for name in ms}
+                       bound_by=bound[name][1],
+                       **fused_extra.get(name, {})) for name in ms}
     rows.update(dyn_rows)
     rows.update(regen_rows)
     rows.update(wave_rows)

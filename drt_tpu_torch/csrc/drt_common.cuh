@@ -51,6 +51,24 @@ static __device__ __forceinline__ float hash_uniform(
   return ((float)i23 + 0.5f) * (1.0f / 8388608.0f);
 }
 
+// hash_uniform in two steps, bit for bit: the part that depends on the
+// path only, fmix(pix * GOLD + seed) ^ s * C1 (XOR is associative), and
+// the draw of bounce b, dim from it. A loop that draws many times per path
+// keeps the key.
+static __device__ __forceinline__ uint32_t path_key(uint32_t seed,
+                                                    uint32_t pix,
+                                                    uint32_t s) {
+  return fmix(pix * 0x9E3779B9u + seed) ^ (s * 0x85EBCA6Bu);
+}
+
+static __device__ __forceinline__ float keyed_uniform(uint32_t key,
+                                                      uint32_t b,
+                                                      uint32_t dim) {
+  const uint32_t h = fmix(key ^ (b * 0xC2B2AE35u) ^ (dim * 0x27D4EB2Fu));
+  int i23 = (int)(h >> 9);
+  return ((float)i23 + 0.5f) * (1.0f / 8388608.0f);
+}
+
 // max(x, 0) that keeps NaN, as jnp.maximum and torch.clamp do (fmaxf
 // would turn NaN into 0).
 static __device__ __forceinline__ float max0(float x) {
@@ -254,6 +272,79 @@ static __device__ __forceinline__ void count_group(unsigned long long* stats,
     atomicAdd(stats + per_group, 1ull);
   }
 }
+
+// The sections of a step that the checking builds time with clock64(), in
+// the order a step runs them: the camera ray of a new path, the keyed draws
+// and Russian roulette, the nearest-hit loop, gate + emission + normal +
+// shade, the hook (the collect tracer's stores), albedo + throughput + next
+// ray, and the loop's own work between steps.
+enum { SEC_CAMERA = 0, SEC_DRAWS = 1, SEC_HIT = 2, SEC_SHADE = 3,
+       SEC_HOOK = 4, SEC_TAIL = 5, SEC_LOOP = 6, N_SECT = 7 };
+
+// The marks of a kernel that times nothing.
+struct NoMarks {
+  __device__ __forceinline__ void at(int, int, bool) {}
+  __device__ __forceinline__ void step(bool, bool) {}
+};
+
+// The marks of a checking build: cycles per section, added by the first
+// active lane of the warp at each mark (the lanes that run a section run
+// it together), so that the sums are per warp-step; and, if `hist` is
+// set, hist[bnc * 33 + k] counts the warp-steps of bounce bnc in which k
+// of the warp's active lanes were alive after Russian roulette. step()
+// counts the warp's steps the same way, in the lead lane's registers:
+// count_group's global atomics at every step took a timed lockstep
+// warp-bounce from 8070 to 25825 cycles (PERF.md section 6).
+struct SectionClock {
+  unsigned long long cyc[N_SECT];
+  unsigned long long steps[4];
+  unsigned long long* hist;
+  long long t;
+  __device__ __forceinline__ void start(unsigned long long* h) {
+#pragma unroll
+    for (int k = 0; k < N_SECT; ++k) cyc[k] = 0ull;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) steps[k] = 0ull;
+    hist = h;
+    t = clock64();
+  }
+  // Called by every active lane of the warp after a step: the lanes that
+  // ran it (`ran`), the warp-step if any did, of those the lanes alive
+  // after it, and the warp-step if any is.
+  __device__ __forceinline__ void step(bool ran, bool alive) {
+    const unsigned m = __activemask();
+    const unsigned r = __ballot_sync(m, ran);
+    const unsigned a = __ballot_sync(m, ran && alive);
+    if ((int)(threadIdx.x & 31) != __ffs(m) - 1 || r == 0u) return;
+    steps[0] += (unsigned long long)__popc(r);
+    steps[1] += 1ull;
+    steps[2] += (unsigned long long)__popc(a);
+    steps[3] += a != 0u ? 1ull : 0ull;
+  }
+  __device__ __forceinline__ void at(int k, int bnc, bool alive) {
+    const long long now = clock64();
+    const unsigned m = __activemask();
+    const bool lead = (int)(threadIdx.x & 31) == __ffs(m) - 1;
+    if (lead) cyc[k] += (unsigned long long)(now - t);
+    t = now;
+    if (k == SEC_DRAWS && hist != nullptr) {
+      const unsigned live = __ballot_sync(m, alive);
+      if (lead) atomicAdd(hist + bnc * 33 + __popc(live), 1ull);
+    }
+  }
+  // Adds the thread's sums into out[0 .. N_SECT).
+  __device__ __forceinline__ void flush(unsigned long long* out) const {
+#pragma unroll
+    for (int k = 0; k < N_SECT; ++k)
+      if (cyc[k] != 0ull) atomicAdd(out + k, cyc[k]);
+  }
+  // Adds the thread's step counts into out[0 .. 4), in step()'s order.
+  __device__ __forceinline__ void flush_steps(unsigned long long* out) const {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (steps[k] != 0ull) atomicAdd(out + k, steps[k]);
+  }
+};
 
 // One bounce of the reverse sweep (megakernel.py:_reverse_sweep,
 // dynkernel.py:_dyn_reverse_sweep) of one ray slot into its accumulator

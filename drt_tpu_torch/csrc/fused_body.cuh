@@ -69,13 +69,25 @@ struct NoResidual {
                                              float, float, int) const {}
 };
 
+// DRT_MARK(k) in fused_bounce.inc ends section k (drt_common.cuh). It is
+// nothing, except around the includes of the loops that take a marks
+// object (trace_chunk, fused_bounce, the queue of fused_tracer.cu), where
+// it is `marks.at(k, bnc, alive)`: nothing again with NoMarks, so every
+// kernel but a checking build compiles the bounce as it always did.
+#define DRT_MARK(k)
+
 // Radiance (lx, ly, lz) of ray slot i in spp chunk c, all max_depth
 // bounces. hook(b, Px, Py, Pz, sc, gate, best) is called once per bounce.
-template <bool FAST, bool INTERNAL, class Hook>
+// `marks` is NoMarks, or the SectionClock of a checking build, which times
+// each section of a bounce and counts the bounces.
+#undef DRT_MARK
+#define DRT_MARK(k) marks.at(k, bnc, alive)
+template <bool FAST, bool INTERNAL, class Hook, class Marks>
 static __device__ __forceinline__ void trace_chunk(
     const DrtTrace& cfg, const DrtCamera& cam, const DrtTables& tab,
     const float* __restrict__ cam_u, const float* __restrict__ tape,
-    int i, int c, Hook& hook, float& lx, float& ly, float& lz) {
+    int i, int c, Hook& hook, float& lx, float& ly, float& lz,
+    Marks& marks) {
   const float RAY_EPS_F = 1e-3f;
   const float* s_scene = tab.scene;
   const float* s_alb = tab.alb;
@@ -89,10 +101,26 @@ static __device__ __forceinline__ void trace_chunk(
   float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
   lx = 0.0f; ly = 0.0f; lz = 0.0f;
   bool alive = true;
+  marks.at(SEC_CAMERA, 0, alive);
 
   for (int bnc = 0; bnc < cfg.max_depth; ++bnc) {
 #include "fused_bounce.inc"
+    marks.step(true, alive);
+    marks.at(SEC_LOOP, bnc, alive);
   }
+}
+#undef DRT_MARK
+#define DRT_MARK(k)
+
+// trace_chunk in a kernel that counts and times nothing.
+template <bool FAST, bool INTERNAL, class Hook>
+static __device__ __forceinline__ void trace_chunk(
+    const DrtTrace& cfg, const DrtCamera& cam, const DrtTables& tab,
+    const float* __restrict__ cam_u, const float* __restrict__ tape,
+    int i, int c, Hook& hook, float& lx, float& ly, float& lz) {
+  NoMarks marks;
+  trace_chunk<FAST, INTERNAL>(cfg, cam, tab, cam_u, tape, i, c, hook, lx,
+                              ly, lz, marks);
 }
 
 // Radiance (lx, ly, lz) of ray i of a wavefront whose primary rays are
@@ -230,11 +258,14 @@ static __device__ __forceinline__ void trace_segment(
 
 // fused_bounce.inc as a routine on a PathState, with the keyed hash: one
 // bounce of sample smp of pixel pix at depth bnc. The regeneration kernels
-// (regen_tracer.cu) call it at each thread's own depth.
-template <bool FAST, class Hook>
+// (regen_tracer.cu) call it at each thread's own depth, with NoMarks, or
+// with the SectionClock of their timing build.
+#undef DRT_MARK
+#define DRT_MARK(k) marks.at(k, bnc, alive)
+template <bool FAST, class Hook, class Marks>
 static __device__ __forceinline__ void fused_bounce(
     const DrtTrace& cfg, const DrtTables& tab, int pix, uint32_t smp,
-    int bnc, Hook& hook, PathState& p) {
+    int bnc, Hook& hook, PathState& p, Marks& marks) {
   constexpr bool INTERNAL = true;
   const float RAY_EPS_F = 1e-3f;
   const float* s_scene = tab.scene;
@@ -251,6 +282,8 @@ static __device__ __forceinline__ void fused_bounce(
 #include "fused_bounce.inc"
   }
 }
+#undef DRT_MARK
+#define DRT_MARK(k)
 
 static inline bool drt_cfg_ok(const DrtTrace* cfg) {
   return cfg->n_shapes >= 1 && cfg->n_shapes <= DRT_MAX_SHAPES &&

@@ -1,6 +1,6 @@
 // Fused forward path tracers for Hopper (sm_90a): camera ray, sampling and
-// the whole max_depth bounce loop of one ray per thread, in one launch.
-// Three entry points over the bounce body of fused_body.cuh:
+// the bounce loop of every path, in one launch, over the bounce body of
+// fused_body.cuh. The entry points:
 //  - drt_fused_trace replaces drt_tpu/ops/megakernel.py:
 //    make_fused_segment_tracer (the Pallas kernel behind make_fused_tracer,
 //    pallas_call at megakernel.py:1194) at b_start = 0, b_end = max_depth;
@@ -8,7 +8,13 @@
 //    (pallas_call at :1366): the same trace, which also writes the adjoint's
 //    residuals rsc f32[C, D, n] and rbest i32[C, D, n] (hit shape + 1, 0 for
 //    a dead lane), 8 bytes per bounce-ray, for the sweep adjoint of
-//    fused_adjoint.cu. Its radiance is the tracer's bit for bit;
+//    fused_adjoint.cu. Its radiance is the tracer's bit for bit.
+//    Both run the queue of (ray slot, chunk) paths (queue_trace_kernel),
+//    one live bounce a trip; their checking builds drt_fused_trace_lockstep
+//    and drt_fused_collect_lockstep run the lockstep loop (fused_trace_kernel:
+//    one thread per ray slot, all max_depth bounces of each chunk) and are
+//    their bit reference; drt_fused_trace_stats counts and times either
+//    loop (clock64() per section of a step);
 //  - drt_ray_trace replaces megakernel.py:make_pallas_tracer (pallas_call
 //    at :723), the forward of the key-driven wavefront: the same loop on
 //    primary rays o, d f32[3, N] and a tape f32[D, 3, N] that are inputs
@@ -61,24 +67,27 @@
 //    (seed, pixel, sample, bounce, dim), so drt_tpu.ops.regen.hash_tapes
 //    rebuilds the exact samples and tests compare sample for sample.
 //  - The TPU runs its chunk grid in order and accumulates into an output
-//    tile resident across grid steps. Blocks here run in no order, so the
-//    spp-chunk loop runs inside the thread and the per-ray sum is written
-//    once at the end.
+//    tile resident across grid steps. Blocks here run in no order, so a
+//    slot's chunks are summed in chunk order inside the warp that traces
+//    them and the per-ray sum is written once.
 //
-// What bounds it: nothing in device memory. Per ray it reads the tape
-// (tape mode) or nothing (internal RNG) and writes 12 bytes; the work is
-// about (9 shapes x ~25 + ~150 shading) f32 operations and 3 sin/cos/pow
-// per bounce, so it is bound by the SM's f32 and special-function issue
-// rate and by warp divergence: a warp runs each bounce while any of its
-// lanes lives, and its lanes hit different materials. On an H100 the
-// bounces after the first cost the same whatever share of rays Russian
-// roulette has killed (PERF.md). This first version is simple and
-// exact; path regeneration or lane compaction for the dead lanes, and
-// occupancy (128-thread blocks), are later work. The collect tracer does
-// the same work and adds its residual stores: the ray slot is the fastest
-// index of rsc and rbest, so a warp's 32 stores of one bounce are one
-// 128-byte line each. At the main shape that is 3.15 GB written once, about
-// 1 ms at the card's memory rate, a tenth of the trace itself.
+// What bounds it: the issue rate of the SM, not device memory. Per ray it
+// reads the tape (tape mode) or nothing (internal RNG) and writes 12 bytes;
+// a bounce is about (9 shapes x ~25 + ~150 shading) f32 operations and 3
+// sin/cos/pow, and Step 1 of PERF.md section 6 measured where a warp's
+// cycles go: 69% to the nearest-hit loop (its latency-bound chain of
+// shared loads, a division and a compare per shape), 18% to shade, and a
+// bounce costs a warp as much whatever share of its lanes lives. The
+// lockstep loop ran all max_depth bounces of every chunk for 1.94 live
+// ones on the Cornell box (38.6% of its lane-bounces live); the queue
+// spends a trip only on a live bounce, so its warps run 4.80 M trips
+// where the lockstep loop ran 12.29 M warp-bounces at the main shape, at
+// about 1.05x the cycles each (the camera ray is drawn in nearly every
+// trip): 0.58x the time, and 0.11x at the CLI's default depth of 32
+// (PERF.md). The collect tracer stores 8 bytes per live bounce-row after
+// cudaMemsetAsync zeroes both row buffers (3.15 GB at the main shape,
+// about 1 ms, which writing every row from its lane costs more than);
+// its path-major rounds keep each 128-byte line's stores close in time.
 //
 // Variants: FAST = false keeps the reference forms and is built with
 // -fmad=false (no a*b+c contraction), so it follows the plain PyTorch
@@ -104,7 +113,269 @@ struct StoreResidual {
   }
 };
 
-template <bool FAST, bool INTERNAL, bool COLLECT>
+// The hook of a step of the queue at rsc/rbest + base: StoreResidual for
+// the collect tracer, NoResidual for the tracer.
+template <bool COLLECT>
+static __device__ __forceinline__ auto queue_hook(float* rsc, int* rbest,
+                                                  size_t base, size_t n) {
+  if constexpr (COLLECT)
+    return StoreResidual{rsc + base, rbest + base, n};
+  else
+    return NoResidual{};
+}
+
+// The uniforms of a step of the queue: the roulette draw of its bounce was
+// taken at the end of the step before (or with the camera ray), so only
+// u1 and u2 are drawn here, from the path's key (drt_common.cuh:path_key).
+// Inside the queue kernels the bounce text's bounce_uniforms call resolves
+// to this overload by the type of `tape`.
+struct QueueTape {
+  const float* p;  // the tape f32[D, 3, n_rays] (tape mode)
+  uint32_t key;    // path_key(seed1, pix, smp) (internal RNG)
+  float u_rr;      // the roulette draw of the step's bounce
+};
+
+template <bool INTERNAL>
+static __device__ __forceinline__ void bounce_uniforms(
+    const DrtTrace& cfg, const QueueTape& tape, int i, int, uint32_t,
+    int bnc, float& u_rr, float& u1, float& u2) {
+  u_rr = tape.u_rr;
+  if (INTERNAL) {
+    u1 = keyed_uniform(tape.key, (uint32_t)bnc, 1u);
+    u2 = keyed_uniform(tape.key, (uint32_t)bnc, 2u);
+  } else {
+    const int N = cfg.n_rays;
+    const float* ub = tape.p + (size_t)bnc * 3 * N;
+    u1 = ub[N + i];
+    u2 = ub[2 * N + i];
+  }
+}
+
+// bounce_uniforms' u_rr of bounce bnc alone.
+template <bool INTERNAL>
+static __device__ __forceinline__ float roulette_draw(const DrtTrace& cfg,
+                                                      const QueueTape& t,
+                                                      int i, int bnc) {
+  if (INTERNAL) return keyed_uniform(t.key, (uint32_t)bnc, 0u);
+  return t.p[(size_t)bnc * 3 * cfg.n_rays + i];
+}
+
+// The counters of drt_fused_trace_stats, u64: steps run by lanes and by
+// warps (lockstep: every lane's bounces, warp-bounces; queue: lane-trips,
+// warp-trips), of those the lanes alive after the step and the warp-steps
+// with any (SectionClock::step), the cycles of each section (SEC_*), and
+// (lockstep) the live lanes per warp-bounce by bounce, [max_depth][33].
+enum { FS_LANE_STEPS = 0, FS_WARP_STEPS = 1, FS_LIVE_LANES = 2,
+       FS_LIVE_WARPS = 3, FS_CYCLES = 4, FS_HIST = FS_CYCLES + N_SECT };
+
+template <bool COUNT> struct MarksOf { using type = NoMarks; };
+template <> struct MarksOf<true> { using type = SectionClock; };
+
+// log2 of the ray slots a warp of the collect tracer takes per round:
+// S = 2^k >= 32 slots and at least 1024 (slot, chunk) paths a round, so
+// that the few paths still running when a round's last path has been
+// handed out cost little.
+static __host__ __device__ __forceinline__ int queue_log2_slots(int n_chunks) {
+  int k = 5;
+  while ((n_chunks << k) < 1024) ++k;
+  return k;
+}
+
+// The queue of (ray slot, chunk) paths: the loop of drt_fused_trace,
+// drt_fused_collect (COLLECT) and of the checking build
+// drt_fused_trace_stats (COUNT). The grid is persistent, and a trip is one
+// live bounce of every lane that has a path.
+//
+// A trip: the lanes whose last path has ended take their next path and
+// draw its camera ray; then every lane with a path runs one bounce of it
+// at its own depth, and the warp reconverges (B12's order: Step 1 in
+// PERF.md section 6 found that the camera branch costs the same wherever
+// a trip takes it). After the bounce the lane decides the Russian
+// roulette of its next bounce (the draw is keyed, so it is the same
+// number whenever it is drawn): a path ends after its last live bounce,
+// by roulette, a miss or the depth bound, and the bounce it would enter
+// dead, which would add P e = 0 to the radiance and store the row (0.0f,
+// 0), takes no trip. A ray that hit the light stays alive with a zero
+// direction (ROADMAP C.4) and takes its trips as in the lockstep loop.
+//
+// Who takes which path. The tracer (BY_SLOT): the lanes take the warp's
+// slots in order, 32 at a time ((w + r W) 32 + [0, 32) for warp w of W),
+// and a lane runs its slot's chunks itself, in chunk order, adding their
+// radiance as the lockstep loop does and writing the slot's once. The
+// collect tracer: its rows of one 128-byte line (32 consecutive slots of
+// one chunk and bounce) must be written close together in time to fill
+// in L2, and lanes that each run a slot's chunks drift apart by whole
+// chunks (a lane that owned slots t, t + G, ... took B2 to 1.66x the
+// lockstep loop, PERF.md section 6). So warp w takes rounds of S
+// consecutive slots, w S, (w + W) S, ..., and hands a round's C S paths
+// out in chunk-major order (path j is chunk j / S of slot j % S) to the
+// lanes as they free up. A path's radiance goes to sums f32[C, 3,
+// n_rays], and when all of a round's paths have ended the lanes add each
+// slot's chunks in chunk order from 0 and write the slot's radiance (with
+// one chunk the path writes 0 + l itself).
+//
+// The bits: a path runs the statements of fused_bounce.inc in the order of
+// its bounces, and a slot's radiance is the lockstep loop's sum, so every
+// output is the lockstep loop's bit for bit.
+#undef DRT_MARK
+#define DRT_MARK(k) marks.at(k, bnc, alive)
+template <bool FAST, bool INTERNAL, bool COLLECT, bool COUNT>
+__global__ void __launch_bounds__(DRT_BLOCK)
+queue_trace_kernel(DrtTrace cfg, DrtCamera cam,
+                   const float* __restrict__ scene,
+                   const float* __restrict__ alb,
+                   const float* __restrict__ emi,
+                   const float* __restrict__ cam_u,
+                   const float* __restrict__ tape, float* __restrict__ out,
+                   float* __restrict__ sums, float* __restrict__ rsc,
+                   int* __restrict__ rbest, int* __restrict__ trips,
+                   unsigned long long* stats) {
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  const float RAY_EPS_F = 1e-3f;
+  const float* s_scene = tab.scene;
+  const float* s_alb = tab.alb;
+  const float* s_emi = tab.emi;
+
+  const int N = cfg.n_rays, D = cfg.max_depth, C = cfg.n_chunks;
+  constexpr bool BY_SLOT = !COLLECT;
+  const int log2_s = BY_SLOT ? 5 : queue_log2_slots(C), S = 1 << log2_s;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int W = (gridDim.x * blockDim.x) >> 5;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int base = warp * S;         // the round's first slot
+  int n_s = min(S, N - base);  // the round's slots
+  int next = 0;                // the round's paths (slots) handed out
+  int i = 0, c = 0, bnc = 0, pix = 0;
+  uint32_t smp = 0u;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float Tx = 0.0f, Ty = 0.0f, Tz = 0.0f;
+  float lx = 0.0f, ly = 0.0f, lz = 0.0f;
+  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // BY_SLOT: the slot's chunks
+  bool work = false, alive = false;
+  bool open = false;  // BY_SLOT: the lane holds a slot with chunks left
+  QueueTape qt{tape, 0u, 0.0f};
+  typename MarksOf<COUNT>::type marks;
+  if constexpr (COUNT) marks.start(nullptr);
+
+  while (BY_SLOT || base < N) {
+    marks.at(SEC_LOOP, bnc, alive);
+    bool start;
+    if constexpr (BY_SLOT) {
+      // The warp's next slot to each lane that has finished its slot.
+      const unsigned idle = __ballot_sync(0xffffffffu, !open);
+      const int q = next + __popc(idle & below);
+      next += __popc(idle);
+      if (!open) {
+        i = (((q >> log2_s) * W + warp) << log2_s) + (q & (S - 1));
+        open = i < N;
+        c = 0;
+      }
+      if (!__any_sync(0xffffffffu, open)) break;
+      start = open && !work;
+    } else {
+      const unsigned idle = __ballot_sync(0xffffffffu, !work);
+      const int j = next + __popc(idle & below);
+      next += __popc(idle);
+      start = !work && j < n_s * C;
+      if (start) {
+        c = n_s == S ? j >> log2_s : j / n_s;
+        i = base + (j - c * n_s);
+      }
+    }
+    if (start) {  // the lane's next path starts
+      primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, c, pix, smp, dx, dy,
+                                  dz);
+      ox = cam.eye[0]; oy = cam.eye[1]; oz = cam.eye[2];
+      Tx = 1.0f; Ty = 1.0f; Tz = 1.0f;
+      lx = 0.0f; ly = 0.0f; lz = 0.0f;
+      work = alive = true;
+      bnc = 0;
+      if (INTERNAL) qt.key = path_key(cfg.seed1, (uint32_t)pix, smp);
+      if (cfg.min_bounces <= 0)
+        qt.u_rr = roulette_draw<INTERNAL>(cfg, qt, i, 0);
+    }
+    marks.at(SEC_CAMERA, bnc, alive);
+    if (!BY_SLOT && !__any_sync(0xffffffffu, work)) {
+      // The round's paths have ended.
+      if (C > 1) {
+        __syncwarp();
+        for (int k = lane; k < n_s; k += 32) {
+          float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+          for (int cc = 0; cc < C; ++cc) {
+            const float* l = sums + (size_t)cc * 3 * N + base + k;
+            sx = sx + __ldcg(l);
+            sy = sy + __ldcg(l + N);
+            sz = sz + __ldcg(l + 2 * N);
+          }
+          out[base + k] = sx;
+          out[N + base + k] = sy;
+          out[2 * N + base + k] = sz;
+        }
+      }
+      base += W * S;
+      n_s = min(S, N - base);
+      next = 0;
+      continue;
+    }
+    if (work) {
+      const auto hook = queue_hook<COLLECT>(
+          rsc, rbest, (size_t)c * D * N + i, (size_t)N);
+      {
+        const QueueTape& tape = qt;
+#include "fused_bounce.inc"
+      }
+      if (COUNT) atomicAdd(trips + i, 1);
+    }
+    marks.step(work, alive);
+    if (!work) continue;
+    ++bnc;
+    // Russian roulette of the next bounce, decided now.
+    if (alive && bnc < D && bnc >= cfg.min_bounces) {
+      qt.u_rr = roulette_draw<INTERNAL>(cfg, qt, i, bnc);
+      alive = !(qt.u_rr < cfg.absorb);
+    }
+    alive = alive && bnc < D;
+    if (alive) continue;
+    // The path has ended.
+    work = false;
+    if (BY_SLOT) {
+      Lx = Lx + lx;
+      Ly = Ly + ly;
+      Lz = Lz + lz;
+      if (++c < C) continue;
+      out[i] = Lx;
+      out[N + i] = Ly;
+      out[2 * N + i] = Lz;
+      Lx = 0.0f; Ly = 0.0f; Lz = 0.0f;
+      open = false;
+    } else if (C == 1) {
+      out[i] = 0.0f + lx;
+      out[N + i] = 0.0f + ly;
+      out[2 * N + i] = 0.0f + lz;
+    } else {
+      float* l = sums + (size_t)c * 3 * N + i;
+      l[0] = lx;
+      l[N] = ly;
+      l[2 * N] = lz;
+    }
+  }
+  if constexpr (COUNT) {
+    marks.flush(stats + FS_CYCLES);
+    marks.flush_steps(stats + FS_LANE_STEPS);
+  }
+}
+#undef DRT_MARK
+#define DRT_MARK(k)
+
+// The lockstep loop: one thread per ray slot runs all max_depth bounces of
+// each of its chunks, live or not. The checking builds
+// drt_fused_trace_lockstep and drt_fused_collect_lockstep (COLLECT), and,
+// with COUNT, drt_fused_trace_stats's lockstep form, which times each
+// section of a bounce (SectionClock), counts the bounces into stats and
+// the live lanes per warp-bounce by bounce into stats + FS_HIST.
+template <bool FAST, bool INTERNAL, bool COLLECT, bool COUNT>
 __global__ void __launch_bounds__(DRT_BLOCK)
 fused_trace_kernel(DrtTrace cfg, DrtCamera cam,
                    const float* __restrict__ scene,
@@ -113,13 +384,16 @@ fused_trace_kernel(DrtTrace cfg, DrtCamera cam,
                    const float* __restrict__ cam_u,
                    const float* __restrict__ tape,
                    float* __restrict__ out,
-                   float* __restrict__ rsc, int* __restrict__ rbest) {
+                   float* __restrict__ rsc, int* __restrict__ rbest,
+                   unsigned long long* stats) {
   __shared__ DrtTables tab;
   stage_tables(cfg, scene, alb, emi, tab);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int N = cfg.n_rays;
   if (i >= N) return;
+  typename MarksOf<COUNT>::type marks;
+  if constexpr (COUNT) marks.start(stats + FS_HIST);
 
   float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // summed over chunks
   for (int c = 0; c < cfg.n_chunks; ++c) {
@@ -128,11 +402,11 @@ fused_trace_kernel(DrtTrace cfg, DrtCamera cam,
       const size_t base = (size_t)c * cfg.max_depth * N + i;
       StoreResidual hook{rsc + base, rbest + base, (size_t)N};
       trace_chunk<FAST, INTERNAL>(cfg, cam, tab, cam_u, tape, i, c, hook,
-                                  lx, ly, lz);
+                                  lx, ly, lz, marks);
     } else {
       NoResidual hook;
       trace_chunk<FAST, INTERNAL>(cfg, cam, tab, cam_u, tape, i, c, hook,
-                                  lx, ly, lz);
+                                  lx, ly, lz, marks);
     }
     Lx = Lx + lx;
     Ly = Ly + ly;
@@ -141,6 +415,10 @@ fused_trace_kernel(DrtTrace cfg, DrtCamera cam,
   out[i] = Lx;
   out[N + i] = Ly;
   out[2 * N + i] = Lz;
+  if constexpr (COUNT) {
+    marks.flush(stats + FS_CYCLES);
+    marks.flush_steps(stats + FS_LANE_STEPS);
+  }
 }
 
 __global__ void __launch_bounds__(DRT_BLOCK)
@@ -236,7 +514,7 @@ segment_trace_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1, int chunk,
 }
 
 template <bool COLLECT>
-static int launch(const DrtTrace* cfg, const DrtCamera* cam,
+static int launch_lockstep(const DrtTrace* cfg, const DrtCamera* cam,
                   const float* scene, const float* alb, const float* emi,
                   const float* cam_u, const float* tape, float* out,
                   float* rsc, int* rbest, void* stream) {
@@ -244,8 +522,8 @@ static int launch(const DrtTrace* cfg, const DrtCamera* cam,
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
 #define DRT_LAUNCH(F, I)                                                  \
-  fused_trace_kernel<F, I, COLLECT><<<grid, DRT_BLOCK, 0, s>>>(           \
-      *cfg, *cam, scene, alb, emi, cam_u, tape, out, rsc, rbest)
+  fused_trace_kernel<F, I, COLLECT, false><<<grid, DRT_BLOCK, 0, s>>>(    \
+      *cfg, *cam, scene, alb, emi, cam_u, tape, out, rsc, rbest, nullptr)
   if (cfg->fast) {
     if (cfg->internal_rng) DRT_LAUNCH(true, true);
     else DRT_LAUNCH(true, false);
@@ -257,12 +535,78 @@ static int launch(const DrtTrace* cfg, const DrtCamera* cam,
   return (int)cudaGetLastError();
 }
 
+// The queue's grid: as many blocks as stay resident on the card at once
+// (the SMs times the blocks of the kernel an SM holds), or fewer when
+// there are fewer ray slots.
+template <class Kernel>
+static cudaError_t queue_grid(Kernel kernel, int n, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      DRT_BLOCK, 0);
+  const int need = (n + DRT_BLOCK - 1) / DRT_BLOCK;
+  *grid = sms * per_sm < need ? sms * per_sm : need;
+  if (*grid < 1) *grid = 1;
+  return e;
+}
+
+template <bool FAST, bool INTERNAL, bool COLLECT, bool COUNT>
+static int launch_queue(const DrtTrace* cfg, const DrtCamera* cam,
+                        const float* scene, const float* alb,
+                        const float* emi, const float* cam_u,
+                        const float* tape, float* out, float* sums,
+                        float* rsc, int* rbest, int* trips,
+                        unsigned long long* stats, cudaStream_t s) {
+  if (COLLECT && cfg->n_chunks > 1 && sums == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = queue_trace_kernel<FAST, INTERNAL, COLLECT, COUNT>;
+  const int S = COLLECT ? 1 << queue_log2_slots(cfg->n_chunks) : 32;
+  int grid = 0;
+  cudaError_t e = queue_grid(kernel, (cfg->n_rays + S - 1) / S * 32, &grid);
+  if (e != cudaSuccess) return (int)e;
+  if (COLLECT) {  // the rows of the bounces no path enters
+    const size_t bytes = (size_t)cfg->n_chunks * cfg->max_depth *
+                         cfg->n_rays * sizeof(float);
+    e = cudaMemsetAsync(rsc, 0, bytes, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(rbest, 0, bytes, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, DRT_BLOCK, 0, s>>>(*cfg, *cam, scene, alb, emi, cam_u, tape,
+                                    out, sums, rsc, rbest, trips, stats);
+  return (int)cudaGetLastError();
+}
+
+template <bool COLLECT>
+static int launch(const DrtTrace* cfg, const DrtCamera* cam,
+                  const float* scene, const float* alb, const float* emi,
+                  const float* cam_u, const float* tape, float* out,
+                  float* sums, float* rsc, int* rbest, void* stream) {
+  if (!drt_cfg_ok(cfg)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define DRT_LAUNCH(F, I)                                                  \
+  return launch_queue<F, I, COLLECT, false>(cfg, cam, scene, alb, emi,     \
+                                            cam_u, tape, out, sums, rsc,   \
+                                            rbest, nullptr, nullptr, s)
+  if (cfg->fast) {
+    if (cfg->internal_rng) DRT_LAUNCH(true, true);
+    else DRT_LAUNCH(true, false);
+  } else {
+    if (cfg->internal_rng) DRT_LAUNCH(false, true);
+    else DRT_LAUNCH(false, false);
+  }
+#undef DRT_LAUNCH
+}
+
 extern "C" {
 
-int drt_limits(int* max_shapes, int* max_rows, int* rec) {
+int drt_limits(int* max_shapes, int* max_rows, int* rec, int* n_stats) {
   *max_shapes = DRT_MAX_SHAPES;
   *max_rows = DRT_MAX_ROWS;
   *rec = DRT_REC;
+  *n_stats = FS_HIST;
   return 0;
 }
 
@@ -273,15 +617,81 @@ int drt_fused_trace(const DrtTrace* cfg, const DrtCamera* cam,
                     const float* cam_u, const float* tape, float* out,
                     void* stream) {
   return launch<false>(cfg, cam, scene, alb, emi, cam_u, tape, out, nullptr,
-                       nullptr, stream);
+                   nullptr, nullptr, stream);
 }
+
+// The collect tracer's queue needs sums f32[n_chunks, 3, n_rays] as
+// scratch when n_chunks > 1 (nullptr otherwise).
 
 int drt_fused_collect(const DrtTrace* cfg, const DrtCamera* cam,
                       const float* scene, const float* alb, const float* emi,
                       const float* cam_u, const float* tape, float* out,
-                      float* rsc, int* rbest, void* stream) {
-  return launch<true>(cfg, cam, scene, alb, emi, cam_u, tape, out, rsc,
-                      rbest, stream);
+                      float* sums, float* rsc, int* rbest, void* stream) {
+  return launch<true>(cfg, cam, scene, alb, emi, cam_u, tape, out, sums, rsc,
+                   rbest, stream);
+}
+
+// The checking builds of the lockstep loop (one thread per ray slot, all
+// max_depth bounces of each chunk), the bit reference of the two above.
+int drt_fused_trace_lockstep(const DrtTrace* cfg, const DrtCamera* cam,
+                             const float* scene, const float* alb,
+                             const float* emi, const float* cam_u,
+                             const float* tape, float* out, void* stream) {
+  return launch_lockstep<false>(cfg, cam, scene, alb, emi, cam_u, tape, out,
+                                nullptr, nullptr, stream);
+}
+
+int drt_fused_collect_lockstep(const DrtTrace* cfg, const DrtCamera* cam,
+                               const float* scene, const float* alb,
+                               const float* emi, const float* cam_u,
+                               const float* tape, float* out, float* rsc,
+                               int* rbest, void* stream) {
+  return launch_lockstep<true>(cfg, cam, scene, alb, emi, cam_u, tape, out,
+                               rsc, rbest, stream);
+}
+
+// The timing and counting build, internal RNG: the queue (queue != 0),
+// which also adds each slot's lane-trips into trips i32[n_rays], or the
+// lockstep loop (trips and sums unused); the collect tracer's stores when
+// rsc and rbest are given. Adds its counters (FS_*) into stats
+// u64[FS_HIST + 33 * max_depth]; the caller zeroes trips and stats.
+int drt_fused_trace_stats(const DrtTrace* cfg, const DrtCamera* cam,
+                          const float* scene, const float* alb,
+                          const float* emi, float* out, float* sums,
+                          float* rsc, int* rbest, int* trips,
+                          unsigned long long* stats, int queue,
+                          void* stream) {
+  if (!drt_cfg_ok(cfg) || !cfg->internal_rng || (queue && !trips) ||
+      !stats || (rsc == nullptr) != (rbest == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool collect = rsc != nullptr;
+  if (queue) {
+#define DRT_LAUNCH(F, C)                                                  \
+  return launch_queue<F, true, C, true>(cfg, cam, scene, alb, emi, nullptr, \
+                                        nullptr, out, sums, rsc, rbest,   \
+                                        trips, stats, s)
+    if (cfg->fast) {
+      if (collect) DRT_LAUNCH(true, true);
+      DRT_LAUNCH(true, false);
+    }
+    if (collect) DRT_LAUNCH(false, true);
+    DRT_LAUNCH(false, false);
+#undef DRT_LAUNCH
+  }
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+#define DRT_LAUNCH(F, C)                                                  \
+  fused_trace_kernel<F, true, C, true><<<grid, DRT_BLOCK, 0, s>>>(        \
+      *cfg, *cam, scene, alb, emi, nullptr, nullptr, out, rsc, rbest, stats)
+  if (cfg->fast) {
+    if (collect) DRT_LAUNCH(true, true);
+    else DRT_LAUNCH(true, false);
+  } else {
+    if (collect) DRT_LAUNCH(false, true);
+    else DRT_LAUNCH(false, false);
+  }
+#undef DRT_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 // The wavefront tracer takes one chunk of rays, the exact variant and a

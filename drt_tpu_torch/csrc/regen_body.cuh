@@ -51,19 +51,21 @@ struct RegenNoStore {
 
 // All trips of pixel pix over one spp chunk whose first sample is sbase:
 // adds the chunk's radiance into p.lx, p.ly, p.lz (which the caller zeroes)
-// and returns the number of trips. bounce(smp, b, hook, p) runs one bounce
-// of sample smp at depth b; hook.trip and hook.want are set before it.
-template <bool FAST, bool COUNT, class Bounce, class Hook>
+// and returns the number of trips. bounce(smp, b, hook, p, marks) runs one
+// bounce of sample smp at depth b; hook.trip and hook.want are set before
+// it. `marks` is NoMarks, or the SectionClock of the timing build.
+template <bool FAST, bool COUNT, class Bounce, class Hook, class Marks>
 static __device__ __forceinline__ int regen_chunk(
     const DrtTrace& cfg, const DrtCamera& cam, int pix, uint32_t sbase,
     const Bounce& bounce, Hook& hook, PathState& p,
-    unsigned long long* stats) {
+    unsigned long long* stats, Marks& marks) {
   int s = -1, b = 0, trip = 0;
   p.ox = p.oy = p.oz = 0.0f;
   p.dx = p.dy = p.dz = 0.0f;
   p.Tx = p.Ty = p.Tz = 0.0f;
   p.alive = false;
   while (p.alive || s < cfg.spp_c - 1) {
+    marks.at(SEC_LOOP, b, p.alive);
     // A dead thread with samples left starts the next one in this trip.
     const bool want = !p.alive;
     if (want) {
@@ -76,10 +78,11 @@ static __device__ __forceinline__ int regen_chunk(
       p.alive = true;
       b = 0;
     }
+    marks.at(SEC_CAMERA, b, p.alive);
     if (COUNT) count_group(stats, STAT_LANE_TRIPS, STAT_GROUP_TRIPS);
     hook.trip = trip;
     hook.want = want ? 1 : 0;
-    bounce(sbase + (uint32_t)s, b, hook, p);
+    bounce(sbase + (uint32_t)s, b, hook, p, marks);
     if (COUNT && p.alive)
       count_group(stats, STAT_LIVE_TRIPS, STAT_LIVE_GROUPS);
     ++b;

@@ -13,7 +13,10 @@
 //    the rest of the buffer stays as it was allocated. Its radiance is the
 //    tracer's bit for bit;
 //  - drt_regen_stats: the tracer in a checking build that counts the
-//    lane-trips and the lane groups that ran them.
+//    lane-trips and the lane groups that ran them;
+//  - drt_regen_sections: the tracer (fast) in a timing build that adds up
+//    the clock64() cycles of each section of a trip (drt_common.cuh:
+//    SectionClock), as drt_fused_trace_stats does for the fused tracers.
 //
 // The bounce is fused_body.cuh:fused_bounce, the lockstep tracer's own, at
 // the thread's own depth, and the draws are the same keyed hash: sample s
@@ -60,10 +63,11 @@ struct FusedRegenBounce {
   const DrtTrace& cfg;
   const DrtTables& tab;
   int pix;
-  template <class Hook>
+  template <class Hook, class Marks>
   __device__ __forceinline__ void operator()(uint32_t smp, int b, Hook& hook,
-                                             PathState& p) const {
-    fused_bounce<FAST>(cfg, tab, pix, smp, b, hook, p);
+                                             PathState& p,
+                                             Marks& marks) const {
+    fused_bounce<FAST>(cfg, tab, pix, smp, b, hook, p, marks);
   }
 };
 
@@ -90,17 +94,18 @@ regen_trace_kernel(DrtTrace cfg, DrtCamera cam,
     const uint32_t sbase = (uint32_t)(sample_base + c * cfg.spp_c);
     PathState p;
     p.lx = 0.0f; p.ly = 0.0f; p.lz = 0.0f;
+    NoMarks marks;
     int t;
     if constexpr (COLLECT) {
       const size_t base = (size_t)c * t_cap * n + pix;
       RegenStore hook{rsc + base, rmeta + base, (size_t)n, cfg.min_bounces,
                       0, 0};
       t = regen_chunk<FAST, COUNT>(cfg, cam, pix, sbase, bounce, hook, p,
-                                   stats);
+                                   stats, marks);
     } else {
       RegenNoStore hook{0, 0};
       t = regen_chunk<FAST, COUNT>(cfg, cam, pix, sbase, bounce, hook, p,
-                                   stats);
+                                   stats, marks);
     }
     trips[(size_t)c * n + pix] = t;
     Lx = Lx + p.lx;
@@ -110,6 +115,45 @@ regen_trace_kernel(DrtTrace cfg, DrtCamera cam,
   out[pix] = Lx;
   out[n + pix] = Ly;
   out[2 * n + pix] = Lz;
+}
+
+// The tracer's timing build (fast variant): regen_trace_kernel's trips
+// with a SectionClock, whose per-section cycles it adds into
+// stats[0 .. N_SECT). B10's lanes split into groups by trip, so a section
+// is timed by the first active lane of each group that runs it.
+__global__ void __launch_bounds__(DRT_BLOCK)
+regen_sections_kernel(DrtTrace cfg, DrtCamera cam,
+                      const float* __restrict__ scene,
+                      const float* __restrict__ alb,
+                      const float* __restrict__ emi, int sample_base,
+                      float* __restrict__ out, int* __restrict__ trips,
+                      unsigned long long* stats) {
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = cfg.n_rays;  // pixels
+  if (pix >= n) return;
+
+  const FusedRegenBounce<true> bounce{cfg, tab, pix};
+  SectionClock marks;
+  marks.start(nullptr);
+  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;
+  for (int c = 0; c < cfg.n_chunks; ++c) {
+    const uint32_t sbase = (uint32_t)(sample_base + c * cfg.spp_c);
+    PathState p;
+    p.lx = 0.0f; p.ly = 0.0f; p.lz = 0.0f;
+    RegenNoStore hook{0, 0};
+    trips[(size_t)c * n + pix] = regen_chunk<true, false>(
+        cfg, cam, pix, sbase, bounce, hook, p, nullptr, marks);
+    Lx = Lx + p.lx;
+    Ly = Ly + p.ly;
+    Lz = Lz + p.lz;
+  }
+  out[pix] = Lx;
+  out[n + pix] = Ly;
+  out[2 * n + pix] = Lz;
+  marks.flush(stats);
 }
 
 static bool regen_cfg_ok(const DrtTrace* cfg, int sample_base) {
@@ -175,6 +219,20 @@ int drt_regen_stats(const DrtTrace* cfg, const DrtCamera* cam,
                     unsigned long long* stats, void* stream) {
   return launch<false, true>(cfg, cam, scene, alb, emi, sample_base, out,
                              trips, nullptr, nullptr, stats, stream);
+}
+
+// The timing build, fast variant: cycles per section (SEC_* of
+// drt_common.cuh) added into stats u64[N_SECT] (which the caller zeroes).
+int drt_regen_sections(const DrtTrace* cfg, const DrtCamera* cam,
+                       const float* scene, const float* alb, const float* emi,
+                       int sample_base, float* out, int* trips,
+                       unsigned long long* stats, void* stream) {
+  if (!regen_cfg_ok(cfg, sample_base) || !cfg->fast)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  regen_sections_kernel<<<grid, DRT_BLOCK, 0, (cudaStream_t)stream>>>(
+      *cfg, *cam, scene, alb, emi, sample_base, out, trips, stats);
+  return (int)cudaGetLastError();
 }
 
 const char* drt_regen_error_string(int code) {

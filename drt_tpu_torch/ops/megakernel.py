@@ -1,4 +1,4 @@
-"""The fused tracer and its adjoints: six CUDA kernels and their plain
+"""The fused tracer and its adjoints: the CUDA kernels and their plain
 PyTorch twins.
 
 The ports of `drt_tpu.ops.megakernel`'s full-depth fused kernels, with
@@ -48,6 +48,14 @@ CUDA tensors it launches its kernel or raises. Each counts its launches in `<wra
 `launch_counts()` reads them all, with those of the memory-resident
 kernels (`ops.dynkernel`, which registers its wrappers here), and
 `reset_launch_counts()` zeroes them.
+
+The tracer and the collect tracer run a queue of (ray slot, chunk) paths
+that spends a trip only on a live bounce; `build="lockstep"` launches
+their checking builds of the lockstep loop (every bounce of every slot),
+the bit reference, and `fused_trace_stats` the checking build that counts
+and times either loop. None of these is counted as a launch.
+`trip_counts_plain` gives the lane-trips each slot takes in the queue,
+from a collect tracer's rows and the roulette draws.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ import numpy as np
 import torch
 
 from drt_tpu_torch.config import RenderConfig
-from drt_tpu_torch.ops.rng import bounce_tape, camera_draws, hash_tapes
+from drt_tpu_torch.ops.rng import (bounce_tape, camera_draws, hash_tapes,
+                                   hash_uniform)
 from drt_tpu_torch.ops.vecmath import V3
 from drt_tpu_torch.renderer import trace_residuals, trace_rays, trace_segment
 from drt_tpu_torch.scene import Params, Scene, SPHERE, TRIANGLE
@@ -78,6 +87,15 @@ R_TYPE, R_MAT, R_ALB, R_EMI, R_GEO = 0, 1, 2, 3, 4
 R_E1, R_E2, R_TRI_N, R_R2 = 16, 19, 22, 25
 R_EXPO, R_INV_E2, R_POW_MODE = 26, 27, 28
 POW_NONINT, POW_EVEN, POW_ODD = 0, 1, 2
+# The checking build drt_fused_trace_stats (FS_* and SEC_* in the
+# sources): step counts, then cycles per section, then the live lanes per
+# warp-bounce by bounce ([max_depth, 33], the lockstep loop only).
+STEP_STATS = ("lane_steps", "warp_steps", "live_lanes", "live_warps")
+SECTIONS = ("camera", "draws", "hit", "shade", "hook", "tail", "loop")
+N_SECT = len(SECTIONS)
+# The loops of the tracer and the collect tracer: "queue" (the wrappers'
+# kernels) and "lockstep" (a checking build, the bit reference).
+BUILDS = ("queue", "lockstep")
 
 
 def scene_table(scene: Scene) -> torch.Tensor:
@@ -347,15 +365,23 @@ def _check_limits(source: str, fn, expected: list) -> None:
 
 def _library() -> ctypes.CDLL:
     """The tracer library: drt_fused_trace, drt_fused_collect,
-    drt_ray_trace, drt_fused_segment_trace, drt_earlyexit_trace."""
+    drt_ray_trace, drt_fused_segment_trace, drt_earlyexit_trace and the
+    checking builds drt_fused_trace_lockstep, drt_fused_collect_lockstep,
+    drt_fused_trace_stats."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
     if lib.drt_fused_trace.argtypes is None:
         both = (_DrtTrace, _DrtCamera)
-        # scene, alb, emi, cam_u, tape, out, [rsc, rbest,] stream
+        # scene, alb, emi, cam_u, tape, out, [sums, rsc, rbest,] stream
         _bind(lib, "drt_fused_trace", 7, both)
-        _bind(lib, "drt_fused_collect", 9, both)
+        _bind(lib, "drt_fused_collect", 10, both)
+        # scene, alb, emi, cam_u, tape, out, [rsc, rbest,] stream
+        _bind(lib, "drt_fused_trace_lockstep", 7, both)
+        _bind(lib, "drt_fused_collect_lockstep", 9, both)
+        # scene, alb, emi, out, sums, rsc, rbest, trips, stats, queue,
+        # stream
+        _bind(lib, "drt_fused_trace_stats", 11, both, n_ints_at=(9,))
         # scene, alb, emi, o, d, tape, out, stream
         _bind(lib, "drt_ray_trace", 8, (_DrtTrace,))
         # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
@@ -364,7 +390,8 @@ def _library() -> ctypes.CDLL:
         _bind(lib, "drt_earlyexit_trace", 7, both)
         lib.drt_error_string.argtypes = [ctypes.c_int]
         lib.drt_error_string.restype = ctypes.c_char_p
-        _check_limits(SOURCE, lib.drt_limits, [MAX_SHAPES, MAX_ROWS, REC])
+        _check_limits(SOURCE, lib.drt_limits,
+                      [MAX_SHAPES, MAX_ROWS, REC, len(STEP_STATS) + N_SECT])
     return lib
 
 
@@ -496,10 +523,13 @@ def _launch(wrapper, what: str, error_string, entry, dev, *args) -> None:
 def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                 cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor, *,
                 seeds=None, cam_u=None, tape=None, fastmath: bool = False,
-                n_chunks: int = 1) -> torch.Tensor:
+                n_chunks: int = 1, build: str = "queue") -> torch.Tensor:
     """Radiance f32[3, N] of the fused tracer. CPU tensors run the plain
-    twin (which has one form, so `fastmath` selects only the kernel's
-    variant); CUDA tensors launch the kernel or raise."""
+    twin (which has one form, so `fastmath` and `build` select only the
+    kernel); CUDA tensors launch the kernel or raise. build="lockstep"
+    launches the checking build of the lockstep loop, which is not
+    counted."""
+    entry = _build_entry("drt_fused_trace", build)
     if _device_of("fused_trace", alb) == "cpu":
         return fused_trace_plain(scene, cc, cfg, alb, emi, seeds=seeds,
                                  cam_u=cam_u, tape=tape, n_chunks=n_chunks)
@@ -509,22 +539,40 @@ def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lib = _library()
     out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
-    _launch(fused_trace, "fused tracer", lib.drt_error_string,
-            lib.drt_fused_trace, dev, ctypes.byref(tcfg),
-            ctypes.byref(_camera_struct(cc)), table.data_ptr(),
-            alb.data_ptr(), emi.data_ptr(), cu_ptr, tape_ptr,
-            out.data_ptr())
+    _launch(fused_trace if build == "queue" else None, "fused tracer",
+            lib.drt_error_string, getattr(lib, entry), dev,
+            ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)),
+            table.data_ptr(), alb.data_ptr(), emi.data_ptr(), cu_ptr,
+            tape_ptr, out.data_ptr())
     return out
+
+
+def _queue_sums(tcfg: _DrtTrace, dev) -> torch.Tensor | None:
+    """The collect tracer's queue's scratch for the radiance of each
+    (slot, chunk) path, f32[C, 3, N]; None for one chunk, whose paths
+    write their slots."""
+    if tcfg.n_chunks == 1:
+        return None
+    return torch.empty((tcfg.n_chunks, 3, tcfg.n_rays), dtype=torch.float32,
+                       device=dev)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def fused_collect(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                   *, seeds=None, cam_u=None, tape=None,
-                  fastmath: bool = False, n_chunks: int = 1):
+                  fastmath: bool = False, n_chunks: int = 1,
+                  build: str = "queue"):
     """(radiance f32[3, N], rsc f32[C, D, N], rbest i32[C, D, N]) of the
     collect tracer, the chunk dimension dropped when n_chunks == 1. The
     radiance equals `fused_trace`'s bit for bit. CPU tensors run the
-    plain twin; CUDA tensors launch the kernel or raise."""
+    plain twin; CUDA tensors launch the kernel or raise. build="lockstep"
+    launches the checking build of the lockstep loop, which is not
+    counted."""
+    entry = _build_entry("drt_fused_collect", build)
     if _device_of("fused_collect", alb) == "cpu":
         return fused_collect_plain(scene, cc, cfg, alb, emi, seeds=seeds,
                                    cam_u=cam_u, tape=tape,
@@ -534,17 +582,113 @@ def fused_collect(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                          fastmath=fastmath, n_chunks=n_chunks)
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lib = _library()
+    out, rsc, rbest = _collect_buffers(cfg, tcfg, n_chunks, dev)
+    queue = build == "queue"
+    sums = _queue_sums(tcfg, dev) if queue else None
+    _launch(fused_collect if queue else None, "fused collect tracer",
+            lib.drt_error_string, getattr(lib, entry), dev,
+            ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)),
+            table.data_ptr(), alb.data_ptr(), emi.data_ptr(), cu_ptr,
+            tape_ptr, out.data_ptr(), *((_ptr(sums),) if queue else ()),
+            rsc.data_ptr(), rbest.data_ptr())
+    return out, rsc, rbest
+
+
+def _build_entry(entry: str, build: str) -> str:
+    if build not in BUILDS:
+        raise ValueError(f"build {build!r}: one of {BUILDS}")
+    return entry if build == "queue" else f"{entry}_{build}"
+
+
+def _collect_buffers(cfg: RenderConfig, tcfg: _DrtTrace, n_chunks: int,
+                     dev):
+    """(out f32[3, N], rsc f32[C, D, N], rbest i32[C, D, N]), the chunk
+    dimension dropped when n_chunks == 1; the kernels write every row."""
     n, D = tcfg.n_rays, cfg.max_depth
     res_shape = (D, n) if n_chunks == 1 else (n_chunks, D, n)
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    rsc = torch.empty(res_shape, dtype=torch.float32, device=dev)
-    rbest = torch.empty(res_shape, dtype=torch.int32, device=dev)
-    _launch(fused_collect, "fused collect tracer", lib.drt_error_string,
-            lib.drt_fused_collect, dev, ctypes.byref(tcfg),
+    return (torch.empty((3, n), dtype=torch.float32, device=dev),
+            torch.empty(res_shape, dtype=torch.float32, device=dev),
+            torch.empty(res_shape, dtype=torch.int32, device=dev))
+
+
+def fused_trace_stats(scene: Scene, table: torch.Tensor, cc: CameraConsts,
+                      cfg: RenderConfig, alb: torch.Tensor,
+                      emi: torch.Tensor, seeds, *, fastmath: bool = True,
+                      n_chunks: int = 1, queue: bool = True,
+                      collect: bool = False) -> dict:
+    """Run the checking build drt_fused_trace_stats on the card (internal
+    RNG; not counted as a launch) and return its counters by name:
+    STEP_STATS (queue: lane-trips, warp-trips and their live lanes;
+    lockstep: every lane's bounces and the warp-bounces), `cycles` by
+    section (SECTIONS; clock64() cycles summed over the warps' steps),
+    `live_hist` (lockstep: i64[max_depth, 33], warp-bounces by bounce and
+    lanes alive after Russian roulette), `trips` (queue: the lane-trips of
+    each ray slot, i32[N]) and `radiance`; with `collect`, also `rsc` and
+    `rbest` of the collect tracer's stores."""
+    if alb.device.type != "cuda":
+        raise ValueError("fused_trace_stats is a checking build of the "
+                         "card: it takes CUDA tensors")
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_chunks=n_chunks)
+    out, rsc, rbest = _collect_buffers(cfg, tcfg, n_chunks, dev)
+    if not collect:
+        rsc = rbest = None
+    trips = torch.zeros(tcfg.n_rays, dtype=torch.int32, device=dev)
+    sums = _queue_sums(tcfg, dev) if collect else None
+    n_head = len(STEP_STATS) + N_SECT
+    stats = torch.zeros(n_head + 33 * cfg.max_depth, dtype=torch.int64,
+                        device=dev)
+    lib = _library()
+    _launch(None, "fused trace stats", lib.drt_error_string,
+            lib.drt_fused_trace_stats, dev, ctypes.byref(tcfg),
             ctypes.byref(_camera_struct(cc)), table.data_ptr(),
-            alb.data_ptr(), emi.data_ptr(), cu_ptr, tape_ptr,
-            out.data_ptr(), rsc.data_ptr(), rbest.data_ptr())
-    return out, rsc, rbest
+            alb.data_ptr(), emi.data_ptr(), out.data_ptr(), _ptr(sums),
+            _ptr(rsc), _ptr(rbest), trips.data_ptr(), stats.data_ptr(),
+            int(queue))
+    head = stats[:n_head].tolist()
+    d = dict(zip(STEP_STATS, head))
+    d.update(cycles=dict(zip(SECTIONS, head[len(STEP_STATS):])),
+             live_hist=stats[n_head:].reshape(cfg.max_depth, 33),
+             trips=trips if queue else None, radiance=out)
+    if collect:
+        d.update(rsc=rsc, rbest=rbest)
+    return d
+
+
+def trip_counts_plain(cfg: RenderConfig, rbest: torch.Tensor, *,
+                      seeds=None, tape=None) -> torch.Tensor:
+    """The lane-trips each ray slot takes in the tracers' queue, i32[N]:
+    summed over the chunks, 1 + the bounces b >= 1 at which the path was
+    alive after bounce b - 1 (rbest > 0) and passed Russian roulette (b <
+    min_bounces, or its draw u_rr >= absorb_prob in f32). rbest is a
+    collect tracer's, i32[C, D, N] or [D, N]; the roulette draws are the
+    keyed hash of `seeds` at the slot's pixel and sample, or row (b, 0) of
+    `tape` f32[D, 3, N] (one chunk). On the tensors' device."""
+    if rbest.ndim == 2:
+        rbest = rbest[None]
+    n_chunks, D, n = rbest.shape
+    if (seeds is None) == (tape is None):
+        raise ValueError("pass seeds (internal RNG) or tape")
+    if tape is not None and n_chunks != 1:
+        raise ValueError("tape mode has one chunk")
+    dev = rbest.device
+    npix = cfg.width * cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    slot = torch.arange(n, dtype=torch.int64, device=dev)
+    absorb = torch.tensor(cfg.absorb_prob, dtype=torch.float32, device=dev)
+    trips = torch.full((n,), n_chunks, dtype=torch.int32, device=dev)
+    for c in range(n_chunks):
+        for b in range(1, D):  # a bounce at a time: N-sized temporaries
+            if tape is not None:
+                u_rr = tape[b, 0].to(torch.float32)
+            else:
+                u_rr = hash_uniform(int(seeds[1]), slot % npix,
+                                    c * spp_c + slot // npix, b, 0,
+                                    torch.float32, dev)
+            passes = ~(u_rr < absorb) if b >= cfg.min_bounces else True
+            trips += (rbest[c, b - 1] > 0) & passes
+    return trips
 
 
 def _adjoint_buffers(cfg: RenderConfig, tcfg: _DrtTrace, g: torch.Tensor,

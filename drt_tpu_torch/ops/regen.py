@@ -301,7 +301,7 @@ def rows_by_sample(cfg: RenderConfig, rsc: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     """The tracer library: drt_regen_trace, drt_regen_collect,
-    drt_regen_stats."""
+    drt_regen_stats, drt_regen_sections."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
@@ -312,6 +312,7 @@ def _library() -> ctypes.CDLL:
         mk._bind(lib, "drt_regen_trace", 7, both, n_ints_at=(3,))
         mk._bind(lib, "drt_regen_collect", 9, both, n_ints_at=(3,))
         mk._bind(lib, "drt_regen_stats", 8, both, n_ints_at=(3,))
+        mk._bind(lib, "drt_regen_sections", 8, both, n_ints_at=(3,))
         lib.drt_regen_error_string.argtypes = [ctypes.c_int]
         lib.drt_regen_error_string.restype = ctypes.c_char_p
         mk._check_limits(SOURCE, lib.drt_regen_limits,
@@ -471,6 +472,24 @@ def regen_trip_stats(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
                    cc, cfg, alb, emi, seeds, True, n_chunks, 0,
                    (out, trips, stats))
     return stats_dict(stats, trips, out)
+
+
+def regen_sections(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
+                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
+                   seeds, *, n_chunks: int = 1) -> dict:
+    """Run the tracer's timing build (fast variant) on the card and return
+    the clock64() cycles of each section of its trips by name
+    (`megakernel.SECTIONS`; timed by the first active lane of each lane
+    group that runs it), with `trips` and the radiance. Not counted as a
+    launch of the tracer."""
+    check_regen_args(cfg, seeds, n_chunks, 0)
+    out, trips = trip_buffers(cfg, n_chunks, False, alb.device)
+    stats = torch.zeros(mk.N_SECT, dtype=torch.int64, device=alb.device)
+    _launch_tracer(None, "regeneration sections", "drt_regen_sections", table,
+                   cc, cfg, alb, emi, seeds, True, n_chunks, 0,
+                   (out, trips, stats))
+    return dict(cycles=dict(zip(mk.SECTIONS, stats.tolist())), trips=trips,
+                radiance=out)
 
 
 def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,

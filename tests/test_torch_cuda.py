@@ -1074,3 +1074,128 @@ def test_compacted_renderer_matches_fused_exact(dev):
     assert _share_beyond(out[0][0].reshape(-1, 3).T,
                          out[1][0].reshape(-1, 3).T, 2e-5, 2e-6) <= 1e-3
     _grads_close(out[0][1:], out[1][1:], 1e-4)
+
+
+# The queue of the tracer B1 and the collect tracer B2 (persistent threads,
+# one live bounce a trip) against the lockstep loop's checking builds.
+QUEUE_RNG = ["tape", "internal-1", "internal-3", "internal-4",
+             "internal-16"]
+
+
+def _queue_and_lockstep(scene, cam, alb, emi, depth, fastmath, rng, dev,
+                        seed=0):
+    """B1 and B2 in the queue and in the lockstep builds, on 30x20 pixels:
+    600 * 4 ray slots, so that a warp's last round of the queue is
+    partial."""
+    chunks = 1 if rng == "tape" else int(rng.split("-")[1])
+    cfg = RenderConfig(width=30, height=20, spp=4 * chunks,
+                       spp_chunks=chunks, max_depth=depth)
+    n = 30 * 20 * 4
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if rng == "tape":
+        kw = dict(cam_u=torch.rand((2, n), generator=g, device=dev),
+                  tape=torch.rand((depth, 3, n), generator=g, device=dev))
+    else:
+        kw = dict(seeds=torch.tensor([seed, -7], dtype=torch.int32))
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, 30, 20)
+    kw.update(fastmath=fastmath, n_chunks=chunks)
+    out = {build: (mk.fused_trace(scene, table, cc, cfg, alb, emi,
+                                  build=build, **kw),
+                   *mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                     build=build, **kw))
+           for build in ("queue", "lockstep")}
+    return cfg, kw, out
+
+
+@pytest.mark.parametrize("depth", [1, 5, 32])
+@pytest.mark.parametrize("rng", QUEUE_RNG)
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_queue_tracers_equal_the_lockstep_builds(dev, make, fastmath, rng,
+                                                 depth):
+    scene, params, cam, alb, emi = _setup(make, dev)
+    before = mk.launch_counts()
+    _, _, out = _queue_and_lockstep(scene, cam, alb, emi, depth, fastmath,
+                                    rng, dev)
+    torch.cuda.synchronize()
+    counts = mk.launch_counts()
+    # Only the queue's launches count; the lockstep builds are checking
+    # builds.
+    assert counts["fused_tracer"] == before["fused_tracer"] + 1
+    assert counts["fused_collect"] == before["fused_collect"] + 1
+    for got, ref in zip(out["queue"], out["lockstep"]):
+        assert torch.equal(got, ref)
+    assert torch.equal(out["queue"][1], out["queue"][0])
+    assert torch.isfinite(out["queue"][0]).all()
+    if depth > 1:  # the tri scene's light is seen only after a bounce
+        assert out["queue"][0].mean() > 0
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_retrace_adjoint_is_sweep_of_the_queue_rows(dev, make, fastmath):
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg, kw, out = _queue_and_lockstep(scene, cam, alb, emi, 32, fastmath,
+                                       "tape", dev, seed=3)
+    g = torch.rand((3, cfg.width * cfg.height * cfg.spp), device=dev)
+    _, _, rsc, rbest = out["queue"]
+    d_sweep = mk.make_fused_sweep_adjoint(scene, cfg)(alb, emi, rsc, rbest,
+                                                      g)
+    d_adj = mk.make_fused_adjoint(scene, cam, cfg, rng="tape",
+                                  fastmath=fastmath)(
+        alb, emi, kw["cam_u"], kw["tape"], g)
+    for a, b in zip(d_adj, d_sweep):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_trip_counter_equals_trip_counts_plain(dev, make, chunks):
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg = RenderConfig(width=32, height=24, spp=4 * chunks,
+                       spp_chunks=chunks, max_depth=8)
+    seeds = torch.tensor([5, 6], dtype=torch.int32)
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, 32, 24)
+    before = mk.launch_counts()
+    st = mk.fused_trace_stats(scene, table, cc, cfg, alb, emi, seeds,
+                              n_chunks=chunks, collect=True)
+    assert mk.launch_counts() == before  # a checking build
+    L, rsc, rbest = mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                     seeds=seeds, fastmath=True,
+                                     n_chunks=chunks)
+    for got, ref in zip((st["radiance"], st["rsc"], st["rbest"]),
+                        (L, rsc, rbest)):
+        assert torch.equal(got, ref)
+    ref = mk.trip_counts_plain(cfg, rbest, seeds=seeds)
+    assert torch.equal(st["trips"], ref)
+    assert st["lane_steps"] == int(ref.sum())
+    assert st["lane_steps"] <= 32 * st["warp_steps"]
+    assert st["live_lanes"] <= st["lane_steps"]
+    assert all(v > 0 for v in st["cycles"].values())
+    lock = mk.fused_trace_stats(scene, table, cc, cfg, alb, emi, seeds,
+                                n_chunks=chunks, queue=False)
+    assert torch.equal(lock["radiance"], L)
+    n = cfg.width * cfg.height * cfg.spp // chunks
+    assert lock["lane_steps"] == n * chunks * cfg.max_depth
+    # Every warp-bounce is in the histogram of live lanes by bounce.
+    assert int(lock["live_hist"].sum()) == lock["warp_steps"]
+
+
+def test_queue_builds_check_their_arguments(dev):
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=16, height=8, spp=2, max_depth=3)
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, 16, 8)
+    seeds = torch.tensor([1, 2], dtype=torch.int32)
+    for fn in (mk.fused_trace, mk.fused_collect):  # no such build
+        with pytest.raises(ValueError):
+            fn(scene, table, cc, cfg, alb, emi, seeds=seeds,
+               build="nonesuch")
+    with pytest.raises(ValueError):
+        mk.fused_trace_stats(scene, table, cc, cfg, alb.cpu(), emi.cpu(),
+                             seeds)

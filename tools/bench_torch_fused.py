@@ -1,0 +1,520 @@
+"""Time drt_tpu_torch's scene-table kernels and Cornell-box paths on one
+NVIDIA GPU, so that two checkouts can be compared on one card, in one
+sitting; and break the tracers' time down by section.
+
+  python3 tools/bench_torch_fused.py [--root DIR] [--label NAME]
+  python3 tools/bench_torch_fused.py --breakdown [--queue] [--root DIR]
+
+Imports drt_tpu_torch from DIR (default: the checkout holding this
+script), builds its kernels from DIR's sources, and prints JSON lines:
+  - "card": nvidia-smi's name and power limit;
+  - "ptxas": each entry function's registers, stack and spills, per
+    library, from the compiler's report;
+  - "kernel": device ms per launch, the median of 3 windows of 10 launches
+    after 20 warm-ups (CUDA events), with the window means: B1 (tracer)
+    and B2 (collect tracer) at the main shape of chip_smoke.py (Cornell
+    box, 640x480, 256 spp, depth 5, 16 chunks, fast variant, internal
+    RNG, seeds (7, 8)) and at the CLI's default shape (640x480, 100 spp,
+    depth 32, one chunk); where the checkout has them, their lockstep
+    checking builds and, as the store-only yardstick, the zeroing of the
+    collect tracer's buffers alone; B3 (sweep), B4 (retrace adjoint), B10
+    (regeneration tracer, both forms), B11 (its sweep) and B14 (early
+    exit, exact) at the main shape; B5a and B5b (wavefront) and the
+    segment forms [0, 2) and [2, 5) on one chunk of it;
+  - "digest": SHA-256 of B1's radiance and of B2's radiance, rsc and rbest
+    at the main shape (fast and exact), at the CLI default shape (fast)
+    and in tape mode (one chunk of the main shape, its hash tapes, fast):
+    equal digests across checkouts mean bit-equal outputs;
+  - "path": the Cornell box through the user's entry points, seconds on
+    the host clock with a synchronize (median of 5 after 2 warm-ups):
+    make_renderer forward at the main shape and at the CLI default shape,
+    a forward+backward step of the mean squared image loss in the stored
+    and the retrace forms, and the trainer step of optim.inverse_render (a
+    call of 10 steps less a call of 5, over 5).
+With --breakdown it prints "breakdown" lines instead: the lockstep loop's
+checking build at the main shape (cycles per section of a warp-bounce,
+clock64() summed over the warps, and the live lanes per warp-bounce by
+bounce), both forms; the same sections on B10's trips; the SASS
+instruction counts (LDS, MUFU, the division's FCHK, CALLs to slow paths,
+branches) of a shape test and of shade in the fast builds, from nvdisasm
+of a -lineinfo cubin of csrc/fused_tracer.cu; and with --queue the
+queue's checking build (lane-trips, warp-trips, sections, and its trip
+counter against ops.megakernel.trip_counts_plain).
+Run the comparison on the checkouts in turns (A, B, B, A) to see the
+card's drift.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import inspect
+import json
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+MAIN = dict(width=640, height=480, spp=256, max_depth=5, spp_chunks=16)
+CLI = dict(width=640, height=480, spp=100, max_depth=32, spp_chunks=1)
+
+
+def emit(kind: str, label: str, **kw) -> None:
+    print(json.dumps({"kind": kind, "label": label, **kw}), flush=True)
+
+
+def cuda_ms(torch, fn, reps=10, warmup=20, windows=3):
+    """Device ms per fn() call: the median of `windows` window means."""
+    for _ in range(warmup):
+        out = fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    return sorted(means)[len(means) // 2], means, out
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def host_s(torch, fn, reps=5, warmup=2) -> tuple[float, list]:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+# ---------------------------------------------------------------------------
+# SASS counts by source section.
+
+def _line_of(text: str, needle: str, start: int = 0) -> int:
+    """1-based line of the first line at or after `start` holding needle."""
+    for k, line in enumerate(text.splitlines()[start:], start + 1):
+        if needle in line:
+            return k
+    raise ValueError(f"{needle!r} not found")
+
+
+def source_sections(csrc: Path) -> dict:
+    """name -> (file name, first line, last line) of the source regions a
+    SASS instruction is attributed to by its line info."""
+    inc = (csrc / "fused_bounce.inc").read_text()
+    common = (csrc / "drt_common.cuh").read_text()
+    loop = _line_of(inc, "for (int k = 0; k < cfg.n_shapes; ++k)")
+    plane = _line_of(inc, "if (st == PLANE) {", loop)
+    sphere = _line_of(inc, "} else if (st == SPHERE) {", plane)
+    tri = _line_of(inc, "} else {  // TRIANGLE", sphere)
+    valid = _line_of(inc, "if (valid && tk < best_t)", tri)
+    shade = _line_of(common, "static __device__ __forceinline__ void shade(")
+    shade_end = _line_of(common, "// Counting in a checking build", shade)
+    hash0 = _line_of(common, "static __device__ __forceinline__ uint32_t fmix")
+    hash1 = _line_of(common, "// max(x, 0) that keeps NaN", hash0)
+    cam0 = _line_of(common, "static __device__ __forceinline__ void "
+                    "primary_dir(")
+    cam1 = _line_of(common, "// The (rr, u1, u2) uniforms of bounce bnc.",
+                    cam0)
+    return {"shape loop": ("fused_bounce.inc", loop, plane - 1),
+            "plane test": ("fused_bounce.inc", plane, sphere - 1),
+            "sphere test": ("fused_bounce.inc", sphere, tri - 1),
+            "triangle test": ("fused_bounce.inc", tri, valid - 1),
+            "nearest-hit update": ("fused_bounce.inc", valid, valid + 4),
+            "shade": ("drt_common.cuh", shade, shade_end - 1),
+            "keyed hash": ("drt_common.cuh", hash0, hash1 - 1),
+            "camera ray": ("drt_common.cuh", cam0, cam1 - 1)}
+
+
+def _opcode(ins: str) -> str:
+    tokens = ins.split()
+    if tokens and tokens[0].startswith("@"):
+        tokens = tokens[1:]
+    return tokens[0] if tokens else ""
+
+
+def sass_counts(native, csrc: Path, kernels: list, out_dir: Path) -> dict:
+    """Per kernel (a substring of its mangled name) and section: the number
+    of SASS instructions and of LDS, MUFU, FCHK (the IEEE division's
+    range check), CALL (slow-path subroutines) and BRA among them, from
+    nvdisasm -g of csrc/fused_tracer.cu built with -lineinfo (which leaves
+    the code as it is: the totals are printed beside the .so's)."""
+    nvcc = native.nvcc_path()
+    bindir = Path(nvcc).parent
+    flags = [f for f in native.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    cubin = out_dir / "fused_tracer_lineinfo.cubin"
+    subprocess.run([nvcc, *flags, "-lineinfo", "-cubin", "-o", str(cubin),
+                    str(csrc / "fused_tracer.cu")], check=True,
+                   capture_output=True, text=True)
+    text = subprocess.run([str(bindir / "nvdisasm"), "-g", "-c", str(cubin)],
+                          check=True, capture_output=True,
+                          text=True).stdout
+    regions = source_sections(csrc)
+    fn, loc = None, None
+    counts: dict = {}
+    for line in text.splitlines():
+        m = re.match(r"\s*\.section\s+\.text\.(\S+?),", line)
+        if m:
+            fn, loc = m.group(1), None
+            continue
+        m = re.search(r'File "([^"]+)", line (\d+)', line)
+        if m:
+            loc = (Path(m.group(1)).name, int(m.group(2)))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if not m or fn is None:
+            continue
+        key = next((k for k in kernels if k in fn), None)
+        if key is None:
+            continue
+        op = _opcode(m.group(1))
+        names = ["total"]
+        if loc is not None:
+            names += [name for name, (f, a, b) in regions.items()
+                      if loc[0] == f and a <= loc[1] <= b]
+        for name in names:
+            c = counts.setdefault(key, {}).setdefault(
+                name, dict(instructions=0, LDS=0, MUFU=0, FCHK=0, CALL=0,
+                           BRA=0, slow_paths=[]))
+            c["instructions"] += 1
+            for cls in ("LDS", "MUFU", "FCHK", "CALL", "BRA"):
+                if op.split(".")[0] == cls:
+                    c[cls] += 1
+            if op.startswith("CALL"):
+                callee = re.search(r"\(([^)]*)\)", m.group(1))
+                c["slow_paths"].append(callee.group(1) if callee else op)
+    so_text = subprocess.run([str(bindir / "cuobjdump"), "-sass",
+                              str(native.library_path("fused_tracer.cu"))],
+                             check=True, capture_output=True,
+                             text=True).stdout
+    for key in kernels:
+        n, inside = 0, False
+        for line in so_text.splitlines():
+            if "Function :" in line:
+                inside = key in line
+            elif inside and re.search(r"/\*[0-9a-f]{4,}\*/\s+[^;]*;", line):
+                n += 1
+        counts.setdefault(key, {})["so_total"] = n
+    return counts
+
+
+# ---------------------------------------------------------------------------
+
+def breakdown(torch, label: str, root: Path, queue: bool) -> None:
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.scene import albedo_table, emission_table
+    from drt_tpu_torch.utils import native
+
+    dev = torch.device("cuda")
+    cfg = RenderConfig(**MAIN)
+    C, D = cfg.spp_chunks, cfg.max_depth
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    kw = dict(fastmath=True, n_chunks=C)
+    loops = (False, True) if queue else (False,)
+    for q in loops:
+        for collect in (False, True):
+            mk.fused_trace_stats(scene, table, cc, cfg, alb, emi, seeds,
+                                 queue=q, collect=collect, **kw)  # warm-up
+            torch.cuda.synchronize()
+            st = mk.fused_trace_stats(scene, table, cc, cfg, alb, emi, seeds,
+                                      queue=q, collect=collect, **kw)
+            steps = st["warp_steps"]
+            hist = st["live_hist"].cpu()
+            k = torch.arange(33)
+            by_bounce = [dict(warp_bounces=int(h.sum()),
+                              mean_live=(float((h * k).sum() / h.sum())
+                                         if h.sum() else 0.0),
+                              all_dead=int(h[0]), all_live=int(h[32]))
+                         for h in hist]
+            extra = {}
+            if q:
+                ref = mk.trip_counts_plain(cfg, st["rbest"], seeds=seeds) \
+                    if collect else None
+                extra = dict(trips_sum=int(st["trips"].sum()),
+                             trips_equal_plain=(None if ref is None else
+                                                bool(torch.equal(
+                                                    st["trips"], ref))))
+            emit("breakdown", label, what=("queue" if q else "lockstep")
+                 + (" collect" if collect else " tracer"),
+                 **{name: st[name] for name in mk.STEP_STATS},
+                 cycles=st["cycles"],
+                 cycles_per_warp_step={s: v / steps for s, v in
+                                       st["cycles"].items()},
+                 live_by_bounce=None if q else by_bounce,
+                 live_hist=None if q else hist.tolist(), **extra)
+            del st
+    # B10's trips, in its timing build, and its lane groups.
+    for _ in range(2):
+        sec = rg.regen_sections(scene, table, cc, cfg, alb, emi, seeds,
+                                n_chunks=C)
+    ts = rg.regen_trip_stats(scene, table, cc, cfg, alb, emi, seeds,
+                             n_chunks=C)
+    emit("breakdown", label, what="regen tracer (B10)",
+         cycles=sec["cycles"], group_trips=ts["group_trips"],
+         lane_trips=ts["lane_trips"],
+         cycles_per_group_trip={s: v / ts["group_trips"]
+                                for s, v in sec["cycles"].items()})
+    kernels = ["fused_trace_kernelILb1ELb1ELb0ELb0E"]
+    if queue:
+        kernels.append("queue_trace_kernelILb1ELb1ELb0ELb0E")
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        counts = sass_counts(native, root / "drt_tpu_torch" / "csrc",
+                             kernels, Path(tmp))
+    for key, c in counts.items():
+        emit("sass", label, kernel=key, sections=c)
+
+
+def compare(torch, label: str) -> None:
+    from drt_tpu_torch import optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import make_fused_image_renderer
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import earlyexit
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.ops.rng import hash_tapes
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    dev = torch.device("cuda")
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    table = mk.scene_table(scene)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    builds = "build" in inspect.signature(mk.fused_trace).parameters
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def both(shape_name, cfg, fast=True, digests=True, extra=True):
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        kw = dict(seeds=seeds, fastmath=fast, n_chunks=cfg.spp_chunks)
+        tag = f"{shape_name}, {'fast' if fast else 'exact'}"
+        ms, win, L = cuda_ms(torch, lambda: mk.fused_trace(
+            scene, table, cc, cfg, alb, emi, **kw))
+        emit("kernel", label, name=f"B1 tracer, {tag}", ms=ms, windows=win)
+        if digests:
+            emit("digest", label, name=f"B1 radiance, {tag}",
+                 sha256=digest(L))
+        del L
+        ms, win, (L, rsc, rbest) = cuda_ms(torch, lambda: mk.fused_collect(
+            scene, table, cc, cfg, alb, emi, **kw))
+        emit("kernel", label, name=f"B2 collect, {tag}", ms=ms, windows=win)
+        if digests:
+            for what, t in (("radiance", L), ("rsc", rsc), ("rbest", rbest)):
+                emit("digest", label, name=f"B2 {what}, {tag}",
+                     sha256=digest(t))
+        n_bytes = rsc.numel() * 8
+        del L, rsc, rbest
+        if not (builds and extra):
+            return
+        ms, win, _ = cuda_ms(torch, lambda: mk.fused_collect(
+            scene, table, cc, cfg, alb, emi, build="lockstep", **kw))
+        emit("kernel", label, name=f"B2 collect lockstep build, {tag}",
+             ms=ms, windows=win)
+        ms, win, _ = cuda_ms(torch, lambda: mk.fused_trace(
+            scene, table, cc, cfg, alb, emi, build="lockstep", **kw))
+        emit("kernel", label, name=f"B1 tracer lockstep build, {tag}",
+             ms=ms, windows=win)
+        rows = torch.empty(n_bytes // 4, dtype=torch.int32, device=dev)
+        ms, win, _ = cuda_ms(torch, lambda: rows.zero_())
+        emit("kernel", label, name=f"zeroing B2's rows alone, {tag}", ms=ms,
+             windows=win, bytes=n_bytes)
+        del rows
+
+    cfg = RenderConfig(**MAIN)
+    C = cfg.spp_chunks
+    both("main shape", cfg)
+    both("main shape", cfg, fast=False, extra=False)
+    both("CLI default shape", RenderConfig(**CLI))
+    torch.cuda.empty_cache()
+
+    # Tape mode: one chunk of the main shape and its hash tapes.
+    cfg1 = RenderConfig(**{**MAIN, "spp": MAIN["spp"] // C,
+                           "spp_chunks": 1})
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    cam_u, tape = hash_tapes(seeds, cfg.width * cfg.height, cfg1.spp,
+                             cfg.max_depth, device=dev)
+    kw = dict(cam_u=cam_u, tape=tape, fastmath=True)
+    emit("digest", label, name="B1 radiance, tape mode, fast",
+         sha256=digest(mk.fused_trace(scene, table, cc, cfg1, alb, emi,
+                                      **kw)))
+    for what, t in zip(("radiance", "rsc", "rbest"), mk.fused_collect(
+            scene, table, cc, cfg1, alb, emi, **kw)):
+        emit("digest", label, name=f"B2 {what}, tape mode, fast",
+             sha256=digest(t))
+
+    # The other kernels of the family, at the main shape.
+    npix = cfg.width * cfg.height
+    g_pix = torch.rand((3, npix), generator=g, device=dev) / cfg.spp
+    kw = dict(fastmath=True, n_chunks=C)
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg, **kw)(
+        alb, emi, seeds)
+    sweep = mk.make_fused_sweep_adjoint(scene, cfg, n_chunks=C)
+    ms, win, _ = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rbest, g_pix))
+    emit("kernel", label, name="B3 sweep, main shape", ms=ms, windows=win)
+    del rsc, rbest
+    adj = mk.make_fused_adjoint(scene, cam, cfg, **kw)
+    ms, win, _ = cuda_ms(torch, lambda: adj(alb, emi, seeds, g_pix))
+    emit("kernel", label, name="B4 retrace adjoint, main shape", ms=ms,
+         windows=win)
+    regen = rg.make_regen_tracer(scene, cam, cfg, **kw)
+    ms, win, _ = cuda_ms(torch, lambda: regen(alb, emi, seeds))
+    emit("kernel", label, name="B10 regen tracer, main shape", ms=ms,
+         windows=win)
+    regen_c = rg.make_regen_tracer(scene, cam, cfg, collect=True, **kw)
+    ms, win, (_, rsc, rmeta, trips) = cuda_ms(
+        torch, lambda: regen_c(alb, emi, seeds))
+    emit("kernel", label, name="B10 regen collect form, main shape", ms=ms,
+         windows=win)
+    rsweep = rg.make_regen_sweep_adjoint(scene, cfg, n_chunks=C)
+    ms, win, _ = cuda_ms(torch, lambda: rsweep(alb, emi, rsc, rmeta, trips,
+                                               g_pix))
+    emit("kernel", label, name="B11 regen sweep, main shape", ms=ms,
+         windows=win)
+    del rsc, rmeta, trips
+    ee = earlyexit.make_earlyexit_tracer(scene, cam, cfg, n_chunks=C)
+    ms, win, _ = cuda_ms(torch, lambda: ee(alb, emi, seeds))
+    emit("kernel", label, name="B14 early-exit tracer (exact), main shape",
+         ms=ms, windows=win)
+    # One chunk: the wavefront kernels on B1's own rays, the segments.
+    n = npix * cfg1.spp
+    pix = torch.arange(n, device=dev) % npix
+    o, d = mk.camera_ray_from_pix(cc, pix, cam_u[0], cam_u[1])
+    o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+    g_ray = torch.rand((3, n), generator=g, device=dev)
+    trace = mk.make_pallas_tracer(scene, cfg)
+    ms, win, _ = cuda_ms(torch, lambda: trace(alb, emi, o, d, tape))
+    emit("kernel", label, name="B5a wavefront tracer, one chunk", ms=ms,
+         windows=win)
+    wadj = mk.make_pallas_adjoint(scene, cfg)
+    ms, win, _ = cuda_ms(torch, lambda: wadj(alb, emi, o, d, tape, g_ray))
+    emit("kernel", label, name="B5b wavefront adjoint, one chunk", ms=ms,
+         windows=win)
+    segA = mk.make_fused_segment_tracer(scene, cam, cfg, 0, 2)
+    segB = mk.make_fused_segment_tracer(scene, cam, cfg, 2, cfg.max_depth)
+    ms, win, (_, (ray, alive)) = cuda_ms(
+        torch, lambda: segA(alb, emi, seeds, chunk=1))
+    emit("kernel", label, name="B1-seg [0, 2), one chunk", ms=ms,
+         windows=win)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    ms, win, _ = cuda_ms(torch, lambda: segB(alb, emi, seeds, ray, alive,
+                                             idx, chunk=1))
+    emit("kernel", label, name="B1-seg [2, 5), one chunk", ms=ms,
+         windows=win)
+    adjB = mk.make_fused_segment_adjoint(scene, cam, cfg, 2, cfg.max_depth)
+    ms, win, (_, _, S) = cuda_ms(torch, lambda: adjB(alb, emi, seeds, ray,
+                                                     alive, idx, g_ray,
+                                                     chunk=1))
+    emit("kernel", label, name="B4-seg [2, 5), one chunk", ms=ms,
+         windows=win)
+    adjA = mk.make_fused_segment_adjoint(scene, cam, cfg, 0, 2)
+    ms, win, _ = cuda_ms(torch, lambda: adjA(alb, emi, seeds, g_ray, S,
+                                             chunk=1))
+    emit("kernel", label, name="B4-seg [0, 2), one chunk", ms=ms,
+         windows=win)
+    del o, d, tape, cam_u, ray, alive, S
+    torch.cuda.empty_cache()
+
+    # The paths.
+    render = make_renderer(scene, cfg, cam, differentiable=False)
+    s_img = torch.tensor([1, 2], dtype=torch.int32)
+    target = render(params, s_img)
+    med, times = host_s(torch, lambda: render(params, s_img))
+    emit("path", label, name="make_renderer forward, main shape", s=med,
+         times=times)
+    cli = make_renderer(scene, RenderConfig(**CLI), cam,
+                        differentiable=False)
+    med, times = host_s(torch, lambda: cli(params, s_img))
+    emit("path", label, name="make_renderer forward, CLI default shape",
+         s=med, times=times)
+    del cli
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+
+    def step(render_fn):
+        p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
+        ((render_fn(p, s_img) - target) ** 2).mean().backward()
+
+    for form, fn in (("stored", make_renderer(scene, cfg, cam)),
+                     ("retrace", make_fused_image_renderer(
+                         scene, cam, cfg, adjoint="retrace"))):
+        med, times = host_s(torch, lambda: step(fn))
+        emit("path", label, name=f"fwd+bwd step, {form}", s=med,
+             times=times)
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+
+    def train(n_steps):
+        t0 = time.perf_counter()
+        optim.inverse_render(scene, cfg, cam, target,
+                             Params(start, params.emission),
+                             torch.Generator().manual_seed(5), steps=n_steps)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    train(1)  # warm-up
+    t5, t10 = train(5), train(10)
+    emit("path", label, name="trainer step", s=(t10 - t5) / 5,
+         s_per_step_of_5=t5 / 5, s_per_step_of_10=t10 / 10)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--queue", action="store_true")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    label = args.label or str(root)
+    sys.path.insert(0, str(root))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_torch_fused: no CUDA device visible", file=sys.stderr)
+        return 2
+    import drt_tpu_torch
+    assert Path(drt_tpu_torch.__file__).resolve().parent.parent == root
+    from drt_tpu_torch.utils import native
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    emit("card", label, smi=smi, torch=torch.__version__)
+    built = native.build_all()
+    for source in sorted(built):
+        lines = [ln.strip() for ln in
+                 native.log_path(source).read_text().splitlines()
+                 if any(w in ln for w in ("Compiling entry", "registers",
+                                          "spill"))]
+        emit("ptxas", label, source=source, lines=lines)
+    if args.breakdown:
+        breakdown(torch, label, root, args.queue)
+    else:
+        compare(torch, label)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
