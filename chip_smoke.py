@@ -98,17 +98,23 @@ Phases (any failure raises, exits non-zero and prints no result line):
      image, a forward+backward step against the "cuda" retrace form
      (exact), the bytes it keeps, and 5 Adam steps of optim's paired loss
      over it;
- 16. the queue of the tracer and the collect tracer (one live bounce a
-     trip) against their lockstep checking builds, bit for bit: radiance,
-     rsc and rbest on cbox, glossy and tri (30x20x4 spp, so that a warp's
-     last round is partial), exact and fast, tape mode and the internal
-     RNG in 1, 3, 4 and 16 chunks, depths 1, 5 and 32, and at the main shape
-     and the CLI's default 640x480x100 at depth 32, where both loops are
-     timed; the retrace adjoint = sweep(collect) on the queue's rows; the
-     dyn tracer on cbox against the queue's B1; the lane-trip counter of
-     the checking build against trip_counts_plain; and the breakdown:
-     clock64() cycles per section of a step of the lockstep loop, of the
-     queue and of B10's trips;
+ 16. the queue of the tracer, the collect tracer, the retrace adjoint and
+     the wavefront adjoint (one live bounce a trip) against their
+     lockstep checking builds, bit for bit: radiance, rsc and rbest, and
+     the gradient tables with a per-ray and a per-pixel cotangent, on
+     cbox, glossy and tri (30x20x4 spp, so that a warp's last round of the
+     queue is partial), exact and fast, tape mode and the internal RNG in
+     1, 3, 4 and 16 chunks, depths 1, 5 and 32 (the wavefront adjoint:
+     tape, exact, on the retrace adjoint's own rays, which it equals), on
+     a scene of 61 table rows, and at the main shape and the CLI's default
+     640x480x100 at depth 32, where both loops are timed and the tables'
+     SHA-256 digests printed; the wavefront adjoint on one chunk of the
+     main shape (= the retrace adjoint in tape mode), both loops timed;
+     the retrace adjoint = sweep(collect) on the queue's rows; the dyn
+     tracer on cbox against the queue's B1; the lane-trip counter of the
+     checking build against trip_counts_plain; and the breakdown:
+     clock64() cycles per section of a step of both loops of the tracer
+     and of the retrace adjoint, and of B10's trips;
  17. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
 Before each of the paths of 5, 6, 7, 10, 13, 14 and 15 the launch counts
@@ -123,6 +129,7 @@ repository beside it.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -2262,17 +2269,19 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
 
 
 def fused_phase(dev, smi_line: str, timing: dict) -> dict:
-    """Phase 16: the queue of the tracer B1 and the collect tracer B2
-    against their lockstep checking builds, bit for bit; their trip
-    counter against trip_counts_plain; the section breakdown of both loops
-    and of B10's trips. Returns extra keys of the kernels line for B1 and
-    B2: their time at the CLI's default shape and their lockstep builds'
-    times."""
+    """Phase 16: the queue of the tracer B1, the collect tracer B2, the
+    retrace adjoint B4 and the wavefront adjoint B5b against their
+    lockstep checking builds, bit for bit; the trip counter against
+    trip_counts_plain; the section breakdown of both loops of B1 and B4
+    and of B10's trips. Returns extra keys of the kernels line for B1, B2
+    and B4: their time at the CLI's default shape and their lockstep
+    builds' times, and B5b's lockstep build's time on one chunk."""
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.models import cbox, gallery
     from drt_tpu_torch.ops import dynkernel as dk
     from drt_tpu_torch.ops import megakernel as mk
     from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.ops.rng import hash_tapes
     from drt_tpu_torch.scene import albedo_table, emission_table
 
     g = torch.Generator(device=dev).manual_seed(16)
@@ -2292,6 +2301,46 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
                                   build=build, **kw))
         return out
 
+    def adjoints(scene, alb, emi, cfg, fast, uniforms, g_adj):
+        """B4 in both loops on one input and cotangent."""
+        table = mk.scene_table(scene)
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        return {build: mk.fused_adjoint(scene, table, cc, cfg, alb, emi,
+                                        g_adj, fastmath=fast, build=build,
+                                        **uniforms)
+                for build in ("queue", "lockstep")}
+
+    def hold_adjoint(label, scene, alb, emi, cfg, fast, uniforms, cots):
+        """B4's queue = its lockstep build for each cotangent; returns the
+        tables of the first."""
+        tables = []
+        for kind, g_adj in zip(("per ray", "per pixel"), cots):
+            out = adjoints(scene, alb, emi, cfg, fast, uniforms, g_adj)
+            same_bits(f"B4 queue = lockstep build, {label}, g {kind}",
+                      out["queue"], out["lockstep"])
+            tables.append(out["queue"])
+        return tables[0]
+
+    def hold_ray_adjoint(label, scene, alb, emi, cfg, cam_u, tape, g_ray,
+                         d_b4):
+        """B5b in both loops on B4's own rays and tape (rays built with
+        true divisions, as the kernel's camera): = each other and B4."""
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        cc = cc._replace(width=torch.tensor(cfg.width, device=dev),
+                         height=torch.tensor(cfg.height, device=dev))
+        pix = torch.arange(cam_u.shape[1], device=dev) % (cfg.width
+                                                           * cfg.height)
+        o, d = mk.camera_ray_from_pix(cc, pix, cam_u[0], cam_u[1])
+        o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+        out = {build: mk.ray_adjoint(scene, mk.scene_table(scene), cfg, alb,
+                                     emi, o, d, tape, g_ray, build=build)
+               for build in ("queue", "lockstep")}
+        same_bits(f"B5b queue = lockstep build, {label}", out["queue"],
+                  out["lockstep"])
+        same_bits(f"B5b on B4's rays and tape = B4, {label}", out["queue"],
+                  d_b4)
+        return o, d, out["queue"]
+
     def hold(label, out):
         same_bits(f"B1 queue = lockstep build, {label}", out["queue"][:1],
                   out["lockstep"][:1])
@@ -2302,6 +2351,8 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
 
     small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
              ("tri", gallery.build_tri))
+    # The adjoints' per-pixel cotangents, from a generator of their own.
+    g_adj = torch.Generator(device=dev).manual_seed(161)
     for label, build in small:
         scene, params, cam = build(device=dev)
         alb, emi = albedo_table(scene, params), emission_table(scene, params)
@@ -2314,11 +2365,18 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
             tape = torch.rand((depth, 3, n), generator=g, device=dev)
             seeds = torch.tensor([depth, -3], dtype=torch.int32)
             g_t = torch.rand((3, n), generator=g, device=dev)
+            cots = (g_t, torch.rand((3, 30 * 20), generator=g_adj,
+                                    device=dev))
             for fast in (False, True):
                 tag = f"{label}, depth {depth}, fast={fast}"
                 out = runs(scene, alb, emi, cfg_t, fast,
                            dict(cam_u=cam_u, tape=tape), 1)
                 hold(f"tape, {tag}", out)
+                d_b4 = hold_adjoint(f"tape, {tag}", scene, alb, emi, cfg_t,
+                                    fast, dict(cam_u=cam_u, tape=tape), cots)
+                if not fast:
+                    hold_ray_adjoint(f"tape, {tag}", scene, alb, emi, cfg_t,
+                                     cam_u, tape, g_t, d_b4)
                 if depth > 1:  # B4's retrace = sweep(collect), as before
                     kw = dict(rng="tape", fastmath=fast)
                     _, _, rsc, rbest = out["queue"]
@@ -2333,6 +2391,9 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
                     out = runs(scene, alb, emi, cfg_i, fast,
                                dict(seeds=seeds), chunks)
                     hold(f"internal, {chunks} chunks, {tag}", out)
+                    hold_adjoint(f"internal, {chunks} chunks, {tag}", scene,
+                                 alb, emi, cfg_i, fast,
+                                 dict(seeds=seeds, n_chunks=chunks), cots)
                     st = mk.fused_trace_stats(
                         scene, table, mk.camera_consts(cam, 30, 20), cfg_i,
                         alb, emi, seeds, fastmath=fast, n_chunks=chunks,
@@ -2358,21 +2419,51 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
                     mk.make_fused_tracer(scene, cam, cfg_t, rng="tape")(
                         alb, emi, cam_u, tape[:5]), EXACT_TOL)
 
+    # 61 real table rows (E = 183 accumulator entries a slot).
+    scene, params, cam = gallery.build_rows(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    cfg_t = RenderConfig(width=30, height=20, spp=12, spp_chunks=3,
+                         max_depth=5)
+    cam_u = torch.rand((2, 2400), generator=g_adj, device=dev)
+    tape = torch.rand((5, 3, 2400), generator=g_adj, device=dev)
+    cots = (torch.rand((3, 2400), generator=g_adj, device=dev),
+            torch.rand((3, 600), generator=g_adj, device=dev))
+    for fast in (False, True):
+        tag = f"61 table rows, fast={fast}"
+        hold_adjoint(f"internal, 3 chunks, {tag}", scene, alb, emi, cfg_t,
+                     fast, dict(seeds=torch.tensor([4, 5], dtype=torch.int32),
+                                n_chunks=3), cots)
+        cfg_1 = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+        d_b4 = hold_adjoint(f"tape, {tag}", scene, alb, emi, cfg_1, fast,
+                            dict(cam_u=cam_u, tape=tape), cots)
+        if not fast:
+            hold_ray_adjoint(f"tape, {tag}", scene, alb, emi, cfg_1, cam_u,
+                             tape, cots[0], d_b4)
+
     # The main shape and the CLI's default shape.
     scene, params, cam = cbox.build(device=dev)
     alb, emi = albedo_table(scene, params), emission_table(scene, params)
     table = mk.scene_table(scene)
     seeds = torch.tensor([7, 8], dtype=torch.int32)
-    extra = {"fused_tracer": {}, "fused_collect": {}}
+    extra = {"fused_tracer": {}, "fused_collect": {}, "fused_adjoint": {},
+             "ray_adjoint": {}}
+    npix = 640 * 480
+    g_main = torch.rand((3, npix), generator=g_adj, device=dev)
     cli = dict(width=640, height=480, spp=100, max_depth=32, spp_chunks=1)
     for shape, kw_cfg in (("main shape", MAIN), ("CLI default shape", cli)):
         cfg = RenderConfig(**kw_cfg)
         C = cfg.spp_chunks
         cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        g_pix = g_main / cfg.spp
         for fast in ((True, False) if shape == "main shape" else (True,)):
+            tag = f"{shape}, {'fast' if fast else 'exact'}"
             out = runs(scene, alb, emi, cfg, fast, dict(seeds=seeds), C)
-            hold(f"{shape}, {'fast' if fast else 'exact'}", out)
+            hold(tag, out)
             del out
+            d_b4 = hold_adjoint(tag, scene, alb, emi, cfg, fast,
+                                dict(seeds=seeds, n_chunks=C), (g_pix,))
+            print(f"[digest] B4 tables, {tag}: "
+                  f"{[digest(t) for t in d_b4]}", flush=True)
         kw = dict(seeds=seeds, fastmath=True, n_chunks=C)
         times = {}
         for name, fn in (
@@ -2384,17 +2475,24 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
                                                 emi, **kw)),
                 ("B2 lockstep", lambda: mk.fused_collect(
                     scene, table, cc, cfg, alb, emi, build="lockstep",
+                    **kw)),
+                ("B4", lambda: mk.fused_adjoint(scene, table, cc, cfg, alb,
+                                                emi, g_pix, **kw)),
+                ("B4 lockstep", lambda: mk.fused_adjoint(
+                    scene, table, cc, cfg, alb, emi, g_pix, build="lockstep",
                     **kw))):
             times[name], win, _ = cuda_ms(fn, **timing)
             print(f"[time] {name} at the {shape}: {times[name]!r} ms, "
                   f"window means {win!r}, on {smi_line}", flush=True)
         pre = "" if shape == "main shape" else "cli_"
-        for name, b in (("fused_tracer", "B1"), ("fused_collect", "B2")):
+        for name, b in (("fused_tracer", "B1"), ("fused_collect", "B2"),
+                        ("fused_adjoint", "B4")):
             if pre:
                 extra[name]["cli_ms"] = times[b]
             extra[name][f"{pre}lockstep_ms"] = times[f"{b} lockstep"]
         print(f"[time] {shape}: B1 {times['B1'] / times['B1 lockstep']!r}, "
-              f"B2 {times['B2'] / times['B2 lockstep']!r} of the lockstep "
+              f"B2 {times['B2'] / times['B2 lockstep']!r}, "
+              f"B4 {times['B4'] / times['B4 lockstep']!r} of the lockstep "
               f"builds' time", flush=True)
         st = mk.fused_trace_stats(scene, table, cc, cfg, alb, emi, seeds,
                                   n_chunks=C, collect=True)
@@ -2410,6 +2508,33 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
               flush=True)
         del st, ref
         torch.cuda.empty_cache()
+
+    # B4 in tape mode and B5b on one chunk of the main shape: B4's rays and
+    # hash tapes, both builds of B5b bit for bit and = B4, timed.
+    cfg = RenderConfig(**{**MAIN, "spp": MAIN["spp"] // MAIN["spp_chunks"],
+                          "spp_chunks": 1})
+    cam_u, tape = hash_tapes(seeds, npix, cfg.spp, cfg.max_depth, device=dev)
+    g_ray = torch.rand((3, cam_u.shape[1]), generator=g_adj, device=dev)
+    d_b4 = hold_adjoint("tape, one chunk of the main shape, fast", scene,
+                        alb, emi, cfg, True, dict(cam_u=cam_u, tape=tape),
+                        (g_ray,))
+    print(f"[digest] B4 tables, tape, one chunk of the main shape, fast: "
+          f"{[digest(t) for t in d_b4]}", flush=True)
+    d_b4 = mk.fused_adjoint(scene, table, mk.camera_consts(cam, 640, 480),
+                            cfg, alb, emi, g_ray, cam_u=cam_u, tape=tape)
+    o, d, d_b5b = hold_ray_adjoint("one chunk of the main shape", scene,
+                                   alb, emi, cfg, cam_u, tape, g_ray, d_b4)
+    print(f"[digest] B5b tables, one chunk of the main shape: "
+          f"{[digest(t) for t in d_b5b]}", flush=True)
+    for name, build in (("B5b", "queue"), ("B5b lockstep", "lockstep")):
+        t, win, _ = cuda_ms(lambda: mk.ray_adjoint(
+            scene, table, cfg, alb, emi, o, d, tape, g_ray, build=build),
+            **timing)
+        print(f"[time] {name} on one chunk of the main shape: {t!r} ms, "
+              f"window means {win!r}, on {smi_line}", flush=True)
+    extra["ray_adjoint"]["lockstep_ms"] = t
+    del cam_u, tape, g_ray, o, d
+    torch.cuda.empty_cache()
 
     # The breakdown (Step 1 of the design): cycles per section of a step.
     cfg = RenderConfig(**MAIN)
@@ -2438,7 +2563,27 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
             k = torch.arange(33, dtype=torch.float64, device=h.device)
             print(f"[breakdown] live lanes per warp-bounce by bounce: "
                   f"{((h * k).sum(1) / h.sum(1)).tolist()}", flush=True)
+    g_pix = g_main / cfg.spp
+    ref = mk.fused_adjoint(scene, table, cc, cfg, alb, emi, g_pix,
+                           seeds=seeds, fastmath=True,
+                           n_chunks=cfg.spp_chunks)
+    for what, queue in (("B4 lockstep (per warp-bounce)", False),
+                        ("B4 queue (per warp-trip)", True)):
+        for _ in range(2):  # the first is the warm-up
+            st = mk.fused_adjoint_stats(scene, table, cc, cfg, alb, emi,
+                                        g_pix, seeds, queue=queue,
+                                        n_chunks=cfg.spp_chunks)
+        same_bits(f"the timing build = B4, {what}", st["grads"], ref)
+        steps = st["warp_steps"]
+        per = {k: round(v / steps, 1) for k, v in st["cycles"].items()}
+        print(f"[breakdown] {what}: {steps} steps, {st['lane_steps']} "
+              f"lane-steps; clock64 cycles per step by section {per} (total "
+              f"{sum(per.values())!r}) on {smi_line}", flush=True)
     return extra
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def main() -> int:
@@ -2838,12 +2983,13 @@ def main() -> int:
     rows = {name: dict(launches=launches.get(name, 0),
                        max_abs_err=err[name], ms=ms[name],
                        plain_ms=plain_ms[name], bound_ms=bound[name][0],
-                       bound_by=bound[name][1],
-                       **fused_extra.get(name, {})) for name in ms}
+                       bound_by=bound[name][1]) for name in ms}
     rows.update(dyn_rows)
     rows.update(regen_rows)
     rows.update(wave_rows)
     rows.update(compact_rows)
+    for name, keys in fused_extra.items():
+        rows[name].update(keys)
     # name -> (source under csrc/, the TPU kernel's file and def line)
     replaces = {"fused_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
                 "fused_collect": ("fused_tracer.cu", "megakernel.py:1211"),

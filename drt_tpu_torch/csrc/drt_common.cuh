@@ -294,15 +294,17 @@ struct NoMarks {
 // of the warp's active lanes were alive after Russian roulette. step()
 // counts the warp's steps the same way, in the lead lane's registers:
 // count_group's global atomics at every step took a timed lockstep
-// warp-bounce from 8070 to 25825 cycles (PERF.md section 6).
-struct SectionClock {
-  unsigned long long cyc[N_SECT];
+// warp-bounce from 8070 to 25825 cycles (PERF.md section 6). NS sections:
+// N_SECT in the tracers, more in the adjoints' timing build.
+template <int NS>
+struct SectionClockOf {
+  unsigned long long cyc[NS];
   unsigned long long steps[4];
   unsigned long long* hist;
   long long t;
   __device__ __forceinline__ void start(unsigned long long* h) {
 #pragma unroll
-    for (int k = 0; k < N_SECT; ++k) cyc[k] = 0ull;
+    for (int k = 0; k < NS; ++k) cyc[k] = 0ull;
 #pragma unroll
     for (int k = 0; k < 4; ++k) steps[k] = 0ull;
     hist = h;
@@ -332,10 +334,10 @@ struct SectionClock {
       if (lead) atomicAdd(hist + bnc * 33 + __popc(live), 1ull);
     }
   }
-  // Adds the thread's sums into out[0 .. N_SECT).
+  // Adds the thread's sums into out[0 .. NS).
   __device__ __forceinline__ void flush(unsigned long long* out) const {
 #pragma unroll
-    for (int k = 0; k < N_SECT; ++k)
+    for (int k = 0; k < NS; ++k)
       if (cyc[k] != 0ull) atomicAdd(out + k, cyc[k]);
   }
   // Adds the thread's step counts into out[0 .. 4), in step()'s order.
@@ -345,6 +347,7 @@ struct SectionClock {
       if (steps[k] != 0ull) atomicAdd(out + k, steps[k]);
   }
 };
+using SectionClock = SectionClockOf<N_SECT>;
 
 // One bounce of the reverse sweep (megakernel.py:_reverse_sweep,
 // dynkernel.py:_dyn_reverse_sweep) of one ray slot into its accumulator

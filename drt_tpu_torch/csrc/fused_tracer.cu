@@ -99,6 +99,7 @@
 // (e+2)/(2 pi) cancelled. The intersection keeps its divides in both.
 
 #include "fused_body.cuh"
+#include "fused_queue.cuh"
 
 // The hook of the collect tracer: bounce b of this ray slot and chunk.
 struct StoreResidual {
@@ -122,42 +123,6 @@ static __device__ __forceinline__ auto queue_hook(float* rsc, int* rbest,
     return StoreResidual{rsc + base, rbest + base, n};
   else
     return NoResidual{};
-}
-
-// The uniforms of a step of the queue: the roulette draw of its bounce was
-// taken at the end of the step before (or with the camera ray), so only
-// u1 and u2 are drawn here, from the path's key (drt_common.cuh:path_key).
-// Inside the queue kernels the bounce text's bounce_uniforms call resolves
-// to this overload by the type of `tape`.
-struct QueueTape {
-  const float* p;  // the tape f32[D, 3, n_rays] (tape mode)
-  uint32_t key;    // path_key(seed1, pix, smp) (internal RNG)
-  float u_rr;      // the roulette draw of the step's bounce
-};
-
-template <bool INTERNAL>
-static __device__ __forceinline__ void bounce_uniforms(
-    const DrtTrace& cfg, const QueueTape& tape, int i, int, uint32_t,
-    int bnc, float& u_rr, float& u1, float& u2) {
-  u_rr = tape.u_rr;
-  if (INTERNAL) {
-    u1 = keyed_uniform(tape.key, (uint32_t)bnc, 1u);
-    u2 = keyed_uniform(tape.key, (uint32_t)bnc, 2u);
-  } else {
-    const int N = cfg.n_rays;
-    const float* ub = tape.p + (size_t)bnc * 3 * N;
-    u1 = ub[N + i];
-    u2 = ub[2 * N + i];
-  }
-}
-
-// bounce_uniforms' u_rr of bounce bnc alone.
-template <bool INTERNAL>
-static __device__ __forceinline__ float roulette_draw(const DrtTrace& cfg,
-                                                      const QueueTape& t,
-                                                      int i, int bnc) {
-  if (INTERNAL) return keyed_uniform(t.key, (uint32_t)bnc, 0u);
-  return t.p[(size_t)bnc * 3 * cfg.n_rays + i];
 }
 
 // The counters of drt_fused_trace_stats, u64: steps run by lanes and by
@@ -533,24 +498,6 @@ static int launch_lockstep(const DrtTrace* cfg, const DrtCamera* cam,
   }
 #undef DRT_LAUNCH
   return (int)cudaGetLastError();
-}
-
-// The queue's grid: as many blocks as stay resident on the card at once
-// (the SMs times the blocks of the kernel an SM holds), or fewer when
-// there are fewer ray slots.
-template <class Kernel>
-static cudaError_t queue_grid(Kernel kernel, int n, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      DRT_BLOCK, 0);
-  const int need = (n + DRT_BLOCK - 1) / DRT_BLOCK;
-  *grid = sms * per_sm < need ? sms * per_sm : need;
-  if (*grid < 1) *grid = 1;
-  return e;
 }
 
 template <bool FAST, bool INTERNAL, bool COLLECT, bool COUNT>

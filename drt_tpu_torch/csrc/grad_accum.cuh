@@ -15,7 +15,9 @@
 // order, and writes the gradient tables with their sentinel rows zero.
 // Kernels that share the block size, the ray -> block map, the chunk order
 // and these routines give, for equal residuals, gradients that are equal
-// bit for bit, and two runs give the same bits.
+// bit for bit, and two runs give the same bits. The queue adjoints of
+// fused_adjoint.cu keep a column per ray slot in device memory and sum
+// each 128 slots with block_reduce_write (slot_reduce_kernel there).
 
 #pragma once
 

@@ -1,8 +1,10 @@
 """Demo scenes that exercise the specular and mirror BRDFs
 (bxdf.hpp:85-144) and triangles, which the Cornell box never touches.
-Each is `drt_tpu.models.gallery`'s scene of the same name. The triangle
-mesh scene (`build_mesh`) is the geometry class of the memory-resident
-kernels (`ops.dynkernel`).
+Each but `build_rows` is `drt_tpu.models.gallery`'s scene of the same
+name. The triangle mesh scene (`build_mesh`) is the geometry class of the
+memory-resident kernels (`ops.dynkernel`); `build_rows` fills the
+scene-table kernels' albedo and emission tables for the tests of their
+gradient accumulators.
 """
 
 from __future__ import annotations
@@ -135,5 +137,35 @@ def build_tri(dtype=torch.float32,
 
     scene, params = b.build(dtype, device)
     cam = look_at([0.0, 0.5, 0.0], [0.0, 0.0, 1.0], dtype=dtype,
+                  device=device)
+    return scene, params, cam
+
+
+def build_rows(dtype=torch.float32,
+               device=DEFAULT_DEVICE) -> tuple[Scene, Params, Camera]:
+    """A Cornell-style box holding a 6 x 6 grid of small spheres, each with
+    an albedo row of its own and every other one an emission row of its
+    own: 43 shapes, 42 albedo and 19 emission rows (61 real rows of the
+    63 the scene-table kernels hold), colours drawn from a fixed seed."""
+    rng = np.random.default_rng(61)
+    b = SceneBuilder()
+    walls = [b.diffuse(b.albedo_param(rng.uniform(0.2, 0.8, 3)))
+             for _ in range(6)]
+    b.plane([-1.0, 0.0, 0.0], -3.0, walls[0])
+    b.plane([1.0, 0.0, 0.0], -3.0, walls[1])
+    b.plane([0.0, 0.0, -1.0], -6.0, walls[2])
+    b.plane([0.0, 0.0, 1.0], 0.0, walls[3])
+    b.plane([0.0, 1.0, 0.0], -3.0, walls[4])
+    b.plane([0.0, -1.0, 0.0], -3.0, walls[5])
+    b.sphere([0.0, 3.0, 3.0], 1.0, None, b.emission_param([1.5, 1.5, 1.5]))
+    for k in range(36):
+        x, y = -2.0 + 0.8 * (k % 6), -2.0 + 0.8 * (k // 6)
+        mat = b.diffuse(b.albedo_param(rng.uniform(0.1, 0.9, 3)))
+        emit = (b.emission_param(rng.uniform(0.0, 0.5, 3)) if k % 2 == 0
+                else None)
+        b.sphere([x, y, 4.0 + 0.5 * (k % 3)], 0.3, mat, emit)
+
+    scene, params = b.build(dtype, device)
+    cam = look_at([0.0, 0.0, 0.0], [0.0, 0.0, 1.0], dtype=dtype,
                   device=device)
     return scene, params, cam

@@ -49,11 +49,12 @@ CUDA tensors it launches its kernel or raises. Each counts its launches in `<wra
 kernels (`ops.dynkernel`, which registers its wrappers here), and
 `reset_launch_counts()` zeroes them.
 
-The tracer and the collect tracer run a queue of (ray slot, chunk) paths
-that spends a trip only on a live bounce; `build="lockstep"` launches
-their checking builds of the lockstep loop (every bounce of every slot),
-the bit reference, and `fused_trace_stats` the checking build that counts
-and times either loop. None of these is counted as a launch.
+The tracer, the collect tracer, the retrace adjoint and the wavefront
+adjoint run a queue of (ray slot, chunk) paths that spends a trip only on
+a live bounce; `build="lockstep"` launches their checking builds of the
+lockstep loop (every bounce of every slot), the bit reference, and
+`fused_trace_stats` / `fused_adjoint_stats` the checking builds that count
+and time either loop. None of these is counted as a launch.
 `trip_counts_plain` gives the lane-trips each slot takes in the queue,
 from a collect tracer's rows and the roulette draws.
 """
@@ -93,8 +94,13 @@ POW_NONINT, POW_EVEN, POW_ODD = 0, 1, 2
 STEP_STATS = ("lane_steps", "warp_steps", "live_lanes", "live_warps")
 SECTIONS = ("camera", "draws", "hit", "shade", "hook", "tail", "loop")
 N_SECT = len(SECTIONS)
-# The loops of the tracer and the collect tracer: "queue" (the wrappers'
-# kernels) and "lockstep" (a checking build, the bit reference).
+# The retrace adjoint's timing build drt_fused_adjoint_stats (AS_* in
+# fused_adjoint.cu): the step counts, then cycles per section, the
+# bounce's and the adjoint's own.
+ADJOINT_SECTIONS = SECTIONS + ("sweep", "reduce")
+# The loops of the tracer, the collect tracer and the two retrace adjoints:
+# "queue" (the wrappers' kernels) and "lockstep" (a checking build, the bit
+# reference).
 BUILDS = ("queue", "lockstep")
 
 
@@ -397,26 +403,38 @@ def _library() -> ctypes.CDLL:
 
 def _adjoint_library() -> ctypes.CDLL:
     """The adjoint library: drt_fused_sweep, drt_fused_adjoint,
-    drt_ray_adjoint, drt_fused_segment_adjoint."""
+    drt_ray_adjoint, drt_fused_segment_adjoint, the checking builds
+    drt_fused_adjoint_lockstep, drt_ray_adjoint_lockstep and the timing
+    build drt_fused_adjoint_stats."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_fused_sweep.argtypes is None:
         # scene, alb, emi, rsc, rbest, g, g_n, partials, da, de, stream
         _bind(lib, "drt_fused_sweep", 11, (_DrtTrace,), n_ints_at=(6,))
-        # scene, alb, emi, cam_u, tape, g, g_n, partials, da, de, stream
-        _bind(lib, "drt_fused_adjoint", 11, (_DrtTrace, _DrtCamera),
+        # scene, alb, emi, cam_u, tape, g, g_n, [slot_acc,] partials, da,
+        # de, stream
+        _bind(lib, "drt_fused_adjoint", 12, (_DrtTrace, _DrtCamera),
               n_ints_at=(6,))
-        # scene, alb, emi, o, d, tape, g, partials, da, de, stream
-        _bind(lib, "drt_ray_adjoint", 11, (_DrtTrace,))
+        _bind(lib, "drt_fused_adjoint_lockstep", 11,
+              (_DrtTrace, _DrtCamera), n_ints_at=(6,))
+        # scene, alb, emi, o, d, tape, g, [slot_acc,] partials, da, de,
+        # stream
+        _bind(lib, "drt_ray_adjoint", 12, (_DrtTrace,))
+        _bind(lib, "drt_ray_adjoint_lockstep", 11, (_DrtTrace,))
         # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
         # ray_idx, g, g_n, s_end, partials, da, de, s_start, stream
         _bind(lib, "drt_fused_segment_adjoint", 19, (_DrtTrace, _DrtCamera),
               n_ints_at=(0, 1, 2, 12))
+        # scene, alb, emi, g, g_n, slot_acc, partials, da, de, stats,
+        # queue, stream
+        _bind(lib, "drt_fused_adjoint_stats", 12, (_DrtTrace, _DrtCamera),
+              n_ints_at=(4, 10))
         lib.drt_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.drt_adjoint_error_string.restype = ctypes.c_char_p
         _check_limits(ADJOINT_SOURCE, lib.drt_adjoint_limits,
-                      [MAX_SHAPES, MAX_ROWS, REC, MAX_DEPTH, BLOCK])
+                      [MAX_SHAPES, MAX_ROWS, REC, MAX_DEPTH, BLOCK,
+                       len(STEP_STATS) + len(ADJOINT_SECTIONS)])
     return lib
 
 
@@ -714,6 +732,16 @@ def _adjoint_buffers(cfg: RenderConfig, tcfg: _DrtTrace, g: torch.Tensor,
     return partials, da, de
 
 
+def _slot_columns(tcfg: _DrtTrace, dev) -> torch.Tensor:
+    """The adjoint queue's scratch: a row per ray slot of its accumulator
+    column, f32[N, E'] with E = 3 x (real albedo + emission rows) rounded
+    up to a multiple of 4 (fused_adjoint.cu:slot_stride); 236 MB at the
+    Cornell box's main shape, 4 x 380 x N bytes at the tables' limit."""
+    entries = (tcfg.n_alb - 1 + tcfg.n_emi - 1) * 3
+    return torch.empty((tcfg.n_rays, (entries + 3) // 4 * 4),
+                       dtype=torch.float32, device=dev)
+
+
 def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
                 alb: torch.Tensor, emi: torch.Tensor, rsc: torch.Tensor,
                 rbest: torch.Tensor, g: torch.Tensor, *, n_chunks: int = 1):
@@ -741,11 +769,14 @@ def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
 def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                   g: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
-                  fastmath: bool = False, n_chunks: int = 1):
+                  fastmath: bool = False, n_chunks: int = 1,
+                  build: str = "queue"):
     """(d_albedo, d_emission) of the retrace adjoint: the forward traced
     again in the kernel from `seeds` (or `cam_u`, `tape`), then the sweep.
-    CPU tensors run the plain twin; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors run the plain twin (`build` selects only the kernel); CUDA
+    tensors launch the kernel or raise. build="lockstep" launches the
+    checking build of the lockstep loop, which is not counted."""
+    entry = _build_entry("drt_fused_adjoint", build)
     if _device_of("fused_adjoint", alb) == "cpu":
         return fused_adjoint_plain(scene, cc, cfg, alb, emi, g, seeds=seeds,
                                    cam_u=cam_u, tape=tape,
@@ -754,15 +785,56 @@ def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
     tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
                          fastmath=fastmath, n_chunks=n_chunks)
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
+    queue = build == "queue"
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    slot_acc = (_slot_columns(tcfg, dev),) if queue else ()
     lib = _adjoint_library()
-    _launch(fused_adjoint, "fused retrace adjoint",
-            lib.drt_adjoint_error_string, lib.drt_fused_adjoint, dev,
+    _launch(fused_adjoint if queue else None, "fused retrace adjoint",
+            lib.drt_adjoint_error_string, getattr(lib, entry), dev,
             ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)),
             table.data_ptr(), alb.data_ptr(), emi.data_ptr(), cu_ptr,
-            tape_ptr, g.data_ptr(), g.shape[1], partials.data_ptr(),
+            tape_ptr, g.data_ptr(), g.shape[1],
+            *(t.data_ptr() for t in slot_acc), partials.data_ptr(),
             da.data_ptr(), de.data_ptr())
     return da, de
+
+
+def fused_adjoint_stats(scene: Scene, table: torch.Tensor, cc: CameraConsts,
+                        cfg: RenderConfig, alb: torch.Tensor,
+                        emi: torch.Tensor, g: torch.Tensor, seeds, *,
+                        fastmath: bool = True, n_chunks: int = 1,
+                        queue: bool = True) -> dict:
+    """Run the timing build drt_fused_adjoint_stats on the card (internal
+    RNG; not counted as a launch): the retrace adjoint's queue, or its
+    lockstep loop, with a clock at each section. Returns STEP_STATS (queue:
+    lane-trips, warp-trips and their live lanes; lockstep: every lane's
+    bounces and the warp-bounces), `cycles` by ADJOINT_SECTIONS (clock64()
+    cycles summed over the warps; "reduce" is the block reduction of the
+    lockstep loop, the flush of a slot's column in the queue) and the
+    gradient tables `grads`."""
+    if alb.device.type != "cuda":
+        raise ValueError("fused_adjoint_stats is a checking build of the "
+                         "card: it takes CUDA tensors")
+    dev = alb.device
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         fastmath=fastmath, n_chunks=n_chunks)
+    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    slot_acc = _slot_columns(tcfg, dev)
+    n_steps = len(STEP_STATS)
+    stats = torch.zeros(n_steps + len(ADJOINT_SECTIONS), dtype=torch.int64,
+                        device=dev)
+    lib = _adjoint_library()
+    _launch(None, "fused adjoint stats", lib.drt_adjoint_error_string,
+            lib.drt_fused_adjoint_stats, dev, ctypes.byref(tcfg),
+            ctypes.byref(_camera_struct(cc)), table.data_ptr(),
+            alb.data_ptr(), emi.data_ptr(), g.data_ptr(), g.shape[1],
+            slot_acc.data_ptr(), partials.data_ptr(), da.data_ptr(),
+            de.data_ptr(), stats.data_ptr(), int(queue))
+    head = stats.tolist()
+    d = dict(zip(STEP_STATS, head))
+    d.update(cycles=dict(zip(ADJOINT_SECTIONS, head[n_steps:])),
+             grads=(da, de))
+    return d
 
 
 def _stack3(v) -> torch.Tensor:
@@ -827,25 +899,32 @@ def ray_trace(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
 
 def ray_adjoint(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
                 alb: torch.Tensor, emi: torch.Tensor, o: torch.Tensor,
-                d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
+                d: torch.Tensor, u: torch.Tensor, g: torch.Tensor, *,
+                build: str = "queue"):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the wavefront
     adjoint: the wavefront tracer's paths retraced, swept back with the
     per-ray cotangent g f32[3, N] and reduced in one launch (and the
-    partials' second kernel). CPU tensors run the plain twin; CUDA tensors
-    launch the kernel or raise."""
+    partials' second kernel). CPU tensors run the plain twin (`build`
+    selects only the kernel); CUDA tensors launch the kernel or raise.
+    build="lockstep" launches the checking build of the lockstep loop,
+    which is not counted."""
+    entry = _build_entry("drt_ray_adjoint", build)
     if _device_of("ray_adjoint", alb) == "cpu":
         return ray_adjoint_plain(scene, cfg, alb, emi, o, d, u, g)
     dev = alb.device
     tcfg = _trace_config(cfg, table, alb, emi, n_rays=o.shape[-1])
     _ray_inputs(tcfg, o, d, u, dev)
     _check("g", g, (3, tcfg.n_rays), dev)  # one cotangent per ray
+    queue = build == "queue"
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    slot_acc = (_slot_columns(tcfg, dev),) if queue else ()
     lib = _adjoint_library()
-    _launch(ray_adjoint, "wavefront adjoint", lib.drt_adjoint_error_string,
-            lib.drt_ray_adjoint, dev, ctypes.byref(tcfg), table.data_ptr(),
-            alb.data_ptr(), emi.data_ptr(), o.data_ptr(), d.data_ptr(),
-            u.data_ptr(), g.data_ptr(), partials.data_ptr(), da.data_ptr(),
-            de.data_ptr())
+    _launch(ray_adjoint if queue else None, "wavefront adjoint",
+            lib.drt_adjoint_error_string, getattr(lib, entry), dev,
+            ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
+            emi.data_ptr(), o.data_ptr(), d.data_ptr(), u.data_ptr(),
+            g.data_ptr(), *(t.data_ptr() for t in slot_acc),
+            partials.data_ptr(), da.data_ptr(), de.data_ptr())
     return da, de
 
 

@@ -1199,3 +1199,164 @@ def test_queue_builds_check_their_arguments(dev):
     with pytest.raises(ValueError):
         mk.fused_trace_stats(scene, table, cc, cfg, alb.cpu(), emi.cpu(),
                              seeds)
+
+
+# The queue of the retrace adjoint B4 and the wavefront adjoint B5b (one
+# live bounce a trip, a column per ray slot flushed to scratch and summed
+# in the lockstep loop's order) against their lockstep checking builds.
+
+def _adjoint_inputs(cam, depth, rng, dev, seed=0, width=30, height=20):
+    """The config, uniforms and per-ray and per-pixel cotangents of B4 on
+    width x height x 4 ray slots a chunk (600 x 4 = 2400 slots at 30 x 20:
+    neither a multiple of 32 nor of 128)."""
+    chunks = 1 if rng == "tape" else int(rng.split("-")[1])
+    cfg = RenderConfig(width=width, height=height, spp=4 * chunks,
+                       spp_chunks=chunks, max_depth=depth)
+    n = width * height * 4
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if rng == "tape":
+        kw = dict(cam_u=torch.rand((2, n), generator=g, device=dev),
+                  tape=torch.rand((depth, 3, n), generator=g, device=dev))
+    else:
+        kw = dict(seeds=torch.tensor([seed, -9], dtype=torch.int32))
+    kw.update(n_chunks=chunks)
+    cots = (torch.rand((3, n), generator=g, device=dev),
+            torch.rand((3, width * height), generator=g, device=dev))
+    return cfg, kw, cots
+
+
+def _b4_builds(scene, cam, alb, emi, cfg, kw, g, fastmath):
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    return {build: mk.fused_adjoint(scene, table, cc, cfg, alb, emi, g,
+                                    fastmath=fastmath, build=build, **kw)
+            for build in ("queue", "lockstep")}
+
+
+def _b5b_builds(scene, cam, alb, emi, cfg, kw, g):
+    """B5b in both builds on B4's own rays and tape, and B4 on them."""
+    o, d = _wavefront_rays(cam, cfg, kw["cam_u"], exact_division=True)
+    table = mk.scene_table(scene)
+    out = {build: mk.ray_adjoint(scene, table, cfg, alb, emi, o, d,
+                                 kw["tape"], g, build=build)
+           for build in ("queue", "lockstep")}
+    out["B4"] = mk.fused_adjoint(scene, table,
+                                 mk.camera_consts(cam, cfg.width, cfg.height),
+                                 cfg, alb, emi, g, **kw)
+    return out
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("depth", [1, 5, 32])
+@pytest.mark.parametrize("rng", QUEUE_RNG)
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_queue_adjoint_equals_the_lockstep_build(dev, make, fastmath, rng,
+                                                 depth):
+    """B4's tables, per-ray and per-pixel cotangent, bit for bit."""
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg, kw, cots = _adjoint_inputs(cam, depth, rng, dev, seed=depth)
+    for g in cots:
+        out = _b4_builds(scene, cam, alb, emi, cfg, kw, g, fastmath)
+        assert _same(out["queue"], out["lockstep"])
+        assert all(torch.isfinite(t).all() for t in out["queue"])
+    if depth > 1:  # the tri scene's light is seen only after a bounce
+        assert out["queue"][1].abs().max() > 0
+
+
+@pytest.mark.parametrize("depth", [1, 5, 32])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_queue_ray_adjoint_equals_the_lockstep_build(dev, make, depth):
+    """B5b (exact, tape) in both builds, and B4 on the same rays and tape,
+    bit for bit."""
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg, kw, (g, _) = _adjoint_inputs(cam, depth, "tape", dev, seed=depth)
+    out = _b5b_builds(scene, cam, alb, emi, cfg, kw, g)
+    assert _same(out["queue"], out["lockstep"])
+    assert _same(out["queue"], out["B4"])
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+def test_queue_adjoints_with_many_table_rows(dev, fastmath):
+    """61 real table rows (E = 183 accumulator entries a slot): B4 in 3
+    chunks and in tape mode against its lockstep build and sweep(collect),
+    B5b against its lockstep build, bit for bit."""
+    scene, params, cam, alb, emi = _setup(gallery.build_rows, dev)
+    assert alb.shape[0] - 1 + emi.shape[0] - 1 >= 40
+    cfg, kw, (g, g_pix) = _adjoint_inputs(cam, 5, "internal-3", dev)
+    out = _b4_builds(scene, cam, alb, emi, cfg, kw, g_pix, fastmath)
+    assert _same(out["queue"], out["lockstep"])
+    # Most rows take a gradient: the test reaches the large entries.
+    assert int((out["queue"][0][:-1] != 0).any(dim=1).sum()) >= 30
+    cfg, kw, (g, _) = _adjoint_inputs(cam, 5, "tape", dev, seed=1)
+    out = _b4_builds(scene, cam, alb, emi, cfg, kw, g, fastmath)
+    assert _same(out["queue"], out["lockstep"])
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    _, rsc, rbest = mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                     fastmath=fastmath, **kw)
+    assert _same(out["queue"], mk.fused_sweep(scene, table, cfg, alb, emi,
+                                              rsc, rbest, g))
+    if not fastmath:
+        out = _b5b_builds(scene, cam, alb, emi, cfg, kw, g)
+        assert _same(out["queue"], out["lockstep"])
+        assert _same(out["queue"], out["B4"])
+
+
+def test_only_the_queue_adjoints_are_counted(dev):
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg, kw, (g, _) = _adjoint_inputs(cam, 5, "tape", dev)
+    before = mk.launch_counts()
+    _b5b_builds(scene, cam, alb, emi, cfg, kw, g)
+    _b4_builds(scene, cam, alb, emi, cfg, kw, g, False)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(fused_adjoint=2, ray_adjoint=1)
+
+
+def test_adjoint_timing_build_gives_b4s_tables(dev):
+    """drt_fused_adjoint_stats in both loops: B4's tables bit for bit,
+    not counted; the queue takes trip_counts_plain's lane-trips and the
+    lockstep loop every bounce."""
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg, kw, (g, g_pix) = _adjoint_inputs(cam, 8, "internal-4", dev)
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    ref = mk.fused_adjoint(scene, table, cc, cfg, alb, emi, g_pix,
+                           fastmath=True, **kw)
+    _, _, rbest = mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                   fastmath=True, **kw)
+    trips = int(mk.trip_counts_plain(cfg, rbest, seeds=kw["seeds"]).sum())
+    before = mk.launch_counts()
+    for queue in (True, False):
+        st = mk.fused_adjoint_stats(scene, table, cc, cfg, alb, emi, g_pix,
+                                    kw["seeds"], n_chunks=kw["n_chunks"],
+                                    queue=queue)
+        assert _same(st["grads"], ref)
+        assert all(v > 0 for v in st["cycles"].values())
+        n_paths = 30 * 20 * 4 * kw["n_chunks"]
+        assert st["lane_steps"] == (trips if queue
+                                    else n_paths * cfg.max_depth)
+    assert mk.launch_counts() == before
+
+
+def test_adjoint_builds_check_their_names(dev):
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg, kw, (g, _) = _adjoint_inputs(cam, 3, "tape", dev)
+    table = mk.scene_table(scene)
+    o, d = _wavefront_rays(cam, cfg, kw["cam_u"])
+    with pytest.raises(ValueError, match="nonesuch"):
+        mk.fused_adjoint(scene, table, mk.camera_consts(cam, 30, 20), cfg,
+                         alb, emi, g, build="nonesuch", **kw)
+    with pytest.raises(ValueError, match="nonesuch"):
+        mk.ray_adjoint(scene, table, cfg, alb, emi, o, d, kw["tape"], g,
+                       build="nonesuch")
+    with pytest.raises(ValueError, match="checking build"):
+        mk.fused_adjoint_stats(scene, table, mk.camera_consts(cam, 30, 20),
+                               cfg, alb.cpu(), emi.cpu(), g.cpu(), [1, 2])

@@ -11,30 +11,37 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
   - "ptxas": each entry function's registers, stack and spills, per
     library, from the compiler's report;
   - "kernel": device ms per launch, the median of 3 windows of 10 launches
-    after 20 warm-ups (CUDA events), with the window means: B1 (tracer)
-    and B2 (collect tracer) at the main shape of chip_smoke.py (Cornell
-    box, 640x480, 256 spp, depth 5, 16 chunks, fast variant, internal
-    RNG, seeds (7, 8)) and at the CLI's default shape (640x480, 100 spp,
-    depth 32, one chunk); where the checkout has them, their lockstep
-    checking builds and, as the store-only yardstick, the zeroing of the
-    collect tracer's buffers alone; B3 (sweep), B4 (retrace adjoint), B10
-    (regeneration tracer, both forms), B11 (its sweep) and B14 (early
-    exit, exact) at the main shape; B5a and B5b (wavefront) and the
-    segment forms [0, 2) and [2, 5) on one chunk of it;
+    after 20 warm-ups (CUDA events), with the window means: B1 (tracer),
+    B2 (collect tracer) and B4 (retrace adjoint) at the main shape of
+    chip_smoke.py (Cornell box, 640x480, 256 spp, depth 5, 16 chunks, fast
+    variant, internal RNG, seeds (7, 8)) and at the CLI's default shape
+    (640x480, 100 spp, depth 32, one chunk); where the checkout has them,
+    the lockstep checking builds of B1, B2, B4 and B5b and, as the
+    store-only yardstick, the zeroing of the collect tracer's buffers
+    alone; B3 (sweep), B10 (regeneration tracer, both forms), B11 (its
+    sweep) and B14 (early exit, exact) at the main shape; B5a and B5b
+    (wavefront) and the segment forms [0, 2) and [2, 5) on one chunk of
+    it;
   - "digest": SHA-256 of B1's radiance and of B2's radiance, rsc and rbest
     at the main shape (fast and exact), at the CLI default shape (fast)
-    and in tape mode (one chunk of the main shape, its hash tapes, fast):
-    equal digests across checkouts mean bit-equal outputs;
+    and in tape mode (one chunk of the main shape, its hash tapes, fast);
+    of B4's gradient tables at the main shape (fast and exact) and in tape
+    mode, and of B5b's on one chunk: equal digests across checkouts mean
+    bit-equal outputs;
   - "path": the Cornell box through the user's entry points, seconds on
     the host clock with a synchronize (median of 5 after 2 warm-ups):
     make_renderer forward at the main shape and at the CLI default shape,
     a forward+backward step of the mean squared image loss in the stored
-    and the retrace forms, and the trainer step of optim.inverse_render (a
+    and the retrace forms and unbiased with 2 adjoint samples, and the
+    trainer step of optim.inverse_render (a
     call of 10 steps less a call of 5, over 5).
 With --breakdown it prints "breakdown" lines instead: the lockstep loop's
 checking build at the main shape (cycles per section of a warp-bounce,
 clock64() summed over the warps, and the live lanes per warp-bounce by
-bounce), both forms; the same sections on B10's trips; the SASS
+bounce), both forms; the same sections on B10's trips; B4's lockstep
+loop in its timing build (the bounce's sections, the sweep, the block
+reduction; with --queue also B4's queue, where the last is the flush of
+a slot's column); the SASS
 instruction counts (LDS, MUFU, the division's FCHK, CALLs to slow paths,
 branches) of a shape test and of shade in the fast builds, from nvdisasm
 of a -lineinfo cubin of csrc/fused_tracer.cu; and with --queue the
@@ -276,6 +283,34 @@ def breakdown(torch, label: str, root: Path, queue: bool) -> None:
          lane_trips=ts["lane_trips"],
          cycles_per_group_trip={s: v / ts["group_trips"]
                                 for s, v in sec["cycles"].items()})
+    # B4's lockstep loop in its timing build: the bounce's sections, the
+    # hook's stores, the sweep after each chunk and the block reduction.
+    if hasattr(mk, "fused_adjoint_stats"):
+        npix = cfg.width * cfg.height
+        g = torch.Generator(device=dev).manual_seed(11)
+        g_pix = torch.rand((3, npix), generator=g, device=dev) / cfg.spp
+        akw = dict(fastmath=True, n_chunks=C)
+        ref = mk.fused_adjoint(scene, table, cc, cfg, alb, emi, g_pix,
+                               seeds=seeds, **akw)
+        has_queue = "queue" in inspect.signature(
+            mk.fused_adjoint_stats).parameters
+        for q in loops if has_queue else (False,):
+            if has_queue:
+                akw["queue"] = q
+            for _ in range(2):  # the first is the warm-up
+                st = mk.fused_adjoint_stats(scene, table, cc, cfg, alb, emi,
+                                            g_pix, seeds, **akw)
+            steps = st["warp_steps"]
+            emit("breakdown", label, what="B4 retrace adjoint, "
+                 + ("queue" if q else "lockstep"),
+                 **{name: st[name] for name in mk.STEP_STATS},
+                 cycles=st["cycles"],
+                 cycles_per_warp_step={s: v / steps for s, v in
+                                       st["cycles"].items()},
+                 grads_equal_b4=all(bool(torch.equal(a, b))
+                                    for a, b in zip(st["grads"], ref)))
+            del st
+        del ref
     kernels = ["fused_trace_kernelILb1ELb1ELb0ELb0E"]
     if queue:
         kernels.append("queue_trace_kernelILb1ELb1ELb0ELb0E")
@@ -379,6 +414,30 @@ def compare(torch, label: str) -> None:
     ms, win, _ = cuda_ms(torch, lambda: adj(alb, emi, seeds, g_pix))
     emit("kernel", label, name="B4 retrace adjoint, main shape", ms=ms,
          windows=win)
+    adj_builds = "build" in inspect.signature(mk.fused_adjoint).parameters
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    for fast in (True, False):
+        tables = mk.fused_adjoint(scene, table, cc, cfg, alb, emi, g_pix,
+                                  seeds=seeds, fastmath=fast, n_chunks=C)
+        emit("digest", label, name="B4 tables, main shape, "
+             + ("fast" if fast else "exact"),
+             sha256=[digest(t) for t in tables])
+    cfg_cli = RenderConfig(**CLI)
+    g_cli = g_pix * (cfg.spp / cfg_cli.spp)
+    ms, win, _ = cuda_ms(torch, lambda: mk.fused_adjoint(
+        scene, table, cc, cfg_cli, alb, emi, g_cli, seeds=seeds,
+        fastmath=True))
+    emit("kernel", label, name="B4 retrace adjoint, CLI default shape",
+         ms=ms, windows=win)
+    if adj_builds:
+        for shape, c, g_c, n_c in (("main shape", cfg, g_pix, C),
+                                   ("CLI default shape", cfg_cli, g_cli, 1)):
+            ms, win, _ = cuda_ms(torch, lambda: mk.fused_adjoint(
+                scene, table, cc, c, alb, emi, g_c, seeds=seeds,
+                fastmath=True, n_chunks=n_c, build="lockstep"))
+            emit("kernel", label,
+                 name=f"B4 retrace adjoint lockstep build, {shape}", ms=ms,
+                 windows=win)
     regen = rg.make_regen_tracer(scene, cam, cfg, **kw)
     ms, win, _ = cuda_ms(torch, lambda: regen(alb, emi, seeds))
     emit("kernel", label, name="B10 regen tracer, main shape", ms=ms,
@@ -409,9 +468,23 @@ def compare(torch, label: str) -> None:
     emit("kernel", label, name="B5a wavefront tracer, one chunk", ms=ms,
          windows=win)
     wadj = mk.make_pallas_adjoint(scene, cfg)
-    ms, win, _ = cuda_ms(torch, lambda: wadj(alb, emi, o, d, tape, g_ray))
+    ms, win, tables = cuda_ms(torch, lambda: wadj(alb, emi, o, d, tape,
+                                                  g_ray))
     emit("kernel", label, name="B5b wavefront adjoint, one chunk", ms=ms,
          windows=win)
+    emit("digest", label, name="B5b tables, one chunk",
+         sha256=[digest(t) for t in tables])
+    emit("digest", label, name="B4 tables, tape mode, fast",
+         sha256=[digest(t) for t in mk.fused_adjoint(
+             scene, table, cc, cfg1, alb, emi, g_ray, cam_u=cam_u,
+             tape=tape, fastmath=True)])
+    if adj_builds:
+        ms, win, _ = cuda_ms(torch, lambda: mk.ray_adjoint(
+            scene, table, cfg1, alb, emi, o, d, tape, g_ray,
+            build="lockstep"))
+        emit("kernel", label,
+             name="B5b wavefront adjoint lockstep build, one chunk", ms=ms,
+             windows=win)
     segA = mk.make_fused_segment_tracer(scene, cam, cfg, 0, 2)
     segB = mk.make_fused_segment_tracer(scene, cam, cfg, 2, cfg.max_depth)
     ms, win, (_, (ray, alive)) = cuda_ms(
@@ -456,9 +529,12 @@ def compare(torch, label: str) -> None:
         p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
         ((render_fn(p, s_img) - target) ** 2).mean().backward()
 
+    cfg_u = RenderConfig(**MAIN, unbiased=True, adjoint_samples=2)
     for form, fn in (("stored", make_renderer(scene, cfg, cam)),
                      ("retrace", make_fused_image_renderer(
-                         scene, cam, cfg, adjoint="retrace"))):
+                         scene, cam, cfg, adjoint="retrace")),
+                     ("unbiased, 2 adjoint samples",
+                      make_renderer(scene, cfg_u, cam))):
         med, times = host_s(torch, lambda: step(fn))
         emit("path", label, name=f"fwd+bwd step, {form}", s=med,
              times=times)
