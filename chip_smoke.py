@@ -1,7 +1,7 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
   python3 chip_smoke.py [--keep-going]
-                        [--only=dyn|regen|wavefront|compact|fused]
+                        [--only=dyn|regen|wavefront|compact|fused|sweep]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -115,13 +115,24 @@ Phases (any failure raises, exits non-zero and prints no result line):
      checking build against trip_counts_plain; and the breakdown:
      clock64() cycles per section of a step of both loops of the tracer
      and of the retrace adjoint, and of B10's trips;
- 17. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
+ 17. the stored-residual sweeps B3 and B8 (a slot's rows read up to its
+     first dead row) against the retrace adjoints B4 and B9, bit for bit,
+     per-ray and per-pixel cotangents: on cbox, glossy and tri (30x20x4
+     spp a chunk), exact and fast, tape mode and 1, 3 and 16 chunks,
+     depths 1, 5, 8, 9 and 32; on cbox and the 87-, 327- and 1287-shape
+     meshes in 1 and 3 chunks, depths 5, 9 and 32; on rows of NaN after
+     each slot's first dead row; at n_rays 1, 127 and 129, at the tables'
+     row limits (63 + 63 for B3; 144, rows through registers, and 128 for
+     B8) and at 641x479 pixels of both main shapes; B3 timed at the CLI's
+     default shape, its tables' SHA-256 digest printed;
+ 18. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
 Before each of the paths of 5, 6, 7, 10, 13, 14 and 15 the launch counts
 are set to 0, and read just after. --only=dyn (phases 8-10),
 --only=regen (phases 11-13), --only=wavefront (phase 14), --only=compact
-(phase 15) and --only=fused (phase 16) build, run those phases and stop
-without a result line (exit 1): short runs while working on them.
+(phase 15), --only=fused (phase 16) and --only=sweep (phase 17) build,
+run those phases and stop without a result line (exit 1): short runs while
+working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -616,6 +627,16 @@ def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
         lambda: sweep(alb, emi, rsc, rrow, g_main), **timing)
     same_bits("dyn sweep twice at the main shape",
               sweep(alb, emi, rsc, rrow, g_main), d_sweep)
+    print(f"[digest] B8 tables, mesh main shape, fast: "
+          f"{[digest(t) for t in d_sweep]}", flush=True)
+    # The rows the sweep needs: each path's words up to its first dead row
+    # and its rsc before it (csrc/sweep_rows.cuh).
+    sweep_bytes = 4 * (2 * live
+                       + int((~live_of(rrow)).any(dim=1).sum().item()))
+    print(f"[rate] dyn_sweep at the mesh main shape: "
+          f"{rsc.numel() * 8 / ms['dyn_sweep'] / 1e6!r} GB/s of every row, "
+          f"{sweep_bytes / ms['dyn_sweep'] / 1e6!r} GB/s of the "
+          f"{sweep_bytes} bytes it needs", flush=True)
     chunk_sweep = dk.make_dyn_sweep_adjoint(ds, cfg_c)
     chunk_ms["dyn_sweep"], _, d_sweep_c = cuda_ms(
         lambda: chunk_sweep(alb, emi, rsc_c, rrow_c, g_main), **timing)
@@ -693,7 +714,7 @@ def dyn_phases(dev, smi_line: str, timing: dict) -> dict:
         "dyn_tracer": (scene_bytes + table_bytes + 12 * n_slots, ops_trace),
         "dyn_collect": (scene_bytes + table_bytes + 12 * n_slots + res_bytes,
                         ops_trace),
-        "dyn_sweep": (table_bytes + res_bytes + 4 * g_main.numel()
+        "dyn_sweep": (table_bytes + sweep_bytes + 4 * g_main.numel()
                       + grad_bytes, live * OPS_SWEEP),
         "dyn_adjoint": (scene_bytes + table_bytes + 4 * g_main.numel()
                         + grad_bytes, ops_trace + live * OPS_SWEEP),
@@ -2582,6 +2603,202 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
     return extra
 
 
+def sweep_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 17: the stored-residual sweeps B3 (`fused_sweep`) and B8
+    (`dyn_sweep`, csrc/sweep_rows.cuh: a slot's rows read up to its first
+    dead row) against the retrace adjoints B4 and B9, bit for bit, with a
+    per-ray and a per-pixel cotangent: B3 on cbox, glossy and tri (30x20x4
+    spp a chunk), exact and fast, tape mode and the internal RNG in 1, 3
+    and 16 chunks, depths 1, 5, 8, 9 and 32; B8 on cbox and the 87-, 327-
+    and 1287-shape meshes in 1 and 3 chunks, depths 5, 9 and 32; both on
+    rows filled with NaN after each slot's first dead row (= the sweep of
+    the rows as they are); n_rays of 1, 127 and 129; the tables at their
+    row limits (63 + 63 real rows for B3; 144 for B8, whose rows then come
+    through registers, and 128, with a ring); and 641x479 pixels at the
+    main shapes (n_rays not a multiple of 128). B3 is timed at the CLI's
+    default shape, 640x480x100 at depth 32. Returns extra keys of the
+    kernels line for B3: that time."""
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.scene import albedo_table, emission_table
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def nan_after_dead(rsc, word, live):
+        dead = torch.cumsum((~live).to(torch.int32), dim=-2) > 0
+        after = torch.cumsum(dead.to(torch.int32), dim=-2) > 1
+        return (torch.where(after, float("nan"), rsc),
+                torch.where(after, 0x7FC00000, word).to(torch.int32))
+
+    def cots(cfg):
+        n = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
+        return (torch.rand((3, n), generator=g, device=dev),
+                torch.rand((3, cfg.width * cfg.height), generator=g,
+                           device=dev))
+
+    def wide(t, n):
+        """t with its real rows repeated up to n - 1, the sentinel last."""
+        reps = -(-(n - 1) // (t.shape[0] - 1))
+        return torch.cat([torch.cat([t[:-1]] * reps)[:n - 1],
+                          t[-1:]]).contiguous()
+
+    def hold_b3(label, scene, cam, alb, emi, cfg, fast, uniforms, g_list):
+        table = mk.scene_table(scene)
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        C = uniforms.get("n_chunks", 1)
+        _, rsc, rbest = mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                         fastmath=fast, **uniforms)
+        for kind, g_adj in zip(("per ray", "per pixel"), g_list):
+            b3 = mk.fused_sweep(scene, table, cfg, alb, emi, rsc, rbest,
+                                g_adj, n_chunks=C)
+            same_bits(f"B3 = B4, {label}, g {kind}", b3, mk.fused_adjoint(
+                scene, table, cc, cfg, alb, emi, g_adj, fastmath=fast,
+                **uniforms))
+        rsc, rbest = nan_after_dead(rsc, rbest, rbest > 0)
+        same_bits(f"B3 on NaN after each slot's first dead row = B3, "
+                  f"{label}", mk.fused_sweep(scene, table, cfg, alb, emi,
+                                             rsc, rbest, g_adj, n_chunks=C),
+                  b3)
+
+    def hold_b8(label, ds, cam, alb, emi, cfg, fast, seeds, C, g_list):
+        _, rsc, rrow = dk.make_dyn_collect_tracer(
+            ds, cam, cfg, fastmath=fast, n_chunks=C)(alb, emi, seeds)
+        sweep = dk.make_dyn_sweep_adjoint(ds, cfg, n_chunks=C)
+        adj = dk.make_dyn_adjoint(ds, cam, cfg, fastmath=fast, n_chunks=C)
+        for kind, g_adj in zip(("per ray", "per pixel"), g_list):
+            b8 = sweep(alb, emi, rsc, rrow, g_adj)
+            same_bits(f"B8 = B9, {label}, g {kind}", b8,
+                      adj(alb, emi, seeds, g_adj))
+        rsc, rrow = nan_after_dead(rsc, rrow, (rrow >> 16) > 0)
+        same_bits(f"B8 on NaN after each slot's first dead row = B8, "
+                  f"{label}", sweep(alb, emi, rsc, rrow, g_adj), b8)
+
+    n_cases = 0
+    for label, build in (("cbox", cbox.build), ("glossy",
+                                                gallery.build_glossy),
+                         ("tri", gallery.build_tri)):
+        scene, params, cam = build(device=dev)
+        alb, emi = albedo_table(scene, params), emission_table(scene, params)
+        for depth in (1, 5, 8, 9, 32):
+            for fast in (False, True):
+                tag = f"{label}, depth {depth}, fast={fast}"
+                cfg = RenderConfig(width=30, height=20, spp=4,
+                                   max_depth=depth)
+                hold_b3(f"tape, {tag}", scene, cam, alb, emi, cfg, fast,
+                        dict(cam_u=torch.rand((2, 2400), generator=g,
+                                              device=dev),
+                             tape=torch.rand((depth, 3, 2400), generator=g,
+                                             device=dev)), cots(cfg))
+                n_cases += 1
+                for C in (1, 3, 16):
+                    cfg = RenderConfig(width=30, height=20, spp=4 * C,
+                                       spp_chunks=C, max_depth=depth)
+                    hold_b3(f"internal, {C} chunks, {tag}", scene, cam, alb,
+                            emi, cfg, fast,
+                            dict(seeds=torch.tensor([depth, C],
+                                                    dtype=torch.int32),
+                                 n_chunks=C), cots(cfg))
+                    n_cases += 1
+    for label, build in (("cbox", cbox.build),
+                         ("87-shape mesh", lambda device: gallery.build_mesh(
+                             1, device=device)),
+                         ("327-shape mesh", lambda device: gallery.build_mesh(
+                             2, device=device)),
+                         ("1287-shape mesh", lambda device: gallery.build_mesh(
+                             3, device=device))):
+        scene, params, cam = build(device=dev)
+        ds = dk.DynScene(scene)
+        alb, emi = albedo_table(scene, params), emission_table(scene, params)
+        for depth in (5, 9, 32):
+            for fast in (False, True):
+                for C in (1, 3):
+                    cfg = RenderConfig(width=30, height=20, spp=4 * C,
+                                       spp_chunks=C, max_depth=depth)
+                    hold_b8(f"{label}, {C} chunks, depth {depth}, "
+                            f"fast={fast}", ds, cam, alb, emi, cfg, fast,
+                            torch.tensor([depth, -C], dtype=torch.int32), C,
+                            cots(cfg))
+                    n_cases += 1
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    ds = dk.DynScene(scene)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    for n in (1, 127, 129):  # n x 1 pixels, one sample a chunk, 3 chunks
+        cfg = RenderConfig(width=n, height=1, spp=3, spp_chunks=3,
+                           max_depth=5)
+        hold_b3(f"n_rays {n}, 3 chunks", scene, cam, alb, emi, cfg, True,
+                dict(seeds=seeds, n_chunks=3), cots(cfg))
+        hold_b8(f"n_rays {n}, 3 chunks, cbox", ds, cam, alb, emi, cfg, True,
+                seeds, 3, cots(cfg))
+    for depth in (5, 9):  # the accumulator at the row limits
+        cfg = RenderConfig(width=30, height=20, spp=12, spp_chunks=3,
+                           max_depth=depth)
+        a, e = wide(alb, 64), wide(emi, 64)
+        stages = mk.fused_sweep_stages(64, 64, depth)
+        check(stages == 3, f"B3's ring at 63 + 63 rows: {stages} stages")
+        hold_b3(f"63 + 63 table rows (E = 378, {stages} ring stages), "
+                f"depth {depth}", scene, cam, a, e, cfg, True,
+                dict(seeds=seeds, n_chunks=3), cots(cfg))
+        for rows in (73, 65):
+            a, e = wide(alb, rows), wide(emi, rows)
+            stages = dk.dyn_sweep_stages(rows, rows, depth)
+            check(stages == (0 if rows == 73 else 3),
+                  f"B8's ring at {rows - 1} + {rows - 1} rows: {stages} "
+                  f"stages")
+            hold_b8(f"{rows - 1} + {rows - 1} table rows ({stages} ring "
+                    f"stages: {'registers' if stages == 0 else 'ring'})"
+                    f", depth {depth}", ds, cam, a, e, cfg, True, seeds, 3,
+                    cots(cfg))
+    for depth in (1, 2, 3, 5, 8, 9, 32):  # the stages by table rows
+        got = (mk.fused_sweep_stages(4, 2, depth),
+               mk.fused_sweep_stages(64, 64, depth),
+               dk.dyn_sweep_stages(4, 2, depth),
+               dk.dyn_sweep_stages(65, 65, depth),
+               dk.dyn_sweep_stages(73, 73, depth))
+        check(got == (3, 3, 3, 3, {1: 3, 2: 2}.get(depth, 0)),
+              f"sweep ring stages at E = 12, 378 (B3), 12, 384, 432 (B8), "
+              f"depth {depth}: {got}")
+    print(f"[sweep] B3 = B4 and B8 = B9 bit for bit in {n_cases} "
+          f"configurations, on NaN rows after the first dead row, at n_rays "
+          f"1, 127, 129 and at the row limits", flush=True)
+    # 641 x 479 pixels: n_rays not a multiple of 128 at the main shapes.
+    cfg = RenderConfig(**{**MAIN, "width": 641, "height": 479})
+    hold_b3("641x479x256, 16 chunks, fast", scene, cam, alb, emi, cfg, True,
+            dict(seeds=seeds, n_chunks=16), cots(cfg))
+    scene, params, cam = gallery.build_mesh(3, device=dev)
+    ds = dk.DynScene(scene)
+    m_alb, m_emi = albedo_table(scene, params), emission_table(scene, params)
+    cfg = RenderConfig(**{**MESH_MAIN, "width": 641, "height": 479})
+    hold_b8("1287-shape mesh 641x479x64, 4 chunks, fast", ds, cam, m_alb,
+            m_emi, cfg, True, seeds, 4, cots(cfg))
+    torch.cuda.empty_cache()
+    # B3 at the CLI's default shape.
+    scene, params, cam = cbox.build(device=dev)
+    cfg = RenderConfig(width=640, height=480, spp=100, max_depth=32)
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg,
+                                                 fastmath=True)(alb, emi,
+                                                                seeds)
+    g_cli = torch.rand((3, 640 * 480), generator=g, device=dev) / cfg.spp
+    sweep = mk.make_fused_sweep_adjoint(scene, cfg)
+    t, win, d_cli = cuda_ms(lambda: sweep(alb, emi, rsc, rbest, g_cli),
+                            **timing)
+    ends = int((rbest == 0).any(dim=0).sum().item())
+    live = int((rbest > 0).sum().item())
+    needed = 4 * (2 * live + ends)
+    print(f"[time] B3 at the CLI default shape (640x480x100, depth 32): "
+          f"{t!r} ms, window means {win!r}; {rsc.numel() * 8 / t / 1e6!r} "
+          f"GB/s of every row, {needed / t / 1e6!r} GB/s of the {needed} "
+          f"bytes it needs ({needed / PEAK_BYTES_PER_S * 1e3 / t!r} of that "
+          f"bound) on {smi_line}", flush=True)
+    print(f"[digest] B3 tables, CLI default shape, fast: "
+          f"{[digest(t) for t in d_cli]}", flush=True)
+    del rsc, rbest
+    torch.cuda.empty_cache()
+    return {"fused_sweep": {"cli_ms": t}}
+
+
 def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
@@ -2636,7 +2853,7 @@ def main() -> int:
     if ONLY:
         phase = {"dyn": dyn_phases, "regen": regen_phases,
                  "wavefront": wavefront_phase, "compact": compact_phase,
-                 "fused": fused_phase}[ONLY]
+                 "fused": fused_phase, "sweep": sweep_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -2794,6 +3011,15 @@ def main() -> int:
         d_sweep, d_ref, GRAD_RTOL_MAIN)
     same_bits("sweep twice at the main-path shape",
               main_sweep(alb, emi, rsc, rbest, g_main), d_sweep)
+    print(f"[digest] B3 tables, main shape, fast: "
+          f"{[digest(t) for t in d_sweep]}", flush=True)
+    # The rows the sweep needs: each path's words up to its first dead row
+    # and its rsc before it (csrc/sweep_rows.cuh).
+    sweep_bytes = 4 * (2 * live + int((rbest == 0).any(dim=1).sum().item()))
+    print(f"[rate] fused_sweep at the main-path shape: "
+          f"{rsc.numel() * 8 / ms['fused_sweep'] / 1e6!r} GB/s of every row, "
+          f"{sweep_bytes / ms['fused_sweep'] / 1e6!r} GB/s of the "
+          f"{sweep_bytes} bytes it needs", flush=True)
     del rsc, rbest
     main_adj = mk.make_fused_adjoint(scene, cam, cfg_m, **kw_m)
     ms["fused_adjoint"], windows["fused_adjoint"], d_adj = cuda_ms(
@@ -2825,7 +3051,7 @@ def main() -> int:
     work = {
         "fused_tracer": (table_bytes + 12 * n_slots, ops_trace),
         "fused_collect": (table_bytes + 12 * n_slots + res_bytes, ops_trace),
-        "fused_sweep": (table_bytes + res_bytes + 4 * g_main.numel()
+        "fused_sweep": (table_bytes + sweep_bytes + 4 * g_main.numel()
                         + grad_bytes, live * OPS_SWEEP),
         "fused_adjoint": (table_bytes + 4 * g_main.numel() + grad_bytes,
                           ops_trace + live * OPS_SWEEP),
@@ -2966,6 +3192,9 @@ def main() -> int:
     fused_extra = fused_phase(dev, smi_line,
                               dict(reps=10, warmup=10, windows=3))
     torch.cuda.empty_cache()
+    sweep_extra = sweep_phase(dev, smi_line,
+                              dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
     dyn_rows = dyn_phases(dev, smi_line, dict(reps=10, warmup=10, windows=3))
     torch.cuda.empty_cache()
     regen_rows = regen_phases(dev, smi_line,
@@ -2988,8 +3217,9 @@ def main() -> int:
     rows.update(regen_rows)
     rows.update(wave_rows)
     rows.update(compact_rows)
-    for name, keys in fused_extra.items():
-        rows[name].update(keys)
+    for extra in (fused_extra, sweep_extra):
+        for name, keys in extra.items():
+            rows[name].update(keys)
     # name -> (source under csrc/, the TPU kernel's file and def line)
     replaces = {"fused_tracer": ("fused_tracer.cu", "megakernel.py:1024"),
                 "fused_collect": ("fused_tracer.cu", "megakernel.py:1211"),

@@ -260,6 +260,27 @@ static __device__ __forceinline__ void shade(
   }
 }
 
+// The grid of a persistent kernel (the queues of fused_tracer.cu and
+// fused_adjoint.cu, the sweeps of sweep_rows.cuh): as many blocks as stay
+// resident on the card at once (the SMs times the blocks of the kernel an
+// SM holds with `bytes` of dynamic shared memory each), or fewer when
+// there are fewer ray slots.
+template <class Kernel>
+static cudaError_t queue_grid(Kernel kernel, int n, int* grid,
+                              int bytes = 0) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      DRT_BLOCK, bytes);
+  const int need = (n + DRT_BLOCK - 1) / DRT_BLOCK;
+  *grid = sms * per_sm < need ? sms * per_sm : need;
+  if (*grid < 1) *grid = 1;
+  return e;
+}
+
 // Counting in a checking build: called by the lanes of a warp that run a
 // piece of code together, it adds their number to stats[per_lane] and one
 // to stats[per_group].

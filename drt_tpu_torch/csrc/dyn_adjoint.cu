@@ -6,9 +6,12 @@
 //    (pallas_call at dynkernel.py:1286): from the residuals (rsc, rrow)
 //    that the collect tracer of dyn_tracer.cu stored, it replays
 //    gate_b = rr_b [live_b], P_b = T_{b-1} gate_b, T_b = P_b a_b sc_b in
-//    the forward's op order and runs the reverse sweep. The residuals
-//    carry the table ROWS of every bounce (albedo row | emission row << 8
-//    | live << 16), so this kernel reads no scene at all.
+//    the forward's op order and runs the reverse sweep, over each slot's
+//    rows up to its first dead row. The residuals carry the table ROWS of
+//    every bounce (albedo row | emission row << 8 | live << 16), so this
+//    kernel reads no scene at all. Its body is sweep_rows.cuh, shared with
+//    the scene-table sweep: at 144 rows the accumulator leaves no shared
+//    memory for the ring, and the rows come through registers.
 //  - drt_dyn_adjoint replaces dynkernel.py:make_dyn_adjoint (pallas_call
 //    at :1408): it retraces the forward with the bounce body of
 //    dyn_body.cuh, keeping P, sc, gate and the rows of every bounce in the
@@ -28,15 +31,15 @@
 // 227 KB a block may have. The residual format allows 255 + 255; above 144
 // the launch is refused (the wrapper raises with the count).
 //
-// max_depth is a run-time value; the per-bounce values live in thread
-// arrays of a compile-time size. The sweep adjoint is built for 8 bounces
-// (registers) and for DRT_MAX_DEPTH = 32, and the launch takes the smaller
-// that holds max_depth; the retrace adjoint indexes its arrays by the
-// body's bounce counter, so they live in local memory and it is built for
-// 32 only. Deeper paths are refused.
+// max_depth is a run-time value. The sweep adjoint keeps the first 8 rows
+// of a slot's chunk in registers and reads later rows one by one
+// (sweep_rows.cuh); the retrace adjoint indexes its arrays by the body's
+// bounce counter, so they live in local memory and it is built for
+// DRT_MAX_DEPTH = 32. Deeper paths are refused.
 //
-// What bounds them: the sweep adjoint is bound by device memory, 8 bytes
-// per bounce-ray read once against about 20 f32 operations. The retrace
+// What bounds them: the sweep adjoint is bound by device memory, at most 8
+// bytes per bounce-ray read once (the rows before each slot's first dead
+// row are what it needs) against about 20 f32 operations. The retrace
 // adjoint is bound like the tracer, by operations: it traces with the
 // tracer's warp-wide leaf test (dyn_body.cuh:dyn_intersect_warp), so every
 // thread of the grid reaches the bounce loop, a thread past the last ray
@@ -47,24 +50,23 @@
 
 #include "dyn_body.cuh"
 #include "grad_accum.cuh"
+#include "sweep_rows.cuh"
 
 #define DRT_MAX_DEPTH 32
-#define DRT_SMALL_DEPTH 8
 #define DYN_MAX_GRAD_ROWS 144
 
 // Per-bounce values of one ray slot in one chunk; rows = albedo row |
 // emission row << 8.
-template <int DMAX>
 struct DynResiduals {
-  float P[DMAX][3];
-  float sc[DMAX];
-  float gate[DMAX];
-  int rows[DMAX];
+  float P[DRT_MAX_DEPTH][3];
+  float sc[DRT_MAX_DEPTH];
+  float gate[DRT_MAX_DEPTH];
+  int rows[DRT_MAX_DEPTH];
 };
 
 // The hook of the retrace adjoint.
 struct DynKeepResidual {
-  DynResiduals<DRT_MAX_DEPTH>& r;
+  DynResiduals& r;
   __device__ __forceinline__ void operator()(int b, float Px, float Py,
                                              float Pz, float sc, float gate,
                                              int arow, int erow, bool) const {
@@ -77,15 +79,14 @@ struct DynKeepResidual {
 
 // Reverse sweep of one ray slot's chunk into the thread's accumulator
 // column `acc` (dynkernel.py:_dyn_reverse_sweep).
-template <int DMAX>
 static __device__ __forceinline__ void dyn_reverse_sweep(
-    const DrtTrace& cfg, const DynTables& tab, const DynResiduals<DMAX>& r,
+    const DrtTrace& cfg, const DynTables& tab, const DynResiduals& r,
     float gx, float gy, float gz, float* acc) {
   float S[3] = {0.0f, 0.0f, 0.0f};
   const float g[3] = {gx, gy, gz};
   float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
 #pragma unroll
-  for (int b = DMAX - 1; b >= 0; --b) {
+  for (int b = DRT_MAX_DEPTH - 1; b >= 0; --b) {
     if (b >= cfg.max_depth) continue;
     const int ar = r.rows[b] & (DYN_MAX_ROWS - 1);
     const int er = r.rows[b] >> DYN_ROW_BITS;
@@ -109,55 +110,34 @@ static __device__ __forceinline__ void dyn_reverse_sweep(
   }
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(DRT_BLOCK)
+// The row code (sweep_rows.cuh:sweep_code) of a residual word albedo row |
+// emission row << 8 | live << 16: 0 for a dead row.
+struct DynSweepDecode {
+  int n_alb, n_emi;
+  __device__ __forceinline__ int operator()(int pack) const {
+    if ((pack >> (2 * DYN_ROW_BITS)) == 0) return 0;
+    return sweep_code(pack & (DYN_MAX_ROWS - 1),
+                      (pack >> DYN_ROW_BITS) & (DYN_MAX_ROWS - 1), n_alb,
+                      n_emi);
+  }
+};
+
+// B8: the body of sweep_rows.cuh on the mesh residuals (rsc, rrow).
+// TAIL: max_depth > SWEEP_HEAD; RING: the rows come through the ring of
+// `stages` items, else through registers (launch_sweep chooses).
+template <bool TAIL, bool RING>
+__global__ void __launch_bounds__(DRT_BLOCK, SWEEP_MIN_BLOCKS)
 dyn_sweep_kernel(DrtTrace cfg, const float* __restrict__ alb,
                  const float* __restrict__ emi,
                  const float* __restrict__ rsc,
                  const int* __restrict__ rrow, const float* __restrict__ g,
-                 int g_n, float* __restrict__ partials) {
+                 int g_n, int stages, float* __restrict__ partials) {
   extern __shared__ float s_acc[];
   __shared__ DynTables tab;
   dyn_stage_tables(cfg, alb, emi, tab);
-  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int N = cfg.n_rays;
-  if (i < N) {
-    const int gi = i % g_n;
-    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
-    for (int c = 0; c < cfg.n_chunks; ++c) {
-      DynResiduals<DMAX> r;
-      const size_t base = (size_t)c * cfg.max_depth * N + i;
-      float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
-#pragma unroll
-      for (int b = 0; b < DMAX; ++b) {
-        if (b >= cfg.max_depth) continue;
-        const float sc = rsc[base + (size_t)b * N];
-        const int pack = rrow[base + (size_t)b * N];
-        const bool live = (pack >> (2 * DYN_ROW_BITS)) > 0;
-        const int ar = pack & (DYN_MAX_ROWS - 1);
-        const float rr = b >= cfg.min_bounces ? cfg.inv_keep : 1.0f;
-        const float gate = live ? rr : 0.0f;
-        const float Px = Tx * gate, Py = Ty * gate, Pz = Tz * gate;
-        float ax = 1.0f, ay = 1.0f, az = 1.0f;
-        if (ar < cfg.n_alb - 1) {
-          ax = tab.alb[ar * 3 + 0];
-          ay = tab.alb[ar * 3 + 1];
-          az = tab.alb[ar * 3 + 2];
-        }
-        Tx = Px * ax * sc;
-        Ty = Py * ay * sc;
-        Tz = Pz * az * sc;
-        r.P[b][0] = Px; r.P[b][1] = Py; r.P[b][2] = Pz;
-        r.sc[b] = sc;
-        r.gate[b] = gate;
-        r.rows[b] = pack & ((1 << (2 * DYN_ROW_BITS)) - 1);
-      }
-      dyn_reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
-    }
-  }
-  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
+  sweep_groups<TAIL, RING>(
+      cfg, DynSweepDecode{cfg.n_alb, cfg.n_emi}, tab.alb, tab.emi, rsc, rrow,
+      g, g_n, stages, s_acc, partials);
 }
 
 template <bool FAST, bool INTERNAL>
@@ -184,7 +164,7 @@ dyn_adjoint_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
   const int gi = i % g_n;
   const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
   for (int c = 0; c < cfg.n_chunks; ++c) {
-    DynResiduals<DRT_MAX_DEPTH> r;
+    DynResiduals r;
     DynKeepResidual hook{r};
     float lx, ly, lz;
     dyn_trace_chunk<FAST, INTERNAL, false, true>(cfg, lay, cam, scn, tab,
@@ -211,6 +191,17 @@ int drt_dyn_adjoint_limits(int* max_rows, int* max_grad_rows, int* max_depth,
   return 0;
 }
 
+// The ring stages drt_dyn_sweep launches with for these table rows and
+// depth on the current card (sweep_rows.cuh:sweep_stages; 0: the rows
+// through registers).
+int drt_dyn_sweep_stages(int n_alb, int n_emi, int max_depth, int* stages) {
+  if (max_depth > SWEEP_HEAD)
+    return sweep_stages(dyn_sweep_kernel<true, true>, n_alb, n_emi,
+                        max_depth, stages);
+  return sweep_stages(dyn_sweep_kernel<false, true>, n_alb, n_emi, max_depth,
+                      stages);
+}
+
 // Each entry point launches its adjoint kernel and the reduction of the
 // partials on `stream` and returns the first CUDA error (0 on success).
 // `partials` is scratch of ceil(n_rays / block) x entries floats; g is
@@ -220,21 +211,13 @@ int drt_dyn_sweep(const DrtTrace* cfg, const float* alb, const float* emi,
                   float* partials, float* da, float* de, void* stream) {
   if (!dyn_adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
-  int rc;
-#define DRT_LAUNCH(DMAX)                                                   \
-  rc = allow_shared(dyn_sweep_kernel<DMAX>, bytes);                        \
-  if (rc) return rc;                                                       \
-  dyn_sweep_kernel<DMAX><<<grid, DRT_BLOCK, bytes, s>>>(                   \
-      *cfg, alb, emi, rsc, rrow, g, g_n, partials)
-  if (cfg->max_depth <= DRT_SMALL_DEPTH) { DRT_LAUNCH(DRT_SMALL_DEPTH); }
-  else { DRT_LAUNCH(DRT_MAX_DEPTH); }
-#undef DRT_LAUNCH
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
-                         de, s);
+  if (cfg->max_depth > SWEEP_HEAD)
+    return launch_sweep(dyn_sweep_kernel<true, true>,
+                        dyn_sweep_kernel<true, false>, cfg, partials, da, de,
+                        s, alb, emi, rsc, rrow, g, g_n);
+  return launch_sweep(dyn_sweep_kernel<false, true>,
+                      dyn_sweep_kernel<false, false>, cfg, partials, da, de,
+                      s, alb, emi, rsc, rrow, g, g_n);
 }
 
 int drt_dyn_adjoint(const DrtTrace* cfg, const DynLayout* lay,

@@ -7,7 +7,10 @@
 //    (rsc, rbest) that the collect tracer of fused_tracer.cu stored, it
 //    replays gate_b = rr_b [best_b > 0], P_b = T_{b-1} gate_b,
 //    T_b = P_b a_b sc_b in the forward's op order (megakernel.py:1421-1440)
-//    and runs the reverse sweep. No geometry is touched.
+//    and runs the reverse sweep, over each slot's rows up to its first
+//    dead row. No geometry is touched. Its body, a persistent grid with a
+//    ring of rows in shared memory, is sweep_rows.cuh, shared with the dyn
+//    family's sweep.
 //  - drt_fused_adjoint replaces megakernel.py:make_fused_segment_adjoint
 //    (pallas_call at :1672, behind make_fused_adjoint) at b_start = 0,
 //    b_end = max_depth: it retraces the forward with the bounce body of
@@ -89,41 +92,42 @@
 //    that kernel keeps its text, so B1's and B2's ptxas reports and bits
 //    stay as they are (a routine boundary in that loop once cost B1 3%,
 //    PERF.md section 6); the pieces they share are in fused_queue.cuh.
-//  - max_depth is a run-time value; the per-bounce values live in thread
-//    arrays of a compile-time size whose loops are unrolled, so that the
-//    sweep adjoint can keep them in registers: it is built for 8 bounces
-//    and for DRT_MAX_DEPTH = 32, and the launch takes the smaller that
-//    holds max_depth. The retrace adjoint indexes its arrays by the bounce
-//    counter of the shared body, so they live in local memory at either
-//    size and it is built for 32 only. Deeper paths are refused.
+//  - max_depth is a run-time value. The sweep adjoint keeps the first 8
+//    rows of a slot's chunk in registers and reads later rows one by one
+//    into local memory (built once for max_depth <= 8, once beyond). The
+//    retrace adjoint indexes its arrays by the bounce counter of the
+//    shared body, so they live in local memory and it is built for
+//    DRT_MAX_DEPTH = 32. Deeper paths are refused.
 //
 // What bounds them: the sweep adjoint is bound by device memory. It reads
-// 8 bytes per bounce-ray once (3.15 GB at 640x480x256 spp, depth 5) and
-// does about 20 f32 operations per bounce-ray, an order of magnitude below
-// what the card can do in the time the read takes; the ray slot is the
-// fastest index, so a warp reads whole 128-byte lines. The retrace adjoint
+// at most 8 bytes per bounce-ray once (3.15 GB at 640x480x256 spp, depth
+// 5; the rows before each slot's first dead row, 1.50 GB of them, are
+// what it needs) and does about 20 f32 operations per live bounce-ray, an
+// order of magnitude below what the card can do in the time the read
+// takes; the ray slot is the fastest index, so a warp reads whole
+// 128-byte lines (sweep_rows.cuh says how it keeps them in flight). The
+// retrace adjoint
 // is bound like the tracer, by f32 and special-function issue and warp
 // divergence; the sweep adds a few percent to its work.
 
 #include "fused_body.cuh"
 #include "fused_queue.cuh"
 #include "grad_accum.cuh"
+#include "sweep_rows.cuh"
 
 #define DRT_MAX_DEPTH 32
-#define DRT_SMALL_DEPTH 8
 
 // Per-bounce values of one ray slot in one chunk.
-template <int DMAX>
 struct Residuals {
-  float P[DMAX][3];
-  float sc[DMAX];
-  float gate[DMAX];
-  int best[DMAX];
+  float P[DRT_MAX_DEPTH][3];
+  float sc[DRT_MAX_DEPTH];
+  float gate[DRT_MAX_DEPTH];
+  int best[DRT_MAX_DEPTH];
 };
 
 // The hook of the retrace adjoint.
 struct KeepResidual {
-  Residuals<DRT_MAX_DEPTH>& r;
+  Residuals& r;
   __device__ __forceinline__ void operator()(int b, float Px, float Py,
                                              float Pz, float sc, float gate,
                                              int best) const {
@@ -136,15 +140,14 @@ struct KeepResidual {
 
 // Reverse sweep of one ray slot's chunk into the thread's accumulator
 // column `acc` (entry e lives at acc[e * DRT_BLOCK]).
-template <int DMAX>
 static __device__ __forceinline__ void reverse_sweep(
-    const DrtTrace& cfg, const DrtTables& tab, const Residuals<DMAX>& r,
+    const DrtTrace& cfg, const DrtTables& tab, const Residuals& r,
     float gx, float gy, float gz, float* acc) {
   float S[3] = {0.0f, 0.0f, 0.0f};
   const float g[3] = {gx, gy, gz};
   float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
 #pragma unroll
-  for (int b = DMAX - 1; b >= 0; --b) {
+  for (int b = DRT_MAX_DEPTH - 1; b >= 0; --b) {
     if (b >= cfg.max_depth) continue;
     const int best = r.best[b];
     float e[3] = {0.0f, 0.0f, 0.0f};
@@ -185,58 +188,53 @@ enum { AS_STEPS = 0, AS_CYCLES = 4, AS_END = AS_CYCLES + N_ADJ_SECT };
 template <bool COUNT> struct AdjointMarksOf { using type = NoMarks; };
 template <> struct AdjointMarksOf<true> { using type = AdjointClock; };
 
-template <int DMAX>
-__global__ void __launch_bounds__(DRT_BLOCK)
+// The sweep's tables: the row code (sweep_rows.cuh:sweep_code) of each
+// shape by best = shape + 1, 0 for best = 0 (a dead lane), and the albedo
+// and emission tables.
+struct FusedSweepTables {
+  int code[DRT_MAX_SHAPES + 1];
+  float alb[DRT_MAX_ROWS * 3];
+  float emi[DRT_MAX_ROWS * 3];
+};
+
+struct FusedSweepDecode {
+  const int* code;
+  __device__ __forceinline__ int operator()(int best) const {
+    return code[best];
+  }
+};
+
+// B3: the body of sweep_rows.cuh on the scene-table residuals (rsc,
+// rbest). TAIL: max_depth > SWEEP_HEAD; RING: the rows come through the
+// ring of `stages` items, else through registers (launch_sweep chooses).
+template <bool TAIL, bool RING>
+__global__ void __launch_bounds__(DRT_BLOCK, SWEEP_MIN_BLOCKS)
 fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
                    const float* __restrict__ alb,
                    const float* __restrict__ emi,
                    const float* __restrict__ rsc,
                    const int* __restrict__ rbest,
-                   const float* __restrict__ g, int g_n,
+                   const float* __restrict__ g, int g_n, int stages,
                    float* __restrict__ partials) {
   extern __shared__ float s_acc[];
-  __shared__ DrtTables tab;
-  stage_tables(cfg, scene, alb, emi, tab);
-  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int N = cfg.n_rays;
-  if (i < N) {
-    const int gi = i % g_n;
-    const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
-    for (int c = 0; c < cfg.n_chunks; ++c) {
-      Residuals<DMAX> r;
-      const size_t base = (size_t)c * cfg.max_depth * N + i;
-      float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
-#pragma unroll
-      for (int b = 0; b < DMAX; ++b) {
-        if (b >= cfg.max_depth) continue;
-        const float sc = rsc[base + (size_t)b * N];
-        const int best = rbest[base + (size_t)b * N];
-        const float rr = b >= cfg.min_bounces ? cfg.inv_keep : 1.0f;
-        const float gate = best > 0 ? rr : 0.0f;
-        const float Px = Tx * gate, Py = Ty * gate, Pz = Tz * gate;
-        float ax = 1.0f, ay = 1.0f, az = 1.0f;
-        if (best > 0) {
-          const int ar = (int)tab.scene[(best - 1) * DRT_REC + R_ALB];
-          if (ar < cfg.n_alb - 1) {
-            ax = tab.alb[ar * 3 + 0];
-            ay = tab.alb[ar * 3 + 1];
-            az = tab.alb[ar * 3 + 2];
-          }
-        }
-        Tx = Px * ax * sc;
-        Ty = Py * ay * sc;
-        Tz = Pz * az * sc;
-        r.P[b][0] = Px; r.P[b][1] = Py; r.P[b][2] = Pz;
-        r.sc[b] = sc;
-        r.gate[b] = gate;
-        r.best[b] = best;
-      }
-      reverse_sweep(cfg, tab, r, gx, gy, gz, s_acc + threadIdx.x);
+  __shared__ FusedSweepTables tab;
+  for (int k = threadIdx.x; k <= cfg.n_shapes; k += blockDim.x) {
+    int code = 0;
+    if (k > 0) {
+      const float* rec = scene + (k - 1) * DRT_REC;
+      code = sweep_code((int)rec[R_ALB], (int)rec[R_EMI], cfg.n_alb,
+                        cfg.n_emi);
     }
+    tab.code[k] = code;
   }
-  block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
+  for (int k = threadIdx.x; k < cfg.n_alb * 3; k += blockDim.x)
+    tab.alb[k] = alb[k];
+  for (int k = threadIdx.x; k < cfg.n_emi * 3; k += blockDim.x)
+    tab.emi[k] = emi[k];
+  __syncthreads();
+  sweep_groups<TAIL, RING>(
+      cfg, FusedSweepDecode{tab.code}, tab.alb, tab.emi, rsc, rbest, g, g_n,
+      stages, s_acc, partials);
 }
 
 // The lockstep loop: one thread per ray slot runs all max_depth bounces
@@ -267,7 +265,7 @@ fused_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
     const int gi = i % g_n;
     const float gx = g[gi], gy = g[g_n + gi], gz = g[2 * g_n + gi];
     for (int c = 0; c < cfg.n_chunks; ++c) {
-      Residuals<DRT_MAX_DEPTH> r;
+      Residuals r;
       KeepResidual hook{r};
       float lx, ly, lz;
       trace_chunk<FAST, INTERNAL>(cfg, cam, tab, cam_u, tape, i, c, hook,
@@ -300,7 +298,7 @@ ray_adjoint_kernel(DrtTrace cfg, const float* __restrict__ scene,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int N = cfg.n_rays;
   if (i < N) {
-    Residuals<DRT_MAX_DEPTH> r;
+    Residuals r;
     KeepResidual hook{r};
     float lx, ly, lz;
     trace_ray(cfg, tab, o, d, tape, i, hook, lx, ly, lz);
@@ -540,7 +538,7 @@ slot_reduce_kernel(int n_alb, int n_emi, int n_rays,
 // The hook of the segment adjoint: bounce b of a segment that starts at
 // b0 is row b - b0.
 struct KeepSegmentResidual {
-  Residuals<DRT_MAX_DEPTH>& r;
+  Residuals& r;
   int b0;
   __device__ __forceinline__ void operator()(int b, float Px, float Py,
                                              float Pz, float sc, float gate,
@@ -557,7 +555,7 @@ struct KeepSegmentResidual {
 // after its last bounce; leaves S at its first bounce in S.
 static __device__ __forceinline__ void segment_sweep(
     const DrtTrace& cfg, const DrtTables& tab,
-    const Residuals<DRT_MAX_DEPTH>& r, int n, const float g[3], float S[3],
+    const Residuals& r, int n, const float g[3], float S[3],
     float* acc) {
   float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
   for (int b = n - 1; b >= 0; --b) {
@@ -610,7 +608,7 @@ segment_adjoint_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int K = cfg.n_rays;
   if (i < K) {
-    Residuals<DRT_MAX_DEPTH> r;
+    Residuals r;
     KeepSegmentResidual hook{r, b0};
     PathState p;
     trace_segment<FAST, INTERNAL>(cfg, cam, tab, cam_u,
@@ -689,6 +687,18 @@ int drt_adjoint_limits(int* max_shapes, int* max_rows, int* rec,
   return 0;
 }
 
+// The ring stages drt_fused_sweep launches with for these table rows and
+// depth on the current card (sweep_rows.cuh:sweep_stages; 0: the rows
+// through registers).
+int drt_fused_sweep_stages(int n_alb, int n_emi, int max_depth,
+                           int* stages) {
+  if (max_depth > SWEEP_HEAD)
+    return sweep_stages(fused_sweep_kernel<true, true>, n_alb, n_emi,
+                        max_depth, stages);
+  return sweep_stages(fused_sweep_kernel<false, true>, n_alb, n_emi,
+                      max_depth, stages);
+}
+
 // Each entry point launches its adjoint kernel and the reduction of the
 // partials on `stream` and returns the first CUDA error (0 on success).
 // `partials` is scratch of ceil(n_rays / block) x entries floats; g is
@@ -699,21 +709,13 @@ int drt_fused_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
                     float* de, void* stream) {
   if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
-  int rc;
-#define DRT_LAUNCH(DMAX)                                                   \
-  rc = allow_shared(fused_sweep_kernel<DMAX>, bytes);                      \
-  if (rc) return rc;                                                       \
-  fused_sweep_kernel<DMAX><<<grid, DRT_BLOCK, bytes, s>>>(                 \
-      *cfg, scene, alb, emi, rsc, rbest, g, g_n, partials)
-  if (cfg->max_depth <= DRT_SMALL_DEPTH) { DRT_LAUNCH(DRT_SMALL_DEPTH); }
-  else { DRT_LAUNCH(DRT_MAX_DEPTH); }
-#undef DRT_LAUNCH
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
-                         de, s);
+  if (cfg->max_depth > SWEEP_HEAD)
+    return launch_sweep(fused_sweep_kernel<true, true>,
+                        fused_sweep_kernel<true, false>, cfg, partials, da,
+                        de, s, scene, alb, emi, rsc, rbest, g, g_n);
+  return launch_sweep(fused_sweep_kernel<false, true>,
+                      fused_sweep_kernel<false, false>, cfg, partials, da, de,
+                      s, scene, alb, emi, rsc, rbest, g, g_n);
 }
 
 // The queue needs slot_acc f32[n_rays, slot_stride(E)] as scratch, E =

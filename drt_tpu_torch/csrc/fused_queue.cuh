@@ -1,8 +1,8 @@
 // The pieces of the queue of (ray slot, chunk) paths that the scene-table
 // tracers (fused_tracer.cu: queue_trace_kernel) and adjoints
 // (fused_adjoint.cu: queue_adjoint_kernel) share: the uniforms of a
-// queue's step, the roulette draw of the next bounce, and the persistent
-// grid.
+// queue's step and the roulette draw of the next bounce (the persistent
+// grid, queue_grid, is in drt_common.cuh).
 
 #pragma once
 
@@ -42,23 +42,4 @@ static __device__ __forceinline__ float roulette_draw(const DrtTrace& cfg,
                                                       int i, int bnc) {
   if (INTERNAL) return keyed_uniform(t.key, (uint32_t)bnc, 0u);
   return t.p[(size_t)bnc * 3 * cfg.n_rays + i];
-}
-
-// The queue's grid: as many blocks as stay resident on the card at once
-// (the SMs times the blocks of the kernel an SM holds with `bytes` of
-// dynamic shared memory each), or fewer when there are fewer ray slots.
-template <class Kernel>
-static cudaError_t queue_grid(Kernel kernel, int n, int* grid,
-                              int bytes = 0) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      DRT_BLOCK, bytes);
-  const int need = (n + DRT_BLOCK - 1) / DRT_BLOCK;
-  *grid = sms * per_sm < need ? sms * per_sm : need;
-  if (*grid < 1) *grid = 1;
-  return e;
 }

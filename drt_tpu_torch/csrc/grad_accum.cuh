@@ -37,10 +37,12 @@ static __device__ __forceinline__ void zero_column(int n_alb, int n_emi,
   for (int e = 0; e < E; ++e) s_acc[e * DRT_BLOCK + threadIdx.x] = 0.0f;
 }
 
-// Sum every entry over the block's columns in a fixed order and write the
-// block's row of partials. Every thread of the block calls this.
-static __device__ __forceinline__ void block_reduce_write(
-    int n_alb, int n_emi, const float* s_acc, float* __restrict__ partials) {
+// Sum every entry over the block's columns in a fixed order and write row
+// `row` of partials: the row of the block's 128 ray slots. Every thread of
+// the block calls this.
+static __device__ __forceinline__ void block_reduce_row(
+    int n_alb, int n_emi, const float* s_acc, float* __restrict__ partials,
+    unsigned row) {
   __syncthreads();
   const int E = n_entries(n_alb, n_emi);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -52,8 +54,14 @@ static __device__ __forceinline__ void block_reduce_write(
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v = v + __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) partials[(size_t)blockIdx.x * E + e] = v;
+    if (lane == 0) partials[(size_t)row * E + e] = v;
   }
+}
+
+// block_reduce_row into the block's own row, blockIdx.x.
+static __device__ __forceinline__ void block_reduce_write(
+    int n_alb, int n_emi, const float* s_acc, float* __restrict__ partials) {
+  block_reduce_row(n_alb, n_emi, s_acc, partials, blockIdx.x);
 }
 
 // One block per entry of the padded gradient tables: a sentinel row gets

@@ -826,6 +826,7 @@ def _adjoint_library() -> ctypes.CDLL:
     if lib.drt_dyn_sweep.argtypes is None:
         # alb, emi, rsc, rrow, g, g_n, partials, da, de, stream
         mk._bind(lib, "drt_dyn_sweep", 10, (mk._DrtTrace,), n_ints_at=(5,))
+        mk._bind_stages(lib, "drt_dyn_sweep_stages")
         # alb, emi, cam_u, tape, g, g_n, partials, da, de, stream
         mk._bind(lib, "drt_dyn_adjoint", 10,
                  (mk._DrtTrace, _DynLayout, mk._DrtCamera, _DynOperands),
@@ -1011,13 +1012,27 @@ def _adjoint_buffers(cfg: RenderConfig, tcfg: mk._DrtTrace, g: torch.Tensor,
     return mk._adjoint_buffers(cfg, tcfg, g, dev)
 
 
+def dyn_sweep_stages(n_alb: int, n_emi: int, max_depth: int) -> int:
+    """The ring stages `dyn_sweep`'s kernel launches with on the current
+    card for tables of n_alb and n_emi rows (the sentinel rows included):
+    3 up to 128 real rows; 0 means its rows come through registers."""
+    return mk._stages(_adjoint_library().drt_dyn_sweep_stages,
+                      "dyn sweep stages", n_alb, n_emi, max_depth)
+
+
 def dyn_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
               rsc: torch.Tensor, rrow: torch.Tensor, g: torch.Tensor, *,
               n_chunks: int = 1):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the dyn sweep
     adjoint from the collect tracer's residuals and a cotangent g. CPU
     tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. The kernel reads a slot's rows up to its first dead row (the
+    live bit of rrow clear) and no further. It takes each slot's first
+    rows through a ring in shared memory, sized at launch from what the
+    table rows' accumulator leaves (`dyn_sweep_stages`: 3 stages up to 128
+    real rows), and through registers where fewer than two stages fit, as
+    at the 144-row limit, where the accumulator fills the block's shared
+    memory."""
     if mk._device_of("dyn_sweep", alb) == "cpu":
         return dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g)
     dev = alb.device

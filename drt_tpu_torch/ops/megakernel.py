@@ -359,6 +359,22 @@ def _bind(lib, name: str, n_pointers: int, structs=(), n_ints_at=()) -> None:
     fn.restype = ctypes.c_int
 
 
+def _bind_stages(lib, name: str) -> None:
+    """argtypes of a sweep's stage query: n_alb, n_emi, max_depth, and
+    the int it writes."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+
+
+def _stages(fn, what: str, n_alb: int, n_emi: int, max_depth: int) -> int:
+    got = ctypes.c_int()
+    rc = fn(n_alb, n_emi, max_depth, ctypes.byref(got))
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+    return got.value
+
+
 def _check_limits(source: str, fn, expected: list) -> None:
     got = [ctypes.c_int() for _ in expected]
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(expected)
@@ -412,6 +428,7 @@ def _adjoint_library() -> ctypes.CDLL:
     if lib.drt_fused_sweep.argtypes is None:
         # scene, alb, emi, rsc, rbest, g, g_n, partials, da, de, stream
         _bind(lib, "drt_fused_sweep", 11, (_DrtTrace,), n_ints_at=(6,))
+        _bind_stages(lib, "drt_fused_sweep_stages")
         # scene, alb, emi, cam_u, tape, g, g_n, [slot_acc,] partials, da,
         # de, stream
         _bind(lib, "drt_fused_adjoint", 12, (_DrtTrace, _DrtCamera),
@@ -742,12 +759,26 @@ def _slot_columns(tcfg: _DrtTrace, dev) -> torch.Tensor:
                        dtype=torch.float32, device=dev)
 
 
+def fused_sweep_stages(n_alb: int, n_emi: int, max_depth: int) -> int:
+    """The ring stages `fused_sweep`'s kernel launches with on the
+    current card for tables of n_alb and n_emi rows (the sentinel rows
+    included): 3 up to the tables' 63 + 63 real rows; 0 means its rows
+    come through registers."""
+    return _stages(_adjoint_library().drt_fused_sweep_stages,
+                   "fused sweep stages", n_alb, n_emi, max_depth)
+
+
 def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
                 alb: torch.Tensor, emi: torch.Tensor, rsc: torch.Tensor,
                 rbest: torch.Tensor, g: torch.Tensor, *, n_chunks: int = 1):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the sweep adjoint
     from the collect tracer's residuals and a cotangent g. CPU tensors run
-    the plain twin; CUDA tensors launch the kernel or raise."""
+    the plain twin; CUDA tensors launch the kernel or raise. The kernel
+    reads a slot's rows up to its first dead row (rbest == 0) and no
+    further. It takes each slot's first rows through a ring in shared
+    memory, sized at launch from what the table rows' accumulator leaves
+    (`fused_sweep_stages`: 3 stages up to the tables' 63 + 63 real rows),
+    and takes them through registers where fewer than two stages fit."""
     if _device_of("fused_sweep", alb) == "cpu":
         return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
     dev = alb.device

@@ -1360,3 +1360,162 @@ def test_adjoint_builds_check_their_names(dev):
     with pytest.raises(ValueError, match="checking build"):
         mk.fused_adjoint_stats(scene, table, mk.camera_consts(cam, 30, 20),
                                cfg, alb.cpu(), emi.cpu(), g.cpu(), [1, 2])
+
+
+# ---------------------------------------------------------------------------
+# The stored-residual sweeps B3 and B8 (csrc/sweep_rows.cuh: a persistent
+# grid over 128-slot groups, a slot's rows read up to its first dead row,
+# through a ring in shared memory or through registers) against the
+# retrace adjoints B4 and B9, bit for bit.
+
+SWEEP_RNG = ["tape", "internal-3", "internal-16"]
+SWEEP_DEPTHS = [1, 5, 8, 9, 32]  # 8 | 9: the head of a slot's rows
+
+
+def _wide_tables(alb, emi, n_alb, n_emi):
+    """alb and emi with their real rows repeated up to n_alb - 1 and
+    n_emi - 1 real rows, the sentinel row last."""
+    def wide(t, n):
+        reps = -(-(n - 1) // (t.shape[0] - 1))
+        return torch.cat([torch.cat([t[:-1]] * reps)[:n - 1],
+                          t[-1:]]).contiguous()
+    return wide(alb, n_alb), wide(emi, n_emi)
+
+
+def _nan_after_dead(rsc, word, live):
+    """rsc and the words with every row after each slot's first dead row
+    overwritten: NaN in rsc, a NaN's bits in the words."""
+    dead = torch.cumsum((~live).to(torch.int32), dim=-2) > 0
+    after = torch.cumsum(dead.to(torch.int32), dim=-2) > 1
+    return (torch.where(after, float("nan"), rsc),
+            torch.where(after, 0x7FC00000, word).to(torch.int32))
+
+
+def _b3_and_b4(scene, cam, alb, emi, cfg, kw, g, fastmath):
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    _, rsc, rbest = mk.fused_collect(scene, table, cc, cfg, alb, emi,
+                                     fastmath=fastmath, **kw)
+    b3 = mk.fused_sweep(scene, table, cfg, alb, emi, rsc, rbest, g,
+                        n_chunks=kw["n_chunks"])
+    b4 = mk.fused_adjoint(scene, table, cc, cfg, alb, emi, g,
+                          fastmath=fastmath, **kw)
+    return b3, b4, rsc, rbest
+
+
+@pytest.mark.parametrize("depth", SWEEP_DEPTHS)
+@pytest.mark.parametrize("rng", SWEEP_RNG)
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_sweep_equals_the_retrace_adjoint(dev, make, fastmath, rng, depth):
+    """B3 = B4 with a per-ray and a per-pixel cotangent, and B3 on rows of
+    NaN after each slot's first dead row = B3, bit for bit."""
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg, kw, cots = _adjoint_inputs(cam, depth, rng, dev, seed=depth)
+    before = mk.launch_counts()
+    for g in cots:
+        b3, b4, rsc, rbest = _b3_and_b4(scene, cam, alb, emi, cfg, kw, g,
+                                        fastmath)
+        assert _same(b3, b4)
+        assert all(torch.isfinite(t).all() for t in b3)
+    torch.cuda.synchronize()
+    assert mk.launch_counts()["fused_sweep"] == before["fused_sweep"] + 2
+    rsc_n, rbest_n = _nan_after_dead(rsc, rbest, rbest > 0)
+    assert _same(mk.fused_sweep(scene, mk.scene_table(scene), cfg, alb, emi,
+                                rsc_n, rbest_n, g, n_chunks=kw["n_chunks"]),
+                 b3)
+    if depth > 1:  # the tri scene's light is seen only after a bounce
+        assert b3[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 300])
+def test_sweeps_with_a_partial_last_group(dev, n):
+    """n ray slots a chunk (n x 1 pixels, 3 chunks): B3 = B4 and B8 = B9
+    when the last 128-slot group is partial or the only one."""
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=n, height=1, spp=3, spp_chunks=3, max_depth=5)
+    seeds = torch.tensor([n, 5], dtype=torch.int32)
+    kw = dict(seeds=seeds, n_chunks=3)
+    g = torch.rand((3, n), generator=torch.Generator(device=dev).manual_seed(
+        n), device=dev)
+    b3, b4, _, _ = _b3_and_b4(scene, cam, alb, emi, cfg, kw, g, True)
+    assert _same(b3, b4)
+    ds = dk.DynScene(scene)
+    _, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, cfg, n_chunks=3)(
+        alb, emi, seeds)
+    b8 = dk.make_dyn_sweep_adjoint(ds, cfg, n_chunks=3)(alb, emi, rsc, rrow,
+                                                       g)
+    b9 = dk.make_dyn_adjoint(ds, cam, cfg, n_chunks=3)(alb, emi, seeds, g)
+    assert _same(b8, b9)
+
+
+_DYN_SWEEP_SCENES = dict(DYN_SCENES, mesh327=_mesh(2), mesh1287=_mesh(3))
+
+
+@pytest.mark.parametrize("depth", [5, 9, 32])
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("name", sorted(_DYN_SWEEP_SCENES))
+def test_dyn_sweep_equals_the_retrace_adjoint(dev, name, fastmath, chunks,
+                                              depth):
+    """B8 = B9 with a per-ray and a per-pixel cotangent, and B8 on rows of
+    NaN after each slot's first dead row = B8, bit for bit."""
+    scene, params, cam, alb, emi = _setup(_DYN_SWEEP_SCENES[name], dev)
+    ds = dk.DynScene(scene)
+    cfg, kw, cots = _adjoint_inputs(cam, depth, f"internal-{chunks}", dev,
+                                    seed=depth)
+    coll = dk.make_dyn_collect_tracer(ds, cam, cfg, fastmath=fastmath,
+                                      n_chunks=chunks)
+    _, rsc, rrow = coll(alb, emi, kw["seeds"])
+    sweep = dk.make_dyn_sweep_adjoint(ds, cfg, n_chunks=chunks)
+    adj = dk.make_dyn_adjoint(ds, cam, cfg, fastmath=fastmath,
+                              n_chunks=chunks)
+    for g in cots:
+        b8 = sweep(alb, emi, rsc, rrow, g)
+        assert _same(b8, adj(alb, emi, kw["seeds"], g))
+        assert all(torch.isfinite(t).all() for t in b8)
+    rsc_n, rrow_n = _nan_after_dead(rsc, rrow, (rrow >> 16) > 0)
+    assert _same(sweep(alb, emi, rsc_n, rrow_n, g), b8)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 5, 8, 9, 32])
+def test_sweep_stages_by_table_rows(dev, depth):
+    """The ring takes what the accumulator leaves of a block's shared
+    memory: 3 stages at E = 12 (the Cornell box) and at E = 378 (the
+    scene-table limit, 63 + 63 real rows), and for the dyn family up to
+    128 real rows; at E = 432 (the dyn family's 144 rows) 5 KB are left,
+    which hold 3 stages of one row and 2 of two, and none of more: there
+    the rows come through registers."""
+    assert mk.fused_sweep_stages(4, 2, depth) == 3
+    assert mk.fused_sweep_stages(64, 64, depth) == 3
+    assert dk.dyn_sweep_stages(4, 2, depth) == 3
+    assert dk.dyn_sweep_stages(65, 65, depth) == 3
+    assert dk.dyn_sweep_stages(73, 73, depth) == {1: 3, 2: 2}.get(depth, 0)
+
+
+@pytest.mark.parametrize("depth", [5, 9])
+def test_sweeps_at_the_row_limits(dev, depth):
+    """The accumulator at its limits: 63 + 63 real rows (E = 378) for B3,
+    with a ring; 72 + 72 = 144 for B8, whose accumulator leaves no room for
+    a ring, so its rows come through registers; and 64 + 64 for B8, with
+    a ring. Each = its retrace adjoint, bit for bit."""
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg, kw, (g, g_pix) = _adjoint_inputs(cam, depth, "internal-3", dev)
+    a63, e63 = _wide_tables(alb, emi, 64, 64)
+    assert mk.fused_sweep_stages(64, 64, depth) == 3
+    b3, b4, _, _ = _b3_and_b4(scene, cam, a63, e63, cfg, kw, g_pix, True)
+    assert _same(b3, b4)
+    assert int((b3[0][:-1] != 0).any(dim=1).sum()) >= 2
+    ds = dk.DynScene(scene)
+    for rows, stages in ((73, 0), (65, 3)):
+        a, e = _wide_tables(alb, emi, rows, rows)
+        assert dk.dyn_sweep_stages(rows, rows, depth) == stages
+        _, rsc, rrow = dk.make_dyn_collect_tracer(ds, cam, cfg,
+                                                  n_chunks=3)(
+            a, e, kw["seeds"])
+        b8 = dk.make_dyn_sweep_adjoint(ds, cfg, n_chunks=3)(a, e, rsc, rrow,
+                                                           g)
+        b9 = dk.make_dyn_adjoint(ds, cam, cfg, n_chunks=3)(a, e, kw["seeds"],
+                                                          g)
+        assert _same(b8, b9)

@@ -13,9 +13,12 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
     main shape of chip_smoke.py (the 1287-shape mesh, 640x480, 64 spp,
     depth 5, 4 chunks, fast variant, internal RNG, seeds (7, 8)): device
     ms per launch, the median of 3 windows of 10 launches after 20
-    warm-ups (CUDA events), with the window means;
+    warm-ups (CUDA events), with the window means; B8's with its GB/s
+    and share of the memory bound over every row and over the rows it
+    needs (bench_torch_fused.py:sweep_rates);
   - "digest": SHA-256 of the bytes of B6's radiance, of B7's radiance, rsc
-    and rrow, of B9's (d_albedo, d_emission), of B12's radiance and trips
+    and rrow, of B8's and B9's (d_albedo, d_emission), of B12's radiance
+    and trips
     and of its collect form's rsc and rrow (the rows beyond each pixel's
     trips, which the kernel never writes, set to 0) at those seeds: equal
     digests across checkouts mean bit-equal outputs;
@@ -41,6 +44,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from bench_torch_fused import sweep_rates
 
 MESH_MAIN = dict(width=640, height=480, spp=64, max_depth=5, spp_chunks=4)
 
@@ -148,8 +153,12 @@ def main() -> int:
     emit("kernel", label, name="dyn_collect", ms=ms, windows=windows)
     for what, t in (("radiance", L), ("rsc", rsc), ("rrow", rrow)):
         emit("digest", label, name=f"dyn_collect {what}", sha256=digest(t))
-    ms, windows, _ = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rrow, g_pix))
-    emit("kernel", label, name="dyn_sweep", ms=ms, windows=windows)
+    ms, windows, tables = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rrow,
+                                                       g_pix))
+    emit("kernel", label, name="dyn_sweep", ms=ms, windows=windows,
+         **sweep_rates(torch, ms, (rrow >> 16) > 0))
+    for what, t in zip(("d_albedo", "d_emission"), tables):
+        emit("digest", label, name=f"dyn_sweep {what}", sha256=digest(t))
     del L, rsc, rrow
     ms, windows, grads = cuda_ms(torch,
                                  lambda: adjoint(alb, emi, seeds, g_pix))

@@ -18,21 +18,24 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
     (640x480, 100 spp, depth 32, one chunk); where the checkout has them,
     the lockstep checking builds of B1, B2, B4 and B5b and, as the
     store-only yardstick, the zeroing of the collect tracer's buffers
-    alone; B3 (sweep), B10 (regeneration tracer, both forms), B11 (its
-    sweep) and B14 (early exit, exact) at the main shape; B5a and B5b
+    alone; B3 (sweep, also at the CLI shape, with its GB/s and share of
+    the memory bound over every row and over the rows it needs), B10
+    (regeneration tracer, both forms), B11 (its sweep) and B14 (early
+    exit, exact) at the main shape; B5a and B5b
     (wavefront) and the segment forms [0, 2) and [2, 5) on one chunk of
     it;
   - "digest": SHA-256 of B1's radiance and of B2's radiance, rsc and rbest
     at the main shape (fast and exact), at the CLI default shape (fast)
     and in tape mode (one chunk of the main shape, its hash tapes, fast);
     of B4's gradient tables at the main shape (fast and exact) and in tape
-    mode, and of B5b's on one chunk: equal digests across checkouts mean
-    bit-equal outputs;
+    mode, of B3's at the main and CLI shapes (fast) and of B5b's on one
+    chunk: equal digests across checkouts mean bit-equal outputs;
   - "path": the Cornell box through the user's entry points, seconds on
     the host clock with a synchronize (median of 5 after 2 warm-ups):
     make_renderer forward at the main shape and at the CLI default shape,
     a forward+backward step of the mean squared image loss in the stored
-    and the retrace forms and unbiased with 2 adjoint samples, and the
+    and the retrace forms and unbiased with 2 adjoint samples, the stored
+    step at the CLI default shape, and the
     trainer step of optim.inverse_render (a
     call of 10 steps less a call of 5, over 5).
 With --breakdown it prints "breakdown" lines instead: the lockstep loop's
@@ -93,6 +96,29 @@ def cuda_ms(torch, fn, reps=10, warmup=20, windows=3):
 
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM peak device memory rate
+
+
+def sweep_rates(torch, ms: float, live) -> dict:
+    """GB/s and share of bound of a sweep (B3, B8) that took `ms` on rows
+    whose live mask is live bool[C, D, N] (or [D, N]): over every row
+    (rsc and the word, 8 bytes a bounce-ray), and over the rows the
+    function needs, a slot's words up to its first dead row and its rsc
+    before it (sweep_rows.cuh)."""
+    live = live.reshape(-1, live.shape[-2], live.shape[-1])
+    D = live.shape[1]
+    n_live = torch.cumprod(live.to(torch.int32), dim=1).sum(dim=1)
+    every = 8 * live.numel()
+    needed = 4 * int((n_live + (n_live < D).to(torch.int32)).sum()
+                     + n_live.sum())
+    out = {}
+    for what, n_bytes in (("every row", every), ("needed rows", needed)):
+        bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        out[what] = dict(bytes=n_bytes, gb_s=n_bytes / ms / 1e6,
+                         bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+    return out
 
 
 def host_s(torch, fn, reps=5, warmup=2) -> tuple[float, list]:
@@ -407,8 +433,12 @@ def compare(torch, label: str) -> None:
     _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg, **kw)(
         alb, emi, seeds)
     sweep = mk.make_fused_sweep_adjoint(scene, cfg, n_chunks=C)
-    ms, win, _ = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rbest, g_pix))
-    emit("kernel", label, name="B3 sweep, main shape", ms=ms, windows=win)
+    ms, win, tables = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rbest,
+                                                   g_pix))
+    emit("kernel", label, name="B3 sweep, main shape", ms=ms, windows=win,
+         **sweep_rates(torch, ms, rbest > 0))
+    emit("digest", label, name="B3 tables, main shape, fast",
+         sha256=[digest(t) for t in tables])
     del rsc, rbest
     adj = mk.make_fused_adjoint(scene, cam, cfg, **kw)
     ms, win, _ = cuda_ms(torch, lambda: adj(alb, emi, seeds, g_pix))
@@ -424,6 +454,18 @@ def compare(torch, label: str) -> None:
              sha256=[digest(t) for t in tables])
     cfg_cli = RenderConfig(**CLI)
     g_cli = g_pix * (cfg.spp / cfg_cli.spp)
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg_cli,
+                                                 fastmath=True)(alb, emi,
+                                                                seeds)
+    sweep = mk.make_fused_sweep_adjoint(scene, cfg_cli)
+    ms, win, tables = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rbest,
+                                                   g_cli))
+    emit("kernel", label, name="B3 sweep, CLI default shape", ms=ms,
+         windows=win, **sweep_rates(torch, ms, rbest > 0))
+    emit("digest", label, name="B3 tables, CLI default shape, fast",
+         sha256=[digest(t) for t in tables])
+    del rsc, rbest
+    torch.cuda.empty_cache()
     ms, win, _ = cuda_ms(torch, lambda: mk.fused_adjoint(
         scene, table, cc, cfg_cli, alb, emi, g_cli, seeds=seeds,
         fastmath=True))
@@ -538,6 +580,18 @@ def compare(torch, label: str) -> None:
         med, times = host_s(torch, lambda: step(fn))
         emit("path", label, name=f"fwd+bwd step, {form}", s=med,
              times=times)
+    cli = make_renderer(scene, RenderConfig(**CLI), cam)
+    target_cli = cli(params, s_img).detach()
+
+    def step_cli():
+        p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
+        ((cli(p, s_img) - target_cli) ** 2).mean().backward()
+
+    med, times = host_s(torch, step_cli)
+    emit("path", label, name="fwd+bwd step, stored, CLI default shape",
+         s=med, times=times)
+    del cli, target_cli
+    torch.cuda.empty_cache()
     start = params.albedo.clone()
     start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
 
