@@ -87,13 +87,18 @@ Phases (any failure raises, exits non-zero and prints no result line):
      lanes compacted between segments, each segment on the kernel chain's
      state; the split radiance scattered back against the tracer and the
      stitched adjoints against the retrace adjoint; bit for bit the
-     segment [0, 5) and the tracer, and the early-exit tracer and the
-     exact tracer (tape mode at the small shapes; the internal RNG at the
-     main shape and at 640x480x32, depths 8 and 16, where both are timed
-     in turns); one chunk of the compacted chain at the main shape timed
-     (segment before the split, the compaction, segment after it, both
-     adjoints) and held against the twins, the tracer and the retrace
-     adjoint on that chunk; then make_compacted_image_renderer at the
+     segment [0, 5) and the tracer, each segment adjoint (a queue of its
+     lanes past the camera, the lockstep loop from it) and its lockstep
+     checking build, and the early-exit tracer
+     (the exact tracer's queue) and the exact tracer in both of its builds
+     (tape mode at the small shapes; the internal RNG at the main shape
+     and at 640x480x32, depths 8, 16 and 32, where B14 and B1 are timed in
+     turns and B14's SHA-256 digest printed); one chunk of the compacted
+     chain at the main shape timed (segment before the split, the
+     compaction, segment after it, both adjoints in both builds, their
+     tables' and S_start's SHA-256 digests printed) and held against the
+     twins, the lockstep builds, the tracer and the retrace adjoint on
+     that chunk; then make_compacted_image_renderer at the
      main shape: three seeds forward against the fused tracer's exact
      image, a forward+backward step against the "cuda" retrace form
      (exact), the bytes it keeps, and 5 Adam steps of optim's paired loss
@@ -184,13 +189,16 @@ KERNELS = ("fused_tracer", "fused_collect", "fused_sweep", "fused_adjoint",
            "regen_tracer", "regen_sweep", "dyn_regen_tracer",
            "dyn_regen_sweep", "ray_tracer", "ray_adjoint", "segment_tracer",
            "segment_adjoint", "earlyexit_tracer")
-# B14 is timed against the exact tracer at the main shape and in the
-# configurations of tools/bench_earlyexit.py (one chunk of 32 spp).
+# B14 is timed against the exact tracer at the main shape and at one
+# chunk of 32 spp, depths 8, 16 and 32.
 EARLYEXIT_CELLS = (
     ("main shape, depth 5", MAIN),
-    ("640x480x32, depth 8", dict(width=640, height=480, spp=32, max_depth=8)),
-    ("640x480x32, depth 16", dict(width=640, height=480, spp=32,
-                                  max_depth=16)))
+    *((f"640x480x32, depth {d}", dict(width=640, height=480, spp=32,
+                                      max_depth=d)) for d in (8, 16, 32)))
+# The names of B14's digests in tools/bench_torch_fused.py's runs.
+EARLYEXIT_DIGEST = {"main shape, depth 5": "main shape",
+                    **{f"640x480x32, depth {d}": f"640x480x32, depth {d}"
+                       for d in (8, 16, 32)}}
 # Every wrapper that counts its launches: the two forms of a regeneration
 # tracer (one TPU kernel, one entry of the kernels line) count apart.
 WRAPPERS = KERNELS + ("regen_collect", "dyn_regen_collect")
@@ -1881,6 +1889,13 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
                   (earlyexit.make_earlyexit_tracer(scene, cam, cfg,
                                                    rng="tape")(
                       alb, emi, cam_u, tape),), (L_b1,))
+        same_bits(f"early-exit tracer = B1's lockstep build exact (tape), "
+                  f"{label}", (earlyexit.make_earlyexit_tracer(
+                      scene, cam, cfg, rng="tape")(alb, emi, cam_u, tape),),
+                  (mk.fused_trace(scene, mk.scene_table(scene),
+                                  mk.camera_consts(cam, 64, 48), cfg, alb,
+                                  emi, cam_u=cam_u, tape=tape,
+                                  build="lockstep"),))
         compare(f"early-exit tracer vs twin (tape), {label}",
                 earlyexit.make_earlyexit_tracer(scene, cam, cfg, rng="tape")(
                     alb, emi, cam_u, tape),
@@ -1940,6 +1955,10 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
                 ref = mk.make_fused_segment_adjoint(
                     scene, cam, cfg, b0, b1, plain=True, **kw)(
                     alb, emi, *args, g_k, *tail)
+                same_bits(f"segment adjoint [{b0}, {b1}) = its lockstep "
+                          f"build, {tag}", out, mk.make_fused_segment_adjoint(
+                              scene, cam, cfg, b0, b1, build="lockstep",
+                              **kw)(alb, emi, *args, g_k, *tail))
                 segment_grads(f"segment adjoint [{b0}, {b1}) vs twin, {tag}",
                               out[:2], ref[:2], GRAD_RTOL_SMALL)
                 da, de = da + out[0], de + out[1]
@@ -2067,6 +2086,38 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
     S_A = S_A[:, :caps[0]].contiguous()
     msA_adj, winA_adj, (daA, deA) = cuda_ms(
         lambda: adjA(alb, emi, seeds, g_pix, S_A, chunk=chunk), **timing)
+    # The loop each launch runs: the queue past the camera, the lockstep
+    # loop from it. Then each against the lockstep checking build, bit for
+    # bit, timed.
+    forms = [mk.segment_form(b0, mk.scene_table(scene).shape[0],
+                             alb.shape[0], emi.shape[0]) for b0 in (0, b)]
+    print(f"[segment adjoint] loops at the main shape: [0, {b}) {forms[0]}, "
+          f"[{b}, {D}) {forms[1]}", flush=True)
+    check(forms == ["lockstep", "queue"],
+          f"segment adjoint loops {forms}, expected lockstep from the "
+          "camera and the queue past it")
+    adjB_l = mk.make_fused_segment_adjoint(scene, cam, cfg_m, b, D,
+                                           n_rays=caps[1], build="lockstep")
+    adjA_l = mk.make_fused_segment_adjoint(scene, cam, cfg_m, 0, b,
+                                           build="lockstep")
+    msB_l, winB_l, outB_l = cuda_ms(
+        lambda: adjB_l(alb, emi, seeds, rayB, aliveB, cidx, g_lane,
+                       chunk=chunk), **timing)
+    msA_l, winA_l, outA_l = cuda_ms(
+        lambda: adjA_l(alb, emi, seeds, g_pix, S_A, chunk=chunk), **timing)
+    same_bits(f"segment adjoint [{b}, {D}) = its lockstep build at the main "
+              "shape (compacted)", (daB, deB, S_B), outB_l)
+    same_bits(f"segment adjoint [0, {b}) = its lockstep build at the main "
+              "shape", (daA, deA), outA_l)
+    for name, outs in ((f"B4-seg [{b}, {D}) tables and S_start, compacted",
+                        (daB, deB, S_B)),
+                       (f"B4-seg [0, {b}) tables, compacted", (daA, deA))):
+        print(f"[digest] {name}: {[digest(t) for t in outs]}", flush=True)
+    print(f"[time] segment adjoints at the main shape, lockstep build: "
+          f"[{b}, {D}) {msB_l!r} ms, [0, {b}) {msA_l!r} ms (entry point "
+          f"{msB_adj!r}, {msA_adj!r}) on {smi_line}; window means "
+          f"{winB_l!r} {winA_l!r}", flush=True)
+    del outB_l, outA_l
     tA_adj, _, refA = cuda_ms(lambda: mk.segment_adjoint_plain(
         scene, cc, cfg_m, 0, b, alb, emi, g_pix, S_end=S_A, seeds=seeds,
         chunk=chunk), **once)
@@ -2129,7 +2180,7 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
     del ray, alive, rayB, aliveB, idx, cidx, LA, LB
 
     # B14 against B1 exact: the main shape, then 640x480x32 (one chunk)
-    # at depths 8 and 16 (the configurations of tools/bench_earlyexit.py).
+    # at depths 8, 16 and 32.
     launches = {}
     ee_ms = {}
     for label, kw in EARLYEXIT_CELLS:
@@ -2147,15 +2198,30 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
         launches.setdefault("earlyexit_tracer", counts["earlyexit_tracer"])
         same_bits(f"early-exit tracer = B1 exact, {label} (internal RNG)",
                   (L_ee,), (b1(alb, emi, seeds),))
+
+        def b1_lockstep():
+            return mk.fused_trace(scene, mk.scene_table(scene),
+                                  mk.camera_consts(cam, cfg_e.width,
+                                                   cfg_e.height),
+                                  cfg_e, alb, emi, seeds=seeds,
+                                  n_chunks=cfg_e.spp_chunks,
+                                  build="lockstep")
+
+        same_bits(f"early-exit tracer = B1's lockstep build exact, {label} "
+                  "(internal RNG)", (L_ee,), (b1_lockstep(),))
+        print(f"[digest] B14 radiance, {EARLYEXIT_DIGEST[label]}: "
+              f"{digest(L_ee)}", flush=True)
         t_b1, w_b1, _ = cuda_ms(lambda: b1(alb, emi, seeds), **timing)
         t_ee, w_ee, _ = cuda_ms(lambda: ee(alb, emi, seeds), **timing)
         t_ee2, w_ee2, _ = cuda_ms(lambda: ee(alb, emi, seeds), **timing)
         t_b12, w_b12, _ = cuda_ms(lambda: b1(alb, emi, seeds), **timing)
+        t_l, w_l, _ = cuda_ms(b1_lockstep, **timing)
         ee_ms[label] = (t_ee, t_ee2, t_b1, t_b12)
         print(f"[time] {label}: B1 exact {t_b1!r} / {t_b12!r} ms, early-exit "
               f"{t_ee!r} / {t_ee2!r} ms (B1, B14, B14, B1; ratio B1/B14 "
-              f"{(t_b1 + t_b12) / (t_ee + t_ee2)!r}) on {smi_line}; window "
-              f"means {w_b1!r} {w_ee!r} {w_ee2!r} {w_b12!r}", flush=True)
+              f"{(t_b1 + t_b12) / (t_ee + t_ee2)!r}), B1's lockstep build "
+              f"exact {t_l!r} ms on {smi_line}; window means {w_b1!r} "
+              f"{w_ee!r} {w_ee2!r} {w_b12!r} {w_l!r}", flush=True)
         if kw == MAIN:
             ms["earlyexit_tracer"] = t_ee
             t_p, _, ref = cuda_ms(lambda: earlyexit.earlyexit_trace_plain(

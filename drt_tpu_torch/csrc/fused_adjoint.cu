@@ -34,14 +34,22 @@
 //    drt_ray_adjoint_lockstep is its lockstep checking build.
 //  - drt_fused_segment_adjoint replaces make_fused_segment_adjoint at any
 //    [b_start, b_end): the segment of drt_fused_segment_trace
-//    (fused_tracer.cu) retraced from the camera or its entry state, its
-//    bounces kept per thread by segment-local bounce, then the reverse
-//    sweep seeded by the next segment's S at its entry (S_end, zero for
-//    the last segment), which writes S at this segment's entry (S_start)
-//    when b_start > 0: S_b = gate_b (e_b + w_b S_{b+1})
-//    (megakernel.py:_reverse_sweep). The gradients go through the same
-//    accumulator routines as B4's. Bound like B4; the state, g, S_end and
-//    S_start add 68 bytes per lane at most.
+//    (fused_tracer.cu) retraced, then the reverse sweep seeded by the next
+//    segment's S at its entry (S_end, zero for the last segment), which
+//    writes S at this segment's entry (S_start) when b_start > 0:
+//    S_b = gate_b (e_b + w_b S_{b+1}) (megakernel.py:_reverse_sweep). Two
+//    loops, chosen at launch (segment_takes_queue): where lanes can enter
+//    dead (b_start > 0), a queue of the segment's lanes from their entry
+//    state, one live bounce a trip, each path's rows kept per thread by
+//    segment-local bounce (segment_queue_kernel, which says how it keeps
+//    the lockstep loop's bits); from the camera, where every lane enters
+//    live, or where the queue's sums do not fit in a block's shared
+//    memory, the lockstep loop (segment_adjoint_kernel: one thread per
+//    lane, every bounce, all b_end - b_start rows swept), which is the
+//    faster there (PERF.md section 6). drt_fused_segment_adjoint_lockstep
+//    runs the lockstep loop at every launch, the queue's bit reference.
+//    Bound like B4; the state, g, S_end and S_start add 68 bytes per lane
+//    at most.
 //
 // The reverse sweep (megakernel.py:_reverse_sweep, :611-637), per ray slot
 // and chunk, from the last bounce to the first, with S = 0 to start:
@@ -628,6 +636,372 @@ segment_adjoint_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1,
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
+// The rows of a segment's path in a queue lane: bounce b of a segment that
+// starts at b0 is row b - b0 (KeepPathRow's words).
+struct KeepSegmentPathRow {
+  PathRows& r;
+  int b0;
+  __device__ __forceinline__ void operator()(int b, float Px, float Py,
+                                             float Pz, float sc, float,
+                                             int best) const {
+    r.Psc[b - b0] = make_float4(Px, Py, Pz, sc);
+    r.best[b - b0] = best;
+  }
+};
+
+// The scene, albedo and emission tables of the segment queue, in its
+// dynamic shared memory at the sizes of the call.
+struct TableRows {
+  const float* scene;
+  const float* alb;
+  const float* emi;
+};
+
+// sweep_path over the n rows of a segment's path that starts at bounce
+// b0, from the seed S; leaves S at the segment's entry in S. The gate of
+// row k is that of the absolute bounce b0 + k.
+static __device__ __forceinline__ void sweep_segment_path(
+    const DrtTrace& cfg, const TableRows& tab, const PathRows& r, int b0,
+    int n, const float g[3], float S[3], float* acc) {
+  float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
+  for (int k = n - 1; k >= 0; --k) {
+    const float4 Psc = r.Psc[k];
+    const int best = r.best[k];
+    float e[3] = {0.0f, 0.0f, 0.0f};
+    float a[3] = {1.0f, 1.0f, 1.0f};
+    int erow = -1, arow = -1;
+    if (best > 0) {
+      const float* rec = tab.scene + (best - 1) * DRT_REC;
+      const int er = (int)rec[R_EMI];
+      if (er < cfg.n_emi - 1) {
+        erow = er;
+        e[0] = tab.emi[er * 3 + 0];
+        e[1] = tab.emi[er * 3 + 1];
+        e[2] = tab.emi[er * 3 + 2];
+      }
+      const int ar = (int)rec[R_ALB];
+      if (ar < cfg.n_alb - 1) {
+        arow = ar;
+        a[0] = tab.alb[ar * 3 + 0];
+        a[1] = tab.alb[ar * 3 + 1];
+        a[2] = tab.alb[ar * 3 + 2];
+      }
+    }
+    const float gate =
+        best > 0 ? (b0 + k >= cfg.min_bounces ? cfg.inv_keep : 1.0f) : 0.0f;
+    const float P[3] = {Psc.x, Psc.y, Psc.z};
+    sweep_bounce(acc, acc_e, arow, erow, a, e, P, Psc.w, gate, g, S);
+  }
+}
+
+// The groups of 128 lanes a warp of the segment queue holds open.
+#define SEGMENT_RING 2
+#define SEGMENT_WARPS (DRT_BLOCK / 32)
+// Words of a lane's entry that a warp stages for the chunk it deals: the
+// ray (o, d, T), the path key and the roulette draw of bounce b0.
+#define SEGMENT_STAGE 11
+
+// Floats of the segment queue's dynamic shared memory: the tables, the
+// threads' accumulator columns and each warp's open groups, E columns of
+// 32 partial sums and a word of open lanes per l' each.
+static __host__ __device__ __forceinline__ int segment_floats(int n_shapes,
+                                                              int n_alb,
+                                                              int n_emi) {
+  const int E = n_entries(n_alb, n_emi);
+  return n_shapes * DRT_REC + (n_alb + n_emi) * 3 + E * DRT_BLOCK +
+         SEGMENT_WARPS *
+             (SEGMENT_STAGE * 32 + SEGMENT_RING * (1 + (E + 1) * 32));
+}
+
+// The queue of the segment adjoint (drt_fused_segment_adjoint): bounces
+// [b0, b1) of one chunk from the entry state (b0 > 0), a lane of the
+// segment one path.
+//
+// Hand-out. Each warp takes the next group of 128 lanes from next_group
+// (zeroed by the launch) when it needs one, and its four chunks of 32
+// lanes in order. It reads a chunk's entries together and stages the
+// live ones in shared memory (the roulette of bounce b0 is decided
+// here): a lane that enters dead takes no trip, and the warp writes its
+// S_start at once; the live lanes go, in lane order, to the warp's
+// threads that have no path. A path
+// takes one live bounce a trip, and the roulette of the next bounce is
+// decided after each trip while bnc + 1 < b1 (the draw at b1 is the next
+// segment's). Its rows go into PathRows by segment-local bounce.
+//
+// The end of a path, and the bits. The lockstep loop (segment_adjoint_
+// kernel) sweeps all b1 - b0 rows from S_end. The rows after a path's
+// last trip are dead (best = 0, gate = 0, sc = +0: no real row, and S <-
+// (0 + 1 * +0 * S) * +0, which is +0 for a finite S and NaN otherwise and
+// which a second dead row leaves as it is). So the seed is S_end where the
+// last trip ran bounce b1 - 1, and what one dead row makes of S_end where
+// it came earlier or there was none (sweep_bounce on that row: the
+// parent's statements on the parent's values, the sign of a zero and a
+// NaN included); +0 with no S_end (b1 == max_depth). The sweep runs from
+// the last trip's row down into the thread's column (which starts at +0)
+// and writes S_start.
+//
+// The sums. block_reduce_row sums entry e of a group as ((c_l +
+// c_l+32) + c_l+64) + c_l+96 in lane l of a warp, then a shuffle tree
+// over l. A column is never -0 (it starts at +0, and no sum of values that
+// are not -0 is -0) and its NaN are the card's canonical NaN, so +0 + c is
+// c and adding the +0 column of a dead lane changes no bits. So each warp
+// keeps, per open group and l, the partial sum from +0 of the live lanes
+// l + 32 k in k order: a thread whose path has ended adds its column there
+// once no lane of a lower k of the same l is open (and waits, holding its
+// column, until then), and the warp reduces a group by the shuffle tree
+// once all its lanes are dealt and added, into its row of partials: the
+// lockstep loop's sums, bit for bit. A warp holds SEGMENT_RING groups open.
+// g is per lane (g_n = n_rays when b0 > 0).
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_queue_kernel(DrtTrace cfg, int b0, int b1, int chunk,
+                     const float* __restrict__ scene,
+                     const float* __restrict__ alb,
+                     const float* __restrict__ emi,
+                     const float* __restrict__ tape,
+                     const float* __restrict__ ray,
+                     const int* __restrict__ alive_in,
+                     const int* __restrict__ ray_idx,
+                     const float* __restrict__ g,
+                     const float* __restrict__ s_end,
+                     int* __restrict__ next_group,
+                     float* __restrict__ partials,
+                     float* __restrict__ s_start) {
+  extern __shared__ float s_dyn[];
+  const int E = n_entries(cfg.n_alb, cfg.n_emi);
+  float* const s_scene = s_dyn;
+  float* const s_alb = s_scene + cfg.n_shapes * DRT_REC;
+  float* const s_emi = s_alb + cfg.n_alb * 3;
+  float* const s_acc = s_emi + cfg.n_emi * 3;
+  float* const s_ring = s_acc + E * DRT_BLOCK;
+  for (int k = threadIdx.x; k < cfg.n_shapes * DRT_REC; k += blockDim.x)
+    s_scene[k] = scene[k];
+  for (int k = threadIdx.x; k < cfg.n_alb * 3; k += blockDim.x)
+    s_alb[k] = alb[k];
+  for (int k = threadIdx.x; k < cfg.n_emi * 3; k += blockDim.x)
+    s_emi[k] = emi[k];
+  zero_column(cfg.n_alb, cfg.n_emi, s_acc);
+  for (int k = threadIdx.x; k < SEGMENT_WARPS * SEGMENT_RING * (E + 1) * 32;
+       k += blockDim.x)
+    s_ring[k] = 0.0f;  // the sums +0, the open words 0
+  __syncthreads();
+  float* const s_stage = s_ring + SEGMENT_WARPS * SEGMENT_RING * (E + 1) * 32;
+  int* const s_gid =
+      reinterpret_cast<int*>(s_stage + SEGMENT_WARPS * SEGMENT_STAGE * 32);
+  const TableRows tab{s_scene, s_alb, s_emi};
+  const float RAY_EPS_F = 1e-3f;
+
+  const int K = cfg.n_rays;
+  const size_t n = (size_t)K;
+  const int npix = cfg.width * cfg.height;
+  const int n_groups = (K + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  // This warp's open groups, slot m % SEGMENT_RING of its m-th
+  // group: E x 32 partial sums, then 32 words of open lanes (bit k: lane
+  // l + 32 k dealt live, its column not yet added).
+  float* const ring = s_ring + (threadIdx.x >> 5) * SEGMENT_RING * (E + 1) * 32;
+  int* const open_w = reinterpret_cast<int*>(ring + SEGMENT_RING * E * 32);
+  // The group of each slot, taken from next_group in turn by the warps.
+  int* const gid = s_gid + (threadIdx.x >> 5) * SEGMENT_RING;
+  // The entries of the live lanes of the chunk the warp deals, word w of
+  // lane l at stage[w * 32 + l].
+  float* const stage = s_stage + (threadIdx.x >> 5) * SEGMENT_STAGE * 32;
+  int cm = 0;          // the warp's chunks fetched
+  unsigned pend = 0u;  // live lanes of chunk cm - 1 not yet dealt
+  int oldest = 0;      // the warp's oldest group not yet reduced
+  bool spent = false;  // no group is left to take
+  int i = 0, bnc = 0;
+  const int pix = 0;       // the keyed draws take qt.key
+  const uint32_t smp = 0u;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float Tx = 0.0f, Ty = 0.0f, Tz = 0.0f;
+  float lx = 0.0f, ly = 0.0f, lz = 0.0f;
+  bool work = false, alive = false;
+  bool held = false;  // the path has ended, its column not added
+  int at_m = 0, at_l = 0, at_k = 0;  // the lane's group, l and k
+  float* const acc = s_acc + threadIdx.x;
+  SegmentQueueTape qt{tape, 0u, 0.0f, b0};
+  PathRows rows;  // the rows of the lane's path
+  KeepSegmentPathRow hook{rows, b0};
+
+  // The lane's cotangent and S_end (+0 without one), loaded when its path
+  // starts and read when it ends.
+  float gv[3] = {0.0f, 0.0f, 0.0f};
+  float Se[3] = {0.0f, 0.0f, 0.0f};
+  // The seed of a path from its S_end in S; at_end: its last trip ran
+  // bounce b1 - 1.
+  auto seed = [&](bool at_end, float S[3]) {
+    if (s_end != nullptr && !at_end) {  // one dead row of the lockstep loop
+      const float e[3] = {0.0f, 0.0f, 0.0f}, a[3] = {1.0f, 1.0f, 1.0f};
+      const float P[3] = {0.0f, 0.0f, 0.0f};
+      sweep_bounce(acc, acc, -1, -1, a, e, P, 0.0f, 0.0f, P, S);
+    }
+  };
+
+  while (true) {
+    __syncwarp();  // the open words and sums of the last trip
+    // Add the columns of the ended paths whose turn it is, in turn.
+    while (true) {
+      const int slot = at_m % SEGMENT_RING;
+      const bool add =
+          held && (open_w[slot * 32 + at_l] & ((1 << at_k) - 1)) == 0;
+      if (!__any_sync(0xffffffffu, add)) break;
+      if (add) {
+        float* sum = ring + slot * E * 32 + at_l;
+        for (int e = 0; e < E; ++e) {
+          sum[e * 32] = sum[e * 32] + acc[e * DRT_BLOCK];
+          acc[e * DRT_BLOCK] = 0.0f;
+        }
+        atomicAnd(open_w + slot * 32 + at_l, ~(1 << at_k));
+        held = false;
+      }
+      __syncwarp();
+    }
+    // Reduce the oldest groups whose lanes are all dealt and added.
+    const int dealt = pend != 0u ? cm - 1 : cm;
+    while (4 * (oldest + 1) <= dealt) {
+      const int s = oldest % SEGMENT_RING;
+      if (__any_sync(0xffffffffu, open_w[s * 32 + lane] != 0)) break;
+      float* sum = ring + s * E * 32;
+      const size_t row = (size_t)gid[s] * E;
+      for (int e = 0; e < E; ++e) {
+        float v = sum[e * 32 + lane];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v = v + __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) partials[row + e] = v;
+        sum[e * 32 + lane] = 0.0f;
+      }
+      __syncwarp();
+      ++oldest;
+    }
+    // Live lanes to the threads with no path, chunk after chunk.
+    while (true) {
+      const unsigned idle = __ballot_sync(0xffffffffu, !work && !held);
+      if (idle == 0u) break;
+      if (pend == 0u) {
+        const int m = cm >> 2;
+        if (spent || m >= oldest + SEGMENT_RING) break;
+        if ((cm & 3) == 0) {  // the warp's next group
+          int gm = 0;
+          if (lane == 0) {
+            gm = atomicAdd(next_group, 1);
+            gid[m % SEGMENT_RING] = gm;
+          }
+          gm = __shfl_sync(0xffffffffu, gm, 0);
+          if (gm >= n_groups) {
+            spent = true;
+            break;
+          }
+        }
+        __syncwarp();
+        // The chunk's entry, read and staged together; its dead lanes end
+        // here.
+        const int j = gid[m % SEGMENT_RING] * DRT_BLOCK + (cm & 3) * 32 + lane;
+        bool live = false;
+        if (j < K) {
+          float o3[3], d3[3], T3[3];
+          int p = 0;
+          uint32_t s = 0u;
+          live = alive_in[j] > 0;
+          if (live) {
+            for (int c = 0; c < 3; ++c) {
+              o3[c] = ray[c * n + j];
+              d3[c] = ray[(3 + c) * n + j];
+              T3[c] = ray[(6 + c) * n + j];
+            }
+            if (INTERNAL) {
+              const int r = ray_idx[j];
+              p = r % npix;
+              s = (uint32_t)(chunk * cfg.spp_c + r / npix);
+            }
+          }
+          SegmentQueueTape entry{tape, 0u, 0.0f, b0};
+          if (INTERNAL) entry.key = path_key(cfg.seed1, (uint32_t)p, s);
+          if (live && b0 >= cfg.min_bounces) {
+            entry.u_rr = roulette_draw<INTERNAL>(cfg, entry, j, b0);
+            live = !(entry.u_rr < cfg.absorb);
+          }
+          if (live) {
+            for (int c = 0; c < 3; ++c) {
+              stage[c * 32 + lane] = o3[c];
+              stage[(3 + c) * 32 + lane] = d3[c];
+              stage[(6 + c) * 32 + lane] = T3[c];
+            }
+            stage[9 * 32 + lane] = __uint_as_float(entry.key);
+            stage[10 * 32 + lane] = entry.u_rr;
+          } else if (s_start != nullptr) {
+            float S[3] = {0.0f, 0.0f, 0.0f};
+            if (s_end != nullptr) {
+              S[0] = s_end[j]; S[1] = s_end[n + j]; S[2] = s_end[2 * n + j];
+            }
+            seed(false, S);
+            s_start[j] = S[0]; s_start[n + j] = S[1]; s_start[2 * n + j] = S[2];
+          }
+        }
+        pend = __ballot_sync(0xffffffffu, live);
+        ++cm;
+        continue;
+      }
+      __syncwarp();  // the stage
+      const int take = min(__popc(idle), __popc(pend));
+      const int rank = __popc(idle & below);
+      if (!work && !held && rank < take) {
+        // Lane i's path starts: its state and the roulette of bounce b0.
+        at_m = (cm - 1) >> 2;
+        at_k = (cm - 1) & 3;
+        at_l = __fns(pend, 0, rank + 1);
+        i = gid[at_m % SEGMENT_RING] * DRT_BLOCK + at_k * 32 + at_l;
+        const float* st = stage + at_l;
+        ox = st[0]; oy = st[32]; oz = st[2 * 32];
+        dx = st[3 * 32]; dy = st[4 * 32]; dz = st[5 * 32];
+        Tx = st[6 * 32]; Ty = st[7 * 32]; Tz = st[8 * 32];
+        qt.key = __float_as_uint(st[9 * 32]);
+        qt.u_rr = st[10 * 32];
+        gv[0] = g[i]; gv[1] = g[n + i]; gv[2] = g[2 * n + i];
+        if (s_end != nullptr) {
+          Se[0] = s_end[i]; Se[1] = s_end[n + i]; Se[2] = s_end[2 * n + i];
+        }
+        lx = 0.0f; ly = 0.0f; lz = 0.0f;
+        bnc = b0;
+        work = alive = true;
+        atomicOr(open_w + (at_m % SEGMENT_RING) * 32 + at_l, 1 << at_k);
+      }
+      pend &= ~((2u << __fns(pend, 0, take)) - 1u);
+    }
+    if (!__any_sync(0xffffffffu, work)) {
+      if (!__any_sync(0xffffffffu, held) && spent && oldest == cm >> 2)
+        break;
+      continue;
+    }
+    if (work) {
+      {
+        const SegmentQueueTape& tape = qt;
+#include "fused_bounce.inc"
+      }
+      ++bnc;
+      // Russian roulette of the next bounce of the segment, decided now.
+      if (alive && bnc < b1 && bnc >= cfg.min_bounces) {
+        qt.u_rr = roulette_draw<INTERNAL>(cfg, qt, i, bnc);
+        alive = !(qt.u_rr < cfg.absorb);
+      }
+      alive = alive && bnc < b1;
+      if (!alive) {
+        // The path has ended: the seed, the sweep, S_start.
+        work = false;
+        float S[3] = {Se[0], Se[1], Se[2]};
+        seed(bnc == b1, S);
+        sweep_segment_path(cfg, tab, rows, b0, bnc - b0, gv, S, acc);
+        if (s_start != nullptr) {
+          s_start[i] = S[0]; s_start[n + i] = S[1]; s_start[2 * n + i] = S[2];
+        }
+        held = true;
+      }
+    }
+  }
+}
+
 static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
   return drt_cfg_ok(cfg) && cfg->max_depth >= 1 &&
          cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0;
@@ -672,6 +1046,98 @@ static int launch_queue(const DrtTrace* cfg, const DrtCamera& cam,
   if (rc) return rc;
   return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
                          de, s);
+}
+
+// Whether drt_fused_segment_adjoint runs the segment queue for these
+// bounds and tables on the current card, else the lockstep loop: the queue
+// where lanes can enter dead (b_start > 0) and its tables, columns and
+// open groups fit in a block's shared memory (up to about 70 real table
+// rows). From the camera every lane enters live, and there the lockstep
+// loop is the faster (PERF.md section 6).
+static cudaError_t segment_takes_queue(int b_start, int n_shapes, int n_alb,
+                                       int n_emi, bool* queue) {
+  *queue = false;
+  if (b_start == 0) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *queue = e == cudaSuccess &&
+           (int)sizeof(float) * segment_floats(n_shapes, n_alb, n_emi) <=
+               optin;
+  return e;
+}
+
+// The segment queue, then reduce_partials.
+template <bool FAST, bool INTERNAL>
+static int launch_segment_queue(const DrtTrace* cfg, int b0, int b1,
+                                int chunk, const float* scene,
+                                const float* alb, const float* emi,
+                                const float* tape, const float* ray,
+                                const int* alive, const int* ray_idx,
+                                const float* g, const float* s_end,
+                                int* next_group, float* partials, float* da,
+                                float* de, float* s_start, cudaStream_t s) {
+  if (!next_group) return (int)cudaErrorInvalidValue;
+  const int K = cfg->n_rays;
+  auto kernel = segment_queue_kernel<FAST, INTERNAL>;
+  const int bytes = (int)sizeof(float) *
+      segment_floats(cfg->n_shapes, cfg->n_alb, cfg->n_emi);
+  int rc = allow_shared(kernel, bytes);
+  if (rc) return rc;
+  const int n_groups = (K + DRT_BLOCK - 1) / DRT_BLOCK;
+  int grid = 0;
+  // A warp takes whole groups: at most n_groups warps.
+  rc = (int)queue_grid(kernel, (n_groups + SEGMENT_WARPS - 1) /
+                                   SEGMENT_WARPS * DRT_BLOCK, &grid, bytes);
+  if (rc) return rc;
+  rc = (int)cudaMemsetAsync(next_group, 0, sizeof(int), s);
+  if (rc) return rc;
+  kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, b0, b1, chunk, scene, alb, emi,
+                                        tape, ray, alive, ray_idx, g, s_end,
+                                        next_group, partials, s_start);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(K, cfg->n_alb, cfg->n_emi, partials, da, de, s);
+}
+
+// The lockstep loop of a segment (segment_adjoint_kernel), then
+// reduce_partials.
+template <bool FAST, bool INTERNAL>
+static int launch_segment_lockstep(
+    const DrtTrace* cfg, const DrtCamera& cam, int b0, int b1, int chunk,
+    const float* scene, const float* alb, const float* emi,
+    const float* cam_u, const float* tape, const float* ray,
+    const int* alive, const int* ray_idx, const float* g, int g_n,
+    const float* s_end, float* partials, float* da, float* de,
+    float* s_start, cudaStream_t s) {
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
+  int rc = allow_shared(segment_adjoint_kernel<FAST, INTERNAL>, bytes);
+  if (rc) return rc;
+  segment_adjoint_kernel<FAST, INTERNAL><<<grid, DRT_BLOCK, bytes, s>>>(
+      *cfg, cam, b0, b1, chunk, scene, alb, emi, cam_u, tape, ray, alive,
+      ray_idx, g, g_n, s_end, partials, s_start);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
+// The inputs of a segment adjoint's call (drt_fused_segment_adjoint).
+static bool segment_args_ok(const DrtTrace* cfg, int b_start, int b_end,
+                            int chunk, const float* cam_u, const float* tape,
+                            const float* ray, const int* alive,
+                            const int* ray_idx, int g_n, const float* s_end,
+                            const float* s_start) {
+  const bool entry = b_start == 0, final = b_end == cfg->max_depth;
+  return adjoint_cfg_ok(cfg, g_n) && cfg->n_chunks == 1 && b_start >= 0 &&
+         b_end > b_start && b_end <= cfg->max_depth && chunk >= 0 &&
+         (cfg->internal_rng || (tape != nullptr && (!entry || cam_u))) &&
+         (entry || (ray && alive && (!cfg->internal_rng || ray_idx) &&
+                    s_start && g_n == cfg->n_rays)) &&
+         (final || s_end);
 }
 
 extern "C" {
@@ -853,11 +1319,66 @@ int drt_ray_adjoint_lockstep(const DrtTrace* cfg, const float* scene,
                          de, s);
 }
 
+// Whether drt_fused_segment_adjoint runs the segment queue (*queue = 1)
+// or the lockstep loop (0) at b_start for these tables on the current
+// card (segment_takes_queue), for its checks.
+int drt_fused_segment_form(int b_start, int n_shapes, int n_alb, int n_emi,
+                           int* queue) {
+  bool q = false;
+  const cudaError_t e = segment_takes_queue(b_start, n_shapes, n_alb, n_emi,
+                                            &q);
+  *queue = q;
+  return (int)e;
+}
+
+// The segment adjoint in the loop segment_takes_queue picks, or the
+// lockstep loop (lockstep != 0).
+static int segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
+                           int b_start, int b_end, int chunk,
+                           const float* scene, const float* alb,
+                           const float* emi, const float* cam_u,
+                           const float* tape, const float* ray,
+                           const int* alive, const int* ray_idx,
+                           const float* g, int g_n, const float* s_end,
+                           int* next_group, float* partials, float* da,
+                           float* de, float* s_start, int lockstep,
+                           void* stream) {
+  if (!segment_args_ok(cfg, b_start, b_end, chunk, cam_u, tape, ray, alive,
+                       ray_idx, g_n, s_end, s_start))
+    return (int)cudaErrorInvalidValue;
+  bool queue = false;
+  if (!lockstep) {
+    const int rc = (int)segment_takes_queue(b_start, cfg->n_shapes,
+                                            cfg->n_alb, cfg->n_emi, &queue);
+    if (rc) return rc;
+  }
+  const float* se = b_end == cfg->max_depth ? nullptr : s_end;
+  float* ss = b_start == 0 ? nullptr : s_start;
+  cudaStream_t s = (cudaStream_t)stream;
+#define DRT_LAUNCH(F, I)                                                   \
+  return queue ? launch_segment_queue<F, I>(                               \
+                     cfg, b_start, b_end, chunk, scene, alb, emi, tape,    \
+                     ray, alive, ray_idx, g, se, next_group, partials, da, \
+                     de, ss, s)                                            \
+               : launch_segment_lockstep<F, I>(                            \
+                     cfg, *cam, b_start, b_end, chunk, scene, alb, emi,    \
+                     cam_u, tape, ray, alive, ray_idx, g, g_n, se,         \
+                     partials, da, de, ss, s)
+  if (cfg->fast) {
+    if (cfg->internal_rng) DRT_LAUNCH(true, true);
+    DRT_LAUNCH(true, false);
+  }
+  if (cfg->internal_rng) DRT_LAUNCH(false, true);
+  DRT_LAUNCH(false, false);
+#undef DRT_LAUNCH
+}
+
 // Bounces [b_start, b_end) of chunk `chunk`, inputs as
 // drt_fused_segment_trace's; g is f32[3, g_n], read at lane % g_n (g_n =
 // n_rays per lane, or W*H per pixel when b_start == 0); s_end f32[3,
 // n_rays] is read iff b_end < max_depth and s_start written iff
-// b_start > 0.
+// b_start > 0. It runs the segment queue or the lockstep loop
+// (segment_takes_queue); next_group is an int of scratch for the queue.
 int drt_fused_segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
                               int b_start, int b_end, int chunk,
                               const float* scene, const float* alb,
@@ -865,40 +1386,30 @@ int drt_fused_segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
                               const float* tape, const float* ray,
                               const int* alive, const int* ray_idx,
                               const float* g, int g_n, const float* s_end,
-                              float* partials, float* da, float* de,
-                              float* s_start, void* stream) {
-  const bool entry = b_start == 0, final = b_end == cfg->max_depth;
-  if (!adjoint_cfg_ok(cfg, g_n) || cfg->n_chunks != 1 || b_start < 0 ||
-      b_end <= b_start || b_end > cfg->max_depth || chunk < 0 ||
-      (!cfg->internal_rng && (tape == nullptr || (entry && !cam_u))) ||
-      (!entry && (!ray || !alive || (cfg->internal_rng && !ray_idx) ||
-                  !s_start || g_n != cfg->n_rays)) ||
-      (!final && !s_end))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
-  const float* se = final ? nullptr : s_end;
-  float* ss = entry ? nullptr : s_start;
-  int rc;
-#define DRT_LAUNCH(F, I)                                                   \
-  rc = allow_shared(segment_adjoint_kernel<F, I>, bytes);                  \
-  if (rc) return rc;                                                       \
-  segment_adjoint_kernel<F, I><<<grid, DRT_BLOCK, bytes, s>>>(             \
-      *cfg, *cam, b_start, b_end, chunk, scene, alb, emi, cam_u, tape,     \
-      ray, alive, ray_idx, g, g_n, se, partials, ss)
-  if (cfg->fast) {
-    if (cfg->internal_rng) { DRT_LAUNCH(true, true); }
-    else { DRT_LAUNCH(true, false); }
-  } else {
-    if (cfg->internal_rng) { DRT_LAUNCH(false, true); }
-    else { DRT_LAUNCH(false, false); }
-  }
-#undef DRT_LAUNCH
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
-                         de, s);
+                              int* next_group, float* partials, float* da,
+                              float* de, float* s_start, void* stream) {
+  return segment_adjoint(cfg, cam, b_start, b_end, chunk, scene, alb, emi,
+                         cam_u, tape, ray, alive, ray_idx, g, g_n, s_end,
+                         next_group, partials, da, de, s_start, 0, stream);
+}
+
+// The checking build of the lockstep loop at every launch (one thread per
+// lane, every bounce of the segment, then the sweep of all b_end - b_start
+// rows from S_end), the bit reference of drt_fused_segment_adjoint's queue.
+int drt_fused_segment_adjoint_lockstep(const DrtTrace* cfg,
+                                       const DrtCamera* cam, int b_start,
+                                       int b_end, int chunk,
+                                       const float* scene, const float* alb,
+                                       const float* emi, const float* cam_u,
+                                       const float* tape, const float* ray,
+                                       const int* alive, const int* ray_idx,
+                                       const float* g, int g_n,
+                                       const float* s_end, float* partials,
+                                       float* da, float* de, float* s_start,
+                                       void* stream) {
+  return segment_adjoint(cfg, cam, b_start, b_end, chunk, scene, alb, emi,
+                         cam_u, tape, ray, alive, ray_idx, g, g_n, s_end,
+                         nullptr, partials, da, de, s_start, 1, stream);
 }
 
 const char* drt_adjoint_error_string(int code) {

@@ -154,37 +154,6 @@ static __device__ __forceinline__ void trace_ray(
   }
 }
 
-// The early-exit form of trace_chunk (drt_tpu/ops/earlyexit.py): before
-// each bounce the warp votes, and a warp none of whose lanes lives leaves
-// the chunk's bounce loop. A dead lane adds P e = 0, so the radiance is
-// trace_chunk's bit for bit. Every lane of the warp must reach the vote:
-// `lane` is false for a thread past the last ray slot, which traces slot i
-// (the caller's last valid slot) as a dead path and writes nothing.
-template <bool FAST, bool INTERNAL, class Hook>
-static __device__ __forceinline__ void trace_chunk_vote(
-    const DrtTrace& cfg, const DrtCamera& cam, const DrtTables& tab,
-    const float* __restrict__ cam_u, const float* __restrict__ tape,
-    int i, bool lane, int c, Hook& hook, float& lx, float& ly, float& lz) {
-  const float RAY_EPS_F = 1e-3f;
-  const float* s_scene = tab.scene;
-  const float* s_alb = tab.alb;
-  const float* s_emi = tab.emi;
-
-  int pix;
-  uint32_t smp;
-  float dx, dy, dz;
-  primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, c, pix, smp, dx, dy, dz);
-  float ox = cam.eye[0], oy = cam.eye[1], oz = cam.eye[2];
-  float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
-  lx = 0.0f; ly = 0.0f; lz = 0.0f;
-  bool alive = lane;
-
-  for (int bnc = 0; bnc < cfg.max_depth; ++bnc) {
-    if (!__any_sync(0xffffffffu, alive)) break;
-#include "fused_bounce.inc"
-  }
-}
-
 // The tape of a segment [b0, b1): f32[b1 - b0, 3, n_rays], row bnc - b0 at
 // bounce bnc. Inside trace_segment the bounce text's bounce_uniforms call
 // resolves to the overload below by the type of `tape`.

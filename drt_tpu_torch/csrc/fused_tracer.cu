@@ -39,13 +39,13 @@
 //    0.25 ms or more of bounce work); the compaction between segments is
 //    the caller's (fused.make_compacted_image_renderer);
 //  - drt_earlyexit_trace replaces drt_tpu/ops/earlyexit.py:
-//    make_earlyexit_tracer (pallas_call at :170): the tracer with a warp
-//    vote before each bounce, so that a warp whose 32 lanes are all dead
-//    leaves the chunk's bounce loop (the TPU kernel skips a tile of 128 or
-//    more lanes with pl.when). Exact variant; its radiance is the exact
-//    tracer's bit for bit. It saves the bounces after a warp's last lane
-//    dies, which at depth 5 are few (Russian roulette starts at
-//    min_bounces) and at depth 16 most.
+//    make_earlyexit_tracer (pallas_call at :170), which skips the bounces
+//    of a ray tile none of whose rays lives (pl.when on the tile's count).
+//    Here the unit of early exit is the path: the entry point launches the
+//    exact instance of drt_fused_trace's queue, which spends a trip only on
+//    a live bounce, so no lane and no warp runs a bounce that no path
+//    enters. Exact variant only; its radiance is the exact tracer's (and
+//    the lockstep loop's) bit for bit.
 //
 // What the body computes is the TPU kernel's
 // _camera_ray_from_pix + _wavefront_body: the same op order, the same
@@ -406,41 +406,6 @@ ray_trace_kernel(DrtTrace cfg, const float* __restrict__ scene,
   out[2 * N + i] = lz;
 }
 
-// The early-exit tracer: every thread of the grid stays in the bounce loop
-// up to the warp's vote (a thread past the last ray slot as a dead path),
-// so the vote always sees the whole warp.
-template <bool INTERNAL>
-__global__ void __launch_bounds__(DRT_BLOCK)
-earlyexit_trace_kernel(DrtTrace cfg, DrtCamera cam,
-                       const float* __restrict__ scene,
-                       const float* __restrict__ alb,
-                       const float* __restrict__ emi,
-                       const float* __restrict__ cam_u,
-                       const float* __restrict__ tape,
-                       float* __restrict__ out) {
-  __shared__ DrtTables tab;
-  stage_tables(cfg, scene, alb, emi, tab);
-
-  const int N = cfg.n_rays;
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool lane = slot < N;
-  const int i = lane ? slot : N - 1;
-  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // summed over chunks
-  for (int c = 0; c < cfg.n_chunks; ++c) {
-    NoResidual hook;
-    float lx, ly, lz;
-    trace_chunk_vote<false, INTERNAL>(cfg, cam, tab, cam_u, tape, i, lane,
-                                      c, hook, lx, ly, lz);
-    Lx = Lx + lx;
-    Ly = Ly + ly;
-    Lz = Lz + lz;
-  }
-  if (!lane) return;
-  out[i] = Lx;
-  out[N + i] = Ly;
-  out[2 * N + i] = Lz;
-}
-
 template <bool FAST, bool INTERNAL>
 __global__ void __launch_bounds__(DRT_BLOCK)
 segment_trace_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1, int chunk,
@@ -692,21 +657,21 @@ int drt_fused_segment_trace(const DrtTrace* cfg, const DrtCamera* cam,
   return (int)cudaGetLastError();
 }
 
-// The early-exit tracer: drt_fused_trace's call, exact variant only.
+// The early-exit tracer: drt_fused_trace's call, exact variant only, on
+// the queue (the unit of early exit is the path).
 int drt_earlyexit_trace(const DrtTrace* cfg, const DrtCamera* cam,
                         const float* scene, const float* alb,
                         const float* emi, const float* cam_u,
                         const float* tape, float* out, void* stream) {
   if (!drt_cfg_ok(cfg) || cfg->fast) return (int)cudaErrorInvalidValue;
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   if (cfg->internal_rng)
-    earlyexit_trace_kernel<true><<<grid, DRT_BLOCK, 0, s>>>(
-        *cfg, *cam, scene, alb, emi, cam_u, tape, out);
-  else
-    earlyexit_trace_kernel<false><<<grid, DRT_BLOCK, 0, s>>>(
-        *cfg, *cam, scene, alb, emi, cam_u, tape, out);
-  return (int)cudaGetLastError();
+    return launch_queue<false, true, false, false>(
+        cfg, cam, scene, alb, emi, cam_u, tape, out, nullptr, nullptr,
+        nullptr, nullptr, nullptr, s);
+  return launch_queue<false, false, false, false>(
+      cfg, cam, scene, alb, emi, cam_u, tape, out, nullptr, nullptr, nullptr,
+      nullptr, nullptr, s);
 }
 
 const char* drt_error_string(int code) {

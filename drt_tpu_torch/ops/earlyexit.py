@@ -4,12 +4,13 @@ The port of `drt_tpu.ops.earlyexit.make_earlyexit_tracer`: the fused
 tracer (`ops.megakernel.make_fused_tracer`) whose bounce loop is skipped,
 from the first bounce on which no ray of a group lives. The TPU kernel
 keeps its ray tile's state in VMEM and wraps each bounce in `pl.when` on
-the tile's count of live rays; the kernel (`drt_earlyexit_trace` in
-`csrc/fused_tracer.cu`) lets each warp vote before each bounce and leave
-the loop when all 32 of its lanes are dead. The unit of early exit is the
-warp, so there is no `tile_rows`. A dead ray adds nothing, so the radiance
-is the fused tracer's (exact variant) bit for bit; the twin stops the loop
-when no ray of the whole wavefront lives.
+the tile's count of live rays. Here the unit of early exit is the path:
+the kernel (`drt_earlyexit_trace` in `csrc/fused_tracer.cu`) runs the
+exact tracer's queue of (ray slot, chunk) paths, which spends a trip only
+on a live bounce, so no thread runs a bounce that no path enters; there
+is no `tile_rows`. A dead ray adds nothing, so the radiance is the fused
+tracer's (exact variant) and its lockstep loop's bit for bit; the twin
+stops the loop when no ray of the whole wavefront lives.
 
 The wrapper `earlyexit_trace` runs the twin for tensors on the CPU and
 launches the kernel for CUDA tensors, or raises; its launches count in

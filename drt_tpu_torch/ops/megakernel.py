@@ -54,9 +54,13 @@ adjoint run a queue of (ray slot, chunk) paths that spends a trip only on
 a live bounce; `build="lockstep"` launches their checking builds of the
 lockstep loop (every bounce of every slot), the bit reference, and
 `fused_trace_stats` / `fused_adjoint_stats` the checking builds that count
-and time either loop. None of these is counted as a launch.
-`trip_counts_plain` gives the lane-trips each slot takes in the queue,
-from a collect tracer's rows and the roulette draws.
+and time either loop. The segment adjoint runs a queue of its lanes,
+each one path, where lanes can enter dead (b_start > 0), and the
+lockstep loop from the camera (`segment_form`); `build="lockstep"`
+launches the lockstep loop at every call, the queue's bit reference.
+None of these is counted as a launch. `trip_counts_plain` gives the
+lane-trips each slot takes in the queue, from a collect tracer's rows
+and the roulette draws.
 """
 
 from __future__ import annotations
@@ -98,9 +102,9 @@ N_SECT = len(SECTIONS)
 # fused_adjoint.cu): the step counts, then cycles per section, the
 # bounce's and the adjoint's own.
 ADJOINT_SECTIONS = SECTIONS + ("sweep", "reduce")
-# The loops of the tracer, the collect tracer and the two retrace adjoints:
-# "queue" (the wrappers' kernels) and "lockstep" (a checking build, the bit
-# reference).
+# The loops of the tracer, the collect tracer, the two retrace adjoints and
+# the segment adjoint: "queue" (the wrappers' kernels) and "lockstep" (a
+# checking build, the bit reference).
 BUILDS = ("queue", "lockstep")
 
 
@@ -419,9 +423,11 @@ def _library() -> ctypes.CDLL:
 
 def _adjoint_library() -> ctypes.CDLL:
     """The adjoint library: drt_fused_sweep, drt_fused_adjoint,
-    drt_ray_adjoint, drt_fused_segment_adjoint, the checking builds
-    drt_fused_adjoint_lockstep, drt_ray_adjoint_lockstep and the timing
-    build drt_fused_adjoint_stats."""
+    drt_ray_adjoint, drt_fused_segment_adjoint (and its choice of loop,
+    drt_fused_segment_form), the checking builds
+    drt_fused_adjoint_lockstep, drt_ray_adjoint_lockstep,
+    drt_fused_segment_adjoint_lockstep and the timing build
+    drt_fused_adjoint_stats."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(ADJOINT_SOURCE)
@@ -441,8 +447,14 @@ def _adjoint_library() -> ctypes.CDLL:
         _bind(lib, "drt_ray_adjoint_lockstep", 11, (_DrtTrace,))
         # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
         # ray_idx, g, g_n, s_end, partials, da, de, s_start, stream
-        _bind(lib, "drt_fused_segment_adjoint", 19, (_DrtTrace, _DrtCamera),
+        _bind(lib, "drt_fused_segment_adjoint_lockstep", 19,
+              (_DrtTrace, _DrtCamera), n_ints_at=(0, 1, 2, 12))
+        # ... s_end, next_group, partials, da, de, s_start, stream
+        _bind(lib, "drt_fused_segment_adjoint", 20, (_DrtTrace, _DrtCamera),
               n_ints_at=(0, 1, 2, 12))
+        fn = lib.drt_fused_segment_form
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
         # scene, alb, emi, g, g_n, slot_acc, partials, da, de, stats,
         # queue, stream
         _bind(lib, "drt_fused_adjoint_stats", 12, (_DrtTrace, _DrtCamera),
@@ -1058,6 +1070,22 @@ def segment_adjoint_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
     return da, de, torch.stack(tuple(S))
 
 
+def segment_form(b_start: int, n_shapes: int, n_alb: int,
+                 n_emi: int) -> str:
+    """The loop `fused_segment_adjoint` runs for a segment from b_start
+    in a scene of n_shapes and tables of n_alb and n_emi rows (the
+    sentinel rows included) on the current card, as its library chooses
+    at each launch: "queue" where lanes can enter dead (b_start > 0) and
+    the queue's sums fit in a block's shared memory (up to about 70 real
+    table rows), else "lockstep"."""
+    queue = ctypes.c_int()
+    rc = _adjoint_library().drt_fused_segment_form(
+        b_start, n_shapes, n_alb, n_emi, ctypes.byref(queue))
+    if rc:
+        raise RuntimeError(f"segment form query: CUDA error {rc}")
+    return "queue" if queue.value else "lockstep"
+
+
 def _segment_pointers(cfg: RenderConfig, tcfg: _DrtTrace, b_start: int,
                       b_end: int, seeds, cam_u, tape, ray, alive, ray_idx,
                       chunk: int, dev) -> list:
@@ -1128,13 +1156,19 @@ def fused_segment_adjoint(scene: Scene, table: torch.Tensor,
                           cam_u=None, tape=None, ray=None, alive=None,
                           ray_idx=None, chunk: int = 0,
                           n_rays: int | None = None,
-                          fastmath: bool = False):
+                          fastmath: bool = False, build: str = "queue"):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3][, S_start f32[3, K]])
     of bounces [b_start, b_end): the segment retraced in the kernel, the
     reverse sweep seeded by S_end (given iff b_end < max_depth), S at the
     segment's entry returned iff b_start > 0. g is f32[3, K] per lane, or
     f32[3, W*H] per pixel when b_start == 0. CPU tensors run the plain
-    twin; CUDA tensors launch the kernel or raise."""
+    twin (`build` selects only the kernel); CUDA tensors launch the kernel
+    or raise. The kernel is a queue of the segment's lanes that spends a
+    trip only on a live bounce where lanes can enter dead (b_start > 0),
+    else the lockstep loop (every bounce of every lane), as
+    `segment_form` says. build="lockstep" launches the lockstep loop at
+    every call, the queue's bit reference; it is not counted."""
+    entry = _build_entry("drt_fused_segment_adjoint", build)
     final = b_end == cfg.max_depth
     if (S_end is None) != final:
         raise ValueError("S_end is given iff the segment ends before "
@@ -1160,12 +1194,17 @@ def fused_segment_adjoint(scene: Scene, table: torch.Tensor,
     s_start = (None if b_start == 0 else
                torch.empty((3, K), dtype=torch.float32, device=dev))
     lib = _adjoint_library()
-    _launch(fused_segment_adjoint, "fused segment adjoint",
-            lib.drt_adjoint_error_string, lib.drt_fused_segment_adjoint, dev,
-            ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)), b_start,
-            b_end, chunk, table.data_ptr(), alb.data_ptr(), emi.data_ptr(),
-            *ptrs, g.data_ptr(), g.shape[1],
-            None if final else S_end.data_ptr(), partials.data_ptr(),
+    queue = build == "queue"
+    # The entry point's group counter for the queue, an int of scratch.
+    next_group = (torch.empty(1, dtype=torch.int32, device=dev),
+                  ) if queue else ()
+    _launch(fused_segment_adjoint if queue else None,
+            "fused segment adjoint", lib.drt_adjoint_error_string,
+            getattr(lib, entry), dev, ctypes.byref(tcfg),
+            ctypes.byref(_camera_struct(cc)), b_start, b_end, chunk,
+            table.data_ptr(), alb.data_ptr(), emi.data_ptr(), *ptrs,
+            g.data_ptr(), g.shape[1], None if final else S_end.data_ptr(),
+            *(t.data_ptr() for t in next_group), partials.data_ptr(),
             da.data_ptr(), de.data_ptr(),
             None if s_start is None else s_start.data_ptr())
     return (da, de) if s_start is None else (da, de, s_start)
@@ -1395,7 +1434,7 @@ def make_fused_segment_adjoint(scene: Scene, cam, cfg: RenderConfig,
                                b_start: int, b_end: int,
                                n_rays: int | None = None,
                                rng: str = "internal", fastmath: bool = False,
-                               plain: bool = False):
+                               plain: bool = False, build: str = "queue"):
     """Build the retrace adjoint of bounces [b_start, b_end), the call
     forms of the JAX package's `make_fused_segment_adjoint`:
       internal: adj(alb, emi, seeds[, ray, alive, ray_idx], g[, S_end],
@@ -1403,7 +1442,8 @@ def make_fused_segment_adjoint(scene: Scene, cam, cfg: RenderConfig,
       tape:     adj(alb, emi[, cam_u], u[, ray, alive], g[, S_end])
     with S_end f32[3, K] iff b_end < max_depth; g f32[3, K] per lane, or
     f32[3, W*H] per pixel when b_start == 0. Returns (d_albedo,
-    d_emission), with S_start f32[3, K] after them iff b_start > 0."""
+    d_emission), with S_start f32[3, K] after them iff b_start > 0.
+    `build` selects the kernel (BUILDS, `fused_segment_adjoint`)."""
     _check_segment(cfg, b_start, b_end)
     _check_rng(rng, 1)
     cc = camera_consts(cam, cfg.width, cfg.height)
@@ -1424,6 +1464,7 @@ def make_fused_segment_adjoint(scene: Scene, cam, cfg: RenderConfig,
                                          n_rays=n_rays, **kw)
         return fused_segment_adjoint(scene, table, cc, cfg, b_start, b_end,
                                      alb, emi, g, S_end=S_end, chunk=chunk,
-                                     n_rays=n_rays, fastmath=fastmath, **kw)
+                                     n_rays=n_rays, fastmath=fastmath,
+                                     build=build, **kw)
 
     return adjoint

@@ -18,6 +18,7 @@ hit or flip choice an ulp of libm difference turns. Gradient tables to
 import pytest
 import torch
 
+from drt_tpu_torch import fused
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.models import cbox, gallery
 from drt_tpu_torch.ops import dynkernel as dk
@@ -1519,3 +1520,218 @@ def test_sweeps_at_the_row_limits(dev, depth):
         b9 = dk.make_dyn_adjoint(ds, cam, cfg, n_chunks=3)(a, e, kw["seeds"],
                                                           g)
         assert _same(b8, b9)
+
+
+# The segment adjoint B4-seg: its queue (one live bounce a trip, each
+# warp's open groups of 128 lanes summed in shared memory), which it runs
+# past the camera where those sums fit, against its lockstep checking
+# build, bit for bit, on chains of segments with and without compaction
+# between them; from the camera, and where the sums do not fit, it runs
+# the lockstep loop itself.
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, a NaN's bits included."""
+    return len(a) == len(b) and all(torch.equal(_bits(x), _bits(y))
+                                    for x, y in zip(a, b))
+
+
+def _pad(t, value=0):
+    return torch.nn.functional.pad(t, (0, 1), value=value)
+
+
+def _special(S):
+    """S with lanes of +0, -0, a negative, a large value, NaN and inf: the
+    seeds of the paths that end before the segment's end."""
+    S = S.clone()
+    for step, v in ((5, 0.0), (7, -0.0), (11, float("nan")),
+                    (13, float("inf")), (17, -3.0), (19, 1e30),
+                    (23, float("-inf"))):
+        S[:, ::step] = v
+    return S
+
+
+def _segment_chain(scene, cam, cfg, alb, emi, splits, rng, fastmath,
+                   compact, dev, n=None, seed=0, chunk=0):
+    """The segment tracers of a split chain on n lanes (default one
+    chunk), each fed the previous one's exit state: as it is, or with its
+    live lanes gathered in order into K = (live rounded up to 128) + 37
+    lanes (at most the previous K), the rest dead pad lanes on a pad slot.
+    Per segment (b0, b1, K, call args, kw, scatter index to the previous
+    segment's lanes or None)."""
+    D = cfg.max_depth
+    npix = cfg.width * cfg.height
+    n = npix * (cfg.spp // cfg.spp_chunks) if n is None else n
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = dict(rng="tape" if rng == "tape" else "internal",
+                fastmath=fastmath)
+    call = {} if rng == "tape" else dict(chunk=chunk)
+    if rng == "tape":
+        cam_u = torch.rand((2, n), generator=gen, device=dev)
+        tape = torch.rand((D, 3, n), generator=gen, device=dev)
+    seeds = torch.tensor([seed, -3], dtype=torch.int32)
+    bounds = [0, *splits, D]
+    state, cidx, scatter, K, segs = (), None, None, n, []
+    for b0, b1 in zip(bounds, bounds[1:]):
+        if rng == "tape":
+            u = (tape[b0:b1] if cidx is None else
+                 _pad(tape[b0:b1])[..., cidx.long()]).contiguous()
+            args = ((cam_u,) if b0 == 0 else ()) + (u,) + tuple(state)
+        else:
+            ridx = ((torch.arange(K, dtype=torch.int32, device=dev)
+                     if cidx is None else cidx),) if b0 > 0 else ()
+            args = (seeds,) + tuple(state) + ridx
+        kw = dict(base, n_rays=K)
+        segs.append((b0, b1, K, args, kw, call, scatter))
+        if b1 == D:
+            break
+        out = mk.make_fused_segment_tracer(scene, cam, cfg, b0, b1, **kw)(
+            alb, emi, *args, **call)
+        ray, alive = out[1]
+        scatter = None
+        if compact:
+            on = alive > 0
+            K_next = min(K, -(-int(on.sum()) // 128) * 128 + 37)
+            idx = fused.compact_lanes(on, K_next, K)
+            ray, alive = _pad(ray)[:, idx], _pad(alive)[idx]
+            cidx = (idx if cidx is None else
+                    _pad(cidx.long(), n)[idx]).to(torch.int32)
+            scatter, K = idx, K_next
+        state = (ray.contiguous(), alive.contiguous())
+    return segs
+
+
+def _check_segment_adjoints(scene, cam, cfg, alb, emi, segs, dev,
+                            special=True, seed=0):
+    """B4-seg = its lockstep build, bit for bit (tables and S_start),
+    segment after segment from the last, each fed the queue's S_start of
+    the next as S_end (scattered back to its lanes, with the
+    values of `_special` on some lanes); a per-lane cotangent and, at
+    b0 == 0, a per-pixel one. Returns the count of real table entries
+    that took a gradient."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    npix = cfg.width * cfg.height
+    S, taken = None, 0
+    for b0, b1, K, args, kw, call, scatter in reversed(segs):
+        cots = [torch.rand((3, K), generator=gen, device=dev)]
+        if b0 == 0:
+            cots.append(torch.rand((3, npix), generator=gen, device=dev))
+        tail = () if S is None else (S,)
+        for g in cots:
+            out = {build: mk.make_fused_segment_adjoint(
+                scene, cam, cfg, b0, b1, build=build, **kw)(
+                    alb, emi, *args, g, *tail, **call)
+                for build in mk.BUILDS}
+            assert _same_bits(out["queue"], out["lockstep"]), (b0, b1, K)
+            taken += int((out["queue"][0][:-1] != 0).sum()
+                         + (out["queue"][1][:-1] != 0).sum())
+        if b0 == 0:
+            break
+        S = out["queue"][2]
+        if scatter is not None:
+            K_prev = segs[[s[0] for s in segs].index(b0) - 1][2]
+            full = torch.zeros((3, K_prev + 1), device=dev)
+            full[:, scatter] = S
+            S = full[:, :K_prev]
+        S = (_special(S) if special else S).contiguous()
+    return taken
+
+
+SEGMENT_SPLITS = [(5, (2,)), (5, (1, 3)), (32, (16,))]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("depth,splits", SEGMENT_SPLITS,
+                         ids=["5-2", "5-1-3", "32-16"])
+@pytest.mark.parametrize("rng", ["tape", "internal"])
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_segment_queue_equals_the_lockstep_build(dev, make, fastmath, rng,
+                                                 depth, splits, compact):
+    """B4-seg on 30x20x4 lanes of chunk 1 (2400: neither a multiple of 32
+    nor of 128), each segment's K lanes as the chain leaves them; on the
+    compacted chains S_end holds the values of `_special` on some lanes."""
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg = RenderConfig(width=30, height=20, spp=8, spp_chunks=2,
+                       max_depth=depth)
+    segs = _segment_chain(scene, cam, cfg, alb, emi, splits, rng, fastmath,
+                          compact, dev, seed=depth, chunk=1)
+    assert _check_segment_adjoints(scene, cam, cfg, alb, emi, segs, dev,
+                                   special=compact, seed=depth) > 0
+
+
+@pytest.mark.parametrize("K", [1, 127, 129])
+@pytest.mark.parametrize("rng", ["tape", "internal"])
+def test_segment_queue_with_few_lanes(dev, rng, K):
+    """K lanes in every segment of a chain split at (2,): a partial warp,
+    a partial group of 128, one lane past a group."""
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+    segs = _segment_chain(scene, cam, cfg, alb, emi, (2,), rng, False,
+                          False, dev, n=K, seed=K)
+    _check_segment_adjoints(scene, cam, cfg, alb, emi, segs, dev, seed=K)
+
+
+@pytest.mark.parametrize("fastmath", [False, True])
+def test_segment_queue_at_the_row_limits(dev, fastmath):
+    """63 + 63 real table rows (E = 378): the queue's sums do not fit in
+    shared memory, so B4-seg runs the lockstep loop past the camera too
+    and = the lockstep build on a compacted chain split at (1, 3); with
+    the Cornell box's tables it runs the queue past the camera, and the
+    lockstep loop from it."""
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    a63, e63 = _wide_tables(alb, emi, 64, 64)
+    n_shapes = mk.scene_table(scene).shape[0]
+    assert [mk.segment_form(b0, n_shapes, alb.shape[0], emi.shape[0])
+            for b0 in (0, 1, 3)] == ["lockstep", "queue", "queue"]
+    assert [mk.segment_form(b0, n_shapes, 64, 64)
+            for b0 in (0, 1, 3)] == ["lockstep"] * 3
+    cfg = RenderConfig(width=30, height=20, spp=8, spp_chunks=2,
+                       max_depth=5)
+    for rng in ("tape", "internal"):
+        segs = _segment_chain(scene, cam, cfg, a63, e63, (1, 3), rng,
+                              fastmath, True, dev, chunk=1)
+        assert _check_segment_adjoints(scene, cam, cfg, a63, e63, segs,
+                                       dev) > 0
+
+
+def test_only_the_segment_queue_is_counted(dev):
+    """The entry point's launches count, whichever loop it runs; those of
+    the lockstep checking build do not."""
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+    segs = _segment_chain(scene, cam, cfg, alb, emi, (2,), "tape", False,
+                          False, dev)
+    before = mk.launch_counts()
+    _check_segment_adjoints(scene, cam, cfg, alb, emi, segs, dev)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    # [2, 5) once, [0, 2) with a per-lane and a per-pixel cotangent.
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(segment_adjoint=3)
+
+
+@pytest.mark.parametrize("depth", [1, 5, 16, 32])
+@pytest.mark.parametrize("rng", ["tape", "internal-1", "internal-3",
+                                 "internal-16"])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_earlyexit_queue_equals_the_lockstep_tracer(dev, make, rng, depth):
+    """B14 (the tracer's queue, exact) against B1's lockstep build exact,
+    bit for bit, on 30x20x4 ray slots a chunk."""
+    from drt_tpu_torch.ops import earlyexit
+
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg, kw, _ = _queue_and_lockstep(scene, cam, alb, emi, depth, False, rng,
+                                     dev, seed=depth)
+    ee_kw = {k: v for k, v in kw.items() if k != "fastmath"}
+    table = mk.scene_table(scene)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    got = earlyexit.earlyexit_trace(scene, table, cc, cfg, alb, emi, **ee_kw)
+    ref = mk.fused_trace(scene, table, cc, cfg, alb, emi, build="lockstep",
+                         fastmath=False, **ee_kw)
+    assert torch.equal(got, ref)

@@ -9,11 +9,12 @@ one-chunk flush that skips words of +0 saves.
 Each variant is DIR's drt_tpu_torch with one text edit of
 csrc/fused_adjoint.cu (its gradients are wrong by design: it is timed,
 never checked), copied into drt_tpu_torch/_build/ablate/<variant>/ and
-built there; the builds run at once. The variants are then timed in
-turns, forward and backward (A B ... B A), each in a process of its own,
-and the script prints JSON lines: "card" (nvidia-smi's name and power
-limit) and one "ablation" line per variant and run with device ms per
-call (CUDA events, 10 warm-ups, the mean of 10): B4 at the main shape
+built there (tools/ablate_variants.py); the builds run at once. The
+variants are then timed in turns, forward and backward (A B ... B A),
+each in a process of its own, and the script prints JSON lines: "card"
+(nvidia-smi's name and power limit) and one "ablation" line per variant
+and run with device ms per call (CUDA events, 10 warm-ups, the mean of
+10): B4 at the main shape
 (Cornell box 640x480x256 spp, depth 5, 16 chunks, fast, internal RNG), at
 the CLI's default shape (640x480x100, depth 32, one chunk) and on one
 chunk of the main shape (exact, internal RNG and tape mode), and B5b on
@@ -24,10 +25,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
+
+import ablate_variants as ablate
 
 SWEEP = "    sweep_path(cfg, tab, rows, bnc, gv, acc);\n"
 NO_SWEEP = "    if (bnc < 0) sweep_path(cfg, tab, rows, bnc, gv, acc);\n"
@@ -45,32 +46,8 @@ VARIANTS = {
     "no rows, no sweep": [(SWEEP, NO_SWEEP), (ROWS, NO_ROWS)],
     "dense flush at one chunk": [
         ("      if (C > 1 || (", "      if (true || ("),
-        ("  if (cfg->n_chunks == 1) {", "  if (false) {")],
+        ("  if (cfg->n_chunks == 1 && slot_acc) {", "  if (false) {")],
 }
-
-
-def variant_root(root: Path, name: str) -> Path:
-    return root / "drt_tpu_torch" / "_build" / "ablate" / name.replace(
-        " ", "_").replace(",", "")
-
-
-def make_variant(root: Path, name: str) -> Path:
-    """A copy of root's drt_tpu_torch (its builds left out) with the
-    variant's edits."""
-    dst = variant_root(root, name)
-    if dst.exists():
-        shutil.rmtree(dst)
-    shutil.copytree(root / "drt_tpu_torch", dst / "drt_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = dst / "drt_tpu_torch" / "csrc" / "fused_adjoint.cu"
-    text = src.read_text()
-    for old, new in VARIANTS[name]:
-        if text.count(old) != 1:
-            raise SystemExit(f"variant {name!r}: the text to edit is not "
-                             f"in {src} once: {old!r}")
-        text = text.replace(old, new)
-    src.write_text(text)
-    return dst
 
 
 def child(root: Path) -> None:
@@ -143,28 +120,18 @@ def main() -> int:
     if args.child:
         child(Path(args.child))
         return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("ablate_queue_adjoint: no CUDA device visible", file=sys.stderr)
+    if not ablate.card("ablate_queue_adjoint", args.label):
         return 2
     root = Path(args.root).resolve()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({"kind": "card", "label": args.label, "smi": smi}),
-          flush=True)
-    roots = {name: make_variant(root, name) for name in VARIANTS}
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-         "from drt_tpu_torch.utils import native; "
-         "native.build('fused_adjoint.cu')", str(r)]) for r in roots.values()]
-    if any(p.wait() != 0 for p in builds):
+    roots = {name: ablate.make_variant(root, "ablate", name,
+                                       {"fused_adjoint.cu": edits})
+             for name, edits in VARIANTS.items()}
+    if not ablate.build_variants(roots.values(), ("fused_adjoint.cu",)):
         return 1
-    order = list(VARIANTS) + list(reversed(VARIANTS))
-    for run, name in enumerate(order):
-        res = subprocess.run([sys.executable, __file__, "--child",
-                              str(roots[name])], capture_output=True,
-                             text=True, check=True)
+    for run, name in enumerate(ablate.in_turns(VARIANTS)):
+        res = ablate.run_child(__file__, roots[name])
+        if res is None:
+            return 1
         print(json.dumps({"kind": "ablation", "label": args.label,
                           "variant": name, "run": run,
                           "ms": json.loads(res.stdout.splitlines()[-1])}),

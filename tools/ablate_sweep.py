@@ -9,8 +9,9 @@ and what a residual sweep needs to read at all.
 Each variant is DIR's drt_tpu_torch with text edits of the sweeps'
 sources (its gradients are wrong by design: it is timed, never
 checked), copied into drt_tpu_torch/_build/ablate_sweep/<variant>/ and
-built there; the builds run at once. The variants are timed in turns, forward and
-backward (A B ... B A), each in a process of its own. JSON lines:
+built there (tools/ablate_variants.py); the builds run at once. The
+variants are timed in turns, forward and backward (A B ... B A), each in
+a process of its own. JSON lines:
   - "card": nvidia-smi's name and power limit;
   - "ptxas": registers, stack, spills and shared memory of both depth
     builds of both sweep kernels, from the compiler's report of each
@@ -48,13 +49,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import ablate_variants as ablate
 
 MAIN = dict(width=640, height=480, spp=256, max_depth=5, spp_chunks=16)
 CLI = dict(width=640, height=480, spp=100, max_depth=32, spp_chunks=1)
@@ -158,36 +158,11 @@ RING_VARIANTS = {
 }
 
 
-def variant_root(root: Path, name: str) -> Path:
-    return root / "drt_tpu_torch" / "_build" / "ablate_sweep" / re.sub(
-        r"[^a-z0-9]+", "_", name.lower())
-
-
 def variants_of(root: Path) -> dict:
     """The variants for the design of root's kernels."""
     if (root / "drt_tpu_torch" / "csrc" / S).exists():
         return RING_VARIANTS
     return PARENT_VARIANTS
-
-
-def make_variant(root: Path, name: str, edits: dict) -> Path:
-    """A copy of root's drt_tpu_torch (its builds left out) with the
-    variant's edits {source: [(old, new), ...]}."""
-    dst = variant_root(root, name)
-    if dst.exists():
-        shutil.rmtree(dst)
-    shutil.copytree(root / "drt_tpu_torch", dst / "drt_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for source, pairs in edits.items():
-        path = dst / "drt_tpu_torch" / "csrc" / source
-        text = path.read_text()
-        for old, new in pairs:
-            if text.count(old) != 1:
-                raise SystemExit(f"variant {name!r}: the text to edit is not "
-                                 f"in {path} once: {old!r}")
-            text = text.replace(old, new)
-        path.write_text(text)
-    return dst
 
 
 def ptxas_lines(log: str, kernel: str) -> list:
@@ -354,37 +329,21 @@ def main() -> int:
     if args.child:
         child(Path(args.child), args.full)
         return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("ablate_sweep: no CUDA device visible", file=sys.stderr)
+    if not ablate.card("ablate_sweep", args.label):
         return 2
     root = Path(args.root).resolve()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({"kind": "card", "label": args.label, "smi": smi}),
-          flush=True)
     variants = variants_of(root)
     if args.variants:
         variants = {name: variants[name]
                     for name in args.variants.split(",")}
-    roots = {name: make_variant(root, name, edits)
+    roots = {name: ablate.make_variant(root, "ablate_sweep", name, edits)
              for name, edits in variants.items()}
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-         "from drt_tpu_torch.utils import native; "
-         f"[native.build(s) for s in sys.argv[2:]]", str(r), F, D])
-        for r in roots.values()]
-    if any(p.wait() != 0 for p in builds):
+    if not ablate.build_variants(roots.values(), (F, D)):
         return 1
-    order = list(variants) + list(reversed(variants))
-    for run, name in enumerate(order):
-        full = run == 0
-        res = subprocess.run([sys.executable, __file__, "--child",
-                              str(roots[name])] + (["--full"] if full else []),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            print(res.stderr[-4000:], file=sys.stderr)
+    for run, name in enumerate(ablate.in_turns(variants)):
+        res = ablate.run_child(__file__, roots[name],
+                               *(["--full"] if run == 0 else []))
+        if res is None:
             return 1
         got = json.loads(res.stdout.splitlines()[-1])
         for what in ("ptxas", "rows", "paths"):

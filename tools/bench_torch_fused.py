@@ -3,6 +3,7 @@ NVIDIA GPU, so that two checkouts can be compared on one card, in one
 sitting; and break the tracers' time down by section.
 
   python3 tools/bench_torch_fused.py [--root DIR] [--label NAME]
+  python3 tools/bench_torch_fused.py --segments
   python3 tools/bench_torch_fused.py --breakdown [--queue] [--root DIR]
 
 Imports drt_tpu_torch from DIR (default: the checkout holding this
@@ -20,16 +21,24 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
     store-only yardstick, the zeroing of the collect tracer's buffers
     alone; B3 (sweep, also at the CLI shape, with its GB/s and share of
     the memory bound over every row and over the rows it needs), B10
-    (regeneration tracer, both forms), B11 (its sweep) and B14 (early
-    exit, exact) at the main shape; B5a and B5b
-    (wavefront) and the segment forms [0, 2) and [2, 5) on one chunk of
-    it;
+    (regeneration tracer, both forms) and B11 (its sweep) at the main
+    shape; B5a and B5b (wavefront) on one chunk of it; and what
+    --segments prints alone: B14 (early exit, exact) at the main shape
+    and at 640x480x32, depths 8, 16 and 32, beside B1 exact in both
+    builds; B4-seg's launches [2, 5) and [0, 2) on chunk 1 of the main
+    shape over every lane and in the compacted chain's layout
+    (`segment_layouts`, chip_smoke.py's phase 15 inputs), in each build
+    the checkout has, with the share of lane-bounces that live and the
+    loop each launch runs where the checkout chooses one ("segments"
+    line); and the compacted
+    renderer's forward and step ("path");
   - "digest": SHA-256 of B1's radiance and of B2's radiance, rsc and rbest
     at the main shape (fast and exact), at the CLI default shape (fast)
     and in tape mode (one chunk of the main shape, its hash tapes, fast);
     of B4's gradient tables at the main shape (fast and exact) and in tape
-    mode, of B3's at the main and CLI shapes (fast) and of B5b's on one
-    chunk: equal digests across checkouts mean bit-equal outputs;
+    mode, of B3's at the main and CLI shapes (fast), of B5b's on one
+    chunk, of B14's radiance and of B4-seg's tables and S_start: equal
+    digests across checkouts mean bit-equal outputs;
   - "path": the Cornell box through the user's entry points, seconds on
     the host clock with a synchronize (median of 5 after 2 warm-ups):
     make_renderer forward at the main shape and at the CLI default shape,
@@ -348,12 +357,183 @@ def breakdown(torch, label: str, root: Path, queue: bool) -> None:
         emit("sass", label, kernel=key, sections=c)
 
 
+def segment_layouts(torch, scene, cam, cfg, alb, emi, seeds, b: int,
+                    chunk: int) -> dict:
+    """The inputs of B4-seg's two launches on one chunk, split before
+    bounce b, internal RNG, as chip_smoke.py's phase 15 makes them: "n"
+    lanes of the chunk, the per-pixel cotangent "g_pix" of [0, b), and
+    per layout (K, ray, alive, ray_idx, g, scatter) of segment [b, D):
+    every lane of the chunk (scatter None: S_start is the next launch's
+    S_end as it is), or the compacted chain's K = compacted_capacities
+    lanes (the live lanes in ascending order, dead pad lanes after them;
+    scatter is the lane -> slot index, the pad slot n); g is g_pix at
+    each lane's pixel. "counts": the lanes, the live lanes at the split
+    and the live lane-bounces of each segment with their share."""
+    from drt_tpu_torch import fused
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops.rng import hash_tapes
+
+    dev = alb.device
+    D = cfg.max_depth
+    npix = cfg.width * cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    n = npix * spp_c
+    # chip_smoke.py's draws before its main shape: its digests are these.
+    g = torch.Generator(device=dev).manual_seed(41)
+    for shape in ((2, 64 * 48 * 4), (5, 3, 64 * 48 * 4), (3, 64 * 48 * 4)):
+        torch.rand(shape, generator=g, device=dev)
+    g_pix = torch.rand((3, npix), generator=g, device=dev) / cfg.spp
+    _, (ray, alive) = mk.make_fused_segment_tracer(scene, cam, cfg, 0, b)(
+        alb, emi, seeds, chunk=chunk)
+    # The live lane-bounces of each segment, from the collect tracer's
+    # rows of this chunk (its hash tapes, tape mode).
+    cu, tp = hash_tapes(seeds, npix, spp_c, D, sample_base=chunk * spp_c,
+                        device=dev)
+    _, _, rbest = mk.fused_collect(scene, mk.scene_table(scene),
+                                   mk.camera_consts(cam, cfg.width,
+                                                    cfg.height),
+                                   cfg, alb, emi, cam_u=cu, tape=tp)
+    live = [int((rbest[:b] > 0).sum()), int((rbest[b:] > 0).sum())]
+    del cu, tp, rbest
+    caps = fused.compacted_capacities(cfg, (b,))
+    on = alive > 0
+    idx = fused.compact_lanes(on, caps[1], caps[0])
+    every = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def gather(*rows):
+        return [torch.nn.functional.pad(r, (0, 1))[..., idx].contiguous()
+                for r in rows]
+
+    def g_at(lanes):
+        return g_pix[:, lanes.long() % npix].contiguous()
+
+    return dict(n=n, g_pix=g_pix, layouts={
+        "every lane": (n, ray, alive, every, g_at(every), None),
+        "compacted": (caps[1], *gather(ray, alive), idx.to(torch.int32),
+                      g_at(idx), idx)}, counts=dict(
+        lanes=caps, live_lanes_at_split=int(on.sum()),
+        live_lane_bounces=live,
+        live_share={f"[0, {b}) of every lane": live[0] / (n * b),
+                    f"[{b}, {D}) of every lane": live[1] / (n * (D - b)),
+                    f"[{b}, {D}) compacted": live[1] / (caps[1] * (D - b))}))
+
+
+# B14 against B1 exact: the main shape, then 640x480x32 (one chunk) deeper.
+EARLYEXIT_SHAPES = (
+    ("main shape", MAIN),
+    *((f"640x480x32, depth {d}", dict(width=640, height=480, spp=32,
+                                       max_depth=d)) for d in (8, 16, 32)))
+
+
+def segments_and_earlyexit(torch, label: str) -> None:
+    """B14 (exact, internal RNG) at EARLYEXIT_SHAPES beside B1 exact in
+    both builds; B4-seg's two launches ([2, 5) then [0, 2)) on chunk 1 of
+    the main shape in two layouts, the bench's (every lane of the chunk in
+    both segments) and the compacted chain's (the live lanes after the
+    split gathered into compacted_capacities' K lanes, the rest dead pad
+    lanes), with the share of lane-bounces that live in each segment, the
+    lockstep build where the checkout has it and the digests of its tables
+    and S_start; and make_compacted_image_renderer's forward and step."""
+    from drt_tpu_torch import fused
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import earlyexit
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    dev = torch.device("cuda")
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    table = mk.scene_table(scene)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    trace_builds = "build" in inspect.signature(mk.fused_trace).parameters
+    seg_builds = "build" in inspect.signature(
+        mk.fused_segment_adjoint).parameters
+    for shape, kw in EARLYEXIT_SHAPES:
+        cfg = RenderConfig(**kw)
+        C = cfg.spp_chunks
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        ee = earlyexit.make_earlyexit_tracer(scene, cam, cfg, n_chunks=C)
+        ms, win, L = cuda_ms(torch, lambda: ee(alb, emi, seeds))
+        emit("kernel", label, name=f"B14 early-exit tracer (exact), {shape}",
+             ms=ms, windows=win)
+        emit("digest", label, name=f"B14 radiance, {shape}",
+             sha256=digest(L))
+        for build in ("queue", "lockstep") if trace_builds else ("queue",):
+            bkw = dict(build=build) if trace_builds else {}
+            ms, win, _ = cuda_ms(torch, lambda: mk.fused_trace(
+                scene, table, cc, cfg, alb, emi, seeds=seeds, n_chunks=C,
+                **bkw))
+            emit("kernel", label, name=f"B1 exact, {build} build, {shape}",
+                 ms=ms, windows=win)
+        del L
+        torch.cuda.empty_cache()
+
+    cfg = RenderConfig(**MAIN)
+    D, b, chunk = cfg.max_depth, 2, 1
+    lay = segment_layouts(torch, scene, cam, cfg, alb, emi, seeds, b, chunk)
+    loops = ({f"[{b0}, {b1})": mk.segment_form(b0, table.shape[0],
+                                                 alb.shape[0], emi.shape[0])
+              for b0, b1 in ((0, b), (b, D))}
+             if hasattr(mk, "segment_form") else None)
+    emit("segments", label, chunk=chunk, split=b, loops=loops,
+         **lay["counts"])
+    n, g_pix, layouts = lay["n"], lay["g_pix"], lay["layouts"]
+    for layout, (K, rayB, aliveB, ridx, gB, scatter) in layouts.items():
+        for build in ("queue", "lockstep") if seg_builds else ("queue",):
+            bkw = dict(build=build) if seg_builds else {}
+            tag = f"{layout}, {build} build" if seg_builds else layout
+            adjA = mk.make_fused_segment_adjoint(scene, cam, cfg, 0, b, **bkw)
+            adjB = mk.make_fused_segment_adjoint(scene, cam, cfg, b, D,
+                                                 n_rays=K, **bkw)
+            msB, winB, (daB, deB, S_B) = cuda_ms(torch, lambda: adjB(
+                alb, emi, seeds, rayB, aliveB, ridx, gB, chunk=chunk))
+            if scatter is None:
+                S_A = S_B
+            else:
+                S_A = torch.zeros((3, n + 1), device=dev)
+                S_A[:, scatter] = S_B
+                S_A = S_A[:, :n].contiguous()
+            msA, winA, (daA, deA) = cuda_ms(torch, lambda: adjA(
+                alb, emi, seeds, g_pix, S_A, chunk=chunk))
+            emit("kernel", label, name=f"B4-seg [{b}, {D}) on {K} lanes, "
+                 f"one chunk, {tag}", ms=msB, windows=winB)
+            emit("kernel", label, name=f"B4-seg [0, {b}), one chunk, {tag}",
+                 ms=msA, windows=winA)
+            emit("kernel", label, name=f"B4-seg both launches, one chunk, "
+                 f"{tag}", ms=msA + msB)
+            emit("digest", label, name=f"B4-seg [{b}, {D}) tables and "
+                 f"S_start, {tag}", sha256=[digest(t) for t in
+                                            (daB, deB, S_B)])
+            emit("digest", label, name=f"B4-seg [0, {b}) tables, {tag}",
+                 sha256=[digest(t) for t in (daA, deA)])
+            del daB, deB, S_B, S_A, daA, deA
+    del lay, layouts, g_pix
+    torch.cuda.empty_cache()
+
+    render = fused.make_compacted_image_renderer(scene, cam, cfg)
+    s_img = torch.tensor([1, 2], dtype=torch.int32)
+    with torch.no_grad():
+        target = render(params, s_img)
+        med, times = host_s(torch, lambda: render(params, s_img))
+    emit("path", label, name="compacted forward, main shape", s=med,
+         times=times)
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+
+    def step():
+        p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
+        ((render(p, s_img) - target) ** 2).mean().backward()
+
+    med, times = host_s(torch, step)
+    emit("path", label, name="compacted fwd+bwd step, main shape", s=med,
+         times=times)
+
+
 def compare(torch, label: str) -> None:
     from drt_tpu_torch import optim
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.fused import make_fused_image_renderer
     from drt_tpu_torch.models import cbox
-    from drt_tpu_torch.ops import earlyexit
     from drt_tpu_torch.ops import megakernel as mk
     from drt_tpu_torch.ops import regen as rg
     from drt_tpu_torch.ops.rng import hash_tapes
@@ -495,10 +675,6 @@ def compare(torch, label: str) -> None:
     emit("kernel", label, name="B11 regen sweep, main shape", ms=ms,
          windows=win)
     del rsc, rmeta, trips
-    ee = earlyexit.make_earlyexit_tracer(scene, cam, cfg, n_chunks=C)
-    ms, win, _ = cuda_ms(torch, lambda: ee(alb, emi, seeds))
-    emit("kernel", label, name="B14 early-exit tracer (exact), main shape",
-         ms=ms, windows=win)
     # One chunk: the wavefront kernels on B1's own rays, the segments.
     n = npix * cfg1.spp
     pix = torch.arange(n, device=dev) % npix
@@ -527,30 +703,9 @@ def compare(torch, label: str) -> None:
         emit("kernel", label,
              name="B5b wavefront adjoint lockstep build, one chunk", ms=ms,
              windows=win)
-    segA = mk.make_fused_segment_tracer(scene, cam, cfg, 0, 2)
-    segB = mk.make_fused_segment_tracer(scene, cam, cfg, 2, cfg.max_depth)
-    ms, win, (_, (ray, alive)) = cuda_ms(
-        torch, lambda: segA(alb, emi, seeds, chunk=1))
-    emit("kernel", label, name="B1-seg [0, 2), one chunk", ms=ms,
-         windows=win)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    ms, win, _ = cuda_ms(torch, lambda: segB(alb, emi, seeds, ray, alive,
-                                             idx, chunk=1))
-    emit("kernel", label, name="B1-seg [2, 5), one chunk", ms=ms,
-         windows=win)
-    adjB = mk.make_fused_segment_adjoint(scene, cam, cfg, 2, cfg.max_depth)
-    ms, win, (_, _, S) = cuda_ms(torch, lambda: adjB(alb, emi, seeds, ray,
-                                                     alive, idx, g_ray,
-                                                     chunk=1))
-    emit("kernel", label, name="B4-seg [2, 5), one chunk", ms=ms,
-         windows=win)
-    adjA = mk.make_fused_segment_adjoint(scene, cam, cfg, 0, 2)
-    ms, win, _ = cuda_ms(torch, lambda: adjA(alb, emi, seeds, g_ray, S,
-                                             chunk=1))
-    emit("kernel", label, name="B4-seg [0, 2), one chunk", ms=ms,
-         windows=win)
-    del o, d, tape, cam_u, ray, alive, S
+    del o, d, tape, cam_u
     torch.cuda.empty_cache()
+    segments_and_earlyexit(torch, label)
 
     # The paths.
     render = make_renderer(scene, cfg, cam, differentiable=False)
@@ -615,6 +770,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--queue", action="store_true")
+    ap.add_argument("--segments", action="store_true",
+                    help="only B14, B4-seg and the compacted renderer")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     label = args.label or str(root)
@@ -641,6 +798,8 @@ def main() -> int:
         emit("ptxas", label, source=source, lines=lines)
     if args.breakdown:
         breakdown(torch, label, root, args.queue)
+    elif args.segments:
+        segments_and_earlyexit(torch, label)
     else:
         compare(torch, label)
     return 0
