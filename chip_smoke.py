@@ -59,11 +59,16 @@ Phases (any failure raises, exits non-zero and prints no result line):
      residuals; two sweeps; a sweep over rows filled with NaN beyond each
      pixel's trips; the retrace backward = the stored one launched per
      chunk; and the dyn family on cbox against the scene-table family;
+     the scene-table tracer also at 61x47 (a partial last batch);
  12. the regeneration kernels at the two main shapes (Cornell box
      640x480x256 in 16 chunks, 1287-shape mesh 640x480x64 in 4), timed on
      the main path's launch, held against their plain versions on one
      chunk, with the trip counters of the checking builds (the
-     memory-resident tracer runs exactly the warp-trips its warps need);
+     memory-resident tracer runs exactly the warp-trips its warps need;
+     the scene-table tracer counts every trip, and its warp-trips run at
+     most 32 bounces each), the scene-table tracer's persistent grid
+     (blocks an SM holds, the occupancy API) and the SHA-256 digests of
+     its radiance, trips and rows;
  13. make_renderer(backend="cuda-regen" | "cuda-dyn-regen"): three seeds
      forward, the image against the lockstep image at the same seeds, a
      forward+backward step stored and retrace against "torch-regen" /
@@ -73,8 +78,12 @@ Phases (any failure raises, exits non-zero and prints no result line):
      B5b) against their plain twins on cbox, glossy and tri (64x48x4 spp,
      depth 5), on the fused tracer's own rays and tape against B1 and B4
      (bit for bit where the rays are the same bits), boundary tapes and
-     rays that miss everything; both kernels timed on one chunk of the
-     main shape beside the per-chunk ray generation and keyed draws; then
+     rays that miss everything; the tracer's keyed form (its draws in
+     the kernel) = its tape form on the same draws and against its twin,
+     its queue = its lockstep build; both kernels timed on one chunk of
+     the main shape beside the per-chunk ray generation and keyed draws
+     (the tracer's tape form, keyed form and lockstep build in turns, bit
+     for bit, their SHA-256 digests printed); then
      make_renderer(backend="cuda-wavefront") at the main shape: three
      seeds forward against the fused tracer's exact image at the same
      seeds, forward+backward steps biased and unbiased against the "cuda"
@@ -147,6 +156,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1075,6 +1085,34 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
                 cbox_radiance[fam.name] = radiance[False]
     compare("dyn regen tracer vs regen tracer (exact, same seeds), cbox",
             cbox_radiance["dyn_regen"], cbox_radiance["regen"], EXACT_TOL)
+    # The scene-table tracer at 61x47 = 2867 pixels (19 in the last batch
+    # of 32), 3 chunks of 2 samples: = its collect form and, sample for
+    # sample, the lockstep kernels.
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = tables(scene, params)
+    cfg_p = RenderConfig(width=61, height=47, spp=6, spp_chunks=3,
+                         max_depth=5)
+    cfg_ps = RenderConfig(width=61, height=47, spp=3, spp_chunks=3,
+                          max_depth=5)
+    for fm in (False, True):
+        kw = dict(fastmath=fm, n_chunks=3)
+        t2 = f"regen, cbox at 61x47, fast={fm}"
+        L, trips = rg.make_regen_tracer(scene, cam, cfg_p, **kw)(
+            alb, emi, seeds)
+        Lc, rsc, rows, trips_c = rg.make_regen_tracer(
+            scene, cam, cfg_p, collect=True, **kw)(alb, emi, seeds)
+        same_bits(f"collect radiance and trips = tracer's, {t2}",
+                  (Lc, trips_c), (L, trips))
+        _, rsc_l, rcode_l = mk.make_fused_collect_tracer(
+            scene, cam, cfg_p, **kw)(alb, emi, seeds)
+        same_bits(f"rows by sample = lockstep collect's residuals, {t2}",
+                  by_sample(table, cfg_p, alb, emi, rsc, rows, trips),
+                  (rsc_l, rcode_l))
+        same_bits(f"per-sample radiance = lockstep tracer's, {t2}",
+                  (rg.make_regen_tracer(scene, cam, cfg_ps, **kw)(
+                      alb, emi, seeds)[0],),
+                  (mk.make_fused_tracer(scene, cam, cfg_ps, **kw)(
+                      alb, emi, seeds),))
 
     # Phases 12 and 13 at a main shape.
     def main_shape(fam, label, scene, params, cam, cfg_m, plain_full,
@@ -1101,7 +1139,14 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
             lambda: collect(alb, emi, seeds), **timing)
         same_bits(f"{label}: collect radiance and trips = tracer's at the "
                   "main shape", (Lc, trips), (L_all, trips_all))
-        del Lc, trips_all
+        own = (torch.arange(rsc.shape[1], device=dev)[None, :, None]
+               < trips[:, None, :])
+        kept = (Lc, trips, torch.where(own, rsc, 0.0),
+                torch.where(own, rows, 0))
+        print(f"[digest] {label}: radiance, trips, rsc and rows up to each "
+              f"pixel's trips at the main shape: "
+              f"{[digest(t) for t in kept]}", flush=True)
+        del Lc, trips_all, own, kept
         one = fam.tracer(ks, cam, cfg_m, fastmath=True, n_chunks=1)
         L_sum = one(alb, emi, seeds, 0)[0]
         for c in range(1, C):
@@ -1218,6 +1263,7 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
               f"{label}: {st['live_trips']} live trips, the lockstep "
               f"collect tracer stored {live} live bounce-rays")
         warps = -(-npix // 32)
+        cycles = st.pop("cycles", None)
         print(f"[trips] {label}: {st}: {trips_sum} lane-trips for {n_rays} "
               f"samples = {trips_sum / n_rays!r} trips per sample (a "
               f"lockstep sample takes {D} slots: {n_rays * D}); live share "
@@ -1230,20 +1276,42 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
               f"threads of a warp waited for each other after every chunk), "
               f"against {-(-n_rays // 32) * D} lockstep warp-bounces; lanes "
               f"at work per warp-trip at best "
-              f"{trips_sum / st['warp_trips']!r} of 32; the lane groups that "
-              f"ran a trip together: {st['group_trips']}, "
-              f"{trips_sum / st['group_trips']!r} lanes each; slowest pixel "
-              f"{st['trips_max']} trips in a chunk", flush=True)
+              f"{trips_sum / st['warp_trips']!r} of 32 on such a grid; the "
+              f"warp-trips run: {st['group_trips']}, "
+              f"{trips_sum / st['group_trips']!r} lane-trips each; slowest "
+              f"pixel {st['trips_max']} trips in a chunk", flush=True)
         # The memory-resident tracer's warps step through their trip loop
-        # together: they run exactly the warp-trips they need.
+        # together: they run exactly the warp-trips they need. The
+        # scene-table tracer's lanes take (pixel, chunk) units as they
+        # free up and write a dying trip's row without a bounce: each of
+        # its warp-trips runs at most 32 bounces, the live ones among them.
         if fam is dyn:
             check(st["group_trips"] == st["warp_trips"],
                   f"{label}: the warps ran {st['group_trips']} warp-trips, "
                   f"not the {st['warp_trips']} they need")
         else:
-            check(st["group_trips"] >= st["warp_trips"],
-                  f"{label}: {st['group_trips']} lane groups ran the trips, "
-                  f"fewer than the {st['warp_trips']} the warps need")
+            check(st["live_trips"] <= st["lane_bounces"] <= st["lane_trips"]
+                  and st["group_trips"] >= -(-st["lane_bounces"] // 32),
+                  f"{label}: {st['group_trips']} warp-trips ran "
+                  f"{st['lane_bounces']} bounces ({st['live_trips']} live) "
+                  f"of {st['lane_trips']} trips")
+            grids = {form: rg.regen_grid(cfg_m, n_chunks=C,
+                                         collect=form == "collect")
+                     for form in ("tracer", "collect")}
+            per = {k: round(v / st["group_trips"], 1)
+                   for k, v in cycles.items()}
+            blocks = -(-npix // mk.BLOCK)
+            resident = (grids["tracer"]["blocks_per_sm"]
+                        * grids["tracer"]["sms"])
+            print(f"[trips] {label}: the bounces ran in "
+                  f"{st['group_trips']} warp-trips, "
+                  f"{st['lane_bounces'] / st['group_trips']!r} lanes each "
+                  f"(at least {-(-st['lane_bounces'] // 32)}); "
+                  f"{st['lane_trips'] - st['lane_bounces']} dying trips "
+                  f"wrote their rows without a bounce; clock64 cycles per "
+                  f"warp-trip by section {per}; persistent grid {grids} "
+                  f"(a grid of one thread per pixel: {blocks} blocks, "
+                  f"{blocks / resident!r} waves)", flush=True)
         if fam is dyn:
             print(f"[trips] {label}: leaves the warps tested "
                   f"{st['warp_leaves']}, for "
@@ -1489,6 +1557,7 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
     cam_u = torch.rand((2, n), generator=g, device=dev)
     tape = torch.rand((5, 3, n), generator=g, device=dev)
     g_ray = torch.rand((3, n), generator=g, device=dev)
+    key_seeds = torch.tensor([41, -42], dtype=torch.int32)
     small = (("cbox", cbox.build), ("glossy", gallery.build_glossy),
              ("tri", gallery.build_tri))
     for label, build in small:
@@ -1522,6 +1591,21 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
               f"{(L - L_b1).abs().max().item()!r}", flush=True)
         same_bits(f"wavefront tracer on B1's rays and tape = B1 (tape), "
                   f"{label}", (trace(alb, emi, o2, d2, tape),), (L_b1,))
+        same_bits(f"wavefront tracer (queue) = its lockstep build, {label}",
+                  (L,), (mk.ray_trace(scene, mk.scene_table(scene), cfg, alb,
+                                      emi, o, d, tape, build="lockstep"),))
+        # The keyed form: the draws of (seeds[1], pix, sample) in the
+        # kernel, = the tape form on their tape, and against its twin.
+        i = torch.arange(n, dtype=torch.int32, device=dev)
+        ids = (i % (64 * 48), i // (64 * 48))
+        L_k = mk.make_pallas_tracer(scene, cfg, keyed=True)(
+            alb, emi, o, d, key_seeds, *ids)
+        same_bits(f"wavefront tracer keyed = tape form on bounce_tape, "
+                  f"{label}", (L_k,), (trace(alb, emi, o, d, bounce_tape(
+                      int(key_seeds[1]), *ids, cfg.max_depth)),))
+        compare(f"wavefront tracer keyed vs twin, {label}", L_k,
+                mk.make_pallas_tracer(scene, cfg, plain=True, keyed=True)(
+                    alb, emi, o, d, key_seeds, *ids), EXACT_TOL)
         same_bits(f"wavefront adjoint on B4's rays, tape and g = B4 (tape), "
                   f"{label}", adj(alb, emi, o2, d2, tape, g_ray), d_b4)
     # Boundary tapes (entries exactly 0 and 1) and rays that miss all.
@@ -1577,8 +1661,35 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
     o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
     g_main = torch.rand((3, n_chunk), generator=g, device=dev) / cfg_m.spp
     ms, windows, plain_ms, err = {}, {}, {}, {}
-    ms["ray_tracer"], windows["ray_tracer"], L = cuda_ms(
-        lambda: trace(alb, emi, o, d, u), **timing)
+    # B5a's three builds in turns: the tape form, the keyed form (the main
+    # path's) and the lockstep build, forward and backward.
+    table = mk.scene_table(scene)
+    ids = (pix.int(), smp.int())
+    forms = {
+        "tape": lambda: trace(alb, emi, o, d, u),
+        "keyed": lambda: mk.ray_trace(scene, table, cfg_m, alb, emi, o, d,
+                                      seeds=seeds, pix=ids[0],
+                                      sample=ids[1]),
+        "lockstep": lambda: mk.ray_trace(scene, table, cfg_m, alb, emi, o, d,
+                                         u, build="lockstep")}
+    b5a_ms, b5a_out = {f: [] for f in forms}, {}
+    for f in list(forms) + list(reversed(forms)):
+        t, win, b5a_out[f] = cuda_ms(forms[f], **timing)
+        b5a_ms[f].append(t)
+        print(f"[time] B5a {f} on chunk {chunk} of the main shape: {t!r} "
+              f"ms, window means {win!r}", flush=True)
+    L = b5a_out["tape"]
+    same_bits("B5a keyed form = tape form on its bounce_tape, main shape",
+              (b5a_out["keyed"],), (L,))
+    same_bits("B5a queue = lockstep build, main shape",
+              (b5a_out["lockstep"],), (L,))
+    print(f"[digest] B5a radiance on chunk {chunk} of the main shape, "
+          f"{ {f: digest(t) for f, t in b5a_out.items()} }", flush=True)
+    del b5a_out
+    ms["ray_tracer"] = statistics.mean(b5a_ms["tape"])
+    windows["ray_tracer"] = b5a_ms["tape"]
+    b5a_extra = {"keyed_ms": statistics.mean(b5a_ms["keyed"]),
+                 "lockstep_ms": statistics.mean(b5a_ms["lockstep"])}
     plain_ms["ray_tracer"], _, L_p = cuda_ms(
         lambda: mk.ray_trace_plain(scene, cfg_m, alb, emi, o, d, u), **once)
     err["ray_tracer"] = compare(
@@ -1596,7 +1707,9 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
     same_bits("wavefront adjoint twice at the main shape",
               adj(alb, emi, o, d, u, g_main), d_k)
     print(f"[time] one chunk of {n_chunk} rays at the main shape: "
-          f"ray_tracer {ms['ray_tracer']!r} ms, plain "
+          f"ray_tracer {ms['ray_tracer']!r} ms (keyed "
+          f"{b5a_extra['keyed_ms']!r}, lockstep build "
+          f"{b5a_extra['lockstep_ms']!r}), plain "
           f"{plain_ms['ray_tracer']!r} ms; ray_adjoint "
           f"{ms['ray_adjoint']!r} ms, plain {plain_ms['ray_adjoint']!r} ms; "
           f"per-chunk work outside the kernels: chunk_rays {rays_ms!r} ms, "
@@ -1615,8 +1728,13 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
     table_bytes = 4 * (mk.scene_table(scene).numel() + alb.numel()
                        + emi.numel())
     ray_bytes = n_chunk * (24 + 12 * D + 12)
+    # The keyed form reads pix and sample (8 B a ray) where the tape form
+    # reads the tape, and draws (rr, u1, u2) itself: 3 hash draws a live
+    # bounce, which OPS_SHADE counts already.
     work = {"ray_tracer": (table_bytes + ray_bytes,
                            live * (ops_hit + OPS_SHADE)),
+            "ray_tracer (keyed form)": (table_bytes + n_chunk * (24 + 8 + 12),
+                                        live * (ops_hit + OPS_SHADE)),
             "ray_adjoint": (table_bytes + ray_bytes + 4 * (alb.numel()
                                                            + emi.numel()),
                             live * (ops_hit + OPS_SHADE + OPS_SWEEP))}
@@ -1750,11 +1868,15 @@ def wavefront_phase(dev, smi_line: str, timing: dict) -> dict:
           f"{time.perf_counter() - t0!r} s", flush=True)
     check(counts == only(ray_tracer=1, ray_adjoint=1),
           f"check_gradients launched {counts}")
-    return {name: dict(launches=launches[name], max_abs_err=err[name],
+    rows = {name: dict(launches=launches[name], max_abs_err=err[name],
                        ms=ms[name], plain_ms=plain_ms[name],
                        bound_ms=bound[name][0], bound_by=bound[name][1],
                        rays=n_chunk, chunks=C)
             for name in ("ray_tracer", "ray_adjoint")}
+    rows["ray_tracer"].update(
+        b5a_extra, keyed_bound_ms=bound["ray_tracer (keyed form)"][0],
+        keyed_bound_by=bound["ray_tracer (keyed form)"][1])
+    return rows
 
 
 def profile_forward(fn, smi_line: str) -> None:
@@ -2633,14 +2755,12 @@ def fused_phase(dev, smi_line: str, timing: dict) -> dict:
             ("B1 queue (per warp-trip)", lambda: mk.fused_trace_stats(
                 scene, table, cc, cfg, alb, emi, seeds,
                 n_chunks=cfg.spp_chunks)),
-            ("B10 (per lane-group trip)", lambda: rg.regen_sections(
+            ("B10 (per warp-trip)", lambda: rg.regen_trip_stats(
                 scene, table, cc, cfg, alb, emi, seeds,
                 n_chunks=cfg.spp_chunks))):
         fn()
         st = fn()
-        steps = st.get("warp_steps") or rg.regen_trip_stats(
-            scene, table, cc, cfg, alb, emi, seeds,
-            n_chunks=cfg.spp_chunks)["group_trips"]
+        steps = st.get("warp_steps") or st["group_trips"]
         per = {k: round(v / steps, 1) for k, v in st["cycles"].items()}
         print(f"[breakdown] {what}: {steps} steps; clock64 cycles per step "
               f"by section {per} (total {sum(per.values())!r}) on "

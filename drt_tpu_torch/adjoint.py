@@ -21,9 +21,11 @@ the sweep and retrace adjoint kernels (`ops/megakernel.py`).
 
 `make_diff_image_renderer` is the key-driven wavefront image renderer:
 each spp chunk's rays from `renderer.chunk_rays`, traced by the wavefront
-tracer kernel (`ops.megakernel.make_pallas_tracer`) and differentiated by
-the wavefront adjoint kernel (`make_pallas_adjoint`) when the scene is on
-the card, by their plain twins when it is on the CPU or plain=True.
+tracer kernel's keyed form (`ops.megakernel.make_pallas_tracer(...,
+keyed=True)`, which draws the bounce uniforms itself) and differentiated
+by the wavefront adjoint kernel (`make_pallas_adjoint`, on the chunk's
+tape) when the scene is on the card, by their plain twins when it is on
+the CPU or plain=True.
 """
 
 from __future__ import annotations
@@ -207,18 +209,17 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
 def make_wavefront_trace_fn(scene: Scene, cfg: RenderConfig,
                             plain: bool = False):
     """The `trace_fn` of `renderer.render_image` over the wavefront tracer
-    kernel (B5a; its plain twin for a CPU scene or plain=True): a chunk's
-    bounce tape drawn from seeds[1] for its rays (pix, sample), then one
-    launch on the chunk's rays."""
+    kernel's keyed form (B5a; its plain twin, key-mode `trace_rays`, for a
+    CPU scene or plain=True): one launch on a chunk's rays, which draws
+    their bounce uniforms in the kernel from seeds[1] and each ray's
+    (pix, sample). No tape is built."""
     _check_lanes(cfg)
-    trace = make_pallas_tracer(scene, cfg, plain=plain)
+    trace = make_pallas_tracer(scene, cfg, plain=plain, keyed=True)
 
     def trace_fn(params, o, d, seeds, pix, s):
         alb = albedo_table(scene, params).contiguous()
         emi = emission_table(scene, params).contiguous()
-        return trace(alb, emi, o, d,
-                     bounce_tape(int(seeds[1]), pix, s, cfg.max_depth,
-                                 d.x.dtype))
+        return trace(alb, emi, o, d, seeds, pix.int(), s.int())
 
     return trace_fn
 

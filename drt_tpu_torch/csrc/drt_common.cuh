@@ -2,7 +2,8 @@
 // (fused_body.cuh) and memory-resident (dyn_body.cuh) alike: the launch
 // configuration, the state of a path, the keyed hash, the primary ray, the
 // per-bounce uniforms, the BxDF sample + weight of one hit, one bounce of
-// the reverse sweep and the counter of the checking builds.
+// the reverse sweep, the persistent grid and the section clock of the
+// checking builds.
 //
 // Every library is built with -fmad=false, so the same expression rounds
 // the same way in every instantiation: that is what makes a collect
@@ -281,19 +282,6 @@ static cudaError_t queue_grid(Kernel kernel, int n, int* grid,
   return e;
 }
 
-// Counting in a checking build: called by the lanes of a warp that run a
-// piece of code together, it adds their number to stats[per_lane] and one
-// to stats[per_group].
-static __device__ __forceinline__ void count_group(unsigned long long* stats,
-                                                   int per_lane,
-                                                   int per_group) {
-  const unsigned m = __activemask();
-  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
-    atomicAdd(stats + per_lane, (unsigned long long)__popc(m));
-    atomicAdd(stats + per_group, 1ull);
-  }
-}
-
 // The sections of a step that the checking builds time with clock64(), in
 // the order a step runs them: the camera ray of a new path, the keyed draws
 // and Russian roulette, the nearest-hit loop, gate + emission + normal +
@@ -314,8 +302,8 @@ struct NoMarks {
 // set, hist[bnc * 33 + k] counts the warp-steps of bounce bnc in which k
 // of the warp's active lanes were alive after Russian roulette. step()
 // counts the warp's steps the same way, in the lead lane's registers:
-// count_group's global atomics at every step took a timed lockstep
-// warp-bounce from 8070 to 25825 cycles (PERF.md section 6). NS sections:
+// global atomics at every step took a timed lockstep warp-bounce from
+// 8070 to 25825 cycles (PERF.md section 6). NS sections:
 // N_SECT in the tracers, more in the adjoints' timing build.
 template <int NS>
 struct SectionClockOf {

@@ -383,8 +383,8 @@ static __device__ __forceinline__ void dyn_leaf_warp(
 // leaves `best` as it is. Each ray tests the boxes, and so enters the
 // leaves, that dyn_intersect would: the lanes walk the groups and leaves
 // in a loop of the same bounds, each with its own slab tests against its
-// own running best. The counters count by ballot, as count_group would
-// for the lanes with a ray.
+// own running best. The counters count the lanes with a ray by ballot,
+// and the warp-step once.
 template <bool FAST, bool COUNT>
 static __device__ __forceinline__ void dyn_intersect_warp(
     const DynLayout& lay, const DynOperands& s, bool ray, float ox,

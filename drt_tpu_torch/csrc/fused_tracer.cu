@@ -16,15 +16,22 @@
 //    their bit reference; drt_fused_trace_stats counts and times either
 //    loop (clock64() per section of a step);
 //  - drt_ray_trace replaces megakernel.py:make_pallas_tracer (pallas_call
-//    at :723), the forward of the key-driven wavefront: the same loop on
-//    primary rays o, d f32[3, N] and a tape f32[D, 3, N] that are inputs
-//    (no camera, no RNG), radiance f32[3, N] out; trace_rays(tape=u) as
-//    one kernel. Exact variant only. On the fused tracer's own primary
-//    rays and tape its radiance is the fused tracer's bit for bit. It reads
-//    84 bytes per ray at depth 5 where the fused tracer reads none, which
-//    at the main shape (4.9 M rays a launch) is 0.14 ms of the card's
-//    memory rate against ~0.7 ms of bounce work: bound like the fused
-//    tracer, by issue and divergence, and every read is a coalesced line;
+//    at :723), the forward of the key-driven wavefront: the tracer's queue
+//    (ray_queue_kernel over queue_trace.inc) with one chunk, each path
+//    started at its input ray o, d f32[3, N] (no camera), radiance
+//    f32[3, N] out, exact variant only. Its tape form reads the draws
+//    from a tape f32[D, 3, N], trace_rays(tape=u) as one kernel; its keyed
+//    form, drt_ray_trace_keyed, draws them in the kernel from the keyed
+//    hash of (seed1, pix[i], smp[i], bounce) for the pixel and sample
+//    i32[N] of each ray, which is the tape form fed bounce_tape(seed1,
+//    pix, smp, D) bit for bit and needs no tape at all (the wavefront
+//    renderer's form). drt_ray_trace_lockstep, the checking build, runs
+//    the lockstep loop on a tape, the bit reference of both. On the fused
+//    tracer's own primary rays and tape its radiance is the fused
+//    tracer's bit for bit. Bound like the tracer, by the issue of its
+//    bounces: the keyed form moves 32 bytes in and 12 out a ray (0.06 ms
+//    at the main shape's 4.9 M rays a launch), the tape form 12 D bytes
+//    more, read in the order its paths take their bounces, scattered;
 //  - drt_fused_segment_trace replaces make_fused_segment_tracer (pallas_call
 //    at :1194) at any [b_start, b_end): bounces b_start..b_end-1 of one
 //    chunk, entered from the camera (b_start == 0) or from a state (o, d,
@@ -147,9 +154,10 @@ static __host__ __device__ __forceinline__ int queue_log2_slots(int n_chunks) {
 }
 
 // The queue of (ray slot, chunk) paths: the loop of drt_fused_trace,
-// drt_fused_collect (COLLECT) and of the checking build
-// drt_fused_trace_stats (COUNT). The grid is persistent, and a trip is one
-// live bounce of every lane that has a path.
+// drt_fused_collect (COLLECT), drt_earlyexit_trace and of the checking
+// build drt_fused_trace_stats (COUNT), as the text of queue_trace.inc,
+// which the wavefront tracer's ray_queue_kernel includes too. The grid is
+// persistent, and a trip is one live bounce of every lane that has a path.
 //
 // A trip: the lanes whose last path has ended take their next path and
 // draw its camera ray; then every lane with a path runs one bounce of it
@@ -195,141 +203,9 @@ queue_trace_kernel(DrtTrace cfg, DrtCamera cam,
                    float* __restrict__ sums, float* __restrict__ rsc,
                    int* __restrict__ rbest, int* __restrict__ trips,
                    unsigned long long* stats) {
-  __shared__ DrtTables tab;
-  stage_tables(cfg, scene, alb, emi, tab);
-  const float RAY_EPS_F = 1e-3f;
-  const float* s_scene = tab.scene;
-  const float* s_alb = tab.alb;
-  const float* s_emi = tab.emi;
-
-  const int N = cfg.n_rays, D = cfg.max_depth, C = cfg.n_chunks;
-  constexpr bool BY_SLOT = !COLLECT;
-  const int log2_s = BY_SLOT ? 5 : queue_log2_slots(C), S = 1 << log2_s;
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const int W = (gridDim.x * blockDim.x) >> 5;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int base = warp * S;         // the round's first slot
-  int n_s = min(S, N - base);  // the round's slots
-  int next = 0;                // the round's paths (slots) handed out
-  int i = 0, c = 0, bnc = 0, pix = 0;
-  uint32_t smp = 0u;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  float Tx = 0.0f, Ty = 0.0f, Tz = 0.0f;
-  float lx = 0.0f, ly = 0.0f, lz = 0.0f;
-  float Lx = 0.0f, Ly = 0.0f, Lz = 0.0f;  // BY_SLOT: the slot's chunks
-  bool work = false, alive = false;
-  bool open = false;  // BY_SLOT: the lane holds a slot with chunks left
-  QueueTape qt{tape, 0u, 0.0f};
-  typename MarksOf<COUNT>::type marks;
-  if constexpr (COUNT) marks.start(nullptr);
-
-  while (BY_SLOT || base < N) {
-    marks.at(SEC_LOOP, bnc, alive);
-    bool start;
-    if constexpr (BY_SLOT) {
-      // The warp's next slot to each lane that has finished its slot.
-      const unsigned idle = __ballot_sync(0xffffffffu, !open);
-      const int q = next + __popc(idle & below);
-      next += __popc(idle);
-      if (!open) {
-        i = (((q >> log2_s) * W + warp) << log2_s) + (q & (S - 1));
-        open = i < N;
-        c = 0;
-      }
-      if (!__any_sync(0xffffffffu, open)) break;
-      start = open && !work;
-    } else {
-      const unsigned idle = __ballot_sync(0xffffffffu, !work);
-      const int j = next + __popc(idle & below);
-      next += __popc(idle);
-      start = !work && j < n_s * C;
-      if (start) {
-        c = n_s == S ? j >> log2_s : j / n_s;
-        i = base + (j - c * n_s);
-      }
-    }
-    if (start) {  // the lane's next path starts
-      primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, c, pix, smp, dx, dy,
-                                  dz);
-      ox = cam.eye[0]; oy = cam.eye[1]; oz = cam.eye[2];
-      Tx = 1.0f; Ty = 1.0f; Tz = 1.0f;
-      lx = 0.0f; ly = 0.0f; lz = 0.0f;
-      work = alive = true;
-      bnc = 0;
-      if (INTERNAL) qt.key = path_key(cfg.seed1, (uint32_t)pix, smp);
-      if (cfg.min_bounces <= 0)
-        qt.u_rr = roulette_draw<INTERNAL>(cfg, qt, i, 0);
-    }
-    marks.at(SEC_CAMERA, bnc, alive);
-    if (!BY_SLOT && !__any_sync(0xffffffffu, work)) {
-      // The round's paths have ended.
-      if (C > 1) {
-        __syncwarp();
-        for (int k = lane; k < n_s; k += 32) {
-          float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-          for (int cc = 0; cc < C; ++cc) {
-            const float* l = sums + (size_t)cc * 3 * N + base + k;
-            sx = sx + __ldcg(l);
-            sy = sy + __ldcg(l + N);
-            sz = sz + __ldcg(l + 2 * N);
-          }
-          out[base + k] = sx;
-          out[N + base + k] = sy;
-          out[2 * N + base + k] = sz;
-        }
-      }
-      base += W * S;
-      n_s = min(S, N - base);
-      next = 0;
-      continue;
-    }
-    if (work) {
-      const auto hook = queue_hook<COLLECT>(
-          rsc, rbest, (size_t)c * D * N + i, (size_t)N);
-      {
-        const QueueTape& tape = qt;
-#include "fused_bounce.inc"
-      }
-      if (COUNT) atomicAdd(trips + i, 1);
-    }
-    marks.step(work, alive);
-    if (!work) continue;
-    ++bnc;
-    // Russian roulette of the next bounce, decided now.
-    if (alive && bnc < D && bnc >= cfg.min_bounces) {
-      qt.u_rr = roulette_draw<INTERNAL>(cfg, qt, i, bnc);
-      alive = !(qt.u_rr < cfg.absorb);
-    }
-    alive = alive && bnc < D;
-    if (alive) continue;
-    // The path has ended.
-    work = false;
-    if (BY_SLOT) {
-      Lx = Lx + lx;
-      Ly = Ly + ly;
-      Lz = Lz + lz;
-      if (++c < C) continue;
-      out[i] = Lx;
-      out[N + i] = Ly;
-      out[2 * N + i] = Lz;
-      Lx = 0.0f; Ly = 0.0f; Lz = 0.0f;
-      open = false;
-    } else if (C == 1) {
-      out[i] = 0.0f + lx;
-      out[N + i] = 0.0f + ly;
-      out[2 * N + i] = 0.0f + lz;
-    } else {
-      float* l = sums + (size_t)c * 3 * N + i;
-      l[0] = lx;
-      l[N] = ly;
-      l[2 * N] = lz;
-    }
-  }
-  if constexpr (COUNT) {
-    marks.flush(stats + FS_CYCLES);
-    marks.flush_steps(stats + FS_LANE_STEPS);
-  }
+#define DRT_QUEUE_RAYS 0
+#include "queue_trace.inc"
+#undef DRT_QUEUE_RAYS
 }
 #undef DRT_MARK
 #define DRT_MARK(k)
@@ -386,6 +262,36 @@ fused_trace_kernel(DrtTrace cfg, DrtCamera cam,
   }
 }
 
+// The wavefront tracer B5a on the queue (drt_ray_trace and
+// drt_ray_trace_keyed): the loop of queue_trace_kernel with one chunk, the
+// per-slot hand-out and each path started at its input ray
+// (DRT_QUEUE_RAYS). Instantiated with FAST = COLLECT = COUNT = false
+// only.
+#undef DRT_MARK
+#define DRT_MARK(k) marks.at(k, bnc, alive)
+template <bool FAST, bool INTERNAL, bool COLLECT, bool COUNT>
+__global__ void __launch_bounds__(DRT_BLOCK)
+ray_queue_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                 const float* __restrict__ alb,
+                 const float* __restrict__ emi,
+                 const float* __restrict__ o, const float* __restrict__ d,
+                 const int* __restrict__ pix_in,
+                 const int* __restrict__ smp_in,
+                 const float* __restrict__ tape, float* __restrict__ out) {
+  float* sums = nullptr;
+  float* rsc = nullptr;
+  int* rbest = nullptr;
+  int* trips = nullptr;
+  unsigned long long* stats = nullptr;
+#define DRT_QUEUE_RAYS 1
+#include "queue_trace.inc"
+#undef DRT_QUEUE_RAYS
+}
+#undef DRT_MARK
+#define DRT_MARK(k)
+
+// The wavefront tracer's lockstep loop, the checking build
+// drt_ray_trace_lockstep: one thread per ray runs all max_depth bounces.
 __global__ void __launch_bounds__(DRT_BLOCK)
 ray_trace_kernel(DrtTrace cfg, const float* __restrict__ scene,
                  const float* __restrict__ alb,
@@ -488,6 +394,20 @@ static int launch_queue(const DrtTrace* cfg, const DrtCamera* cam,
   }
   kernel<<<grid, DRT_BLOCK, 0, s>>>(*cfg, *cam, scene, alb, emi, cam_u, tape,
                                     out, sums, rsc, rbest, trips, stats);
+  return (int)cudaGetLastError();
+}
+
+template <bool INTERNAL>
+static int launch_rays(const DrtTrace* cfg, const float* scene,
+                       const float* alb, const float* emi, const float* o,
+                       const float* d, const int* pix, const int* smp,
+                       const float* tape, float* out, cudaStream_t s) {
+  auto kernel = ray_queue_kernel<false, INTERNAL, false, false>;
+  int grid = 0;
+  cudaError_t e = queue_grid(kernel, (cfg->n_rays + 31) / 32 * 32, &grid);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, DRT_BLOCK, 0, s>>>(*cfg, scene, alb, emi, o, d, pix, smp,
+                                    tape, out);
   return (int)cudaGetLastError();
 }
 
@@ -606,11 +526,37 @@ int drt_fused_trace_stats(const DrtTrace* cfg, const DrtCamera* cam,
   return (int)cudaGetLastError();
 }
 
-// The wavefront tracer takes one chunk of rays, the exact variant and a
-// tape: a config asking for anything else is refused.
+// The wavefront tracer takes one chunk of rays and the exact variant, and
+// its tape form a tape (cfg->internal_rng == 0), its keyed form the pixel
+// and sample i32[n_rays] of each ray (cfg->internal_rng == 1, seed1 the
+// bounce seed): a config asking for anything else is refused.
 int drt_ray_trace(const DrtTrace* cfg, const float* scene, const float* alb,
                   const float* emi, const float* o, const float* d,
                   const float* tape, float* out, void* stream) {
+  if (!drt_cfg_ok(cfg) || cfg->n_chunks != 1 || cfg->internal_rng ||
+      cfg->fast)
+    return (int)cudaErrorInvalidValue;
+  return launch_rays<false>(cfg, scene, alb, emi, o, d, nullptr, nullptr,
+                            tape, out, (cudaStream_t)stream);
+}
+
+int drt_ray_trace_keyed(const DrtTrace* cfg, const float* scene,
+                        const float* alb, const float* emi, const float* o,
+                        const float* d, const int* pix, const int* smp,
+                        float* out, void* stream) {
+  if (!drt_cfg_ok(cfg) || cfg->n_chunks != 1 || !cfg->internal_rng ||
+      cfg->fast || !pix || !smp)
+    return (int)cudaErrorInvalidValue;
+  return launch_rays<true>(cfg, scene, alb, emi, o, d, pix, smp, nullptr,
+                           out, (cudaStream_t)stream);
+}
+
+// The checking build of the wavefront tracer's lockstep loop (tape form),
+// the bit reference of both forms above.
+int drt_ray_trace_lockstep(const DrtTrace* cfg, const float* scene,
+                           const float* alb, const float* emi,
+                           const float* o, const float* d, const float* tape,
+                           float* out, void* stream) {
   if (!drt_cfg_ok(cfg) || cfg->n_chunks != 1 || cfg->internal_rng ||
       cfg->fast)
     return (int)cudaErrorInvalidValue;

@@ -1,30 +1,28 @@
 // Shared device code of the path-regeneration kernels of both families
 // (regen_tracer.cu and regen_adjoint.cu over the scene table,
 // dyn_regen_tracer.cu and dyn_regen_adjoint.cu over a memory-resident
-// scene): the trip loop of one pixel over one spp chunk of the scene-table
-// tracer (regen_chunk; dyn_regen_tracer.cu runs the same trips in a loop
-// of the warp's), the replay and reverse sweep of one pixel's stored rows
+// scene): the replay and reverse sweep of one pixel's stored rows
 // (regen_sweep_chunk) and the counters of the checking builds.
 //
 // What they compute is drt_tpu/ops/regen.py and drt_tpu/ops/dynregen.py:
-// one thread is one PIXEL and renders its spp_c samples one after the
-// other. A trip is one bounce; a thread whose path has died starts its
-// next sample's camera ray in the same trip (`want`) and bounces it at
-// once. A path that dies in a trip (Russian roulette, a miss) still
-// stores that trip's row, with gate 0, and the depth bound ends a path
-// without one, so a sample takes its live bounces + 1 trips, or max_depth.
+// the samples of a pixel's chunk are rendered one after the other by one
+// lane. A trip is one bounce; a lane whose path has died starts its next
+// sample's camera ray in the same trip (`want`) and bounces it at once. A
+// path that dies in a trip (Russian roulette, a miss) still stores that
+// trip's row, with gate 0, and the depth bound ends a path without one, so
+// a sample takes its live bounces + 1 trips, or max_depth.
 //
 // How the TPU design maps here: on the TPU the lanes of a (tile_rows, 128)
 // tile share one trip counter, finished lanes write dead rows until the
-// tile's slowest lane is done, and `trips` is per tile. Here every thread
-// has its own trip counter and writes exactly its own rows, `trips` is per
-// pixel (i32[C, n_pix]), and rows past a pixel's count are never written
-// nor read. A warp still runs until its slowest thread is done: in the
-// scene-table tracer the hardware runs it so, and its lanes split into
-// groups by trip; the memory-resident tracer runs it so by design, one
-// trip of every lane at a time over all chunks (the tile's counter carried
-// to the warp), since its leaves are tested by the whole warp. The
-// checking builds count how many lanes were at work.
+// tile's slowest lane is done, and `trips` is per tile. Here each lane
+// keeps its own trip counter and writes exactly its own rows, `trips` is
+// per pixel and chunk (i32[C, n_pix]), and rows past a pixel's count are
+// never written nor read. Both tracers step their warp through one trip
+// loop together (the tile's counter carried to the warp): the
+// memory-resident one because its leaves are tested by the whole warp,
+// the scene-table one on a persistent grid whose lanes take (pixel,
+// chunk) units as they free up. The checking builds count how many lanes
+// were at work.
 //
 // Every draw is the keyed hash of (seed, pixel, sample, bounce, dim) with
 // chunk c starting at sample sample_base + c * spp_c, the stream of the
@@ -36,62 +34,13 @@
 #include "drt_common.cuh"
 
 // Counters of a checking build, after the four of dyn_body.cuh: lane-trips
-// run and the lane groups (in the memory-resident tracer: warp-trips) that
-// ran them together, and of those the trips that ended live (gate > 0).
+// run and the warp-trips that ran them, and of those the trips that ended
+// live (gate > 0). The scene-table tracer writes a dying trip's row
+// without its bounce: its lane-trips count every trip, and the first of
+// dyn_body.cuh's four (lane_bounces) the lane-trips that ran the bounce
+// (regen_tracer.cu: STAT_BOUNCE_LANES).
 enum { STAT_LANE_TRIPS = 4, STAT_GROUP_TRIPS = 5, STAT_LIVE_TRIPS = 6,
        STAT_LIVE_GROUPS = 7, REGEN_N_STATS = 8 };
-
-// The hook of the forward form: keeps nothing. `trip` and `want` are what
-// regen_chunk sets before each bounce.
-struct RegenNoStore {
-  int trip, want;
-  template <class... A>
-  __device__ __forceinline__ void operator()(A...) const {}
-};
-
-// All trips of pixel pix over one spp chunk whose first sample is sbase:
-// adds the chunk's radiance into p.lx, p.ly, p.lz (which the caller zeroes)
-// and returns the number of trips. bounce(smp, b, hook, p, marks) runs one
-// bounce of sample smp at depth b; hook.trip and hook.want are set before
-// it. `marks` is NoMarks, or the SectionClock of the timing build.
-template <bool FAST, bool COUNT, class Bounce, class Hook, class Marks>
-static __device__ __forceinline__ int regen_chunk(
-    const DrtTrace& cfg, const DrtCamera& cam, int pix, uint32_t sbase,
-    const Bounce& bounce, Hook& hook, PathState& p,
-    unsigned long long* stats, Marks& marks) {
-  int s = -1, b = 0, trip = 0;
-  p.ox = p.oy = p.oz = 0.0f;
-  p.dx = p.dy = p.dz = 0.0f;
-  p.Tx = p.Ty = p.Tz = 0.0f;
-  p.alive = false;
-  while (p.alive || s < cfg.spp_c - 1) {
-    marks.at(SEC_LOOP, b, p.alive);
-    // A dead thread with samples left starts the next one in this trip.
-    const bool want = !p.alive;
-    if (want) {
-      ++s;
-      float us, ut;
-      camera_uniforms(cfg, pix, sbase + (uint32_t)s, us, ut);
-      primary_dir<FAST>(cfg, cam, pix, us, ut, p.dx, p.dy, p.dz);
-      p.ox = cam.eye[0]; p.oy = cam.eye[1]; p.oz = cam.eye[2];
-      p.Tx = 1.0f; p.Ty = 1.0f; p.Tz = 1.0f;
-      p.alive = true;
-      b = 0;
-    }
-    marks.at(SEC_CAMERA, b, p.alive);
-    if (COUNT) count_group(stats, STAT_LANE_TRIPS, STAT_GROUP_TRIPS);
-    hook.trip = trip;
-    hook.want = want ? 1 : 0;
-    bounce(sbase + (uint32_t)s, b, hook, p, marks);
-    if (COUNT && p.alive)
-      count_group(stats, STAT_LIVE_TRIPS, STAT_LIVE_GROUPS);
-    ++b;
-    // The static depth bound, per thread.
-    p.alive = p.alive && b < cfg.max_depth;
-    ++trip;
-  }
-  return trip;
-}
 
 // One stored row, decoded: the sampling weight, the real table rows (or -1
 // for a sentinel row), whether the trip ended live and whether Russian

@@ -391,8 +391,9 @@ def _check_limits(source: str, fn, expected: list) -> None:
 
 def _library() -> ctypes.CDLL:
     """The tracer library: drt_fused_trace, drt_fused_collect,
-    drt_ray_trace, drt_fused_segment_trace, drt_earlyexit_trace and the
-    checking builds drt_fused_trace_lockstep, drt_fused_collect_lockstep,
+    drt_ray_trace, drt_ray_trace_keyed, drt_fused_segment_trace,
+    drt_earlyexit_trace and the checking builds drt_fused_trace_lockstep,
+    drt_fused_collect_lockstep, drt_ray_trace_lockstep,
     drt_fused_trace_stats."""
     from drt_tpu_torch.utils import native
 
@@ -408,8 +409,10 @@ def _library() -> ctypes.CDLL:
         # scene, alb, emi, out, sums, rsc, rbest, trips, stats, queue,
         # stream
         _bind(lib, "drt_fused_trace_stats", 11, both, n_ints_at=(9,))
-        # scene, alb, emi, o, d, tape, out, stream
+        # scene, alb, emi, o, d, tape | pix, smp, out, stream
         _bind(lib, "drt_ray_trace", 8, (_DrtTrace,))
+        _bind(lib, "drt_ray_trace_lockstep", 8, (_DrtTrace,))
+        _bind(lib, "drt_ray_trace_keyed", 9, (_DrtTrace,))
         # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
         # ray_idx, out, ray_out, alive_out, stream
         _bind(lib, "drt_fused_segment_trace", 15, both, n_ints_at=(0, 1, 2))
@@ -895,6 +898,19 @@ def ray_trace_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
                                   tape=u))
 
 
+def ray_trace_keyed_plain(scene: Scene, cfg: RenderConfig,
+                          alb: torch.Tensor, emi: torch.Tensor,
+                          o: torch.Tensor, d: torch.Tensor, seeds,
+                          pix: torch.Tensor,
+                          sample: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the wavefront tracer's keyed form: key-mode
+    `renderer.trace_rays` on rays o, d f[3, N] whose bounce draws are those
+    of (seeds[1], pix, sample) (i32 or i64 [N] each); radiance f[3, N]."""
+    params = Params(albedo=alb[:-1], emission=emi[:-1])
+    return torch.stack(trace_rays(params, scene, V3(*o), V3(*d), cfg,
+                                  seeds=seeds, pix=pix, sample=sample))
+
+
 def ray_adjoint_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
                       emi: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                       u: torch.Tensor, g: torch.Tensor):
@@ -917,26 +933,60 @@ def _ray_inputs(tcfg: _DrtTrace, o, d, u, dev) -> None:
     n = tcfg.n_rays
     _check("o", o, (3, n), dev)
     _check("d", d, (3, n), dev)
-    _check("tape", u, (tcfg.max_depth, 3, n), dev)
+    if u is not None:
+        _check("tape", u, (tcfg.max_depth, 3, n), dev)
 
 
 def ray_trace(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
               alb: torch.Tensor, emi: torch.Tensor, o: torch.Tensor,
-              d: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Radiance f32[3, N] of the wavefront tracer on rays o, d f32[3, N]
-    and the tape u f32[D, 3, N]. CPU tensors run the plain twin; CUDA
-    tensors launch the kernel (exact variant, the only one) or raise."""
+              d: torch.Tensor, u: torch.Tensor | None = None, *, seeds=None,
+              pix: torch.Tensor | None = None,
+              sample: torch.Tensor | None = None,
+              build: str = "queue") -> torch.Tensor:
+    """Radiance f32[3, N] of the wavefront tracer on rays o, d f32[3, N].
+
+    Tape form: the bounce draws from the tape u f32[D, 3, N]. Keyed form
+    (seeds, pix, sample instead of u): ray i draws bounce b's (rr, u1, u2)
+    in the kernel from the keyed hash of (seeds[1], pix[i], sample[i], b),
+    pix and sample i32[N] on the card (the rays' pixel and sample, as
+    `renderer.chunk_sample_ids` gives them: passed, not derived, so that
+    any ray layout draws right); it equals the tape form fed
+    `bounce_tape(seeds[1], pix, sample, D)` bit for bit, and reads 8 bytes
+    a ray where the tape is 12 D. CPU tensors run the plain twin (key-mode
+    `trace_rays` for the keyed form); CUDA tensors launch the kernel
+    (exact variant, the only one) or raise. build="lockstep" launches the
+    checking build of the lockstep loop (tape form only), which is not
+    counted."""
+    keyed = seeds is not None or pix is not None or sample is not None
+    if keyed == (u is not None) or (keyed and (seeds is None or pix is None
+                                               or sample is None)):
+        raise TypeError("ray_trace takes a tape u, or seeds, pix and "
+                        "sample")
+    entry = _build_entry("drt_ray_trace", build)
+    if keyed and build != "queue":
+        raise ValueError("the lockstep build takes a tape")
     if _device_of("ray_trace", alb) == "cpu":
+        if keyed:
+            return ray_trace_keyed_plain(scene, cfg, alb, emi, o, d, seeds,
+                                         pix, sample)
         return ray_trace_plain(scene, cfg, alb, emi, o, d, u)
     dev = alb.device
-    tcfg = _trace_config(cfg, table, alb, emi, n_rays=o.shape[-1])
+    tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
+                         n_rays=o.shape[-1])
     _ray_inputs(tcfg, o, d, u, dev)
+    if keyed:
+        _check("pix", pix, (tcfg.n_rays,), dev, torch.int32)
+        _check("sample", sample, (tcfg.n_rays,), dev, torch.int32)
+        entry, draws = "drt_ray_trace_keyed", (pix, sample)
+    else:
+        draws = (u,)
     lib = _library()
     out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
-    _launch(ray_trace, "wavefront tracer", lib.drt_error_string,
-            lib.drt_ray_trace, dev, ctypes.byref(tcfg), table.data_ptr(),
-            alb.data_ptr(), emi.data_ptr(), o.data_ptr(), d.data_ptr(),
-            u.data_ptr(), out.data_ptr())
+    _launch(ray_trace if build == "queue" else None, "wavefront tracer",
+            lib.drt_error_string, getattr(lib, entry), dev,
+            ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
+            emi.data_ptr(), o.data_ptr(), d.data_ptr(),
+            *(t.data_ptr() for t in draws), out.data_ptr())
     return out
 
 
@@ -1337,18 +1387,30 @@ def make_fused_adjoint(scene: Scene, cam, cfg: RenderConfig,
     return adjoint
 
 
-def make_pallas_tracer(scene: Scene, cfg: RenderConfig, plain: bool = False):
+def make_pallas_tracer(scene: Scene, cfg: RenderConfig, plain: bool = False,
+                       keyed: bool = False):
     """Build `trace(alb, emi, o, d, u) -> radiance f32[3, N]`: the bounce
     loop on the primary rays o, d (V3 of f32[N], or f32[3, N]) and the
     uniform tape u f32[D, 3, N], the same as `renderer.trace_rays(...,
-    tape=u)` (the JAX package's signature, tests/test_megakernel.py). The
-    kernel is the exact variant, at most `MAX_SHAPES` shapes and
+    tape=u)` (the JAX package's signature, tests/test_megakernel.py); or,
+    keyed=True, `trace(alb, emi, o, d, seeds, pix, sample)`, whose bounce
+    draws are drawn in the kernel from the keyed hash of (seeds[1], pix,
+    sample) (`ray_trace`'s keyed form), the same as key-mode `trace_rays`.
+    The kernel is the exact variant, at most `MAX_SHAPES` shapes and
     `MAX_ROWS` table rows. plain=True runs the plain twin on whatever
     device the tensors lie on (the "torch-wavefront" backend)."""
     table = None if plain else scene_table(scene)
 
-    def trace(alb, emi, o, d, u):
+    def trace(alb, emi, o, d, *draws):
         o, d = _stack3(o), _stack3(d)
+        if keyed:
+            seeds, pix, sample = draws
+            if plain:
+                return ray_trace_keyed_plain(scene, cfg, alb, emi, o, d,
+                                             seeds, pix, sample)
+            return ray_trace(scene, table, cfg, alb, emi, o, d, seeds=seeds,
+                             pix=pix, sample=sample)
+        (u,) = draws
         if plain:
             return ray_trace_plain(scene, cfg, alb, emi, o, d, u)
         return ray_trace(scene, table, cfg, alb, emi, o, d, u)

@@ -1,8 +1,8 @@
 """The path-regeneration kernels over the scene table: two CUDA kernels
 and their plain PyTorch versions.
 
-The port of `drt_tpu.ops.regen`. One lane is one PIXEL: it renders its
-`spp_c = spp / spp_chunks` samples of a chunk one after the other. A trip
+The port of `drt_tpu.ops.regen`. A lane renders the `spp_c = spp /
+spp_chunks` samples of a pixel's chunk one after the other. A trip
 is one bounce of every lane at the lane's own depth, and a lane whose path
 has died starts its next sample's camera ray in the same trip (`want`)
 instead of idling until the deepest path of a lockstep wavefront ends.
@@ -25,11 +25,13 @@ Where this differs from the TPU kernels. There the lanes of a
 (tile_rows, 128) tile share one trip counter, finished lanes write dead
 rows until the tile is done and `trips` is per tile; `tile_rows`, the
 tile-rows choice and the 12 MiB guard of the JAX renderer describe the
-TPU's VMEM. Here the unit is the thread: `trips` is per pixel, a pixel's
-rows beyond its own count are NEVER written (the buffers come from
-`torch.empty`) and nothing reads them, and the factories take no
-`tile_rows`. The chunk dimension is always there, also for C == 1. The
-limits are the fused family's: 64 shapes, 64 table rows, 32 bounces.
+TPU's VMEM. Here the unit is the lane: `trips` is per pixel and chunk,
+the kernel's lanes take (pixel, chunk) units on a persistent grid as they
+free up (csrc/regen_tracer.cu), a pixel's rows beyond its own count are
+NEVER written (the buffers come from `torch.empty`) and nothing reads
+them, and the factories take no `tile_rows`. The chunk dimension is
+always there, also for C == 1. The limits are the fused family's: 64
+shapes, 64 table rows, 32 bounces.
 
 Draws are the keyed hash of `ops.rng` over (seed, pixel, sample, bounce,
 dim), chunk c starting at sample `sample_base + c * spp_c`: the lockstep
@@ -61,7 +63,8 @@ from drt_tpu_torch.scene import Scene
 SOURCE = "regen_tracer.cu"
 ADJOINT_SOURCE = "regen_adjoint.cu"
 # Counters of the checking builds (REGEN_N_STATS in csrc/regen_body.cuh):
-# the four of the dyn family's cull, then lane-trips, the lane groups that
+# the four of the dyn family's cull (the scene-table tracer: the lane-trips
+# that ran a bounce, in the first), then lane-trips, the warp-trips that
 # ran them, and the same for the trips that ended live.
 N_STATS = 8
 STAT_NAMES = ("lane_bounces", "warp_bounces", "lane_leaves", "warp_leaves",
@@ -300,19 +303,21 @@ def rows_by_sample(cfg: RenderConfig, rsc: torch.Tensor,
 # The kernels' wrappers.
 
 def _library() -> ctypes.CDLL:
-    """The tracer library: drt_regen_trace, drt_regen_collect,
-    drt_regen_stats, drt_regen_sections."""
+    """The tracer library: drt_regen_trace, drt_regen_collect, the
+    checking build drt_regen_stats and the grid query drt_regen_grid."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
     if lib.drt_regen_trace.argtypes is None:
         both = (mk._DrtTrace, mk._DrtCamera)
-        # scene, alb, emi, sample_base, out, trips, [rsc, rmeta | stats,]
-        # stream
-        mk._bind(lib, "drt_regen_trace", 7, both, n_ints_at=(3,))
-        mk._bind(lib, "drt_regen_collect", 9, both, n_ints_at=(3,))
-        mk._bind(lib, "drt_regen_stats", 8, both, n_ints_at=(3,))
-        mk._bind(lib, "drt_regen_sections", 8, both, n_ints_at=(3,))
+        # scene, alb, emi, sample_base, out, trips, [rsc, rmeta,] scratch,
+        # [stats,] stream
+        mk._bind(lib, "drt_regen_trace", 8, both, n_ints_at=(3,))
+        mk._bind(lib, "drt_regen_collect", 10, both, n_ints_at=(3,))
+        mk._bind(lib, "drt_regen_stats", 9, both, n_ints_at=(3,))
+        lib.drt_regen_grid.argtypes = ([ctypes.c_int] * 4
+                                       + [ctypes.POINTER(ctypes.c_int)] * 2)
+        lib.drt_regen_grid.restype = ctypes.c_int
         lib.drt_regen_error_string.argtypes = [ctypes.c_int]
         lib.drt_regen_error_string.restype = ctypes.c_char_p
         mk._check_limits(SOURCE, lib.drt_regen_limits,
@@ -369,6 +374,14 @@ def trip_buffers(cfg: RenderConfig, n_chunks: int, collect: bool, dev):
             torch.empty(shape, dtype=torch.int32, device=dev))
 
 
+def _scratch(cfg: RenderConfig, n_chunks: int, dev) -> torch.Tensor:
+    """The tracer's scratch: its batch counter (16 bytes) and, over more
+    than one chunk, the radiance of each (pixel, chunk) unit f32[C, 3,
+    n_pix] after it."""
+    sums = 3 * n_chunks * cfg.width * cfg.height if n_chunks > 1 else 0
+    return torch.empty(4 + sums, dtype=torch.float32, device=dev)
+
+
 def check_rows(cfg: RenderConfig, n_chunks: int, rsc, rcode, trips, g,
                dev) -> None:
     """Shapes and types of what a sweep kernel reads."""
@@ -383,12 +396,15 @@ def check_rows(cfg: RenderConfig, n_chunks: int, rsc, rcode, trips, g,
 def stats_dict(stats: torch.Tensor, trips: torch.Tensor, out) -> dict:
     """A checking build's counters by name, with what `trips` says and the
     radiance. `warp_trips` is the least number of trips the warps of a
-    launch must run: a warp (32 consecutive pixels; a block is 128) runs
-    until the pixel with the most trips over all chunks is done, since a
-    thread goes on to its next chunk without waiting for its warp. The
-    memory-resident tracer's warps run exactly that many (its checking
-    build's `group_trips`). `warp_trips_by_chunk` is what they would run
-    if they did wait."""
+    grid of one thread per pixel must run (the memory-resident tracer's:
+    a warp of 32 consecutive pixels runs until the pixel with the most
+    trips over all chunks is done, since a lane goes on to its next chunk
+    without waiting for its warp), and its checking build's `group_trips`
+    equal it; `warp_trips_by_chunk` is what they would run if they did
+    wait. The scene-table tracer hands its units out to lanes as they free
+    up and writes a dying trip's row without a bounce: its `group_trips`
+    (warp-trips that ran a bounce) hold its `lane_bounces` (the lane-trips
+    that ran one), at most 32 each, and `lane_trips` counts every trip."""
     d = dict(zip(STAT_NAMES, stats.tolist()))
     n_chunks, npix = trips.shape
     per_warp = torch.nn.functional.pad(trips, (0, -npix % 32)).reshape(
@@ -404,20 +420,24 @@ def stats_dict(stats: torch.Tensor, trips: torch.Tensor, out) -> dict:
 def _launch_tracer(wrapper, what: str, entry_name: str,
                    table: torch.Tensor, cc: mk.CameraConsts,
                    cfg: RenderConfig, alb, emi, seeds, fastmath: bool,
-                   n_chunks: int, sample_base: int, buffers) -> None:
+                   n_chunks: int, sample_base: int, buffers,
+                   stats=None) -> None:
     """Launch one of the tracer library's forms into `buffers` (out, trips
-    and, for the collect form, rsc and rmeta; for the checking build,
-    stats) and count it on `wrapper` (None: not counted)."""
+    and, for the collect form, rsc and rmeta), with its scratch and, for
+    the checking build, stats; count it on `wrapper` (None: not
+    counted)."""
     dev = alb.device
     tcfg = per_pixel(mk._trace_config(cfg, table, alb, emi, seeds=seeds,
                                       fastmath=fastmath, n_chunks=n_chunks),
                      cfg)
+    scratch = _scratch(cfg, n_chunks, dev)
     lib = _library()
     mk._launch(wrapper, what, lib.drt_regen_error_string,
                getattr(lib, entry_name), dev, ctypes.byref(tcfg),
                ctypes.byref(mk._camera_struct(cc)), table.data_ptr(),
                alb.data_ptr(), emi.data_ptr(), sample_base,
-               *(t.data_ptr() for t in buffers))
+               *(t.data_ptr() for t in buffers), scratch.data_ptr(),
+               *(() if stats is None else (stats.data_ptr(),)))
 
 
 def regen_trace(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
@@ -461,35 +481,42 @@ def regen_collect(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
 
 def regen_trip_stats(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
                      cfg: RenderConfig, alb: torch.Tensor,
-                     emi: torch.Tensor, seeds, *, n_chunks: int = 1) -> dict:
+                     emi: torch.Tensor, seeds, *,
+                     n_chunks: int = 1) -> dict:
     """Run the tracer's checking build (fast variant) on the card and
-    return its counters (`stats_dict`). Not counted as a launch of the
-    tracer."""
+    return its counters (`stats_dict`) and the clock64() cycles of each
+    section of its warp-trips by name (`cycles`, `megakernel.SECTIONS`,
+    timed by the first active lane of the warp). Not counted as a launch
+    of the tracer."""
     check_regen_args(cfg, seeds, n_chunks, 0)
     out, trips = trip_buffers(cfg, n_chunks, False, alb.device)
-    stats = torch.zeros(N_STATS, dtype=torch.int64, device=alb.device)
+    stats = torch.zeros(N_STATS + mk.N_SECT, dtype=torch.int64,
+                        device=alb.device)
     _launch_tracer(None, "regeneration trip-stats", "drt_regen_stats", table,
                    cc, cfg, alb, emi, seeds, True, n_chunks, 0,
-                   (out, trips, stats))
-    return stats_dict(stats, trips, out)
+                   (out, trips), stats)
+    d = stats_dict(stats[:N_STATS], trips, out)
+    d["cycles"] = dict(zip(mk.SECTIONS, stats[N_STATS:].tolist()))
+    return d
 
 
-def regen_sections(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
-                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
-                   seeds, *, n_chunks: int = 1) -> dict:
-    """Run the tracer's timing build (fast variant) on the card and return
-    the clock64() cycles of each section of its trips by name
-    (`megakernel.SECTIONS`; timed by the first active lane of each lane
-    group that runs it), with `trips` and the radiance. Not counted as a
-    launch of the tracer."""
-    check_regen_args(cfg, seeds, n_chunks, 0)
-    out, trips = trip_buffers(cfg, n_chunks, False, alb.device)
-    stats = torch.zeros(mk.N_SECT, dtype=torch.int64, device=alb.device)
-    _launch_tracer(None, "regeneration sections", "drt_regen_sections", table,
-                   cc, cfg, alb, emi, seeds, True, n_chunks, 0,
-                   (out, trips, stats))
-    return dict(cycles=dict(zip(mk.SECTIONS, stats.tolist())), trips=trips,
-                radiance=out)
+def regen_grid(cfg: RenderConfig, *, n_chunks: int = 1, collect: bool = False,
+               fastmath: bool = True) -> dict:
+    """The tracer's persistent grid on this card: the blocks an SM holds
+    (the occupancy API), the SMs, the blocks launched and the lanes they
+    hold (at most a lane per (pixel, chunk) unit)."""
+    lib = _library()
+    per_sm, grid = ctypes.c_int(), ctypes.c_int()
+    rc = lib.drt_regen_grid(int(fastmath), int(collect),
+                            cfg.width * cfg.height, n_chunks,
+                            ctypes.byref(per_sm), ctypes.byref(grid))
+    if rc:
+        raise RuntimeError("regeneration grid query: "
+                           + lib.drt_regen_error_string(rc).decode())
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return dict(blocks_per_sm=per_sm.value, sms=sms, grid=grid.value,
+                lanes=grid.value * mk.BLOCK)
 
 
 def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,

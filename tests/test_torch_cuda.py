@@ -945,6 +945,122 @@ def test_wavefront_wrappers_check_inputs(dev):
             alb, emi, o, d, torch.rand((33, 3, 64), device=dev), g)
 
 
+@pytest.mark.parametrize("depth", [1, 5, 32])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                     gallery.build_tri])
+def test_ray_queue_equals_the_lockstep_build(dev, make, depth):
+    """B5a's queue in both forms = its lockstep build
+    (`drt_ray_trace_lockstep`) bit for bit, at 30x20x4 spp (a warp's last
+    round of the queue is partial): on a random tape; on B1's own rays and
+    hash tape, where the tape form, the keyed form (B1's spp-outer ids)
+    and the lockstep build all equal B1 (exact, internal RNG); and on the
+    wavefront's own rays and ids (spp-minor), where the keyed form equals
+    the tape form and the lockstep build fed `bounce_tape` of those ids."""
+    from drt_tpu_torch.ops.rng import bounce_tape
+    from drt_tpu_torch.renderer import (chunk_pixel_ids, chunk_rays,
+                                        chunk_sample_ids)
+
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=depth)
+    scene, params, cam, alb, emi = _setup(make, dev)
+    table = mk.scene_table(scene)
+    npix, n = 600, 2400
+
+    def trace(o, d, *tape, **kw):
+        return mk.ray_trace(scene, table, cfg, alb, emi, o, d, *tape, **kw)
+
+    before = mk.ray_trace.launches
+    cam_u, tape, _ = _tape_inputs(dev, n, depth=depth, seed=depth)
+    o, d = _wavefront_rays(cam, cfg, cam_u, exact_division=True)
+    L = trace(o, d, tape)
+    assert torch.isfinite(L).all()
+    assert torch.equal(L, trace(o, d, tape, build="lockstep"))
+    seeds = torch.tensor([depth, -3], dtype=torch.int32)
+    cam_h, tape_h = hash_tapes(seeds, npix, 4, depth, device=dev)
+    o, d = _wavefront_rays(cam, cfg, cam_h, exact_division=True)
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    L_b1 = mk.make_fused_tracer(scene, cam, cfg)(alb, emi, seeds)
+    assert torch.isfinite(L_b1).all() and (depth == 1 or L_b1.mean() > 0)
+    for got in (trace(o, d, tape_h), trace(o, d, tape_h, build="lockstep"),
+                trace(o, d, seeds=seeds, pix=i % npix, sample=i // npix)):
+        assert torch.equal(got, L_b1)
+    xy = chunk_pixel_ids(cfg, dev)
+    pix, smp = chunk_sample_ids(cfg, xy, 0)
+    o, d, _ = chunk_rays(cam, cfg, xy, seeds, 0)
+    o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+    keyed = trace(o, d, seeds=seeds, pix=pix.int(), sample=smp.int())
+    tape_w = bounce_tape(int(seeds[1]), pix, smp, depth)
+    assert torch.equal(keyed, trace(o, d, tape_w))
+    assert torch.equal(keyed, trace(o, d, tape_w, build="lockstep"))
+    torch.cuda.synchronize()
+    assert mk.ray_trace.launches == before + 5  # the lockstep build: none
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 16])
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("shape", ["61x47", "640x480"])
+def test_regen_tracer_on_its_persistent_grid(dev, shape, fastmath, chunks):
+    """B10's trip loop on a persistent grid at 61x47 = 2867 pixels (19 in
+    the last batch of 32) with 2 samples a chunk and at the main shape's
+    640x480 with 16, over 1, 3 and 16 chunks: the tracer = the collect
+    form (radiance, trips) = per-chunk launches with sample_base (and
+    their rows by sample); rows by sample = the lockstep collect tracer's
+    residuals; per-sample radiance (one sample a chunk) = the lockstep
+    tracer's; the checking build's radiance is the tracer's, it counts
+    every trip, and its warp-trips run at most 32 bounces each."""
+    from drt_tpu_torch.ops import regen as rg
+
+    W, H, spp_c = (61, 47, 2) if shape == "61x47" else (640, 480, 16)
+    npix = W * H
+    cfg = RenderConfig(width=W, height=H, spp=spp_c * chunks,
+                       spp_chunks=chunks, max_depth=5)
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    seeds = torch.tensor([606, 17], dtype=torch.int32)
+    kw = dict(fastmath=fastmath, n_chunks=chunks)
+    L, trips = rg.make_regen_tracer(scene, cam, cfg, **kw)(alb, emi, seeds)
+    assert L.shape == (3, npix) and trips.shape == (chunks, npix)
+    assert int(trips.min()) >= spp_c and int(trips.max()) <= rg.t_cap(cfg)
+    Lc, rsc, rows, trips_c = rg.make_regen_tracer(
+        scene, cam, cfg, collect=True, **kw)(alb, emi, seeds)
+    assert torch.equal(Lc, L) and torch.equal(trips_c, trips)
+
+    def by_sample(c, rsc, rows, trips):
+        return rg.rows_by_sample(c, rsc, rows, trips, 8, 0xFF, 0)
+
+    sc_u, code_u = by_sample(cfg, rsc, rows, trips)
+    cfg_1 = RenderConfig(width=W, height=H, spp=spp_c, max_depth=5)
+    one = rg.make_regen_tracer(scene, cam, cfg_1, collect=True,
+                               fastmath=fastmath)
+    L_sum = None
+    for c in range(chunks):
+        Lq, rsc_q, rows_q, trips_q = one(alb, emi, seeds, c * spp_c)
+        L_sum = Lq if L_sum is None else L_sum + Lq
+        assert torch.equal(trips_q[0], trips[c])
+        for a, b in zip(by_sample(cfg_1, rsc_q, rows_q, trips_q),
+                        (sc_u[c], code_u[c])):
+            assert torch.equal(a[0], b)
+        del rsc_q, rows_q
+    assert torch.equal(L_sum, L)
+    _, rsc_l, rcode_l = mk.make_fused_collect_tracer(scene, cam, cfg, **kw)(
+        alb, emi, seeds)
+    assert torch.equal(sc_u, rsc_l.reshape(sc_u.shape))
+    assert torch.equal(code_u, rcode_l.reshape(code_u.shape))
+    del rsc, rows, sc_u, code_u, rsc_l, rcode_l
+    cfg_s = RenderConfig(width=W, height=H, spp=chunks, spp_chunks=chunks,
+                         max_depth=5)
+    Ls, _ = rg.make_regen_tracer(scene, cam, cfg_s, **kw)(alb, emi, seeds)
+    assert torch.equal(Ls, mk.make_fused_tracer(scene, cam, cfg_s, **kw)(
+        alb, emi, seeds))
+    if fastmath:
+        st = rg.regen_trip_stats(scene, mk.scene_table(scene),
+                                 mk.camera_consts(cam, W, H), cfg, alb, emi,
+                                 seeds, n_chunks=chunks)
+        assert torch.equal(st.pop("radiance"), L)
+        assert st["lane_trips"] == st["trips_sum"] == int(trips.sum())
+        assert st["live_trips"] <= st["lane_bounces"] <= st["lane_trips"]
+        assert 32 * st["group_trips"] >= st["lane_bounces"]
+        assert st["group_trips"] >= -(-st["lane_bounces"] // 32)
+
+
 def test_constructors_default_to_the_card(dev):
     from drt_tpu_torch.camera import default_camera
 

@@ -165,7 +165,7 @@ def source_sections(csrc: Path) -> dict:
     tri = _line_of(inc, "} else {  // TRIANGLE", sphere)
     valid = _line_of(inc, "if (valid && tk < best_t)", tri)
     shade = _line_of(common, "static __device__ __forceinline__ void shade(")
-    shade_end = _line_of(common, "// Counting in a checking build", shade)
+    shade_end = _line_of(common, "// The grid of a persistent kernel", shade)
     hash0 = _line_of(common, "static __device__ __forceinline__ uint32_t fmix")
     hash1 = _line_of(common, "// max(x, 0) that keeps NaN", hash0)
     cam0 = _line_of(common, "static __device__ __forceinline__ void "
@@ -257,6 +257,254 @@ def sass_counts(native, csrc: Path, kernels: list, out_dir: Path) -> dict:
 
 # ---------------------------------------------------------------------------
 
+def regen_occupancy(torch, native, root: Path) -> dict:
+    """Resident blocks per SM of B10's two forms (fast variant) by the
+    occupancy API, from a scratch library that includes root's
+    csrc/regen_tracer.cu (its kernel template regen_trace_kernel<FAST,
+    COLLECT, COUNT>), with the SM count."""
+    import ctypes
+
+    csrc = root / "drt_tpu_torch" / "csrc"
+    out_dir = root / "drt_tpu_torch" / "_build" / "occupancy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "regen_occupancy.cu"
+    src.write_text(
+        f'#include "{csrc / "regen_tracer.cu"}"\n'
+        'extern "C" int drt_occupancy(int collect, int* per_sm, int* sms) {\n'
+        '  cudaError_t e = cudaDeviceGetAttribute(\n'
+        '      sms, cudaDevAttrMultiProcessorCount, 0);\n'
+        '  if (e != cudaSuccess) return (int)e;\n'
+        '  return (int)(collect\n'
+        '      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n'
+        '            per_sm, regen_trace_kernel<true, true, false>, DRT_BLOCK,'
+        ' 0)\n'
+        '      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n'
+        '            per_sm, regen_trace_kernel<true, false, false>,'
+        ' DRT_BLOCK, 0));\n'
+        '}\n')
+    lib_path = out_dir / "regen_occupancy.so"
+    subprocess.run([native.nvcc_path(), *native.NVCC_FLAGS, "-o",
+                    str(lib_path), str(src)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    out = {}
+    for collect in (0, 1):
+        per_sm, sms = ctypes.c_int(), ctypes.c_int()
+        rc = lib.drt_occupancy(collect, ctypes.byref(per_sm),
+                               ctypes.byref(sms))
+        if rc:
+            raise RuntimeError(f"occupancy query failed: {rc}")
+        out["collect" if collect else "tracer"] = per_sm.value
+        out["sms"] = sms.value
+    return out
+
+
+def regen_cycles(rg, stats: dict, scene, table, cc, cfg, alb, emi,
+                 seeds) -> dict:
+    """B10's cycles by section: from its checking build's counters, or,
+    in a checkout whose timing build is a form of its own, from that."""
+    if "cycles" in stats:
+        return stats.pop("cycles")
+    return rg.regen_sections(scene, table, cc, cfg, alb, emi, seeds,
+                             n_chunks=cfg.spp_chunks)["cycles"]
+
+
+def parts(torch, label: str, root: Path) -> None:
+    """The parts of one chunk of the "cuda-wavefront" forward at the main
+    shape (chunk_rays, the keyed draw of the tape, B5a in each form the
+    checkout has) and B5a's live lane-bounces on it; B10 at the main
+    shape: resident blocks per SM and waves, lane-trips and the lane
+    groups (a grid of one thread per pixel) or warp-trips (the persistent
+    grid) that ran them, cycles per section, the spread of trips over
+    pixels and over (pixel, chunk) units, the persistent grid where the
+    checkout has one, and both forms timed in each hand-out the checkout
+    has, with their digests; then the "cuda-regen" and "cuda-wavefront"
+    paths (`wave_and_regen_paths`)."""
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.ops.rng import bounce_tape
+    from drt_tpu_torch.ops.vecmath import V3
+    from drt_tpu_torch.renderer import (chunk_pixel_ids, chunk_rays,
+                                        chunk_sample_ids, trace_rays)
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+    from drt_tpu_torch.utils import native
+
+    dev = torch.device("cuda")
+    cfg = RenderConfig(**MAIN)
+    C, D = cfg.spp_chunks, cfg.max_depth
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    table = mk.scene_table(scene)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    npix = cfg.width * cfg.height
+
+    # One chunk of the wavefront forward, its parts in the forward's order.
+    xy = chunk_pixel_ids(cfg, dev)
+    pix, smp = chunk_sample_ids(cfg, xy, 1)
+    n = pix.shape[0]
+    ms_rays, win, (o, d, _) = cuda_ms(
+        torch, lambda: chunk_rays(cam, cfg, xy, seeds, 1))
+    emit("kernel", label, name="wavefront chunk_rays, one chunk", ms=ms_rays,
+         windows=win)
+    ms_draw, win, u = cuda_ms(
+        torch, lambda: bounce_tape(int(seeds[1]), pix, smp, D))
+    emit("kernel", label, name="wavefront bounce_tape, one chunk",
+         ms=ms_draw, windows=win)
+    o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+    ms, win, L = cuda_ms(torch, lambda: mk.ray_trace(scene, table, cfg, alb,
+                                                     emi, o, d, u))
+    emit("kernel", label, name="B5a tape form, forward's chunk", ms=ms,
+         windows=win)
+    emit("digest", label, name="B5a radiance, forward's chunk",
+         sha256=digest(L))
+    keyed = "seeds" in inspect.signature(mk.ray_trace).parameters
+    if keyed:
+        pix32, smp32 = pix.int(), smp.int()
+        ms, win, Lk = cuda_ms(torch, lambda: mk.ray_trace(
+            scene, table, cfg, alb, emi, o, d, seeds=seeds, pix=pix32,
+            sample=smp32))
+        emit("kernel", label, name="B5a keyed form, forward's chunk", ms=ms,
+             windows=win, equal_tape_form=bool(torch.equal(Lk, L)))
+        ms, win, Ll = cuda_ms(torch, lambda: mk.ray_trace(
+            scene, table, cfg, alb, emi, o, d, u, build="lockstep"))
+        emit("kernel", label, name="B5a lockstep build, forward's chunk",
+             ms=ms, windows=win, equal_queue=bool(torch.equal(Ll, L)))
+        del Lk, Ll
+    _, res = trace_rays(Params(alb[:-1], emi[:-1]), scene, V3(*o), V3(*d),
+                        cfg, tape=u, collect=True)
+    live = int((res.gate > 0).sum())
+    emit("parts", label, what="B5a, forward's chunk", rays=n,
+         live_lane_bounces=live, lane_bounces=n * D,
+         live_share=live / (n * D), chunk_rays_ms=ms_rays,
+         bounce_tape_ms=ms_draw)
+    del o, d, u, L, res
+    torch.cuda.empty_cache()
+
+    # B10 at the main shape.
+    kw = dict(fastmath=True, n_chunks=C)
+    cc = mk.camera_consts(cam, cfg.width, cfg.height)
+    occ = regen_occupancy(torch, native, root)
+    blocks = -(-npix // mk.BLOCK)
+    emit("parts", label, what="B10 occupancy", blocks_per_sm=occ,
+         pixel_grid_blocks=blocks,
+         waves={f: blocks / (occ[f] * occ["sms"])
+                for f in ("tracer", "collect")},
+         resident_lanes={f: occ[f] * occ["sms"] * mk.BLOCK
+                         for f in ("tracer", "collect")})
+    for _ in range(2):  # the first is the warm-up
+        st = rg.regen_trip_stats(scene, table, cc, cfg, alb, emi, seeds,
+                                 n_chunks=C)
+    out = st.pop("radiance")
+    cycles = regen_cycles(rg, st, scene, table, cc, cfg, alb, emi, seeds)
+    _, trips_i = rg.regen_trace(scene, table, cc, cfg, alb, emi, seeds,
+                                fastmath=True, n_chunks=C)
+    trips = trips_i.long()  # [C, npix]
+    per_pix = trips.sum(dim=0)
+    lanes = occ["tracer"] * occ["sms"] * mk.BLOCK
+    # What the warps of each hand-out need at least: a pixel unit runs a
+    # pixel's chunks in one lane, so a lane's trips are whole pixels' (the
+    # lanes of the pixel grid: 2 or 3 pixels each at this shape); a (pixel,
+    # chunk) unit spreads a lane's trips over ~C times more units.
+    emit("parts", label, what="B10 trips", **st,
+         cycles_per_group_trip={k: v / st["group_trips"]
+                                for k, v in cycles.items()},
+         pixel_trips_mean=float(per_pix.float().mean()),
+         pixel_trips_max=int(per_pix.max()),
+         pixel_trips_min=int(per_pix.min()),
+         unit_trips_mean=float(trips.float().mean()),
+         unit_trips_max=int(trips.max()),
+         lane_trips_if_even=float(per_pix.sum()) / lanes,
+         pixels_per_lane=npix / lanes,
+         radiance_digest=digest(out))
+    emit("digest", label, name="B10 radiance, main shape, fast",
+         sha256=digest(out))
+    emit("digest", label, name="B10 trips, main shape, fast",
+         sha256=digest(trips_i))
+    del out, trips, trips_i
+    if hasattr(rg, "regen_grid"):
+        for collect in (False, True):
+            emit("parts", label, what="B10 grid", collect=collect,
+                 **rg.regen_grid(cfg, n_chunks=C, collect=collect))
+    # Both forms in each hand-out the checkout has, with their digests.
+    for unit in getattr(rg, "UNITS", (None,)):
+        ukw = {} if unit is None else dict(unit=unit)
+        ms, win, (L, trips) = cuda_ms(torch, lambda: rg.regen_trace(
+            scene, table, cc, cfg, alb, emi, seeds, **kw, **ukw))
+        emit("kernel", label, name=f"B10 tracer, unit {unit}", ms=ms,
+             windows=win, radiance=digest(L), trips=digest(trips))
+        ms, win, (L, rsc, rmeta, trips) = cuda_ms(
+            torch, lambda: rg.regen_collect(scene, table, cc, cfg, alb, emi,
+                                            seeds, **kw, **ukw))
+        own = (torch.arange(rsc.shape[1], device=dev)[None, :, None]
+               < trips[:, None, :])
+        emit("kernel", label, name=f"B10 collect form, unit {unit}", ms=ms,
+             windows=win, radiance=digest(L), trips=digest(trips),
+             rows=[digest(torch.where(own, rsc, 0.0)),
+                   digest(torch.where(own, rmeta, 0))])
+        del L, rsc, rmeta, trips, own
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    wave_and_regen_paths(torch, label, scene, params, cam)
+
+
+def wave_and_regen_paths(torch, label: str, scene, params, cam) -> None:
+    """The "cuda-wavefront" and "cuda-regen" paths at the main shape on the
+    host clock with a synchronize (median of 5 after 2 warm-ups, the
+    wavefront's of 3 after 1): forward, a biased fwd+bwd step (stored for
+    regen), the trainer step (3 steps after 1, over 3), with digests of
+    the forward's images."""
+    from drt_tpu_torch import optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params
+
+    cfg = RenderConfig(**MAIN)
+    s_img = torch.tensor([1, 2], dtype=torch.int32)
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    start = params.albedo.clone()
+    start[1] = torch.tensor([0.2, 0.15, 0.1], device=start.device)
+    for backend, reps, warmup in (("cuda-regen", 5, 2),
+                                  ("cuda-wavefront", 3, 1)):
+        render = make_renderer(scene, cfg, cam, differentiable=False,
+                               backend=backend)
+        img = render(params, s_img)
+        emit("digest", label, name=f"{backend} image, main shape",
+             sha256=digest(img))
+        med, times = host_s(torch, lambda: render(params, s_img), reps,
+                            warmup)
+        emit("path", label, name=f"{backend} forward, main shape", s=med,
+             times=times)
+        target = img.detach()
+        diff = make_renderer(scene, cfg, cam, backend=backend)
+
+        def step():
+            p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
+            ((diff(p, s_img) - target) ** 2).mean().backward()
+            return p.albedo.grad, p.emission.grad
+
+        emit("digest", label, name=f"{backend} step gradients, main shape",
+             sha256=[digest(t) for t in step()])
+        med, times = host_s(torch, step, reps, warmup)
+        emit("path", label, name=f"{backend} fwd+bwd step, main shape",
+             s=med, times=times)
+
+        def train(n_steps):
+            t0 = time.perf_counter()
+            optim.inverse_render(scene, cfg, cam, target,
+                                 Params(start, params.emission),
+                                 torch.Generator().manual_seed(5),
+                                 steps=n_steps, backend=backend)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        train(1)  # warm-up
+        emit("path", label, name=f"{backend} trainer step", s=train(3) / 3)
+        del render, diff, target, img
+        torch.cuda.empty_cache()
+
+
 def breakdown(torch, label: str, root: Path, queue: bool) -> None:
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.models import cbox
@@ -307,17 +555,16 @@ def breakdown(torch, label: str, root: Path, queue: bool) -> None:
                  live_by_bounce=None if q else by_bounce,
                  live_hist=None if q else hist.tolist(), **extra)
             del st
-    # B10's trips, in its timing build, and its lane groups.
-    for _ in range(2):
-        sec = rg.regen_sections(scene, table, cc, cfg, alb, emi, seeds,
-                                n_chunks=C)
-    ts = rg.regen_trip_stats(scene, table, cc, cfg, alb, emi, seeds,
-                             n_chunks=C)
+    # B10's trips, in its timing build, and its warp-trips.
+    for _ in range(2):  # the first is the warm-up
+        ts = rg.regen_trip_stats(scene, table, cc, cfg, alb, emi, seeds,
+                                 n_chunks=C)
+    cycles = regen_cycles(rg, ts, scene, table, cc, cfg, alb, emi, seeds)
     emit("breakdown", label, what="regen tracer (B10)",
-         cycles=sec["cycles"], group_trips=ts["group_trips"],
+         cycles=cycles, group_trips=ts["group_trips"],
          lane_trips=ts["lane_trips"],
          cycles_per_group_trip={s: v / ts["group_trips"]
-                                for s, v in sec["cycles"].items()})
+                                for s, v in cycles.items()})
     # B4's lockstep loop in its timing build: the bounce's sections, the
     # hook's stores, the sweep after each chunk and the block reduction.
     if hasattr(mk, "fused_adjoint_stats"):
@@ -772,6 +1019,9 @@ def main() -> int:
     ap.add_argument("--queue", action="store_true")
     ap.add_argument("--segments", action="store_true",
                     help="only B14, B4-seg and the compacted renderer")
+    ap.add_argument("--parts", action="store_true",
+                    help="only the parts of the wavefront's chunk and B10's "
+                         "launch")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     label = args.label or str(root)
@@ -800,6 +1050,8 @@ def main() -> int:
         breakdown(torch, label, root, args.queue)
     elif args.segments:
         segments_and_earlyexit(torch, label)
+    elif args.parts:
+        parts(torch, label, root)
     else:
         compare(torch, label)
     return 0
