@@ -68,7 +68,11 @@ Phases (any failure raises, exits non-zero and prints no result line):
      the scene-table tracer counts every trip, and its warp-trips run at
      most 32 bounces each), the scene-table tracer's persistent grid
      (blocks an SM holds, the occupancy API) and the SHA-256 digests of
-     its radiance, trips and rows;
+     its radiance, trips and rows; the scene-table sweep's window kernel
+     against its checking build (the per-pixel kernel), bit for bit, the
+     two timed in turns, at the main shape, on its one-chunk launch and
+     at the CLI's default shape (640x480x100, depth 32), where it is also
+     held to its plain version, with the kernel each launch runs;
  13. make_renderer(backend="cuda-regen" | "cuda-dyn-regen"): three seeds
      forward, the image against the lockstep image at the same seeds, a
      forward+backward step stored and retrace against "torch-regen" /
@@ -96,16 +100,17 @@ Phases (any failure raises, exits non-zero and prints no result line):
      lanes compacted between segments, each segment on the kernel chain's
      state; the split radiance scattered back against the tracer and the
      stitched adjoints against the retrace adjoint; bit for bit the
-     segment [0, 5) and the tracer, each segment adjoint (a queue of its
-     lanes past the camera, the lockstep loop from it) and its lockstep
-     checking build, and the early-exit tracer
+     segment [0, 5) and the tracer, each segment tracer and segment
+     adjoint (a queue of its lanes past the camera, the lockstep loop
+     from it) and its lockstep checking build, and the early-exit tracer
      (the exact tracer's queue) and the exact tracer in both of its builds
      (tape mode at the small shapes; the internal RNG at the main shape
      and at 640x480x32, depths 8, 16 and 32, where B14 and B1 are timed in
      turns and B14's SHA-256 digest printed); one chunk of the compacted
      chain at the main shape timed (segment before the split, the
-     compaction, segment after it, both adjoints in both builds, their
-     tables' and S_start's SHA-256 digests printed) and held against the
+     compaction, segment after it, both segment tracers and both
+     adjoints in both builds and the loop each runs, their outputs'
+     SHA-256 digests printed) and held against the
      twins, the lockstep builds, the tracer and the retrace adjoint on
      that chunk; then make_compacted_image_renderer at the
      main shape: three seeds forward against the fused tracer's exact
@@ -1114,6 +1119,61 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
                   (mk.make_fused_tracer(scene, cam, cfg_ps, **kw)(
                       alb, emi, seeds),))
 
+    def window_sweep_checks(label, scene, cam, alb, emi, cfg_m, rsc, rows,
+                            trips, g_main, d_sweep):
+        """B11's window kernel against its checking build (the per-pixel
+        kernel) bit for bit, the two timed in turns, at the main shape
+        (the rows given) and at the CLI's default shape (640x480x100,
+        depth 32, one chunk: the 32-bounce instance), where the window
+        kernel is also held to the plain version; the kernel each launch
+        runs."""
+        cli = RenderConfig(width=640, height=480, spp=100, max_depth=32)
+        for shape, cfg_s in (("main shape", cfg_m), ("CLI shape", cli)):
+            form = rg.regen_sweep_form(cfg_s, alb, emi)
+            print(f"[regen sweep] {label}, {shape}: the entry point runs "
+                  f"the {form} kernel", flush=True)
+            check(form == "window", f"{label}, {shape}: the sweep runs the "
+                  f"{form} kernel")
+            C_s = cfg_s.spp_chunks
+            g_s = g_main
+            if cfg_s is cli:
+                _, rsc, rows, trips = rg.make_regen_tracer(
+                    scene, cam, cli, collect=True, fastmath=True)(
+                    alb, emi, torch.tensor([7, 8], dtype=torch.int32))
+                g_s = torch.rand(
+                    (3, cli.width * cli.height), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(31)
+                ) / cli.spp
+            sweeps = {b: rg.make_regen_sweep_adjoint(scene, cfg_s,
+                                                     n_chunks=C_s, build=b)
+                      for b in mk.BUILDS}
+            times, outs = [], {}
+            for b in ("lockstep", "queue", "queue", "lockstep"):
+                t, _, outs[b] = cuda_ms(
+                    lambda: sweeps[b](alb, emi, rsc, rows, trips, g_s),
+                    **timing)
+                times.append(t)
+            same_bits(f"{label}: B11's window kernel = its checking build "
+                      f"(the per-pixel kernel) at the {shape}",
+                      outs["queue"], outs["lockstep"])
+            if cfg_s is cfg_m:
+                same_bits(f"{label}: the renderer's sweep = the window "
+                          "kernel at the main shape", d_sweep, outs["queue"])
+            else:
+                t_p, _, d_p = cuda_ms(lambda: rg.regen_sweep_plain(
+                    scene, cli, alb, emi, rsc, rows, trips, g_s),
+                    reps=1, warmup=0, windows=1)
+                compare_grads(f"{label}: B11 vs plain at the CLI shape",
+                              outs["queue"], d_p, GRAD_RTOL_MAIN)
+                print(f"[time] {label}: B11's plain version at the CLI "
+                      f"shape {t_p!r} ms", flush=True)
+                del rsc, rows, trips, d_p
+            print(f"[time] {label}: B11 at the {shape} (checking build, "
+                  f"window kernel, window kernel, checking build) "
+                  f"{times!r} ms on {smi_line}", flush=True)
+            del outs
+            torch.cuda.empty_cache()
+
     # Phases 12 and 13 at a main shape.
     def main_shape(fam, label, scene, params, cam, cfg_m, plain_full,
                    true_row, start_row, lock_backend):
@@ -1192,7 +1252,11 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
         same_bits(f"{label}: sweep over rows of NaN beyond each pixel's "
                   "trips at the main shape",
                   sweep(alb, emi, rsc_n, rows_n, trips, g_main), d_sweep)
-        del rsc_n, rows_n, rsc, rows
+        del rsc_n, rows_n
+        if fam is table:
+            window_sweep_checks(label, scene, cam, alb, emi, cfg_m, rsc,
+                                rows, trips, g_main, d_sweep)
+        del rsc, rows
 
         # One chunk against the plain versions.
         chunk = 1
@@ -1240,6 +1304,12 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
         err[sw] = compare_grads(
             f"{label}: sweep vs plain on the kernel's rows, chunk {chunk}",
             d_k, d_p, GRAD_RTOL_MAIN)
+        if fam is table:
+            same_bits(f"{label}: one-chunk sweep = its checking build (the "
+                      "per-pixel kernel)", d_k,
+                      rg.make_regen_sweep_adjoint(
+                          ks, cfg_c, build="lockstep")(
+                          alb, emi, rsc_k, rows_k, trips_k, g_main))
         del rsc_k, rows_k
         print(f"[time] {label} ({C} chunks of {spp_c} samples): {tr} "
               f"{ms[tr]!r} ms ({n_rays / ms[tr] / 1e3!r} Mrays/s), its "
@@ -2142,6 +2212,54 @@ def compact_phase(dev, smi_line: str, timing: dict) -> dict:
           f"the split before bounce {b} ({n_live / n_chunk!r} of the "
           f"chunk's rays)", flush=True)
     check(n_live <= caps[1], "live lanes beyond the capacity")
+    # B1-seg: the loop each segment runs (the queue past the camera, the
+    # lockstep loop from it), each segment against its lockstep checking
+    # build bit for bit (radiance, alive, the exit ray of the lanes alive
+    # at the split and +0 on the others), the two timed in turns.
+    forms = [mk.segment_trace_form(b0) for b0 in (0, b)]
+    print(f"[segment tracer] loops at the main shape: [0, {b}) {forms[0]}, "
+          f"[{b}, {D}) {forms[1]}", flush=True)
+    check(forms == ["lockstep", "queue"],
+          f"segment tracer loops {forms}, expected lockstep from the camera "
+          "and the queue past it")
+    seg_builds = {
+        build: (mk.make_fused_segment_tracer(scene, cam, cfg_m, 0, b,
+                                             build=build),
+                mk.make_fused_segment_tracer(scene, cam, cfg_m, b, D,
+                                             n_rays=caps[1], build=build))
+        for build in mk.BUILDS}
+    seg_times, seg_outs = {0: [], b: []}, {}
+    for build in ("lockstep", "queue", "queue", "lockstep"):
+        fA, fB = seg_builds[build]
+        t, _, outA = cuda_ms(lambda: fA(alb, emi, seeds, chunk=chunk),
+                             **timing)
+        seg_times[0].append(t)
+        t, _, outB = cuda_ms(lambda: fB(alb, emi, seeds, rayB, aliveB, cidx,
+                                        chunk=chunk), **timing)
+        seg_times[b].append(t)
+        seg_outs[build] = outA, outB
+    (qA, qB), (lA, lB) = seg_outs["queue"], seg_outs["lockstep"]
+    live_a = lA[1][1] > 0
+    same_bits(f"segment tracer [0, {b}) = its lockstep build at the main "
+              "shape (radiance, alive, the exit ray of the live lanes)",
+              (qA[0], qA[1][1], qA[1][0][:, live_a]),
+              (lA[0], lA[1][1], lA[1][0][:, live_a]))
+    check(bool(torch.equal(qA[1][0][:, ~live_a], lA[1][0][:, ~live_a])),
+          f"segment tracer [0, {b}): the exit ray of the dead lanes differs "
+          "from its lockstep build's")
+    same_bits(f"segment tracer [{b}, {D}) = its lockstep build at the main "
+              "shape (compacted)", (qB,), (lB,))
+    same_bits(f"segment tracer launches = the timed calls at the main shape",
+              (LA, ray, alive, LB), (qA[0], qA[1][0], qA[1][1], qB))
+    print(f"[digest] B1-seg [0, {b}) radiance, exit ray, alive and [{b}, "
+          f"{D}) radiance, compacted: "
+          f"{[digest(t) for t in (qA[0], qA[1][0], qA[1][1], qB)]}",
+          flush=True)
+    print(f"[time] segment tracer at the main shape, chunk {chunk} (lockstep "
+          f"build, entry point, entry point, lockstep build): [0, {b}) "
+          f"{seg_times[0]!r} ms, [{b}, {D}) on {caps[1]} lanes "
+          f"{seg_times[b]!r} ms on {smi_line}", flush=True)
+    del seg_outs, qA, qB, lA, lB, outA, outB, live_a
     # The compaction's index against a prefix sum and a scatter.
     on = alive > 0
     pos = torch.cumsum(on, 0) - 1

@@ -44,7 +44,13 @@
 //    bit. Bound like the tracer (the state costs 44 bytes per lane in and
 //    52 out, 0.08 ms per 4.9 M lanes at the card's memory rate, against
 //    0.25 ms or more of bounce work); the compaction between segments is
-//    the caller's (fused.make_compacted_image_renderer);
+//    the caller's (fused.make_compacted_image_renderer). Past the camera,
+//    where lanes enter dead (a compacted chain's [2, 5) runs 25.5% of its
+//    lane-bounces live), it runs the tracer's queue with each path started
+//    at its lane's state (segment_queue_trace_kernel), from the camera the
+//    lockstep loop (segment_trace_kernel), the faster there;
+//    drt_fused_segment_trace_lockstep, the checking build, runs the
+//    lockstep loop at every launch, the bit reference;
 //  - drt_earlyexit_trace replaces drt_tpu/ops/earlyexit.py:
 //    make_earlyexit_tracer (pallas_call at :170), which skips the bounces
 //    of a ray tile none of whose rays lives (pl.when on the tile's count).
@@ -151,6 +157,73 @@ static __host__ __device__ __forceinline__ int queue_log2_slots(int n_chunks) {
   int k = 5;
   while ((n_chunks << k) < 1024) ++k;
   return k;
+}
+
+// Words of a segment lane's entry that a warp stages (queue_trace.inc,
+// DRT_QUEUE_RAYS 2): the ray and throughput, the path key and the
+// roulette draw of bounce b0.
+#define SEGMENT_STAGE 11
+
+// The entry of lane i of a segment [b0, b1) of chunk `chunk` (queue_trace.inc,
+// DRT_QUEUE_RAYS 2): trace_segment's (fused_body.cuh), at the camera
+// (b0 == 0) or at the lane's state, with the path key of its ray slot
+// (INTERNAL) and the roulette of bounce b0 decided here, where the
+// lockstep loop decides it in the bounce. live: the path takes a trip;
+// st (o, d, T) is read only for a live lane.
+template <bool FAST, bool INTERNAL>
+static __device__ __forceinline__ void segment_entry(
+    const DrtTrace& cfg, const DrtCamera& cam,
+    const float* __restrict__ cam_u, const float* __restrict__ ray,
+    const int* __restrict__ alive_in, const int* __restrict__ ray_idx,
+    int b0, int chunk, int i, SegmentQueueTape& e, float st[9],
+    bool& live) {
+  int pix = 0;
+  uint32_t smp = 0u;
+  if (b0 == 0) {
+    primary_ray<FAST, INTERNAL>(cfg, cam, cam_u, i, chunk, pix, smp, st[3],
+                                st[4], st[5]);
+    st[0] = cam.eye[0]; st[1] = cam.eye[1]; st[2] = cam.eye[2];
+    st[6] = 1.0f; st[7] = 1.0f; st[8] = 1.0f;
+    live = true;
+  } else {
+    live = alive_in[i] > 0;
+    if (!live) return;
+    if (INTERNAL) {
+      const int npix = cfg.width * cfg.height;
+      const int r = ray_idx[i];
+      pix = r % npix;
+      smp = (uint32_t)(chunk * cfg.spp_c + r / npix);
+    }
+  }
+  if (INTERNAL) e.key = path_key(cfg.seed1, (uint32_t)pix, smp);
+  if (b0 >= cfg.min_bounces) {
+    e.u_rr = roulette_draw<INTERNAL>(cfg, e, i, b0);
+    live = !(e.u_rr < cfg.absorb);
+  }
+  if (!live || b0 == 0) return;
+  const size_t n = (size_t)cfg.n_rays;
+  for (int w = 0; w < 9; ++w) st[w] = ray[w * n + i];
+}
+
+// The end of lane i's path in a segment: its radiance and, unless the
+// segment ends at max_depth (ray_out == nullptr), its exit state. A lane
+// alive at b1 writes its ray and throughput st (o, d, T); a lane that
+// entered dead or died before b1 writes +0 for all nine, which is what
+// the lockstep loop leaves there for a finite throughput (a dead bounce
+// sets o = d = 0 and T = (T 0) 1 0) and what no reader reads (compaction
+// drops the lane, and the next segment's dead entry reads its alive
+// alone).
+static __device__ __forceinline__ void segment_exit(
+    int i, int K, bool alive, float lx, float ly, float lz,
+    const float st[9], float* __restrict__ out,
+    float* __restrict__ ray_out, int* __restrict__ alive_out) {
+  out[i] = lx;
+  out[K + i] = ly;
+  out[2 * K + i] = lz;
+  if (ray_out == nullptr) return;
+  const size_t n = (size_t)K;
+  for (int w = 0; w < 9; ++w) ray_out[w * n + i] = alive ? st[w] : 0.0f;
+  alive_out[i] = alive ? 1 : 0;
 }
 
 // The queue of (ray slot, chunk) paths: the loop of drt_fused_trace,
@@ -348,6 +421,55 @@ segment_trace_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1, int chunk,
   ray_out[8 * n + i] = p.Tz;
   alive_out[i] = p.alive ? 1 : 0;
 }
+
+// The segment tracer B1-seg on the queue (drt_fused_segment_trace where
+// segment_trace_takes_queue): the loop of queue_trace_kernel with one
+// chunk, each path started at bounce b0 of its lane and stopped at b1, the
+// lanes read 32 at a time by a warp and their live entries staged in
+// seg_stage and dealt to its idle threads (DRT_QUEUE_RAYS 2).
+// Instantiated with COLLECT = COUNT = false only.
+//
+// The bits: a live path runs the statements of fused_bounce.inc in the
+// order of its bounces, from the entry the lockstep loop (trace_segment)
+// starts from, with the same draws; the bounces it does not run are those
+// the lockstep loop runs dead, which add P e = +0 to a radiance that is
+// never -0 and leave the state at +0 (segment_exit). So the radiance, the
+// alive flag and the exit state of every lane alive at b1 are the lockstep
+// loop's bit for bit, and so is the rest for any finite throughput.
+#undef DRT_MARK
+#define DRT_MARK(k) marks.at(k, bnc, alive)
+template <bool FAST, bool INTERNAL, bool COLLECT, bool COUNT>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_queue_trace_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1,
+                           int chunk, const float* __restrict__ scene,
+                           const float* __restrict__ alb,
+                           const float* __restrict__ emi,
+                           const float* __restrict__ cam_u,
+                           const float* __restrict__ tape,
+                           const float* __restrict__ ray,
+                           const int* __restrict__ alive_in,
+                           const int* __restrict__ ray_idx,
+                           float* __restrict__ out,
+                           float* __restrict__ ray_out,
+                           int* __restrict__ alive_out) {
+  __shared__ float seg_stage[(DRT_BLOCK / 32) * SEGMENT_STAGE * 32];
+  float* sums = nullptr;
+  float* rsc = nullptr;
+  int* rbest = nullptr;
+  int* trips = nullptr;
+  unsigned long long* stats = nullptr;
+#define DRT_QUEUE_RAYS 2
+#include "queue_trace.inc"
+#undef DRT_QUEUE_RAYS
+}
+#undef DRT_MARK
+#define DRT_MARK(k)
+
+// Whether drt_fused_segment_trace runs the queue for a segment from
+// b_start, else the lockstep loop (segment_trace_kernel). From the camera
+// every lane enters live, and there the queue took 1.7x the lockstep
+// loop's time on a chunk of the main shape (PERF.md section 6).
+static bool segment_trace_takes_queue(int b_start) { return b_start > 0; }
 
 template <bool COLLECT>
 static int launch_lockstep(const DrtTrace* cfg, const DrtCamera* cam,
@@ -566,18 +688,20 @@ int drt_ray_trace_lockstep(const DrtTrace* cfg, const float* scene,
   return (int)cudaGetLastError();
 }
 
-// Bounces [b_start, b_end) of chunk `chunk` over cfg->n_rays lanes. The
-// camera's uniforms (tape mode) are read iff b_start == 0, the state
-// (ray, alive) iff b_start > 0, ray_idx iff b_start > 0 with the internal
-// RNG; the exit state is written iff b_end < max_depth. The tape is
-// f32[b_end - b_start, 3, n_rays].
-int drt_fused_segment_trace(const DrtTrace* cfg, const DrtCamera* cam,
-                            int b_start, int b_end, int chunk,
-                            const float* scene, const float* alb,
-                            const float* emi, const float* cam_u,
-                            const float* tape, const float* ray,
-                            const int* alive, const int* ray_idx, float* out,
-                            float* ray_out, int* alive_out, void* stream) {
+// Bounces [b_start, b_end) of chunk `chunk` over cfg->n_rays lanes, in
+// the loop segment_trace_takes_queue picks (lockstep != 0: the lockstep
+// loop). The camera's uniforms (tape mode) are read iff b_start == 0, the
+// state (ray, alive) iff b_start > 0, ray_idx iff b_start > 0 with the
+// internal RNG; the exit state is written iff b_end < max_depth. The tape
+// is f32[b_end - b_start, 3, n_rays].
+static int segment_trace(const DrtTrace* cfg, const DrtCamera* cam,
+                         int b_start, int b_end, int chunk,
+                         const float* scene, const float* alb,
+                         const float* emi, const float* cam_u,
+                         const float* tape, const float* ray,
+                         const int* alive, const int* ray_idx, float* out,
+                         float* ray_out, int* alive_out, int lockstep,
+                         void* stream) {
   const bool entry = b_start == 0, final = b_end == cfg->max_depth;
   if (!drt_cfg_ok(cfg) || cfg->n_chunks != 1 || b_start < 0 ||
       b_end <= b_start || b_end > cfg->max_depth || chunk < 0 ||
@@ -585,22 +709,69 @@ int drt_fused_segment_trace(const DrtTrace* cfg, const DrtCamera* cam,
       (!entry && (!ray || !alive || (cfg->internal_rng && !ray_idx))) ||
       (!final && (!ray_out || !alive_out)))
     return (int)cudaErrorInvalidValue;
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   float* ro = final ? nullptr : ray_out;
+  const bool queue = !lockstep && segment_trace_takes_queue(b_start);
+  int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
 #define DRT_LAUNCH(F, I)                                                  \
-  segment_trace_kernel<F, I><<<grid, DRT_BLOCK, 0, s>>>(                  \
-      *cfg, *cam, b_start, b_end, chunk, scene, alb, emi, cam_u, tape,    \
-      ray, alive, ray_idx, out, ro, alive_out)
+  if (queue) {                                                            \
+    auto kernel = segment_queue_trace_kernel<F, I, false, false>;         \
+    const cudaError_t e =                                                 \
+        queue_grid(kernel, (cfg->n_rays + 31) / 32 * 32, &grid);          \
+    if (e != cudaSuccess) return (int)e;                                  \
+    kernel<<<grid, DRT_BLOCK, 0, s>>>(                                    \
+        *cfg, *cam, b_start, b_end, chunk, scene, alb, emi, cam_u, tape,  \
+        ray, alive, ray_idx, out, ro, alive_out);                         \
+  } else {                                                                \
+    segment_trace_kernel<F, I><<<grid, DRT_BLOCK, 0, s>>>(                \
+        *cfg, *cam, b_start, b_end, chunk, scene, alb, emi, cam_u, tape,  \
+        ray, alive, ray_idx, out, ro, alive_out);                         \
+  }
   if (cfg->fast) {
-    if (cfg->internal_rng) DRT_LAUNCH(true, true);
-    else DRT_LAUNCH(true, false);
+    if (cfg->internal_rng) { DRT_LAUNCH(true, true) }
+    else { DRT_LAUNCH(true, false) }
   } else {
-    if (cfg->internal_rng) DRT_LAUNCH(false, true);
-    else DRT_LAUNCH(false, false);
+    if (cfg->internal_rng) { DRT_LAUNCH(false, true) }
+    else { DRT_LAUNCH(false, false) }
   }
 #undef DRT_LAUNCH
   return (int)cudaGetLastError();
+}
+
+int drt_fused_segment_trace(const DrtTrace* cfg, const DrtCamera* cam,
+                            int b_start, int b_end, int chunk,
+                            const float* scene, const float* alb,
+                            const float* emi, const float* cam_u,
+                            const float* tape, const float* ray,
+                            const int* alive, const int* ray_idx, float* out,
+                            float* ray_out, int* alive_out, void* stream) {
+  return segment_trace(cfg, cam, b_start, b_end, chunk, scene, alb, emi,
+                       cam_u, tape, ray, alive, ray_idx, out, ray_out,
+                       alive_out, 0, stream);
+}
+
+// The checking build of the lockstep loop at every launch (one thread per
+// lane, every bounce of the segment), the bit reference of
+// drt_fused_segment_trace's queue.
+int drt_fused_segment_trace_lockstep(const DrtTrace* cfg,
+                                     const DrtCamera* cam, int b_start,
+                                     int b_end, int chunk, const float* scene,
+                                     const float* alb, const float* emi,
+                                     const float* cam_u, const float* tape,
+                                     const float* ray, const int* alive,
+                                     const int* ray_idx, float* out,
+                                     float* ray_out, int* alive_out,
+                                     void* stream) {
+  return segment_trace(cfg, cam, b_start, b_end, chunk, scene, alb, emi,
+                       cam_u, tape, ray, alive, ray_idx, out, ray_out,
+                       alive_out, 1, stream);
+}
+
+// Whether drt_fused_segment_trace runs the queue (*queue = 1) or the
+// lockstep loop (0) for a segment from b_start, for its checks.
+int drt_fused_segment_trace_form(int b_start, int* queue) {
+  *queue = segment_trace_takes_queue(b_start) ? 1 : 0;
+  return 0;
 }
 
 // The early-exit tracer: drt_fused_trace's call, exact variant only, on

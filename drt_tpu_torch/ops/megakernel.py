@@ -54,10 +54,11 @@ adjoint run a queue of (ray slot, chunk) paths that spends a trip only on
 a live bounce; `build="lockstep"` launches their checking builds of the
 lockstep loop (every bounce of every slot), the bit reference, and
 `fused_trace_stats` / `fused_adjoint_stats` the checking builds that count
-and time either loop. The segment adjoint runs a queue of its lanes,
-each one path, where lanes can enter dead (b_start > 0), and the
-lockstep loop from the camera (`segment_form`); `build="lockstep"`
-launches the lockstep loop at every call, the queue's bit reference.
+and time either loop. The segment tracer and the segment adjoint run a
+queue of their lanes, each one path, where lanes can enter dead
+(b_start > 0), and the lockstep loop from the camera
+(`segment_trace_form`, `segment_form`); `build="lockstep"` launches the
+lockstep loop at every call, the queue's bit reference.
 None of these is counted as a launch. `trip_counts_plain` gives the
 lane-trips each slot takes in the queue, from a collect tracer's rows
 and the roulette draws.
@@ -391,10 +392,11 @@ def _check_limits(source: str, fn, expected: list) -> None:
 
 def _library() -> ctypes.CDLL:
     """The tracer library: drt_fused_trace, drt_fused_collect,
-    drt_ray_trace, drt_ray_trace_keyed, drt_fused_segment_trace,
-    drt_earlyexit_trace and the checking builds drt_fused_trace_lockstep,
+    drt_ray_trace, drt_ray_trace_keyed, drt_fused_segment_trace (and its
+    choice of loop, drt_fused_segment_trace_form), drt_earlyexit_trace
+    and the checking builds drt_fused_trace_lockstep,
     drt_fused_collect_lockstep, drt_ray_trace_lockstep,
-    drt_fused_trace_stats."""
+    drt_fused_segment_trace_lockstep, drt_fused_trace_stats."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(SOURCE)
@@ -416,6 +418,11 @@ def _library() -> ctypes.CDLL:
         # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
         # ray_idx, out, ray_out, alive_out, stream
         _bind(lib, "drt_fused_segment_trace", 15, both, n_ints_at=(0, 1, 2))
+        _bind(lib, "drt_fused_segment_trace_lockstep", 15, both,
+              n_ints_at=(0, 1, 2))
+        fn = lib.drt_fused_segment_trace_form
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
         _bind(lib, "drt_earlyexit_trace", 7, both)
         lib.drt_error_string.argtypes = [ctypes.c_int]
         lib.drt_error_string.restype = ctypes.c_char_p
@@ -1120,6 +1127,18 @@ def segment_adjoint_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
     return da, de, torch.stack(tuple(S))
 
 
+def segment_trace_form(b_start: int) -> str:
+    """The loop `fused_segment_trace` runs for a segment from b_start, as
+    its library chooses at each launch: "queue" where lanes can enter dead
+    (b_start > 0), else "lockstep"."""
+    queue = ctypes.c_int()
+    rc = _library().drt_fused_segment_trace_form(b_start,
+                                                 ctypes.byref(queue))
+    if rc:
+        raise RuntimeError(f"segment tracer form query: error {rc}")
+    return "queue" if queue.value else "lockstep"
+
+
 def segment_form(b_start: int, n_shapes: int, n_alb: int,
                  n_emi: int) -> str:
     """The loop `fused_segment_adjoint` runs for a segment from b_start
@@ -1166,11 +1185,19 @@ def fused_segment_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                         alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
                         cam_u=None, tape=None, ray=None, alive=None,
                         ray_idx=None, chunk: int = 0,
-                        n_rays: int | None = None, fastmath: bool = False):
+                        n_rays: int | None = None, fastmath: bool = False,
+                        build: str = "queue"):
     """Radiance f32[3, K] of bounces [b_start, b_end) of one chunk, with
     the exit state (ray f32[9, K], alive i32[K]) unless b_end ==
-    max_depth. CPU tensors run the plain twin; CUDA tensors launch the
-    kernel or raise."""
+    max_depth. CPU tensors run the plain twin (`build` selects only the
+    kernel); CUDA tensors launch the kernel or raise. The kernel is a
+    queue of the segment's lanes that spends a trip only on a live bounce
+    where lanes can enter dead (b_start > 0), else the lockstep loop
+    (every bounce of every lane), as `segment_trace_form` says; a lane
+    that is not alive at b_end leaves +0 in its exit ray.
+    build="lockstep" launches the lockstep loop at every call, the
+    queue's bit reference; it is not counted."""
+    entry = _build_entry("drt_fused_segment_trace", build)
     if _device_of("fused_segment_trace", alb) == "cpu":
         return segment_trace_plain(scene, cc, cfg, b_start, b_end, alb, emi,
                                    seeds=seeds, cam_u=cam_u, tape=tape,
@@ -1190,8 +1217,9 @@ def fused_segment_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
         ray_out = torch.empty((9, K), dtype=torch.float32, device=dev)
         alive_out = torch.empty((K,), dtype=torch.int32, device=dev)
     lib = _library()
-    _launch(fused_segment_trace, "fused segment tracer", lib.drt_error_string,
-            lib.drt_fused_segment_trace, dev, ctypes.byref(tcfg),
+    _launch(fused_segment_trace if build == "queue" else None,
+            "fused segment tracer", lib.drt_error_string,
+            getattr(lib, entry), dev, ctypes.byref(tcfg),
             ctypes.byref(_camera_struct(cc)), b_start, b_end, chunk,
             table.data_ptr(), alb.data_ptr(), emi.data_ptr(), *ptrs,
             out.data_ptr(), None if final else ray_out.data_ptr(),
@@ -1460,7 +1488,7 @@ def make_fused_segment_tracer(scene: Scene, cam, cfg: RenderConfig,
                               b_start: int, b_end: int,
                               n_rays: int | None = None,
                               rng: str = "internal", fastmath: bool = False,
-                              plain: bool = False):
+                              plain: bool = False, build: str = "queue"):
     """Build the tracer of bounces [b_start, b_end) over K = n_rays lanes
     (default one chunk's W*H*spp_c), the call forms of the JAX package's
     `make_fused_segment_tracer` with the state as (ray f32[9, K], alive
@@ -1471,9 +1499,10 @@ def make_fused_segment_tracer(scene: Scene, cam, cfg: RenderConfig,
     (the state iff b_start > 0, cam_u iff b_start == 0, u f32[b_end -
     b_start, 3, K]). Returns radiance f32[3, K], and (L, (ray, alive)) iff
     b_end < max_depth. plain=True runs the plain twin on the tensors'
-    device."""
+    device; `build` selects the kernel (BUILDS, `fused_segment_trace`)."""
     _check_segment(cfg, b_start, b_end)
     _check_rng(rng, 1)
+    _build_entry("drt_fused_segment_trace", build)
     cc = camera_consts(cam, cfg.width, cfg.height)
     table = None if plain else scene_table(scene)
 
@@ -1487,7 +1516,7 @@ def make_fused_segment_tracer(scene: Scene, cam, cfg: RenderConfig,
                                        emi, chunk=chunk, n_rays=n_rays, **kw)
         return fused_segment_trace(scene, table, cc, cfg, b_start, b_end,
                                    alb, emi, chunk=chunk, n_rays=n_rays,
-                                   fastmath=fastmath, **kw)
+                                   fastmath=fastmath, build=build, **kw)
 
     return trace
 

@@ -44,7 +44,10 @@ radiance the same bits. One launch over C chunks equals C launches with
 tensors on the CPU each runs its plain version (the trip loop over all
 pixels as tensors, in the JAX kernel's op order); for CUDA tensors it
 launches its kernel or raises. Each counts its launches
-(`ops.megakernel.launch_counts()`).
+(`ops.megakernel.launch_counts()`). The sweep reads a warp's rows in
+windows of adjacent pixels' rows (`regen_sweep_form`); its
+build="lockstep" launches the per-pixel kernel, its checking build and
+bit reference, which is not counted.
 """
 
 from __future__ import annotations
@@ -72,6 +75,16 @@ STAT_NAMES = ("lane_bounces", "warp_bounces", "lane_leaves", "warp_leaves",
 # rmeta = best | want << 8 | rr_on << 9.
 _WANT_BIT = 8
 _RRON_BIT = 9
+# The sweep's window kernel (REGEN_WIN and RegenRing in
+# csrc/regen_adjoint.cu, checked when the library loads): a warp copies
+# its pixels' rows WINDOW_ROWS at a time into a ring of
+# `ring_windows(max_depth)` windows.
+WINDOW_ROWS = 8
+
+
+def ring_windows(max_depth: int) -> int:
+    """Windows in the ring of the kernel instance that takes max_depth."""
+    return 4 if max_depth <= 8 else 8
 
 
 def t_cap(cfg: RenderConfig) -> int:
@@ -327,18 +340,24 @@ def _library() -> ctypes.CDLL:
 
 
 def _adjoint_library() -> ctypes.CDLL:
-    """The adjoint library: drt_regen_sweep."""
+    """The adjoint library: drt_regen_sweep (and its choice of kernel,
+    drt_regen_sweep_form) and its checking build drt_regen_sweep_lockstep."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_regen_sweep.argtypes is None:
         # scene, alb, emi, rsc, rmeta, trips, g, partials, da, de, stream
         mk._bind(lib, "drt_regen_sweep", 11, (mk._DrtTrace,))
+        mk._bind(lib, "drt_regen_sweep_lockstep", 11, (mk._DrtTrace,))
+        fn = lib.drt_regen_sweep_form
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
         lib.drt_regen_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.drt_regen_adjoint_error_string.restype = ctypes.c_char_p
         mk._check_limits(ADJOINT_SOURCE, lib.drt_regen_adjoint_limits,
                          [mk.MAX_SHAPES, mk.MAX_ROWS, mk.REC, mk.MAX_DEPTH,
-                          mk.BLOCK])
+                          mk.BLOCK, WINDOW_ROWS, ring_windows(8),
+                          ring_windows(mk.MAX_DEPTH)])
     return lib
 
 
@@ -519,14 +538,35 @@ def regen_grid(cfg: RenderConfig, *, n_chunks: int = 1, collect: bool = False,
                 lanes=grid.value * mk.BLOCK)
 
 
+def regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
+                     emi: torch.Tensor) -> str:
+    """The kernel `regen_sweep` runs at cfg's depth for tables of alb's
+    and emi's rows (the sentinel rows included) on the current card:
+    "window" where its ring of rows fits in a block's shared memory beside
+    the accumulator, else "per-pixel"."""
+    window = ctypes.c_int()
+    rc = _adjoint_library().drt_regen_sweep_form(
+        cfg.max_depth, alb.shape[0], emi.shape[0], ctypes.byref(window))
+    if rc:
+        raise RuntimeError("regeneration sweep form query: "
+                           + _adjoint_library()
+                           .drt_regen_adjoint_error_string(rc).decode())
+    return "window" if window.value else "per-pixel"
+
+
 def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
                 alb: torch.Tensor, emi: torch.Tensor, rsc: torch.Tensor,
                 rmeta: torch.Tensor, trips: torch.Tensor, g: torch.Tensor,
-                *, n_chunks: int = 1):
+                *, n_chunks: int = 1, build: str = "queue"):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the regeneration
     sweep adjoint from the collect form's rows and a per-pixel cotangent
-    g f32[3, n_pix]. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    g f32[3, n_pix]. CPU tensors run the plain version (`build` selects
+    only the kernel); CUDA tensors launch the kernel or raise. The kernel
+    reads each warp's rows in windows of adjacent pixels' rows
+    (`regen_sweep_form`: "window"), or one pixel's rows a thread where the
+    windows do not fit; build="lockstep" launches the per-pixel kernel at
+    every call, the bit reference, and is not counted."""
+    entry = mk._build_entry("drt_regen_sweep", build)
     if mk._device_of("regen_sweep", alb) == "cpu":
         return regen_sweep_plain(scene, cfg, alb, emi, rsc, rmeta, trips, g)
     dev = alb.device
@@ -535,8 +575,9 @@ def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     check_rows(cfg, n_chunks, rsc, rmeta, trips, g, dev)
     partials, da, de = mk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
-    mk._launch(regen_sweep, "regeneration sweep adjoint",
-               lib.drt_regen_adjoint_error_string, lib.drt_regen_sweep, dev,
+    mk._launch(regen_sweep if build == "queue" else None,
+               "regeneration sweep adjoint",
+               lib.drt_regen_adjoint_error_string, getattr(lib, entry), dev,
                ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
                emi.data_ptr(), rsc.data_ptr(), rmeta.data_ptr(),
                trips.data_ptr(), g.data_ptr(), partials.data_ptr(),
@@ -572,10 +613,13 @@ def make_regen_tracer(scene: Scene, cam, cfg: RenderConfig,
 
 
 def make_regen_sweep_adjoint(scene: Scene, cfg: RenderConfig,
-                             n_chunks: int = 1, plain: bool = False):
+                             n_chunks: int = 1, plain: bool = False,
+                             build: str = "queue"):
     """Build `sweep(alb, emi, rsc, rmeta, trips, g) -> (d_albedo,
     d_emission)`: the backward from the collect form's rows, with g
-    f32[3, n_pix] per pixel, the same for all of a pixel's samples."""
+    f32[3, n_pix] per pixel, the same for all of a pixel's samples.
+    `build` selects the kernel (`regen_sweep`)."""
+    mk._build_entry("drt_regen_sweep", build)
     table = None if plain else mk.scene_table(scene)
 
     def sweep(alb, emi, rsc, rmeta, trips, g):
@@ -583,6 +627,6 @@ def make_regen_sweep_adjoint(scene: Scene, cfg: RenderConfig,
             return regen_sweep_plain(scene, cfg, alb, emi, rsc, rmeta, trips,
                                      g)
         return regen_sweep(scene, table, cfg, alb, emi, rsc, rmeta, trips, g,
-                           n_chunks=n_chunks)
+                           n_chunks=n_chunks, build=build)
 
     return sweep

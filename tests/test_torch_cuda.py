@@ -1851,3 +1851,169 @@ def test_earlyexit_queue_equals_the_lockstep_tracer(dev, make, rng, depth):
     ref = mk.fused_trace(scene, table, cc, cfg, alb, emi, build="lockstep",
                          fastmath=False, **ee_kw)
     assert torch.equal(got, ref)
+
+
+# The regeneration sweep B11: its window kernel (each warp's rows copied
+# in windows of adjacent pixels' rows into a ring in shared memory)
+# against its checking build, the per-pixel kernel, bit for bit.
+def _regen_rows(scene, cam, alb, emi, cfg, chunks, fastmath, dev, seed):
+    from drt_tpu_torch.ops import regen as rg
+
+    _, rsc, rmeta, trips = rg.make_regen_tracer(
+        scene, cam, cfg, collect=True, fastmath=fastmath, n_chunks=chunks)(
+        alb, emi, torch.tensor([seed, 5], dtype=torch.int32))
+    npix = cfg.width * cfg.height
+    g = torch.rand((3, npix), generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    return rsc, rmeta, trips, g
+
+
+def _nan_beyond_trips(rsc, rmeta, trips):
+    """The rows with NaN (and all bits set) wherever a pixel's trips
+    end."""
+    t = torch.arange(rsc.shape[1], device=rsc.device)[None, :, None]
+    own = t < trips[:, None, :]
+    return (torch.where(own, rsc, float("nan")).contiguous(),
+            torch.where(own, rmeta, -1).contiguous())
+
+
+@pytest.mark.parametrize("depth", [1, 5, 8, 9, 32])
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("fastmath", [False, True])
+def test_regen_sweep_windows_equal_the_per_pixel_kernel(dev, fastmath,
+                                                        chunks, depth):
+    """61x47 pixels (a partial warp and group), 24 samples a chunk (about
+    70 rows a pixel's chunk: the ring of either instance wraps), one and
+    two chunks, both instances (max_depth 8 | 9); also over rows of NaN
+    beyond each pixel's trips."""
+    from drt_tpu_torch.ops import regen as rg
+
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=61, height=47, spp=24 * chunks,
+                       spp_chunks=chunks, max_depth=depth)
+    rsc, rmeta, trips, g = _regen_rows(scene, cam, alb, emi, cfg, chunks,
+                                       fastmath, dev, depth)
+    assert rg.regen_sweep_form(cfg, alb, emi) == "window"
+    out = {build: rg.make_regen_sweep_adjoint(
+        scene, cfg, n_chunks=chunks, build=build)(
+            alb, emi, rsc, rmeta, trips, g) for build in mk.BUILDS}
+    assert _same_bits(out["queue"], out["lockstep"])
+    assert any((t[:-1] != 0).any() for t in out["queue"])
+    nan_rows = _nan_beyond_trips(rsc, rmeta, trips)
+    assert _same_bits(rg.make_regen_sweep_adjoint(
+        scene, cfg, n_chunks=chunks)(alb, emi, *nan_rows, trips, g),
+        out["lockstep"])
+
+
+@pytest.mark.parametrize("depth", [5, 32])
+def test_regen_sweep_at_the_row_limits(dev, depth):
+    """63 + 63 real table rows (E = 378): the 8-bounce instance's ring
+    still fits beside the accumulator, the 32-bounce one's does not, and
+    there the launch takes the per-pixel kernel; both = the checking
+    build, bit for bit, on 3 chunks."""
+    from drt_tpu_torch.ops import regen as rg
+
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    a63, e63 = _wide_tables(alb, emi, 64, 64)
+    cfg = RenderConfig(width=61, height=47, spp=24, spp_chunks=3,
+                       max_depth=depth)
+    assert rg.regen_sweep_form(cfg, a63, e63) == (
+        "window" if depth <= 8 else "per-pixel")
+    rsc, rmeta, trips, g = _regen_rows(scene, cam, a63, e63, cfg, 3, True,
+                                       dev, depth)
+    out = [rg.make_regen_sweep_adjoint(scene, cfg, n_chunks=3, build=b)(
+        a63, e63, rsc, rmeta, trips, g) for b in mk.BUILDS]
+    assert _same_bits(*out)
+    assert int((out[0][0][:-1] != 0).any(dim=1).sum()) >= 2
+
+
+def test_only_the_regen_sweep_entry_point_is_counted(dev):
+    from drt_tpu_torch.ops import regen as rg
+
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+    rsc, rmeta, trips, g = _regen_rows(scene, cam, alb, emi, cfg, 1, True,
+                                       dev, 1)
+    before = mk.launch_counts()
+    for build in mk.BUILDS:
+        rg.make_regen_sweep_adjoint(scene, cfg, build=build)(
+            alb, emi, rsc, rmeta, trips, g)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(regen_sweep=1)
+
+
+# The segment tracer B1-seg: the queue of its lanes past the camera
+# against its lockstep checking build, bit for bit.
+def _check_segment_tracers(scene, cam, cfg, alb, emi, segs):
+    """B1-seg = its lockstep build on each segment of a chain: radiance,
+    alive and the exit ray bit for bit on the lanes alive at b_end, and
+    +0 = the lockstep loop's values on the others. Returns the count of
+    lanes alive at a segment's end."""
+    alive_at_end = 0
+    for b0, b1, K, args, kw, call, _ in segs:
+        out = {build: mk.make_fused_segment_tracer(
+            scene, cam, cfg, b0, b1, build=build, **kw)(
+                alb, emi, *args, **call) for build in mk.BUILDS}
+        q, ref = out["queue"], out["lockstep"]
+        if b1 == cfg.max_depth:
+            assert _same_bits((q,), (ref,)), (b0, b1, K)
+            continue
+        assert _same_bits((q[0], q[1][1]), (ref[0], ref[1][1])), (b0, b1, K)
+        live = ref[1][1] > 0
+        assert _same_bits((q[1][0][:, live],), (ref[1][0][:, live],))
+        assert torch.equal(q[1][0][:, ~live], ref[1][0][:, ~live])
+        assert not q[1][0][:, ~live].any()
+        alive_at_end += int(live.sum())
+    return alive_at_end
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("depth,splits", SEGMENT_SPLITS,
+                         ids=["5-2", "5-1-3", "32-16"])
+@pytest.mark.parametrize("rng", ["tape", "internal"])
+@pytest.mark.parametrize("fastmath", [False, True])
+@pytest.mark.parametrize("make", [cbox.build, gallery.build_glossy,
+                                  gallery.build_tri])
+def test_segment_tracer_queue_equals_the_lockstep_build(dev, make, fastmath,
+                                                        rng, depth, splits,
+                                                        compact):
+    """B1-seg on the chains of test_segment_queue_equals_the_lockstep_build
+    (30x20x4 lanes of chunk 1; compacted or not)."""
+    scene, params, cam, alb, emi = _setup(make, dev)
+    cfg = RenderConfig(width=30, height=20, spp=8, spp_chunks=2,
+                       max_depth=depth)
+    segs = _segment_chain(scene, cam, cfg, alb, emi, splits, rng, fastmath,
+                          compact, dev, seed=depth, chunk=1)
+    alive = _check_segment_tracers(scene, cam, cfg, alb, emi, segs)
+    # No path reaches bounce 16 (the roulette from bounce 1 on), and the
+    # open triangle scene's paths rarely bounce on at all.
+    assert alive > 0 or depth == 32 or make is gallery.build_tri
+
+
+@pytest.mark.parametrize("K", [1, 127, 129])
+@pytest.mark.parametrize("rng", ["tape", "internal"])
+def test_segment_tracer_queue_with_few_lanes(dev, rng, K):
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+    segs = _segment_chain(scene, cam, cfg, alb, emi, (2,), rng, False,
+                          False, dev, n=K, seed=K)
+    _check_segment_tracers(scene, cam, cfg, alb, emi, segs)
+
+
+def test_segment_tracer_forms_and_counts(dev):
+    """The queue past the camera, the lockstep loop from it; the entry
+    point's launches count, the checking build's do not."""
+    assert [mk.segment_trace_form(b0) for b0 in (0, 1, 2, 16)] == [
+        "lockstep", "queue", "queue", "queue"]
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+    segs = _segment_chain(scene, cam, cfg, alb, emi, (2,), "tape", False,
+                          False, dev)
+    before = mk.launch_counts()
+    _check_segment_tracers(scene, cam, cfg, alb, emi, segs)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(segment_tracer=2)

@@ -6,6 +6,7 @@ camera, and the checking build `build="lockstep"`), and the queue's
 trips; and B1 and B4 exact in both of their builds at shallow depths.
 
   python3 tools/ablate_segment_queue.py [--root DIR] [--label NAME]
+  python3 tools/ablate_segment_queue.py --tracer [--root DIR] [--label NAME]
 
 Each variant is DIR's drt_tpu_torch with text edits of
 csrc/fused_adjoint.cu (its gradients are wrong by design, except as is
@@ -24,6 +25,14 @@ compacted (the queue), and the lockstep build's [2, 5) in both layouts;
 for the variant "counted" the warp-trips and lane-trips of each queue
 launch and its grid; and one "depths" line: B1 and B4 exact on one
 chunk of 640x480x16 at depths 1, 2, 3, 5 in both builds.
+
+With --tracer the same for the segment tracer (B1-seg,
+`drt_fused_segment_trace` of csrc/fused_tracer.cu): the variants "as
+is" (its queue past the camera, the lockstep loop from it) and "queue
+from the camera" (the queue at every b_start), each timed on [0, 2)
+from the camera and [2, 5) over every lane and compacted, in both
+builds, with the loop each launch runs and the digests of [0, 2)'s
+radiance, exit ray and alive.
 """
 
 from __future__ import annotations
@@ -111,6 +120,61 @@ VARIANTS = {
 }
 
 
+# The segment tracer B1-seg (csrc/fused_tracer.cu): its entry point as
+# is (the queue past the camera, the lockstep loop from it), and on the
+# queue from the camera too.
+TRACER_VARIANTS = {
+    "as is": [],
+    "queue from the camera": [
+        ("static bool segment_trace_takes_queue(int b_start) { "
+         "return b_start > 0; }",
+         "static bool segment_trace_takes_queue(int b_start) { "
+         "return b_start >= 0; }")],
+}
+
+
+def child_tracer(root: Path) -> None:
+    """Time B1-seg of the variant whose package is under root on chunk 1
+    of the main shape, split before bounce 2, in each build: [0, 2) from
+    the camera, [2, 5) on every lane and compacted; one JSON object."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.scene import albedo_table, emission_table
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch_fused", Path(__file__).with_name("bench_torch_fused.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    dev = torch.device("cuda")
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    cfg = RenderConfig(**bench.MAIN)
+    D, b, chunk = cfg.max_depth, 2, 1
+    lay = bench.segment_layouts(torch, scene, cam, cfg, alb, emi, seeds, b,
+                                chunk)
+    out = {"loops": {f"[{b0}, {b1})": mk.segment_trace_form(b0)
+                     for b0, b1 in ((0, b), (b, D))}}
+    for build in mk.BUILDS:
+        tag = "" if build == "queue" else ", lockstep build"
+        seg = mk.make_fused_segment_tracer(scene, cam, cfg, 0, b, build=build)
+        out[f"[0, {b}) every lane{tag}"], _, got = bench.cuda_ms(
+            torch, lambda: seg(alb, emi, seeds, chunk=chunk))
+        out[f"digests [0, {b}){tag}"] = [bench.digest(t) for t in (
+            got[0], got[1][0], got[1][1])]
+        for layout, (K, ray, alive, ridx, _, _) in lay["layouts"].items():
+            seg = mk.make_fused_segment_tracer(scene, cam, cfg, b, D,
+                                               n_rays=K, build=build)
+            out[f"[{b}, {D}) {layout}{tag}"] = bench.cuda_ms(
+                torch, lambda: seg(alb, emi, seeds, ray, alive, ridx,
+                                   chunk=chunk))[0]
+    print(json.dumps(out), flush=True)
+
+
 def child(root: Path, depths: bool) -> None:
     """Time the variant whose package is under root; print one JSON
     object (and, with depths, a second)."""
@@ -172,15 +236,35 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--tracer", action="store_true",
+                    help="the segment tracer B1-seg's variants instead")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--depths", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(Path(args.child), args.depths)
+        if args.tracer:
+            child_tracer(Path(args.child))
+        else:
+            child(Path(args.child), args.depths)
         return 0
     if not ablate.card("ablate_segment_queue", args.label):
         return 2
     root = Path(args.root).resolve()
+    if args.tracer:
+        roots = {name: ablate.make_variant(root, "ablate_queue_tracer", name,
+                                           {"fused_tracer.cu": edits})
+                 for name, edits in TRACER_VARIANTS.items()}
+        if not ablate.build_variants(roots.values(), ("fused_tracer.cu",)):
+            return 1
+        for run, name in enumerate(ablate.in_turns(TRACER_VARIANTS)):
+            res = ablate.run_child(__file__, roots[name], "--tracer")
+            if res is None:
+                return 1
+            print(json.dumps({"kind": "ablation", "label": args.label,
+                              "variant": name, "run": run,
+                              "ms": json.loads(res.stdout.splitlines()[0])}),
+                  flush=True)
+        return 0
     roots = {name: ablate.make_variant(root, "ablate_queue", name,
                                        {"fused_adjoint.cu": edits})
              for name, edits in VARIANTS.items()}

@@ -5,6 +5,7 @@ reads alone cost, the reads and the forward replay, and the whole kernel;
 and what a residual sweep needs to read at all.
 
   python3 tools/ablate_sweep.py [--root DIR] [--label NAME]
+  python3 tools/ablate_sweep.py --kernel b11 [--root DIR] [--label NAME]
 
 Each variant is DIR's drt_tpu_torch with text edits of the sweeps'
 sources (its gradients are wrong by design: it is timed, never
@@ -43,6 +44,30 @@ rows through the ring, summed into a dummy); "ring and replay" (no
 sweep); "no accumulator adds" (the sweep's S chain and table reads, no
 read-modify-write of the accumulator column); "rows through registers"
 (the kernels' register instance at every table size, no ring).
+
+With --kernel b11 the same for the regeneration sweep B11
+(`drt_regen_sweep`, csrc/regen_adjoint.cu) at the main shape (Cornell box
+640x480x256 spp, depth 5, 16 chunks, fast, seeds (7, 8)) and at the CLI's
+default shape (640x480x100, depth 32, one chunk): "ablation" lines with
+ms, the rows the pixels ran (their trips) and GB/s of them (8 bytes a
+row); once, "ptxas" (its kernels' registers and spills), "occupancy"
+(resident blocks per SM of each kernel instance by the occupancy API)
+and "rows" (of the trips per (pixel, chunk): the rows a window that runs
+to the largest trips of a warp's 32 pixels, or of a 32-byte sector's 8,
+spans against the rows needed; quantiles of the trips, of each warp's
+largest and of the gap). Variants, for the one-thread-per-pixel kernel
+(before the windows): "as is"; "rows alone" (each thread reads its rows
+in the kernel's order, summed into a dummy); "rmeta chain alone" (only
+the rmeta rows, each read after the one before has been compared);
+"no accumulator adds" (the sweep's S chain without the read-modify-
+writes of the accumulator column). For the window kernel: "as is";
+"windows alone" (the copies and the rounds, each segment's rows read
+from the ring for its length alone, no replay or sweep);
+"no accumulator adds"; "3 windows" and "8 windows" (the 8-bounce
+instance's ring; 4 as is); "3 windows, 6 | 7 blocks an SM"
+(__launch_bounds__ that cap the registers); "rows preloaded" (the
+8-bounce instance reads a segment's rows from the ring together before
+its replay).
 """
 
 from __future__ import annotations
@@ -156,6 +181,137 @@ RING_VARIANTS = {
     "rows through registers": {S: [("  *stages = k < 2 ? 0 : k;\n",
                                     "  *stages = 0;\n")]},
 }
+
+
+# B11, the regeneration sweep (drt_regen_sweep, csrc/regen_adjoint.cu):
+# its one-thread-per-pixel kernel (before the windows, and the checking
+# build drt_regen_sweep_lockstep after them) ...
+RA, RB = "regen_adjoint.cu", "regen_body.cuh"
+_B11_CALL = """      regen_sweep_chunk<DMAX>(cfg, tab, decode, rsc + base, rmeta + base,
+                              (size_t)n, trips[(size_t)c * n + pix], gp,
+                              s_acc + threadIdx.x);
+"""
+_B11_ROWS = """      {
+        const int ta = trips[(size_t)c * n + pix];
+        float d = 0.0f;
+        for (int t = 0; t < ta; ++t)
+          d = d + rsc[base + (size_t)t * n]
+              + (float)rmeta[base + (size_t)t * n];
+        if (d == 1234.5f) s_acc[threadIdx.x] = d;
+      }
+"""
+_B11_CHAIN = """      {
+        const int ta = trips[(size_t)c * n + pix];
+        int m = 0;
+        for (int t = 0; t < ta; ++t) {
+          const int v = rmeta[base + (size_t)t * n];
+          if (v == 0x7fffffff) break;
+          m = m + v;
+        }
+        if (m == 1234567) s_acc[threadIdx.x] = (float)m;
+      }
+"""
+_B11_BOUNCE = """      sweep_bounce(acc, acc_e, arow[k], erow[k], a, e, P[k], sc[k], gate[k],
+                   g, S);
+"""
+_B11_S_ONLY = """      S[0] = (e[0] + a[0] * sc[k] * S[0]) * gate[k];
+      S[1] = (e[1] + a[1] * sc[k] * S[1]) * gate[k];
+      S[2] = (e[2] + a[2] * sc[k] * S[2]) * gate[k];
+      if (P[k][0] + P[k][1] + P[k][2] + g[0] == 1234.5f) acc[0] = S[0];
+"""
+B11_PIXEL_VARIANTS = {
+    "as is": {},
+    "rows alone": {RA: [(_B11_CALL, _B11_ROWS)]},
+    "rmeta chain alone": {RA: [(_B11_CALL, _B11_CHAIN)]},
+    "no accumulator adds": {RB: [(_B11_BOUNCE, _B11_S_ONLY)]},
+}
+
+
+# ... and its window kernel (regen_window_kernel).
+_W_SEGMENTS = """      if (work && (t + D < top || top >= tr))
+        t += window_segment<DMAX>(cfg, s_alb, s_emi, decode, rows, t, tr,
+                                  gp, acc, acc_e);
+"""
+_W_ROWS_ALONE = """      if (work && (t + D < top || top >= tr)) {
+        int k = 1;  // the segment's rows, by the want bit of the next
+        while (t + k < tr && !((rows.meta_of(t + k) >> 8) & 1)) ++k;
+        acc[0] = acc[0] + rows.sc_of(t);
+        t += k;
+      }
+"""
+_W_BOUNCE = """    sweep_bounce(acc, acc_e, arow[k], erow[k], a, e, P[k], sc[k], gate[k], g,
+                 S);
+"""
+_W_S_ONLY = """    S[0] = (e[0] + a[0] * sc[k] * S[0]) * gate[k];
+    S[1] = (e[1] + a[1] * sc[k] * S[1]) * gate[k];
+    S[2] = (e[2] + a[2] * sc[k] * S[2]) * gate[k];
+    if (P[k][0] + P[k][1] + P[k][2] + g[0] == 1234.5f) acc[0] = S[0];
+"""
+_W_RING = "  static constexpr int WINDOWS = DMAX <= DRT_SMALL_DEPTH ? 4 : 8;\n"
+_W_KERNEL = "__global__ void __launch_bounds__(DRT_BLOCK)\nregen_window_kernel("
+
+
+def _w_ring(small: int) -> tuple:
+    return (_W_RING, _W_RING.replace("? 4 :", f"? {small} :"))
+
+
+def _w_blocks(n: int) -> tuple:
+    return (_W_KERNEL, _W_KERNEL.replace("(DRT_BLOCK)", f"(DRT_BLOCK, {n})"))
+
+
+# The 8-bounce instance's replay with the segment's rows (and the row
+# after them) read from the ring together before it starts, not one
+# after the other as the replay reaches them.
+_W_REPLAY_START = """  int meta = rows.meta_of(t);
+  float P[DMAX][3], sc[DMAX], gate[DMAX];
+"""
+_W_PRELOAD = """  constexpr int PRE = DMAX <= 8 ? DMAX : 1;
+  float pre_sc[PRE];
+  int pre_meta[PRE + 1];
+  if constexpr (DMAX <= 8) {
+#pragma unroll
+    for (int k = 0; k <= PRE; ++k) {
+      pre_meta[k] = rows.meta_of(t + k);
+      if (k < PRE) pre_sc[k] = rows.sc_of(t + k);
+    }
+  }
+  auto sc_at = [&](int k) {
+    if constexpr (DMAX <= 8) return pre_sc[k];
+    else return rows.sc_of(t + k);
+  };
+  auto meta_at = [&](int k) {
+    if constexpr (DMAX <= 8) return pre_meta[k];
+    else return rows.meta_of(t + k);
+  };
+  int meta = meta_at(0);
+  float P[DMAX][3], sc[DMAX], gate[DMAX];
+"""
+_W_PRELOADED = [
+    (_W_REPLAY_START, _W_PRELOAD),
+    ("    const float sc_k = rows.sc_of(t + k);\n",
+     "    const float sc_k = sc_at(k);\n", "window_segment("),
+    ("      meta = rows.meta_of(t + k + 1);\n",
+     "      meta = meta_at(k + 1);\n", "window_segment("),
+]
+
+B11_WINDOW_VARIANTS = {
+    "as is": {},
+    "windows alone": {RA: [(_W_SEGMENTS, _W_ROWS_ALONE)]},
+    "no accumulator adds": {RA: [(_W_BOUNCE, _W_S_ONLY)]},
+    "3 windows": {RA: [_w_ring(3)]},
+    "3 windows, 6 blocks an SM": {RA: [_w_ring(3), _w_blocks(6)]},
+    "3 windows, 7 blocks an SM": {RA: [_w_ring(3), _w_blocks(7)]},
+    "8 windows": {RA: [_w_ring(8)]},
+    "rows preloaded": {RA: _W_PRELOADED},
+}
+
+
+def b11_variants_of(root: Path) -> dict:
+    """B11's variants for the design of root's kernel."""
+    text = (root / "drt_tpu_torch" / "csrc" / RA).read_text()
+    if "regen_window_kernel" in text:
+        return B11_WINDOW_VARIANTS
+    return B11_PIXEL_VARIANTS
 
 
 def variants_of(root: Path) -> dict:
@@ -316,37 +472,127 @@ def child(root: Path, full: bool) -> None:
     print(json.dumps(out), flush=True)
 
 
+def trips_shares(torch, trips) -> dict:
+    """Of trips i32[C, n_pix] (rows per (pixel, chunk)): the rows the
+    pixels need, the rows a window that runs to the largest trips of 32
+    (a warp) or 8 (a 32-byte sector) adjacent pixels spans, and
+    quantiles of the trips, of each warp's largest and of the gap
+    between them."""
+    C, n = trips.shape
+    t = trips[:, :n - n % 32].reshape(C, -1, 32).float()
+    warp = t.amax(dim=2)
+    sector = t.reshape(C, -1, 4, 8).amax(dim=3)
+    q = torch.tensor([0.1, 0.5, 0.9, 0.99], device=t.device)
+    need = float(t.sum())
+    return dict(rows_needed=need,
+                warp_window_rows=float(warp.sum()) * 32,
+                sector_window_rows=float(sector.sum()) * 8,
+                need_share_of_warp_window=need / (float(warp.sum()) * 32),
+                need_share_of_sector_window=need
+                / (float(sector.sum()) * 8),
+                trips_quantiles=torch.quantile(t.flatten(), q).tolist(),
+                warp_max_quantiles=torch.quantile(warp.flatten(),
+                                                  q).tolist(),
+                gap_quantiles=torch.quantile(
+                    (warp[..., None] - t).flatten()[:1 << 24], q).tolist(),
+                trips_max=float(t.max()))
+
+
+def child_b11(root: Path, full: bool) -> None:
+    """Time B11 of the variant whose package is under root at the main
+    and CLI shapes; print one JSON object."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.scene import albedo_table, emission_table
+    from drt_tpu_torch.utils import native
+
+    dev = torch.device("cuda")
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    out, trips_at = {}, {}
+    window = hasattr(rg, "regen_sweep_form")
+    if full:
+        out["ptxas"] = {RA: ptxas_lines(native.log_path(RA).read_text(),
+                                        "regen_")}
+        acc = 4 * 128 * 3 * (alb.shape[0] - 1 + emi.shape[0] - 1)
+        kernels = {f"regen_sweep_kernel<{d}>": (f"regen_sweep_kernel<{d}>",
+                                                 acc) for d in (8, 32)}
+        if window:  # its ring: 4 warps x (rsc, rmeta) x rows x 32 lanes
+            kernels.update({
+                f"regen_window_kernel<{d}>": (
+                    f"regen_window_kernel<{d}>",
+                    acc + 4 * 2 * rg.WINDOW_ROWS * rg.ring_windows(d) * 32
+                    * 4) for d in (8, 32)})
+        out["occupancy"] = ablate.occupancy(native, root, RA, kernels)
+    for name, shape in (("B11 main shape", MAIN), ("B11 CLI shape", CLI)):
+        cfg = RenderConfig(**shape)
+        C = cfg.spp_chunks
+        npix = cfg.width * cfg.height
+        _, rsc, rmeta, trips = rg.make_regen_tracer(
+            scene, cam, cfg, fastmath=True, collect=True, n_chunks=C)(
+            alb, emi, seeds)
+        g = torch.rand((3, npix), generator=gen, device=dev) / cfg.spp
+        sweep = rg.make_regen_sweep_adjoint(scene, cfg, n_chunks=C)
+        ms, win = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rmeta, trips,
+                                               g))
+        rows = int(trips.sum())
+        out[name] = dict(ms=ms, windows=win, rows=rows,
+                         gb_s=8 * rows / ms / 1e6)
+        if window and full:
+            out[name]["form"] = rg.regen_sweep_form(cfg, alb, emi)
+        if full:
+            trips_at[name] = trips_shares(torch, trips)
+        del rsc, rmeta, trips
+        torch.cuda.empty_cache()
+    if full:
+        out["rows"] = trips_at
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernel", default="b3", choices=("b3", "b11"),
+                    help="b3: the stored-residual sweeps B3 and B8; b11: "
+                         "the regeneration sweep")
     ap.add_argument("--variants", default="",
                     help="comma-separated names of the variants to time "
                          "(default: all of the design's)")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--full", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    b11 = args.kernel == "b11"
     if args.child:
-        child(Path(args.child), args.full)
+        (child_b11 if b11 else child)(Path(args.child), args.full)
         return 0
     if not ablate.card("ablate_sweep", args.label):
         return 2
     root = Path(args.root).resolve()
-    variants = variants_of(root)
+    variants = b11_variants_of(root) if b11 else variants_of(root)
     if args.variants:
         variants = {name: variants[name]
                     for name in args.variants.split(",")}
     roots = {name: ablate.make_variant(root, "ablate_sweep", name, edits)
              for name, edits in variants.items()}
-    if not ablate.build_variants(roots.values(), (F, D)):
+    sources = (RA, "regen_tracer.cu") if b11 else (F, D)
+    kernels = {RA: "regen_", F: _KERNEL[F], D: _KERNEL[D]}
+    if not ablate.build_variants(roots.values(), sources):
         return 1
     for run, name in enumerate(ablate.in_turns(variants)):
-        res = ablate.run_child(__file__, roots[name],
+        res = ablate.run_child(__file__, roots[name], "--kernel",
+                               args.kernel,
                                *(["--full"] if run == 0 else []))
         if res is None:
             return 1
         got = json.loads(res.stdout.splitlines()[-1])
-        for what in ("ptxas", "rows", "paths"):
+        for what in ("ptxas", "rows", "paths", "occupancy"):
             if what in got:
                 print(json.dumps({"kind": what, "label": args.label,
                                   "variant": name, what: got.pop(what)}),
@@ -356,12 +602,12 @@ def main() -> int:
               flush=True)
     # The report of every variant's build, for the registers it took.
     for name, r in roots.items():
-        for src in (F, D):
+        for src in sources[:1] if b11 else sources:
             log = next((r / "drt_tpu_torch" / "_build").glob(
                 f"*/{Path(src).stem}.log")).read_text()
             print(json.dumps({"kind": "ptxas", "label": args.label,
                               "variant": name, "source": src,
-                              "lines": ptxas_lines(log, _KERNEL[src])}),
+                              "lines": ptxas_lines(log, kernels[src])}),
                   flush=True)
     return 0
 

@@ -85,3 +85,55 @@ def run_child(script: str, root: Path, *args: str):
         print(res.stderr[-4000:], file=sys.stderr)
         return None
     return res
+
+
+def occupancy(native, root: Path, source: str, kernels: dict) -> dict:
+    """Resident blocks per SM by the occupancy API of the kernels of
+    root's csrc/<source>: kernels maps a name to (the kernel as a C++
+    expression, e.g. "regen_sweep_kernel<8>", its dynamic shared memory
+    in bytes). Built as a scratch library that includes the source, so
+    that a checkout without a query of its own can be asked too. With
+    "sms", the card's SM count."""
+    import ctypes
+
+    csrc = root / "drt_tpu_torch" / "csrc"
+    out_dir = root / "drt_tpu_torch" / "_build" / "occupancy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stem = Path(source).stem
+    cases = "".join(
+        f"    case {k}: f = (const void*){expr}; break;\n"
+        for k, (expr, _) in enumerate(kernels.values()))
+    src = out_dir / f"{stem}_occupancy.cu"
+    src.write_text(
+        f'#include "{csrc / source}"\n'
+        'extern "C" int drt_occupancy(int k, int bytes, int* per_sm,\n'
+        '                             int* sms) {\n'
+        '  const void* f = nullptr;\n'
+        '  switch (k) {\n' + cases +
+        '    default: return -1;\n'
+        '  }\n'
+        '  cudaError_t e = cudaDeviceGetAttribute(\n'
+        '      sms, cudaDevAttrMultiProcessorCount, 0);\n'
+        '  if (e == cudaSuccess)\n'
+        '    e = cudaFuncSetAttribute(\n'
+        '        f, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);\n'
+        '  if (e == cudaSuccess)\n'
+        '    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n'
+        '        per_sm, f, DRT_BLOCK, bytes);\n'
+        '  return (int)e;\n'
+        '}\n')
+    lib_path = out_dir / f"{stem}_occupancy.so"
+    subprocess.run([native.nvcc_path(), *native.NVCC_FLAGS, "-o",
+                    str(lib_path), str(src)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    out = {}
+    for k, (name, (_, n_bytes)) in enumerate(kernels.items()):
+        per_sm, sms = ctypes.c_int(), ctypes.c_int()
+        rc = lib.drt_occupancy(k, n_bytes, ctypes.byref(per_sm),
+                               ctypes.byref(sms))
+        if rc:
+            raise RuntimeError(f"occupancy query of {name} failed: {rc}")
+        out[name] = per_sm.value
+        out["sms"] = sms.value
+    return out

@@ -4,6 +4,7 @@ sitting; and break the tracers' time down by section.
 
   python3 tools/bench_torch_fused.py [--root DIR] [--label NAME]
   python3 tools/bench_torch_fused.py --segments
+  python3 tools/bench_torch_fused.py --regen-sweep
   python3 tools/bench_torch_fused.py --breakdown [--queue] [--root DIR]
 
 Imports drt_tpu_torch from DIR (default: the checkout holding this
@@ -25,13 +26,19 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
     shape; B5a and B5b (wavefront) on one chunk of it; and what
     --segments prints alone: B14 (early exit, exact) at the main shape
     and at 640x480x32, depths 8, 16 and 32, beside B1 exact in both
-    builds; B4-seg's launches [2, 5) and [0, 2) on chunk 1 of the main
-    shape over every lane and in the compacted chain's layout
-    (`segment_layouts`, chip_smoke.py's phase 15 inputs), in each build
-    the checkout has, with the share of lane-bounces that live and the
-    loop each launch runs where the checkout chooses one ("segments"
-    line); and the compacted
-    renderer's forward and step ("path");
+    builds; B1-seg's launches on chunk 1 of the main shape, [0, 2) from
+    the camera, [2, 5) over every lane and in the compacted chain's
+    layout (`segment_layouts`, chip_smoke.py's phase 15 inputs) and the
+    uncompacted tape chain's two, and B4-seg's launches [2, 5) and
+    [0, 2) in both layouts, each in every build the checkout has, with
+    the share of lane-bounces that live, the lane-trips a queue runs
+    (`segment_trips_plain`), the resident blocks per SM of B1-seg's
+    kernels and the loop each launch runs where the checkout chooses one
+    ("segments" lines); and the compacted renderer's forward and step
+    ("path"); and what --regen-sweep prints alone: B11 at the main
+    shape, at the CLI shape and on one chunk in every build the
+    checkout has, with the kernel its entry point runs, and the
+    "cuda-regen" forward, stored and retrace steps and trainer step;
   - "digest": SHA-256 of B1's radiance and of B2's radiance, rsc and rbest
     at the main shape (fast and exact), at the CLI default shape (fast)
     and in tape mode (one chunk of the main shape, its hash tapes, fast);
@@ -505,6 +512,100 @@ def wave_and_regen_paths(torch, label: str, scene, params, cam) -> None:
         torch.cuda.empty_cache()
 
 
+def regen_sweep_and_paths(torch, label: str) -> None:
+    """B11 in each build the checkout has ("queue", the entry point, and
+    "lockstep", its checking build, the per-pixel kernel) at the main
+    shape, at the CLI's default shape (one chunk, depth 32) and on one
+    chunk of the main shape as the retrace launches it, with the kernel
+    the entry point runs and the digests of its tables; then the
+    "cuda-regen" paths at the main shape: forward, stored and retrace
+    fwd+bwd steps (median of 5 after 2 warm-ups) and the trainer step
+    (3 steps after 1, over 3), with digests of the image and gradients."""
+    from drt_tpu_torch import fused, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    dev = torch.device("cuda")
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    builds = (("queue", "lockstep") if "build" in inspect.signature(
+        rg.regen_sweep).parameters else (None,))
+    main = RenderConfig(**MAIN)
+    spp_c = main.spp // main.spp_chunks
+    one = RenderConfig(width=main.width, height=main.height, spp=spp_c,
+                       max_depth=main.max_depth)
+    for shape, cfg, C, base in (("main shape", main, main.spp_chunks, 0),
+                                ("CLI shape", RenderConfig(**CLI), 1, 0),
+                                ("chunk 1 of the main shape", one, 1,
+                                 spp_c)):
+        _, rsc, rmeta, trips = rg.make_regen_tracer(
+            scene, cam, cfg, fastmath=True, collect=True, n_chunks=C)(
+            alb, emi, seeds, base)
+        g = torch.rand((3, cfg.width * cfg.height), generator=gen,
+                       device=dev) / main.spp
+        if builds[0] is not None:
+            emit("segments", label, what="B11 kernel", shape=shape,
+                 form=rg.regen_sweep_form(cfg, alb, emi))
+        for build in builds:
+            bkw = {} if build is None else dict(build=build)
+            tag = "" if build is None else f", {build} build"
+            sweep = rg.make_regen_sweep_adjoint(scene, cfg, n_chunks=C,
+                                                **bkw)
+            ms, win, out = cuda_ms(torch, lambda: sweep(alb, emi, rsc,
+                                                        rmeta, trips, g))
+            emit("kernel", label, name=f"B11 regen sweep, {shape}{tag}",
+                 ms=ms, windows=win, rows=int(trips.sum()))
+            emit("digest", label, name=f"B11 tables, {shape}{tag}",
+                 sha256=[digest(t) for t in out])
+        del rsc, rmeta, trips
+        torch.cuda.empty_cache()
+
+    cfg = main
+    s_img = torch.tensor([1, 2], dtype=torch.int32)
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    render = make_renderer(scene, cfg, cam, differentiable=False,
+                           backend="cuda-regen")
+    target = render(params, s_img).detach()
+    emit("digest", label, name="cuda-regen image, main shape",
+         sha256=digest(target))
+    med, times = host_s(torch, lambda: render(params, s_img))
+    emit("path", label, name="cuda-regen forward, main shape", s=med,
+         times=times)
+    for adjoint in ("stored", "retrace"):
+        diff = fused.make_regen_image_renderer(scene, cam, cfg,
+                                               adjoint=adjoint)
+
+        def step():
+            p = Params(*(t.detach().clone().requires_grad_() for t in p_off))
+            ((diff(p, s_img) - target) ** 2).mean().backward()
+            return p.albedo.grad, p.emission.grad
+
+        emit("digest", label, name=f"cuda-regen {adjoint} step gradients, "
+             "main shape", sha256=[digest(t) for t in step()])
+        med, times = host_s(torch, step)
+        emit("path", label, name=f"cuda-regen {adjoint} fwd+bwd step, main "
+             "shape", s=med, times=times)
+    start = params.albedo.clone()
+    start[1] = torch.tensor([0.2, 0.15, 0.1], device=start.device)
+
+    def train(n_steps):
+        t0 = time.perf_counter()
+        optim.inverse_render(scene, cfg, cam, target,
+                             Params(start, params.emission),
+                             torch.Generator().manual_seed(5),
+                             steps=n_steps, backend="cuda-regen")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    train(1)  # warm-up
+    emit("path", label, name="cuda-regen trainer step", s=train(3) / 3)
+
+
 def breakdown(torch, label: str, root: Path, queue: bool) -> None:
     from drt_tpu_torch.config import RenderConfig
     from drt_tpu_torch.models import cbox
@@ -604,6 +705,25 @@ def breakdown(torch, label: str, root: Path, queue: bool) -> None:
         emit("sass", label, kernel=key, sections=c)
 
 
+def segment_trips_plain(cfg, rbest, tape, b0: int, b1: int):
+    """The trips each lane of one chunk takes in bounces [b0, b1) on a
+    queue that spends a trip only on a bounce its path enters alive (the
+    roulette of the bounce passed): from a collect tracer's rows rbest
+    i32[D, N] of that chunk and the roulette draws in row (b, 0) of its
+    tape f32[D, 3, N], as ops.megakernel.trip_counts_plain counts
+    [0, max_depth). i32[N]."""
+    import torch
+    n = rbest.shape[1]
+    trips = torch.zeros(n, dtype=torch.int32, device=rbest.device)
+    for b in range(b0, b1):
+        enter = (torch.ones(n, dtype=torch.bool, device=rbest.device)
+                 if b == 0 else rbest[b - 1] > 0)
+        if b >= cfg.min_bounces:
+            enter &= ~(tape[b, 0].float() < cfg.absorb_prob)
+        trips += enter
+    return trips
+
+
 def segment_layouts(torch, scene, cam, cfg, alb, emi, seeds, b: int,
                     chunk: int) -> dict:
     """The inputs of B4-seg's two launches on one chunk, split before
@@ -641,6 +761,8 @@ def segment_layouts(torch, scene, cam, cfg, alb, emi, seeds, b: int,
                                                     cfg.height),
                                    cfg, alb, emi, cam_u=cu, tape=tp)
     live = [int((rbest[:b] > 0).sum()), int((rbest[b:] > 0).sum())]
+    trips = [int(segment_trips_plain(cfg, rbest, tp, b0, b1).sum())
+             for b0, b1 in ((0, b), (b, D))]
     del cu, tp, rbest
     caps = fused.compacted_capacities(cfg, (b,))
     on = alive > 0
@@ -659,10 +781,84 @@ def segment_layouts(torch, scene, cam, cfg, alb, emi, seeds, b: int,
         "compacted": (caps[1], *gather(ray, alive), idx.to(torch.int32),
                       g_at(idx), idx)}, counts=dict(
         lanes=caps, live_lanes_at_split=int(on.sum()),
-        live_lane_bounces=live,
+        live_lane_bounces=live, queue_lane_trips=trips,
         live_share={f"[0, {b}) of every lane": live[0] / (n * b),
                     f"[{b}, {D}) of every lane": live[1] / (n * (D - b)),
                     f"[{b}, {D}) compacted": live[1] / (caps[1] * (D - b))}))
+
+
+def segment_tracer_times(torch, label: str, scene, cam, cfg, alb, emi,
+                         seeds, b: int, chunk: int, layouts: dict) -> None:
+    """B1-seg's launches on chunk `chunk` of the main shape, split before
+    bounce b: [0, b) from the camera, and [b, D) on every lane of the
+    chunk and on the compacted chain's lanes (internal RNG); then the
+    uncompacted tape chain (the chunk's hash tapes, tape mode), [0, b)
+    and [b, D). In each build the checkout has ("queue", the entry point,
+    and "lockstep", its checking build), with the digests of radiance and
+    exit state, the loop the entry point runs at each b_start where the
+    checkout chooses one, and the resident blocks per SM of its
+    kernels."""
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.utils import native
+    import ablate_variants as ablate
+
+    D = cfg.max_depth
+    npix = cfg.width * cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    root = Path(mk.__file__).resolve().parents[2]
+    queue = hasattr(mk, "segment_trace_form")
+    kernels = {f"segment_trace_kernel<{f}, {i}>":
+               (f"segment_trace_kernel<{f}, {i}>", 0)
+               for f in ("true", "false") for i in ("true", "false")}
+    if queue:
+        kernels.update({
+            f"segment_queue_trace_kernel<{f}, {i}>":
+            (f"segment_queue_trace_kernel<{f}, {i}, false, false>", 0)
+            for f in ("true", "false") for i in ("true", "false")})
+        emit("segments", label, what="B1-seg loops", loops={
+            f"[{b0}, {b1})": mk.segment_trace_form(b0)
+            for b0, b1 in ((0, b), (b, D))})
+    emit("occupancy", label, source="fused_tracer.cu",
+         blocks_per_sm=ablate.occupancy(native, root, "fused_tracer.cu",
+                                        kernels))
+    builds = ("queue", "lockstep") if queue else (None,)
+    cu, tp = mk.hash_tapes(seeds, npix, spp_c, D, sample_base=chunk * spp_c,
+                           device=alb.device)
+    for build in builds:
+        bkw = {} if build is None else dict(build=build)
+        tag = "" if build is None else f", {build} build"
+
+        def seg(b0, b1, **kw):
+            return mk.make_fused_segment_tracer(scene, cam, cfg, b0, b1,
+                                                **kw, **bkw)
+
+        runs = {f"[0, {b}) from the camera": (
+            seg(0, b), (alb, emi, seeds), dict(chunk=chunk))}
+        for layout, (K, rayB, aliveB, ridx, _, _) in layouts.items():
+            runs[f"[{b}, {D}) on {K} lanes, {layout}"] = (
+                seg(b, D, n_rays=K), (alb, emi, seeds, rayB, aliveB, ridx),
+                dict(chunk=chunk))
+        tapeA = seg(0, b, rng="tape")
+        _, (ray_t, alive_t) = tapeA(alb, emi, cu, tp[:b].contiguous())
+        runs[f"[0, {b}), tape chain"] = (
+            tapeA, (alb, emi, cu, tp[:b].contiguous()), {})
+        runs[f"[{b}, {D}), tape chain"] = (
+            seg(b, D, rng="tape"),
+            (alb, emi, tp[b:].contiguous(), ray_t, alive_t), {})
+        for name, (fn, args, kw) in runs.items():
+            ms, win, out = cuda_ms(torch, lambda: fn(*args, **kw))
+            emit("kernel", label, name=f"B1-seg {name}, one chunk{tag}",
+                 ms=ms, windows=win)
+            outs = out if isinstance(out, torch.Tensor) else (
+                out[0], *out[1])
+            emit("digest", label, name=f"B1-seg {name}{tag}: radiance"
+                 + ("" if isinstance(out, torch.Tensor)
+                    else ", exit ray, alive"),
+                 sha256=[digest(t) for t in (
+                     (outs,) if isinstance(outs, torch.Tensor) else outs)])
+            del out, outs
+        del ray_t, alive_t
+        torch.cuda.empty_cache()
 
 
 # B14 against B1 exact: the main shape, then 640x480x32 (one chunk) deeper.
@@ -726,6 +922,8 @@ def segments_and_earlyexit(torch, label: str) -> None:
     emit("segments", label, chunk=chunk, split=b, loops=loops,
          **lay["counts"])
     n, g_pix, layouts = lay["n"], lay["g_pix"], lay["layouts"]
+    segment_tracer_times(torch, label, scene, cam, cfg, alb, emi, seeds, b,
+                         chunk, layouts)
     for layout, (K, rayB, aliveB, ridx, gB, scatter) in layouts.items():
         for build in ("queue", "lockstep") if seg_builds else ("queue",):
             bkw = dict(build=build) if seg_builds else {}
@@ -1019,6 +1217,8 @@ def main() -> int:
     ap.add_argument("--queue", action="store_true")
     ap.add_argument("--segments", action="store_true",
                     help="only B14, B4-seg and the compacted renderer")
+    ap.add_argument("--regen-sweep", action="store_true",
+                    help="only B11 and the cuda-regen paths")
     ap.add_argument("--parts", action="store_true",
                     help="only the parts of the wavefront's chunk and B10's "
                          "launch")
@@ -1050,6 +1250,8 @@ def main() -> int:
         breakdown(torch, label, root, args.queue)
     elif args.segments:
         segments_and_earlyexit(torch, label)
+    elif args.regen_sweep:
+        regen_sweep_and_paths(torch, label)
     elif args.parts:
         parts(torch, label, root)
     else:
