@@ -68,11 +68,13 @@ Phases (any failure raises, exits non-zero and prints no result line):
      the scene-table tracer counts every trip, and its warp-trips run at
      most 32 bounces each), the scene-table tracer's persistent grid
      (blocks an SM holds, the occupancy API) and the SHA-256 digests of
-     its radiance, trips and rows; the scene-table sweep's window kernel
-     against its checking build (the per-pixel kernel), bit for bit, the
-     two timed in turns, at the main shape, on its one-chunk launch and
-     at the CLI's default shape (640x480x100, depth 32), where it is also
-     held to its plain version, with the kernel each launch runs;
+     its radiance, trips and rows; each family's sweep (B11, B13: the
+     window kernel of csrc/regen_window.cuh) against its checking build
+     (the per-pixel kernel), bit for bit, the two timed in turns, and
+     against its plain version, at the main shape and at 640x480x100,
+     depth 32, one chunk (the CLI's default shape, the 32-bounce
+     instance), with the kernel each launch runs, and on its one-chunk
+     launch against its checking build;
  13. make_renderer(backend="cuda-regen" | "cuda-dyn-regen"): three seeds
      forward, the image against the lockstep image at the same seeds, a
      forward+backward step stored and retrace against "torch-regen" /
@@ -922,7 +924,8 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
         stats=lambda ks, cc, cfg, alb, emi, seeds, C: rg.regen_trip_stats(
             ks, mk.scene_table(ks), cc, cfg, alb, emi, seeds, n_chunks=C),
         want_bit=8, keep=0xFF, dead=lambda alb, emi: 0,
-        live_of=lambda best: best > 0)
+        live_of=lambda best: best > 0, kernel="B11",
+        sweep_form=rg.regen_sweep_form)
     dyn = SimpleNamespace(
         name="dyn_regen", backend="cuda-dyn-regen",
         plain_backend="torch-dyn-regen", prep=dk.DynScene,
@@ -941,7 +944,8 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
             dr.dyn_regen_trip_stats(ks, cc, cfg, alb, emi, seeds,
                                     n_chunks=C),
         want_bit=17, keep=0x1FFFF, dead=dead_rows,
-        live_of=lambda rrow: (rrow >> 16) > 0)
+        live_of=lambda rrow: (rrow >> 16) > 0, kernel="B13",
+        sweep_form=dr.dyn_regen_sweep_form)
 
     def by_sample(fam, cfg, alb, emi, rsc, rows, trips):
         return rg.rows_by_sample(cfg, rsc, rows, trips, fam.want_bit,
@@ -1119,17 +1123,18 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
                   (mk.make_fused_tracer(scene, cam, cfg_ps, **kw)(
                       alb, emi, seeds),))
 
-    def window_sweep_checks(label, scene, cam, alb, emi, cfg_m, rsc, rows,
+    def window_sweep_checks(fam, label, ks, cam, alb, emi, cfg_m, rsc, rows,
                             trips, g_main, d_sweep):
-        """B11's window kernel against its checking build (the per-pixel
-        kernel) bit for bit, the two timed in turns, at the main shape
-        (the rows given) and at the CLI's default shape (640x480x100,
-        depth 32, one chunk: the 32-bounce instance), where the window
-        kernel is also held to the plain version; the kernel each launch
-        runs."""
+        """A family's window kernel (B11 or B13, the window sweep of
+        csrc/regen_window.cuh) against its checking build (the per-pixel
+        kernel) bit for bit, the two timed in turns, and against the plain
+        version, at the main shape (the rows given) and at 640x480x100,
+        depth 32, one chunk (the CLI's default shape, the 32-bounce
+        instance); the kernel each launch runs."""
+        B = fam.kernel
         cli = RenderConfig(width=640, height=480, spp=100, max_depth=32)
-        for shape, cfg_s in (("main shape", cfg_m), ("CLI shape", cli)):
-            form = rg.regen_sweep_form(cfg_s, alb, emi)
+        for shape, cfg_s in (("main shape", cfg_m), ("32-bounce shape", cli)):
+            form = fam.sweep_form(cfg_s, alb, emi)
             print(f"[regen sweep] {label}, {shape}: the entry point runs "
                   f"the {form} kernel", flush=True)
             check(form == "window", f"{label}, {shape}: the sweep runs the "
@@ -1137,15 +1142,14 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
             C_s = cfg_s.spp_chunks
             g_s = g_main
             if cfg_s is cli:
-                _, rsc, rows, trips = rg.make_regen_tracer(
-                    scene, cam, cli, collect=True, fastmath=True)(
+                _, rsc, rows, trips = fam.tracer(
+                    ks, cam, cli, collect=True, fastmath=True)(
                     alb, emi, torch.tensor([7, 8], dtype=torch.int32))
                 g_s = torch.rand(
                     (3, cli.width * cli.height), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(31)
                 ) / cli.spp
-            sweeps = {b: rg.make_regen_sweep_adjoint(scene, cfg_s,
-                                                     n_chunks=C_s, build=b)
+            sweeps = {b: fam.sweep(ks, cfg_s, n_chunks=C_s, build=b)
                       for b in mk.BUILDS}
             times, outs = [], {}
             for b in ("lockstep", "queue", "queue", "lockstep"):
@@ -1153,22 +1157,23 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
                     lambda: sweeps[b](alb, emi, rsc, rows, trips, g_s),
                     **timing)
                 times.append(t)
-            same_bits(f"{label}: B11's window kernel = its checking build "
+            same_bits(f"{label}: {B}'s window kernel = its checking build "
                       f"(the per-pixel kernel) at the {shape}",
                       outs["queue"], outs["lockstep"])
             if cfg_s is cfg_m:
                 same_bits(f"{label}: the renderer's sweep = the window "
                           "kernel at the main shape", d_sweep, outs["queue"])
-            else:
-                t_p, _, d_p = cuda_ms(lambda: rg.regen_sweep_plain(
-                    scene, cli, alb, emi, rsc, rows, trips, g_s),
-                    reps=1, warmup=0, windows=1)
-                compare_grads(f"{label}: B11 vs plain at the CLI shape",
-                              outs["queue"], d_p, GRAD_RTOL_MAIN)
-                print(f"[time] {label}: B11's plain version at the CLI "
-                      f"shape {t_p!r} ms", flush=True)
-                del rsc, rows, trips, d_p
-            print(f"[time] {label}: B11 at the {shape} (checking build, "
+            t_p, _, d_p = cuda_ms(lambda: fam.sweep_plain(
+                ks, cfg_s, alb, emi, rsc, rows, trips, g_s),
+                reps=1, warmup=0, windows=1)
+            compare_grads(f"{label}: {B} vs plain at the {shape}",
+                          outs["queue"], d_p, GRAD_RTOL_MAIN)
+            print(f"[time] {label}: {B}'s plain version at the {shape} "
+                  f"{t_p!r} ms", flush=True)
+            if cfg_s is cli:
+                del rsc, rows, trips
+            del d_p
+            print(f"[time] {label}: {B} at the {shape} (checking build, "
                   f"window kernel, window kernel, checking build) "
                   f"{times!r} ms on {smi_line}", flush=True)
             del outs
@@ -1253,9 +1258,8 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
                   "trips at the main shape",
                   sweep(alb, emi, rsc_n, rows_n, trips, g_main), d_sweep)
         del rsc_n, rows_n
-        if fam is table:
-            window_sweep_checks(label, scene, cam, alb, emi, cfg_m, rsc,
-                                rows, trips, g_main, d_sweep)
+        window_sweep_checks(fam, label, ks, cam, alb, emi, cfg_m, rsc, rows,
+                            trips, g_main, d_sweep)
         del rsc, rows
 
         # One chunk against the plain versions.
@@ -1304,12 +1308,10 @@ def regen_phases(dev, smi_line: str, timing: dict) -> dict:
         err[sw] = compare_grads(
             f"{label}: sweep vs plain on the kernel's rows, chunk {chunk}",
             d_k, d_p, GRAD_RTOL_MAIN)
-        if fam is table:
-            same_bits(f"{label}: one-chunk sweep = its checking build (the "
-                      "per-pixel kernel)", d_k,
-                      rg.make_regen_sweep_adjoint(
-                          ks, cfg_c, build="lockstep")(
-                          alb, emi, rsc_k, rows_k, trips_k, g_main))
+        same_bits(f"{label}: one-chunk sweep = its checking build (the "
+                  "per-pixel kernel)", d_k,
+                  fam.sweep(ks, cfg_c, build="lockstep")(
+                      alb, emi, rsc_k, rows_k, trips_k, g_main))
         del rsc_k, rows_k
         print(f"[time] {label} ({C} chunks of {spp_c} samples): {tr} "
               f"{ms[tr]!r} ms ({n_rays / ms[tr] / 1e3!r} Mrays/s), its "

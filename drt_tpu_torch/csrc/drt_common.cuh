@@ -2,8 +2,8 @@
 // (fused_body.cuh) and memory-resident (dyn_body.cuh) alike: the launch
 // configuration, the state of a path, the keyed hash, the primary ray, the
 // per-bounce uniforms, the BxDF sample + weight of one hit, one bounce of
-// the reverse sweep, the persistent grid and the section clock of the
-// checking builds.
+// the reverse sweep, the persistent grid, the cp.async copies of the
+// sweeps' rings and the section clock of the checking builds.
 //
 // Every library is built with -fmad=false, so the same expression rounds
 // the same way in every instantiation: that is what makes a collect
@@ -280,6 +280,40 @@ static cudaError_t queue_grid(Kernel kernel, int n, int* grid,
   *grid = sms * per_sm < need ? sms * per_sm : need;
   if (*grid < 1) *grid = 1;
   return e;
+}
+
+// The cp.async copies of the sweeps' rings in shared memory (B3 and B8
+// through sweep_rows.cuh, B11 and B13 through regen_window.cuh): a copy
+// of 4 bytes from global to shared memory, which with pred false reads
+// nothing and writes 0; the commit of the copies issued so far as one
+// group; and the wait until at most `pending` (0 to 7) groups are in
+// flight. Each carries a memory clobber, which keeps the compiler from
+// moving the ring's shared-memory loads across a copy or a wait: without
+// it a sweep could read a slot before its row has landed.
+static __device__ __forceinline__ void ring_copy4(void* dst, const void* src,
+                                                  bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+static __device__ __forceinline__ void ring_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void ring_wait(int pending) {
+  switch (pending) {
+#define DRT_WAIT(N)                                                        \
+  case N:                                                                  \
+    asm volatile("cp.async.wait_group " #N ";\n" ::: "memory");            \
+    break;
+    DRT_WAIT(0) DRT_WAIT(1) DRT_WAIT(2) DRT_WAIT(3)
+    DRT_WAIT(4) DRT_WAIT(5) DRT_WAIT(6)
+#undef DRT_WAIT
+    default:
+      asm volatile("cp.async.wait_group 7;\n" ::: "memory");
+  }
 }
 
 // The sections of a step that the checking builds time with clock64(), in

@@ -8,14 +8,27 @@
 // row | emission row << 8 | live << 16 | want << 17 | rr_on << 18), so
 // this kernel reads no scene at all.
 //
-// It is regen_adjoint.cu with another row decoder: one thread per pixel
-// walks the pixel's own `trips` rows, one sample's segment at a time
-// (regen_body.cuh:regen_sweep_chunk), into the accumulator of
-// grad_accum.cuh: no float atomics, two runs give the same bits. As in
-// dyn_adjoint.cu the accumulator takes (real albedo rows + real emission
-// rows) x 3 x 512 bytes of dynamic shared memory beside the 6 KB of
-// parameter tables, which holds DYN_MAX_GRAD_ROWS = 144 real rows; above
-// that the launch is refused (the wrapper raises with the count).
+// It is regen_adjoint.cu with another row decoder, and two kernels as
+// there. The per-pixel kernel (dyn_regen_sweep_kernel: one thread per
+// pixel walks the pixel's own `trips` rows, one sample's segment at a
+// time, regen_body.cuh:regen_sweep_chunk) is the checking build
+// drt_dyn_regen_sweep_lockstep and the launch where the window kernel's
+// ring does not fit. The window kernel (dyn_regen_window_kernel,
+// drt_dyn_regen_sweep) is B11's window sweep (regen_window.cuh: each
+// warp's rows copied in windows of adjacent pixels' rows into a ring in
+// shared memory, swept in rounds of a segment a lane) with this decoder.
+// Both add into the accumulator of grad_accum.cuh: no float atomics, two
+// runs give the same bits, and the window kernel's tables are the
+// per-pixel kernel's bit for bit. As in dyn_adjoint.cu the accumulator
+// takes (real albedo rows + real emission rows) x 3 x 512 bytes of
+// dynamic shared memory, which holds DYN_MAX_GRAD_ROWS = 144 real rows;
+// above that the launch is refused (the wrapper raises with the count).
+// The per-pixel kernel stages the 6 KB of parameter tables beside it; the
+// window kernel stages only the tables' own rows, after its ring, so that
+// at the mesh's 4 + 1 rows 5 blocks of it fit an SM. With the rings of 32
+// KB (8 bounces) and 64 KB (32 bounces) the window kernel fits up to 128
+// and 107 real rows in an H100's 227 KB a block; above, the launch takes
+// the per-pixel kernel (dyn_regen_sweep_form says which).
 //
 // What bounds it: device memory, 8 bytes per trip run read once.
 
@@ -27,6 +40,10 @@
 #define DRT_SMALL_DEPTH 8
 #define DYN_MAX_GRAD_ROWS 144
 
+#include "regen_window.cuh"
+
+// rrow = albedo row | emission row << 8 | live << 16 | want << 17 |
+// rr_on << 18 (dyn_regen_tracer.cu); a table's last row is its sentinel.
 struct RowDecode {
   const DrtTrace& cfg;
   __device__ __forceinline__ bool want(int pack) const {
@@ -41,6 +58,7 @@ struct RowDecode {
   }
 };
 
+// The per-pixel kernel: one thread per pixel, all chunks.
 template <int DMAX>
 __global__ void __launch_bounds__(DRT_BLOCK)
 dyn_regen_sweep_kernel(DrtTrace cfg, const float* __restrict__ alb,
@@ -71,43 +89,132 @@ dyn_regen_sweep_kernel(DrtTrace cfg, const float* __restrict__ alb,
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
+// Bytes of the window kernel's dynamic shared memory: window_bytes, then
+// the albedo and emission tables.
+template <int DMAX>
+static int dyn_window_bytes(int n_alb, int n_emi) {
+  return window_bytes<DMAX>(n_alb, n_emi) +
+         (n_alb + n_emi) * 3 * (int)sizeof(float);
+}
+
+// The window kernel: the block's tables after its rings, then
+// regen_window.cuh:window_sweep. Every thread of the block runs it to the
+// end (it holds barriers).
+template <int DMAX>
+__global__ void __launch_bounds__(DRT_BLOCK)
+dyn_regen_window_kernel(DrtTrace cfg, const float* __restrict__ alb,
+                        const float* __restrict__ emi,
+                        const float* __restrict__ rsc,
+                        const int* __restrict__ rrow,
+                        const int* __restrict__ trips,
+                        const float* __restrict__ g,
+                        float* __restrict__ partials) {
+  extern __shared__ float s_dyn[];
+  float* const s_alb = s_dyn + window_words<DMAX>(cfg.n_alb, cfg.n_emi);
+  float* const s_emi = s_alb + cfg.n_alb * 3;
+  for (int k = threadIdx.x; k < cfg.n_alb * 3; k += blockDim.x)
+    s_alb[k] = alb[k];
+  for (int k = threadIdx.x; k < cfg.n_emi * 3; k += blockDim.x)
+    s_emi[k] = emi[k];
+  zero_column(cfg.n_alb, cfg.n_emi, s_dyn);
+  __syncthreads();
+  window_sweep<DMAX>(cfg, RowDecode{cfg}, s_alb, s_emi, s_dyn, rsc, rrow,
+                     trips, g, partials);
+}
+
+// Whether drt_dyn_regen_sweep runs the window kernel for these table rows
+// and depth on the current card (its tables, ring and accumulator fit in
+// a block's shared memory), else the per-pixel kernel (as launch_sweep
+// decides).
+static cudaError_t dyn_sweep_takes_window(int max_depth, int n_alb,
+                                          int n_emi, bool* window) {
+  return max_depth <= DRT_SMALL_DEPTH
+             ? takes_window(dyn_regen_window_kernel<DRT_SMALL_DEPTH>,
+                            dyn_window_bytes<DRT_SMALL_DEPTH>(n_alb, n_emi),
+                            window)
+             : takes_window(dyn_regen_window_kernel<DRT_MAX_DEPTH>,
+                            dyn_window_bytes<DRT_MAX_DEPTH>(n_alb, n_emi),
+                            window);
+}
+
+// The per-pixel kernel (lockstep != 0 or where the window kernel does not
+// fit) or the window kernel, then the reduction of the partials.
+static int dyn_regen_sweep(const DrtTrace* cfg, const float* alb,
+                           const float* emi, const float* rsc,
+                           const int* rrow, const int* trips, const float* g,
+                           float* partials, float* da, float* de,
+                           int lockstep, void* stream) {
+  if (!dyn_tables_ok(cfg) || cfg->max_depth > DRT_MAX_DEPTH ||
+      cfg->n_alb - 1 + cfg->n_emi - 1 > DYN_MAX_GRAD_ROWS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = cfg->n_rays, na = cfg->n_alb, ne = cfg->n_emi;
+  const int rc =
+      cfg->max_depth <= DRT_SMALL_DEPTH
+          ? launch_sweep(lockstep, dyn_regen_window_kernel<DRT_SMALL_DEPTH>,
+                         dyn_window_bytes<DRT_SMALL_DEPTH>(na, ne),
+                         dyn_regen_sweep_kernel<DRT_SMALL_DEPTH>,
+                         acc_bytes(na, ne), n, s, *cfg, alb, emi, rsc, rrow,
+                         trips, g, partials)
+          : launch_sweep(lockstep, dyn_regen_window_kernel<DRT_MAX_DEPTH>,
+                         dyn_window_bytes<DRT_MAX_DEPTH>(na, ne),
+                         dyn_regen_sweep_kernel<DRT_MAX_DEPTH>,
+                         acc_bytes(na, ne), n, s, *cfg, alb, emi, rsc, rrow,
+                         trips, g, partials);
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
 extern "C" {
 
 int drt_dyn_regen_adjoint_limits(int* max_rows, int* max_grad_rows,
-                                 int* max_depth, int* block) {
+                                 int* max_depth, int* block,
+                                 int* window_rows, int* windows_small,
+                                 int* windows_max) {
   *max_rows = DYN_MAX_ROWS;
   *max_grad_rows = DYN_MAX_GRAD_ROWS;
   *max_depth = DRT_MAX_DEPTH;
   *block = DRT_BLOCK;
+  *window_rows = REGEN_WIN;
+  *windows_small = RegenRing<DRT_SMALL_DEPTH>::WINDOWS;
+  *windows_max = RegenRing<DRT_MAX_DEPTH>::WINDOWS;
   return 0;
 }
 
 // Launches the sweep and the reduction of the partials on `stream` and
 // returns the first CUDA error (0 on success). cfg->n_rays is the number
 // of pixels; `partials` is scratch of ceil(n_pix / block) x entries floats.
+// It runs the window kernel where its ring fits (dyn_sweep_takes_window),
+// else the per-pixel kernel.
 int drt_dyn_regen_sweep(const DrtTrace* cfg, const float* alb,
                         const float* emi, const float* rsc, const int* rrow,
                         const int* trips, const float* g, float* partials,
                         float* da, float* de, void* stream) {
-  if (!dyn_tables_ok(cfg) || cfg->max_depth > DRT_MAX_DEPTH ||
-      cfg->n_alb - 1 + cfg->n_emi - 1 > DYN_MAX_GRAD_ROWS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
-  const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
-  int rc;
-#define DRT_LAUNCH(DMAX)                                                   \
-  rc = allow_shared(dyn_regen_sweep_kernel<DMAX>, bytes);                  \
-  if (rc) return rc;                                                       \
-  dyn_regen_sweep_kernel<DMAX><<<grid, DRT_BLOCK, bytes, s>>>(             \
-      *cfg, alb, emi, rsc, rrow, trips, g, partials)
-  if (cfg->max_depth <= DRT_SMALL_DEPTH) { DRT_LAUNCH(DRT_SMALL_DEPTH); }
-  else { DRT_LAUNCH(DRT_MAX_DEPTH); }
-#undef DRT_LAUNCH
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
-                         de, s);
+  return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g, partials, da,
+                         de, 0, stream);
+}
+
+// The checking build: the per-pixel kernel at every launch, the bit
+// reference of drt_dyn_regen_sweep.
+int drt_dyn_regen_sweep_lockstep(const DrtTrace* cfg, const float* alb,
+                                 const float* emi, const float* rsc,
+                                 const int* rrow, const int* trips,
+                                 const float* g, float* partials, float* da,
+                                 float* de, void* stream) {
+  return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g, partials, da,
+                         de, 1, stream);
+}
+
+// Whether drt_dyn_regen_sweep runs the window kernel (*window = 1) or the
+// per-pixel kernel (0) at this depth and these table rows on the current
+// card, for its checks.
+int drt_dyn_regen_sweep_form(int max_depth, int n_alb, int n_emi,
+                             int* window) {
+  bool w = false;
+  const cudaError_t e = dyn_sweep_takes_window(max_depth, n_alb, n_emi, &w);
+  *window = w;
+  return (int)e;
 }
 
 const char* drt_dyn_regen_adjoint_error_string(int code) {

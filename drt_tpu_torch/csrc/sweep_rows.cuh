@@ -18,8 +18,9 @@
 //  - A ring of `stages` items in dynamic shared memory beside the
 //    accumulator: each thread copies its own slot's head rows (the first
 //    min(max_depth, SWEEP_HEAD) rows of rsc and of the word) with
-//    cp.async, stages - 1 items ahead of the one it sweeps, and reads only
-//    what it copied itself, so no barrier guards the ring. The launch
+//    cp.async (drt_common.cuh: ring_copy4, ring_commit, ring_wait),
+//    stages - 1 items ahead of the one it sweeps, and reads only what it
+//    copied itself, so no barrier guards the ring. The launch
 //    sizes the ring from what the accumulator and the kernel's tables
 //    leave of a block's shared memory (sweep_stages); where fewer than two
 //    stages fit (the dyn family's 144 rows fill the block's shared
@@ -66,31 +67,13 @@ static __device__ __forceinline__ int sweep_code(int ar, int er, int n_alb,
   return a | (e << 8) | (1 << 16);
 }
 
-// cp.async of 4 bytes from global to shared memory; with pred false it
-// reads nothing and writes 0.
-static __device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                                 bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-static __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Wait until all but the newest stages - 1 groups of copies have landed
 // (stages 2 or 3).
-static __device__ __forceinline__ void cp_async_wait_ring(int stages) {
+static __device__ __forceinline__ void ring_wait_stages(int stages) {
   if (stages == 3)
-    cp_async_wait<2>();
+    ring_wait(2);
   else
-    cp_async_wait<1>();
+    ring_wait(1);
 }
 
 // One live row of the reverse sweep (drt_common.cuh:sweep_bounce) from
@@ -268,15 +251,15 @@ static __device__ __forceinline__ void sweep_groups(
 #pragma unroll
       for (int b = 0; b < SWEEP_HEAD; ++b) {
         if (b < H) {
-          cp_async4(st + b * DRT_BLOCK, ps, ok);
-          cp_async4(sw + b * DRT_BLOCK, pw, ok);
+          ring_copy4(st + b * DRT_BLOCK, ps, ok);
+          ring_copy4(sw + b * DRT_BLOCK, pw, ok);
           ps += N;
           pw += N;
         }
       }
       ahead.next(C);
     }
-    cp_async_commit();
+    ring_commit();
     if (++put == stages) put = 0;
   };
   if (RING)
@@ -297,7 +280,7 @@ static __device__ __forceinline__ void sweep_groups(
     }
     if (RING) {
       prefetch();
-      cp_async_wait_ring(stages);
+      ring_wait_stages(stages);
       const float* st = ring + take * stage_words;
       if (++take == stages) take = 0;
       const RingRows head{st, reinterpret_cast<const int*>(st) +
@@ -329,7 +312,7 @@ static __device__ __forceinline__ void sweep_groups(
       zero_column(cfg.n_alb, cfg.n_emi, s_acc);
     }
   }
-  if (RING) cp_async_wait<0>();
+  if (RING) ring_wait(0);
 }
 
 // Bytes of dynamic shared memory of a sweep block with `stages` ring

@@ -14,7 +14,10 @@ n_chunks and t_cap = spp_c * max_depth:
   `make_dyn_regen_sweep_adjoint`: (d_albedo, d_emission) from those rows
     and a per-pixel cotangent; it reads no scene.
 The kernels are `csrc/dyn_regen_tracer.cu` and `csrc/dyn_regen_adjoint.cu`
-over `csrc/regen_body.cuh` and `csrc/dyn_body.cuh`. Per-pixel `trips`,
+over `csrc/regen_body.cuh` and `csrc/dyn_body.cuh`; the sweep reads each
+warp's rows in windows through `csrc/regen_window.cuh`, the window sweep
+it shares with `ops.regen`'s, where its ring fits
+(`dyn_regen_sweep_form`). Per-pixel `trips`,
 unwritten rows beyond them, the chunk dimension, the keyed hash and
 `sample_base` are as `ops.regen` says; the limits are the dyn family's
 (2048 shapes, 256 rows a table, of which the sweep accumulates at most
@@ -135,18 +138,25 @@ def _library() -> ctypes.CDLL:
 
 
 def _adjoint_library() -> ctypes.CDLL:
-    """The adjoint library: drt_dyn_regen_sweep."""
+    """The adjoint library: drt_dyn_regen_sweep (and its choice of
+    kernel, drt_dyn_regen_sweep_form) and its checking build
+    drt_dyn_regen_sweep_lockstep."""
     from drt_tpu_torch.utils import native
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_dyn_regen_sweep.argtypes is None:
         # alb, emi, rsc, rrow, trips, g, partials, da, de, stream
         mk._bind(lib, "drt_dyn_regen_sweep", 10, (mk._DrtTrace,))
+        mk._bind(lib, "drt_dyn_regen_sweep_lockstep", 10, (mk._DrtTrace,))
+        fn = lib.drt_dyn_regen_sweep_form
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
         lib.drt_dyn_regen_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.drt_dyn_regen_adjoint_error_string.restype = ctypes.c_char_p
         mk._check_limits(ADJOINT_SOURCE, lib.drt_dyn_regen_adjoint_limits,
                          [dk._ROW_CAP, dk.MAX_GRAD_ROWS, mk.MAX_DEPTH,
-                          mk.BLOCK])
+                          mk.BLOCK, rg.WINDOW_ROWS, rg.ring_windows(8),
+                          rg.ring_windows(mk.MAX_DEPTH)])
     return lib
 
 
@@ -230,14 +240,37 @@ def dyn_regen_trip_stats(ds: DynScene, cc, cfg: RenderConfig,
     return rg.stats_dict(stats, trips, out)
 
 
+def dyn_regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
+                         emi: torch.Tensor) -> str:
+    """The kernel `dyn_regen_sweep` runs at cfg's depth for tables of
+    alb's and emi's rows (the sentinel rows included) on the current
+    card: "window" where its ring of rows fits in a block's shared memory
+    beside the accumulator and the tables, else "per-pixel"."""
+    lib = _adjoint_library()
+    window = ctypes.c_int()
+    rc = lib.drt_dyn_regen_sweep_form(cfg.max_depth, alb.shape[0],
+                                      emi.shape[0], ctypes.byref(window))
+    if rc:
+        raise RuntimeError("dyn regeneration sweep form query: "
+                           + lib.drt_dyn_regen_adjoint_error_string(rc)
+                           .decode())
+    return "window" if window.value else "per-pixel"
+
+
 def dyn_regen_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                     rsc: torch.Tensor, rrow: torch.Tensor,
                     trips: torch.Tensor, g: torch.Tensor, *,
-                    n_chunks: int = 1):
+                    n_chunks: int = 1, build: str = "queue"):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the dyn
     regeneration sweep adjoint from the collect form's rows and a
     per-pixel cotangent g f32[3, n_pix]. CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version (`build` selects only the kernel); CUDA tensors launch the
+    kernel or raise. The kernel reads each warp's rows in windows of
+    adjacent pixels' rows (`dyn_regen_sweep_form`: "window"), or one
+    pixel's rows a thread where the windows do not fit; build="lockstep"
+    launches the per-pixel kernel at every call, the bit reference, and
+    is not counted."""
+    entry = mk._build_entry("drt_dyn_regen_sweep", build)
     if mk._device_of("dyn_regen_sweep", alb) == "cpu":
         return dyn_regen_sweep_plain(cfg, alb, emi, rsc, rrow, trips, g)
     dev = alb.device
@@ -246,12 +279,13 @@ def dyn_regen_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
     rg.check_rows(cfg, n_chunks, rsc, rrow, trips, g, dev)
     partials, da, de = dk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
-    mk._launch(dyn_regen_sweep, "dyn regeneration sweep adjoint",
-               lib.drt_dyn_regen_adjoint_error_string,
-               lib.drt_dyn_regen_sweep, dev, ctypes.byref(tcfg),
-               alb.data_ptr(), emi.data_ptr(), rsc.data_ptr(),
-               rrow.data_ptr(), trips.data_ptr(), g.data_ptr(),
-               partials.data_ptr(), da.data_ptr(), de.data_ptr())
+    mk._launch(dyn_regen_sweep if build == "queue" else None,
+               "dyn regeneration sweep adjoint",
+               lib.drt_dyn_regen_adjoint_error_string, getattr(lib, entry),
+               dev, ctypes.byref(tcfg), alb.data_ptr(), emi.data_ptr(),
+               rsc.data_ptr(), rrow.data_ptr(), trips.data_ptr(),
+               g.data_ptr(), partials.data_ptr(), da.data_ptr(),
+               de.data_ptr())
     return da, de
 
 
@@ -283,14 +317,17 @@ def make_dyn_regen_tracer(scene, cam, cfg: RenderConfig,
 
 
 def make_dyn_regen_sweep_adjoint(scene, cfg: RenderConfig, n_chunks: int = 1,
-                                 plain: bool = False):
+                                 plain: bool = False, build: str = "queue"):
     """Build `sweep(alb, emi, rsc, rrow, trips, g) -> (d_albedo,
     d_emission)` with g f32[3, n_pix] per pixel. `scene` is taken for the
-    JAX package's signature; the sweep reads rows, not shapes."""
+    JAX package's signature; the sweep reads rows, not shapes. `build`
+    selects the kernel (`dyn_regen_sweep`)."""
+    mk._build_entry("drt_dyn_regen_sweep", build)
+
     def sweep(alb, emi, rsc, rrow, trips, g):
         if plain:
             return dyn_regen_sweep_plain(cfg, alb, emi, rsc, rrow, trips, g)
         return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g,
-                               n_chunks=n_chunks)
+                               n_chunks=n_chunks, build=build)
 
     return sweep

@@ -1944,6 +1944,117 @@ def test_only_the_regen_sweep_entry_point_is_counted(dev):
             } == dict(regen_sweep=1)
 
 
+# The mesh regeneration sweep B13: its window kernel (B11's window sweep,
+# csrc/regen_window.cuh, with the dyn family's row decoder) against its
+# checking build, the per-pixel kernel, bit for bit; the kernel each
+# launch runs, by name under torch.profiler.
+def _dyn_regen_rows(make, cfg, chunks, dev, seed):
+    from drt_tpu_torch.ops import dynregen as dr
+
+    scene, params, cam, alb, emi = _setup(make, dev)
+    _, rsc, rrow, trips = dr.make_dyn_regen_tracer(
+        dk.DynScene(scene), cam, cfg, collect=True, fastmath=True,
+        n_chunks=chunks)(alb, emi, torch.tensor([seed, 5], dtype=torch.int32))
+    g = torch.rand((3, cfg.width * cfg.height), generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    return alb, emi, rsc, rrow, trips, g
+
+
+def _kernels_run(fn) -> set:
+    """The names of the CUDA kernels fn() launches, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+DYN_SWEEP_SCENES = {"glossy": gallery.build_glossy, "mesh87": _mesh(1)}
+
+
+@pytest.mark.parametrize("depth", [1, 5, 8, 9, 32])
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("name", list(DYN_SWEEP_SCENES))
+def test_dyn_regen_sweep_windows_equal_the_per_pixel_kernel(dev, name,
+                                                            chunks, depth):
+    """61x47 pixels (a partial warp and group), 24 samples a chunk (the
+    ring of either instance wraps), one and two chunks, both instances
+    (max_depth 8 | 9); also over rows of NaN beyond each pixel's
+    trips."""
+    from drt_tpu_torch.ops import dynregen as dr
+
+    cfg = RenderConfig(width=61, height=47, spp=24 * chunks,
+                       spp_chunks=chunks, max_depth=depth)
+    alb, emi, rsc, rrow, trips, g = _dyn_regen_rows(
+        DYN_SWEEP_SCENES[name], cfg, chunks, dev, depth)
+    assert dr.dyn_regen_sweep_form(cfg, alb, emi) == "window"
+    out = {build: dr.make_dyn_regen_sweep_adjoint(
+        None, cfg, n_chunks=chunks, build=build)(
+            alb, emi, rsc, rrow, trips, g) for build in mk.BUILDS}
+    assert _same_bits(out["queue"], out["lockstep"])
+    assert any((t[:-1] != 0).any() for t in out["queue"])
+    nan_rows = _nan_beyond_trips(rsc, rrow, trips)
+    assert _same_bits(dr.make_dyn_regen_sweep_adjoint(
+        None, cfg, n_chunks=chunks)(alb, emi, *nan_rows, trips, g),
+        out["lockstep"])
+
+
+@pytest.mark.parametrize("depth", [5, 32])
+def test_dyn_regen_sweep_runs_the_kernel_its_form_says(dev, depth):
+    """On the mesh's tables the window kernel; on synthetic tables of
+    100 + 40 real rows (the mesh's rows with their table rows drawn anew:
+    B13 reads no scene) the ring does not fit beside the accumulator and
+    the launch takes the per-pixel kernel. Each = the checking build, bit
+    for bit, on 2 chunks."""
+    from drt_tpu_torch.ops import dynregen as dr
+
+    cfg = RenderConfig(width=61, height=47, spp=16, spp_chunks=2,
+                       max_depth=depth)
+    alb, emi, rsc, rrow, trips, g = _dyn_regen_rows(_mesh(1), cfg, 2, dev,
+                                                    depth)
+    gen = torch.Generator(device=dev).manual_seed(depth)
+    a140 = torch.rand((101, 3), generator=gen, device=dev)
+    e140 = torch.rand((41, 3), generator=gen, device=dev)
+    ar = torch.randint(0, 101, rrow.shape, generator=gen, device=dev,
+                       dtype=torch.int32)
+    er = torch.randint(0, 41, rrow.shape, generator=gen, device=dev,
+                       dtype=torch.int32)
+    rrow140 = ((rrow & ~0xFFFF) | ar | (er << 8)).contiguous()
+    for tables, rows, form in (((alb, emi), rrow, "window"),
+                               ((a140, e140), rrow140, "per-pixel")):
+        assert dr.dyn_regen_sweep_form(cfg, *tables) == form
+        sweeps = {build: dr.make_dyn_regen_sweep_adjoint(
+            None, cfg, n_chunks=2, build=build) for build in mk.BUILDS}
+        out = {}
+        names = _kernels_run(lambda: out.setdefault("queue", sweeps["queue"](
+            *tables, rsc, rows, trips, g)))
+        ran = {n for n in names if "dyn_regen_" in n}
+        kernel = ("dyn_regen_window_kernel" if form == "window"
+                  else "dyn_regen_sweep_kernel")
+        assert ran and all(kernel in n for n in ran), ran
+        ref = sweeps["lockstep"](*tables, rsc, rows, trips, g)
+        assert _same_bits(out["queue"], ref)
+        assert int((ref[0][:-1] != 0).any(dim=1).sum()) >= 2
+
+
+def test_only_the_dyn_regen_sweep_entry_point_is_counted(dev):
+    from drt_tpu_torch.ops import dynregen as dr
+
+    cfg = RenderConfig(width=30, height=20, spp=4, max_depth=5)
+    alb, emi, rsc, rrow, trips, g = _dyn_regen_rows(_mesh(1), cfg, 1, dev, 1)
+    before = mk.launch_counts()
+    for build in mk.BUILDS:
+        dr.make_dyn_regen_sweep_adjoint(None, cfg, build=build)(
+            alb, emi, rsc, rrow, trips, g)
+    torch.cuda.synchronize()
+    after = mk.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(dyn_regen_sweep=1)
+
+
 # The segment tracer B1-seg: the queue of its lanes past the camera
 # against its lockstep checking build, bit for bit.
 def _check_segment_tracers(scene, cam, cfg, alb, emi, segs):

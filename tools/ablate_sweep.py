@@ -6,6 +6,7 @@ and what a residual sweep needs to read at all.
 
   python3 tools/ablate_sweep.py [--root DIR] [--label NAME]
   python3 tools/ablate_sweep.py --kernel b11 [--root DIR] [--label NAME]
+  python3 tools/ablate_sweep.py --kernel b13 [--root DIR] [--label NAME]
 
 Each variant is DIR's drt_tpu_torch with text edits of the sweeps'
 sources (its gradients are wrong by design: it is timed, never
@@ -68,6 +69,18 @@ instance's ring; 4 as is); "3 windows, 6 | 7 blocks an SM"
 (__launch_bounds__ that cap the registers); "rows preloaded" (the
 8-bounce instance reads a segment's rows from the ring together before
 its replay).
+
+With --kernel b13 the same for the mesh regeneration sweep B13
+(`drt_dyn_regen_sweep`, csrc/dyn_regen_adjoint.cu) at the mesh's main
+shape (icosphere level 3, 640x480x64 spp, depth 5, 4 chunks, fast, seeds
+(7, 8)), on chunk 1 of it alone (a retrace's one-chunk launch) and at
+the 32-bounce shape (the mesh at 640x480x100, depth 32, one chunk), and
+where the checkout has it its checking build (`lockstep_ms`) and the
+kernel the entry point runs (`form`). Variants, for the per-pixel kernel:
+"as is"; "rows alone"; "rrow chain alone"; "no accumulator adds" (as
+B11's). For the window kernel, whose window sweep B11 shares
+(csrc/regen_window.cuh): "as is"; "windows alone"; "no accumulator
+adds".
 """
 
 from __future__ import annotations
@@ -227,14 +240,16 @@ B11_PIXEL_VARIANTS = {
 }
 
 
-# ... and its window kernel (regen_window_kernel).
+# ... and its window kernel (regen_window_kernel), whose window sweep is
+# csrc/regen_window.cuh since B13 shares it (regen_adjoint.cu before).
+RW = "regen_window.cuh"
 _W_SEGMENTS = """      if (work && (t + D < top || top >= tr))
         t += window_segment<DMAX>(cfg, s_alb, s_emi, decode, rows, t, tr,
                                   gp, acc, acc_e);
 """
 _W_ROWS_ALONE = """      if (work && (t + D < top || top >= tr)) {
         int k = 1;  // the segment's rows, by the want bit of the next
-        while (t + k < tr && !((rows.meta_of(t + k) >> 8) & 1)) ++k;
+        while (t + k < tr && !decode.want(rows.meta_of(t + k))) ++k;
         acc[0] = acc[0] + rows.sc_of(t);
         t += k;
       }
@@ -294,24 +309,66 @@ _W_PRELOADED = [
      "      meta = meta_at(k + 1);\n", "window_segment("),
 ]
 
-B11_WINDOW_VARIANTS = {
-    "as is": {},
-    "windows alone": {RA: [(_W_SEGMENTS, _W_ROWS_ALONE)]},
-    "no accumulator adds": {RA: [(_W_BOUNCE, _W_S_ONLY)]},
-    "3 windows": {RA: [_w_ring(3)]},
-    "3 windows, 6 blocks an SM": {RA: [_w_ring(3), _w_blocks(6)]},
-    "3 windows, 7 blocks an SM": {RA: [_w_ring(3), _w_blocks(7)]},
-    "8 windows": {RA: [_w_ring(8)]},
-    "rows preloaded": {RA: _W_PRELOADED},
-}
+
+def b11_window_variants(ws: str) -> dict:
+    """B11's window-kernel variants, with the window sweep's text in
+    csrc/<ws>."""
+    def at(*pairs):  # edits of the window sweep and of the kernel
+        out: dict = {}
+        for src, pair in pairs:
+            out.setdefault(src, []).append(pair)
+        return out
+
+    return {
+        "as is": {},
+        "windows alone": at((ws, (_W_SEGMENTS, _W_ROWS_ALONE))),
+        "no accumulator adds": at((ws, (_W_BOUNCE, _W_S_ONLY))),
+        "3 windows": at((ws, _w_ring(3))),
+        "3 windows, 6 blocks an SM": at((ws, _w_ring(3)),
+                                        (RA, _w_blocks(6))),
+        "3 windows, 7 blocks an SM": at((ws, _w_ring(3)),
+                                        (RA, _w_blocks(7))),
+        "8 windows": at((ws, _w_ring(8))),
+        "rows preloaded": {ws: _W_PRELOADED},
+    }
+
+
+def window_source(root: Path) -> str:
+    """The file of root's window sweep."""
+    return RW if (root / "drt_tpu_torch" / "csrc" / RW).exists() else RA
 
 
 def b11_variants_of(root: Path) -> dict:
     """B11's variants for the design of root's kernel."""
     text = (root / "drt_tpu_torch" / "csrc" / RA).read_text()
     if "regen_window_kernel" in text:
-        return B11_WINDOW_VARIANTS
+        return b11_window_variants(window_source(root))
     return B11_PIXEL_VARIANTS
+
+
+# B13, the mesh regeneration sweep (drt_dyn_regen_sweep,
+# csrc/dyn_regen_adjoint.cu): its per-pixel kernel (the first design, and
+# the checking build drt_dyn_regen_sweep_lockstep after it) runs
+# regen_body.cuh:regen_sweep_chunk as B11's did ...
+DA = "dyn_regen_adjoint.cu"
+_B13_CALL = _B11_CALL.replace("rmeta + base", "rrow + base")
+B13_PIXEL_VARIANTS = {
+    "as is": {},
+    "rows alone": {DA: [(_B13_CALL, _B11_ROWS.replace("rmeta", "rrow"))]},
+    "rrow chain alone": {DA: [(_B13_CALL,
+                               _B11_CHAIN.replace("rmeta", "rrow"))]},
+    "no accumulator adds": {RB: [(_B11_BOUNCE, _B11_S_ONLY)]},
+}
+
+
+def b13_variants_of(root: Path) -> dict:
+    """B13's variants for the design of root's kernel: the per-pixel
+    kernel's, or the window sweep's that it shares with B11."""
+    text = (root / "drt_tpu_torch" / "csrc" / DA).read_text()
+    if "dyn_regen_window_kernel" not in text:
+        return B13_PIXEL_VARIANTS
+    return {name: edits for name, edits in b11_window_variants(RW).items()
+            if name in ("as is", "windows alone", "no accumulator adds")}
 
 
 def variants_of(root: Path) -> dict:
@@ -555,34 +612,112 @@ def child_b11(root: Path, full: bool) -> None:
     print(json.dumps(out), flush=True)
 
 
+def child_b13(root: Path, full: bool) -> None:
+    """Time B13 of the variant whose package is under root at the mesh's
+    main shape, on one chunk of it (a retrace's launch) and at the
+    32-bounce shape, and its checking build where the checkout has one;
+    print one JSON object."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.models import gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.scene import albedo_table, emission_table
+    from drt_tpu_torch.utils import native
+
+    dev = torch.device("cuda")
+    seeds = torch.tensor([7, 8], dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scene, params, cam = gallery.build_mesh(3, device=dev)
+    ds = dk.DynScene(scene)
+    alb, emi = albedo_table(scene, params), emission_table(scene, params)
+    out, trips_at = {}, {}
+    window = hasattr(dr, "dyn_regen_sweep_form")
+    if full:
+        out["ptxas"] = {DA: ptxas_lines(native.log_path(DA).read_text(),
+                                        "dyn_regen_")}
+        acc = 4 * 128 * 3 * (alb.shape[0] - 1 + emi.shape[0] - 1)
+        kernels = {f"dyn_regen_sweep_kernel<{d}>": (
+            f"dyn_regen_sweep_kernel<{d}>", acc) for d in (8, 32)}
+        if window:  # its ring, then its tables
+            kernels.update({
+                f"dyn_regen_window_kernel<{d}>": (
+                    f"dyn_regen_window_kernel<{d}>",
+                    acc + 4 * 2 * rg.WINDOW_ROWS * rg.ring_windows(d) * 32
+                    * 4 + 12 * (alb.shape[0] + emi.shape[0]))
+                for d in (8, 32)})
+        out["occupancy"] = ablate.occupancy(native, root, DA, kernels)
+    main = RenderConfig(**MESH)
+    chunk = RenderConfig(width=main.width, height=main.height,
+                         spp=main.spp // main.spp_chunks,
+                         max_depth=main.max_depth)
+    for name, cfg, base in (("B13 main shape", main, 0),
+                            ("B13 one chunk (chunk 1)", chunk, chunk.spp),
+                            ("B13 32-bounce shape", RenderConfig(**CLI), 0)):
+        C = cfg.spp_chunks
+        npix = cfg.width * cfg.height
+        _, rsc, rrow, trips = dr.make_dyn_regen_tracer(
+            ds, cam, cfg, fastmath=True, collect=True, n_chunks=C)(
+            alb, emi, seeds, base)
+        g = torch.rand((3, npix), generator=gen, device=dev) / cfg.spp
+        sweep = dr.make_dyn_regen_sweep_adjoint(ds, cfg, n_chunks=C)
+        ms, win = cuda_ms(torch, lambda: sweep(alb, emi, rsc, rrow, trips,
+                                               g))
+        rows = int(trips.sum())
+        out[name] = dict(ms=ms, windows=win, rows=rows,
+                         gb_s=8 * rows / ms / 1e6)
+        if window:
+            lock = dr.make_dyn_regen_sweep_adjoint(ds, cfg, n_chunks=C,
+                                                   build="lockstep")
+            ms, win = cuda_ms(torch, lambda: lock(alb, emi, rsc, rrow, trips,
+                                                  g))
+            out[name].update(form=dr.dyn_regen_sweep_form(cfg, alb, emi),
+                             lockstep_ms=ms, lockstep_windows=win)
+        if full:
+            trips_at[name] = trips_shares(torch, trips)
+        del rsc, rrow, trips
+        torch.cuda.empty_cache()
+    if full:
+        out["rows"] = trips_at
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
-    ap.add_argument("--kernel", default="b3", choices=("b3", "b11"),
+    ap.add_argument("--kernel", default="b3", choices=("b3", "b11", "b13"),
                     help="b3: the stored-residual sweeps B3 and B8; b11: "
-                         "the regeneration sweep")
+                         "the regeneration sweep; b13: the mesh "
+                         "regeneration sweep")
     ap.add_argument("--variants", default="",
                     help="comma-separated names of the variants to time "
                          "(default: all of the design's)")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--full", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    b11 = args.kernel == "b11"
+    regen = args.kernel != "b3"
     if args.child:
-        (child_b11 if b11 else child)(Path(args.child), args.full)
+        dict(b3=child, b11=child_b11, b13=child_b13)[args.kernel](
+            Path(args.child), args.full)
         return 0
     if not ablate.card("ablate_sweep", args.label):
         return 2
     root = Path(args.root).resolve()
-    variants = b11_variants_of(root) if b11 else variants_of(root)
+    variants = dict(b3=variants_of, b11=b11_variants_of,
+                    b13=b13_variants_of)[args.kernel](root)
     if args.variants:
         variants = {name: variants[name]
                     for name in args.variants.split(",")}
     roots = {name: ablate.make_variant(root, "ablate_sweep", name, edits)
              for name, edits in variants.items()}
-    sources = (RA, "regen_tracer.cu") if b11 else (F, D)
-    kernels = {RA: "regen_", F: _KERNEL[F], D: _KERNEL[D]}
+    sources = dict(b3=(F, D), b11=(RA, "regen_tracer.cu"),
+                   b13=(DA, "dyn_regen_tracer.cu"))[args.kernel]
+    kernels = {RA: "regen_", DA: "dyn_regen_", F: _KERNEL[F],
+               D: _KERNEL[D]}
     if not ablate.build_variants(roots.values(), sources):
         return 1
     for run, name in enumerate(ablate.in_turns(variants)):
@@ -602,7 +737,7 @@ def main() -> int:
               flush=True)
     # The report of every variant's build, for the registers it took.
     for name, r in roots.items():
-        for src in sources[:1] if b11 else sources:
+        for src in sources[:1] if regen else sources:
             log = next((r / "drt_tpu_torch" / "_build").glob(
                 f"*/{Path(src).stem}.log")).read_text()
             print(json.dumps({"kind": "ptxas", "label": args.label,

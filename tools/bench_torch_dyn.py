@@ -20,8 +20,11 @@ script), builds its kernels from DIR's sources, and prints JSON lines:
     and rrow, of B8's and B9's (d_albedo, d_emission), of B12's radiance
     and trips
     and of its collect form's rsc and rrow (the rows beyond each pixel's
-    trips, which the kernel never writes, set to 0) at those seeds: equal
-    digests across checkouts mean bit-equal outputs;
+    trips, which the kernel never writes, set to 0), and of B13's
+    (d_albedo, d_emission) on those rows and on chunk 1's rows alone, in
+    both builds where the checkout has B13's checking build
+    (build="lockstep", the per-pixel kernel; its times too), at those
+    seeds: equal digests across checkouts mean bit-equal outputs;
   - "path": the mesh through the user's entry points, seconds on the host
     clock with a synchronize: make_renderer forward, a forward+backward
     step of the mean squared image loss in the stored and the retrace
@@ -182,11 +185,39 @@ def main() -> int:
         emit("digest", label, name=f"dyn_regen_collect {what}",
              sha256=digest(torch.where(own, t, 0)))
     del own
-    regen_sweep = dr.make_dyn_regen_sweep_adjoint(ds, cfg, n_chunks=C)
-    ms, windows, _ = cuda_ms(
-        torch, lambda: regen_sweep(alb, emi, rsc, rrow, trips, g_pix))
-    emit("kernel", label, name="dyn_regen_sweep", ms=ms, windows=windows)
-    del rsc, rrow, trips
+    # B13 in both builds where the checkout has its checking build (the
+    # per-pixel kernel), on the main path's rows and on chunk 1's alone
+    # (a retrace's launch).
+    builds = ("queue", "lockstep") if hasattr(
+        dr, "dyn_regen_sweep_form") else ("queue",)
+    cfg_1 = RenderConfig(width=cfg.width, height=cfg.height, spp=cfg.spp // C,
+                         max_depth=cfg.max_depth)
+    _, rsc_1, rrow_1, trips_1 = dr.make_dyn_regen_tracer(
+        ds, cam, cfg_1, collect=True, fastmath=True)(alb, emi, seeds,
+                                                     cfg_1.spp)
+    for build in builds:
+        kw_b = {} if build == "queue" else dict(build=build)
+        name = "dyn_regen_sweep" + ("" if build == "queue" else
+                                    f" ({build} build)")
+        regen_sweep = dr.make_dyn_regen_sweep_adjoint(ds, cfg, n_chunks=C,
+                                                      **kw_b)
+        ms, windows, tables = cuda_ms(
+            torch, lambda: regen_sweep(alb, emi, rsc, rrow, trips, g_pix))
+        form = (dr.dyn_regen_sweep_form(cfg, alb, emi)
+                if len(builds) == 2 and build == "queue" else None)
+        emit("kernel", label, name=name, ms=ms, windows=windows, form=form,
+             rows=int(trips.sum()))
+        for what, t in zip(("d_albedo", "d_emission"), tables):
+            emit("digest", label, name=f"{name} {what}", sha256=digest(t))
+        sweep_1 = dr.make_dyn_regen_sweep_adjoint(ds, cfg_1, **kw_b)
+        ms, windows, tables = cuda_ms(
+            torch, lambda: sweep_1(alb, emi, rsc_1, rrow_1, trips_1, g_pix))
+        emit("kernel", label, name=f"{name}, chunk 1 alone", ms=ms,
+             windows=windows, rows=int(trips_1.sum()))
+        for what, t in zip(("d_albedo", "d_emission"), tables):
+            emit("digest", label, name=f"{name}, chunk 1 alone {what}",
+                 sha256=digest(t))
+    del rsc, rrow, trips, rsc_1, rrow_1, trips_1
 
     render = make_renderer(scene, cfg, cam, differentiable=False)
     s_img = torch.tensor([1, 2], dtype=torch.int32)
