@@ -1,7 +1,7 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
   python3 chip_smoke.py [--keep-going]
-                        [--only=dyn|regen|wavefront|compact|fused|sweep]
+                        [--only=dyn|regen|wavefront|compact|fused|sweep|split]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -146,14 +146,30 @@ Phases (any failure raises, exits non-zero and prints no result line):
      row limits (63 + 63 for B3; 144, rows through registers, and 128 for
      B8) and at 641x479 pixels of both main shapes; B3 timed at the CLI's
      default shape, its tables' SHA-256 digest printed;
- 18. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
+ 18. per-vertex splitting (bsdf_samples=2): at 64x48x2 spp, depth 5 (16
+     lanes a camera sample), the tape forms of the tracer, collect
+     tracer, sweep and retrace adjoint of both families (cbox and glossy;
+     the 87-shape mesh for the dyn family) and of the wavefront kernels
+     against their plain versions on one fused.split_prefix_tape, the
+     retrace adjoint = sweep(collect) bit for bit; then the three split
+     paths at full width: make_renderer's "cuda-split" on the Cornell box
+     at 640x480x16 spp in 4 chunks, depth 5 (19,660,800 lanes a chunk):
+     forward against "torch-split" per pixel, stored and retrace steps
+     (bit-equal gradients, against "torch-split" on one chunk), 5
+     optim.inverse_render steps, each kernel and the chunk's tape timed on
+     one chunk; "cuda-split-dyn" on the 1287-shape mesh at 640x480x4 spp:
+     forward and stored step, against "torch-split-dyn" at 1 spp, stored =
+     retrace; "cuda-wavefront" at 640x480x16 spp in 16 chunks: forward
+     (its image = "cuda-split"'s at the same seeds, per pixel) and a step,
+     and gradcheck.check_gradients at 64x48x4, depth 3;
+ 19. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7, 10, 13, 14 and 15 the launch counts
-are set to 0, and read just after. --only=dyn (phases 8-10),
+Before each of the paths of 5, 6, 7, 10, 13, 14, 15 and 18 the launch
+counts are set to 0, and read just after. --only=dyn (phases 8-10),
 --only=regen (phases 11-13), --only=wavefront (phase 14), --only=compact
-(phase 15), --only=fused (phase 16) and --only=sweep (phase 17) build,
-run those phases and stop without a result line (exit 1): short runs while
-working on them.
+(phase 15), --only=fused (phase 16), --only=sweep (phase 17) and
+--only=split (phase 18) build, run those phases and stop without a result
+line (exit 1): short runs while working on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -161,6 +177,7 @@ repository beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -3105,6 +3122,414 @@ def sweep_phase(dev, smi_line: str, timing: dict) -> dict:
     return {"fused_sweep": {"cli_ms": t}}
 
 
+def split_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 18: per-vertex splitting (bsdf_samples > 1) on the tape forms
+    of the fused kernels (B1-B4), the memory-resident kernels (B6-B9) and
+    the wavefront kernels (B5a, B5b). Returns, per kernel it launches, the
+    keys it adds to that kernel's row of the kernels line: its launches on
+    the split paths and, for B1-B4, its time per launch on one chunk of
+    the Cornell box split cell."""
+    from drt_tpu_torch import fused, gradcheck, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+    from drt_tpu_torch.renderer import lane_count
+    from drt_tpu_torch.scene import Params, albedo_table, emission_table
+
+    t_phase = time.time()
+
+    def tables(scene, params):
+        return albedo_table(scene, params), emission_table(scene, params)
+
+    def allocator(label):
+        """The caching allocator's state, beside the phase's host times."""
+        st = torch.cuda.memory_stats(dev)
+        print(f"[split] allocator {label}: reserved "
+              f"{st.get('reserved_bytes.all.current')} B, allocated "
+              f"{st.get('allocated_bytes.all.current')} B, cudaMalloc "
+              f"{st.get('num_device_alloc')}, cudaFree "
+              f"{st.get('num_device_free')}, alloc retries "
+              f"{st.get('num_alloc_retries')}", flush=True)
+
+    allocator("at the phase's start")
+
+    def leaves_of(p):
+        return Params(*(t.detach().clone().requires_grad_() for t in p))
+
+    def step(render_fn, p, s, tgt):
+        p = leaves_of(p)
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - tgt) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad), img.detach()
+
+    def planes(img):
+        return img.permute(2, 0, 1).reshape(3, -1)
+
+    # 18.1: every kernel of the split paths against its plain version on
+    # one split_prefix_tape, 64x48x2 spp, depth 5, 2 samples a vertex.
+    cfg = RenderConfig(width=64, height=48, spp=2, max_depth=5,
+                       bsdf_samples=2)
+    cfg_l = fused.split_chunk_cfg(cfg)
+    seeds = torch.tensor([17, -18], dtype=torch.int32)
+    cam_u, tape = fused.split_prefix_tape(seeds, 0, cfg, dev)
+    n = cam_u.shape[1]
+    npix = cfg.width * cfg.height
+    g_pix = torch.rand((3, npix), generator=torch.Generator(
+        device=dev).manual_seed(18), device=dev)
+    print(f"[split] small shape 64x48x2 spp, depth 5, bsdf_samples=2: "
+          f"{lane_count(cfg)} lanes a camera sample, {n} lanes", flush=True)
+    families = {
+        "fused": ((mk.make_fused_tracer, mk.make_fused_collect_tracer,
+                   mk.make_fused_sweep_adjoint, mk.make_fused_adjoint),
+                  lambda best: best > 0, ("B1", "B2", "B3", "B4")),
+        "dyn": ((dk.make_dyn_tracer, dk.make_dyn_collect_tracer,
+                 dk.make_dyn_sweep_adjoint, dk.make_dyn_adjoint),
+                lambda rrow: (rrow >> 16) > 0, ("B6", "B7", "B8", "B9"))}
+    for label, build, family in (
+            ("cbox", cbox.build, "fused"), ("glossy", gallery.build_glossy,
+                                            "fused"),
+            ("mesh87", lambda device: gallery.build_mesh(1, device=device),
+             "dyn")):
+        scene, params, cam = build(device=dev)
+        alb, emi = tables(scene, params)
+        kscene = scene if family == "fused" else dk.DynScene(scene)
+        (m_trace, m_collect, m_sweep, m_adj), live_of, names = \
+            families[family]
+        plain = dict(rng="tape", plain=True)
+        L = m_trace(kscene, cam, cfg_l, rng="tape")(alb, emi, cam_u, tape)
+        compare(f"split {names[0]} vs plain, {label}", L,
+                m_trace(kscene, cam, cfg_l, **plain)(alb, emi, cam_u, tape),
+                EXACT_TOL)
+        L_c, rsc, rows = m_collect(kscene, cam, cfg_l, rng="tape")(
+            alb, emi, cam_u, tape)
+        same_bits(f"split {names[1]} radiance = {names[0]}'s, {label}",
+                  (L_c,), (L,))
+        _, rsc_r, rows_r = m_collect(kscene, cam, cfg_l, **plain)(
+            alb, emi, cam_u, tape)
+        compare_residuals(f"split {names[1]} vs plain, {label}", (rsc, rows),
+                          (rsc_r, rows_r), EXACT_TOL, 0.0, RSC_SHARE_SMALL,
+                          live_of)
+        d_sweep = m_sweep(kscene, cfg_l)(alb, emi, rsc, rows, g_pix)
+        compare_grads(f"split {names[2]} vs plain on the kernel's rows, "
+                      f"{label}", d_sweep, m_sweep(kscene, cfg_l, plain=True)(
+                          alb, emi, rsc, rows, g_pix), GRAD_RTOL_SMALL)
+        d_adj = m_adj(kscene, cam, cfg_l, rng="tape")(alb, emi, cam_u, tape,
+                                                       g_pix)
+        same_bits(f"split {names[3]} = {names[2]}({names[1]}): stored = "
+                  f"retrace, {label}", d_adj, d_sweep)
+        compare_grads(f"split {names[3]} vs plain, {label}", d_adj,
+                      m_adj(kscene, cam, cfg_l, **plain)(
+                          alb, emi, cam_u, tape, g_pix), GRAD_RTOL_SMALL)
+        if family != "fused":
+            continue
+        # B5a and B5b's tape forms on the same lanes, from the kernel
+        # camera's rays.
+        cc = mk.camera_consts(cam, cfg.width, cfg.height)
+        o, d = mk.camera_ray_from_pix(cc, torch.arange(n, device=dev) % npix,
+                                      cam_u[0], cam_u[1])
+        o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+        compare(f"split B5a (tape form) vs plain, {label}",
+                mk.make_pallas_tracer(scene, cfg_l)(alb, emi, o, d, tape),
+                mk.make_pallas_tracer(scene, cfg_l, plain=True)(
+                    alb, emi, o, d, tape), EXACT_TOL)
+        g_lane = g_pix.repeat(1, n // npix)
+        compare_grads(f"split B5b vs plain, {label}",
+                      mk.make_pallas_adjoint(scene, cfg_l)(
+                          alb, emi, o, d, tape, g_lane),
+                      mk.make_pallas_adjoint(scene, cfg_l, plain=True)(
+                          alb, emi, o, d, tape, g_lane), GRAD_RTOL_SMALL)
+    del cam_u, tape
+
+    # 18.2: "cuda-split", the Cornell box at 640x480x16 spp in 4 chunks,
+    # depth 5, 2 samples a vertex: 16 lanes a camera sample.
+    cfg_m = RenderConfig(width=640, height=480, spp=16, spp_chunks=4,
+                         max_depth=5, bsdf_samples=2)
+    C = cfg_m.spp_chunks
+    n_lanes = cfg_m.width * cfg_m.height * cfg_m.spp * lane_count(cfg_m)
+    cfg_ml = fused.split_chunk_cfg(cfg_m)
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = tables(scene, params)
+    check(resolve_backend(scene, cfg_m) == "cuda-split",
+          "a split Cornell box on the card must resolve to 'cuda-split'")
+    check(fused._resolve_adjoint(cfg_m, "auto", dev) == "stored",
+          "the split cell's adjoint must resolve to 'stored'")
+    print(f"[split] cuda-split 640x480x16 spp, 4 chunks, depth 5, "
+          f"bsdf_samples=2: {n_lanes // C} lanes a chunk, {n_lanes} a "
+          f"render; residuals {fused.stored_bytes(cfg_m)} B of a "
+          f"budget of {fused.stored_budget_bytes(dev)} B", flush=True)
+    seed_list = [seeds_from_generator(torch.Generator().manual_seed(s))
+                 for s in (0, 1, 2)]
+    extra = {}
+    render = make_renderer(scene, cfg_m, cam, differentiable=False)
+    mk.reset_launch_counts()
+    images, t_fwd = [], []
+    for s in seed_list:  # the first is the warm-up
+        t0 = time.perf_counter()
+        images.append(render(params, s))
+        torch.cuda.synchronize()
+        t_fwd.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    check(counts == only(fused_tracer=C * len(seed_list)),
+          f"the split forward launched {counts}")
+    extra["fused_tracer"] = dict(split_launches=C)
+    for s, img in zip(seed_list[1:], images[1:]):
+        check(img.shape == (480, 640, 3) and img.dtype == torch.float32,
+              f"split image {tuple(img.shape)} {img.dtype}")
+        reads_right(img, f"cuda-split, seed {s.tolist()}")
+    t0 = time.perf_counter()
+    ref = make_renderer(scene, cfg_m, cam, differentiable=False,
+                        backend="torch-split")(params, seed_list[1])
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    compare("cuda-split image vs torch-split at the same seeds (per pixel)",
+            planes(images[1]), planes(ref), EXACT_TOL)
+    del ref
+    # One chunk's tape, and each kernel on one chunk's lanes.
+    tape_ms, tape_win, (cu, tp) = cuda_ms(
+        lambda: fused.split_prefix_tape(seed_list[1], 1, cfg_m, dev),
+        reps=3, warmup=1, windows=1)
+    g_main = torch.rand((3, cfg_m.width * cfg_m.height), generator=
+                        torch.Generator(device=dev).manual_seed(19),
+                        device=dev) / (cfg_m.spp * lane_count(cfg_m))
+    b1 = mk.make_fused_tracer(scene, cam, cfg_ml, rng="tape")
+    b2 = mk.make_fused_collect_tracer(scene, cam, cfg_ml, rng="tape")
+    b3 = mk.make_fused_sweep_adjoint(scene, cfg_ml)
+    b4 = mk.make_fused_adjoint(scene, cam, cfg_ml, rng="tape")
+    kernel_ms = {}
+    kernel_ms["fused_tracer"], _, _ = cuda_ms(
+        lambda: b1(alb, emi, cu, tp), **timing)
+    kernel_ms["fused_collect"], _, (_, rsc, rbest) = cuda_ms(
+        lambda: b2(alb, emi, cu, tp), **timing)
+    kernel_ms["fused_sweep"], _, d_sweep = cuda_ms(
+        lambda: b3(alb, emi, rsc, rbest, g_main), **timing)
+    kernel_ms["fused_adjoint"], _, d_adj = cuda_ms(
+        lambda: b4(alb, emi, cu, tp, g_main), **timing)
+    same_bits("split B4 = B3(B2) on one chunk of the split cell", d_adj,
+              d_sweep)
+    live = int((rbest > 0).sum().item())
+    del cu, tp, rsc, rbest
+    print(f"[time] split cell, one chunk of {n_lanes // C} lanes: "
+          f"split_prefix_tape {tape_ms!r} ms (window means {tape_win!r}), "
+          f"B1 {kernel_ms['fused_tracer']!r}, B2 "
+          f"{kernel_ms['fused_collect']!r}, B3 {kernel_ms['fused_sweep']!r}"
+          f", B4 {kernel_ms['fused_adjoint']!r} ms; {live} live "
+          f"bounce-lanes of {n_lanes // C * cfg_m.max_depth}; on {smi_line}",
+          flush=True)
+    t_f = statistics.median(t_fwd[1:])
+    print(f"[split] cuda-split forward: seconds {t_fwd[1:]!r} "
+          f"({n_lanes / t_f / 1e6!r} Mlanes/s); the tape {C} x {tape_ms!r} "
+          f"ms = {C * tape_ms / 1e3 / t_f!r} of it; torch-split forward "
+          f"{t_plain!r} s; on {smi_line}", flush=True)
+
+    target = images[1]
+    del images
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    steps = {}
+    for label, render_fn, expected, n_tapes in (
+            ("stored (auto)", make_renderer(scene, cfg_m, cam),
+             only(fused_collect=C, fused_sweep=C), C),
+            ("retrace", fused.make_split_fused_image_renderer(
+                scene, cam, cfg_m, adjoint="retrace"),
+             only(fused_tracer=C, fused_adjoint=C), 2 * C)):
+        counts, out = time_steps(
+            f"cuda-split, {label}",
+            lambda: step(render_fn, p_off, seed_list[1], target)[:2], mk,
+            expected, n_lanes, n_steps=3)
+        steps[label] = out[1]
+        for name, k in counts.items():
+            if k:
+                extra.setdefault(name, {})["split_launches"] = k // 3
+        t_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(render_fn, p_off, seed_list[1], target)
+            torch.cuda.synchronize()
+            t_s.append(time.perf_counter() - t0)
+        t_med = statistics.median(t_s)
+        print(f"[split] cuda-split {label} step: seconds {t_s!r}; the tape "
+              f"{n_tapes} x {tape_ms!r} ms = {n_tapes * tape_ms / 1e3 / t_med!r}"
+              f" of it; on {smi_line}", flush=True)
+    same_bits("cuda-split stored step = retrace step (gradient tables)",
+              steps["stored (auto)"], steps["retrace"])
+    # Against the plain version on one chunk of the same config.
+    cfg_1 = dataclasses.replace(cfg_m, spp=cfg_m.spp // C, spp_chunks=1)
+    pair = []
+    for backend in ("cuda-split", "torch-split"):
+        t0 = time.perf_counter()
+        pair.append(step(make_renderer(scene, cfg_1, cam, backend=backend),
+                         p_off, seed_list[2], target))
+        torch.cuda.synchronize()
+        print(f"[grad] split, one chunk, {backend}: loss="
+              f"{pair[-1][0].item()!r} seconds={time.perf_counter() - t0!r}",
+              flush=True)
+    compare_grads("cuda-split grads vs torch-split on one chunk", pair[0][1],
+                  pair[1][1], GRAD_RTOL_MAIN)
+    del pair
+    true_red = params.albedo[cbox.RED].clone()
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+    n_train = 5
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted, metrics = optim.inverse_render(
+        scene, cfg_m, cam, target, Params(start, params.emission),
+        torch.Generator().manual_seed(5), steps=n_train)
+    torch.cuda.synchronize()
+    t_train = (time.perf_counter() - t0) / n_train
+    counts = mk.launch_counts()
+    before = (start[cbox.RED] - true_red).norm().item()
+    after = (fitted.albedo[cbox.RED] - true_red).norm().item()
+    print(f"[train] inverse_render, split cell, {n_train} steps: launches="
+          f"{counts} seconds per step={t_train!r} loss="
+          f"{metrics['loss'].tolist()} red row distance {before!r} -> "
+          f"{after!r} on {smi_line}", flush=True)
+    check(counts == only(fused_collect=2 * C * n_train,
+                         fused_sweep=2 * C * n_train),
+          f"the split trainer launched {counts}")
+    check(bool(torch.isfinite(metrics["loss"]).all()),
+          "the split trainer's losses are not finite")
+    check(after < before, "split trainer: the perturbed albedo row moved "
+          "away from its true value")
+    split_image = target
+    torch.cuda.empty_cache()
+
+    # 18.3: "cuda-split-dyn", the 1287-shape mesh at 640x480x4 spp, one
+    # chunk, depth 5, 2 samples a vertex.
+    cfg_d = RenderConfig(width=640, height=480, spp=4, max_depth=5,
+                         bsdf_samples=2)
+    mesh, mesh_params, mesh_cam = gallery.build_mesh(3, device=dev)
+    check(resolve_backend(mesh, cfg_d) == "cuda-split-dyn",
+          "the split 1287-shape mesh must resolve to 'cuda-split-dyn'")
+    n_dyn = cfg_d.width * cfg_d.height * cfg_d.spp * lane_count(cfg_d)
+    render = make_renderer(mesh, cfg_d, mesh_cam, differentiable=False)
+    mk.reset_launch_counts()
+    t_fwd = []
+    for s in seed_list:
+        t0 = time.perf_counter()
+        img = render(mesh_params, s)
+        torch.cuda.synchronize()
+        t_fwd.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    check(counts == only(dyn_tracer=len(seed_list)),
+          f"the split dyn forward launched {counts}")
+    check(bool(torch.isfinite(img).all()) and img.mean().item() > 0,
+          "split mesh image not finite, or black")
+    extra["dyn_tracer"] = dict(split_launches=1)
+    print(f"[split] cuda-split-dyn forward, 1287 shapes, {n_dyn} lanes: "
+          f"seconds {t_fwd[1:]!r}, image mean {img.mean().item()!r}; on "
+          f"{smi_line}", flush=True)
+    # The one launch of 19.66 M lanes against the plain version at its
+    # size: the same samples in 4 chunks of one sample each (chunk c draws
+    # sample c), a forward only (the plain step takes ~10 s a chunk).
+    cfg_d4 = dataclasses.replace(cfg_d, spp_chunks=cfg_d.spp)
+    t0 = time.perf_counter()
+    ref = make_renderer(mesh, cfg_d4, mesh_cam, differentiable=False,
+                        backend="torch-split-dyn")(mesh_params, seed_list[2])
+    torch.cuda.synchronize()
+    print(f"[split] torch-split-dyn forward, {cfg_d.spp} chunks of "
+          f"{n_dyn // cfg_d.spp} lanes: seconds "
+          f"{time.perf_counter() - t0!r}", flush=True)
+    compare(f"cuda-split-dyn image, one launch of {n_dyn} lanes, vs "
+            f"torch-split-dyn in {cfg_d.spp} chunks (per pixel)",
+            planes(img), planes(ref), EXACT_TOL)
+    del ref
+    render_fn = make_renderer(mesh, cfg_d, mesh_cam)
+    _, (_, grads_d) = time_steps(
+        "cuda-split-dyn, stored (auto)",
+        lambda: step(render_fn, mesh_params, seed_list[1], img)[:2],
+        mk, only(dyn_collect=1, dyn_sweep=1), n_dyn, n_steps=3)
+    extra["dyn_collect"] = dict(split_launches=1)
+    extra["dyn_sweep"] = dict(split_launches=1)
+    grads_d4 = step(make_renderer(mesh, cfg_d4, mesh_cam), mesh_params,
+                    seed_list[1], img)[1]
+    compare_grads(f"cuda-split-dyn step, one launch of {n_dyn} lanes, vs "
+                  f"{cfg_d.spp} launches of {n_dyn // cfg_d.spp}", grads_d,
+                  grads_d4, GRAD_RTOL_MAIN)
+    del grads_d, grads_d4
+    # The step against the plain version on the first of its 4 samples
+    # (the plain step takes ~10 s for these 4.9 M lanes); the retrace
+    # form (B6 + B9) = the stored form there.
+    cfg_d1 = dataclasses.replace(cfg_d, spp=1)
+    pair = []
+    for backend in ("cuda-split-dyn", "torch-split-dyn"):
+        t0 = time.perf_counter()
+        pair.append(step(make_renderer(mesh, cfg_d1, mesh_cam,
+                                       backend=backend), mesh_params,
+                         seed_list[2], img))
+        torch.cuda.synchronize()
+        print(f"[grad] split mesh, 1 spp, {backend}: loss="
+              f"{pair[-1][0].item()!r} seconds={time.perf_counter() - t0!r}",
+              flush=True)
+    compare("cuda-split-dyn image vs torch-split-dyn, 1 spp (per pixel)",
+            planes(pair[0][2]), planes(pair[1][2]), EXACT_TOL)
+    compare_grads("cuda-split-dyn grads vs torch-split-dyn, 1 spp",
+                  pair[0][1], pair[1][1], GRAD_RTOL_MAIN)
+    mk.reset_launch_counts()
+    retrace = step(fused.make_split_dyn_image_renderer(
+        mesh, mesh_cam, cfg_d1, adjoint="retrace"), mesh_params,
+        seed_list[2], img)
+    check(mk.launch_counts() == only(dyn_tracer=1, dyn_adjoint=1),
+          f"the split dyn retrace step launched {mk.launch_counts()}")
+    extra["dyn_adjoint"] = dict(split_launches=1)
+    same_bits("cuda-split-dyn stored = retrace, 1 spp", pair[0][1],
+              retrace[1])
+    del pair, retrace, mesh, img
+    torch.cuda.empty_cache()
+
+    allocator("before the split wavefront")
+    # 18.4: "cuda-wavefront" at 2 samples a vertex, the Cornell box at
+    # 640x480x16 spp in 16 chunks: each chunk's rays split into 16
+    # ray-major lanes through B5a's and B5b's tape forms.
+    cfg_w = dataclasses.replace(cfg_m, spp_chunks=16)
+    render = make_renderer(scene, cfg_w, cam, differentiable=False,
+                           backend="cuda-wavefront")
+    mk.reset_launch_counts()
+    t_fwd = []
+    for s in seed_list[:2]:
+        t0 = time.perf_counter()
+        img_w = render(params, s)
+        torch.cuda.synchronize()
+        t_fwd.append(time.perf_counter() - t0)
+    counts = mk.launch_counts()
+    check(counts == only(ray_tracer=2 * 16),
+          f"the split wavefront forward launched {counts}")
+    print(f"[split] cuda-wavefront forward at bsdf_samples=2, 16 chunks: "
+          f"seconds {t_fwd[1:]!r}; on {smi_line}", flush=True)
+    compare("cuda-wavefront image at bsdf_samples=2 vs cuda-split's at the "
+            "same seeds (per pixel)", planes(img_w), planes(split_image),
+            EXACT_TOL)
+    render_fn = make_renderer(scene, cfg_w, cam, backend="cuda-wavefront")
+    _, (_, grads_w) = time_steps(
+        "cuda-wavefront, bsdf_samples=2",
+        lambda: step(render_fn, p_off, seed_list[1], split_image)[:2], mk,
+        only(ray_tracer=16, ray_adjoint=16), n_lanes, n_steps=2)
+    compare_grads("cuda-wavefront step at bsdf_samples=2 vs cuda-split's "
+                  "stored step (same seeds, target and params)", grads_w,
+                  steps["stored (auto)"], GRAD_RTOL_MAIN)
+    extra["ray_tracer"] = dict(split_launches=16)
+    extra["ray_adjoint"] = dict(split_launches=16)
+    cfg_g = RenderConfig(width=64, height=48, spp=4, max_depth=3,
+                         bsdf_samples=2)
+    mk.reset_launch_counts()
+    res = gradcheck.check_gradients(scene, cam, cfg_g, params, seeds,
+                                    rtol=1e-4)
+    counts = mk.launch_counts()
+    print(f"[gradcheck] check_gradients 64x48x4, depth 3, bsdf_samples=2 "
+          f"on the card, rtol 1e-4: {res!r}; launches={counts}", flush=True)
+    check(counts == only(ray_tracer=1, ray_adjoint=1),
+          f"split check_gradients launched {counts}")
+    for name, ms in kernel_ms.items():
+        extra[name]["split_ms"] = ms
+    extra["fused_tracer"]["split_tape_ms"] = tape_ms
+    print(f"[phase] 18 (split): {time.time() - t_phase:.1f}s", flush=True)
+    return extra
+
+
 def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
@@ -3159,7 +3584,8 @@ def main() -> int:
     if ONLY:
         phase = {"dyn": dyn_phases, "regen": regen_phases,
                  "wavefront": wavefront_phase, "compact": compact_phase,
-                 "fused": fused_phase, "sweep": sweep_phase}[ONLY]
+                 "fused": fused_phase, "sweep": sweep_phase,
+                 "split": split_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -3511,6 +3937,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     compact_rows = compact_phase(dev, smi_line,
                                  dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
+    split_extra = split_phase(dev, smi_line,
+                              dict(reps=10, warmup=10, windows=3))
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -3523,7 +3952,7 @@ def main() -> int:
     rows.update(regen_rows)
     rows.update(wave_rows)
     rows.update(compact_rows)
-    for extra in (fused_extra, sweep_extra):
+    for extra in (fused_extra, sweep_extra, split_extra):
         for name, keys in extra.items():
             rows[name].update(keys)
     # name -> (source under csrc/, the TPU kernel's file and def line)
@@ -3556,6 +3985,10 @@ def main() -> int:
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
     # No single PyTorch call computes any of these kernels: library_ms null.
+    # split_launches are a kernel's launches on a lane-splitting path
+    # (phase 18: a forward or a step), split_ms its time per launch on one
+    # chunk of the Cornell box split cell, split_tape_ms that chunk's
+    # split_prefix_tape.
     # The dyn and regeneration kernels' plain_ms is of one chunk of `chunks`
     # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
     # launch. A regeneration tracer's entry is its forward form; collect_*

@@ -15,8 +15,12 @@ such as `models.gallery.build_mesh`), the path-regeneration renderers of
 both families (`ops.regen`, `ops.dynregen`: backends "cuda-regen" and
 "cuda-dyn-regen"), the key-driven wavefront (`renderer.render_image`,
 `adjoint.make_diff_image_renderer` over the wavefront tracer and adjoint
-kernels: backend "cuda-wavefront"), `adjoint.make_diff_renderer`,
-`gradcheck`, `integrate`, and the Adam loop of `optim`.
+kernels: backend "cuda-wavefront"), per-vertex splitting (bsdf_samples >
+1: `fused.make_split_fused_image_renderer` and
+`make_split_dyn_image_renderer` over the tape forms of both fused
+families, backends "cuda-split" and "cuda-split-dyn", and the wavefront),
+`adjoint.make_diff_renderer`, `gradcheck`, `integrate`, and the Adam loop
+of `optim`.
 """
 
 from drt_tpu_torch.adjoint import make_diff_image_renderer, make_diff_renderer

@@ -37,28 +37,35 @@ from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.fused import _salted
 from drt_tpu_torch.ops.megakernel import (make_pallas_adjoint,
                                           make_pallas_tracer)
-from drt_tpu_torch.ops.rng import bounce_tape
+from drt_tpu_torch.ops.rng import prefix_tape
 from drt_tpu_torch.ops.vecmath import V3, gatherv
 from drt_tpu_torch.renderer import (BounceResiduals, chunk_pixel_ids,
                                     chunk_rays, chunk_sample_ids,
+                                    expand_lanes, lane_count, one_lane,
                                     render_image, trace_rays)
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
 
-def _check_lanes(cfg: RenderConfig) -> None:
-    """One lane per ray: the port's tracer has no per-vertex splitting
-    until ROADMAP item A12."""
-    if cfg.bsdf_samples != 1:
-        raise NotImplementedError(
-            "bsdf_samples > 1 (per-vertex splitting) comes to the port "
-            "with ROADMAP item A12")
+def _lane_cotangent(g, cfg: RenderConfig):
+    """Per-ray cotangent (V3 of f[N], or f[3, N]) -> the per-lane
+    cotangent of the splitting tracer's N * M ray-major lanes: a ray's
+    radiance is the MEAN of its lanes, so each lane gets g / M
+    (drt_tpu/adjoint.py:_lane_cotangent). The identity at M == 1."""
+    M = lane_count(cfg)
+    if M == 1:
+        return g
+    if torch.is_tensor(g):
+        return expand_lanes(g / M, M)
+    return expand_lanes(V3(*(c / M for c in g)), M)
 
 
-def _lane_cotangent(g: V3, cfg: RenderConfig) -> V3:
-    """Per-ray cotangent -> per-lane cotangent of the splitting tracer:
-    the identity at bsdf_samples == 1 (`_check_lanes`)."""
-    _check_lanes(cfg)
-    return g
+def _tape_of(cfg: RenderConfig, seeds, pix, sample, dtype,
+             n_samples: int | None = None) -> torch.Tensor:
+    """The bounce draws of the ray-major lanes of the rays (pix, sample)
+    under the bounce seed seeds[1]: `prefix_tape`, whose one lane a ray
+    at bsdf_samples == 1 is `bounce_tape`."""
+    return prefix_tape(int(seeds[1]), pix, sample, cfg.bsdf_samples,
+                       cfg.max_depth, dtype, n_samples=n_samples)
 
 
 def _segv(data: V3, ids: torch.Tensor, num: int) -> V3:
@@ -130,6 +137,9 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
     for the seed pair `seeds` (key-mode `trace_rays`: ray i draws as pixel
     i at sample 0); the backward replays the forward's draws (biased) or
     averages `adjoint_samples` retraces on salted bounce seeds (unbiased).
+    bsdf_samples > 1 (key mode only) traces `lane_count(cfg)` ray-major
+    lanes per ray and returns their mean; the backward retraces the lanes
+    with the cotangent g / M each (`_lane_cotangent`).
 
     use_tape=True: `f(params, orig, dir, tape)` with an injected uniform
     tape f[max_depth, 3, N]; differentiable in `params` by radiative
@@ -146,17 +156,24 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
         if cfg.bsdf_samples != 1:
             raise ValueError("bwd_tape mode is single-BSDF-sample only "
                              "(a 1-stream tape cannot drive a tree)")
-    _check_lanes(cfg)
+    if use_tape and cfg.bsdf_samples > 1:
+        raise ValueError("bsdf_samples > 1 is key-driven only")
+    M = lane_count(cfg)
+    cfg1 = one_lane(cfg)
 
     class DiffTrace(torch.autograd.Function):
+        # Traces the N * M lanes of (ox.., dx..) f[N] (M = 1 without
+        # splitting) and returns each ray's lane mean.
         @staticmethod
         def forward(ctx, albedo, emission, ox, oy, oz, dx, dy, dz, tape_f,
                     bwd_tapes):
             ctx.save_for_backward(albedo, emission, ox, oy, oz, dx, dy, dz)
             ctx.bwd_tapes = bwd_tapes
-            return tuple(trace_rays(Params(albedo, emission), scene,
-                                    V3(ox, oy, oz), V3(dx, dy, dz), cfg,
-                                    tape=tape_f))
+            L = trace_rays(Params(albedo, emission), scene,
+                           expand_lanes(V3(ox, oy, oz), M),
+                           expand_lanes(V3(dx, dy, dz), M), cfg1,
+                           tape=tape_f)
+            return tuple(c.reshape(-1, M).mean(dim=1) for c in L)
 
         @staticmethod
         def backward(ctx, gx, gy, gz):
@@ -167,9 +184,10 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
             with torch.no_grad():
                 tapes = ctx.bwd_tapes()
                 for tape in tapes:
-                    _, residuals = trace_rays(params, scene, V3(ox, oy, oz),
-                                              V3(dx, dy, dz), cfg, tape=tape,
-                                              collect=True)
+                    _, residuals = trace_rays(
+                        params, scene, expand_lanes(V3(ox, oy, oz), M),
+                        expand_lanes(V3(dx, dy, dz), M), cfg1, tape=tape,
+                        collect=True)
                     d = _param_grads(params, scene, residuals, g, ox.dtype)
                     da = da + d.albedo
                     de = de + d.emission
@@ -186,8 +204,7 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
             smp = torch.zeros_like(pix)
 
             def tape_of(sd):
-                return bounce_tape(int(sd[1]), pix, smp, cfg.max_depth,
-                                   dir.x.dtype)
+                return _tape_of(cfg, sd, pix, smp, dir.x.dtype)
 
             tape_f = tape_of(seeds)
             bwd = (lambda: [tape_of(sd) for sd in _bwd_seeds(cfg, seeds)])
@@ -209,17 +226,29 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
 def make_wavefront_trace_fn(scene: Scene, cfg: RenderConfig,
                             plain: bool = False):
     """The `trace_fn` of `renderer.render_image` over the wavefront tracer
-    kernel's keyed form (B5a; its plain twin, key-mode `trace_rays`, for a
-    CPU scene or plain=True): one launch on a chunk's rays, which draws
-    their bounce uniforms in the kernel from seeds[1] and each ray's
-    (pix, sample). No tape is built."""
-    _check_lanes(cfg)
-    trace = make_pallas_tracer(scene, cfg, plain=plain, keyed=True)
+    kernel (B5a; its plain twin, `trace_rays`, for a CPU scene or
+    plain=True). At bsdf_samples == 1 its keyed form: one launch on a
+    chunk's rays, which draws their bounce uniforms in the kernel from
+    seeds[1] and each ray's (pix, sample); no tape is built. At
+    bsdf_samples > 1 its tape form on the chunk's rays expanded to
+    `lane_count(cfg)` ray-major lanes and their prefix-shared draws
+    (`ops.rng.prefix_tape`), which the keyed form cannot key; a ray's
+    radiance is the mean of its lanes."""
+    M = lane_count(cfg)
+    if M == 1:
+        trace = make_pallas_tracer(scene, cfg, plain=plain, keyed=True)
+    else:
+        trace = make_pallas_tracer(scene, one_lane(cfg), plain=plain)
 
     def trace_fn(params, o, d, seeds, pix, s):
         alb = albedo_table(scene, params).contiguous()
         emi = emission_table(scene, params).contiguous()
-        return trace(alb, emi, o, d, seeds, pix.int(), s.int())
+        if M == 1:
+            return trace(alb, emi, o, d, seeds, pix.int(), s.int())
+        u = _tape_of(cfg, seeds, pix, s, alb.dtype, n_samples=cfg.spp)
+        L = trace(alb, emi, expand_lanes(torch.stack(tuple(o)), M),
+                  expand_lanes(torch.stack(tuple(d)), M), u)
+        return L.reshape(3, -1, M).mean(dim=2)
 
     return trace_fn
 
@@ -236,13 +265,17 @@ def make_diff_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
     bounce seeds in unbiased mode (the samples the "cuda" backend's
     retrace draws). The kernels take scenes of at most 64 shapes on the
     card, float32; a CPU scene, or plain=True, runs their plain twins on
-    the scene's device. The JAX package's mesh sharding constraint
-    (`constrain`) comes with ROADMAP A14.
+    the scene's device. At bsdf_samples > 1 both kernels run on the
+    chunk's rays split into `lane_count(cfg)` ray-major lanes and their
+    prefix-shared tape, the adjoint with the cotangent g / M a lane; the
+    unbiased mode redraws the lanes' tape from salted bounce seeds. The
+    JAX package's mesh sharding constraint (`constrain`) comes with
+    ROADMAP A14.
     """
-    _check_lanes(cfg)
     spp_c = cfg.spp // cfg.spp_chunks
+    M = lane_count(cfg)
     trace_fn = make_wavefront_trace_fn(scene, cfg, plain=plain)
-    adjoint = make_pallas_adjoint(scene, cfg, plain=plain)
+    adjoint = make_pallas_adjoint(scene, one_lane(cfg), plain=plain)
 
     def image(params, seeds):
         return render_image(params, scene, cam, seeds, cfg,
@@ -272,11 +305,12 @@ def make_diff_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
             for c in range(cfg.spp_chunks):
                 pix, s = chunk_sample_ids(cfg, xy_rep, c)
                 o, d, pdf = chunk_rays(cam, cfg, xy_rep, ctx.seeds, c)
-                g_ray = g_planes[:, pix] / pdf
+                g_ray = _lane_cotangent(g_planes[:, pix] / pdf, cfg)
+                o, d = expand_lanes(o, M), expand_lanes(d, M)
                 for sd in bwd_seeds:
                     da_s, de_s = adjoint(
                         alb, emi, o, d,
-                        bounce_tape(int(sd[1]), pix, s, cfg.max_depth, dtype),
+                        _tape_of(cfg, sd, pix, s, dtype, n_samples=cfg.spp),
                         g_ray)
                     da = da + da_s / len(bwd_seeds)
                     de = de + de_s / len(bwd_seeds)

@@ -4,7 +4,8 @@ subcommands of `drt_tpu.cli`.
 Reference flags and defaults (src/args.hpp:19-67: width 640, height 480,
 samples 100, min-bounces 1, absorb-prob 0.5, required output path) on the
 sample scene (src/render.cpp:26-65), plus max depth, spp chunking, seed,
-f64 tracing (on the CPU), backend, device and the unbiased gradient mode.
+f64 tracing (on the CPU), backend, device, the unbiased gradient mode and
+BSDF samples per vertex (per-vertex splitting).
 The `invert` subcommand comes with ROADMAP A9-A10.
 
 Usage:
@@ -42,15 +43,18 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
                         "(the CPU validation mode; implies --device cpu)")
     p.add_argument("--backend",
                    choices=("auto", "cuda", "cuda-dyn", "cuda-regen",
-                            "cuda-dyn-regen", "cuda-wavefront", "torch",
-                            "torch-dyn", "torch-regen", "torch-dyn-regen",
-                            "torch-wavefront"),
+                            "cuda-dyn-regen", "cuda-wavefront", "cuda-split",
+                            "cuda-split-dyn", "torch", "torch-dyn",
+                            "torch-regen", "torch-dyn-regen",
+                            "torch-wavefront", "torch-split",
+                            "torch-split-dyn"),
                    default="auto",
                    help="auto = the fused CUDA kernels for a scene on a "
-                        "card, the plain PyTorch version for one on the "
-                        "CPU; the -regen backends (path regeneration) and "
-                        "the -wavefront backends (the key-driven "
-                        "wavefront) are taken only when asked for")
+                        "card (their -split forms at --bsdf-samples > 1), "
+                        "the plain PyTorch version for one on the CPU; "
+                        "the -regen backends (path regeneration) and the "
+                        "-wavefront backends (the key-driven wavefront) "
+                        "are taken only when asked for")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, or cpu with --f64; "
                         "without a card the command fails unless --device "
@@ -62,6 +66,13 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--adjoint-samples", type=int, default=1,
                    help="fresh retraces averaged by the unbiased backward "
                         "(integrate.hpp:15-19 n_samples)")
+    p.add_argument("--bsdf-samples", type=int, default=1,
+                   help="BSDF samples per path vertex in the forward "
+                        "estimator (integrate.hpp:56-66 n_samples; lanes "
+                        "are exponential in max_depth): auto routes to "
+                        "the lane-splitting kernels (cuda-split, "
+                        "cuda-split-dyn); cuda-wavefront takes it too, "
+                        "also unbiased")
 
 
 def _build(args):
@@ -87,7 +98,8 @@ def _build(args):
                        max_depth=args.max_depth,
                        spp_chunks=args.spp_chunks,
                        unbiased=args.unbiased,
-                       adjoint_samples=args.adjoint_samples)
+                       adjoint_samples=args.adjoint_samples,
+                       bsdf_samples=args.bsdf_samples)
     return scene, params, cam, cfg
 
 

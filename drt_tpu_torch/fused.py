@@ -21,6 +21,12 @@ The internal RNG is the keyed hash of `ops.rng`: chunk c draws sample
 indices from `c * spp_c` on (where the TPU kernels step their seed words
 per chunk), so `drt_tpu.ops.regen.hash_tapes` rebuilds every sample.
 
+`make_split_fused_image_renderer` and `make_split_dyn_image_renderer` are
+the ports of the JAX package's lane-splitting renderers (bsdf_samples >
+1): the tape-mode kernels of both families on each chunk's camera
+samples split into M leaf lanes, their prefix-shared draws made in
+tensor ops (`split_prefix_tape`).
+
 `make_regen_image_renderer` and `make_dyn_regen_image_renderer` are the
 ports of the JAX package's regeneration renderers over `ops.regen` and
 `ops.dynregen`: the same samples, one thread per pixel.
@@ -28,6 +34,9 @@ ports of the JAX package's regeneration renderers over `ops.regen` and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import operator
 import warnings
 
 import numpy as np
@@ -39,6 +48,8 @@ from drt_tpu_torch.ops.megakernel import (make_fused_adjoint,
                                           make_fused_collect_tracer,
                                           make_fused_sweep_adjoint,
                                           make_fused_tracer)
+from drt_tpu_torch.ops.rng import camera_draws, prefix_tape
+from drt_tpu_torch.renderer import lane_count, one_lane
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
 # Bounce-seed offsets of the unbiased backward (drt_tpu/fused.py:45-46).
@@ -73,9 +84,10 @@ def stored_budget_bytes(device) -> int:
 
 def stored_bytes(cfg: RenderConfig) -> int:
     """The residual footprint of one render: 8 bytes (sc f32, best i32)
-    per bounce-ray over all chunks, with no padding."""
+    per bounce-lane over all chunks, with no padding; a ray is
+    `lane_count(cfg)` lanes (one without per-vertex splitting)."""
     n = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
-    return n * cfg.spp_chunks * cfg.max_depth * 8
+    return n * lane_count(cfg) * cfg.spp_chunks * cfg.max_depth * 8
 
 
 def _resolve_adjoint(cfg: RenderConfig, adjoint: str, device="cpu") -> str:
@@ -99,12 +111,14 @@ def _resolve_adjoint(cfg: RenderConfig, adjoint: str, device="cpu") -> str:
 
 
 def _check_fused_cfg(cfg: RenderConfig) -> None:
-    """The fused kernels are the 1-sample-per-vertex estimator
-    (pathtracer.hpp:111); per-vertex splitting is a later slice."""
+    """The fused kernels' own RNG is the 1-sample-per-vertex estimator
+    (pathtracer.hpp:111); per-vertex splitting feeds them a prefix-shared
+    tape (`make_split_fused_image_renderer`)."""
     if cfg.bsdf_samples != 1:
-        raise NotImplementedError(
-            "bsdf_samples > 1 (per-vertex splitting) comes to the port "
-            "with ROADMAP item A12")
+        raise ValueError("bsdf_samples > 1 (per-vertex splitting) runs on "
+                         "the 'cuda-split' / 'cuda-split-dyn' backends "
+                         "(their plain versions 'torch-split' / "
+                         "'torch-split-dyn') or the wavefront")
 
 
 def _resolve_fastmath(fastmath, rng: str) -> bool:
@@ -161,14 +175,32 @@ def _wants_grad(params: Params) -> bool:
                                         or params.emission.requires_grad)
 
 
+def _sum(parts):
+    """parts[0] + parts[1] + ..., in order."""
+    return functools.reduce(operator.add, parts)
+
+
 def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
-                    n_chunks: int, trace_fn, collect_fn, sweep_fn, adj_fn):
+                    trace_fn, collect_fn, sweep_fn, adj_fn, tape_fn=None):
     """`render(params, *uniforms) -> image` with the radiative-backprop
-    backward, for both RNG modes: `uniforms` is (seeds,) or (cam_u,
-    tape), handed to the kernel callables as given."""
+    backward. Without tape_fn, one launch of each kernel callable takes
+    `uniforms` as given: (seeds,) for the internal RNG, which covers
+    every chunk, or (cam_u, tape). With tape_fn (the lane-splitting
+    renderers) `uniforms` is (seeds,) and chunk c is a launch of its own
+    on tape_fn(seeds, c), `lane_count(cfg)` lanes a camera sample; the
+    stored form keeps every chunk's residuals, the retrace form draws
+    each chunk's tape again in the backward. The image is the mean over
+    chunks of each pixel's spp_c * M lanes, so the adjoints take every
+    lane's cotangent g[pixel] / (spp_c * M * chunks) in `_g_pix_of`'s
+    per-pixel form."""
     w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
+    n_chunks = cfg.spp_chunks
+    spp_l = cfg.spp // n_chunks * lane_count(cfg)
     n_adj = cfg.adjoint_samples if cfg.unbiased else 1
+    n_launch = n_chunks if tape_fn is not None else 1
+
+    def launch(uniforms, c):
+        return uniforms if tape_fn is None else tape_fn(uniforms[0], c)
 
     def tables(albedo, emission):
         params = Params(albedo, emission)
@@ -176,39 +208,50 @@ def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
                 emission_table(scene, params).contiguous())
 
     def image(L):
-        return _chunk_img(L, spp_c, h, w) / n_chunks
+        return _chunk_img(L, spp_l, h, w) / n_chunks
+
+    def trace(alb, emi, uniforms):
+        return _sum([image(trace_fn(alb, emi, *launch(uniforms, c)))
+                     for c in range(n_launch)])
 
     class Render(torch.autograd.Function):
         @staticmethod
         def forward(ctx, albedo, emission, *uniforms):
             alb, emi = tables(albedo, emission)
             ctx.n_uniforms = len(uniforms)
-            if adjoint == "stored":
-                L, rsc, rbest = collect_fn(alb, emi, *uniforms)
-                ctx.save_for_backward(albedo, emission, rsc, rbest)
-            else:
-                L = trace_fn(alb, emi, *uniforms)
+            if adjoint != "stored":
                 ctx.save_for_backward(albedo, emission)
                 ctx.uniforms = uniforms  # seeds, or the caller's tapes
-            return image(L)
+                return trace(alb, emi, uniforms)
+            images, residuals = [], []
+            for c in range(n_launch):
+                L, rsc, rbest = collect_fn(alb, emi, *launch(uniforms, c))
+                images.append(image(L))
+                residuals += [rsc, rbest]
+            ctx.save_for_backward(albedo, emission, *residuals)
+            return _sum(images)
 
         @staticmethod
         def backward(ctx, g):
             albedo, emission, *residuals = ctx.saved_tensors
             params = Params(albedo, emission)
             alb, emi = tables(albedo, emission)
-            g_pix = _g_pix_of(g, spp_c, n_chunks, alb.dtype)
+            g_pix = _g_pix_of(g, spp_l, n_chunks, alb.dtype)
             if adjoint == "stored":
-                da, de = sweep_fn(alb, emi, *residuals, g_pix)
+                da, de = (_sum(d) for d in zip(*(
+                    sweep_fn(alb, emi, *residuals[2 * c:2 * c + 2], g_pix)
+                    for c in range(n_launch))))
             else:
                 da = de = 0.0
                 for s in range(n_adj):
                     uniforms = ctx.uniforms
                     if cfg.unbiased:
                         uniforms = (_salted(uniforms[0], s),)
-                    da_s, de_s = adj_fn(alb, emi, *uniforms, g_pix)
-                    da = da + da_s / n_adj
-                    de = de + de_s / n_adj
+                    for c in range(n_launch):
+                        da_s, de_s = adj_fn(alb, emi, *launch(uniforms, c),
+                                            g_pix)
+                        da = da + da_s / n_adj
+                        de = de + de_s / n_adj
             d = _slice_dparams(params, da, de)
             return (d.albedo, d.emission) + (None,) * ctx.n_uniforms
 
@@ -216,39 +259,64 @@ def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
         if _wants_grad(params):
             return Render.apply(params.albedo, params.emission, *uniforms)
         with torch.no_grad():
-            return image(trace_fn(*tables(*params), *uniforms))
+            return trace(*tables(*params), uniforms)
 
     return render
 
 
+def split_chunk_cfg(cfg: RenderConfig) -> RenderConfig:
+    """The kernels' config of one chunk of a lane-splitting config:
+    `one_lane(cfg)` whose rays are the chunk's n_lanes = W*H*spp_c * M,
+    spp = spp_c * M in one chunk (drt_tpu/fused.py:533-547 does the
+    same)."""
+    return dataclasses.replace(
+        one_lane(cfg), spp=cfg.spp // cfg.spp_chunks * lane_count(cfg),
+        spp_chunks=1)
+
+
 def _make_image_renderer(factories, scene: Scene, kernel_scene, cam: Camera,
                          cfg: RenderConfig, rng: str, adjoint: str, fastmath,
-                         plain: bool, differentiable: bool):
+                         plain: bool, differentiable: bool, tape_fn=None):
     """The image renderer over one kernel family: `factories` are its
     (tracer, collect tracer, sweep adjoint, retrace adjoint) makers and
-    `kernel_scene` what they take for the scene."""
+    `kernel_scene` what they take for the scene. rng="split" is the
+    lane-splitting renderer: the makers' tape forms built for
+    `split_chunk_cfg(cfg)`, one launch a chunk on tape_fn(seeds, chunk)
+    (by default `split_prefix_tape`)."""
     make_tracer, make_collect, make_sweep, make_adjoint = factories
-    _check_fused_cfg(cfg)
-    if rng == "tape":
-        if cfg.spp_chunks != 1:
-            raise ValueError("tape-mode fused renderer requires "
-                             "spp_chunks == 1 (one tape per launch)")
-        if cfg.unbiased:
-            raise ValueError("tape-mode fused renderer is biased-only: "
-                             "the tape IS the sample stream")
+    if rng == "split":
+        _check_split_cfg(cfg)
+        cfg_k, rng_k = split_chunk_cfg(cfg), "tape"
+        if tape_fn is None:
+            dtype = scene.shape_geo.dtype
+
+            def tape_fn(seeds, chunk):
+                return split_prefix_tape(seeds, chunk, cfg, scene.device,
+                                         dtype)
+    else:
+        _check_fused_cfg(cfg)
+        if rng == "tape":
+            if cfg.spp_chunks != 1:
+                raise ValueError("tape-mode fused renderer requires "
+                                 "spp_chunks == 1 (one tape per launch)")
+            if cfg.unbiased:
+                raise ValueError("tape-mode fused renderer is biased-only: "
+                                 "the tape IS the sample stream")
+        cfg_k, rng_k = cfg, rng
     adjoint = _resolve_adjoint(cfg, adjoint, scene.device)
-    fm = _resolve_fastmath(fastmath, rng)
-    n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    kw = dict(rng=rng, fastmath=fm, n_chunks=n_chunks, plain=plain)
-    tracer = make_tracer(kernel_scene, cam, cfg, **kw)
+    k_chunks = cfg.spp_chunks if rng_k == "internal" else 1
+    kw = dict(rng=rng_k, fastmath=_resolve_fastmath(fastmath, rng_k),
+              n_chunks=k_chunks, plain=plain)
+    tracer = make_tracer(kernel_scene, cam, cfg_k, **kw)
     collect = sweep = adj = None
     if differentiable and adjoint == "stored":
-        collect = make_collect(kernel_scene, cam, cfg, **kw)
-        sweep = make_sweep(kernel_scene, cfg, n_chunks=n_chunks, plain=plain)
+        collect = make_collect(kernel_scene, cam, cfg_k, **kw)
+        sweep = make_sweep(kernel_scene, cfg_k, n_chunks=k_chunks,
+                           plain=plain)
     elif differentiable:
-        adj = make_adjoint(kernel_scene, cam, cfg, **kw)
-    render = _build_renderer(scene, cfg, adjoint, n_chunks, tracer, collect,
-                             sweep, adj)
+        adj = make_adjoint(kernel_scene, cam, cfg_k, **kw)
+    render = _build_renderer(scene, cfg, adjoint, tracer, collect, sweep,
+                             adj, tape_fn)
     if differentiable:
         return render
     return torch.no_grad()(render)
@@ -307,6 +375,92 @@ def make_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
         (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
          make_dyn_adjoint), ds.scene, ds, cam, cfg, rng, adjoint, fastmath,
         plain, differentiable)
+
+
+def split_prefix_tape(seeds, chunk: int, cfg: RenderConfig,
+                      device=None, dtype=torch.float32):
+    """One spp chunk's uniforms for the lane-splitting renderers: (cam_u
+    f[2, n_lanes], tape f[D, 3, n_lanes]), n_lanes = W*H*spp_c * M,
+    lanes M-outer (lane m * n_cam + ray, the rays spp-outer as the fused
+    kernels lay them, so that a lane's pixel is lane % (W*H)). Chunk c's
+    ray j * W*H + p is sample c * spp_c + j of pixel p; its M lanes share
+    the camera draws `camera_draws(seeds[0], p, sample)` and take their
+    bounce draws from `ops.rng.prefix_tape` under seeds[1]: lanes of one
+    path prefix read the same draws, so the per-lane tracer gives the
+    recursive n-sample tree estimator (drt_tpu/fused.py:split_prefix_tape
+    draws the same pattern from threefry). At M = 1 these are
+    `hash_tapes` of the chunk. Deterministic in (seeds, chunk): the
+    retrace backward draws it again."""
+    M = lane_count(cfg)
+    npix = cfg.width * cfg.height
+    spp_c = cfg.spp // cfg.spp_chunks
+    i = torch.arange(npix * spp_c, dtype=torch.int64, device=device)
+    pix = i % npix
+    s = chunk * spp_c + i // npix
+    words = [int(v) for v in (seeds.tolist() if torch.is_tensor(seeds)
+                              else seeds)]
+    cam_u = camera_draws(words[0], pix, s, dtype).repeat(1, M)
+    tape = prefix_tape(words[1], pix, s, cfg.bsdf_samples, cfg.max_depth,
+                       dtype, lanes_outer=True, n_samples=cfg.spp)
+    return cam_u, tape
+
+
+def _check_split_cfg(cfg: RenderConfig) -> None:
+    if cfg.bsdf_samples < 2:
+        raise ValueError("use make_fused_image_renderer / "
+                         "make_dyn_image_renderer for bsdf_samples == 1")
+    if cfg.unbiased:
+        raise ValueError("fused splitting is biased-only (the tape IS the "
+                         "sample stream); the 'cuda-wavefront' backend "
+                         "keeps unbiased splitting gradients")
+
+
+def make_split_fused_image_renderer(scene: Scene, cam: Camera,
+                                    cfg: RenderConfig, adjoint: str = "auto",
+                                    plain: bool = False,
+                                    differentiable: bool = True,
+                                    tape_fn=None):
+    """bsdf_samples > 1 on the fused kernels: the per-vertex tree-splitting
+    estimator (the reference integration operator's n_samples at every
+    scatter, integrate.hpp:56-66 via pathtracer.hpp:96-112) as M =
+    bsdf_samples^(max_depth-1) leaf lanes per camera sample. Returns
+    `render(params, seeds: i32[2]) -> image f32[H, W, 3]`, differentiable
+    in params (biased mode only: the tape is the sample stream).
+
+    The kernels are lane-oblivious: each chunk's prefix-shared uniforms
+    (`split_prefix_tape`, lanes M-outer) feed the tape-mode tracer B1 (a
+    forward), the collect tracer B2 and sweep B3 (adjoint="stored") or
+    B1 and the retrace adjoint B4 ("retrace"), one launch of each per
+    chunk; both give the same gradient bits. "auto" takes stored when the
+    residuals of all chunks fit (`_resolve_adjoint`). plain=True
+    runs their plain versions on the tensors' device (the "torch-split"
+    backend); differentiable=False renders under `torch.no_grad()`.
+    tape_fn(seeds, chunk) -> (cam_u, tape) replaces `split_prefix_tape`
+    (the tests feed the JAX package's draws)."""
+    return _make_image_renderer(
+        (make_fused_tracer, make_fused_collect_tracer,
+         make_fused_sweep_adjoint, make_fused_adjoint), scene, scene, cam,
+        cfg, "split", adjoint, False, plain, differentiable, tape_fn)
+
+
+def make_split_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
+                                  adjoint: str = "auto", plain: bool = False,
+                                  differentiable: bool = True,
+                                  tape_fn=None):
+    """`make_split_fused_image_renderer` over the memory-resident kernels
+    (`ops.dynkernel`: B6, B7 + B8 stored, B6 + B9 retrace) for scenes of
+    up to `MAX_DYN_SHAPES` shapes. `scene` is a Scene or a prebuilt
+    `DynScene`; plain=True is the "torch-split-dyn" backend."""
+    from drt_tpu_torch.ops.dynkernel import (DynScene, make_dyn_adjoint,
+                                             make_dyn_collect_tracer,
+                                             make_dyn_sweep_adjoint,
+                                             make_dyn_tracer)
+
+    ds = DynScene.of(scene)
+    return _make_image_renderer(
+        (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
+         make_dyn_adjoint), ds.scene, ds, cam, cfg, "split", adjoint, False,
+        plain, differentiable, tape_fn)
 
 
 def _check_regen_cfg(cfg: RenderConfig, adjoint: str, device) -> str:

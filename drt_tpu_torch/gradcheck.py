@@ -29,13 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from drt_tpu_torch.adjoint import _check_lanes, make_diff_image_renderer
+from drt_tpu_torch.adjoint import make_diff_image_renderer
 from drt_tpu_torch.camera import Camera
 from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.ops.vecmath import V3, gatherv
 from drt_tpu_torch.renderer import (chunk_pixel_ids, chunk_rays,
-                                    chunk_sample_ids, render_image,
-                                    trace_rays)
+                                    chunk_sample_ids, lane_count,
+                                    render_image, trace_rays)
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
 
@@ -59,7 +59,6 @@ def _check_biased(cfg: RenderConfig, what: str) -> None:
             "forward-mode AD of the estimator; an unbiased-mode gradient is "
             "a different estimator with no matching jvp ground truth: set "
             "unbiased=False")
-    _check_lanes(cfg)
 
 
 def grad_image(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -69,12 +68,15 @@ def grad_image(scene: Scene, cam: Camera, cfg: RenderConfig,
     channel c is d(pixel_c)/d(theta_{row,c}) (transport never mixes
     channels, pathtracer.hpp:97-114). Replays the forward's seeds, so it
     equals forward-mode AD of the image rendered with the same seeds
-    (`grad_image_fwd`)."""
+    (`grad_image_fwd`). At bsdf_samples > 1 the sweep runs on each ray's
+    `lane_count(cfg)` lanes and a pixel's gradient is the mean over its
+    spp_c * M lanes (drt_tpu/gradcheck.py's `pdf_l`)."""
     name, row = _parse_param(params, param)
     _check_biased(cfg, "grad_image")
     dtype = cam.forward.dtype
     w, h = cfg.width, cfg.height
     spp_c = cfg.spp // cfg.spp_chunks
+    M = lane_count(cfg)
     xy_rep = chunk_pixel_ids(cfg, cam.forward.device)
     albedo_tab = albedo_table(scene, params).to(dtype)
     emission_tab = emission_table(scene, params).to(dtype)
@@ -90,7 +92,9 @@ def grad_image(scene: Scene, cam: Camera, cfg: RenderConfig,
             # per-ray gradient kept:
             #   d L_c/d albedo_{k,c}   = sum_b P_b sc_b S_{b+1} [aid_b = k]
             #   d L_c/d emission_{l,c} = sum_b P_b [eid_b = l]
-            zero = torch.zeros_like(pdf)
+            # Lanes are ray-major, a pixel's spp_c * M lanes contiguous.
+            pdf_l = pdf.repeat_interleave(M)
+            zero = torch.zeros_like(pdf_l)
             S = acc = V3(zero, zero, zero)
             for b in reversed(range(cfg.max_depth)):
                 P = V3(res.P.x[b], res.P.y[b], res.P.z[b])
@@ -104,7 +108,8 @@ def grad_image(scene: Scene, cam: Camera, cfg: RenderConfig,
                 w_b = gatherv(albedo_tab, aid) * sc
                 S = (e + w_b * S) * gate
             images.append(torch.stack(
-                [(ch / pdf).reshape(h, w, spp_c).mean(dim=2) for ch in acc],
+                [(ch / pdf_l).reshape(h, w, spp_c * M).mean(dim=2)
+                 for ch in acc],
                 dim=-1))
     if len(images) == 1:
         return images[0]

@@ -49,22 +49,35 @@ def _u32(v, device):
     return int(v) & MASK32
 
 
+def _key_word(seed, pix):
+    """The word of (seed, pixel) that every draw of a pixel starts from."""
+    return _fmix((_mul32(pix, GOLD) + seed) & MASK32)
+
+
+def _draw_bits(word, b, dim: int):
+    """32 keyed bits of draw (bounce b, dim) from the word of its (seed,
+    pixel, sample): `_key_word(seed, pix) ^ _mul32(sample, C1)`."""
+    return _fmix(word ^ (_mul32(b, C2) ^ ((dim * DIMSALT) & MASK32)))
+
+
+def _uniform(bits, dtype):
+    """The open-interval uniform (i23 + 0.5) * 2^-23 of the top 23 bits:
+    a draw of exactly 0 or 1 would zero a sampling pdf
+    (drt_tpu/ops/megakernel.py:817-837)."""
+    return ((bits >> 9).to(dtype) + 0.5) * (1.0 / (1 << 23))
+
+
 def hash_bits(seed, pix, s, b, dim: int, device=None) -> torch.Tensor:
     """32 keyed bits for draw (seed, pixel, sample, bounce, dim)."""
     seed, pix, s, b = (_u32(v, device) for v in (seed, pix, s, b))
-    h = _fmix((_mul32(pix, GOLD) + seed) & MASK32)
-    return _fmix(h ^ _mul32(s, C1) ^ _mul32(b, C2)
-                 ^ ((dim * DIMSALT) & MASK32))
+    return _draw_bits(_key_word(seed, pix) ^ _mul32(s, C1), b, dim)
 
 
 def hash_uniform(seed, pix, s, b, dim: int, dtype=torch.float32,
                  device=None) -> torch.Tensor:
-    """The open-interval uniform (i23 + 0.5) * 2^-23 of the top 23 hash
-    bits: a draw of exactly 0 or 1 would zero a sampling pdf
-    (drt_tpu/ops/megakernel.py:817-837)."""
-    i23 = torch.as_tensor(hash_bits(seed, pix, s, b, dim, device) >> 9,
-                          device=device)
-    return (i23.to(dtype) + 0.5) * (1.0 / (1 << 23))
+    """The uniform of `hash_bits` (`_uniform`)."""
+    return _uniform(torch.as_tensor(hash_bits(seed, pix, s, b, dim, device),
+                                    device=device), dtype)
 
 
 def camera_draws(seed, pix, s, dtype=torch.float32) -> torch.Tensor:
@@ -78,11 +91,8 @@ def bounce_tape(seed, pix, s, depth: int, dtype=torch.float32,
                 first: int = 0) -> torch.Tensor:
     """The bounce draws f[depth - first, 3, N] of rays (pix, s) at the
     bounces first..depth-1, slots (rr, u1, u2) per bounce, from `seed`
-    (the bounce seed, seeds[1])."""
-    return torch.stack([
-        torch.stack([hash_uniform(seed, pix, s, b, dim, dtype, pix.device)
-                     for dim in (0, 1, 2)])
-        for b in range(first, depth)])
+    (the bounce seed, seeds[1]): `prefix_tape` of one lane a ray."""
+    return prefix_tape(seed, pix, s, 1, depth, dtype, first=first)
 
 
 def hash_tapes(seeds, npix: int, spp: int, depth: int, dtype=torch.float32,
@@ -97,3 +107,76 @@ def hash_tapes(seeds, npix: int, spp: int, depth: int, dtype=torch.float32,
     s = i // npix + sample_base
     return (camera_draws(seeds[0], pix, s, dtype),
             bounce_tape(seeds[1], pix, s, depth, dtype))
+
+
+def split_lanes(n_split: int, depth: int) -> int:
+    """Leaf lanes M = n_split^(depth - 1) of one camera sample under
+    per-vertex splitting: bounces 0..depth-2 each branch n_split ways (the
+    last bounce's sampled direction is never traced)."""
+    return n_split ** max(depth - 1, 0)
+
+
+def prefix_tape(seed, pix: torch.Tensor, s: torch.Tensor, n_split: int,
+                depth: int, dtype=torch.float32, lanes_outer: bool = False,
+                n_samples: int | None = None, first: int = 0
+                ) -> torch.Tensor:
+    """The prefix-shared bounce draws f[depth - first, 3, N * M] of the
+    rays (pix, s) (i64[N] each) at the bounces first..depth-1, each ray
+    split into M = `split_lanes(n_split, depth)` leaf lanes, from `seed`
+    (the bounce seed, seeds[1]).
+
+    Lane m holds the branch digits (j_1 .. j_{depth-1}), j_1 the most
+    significant (drt_tpu/renderer.py:_trace_rays_splitting). The vertex
+    of bounce b is fixed by the first b digits, so its roulette draw is
+    shared by the n^(depth-1-b) lanes of prefix m // n^(depth-1-b), and
+    the (u1, u2) draw that makes child j_{b+1} by the n^(depth-2-b) lanes
+    of prefix m // n^(depth-2-b) (one lane at the last bounce). A group
+    whose lowest lane is m0 draws slot k of bounce b as
+    `hash_uniform(seed, pix, s * M + m0, b, k)`: at M = 1 these are the
+    draws of `bounce_tape`, and no two groups of one sample share a draw.
+
+    Lanes are ray-major (lane r * M + m, the wavefront's order) or, with
+    lanes_outer, M-outer (lane m * N + r, the fused kernels' order, whose
+    pixel is lane % (W*H)). The samples must lie below n_samples (by
+    default read from s) with n_samples * M <= 2^31: the kernels carry
+    sample indices in 31 bits.
+
+    The draws are made group by group: the word of (seed, pix) once, the
+    word of each group's sample index once for every bounce and slot that
+    shares its size, then expanded into the lanes in place.
+    """
+    M = split_lanes(n_split, depth)
+    n = pix.shape[0]
+    dev = pix.device
+    if M > 1:
+        if n_samples is None:
+            n_samples = int(s.max()) + 1 if n else 0
+        if n_samples * M > 2 ** 31:
+            raise ValueError(f"sample index exceeds 31 bits: {n_samples} "
+                             f"samples x {M} split lanes")
+    key = _key_word(_u32(seed, dev), _u32(pix, dev))
+    base = _u32(s, dev) * M
+    tape = torch.empty((depth - first, 3, n * M), dtype=dtype, device=dev)
+    words = {}  # lanes per group -> the group's word, [G, N] or [N, G]
+    for b in range(first, depth):
+        rr_size = M // min(n_split ** b, M)
+        u_size = M // min(n_split ** (b + 1), M)
+        for size in [k for k in words if k > rr_size]:
+            del words[size]  # the groups only shrink with the bounce
+        for dim, size in ((0, rr_size), (1, u_size), (2, u_size)):
+            groups = M // size
+            if size not in words:
+                m0 = torch.arange(groups, dtype=torch.int64,
+                                  device=dev) * size
+                idx = (base[None, :] + m0[:, None] if lanes_outer
+                       else base[:, None] + m0[None, :])
+                kk = key[None, :] if lanes_outer else key[:, None]
+                words[size] = kk ^ _mul32(idx, C1)
+            u = _uniform(_draw_bits(words[size], b, dim), dtype)
+            if lanes_outer:
+                tape[b - first, dim].view(groups, size, n).copy_(
+                    u[:, None, :])
+            else:
+                tape[b - first, dim].view(n, groups, size).copy_(
+                    u[:, :, None])
+    return tape

@@ -10,11 +10,15 @@ path-regeneration kernels of the same two families (the ports of
 JAX package); "cuda-wavefront" runs the key-driven wavefront (the port of
 "xla": `renderer.render_image` and `adjoint.make_diff_image_renderer`)
 over the wavefront tracer and adjoint kernels, for at most `MAX_SHAPES`
-shapes. These five need the scene on a CUDA device. "torch", "torch-dyn",
-"torch-regen", "torch-dyn-regen" and "torch-wavefront" run their plain
+shapes; "cuda-split" and "cuda-split-dyn" run per-vertex splitting
+(bsdf_samples > 1) on the tape forms of the two fused families (the ports
+of "pallas-split" and "pallas-split-dyn"). These seven need the scene on
+a CUDA device. "torch", "torch-dyn", "torch-regen", "torch-dyn-regen",
+"torch-wavefront", "torch-split" and "torch-split-dyn" run their plain
 PyTorch versions on the scene's device; "torch-wavefront" takes a scene
-of any size. The JAX package's other backends raise NotImplementedError
-naming the ROADMAP item that brings them.
+of any size. The wavefront backends take bsdf_samples > 1 too, the
+unbiased mode among it. The JAX package's other backends raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -28,13 +32,12 @@ from drt_tpu_torch.ops.megakernel import MAX_SHAPES
 from drt_tpu_torch.scene import Params, Scene
 
 BACKENDS = ("cuda", "cuda-dyn", "cuda-regen", "cuda-dyn-regen",
-            "cuda-wavefront", "torch", "torch-dyn", "torch-regen",
-            "torch-dyn-regen", "torch-wavefront")
+            "cuda-wavefront", "cuda-split", "cuda-split-dyn", "torch",
+            "torch-dyn", "torch-regen", "torch-dyn-regen", "torch-wavefront",
+            "torch-split", "torch-split-dyn")
 
 # JAX backends not ported yet -> the ROADMAP item (queue A) that ports them.
 _LATER = {
-    "pallas-split": "A12 (lane splitting)",
-    "pallas-split-dyn": "A12 (lane splitting)",
     "pallas-sharded": "A14 (multi-device)",
     "pallas-dyn-sharded": "A14 (multi-device)",
     "pallas-split-sharded": "A14 (multi-device)",
@@ -53,6 +56,10 @@ def resolve_backend(scene: Scene, cfg: RenderConfig,
     """Resolve "auto" to the backend make_renderer will use. A scene on
     the CPU takes "torch". A float32 scene on a CUDA device takes "cuda"
     up to `MAX_SHAPES` shapes and "cuda-dyn" up to `MAX_DYN_SHAPES`.
+    bsdf_samples > 1 takes their lane-splitting forms: "torch-split" on
+    the CPU, "cuda-split" and "cuda-split-dyn" on the card (the JAX
+    package keeps its baked kernels to 24 shapes; the port's scene table
+    takes 64).
 
     A CUDA scene the kernels do not take (not float32, or more shapes
     than that) raises rather than silently running a plain version on the
@@ -61,16 +68,17 @@ def resolve_backend(scene: Scene, cfg: RenderConfig,
     """
     if backend != "auto":
         return backend
+    split = "-split" if cfg.bsdf_samples > 1 else ""
     if scene.device.type != "cuda":
-        return "torch"
+        return "torch" + split
     if scene.shape_geo.dtype != torch.float32:
         raise ValueError("the tracer kernels are float32; pass "
-                         "backend='torch' for the plain version on the "
-                         "card")
+                         f"backend='torch{split}' for the plain version on "
+                         "the card")
     if scene.num_shapes <= MAX_SHAPES:
-        return "cuda"
+        return "cuda" + split
     if scene.num_shapes <= MAX_DYN_SHAPES:
-        return "cuda-dyn"
+        return "cuda" + split + "-dyn"
     raise ValueError(f"a scene of {scene.num_shapes} shapes is more than "
                      f"the {MAX_DYN_SHAPES} the kernels take; pass "
                      "backend='torch-wavefront' for the plain version on "
@@ -128,6 +136,8 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
     make = {"": fused.make_fused_image_renderer,
             "dyn": fused.make_dyn_image_renderer,
             "regen": fused.make_regen_image_renderer,
-            "dyn-regen": fused.make_dyn_regen_image_renderer}[family]
+            "dyn-regen": fused.make_dyn_regen_image_renderer,
+            "split": fused.make_split_fused_image_renderer,
+            "split-dyn": fused.make_split_dyn_image_renderer}[family]
     return make(scene, cam, cfg, plain=backend.startswith("torch"),
                 differentiable=differentiable)

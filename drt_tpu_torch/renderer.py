@@ -23,12 +23,18 @@ Key mode: ray r of chunk c (`chunk_pixel_ids`: pixel-major, spp-minor) at
 pixel p and in-chunk sample j is sample s = c*spp_c + j of pixel p. Its
 camera offsets are draws (seeds[0], p, s, 0, dim 0|1) and its bounce slots
 (rr, u1, u2) draws (seeds[1], p, s, b, dim 0|1|2): the samples the fused
-tracer's internal RNG draws, in another ray order. Per-vertex splitting
-(bsdf_samples > 1) comes with ROADMAP item A12.
+tracer's internal RNG draws, in another ray order.
+
+Per-vertex splitting (bsdf_samples = n > 1, the reference integration
+operator's n_samples at every scatter, integrate.hpp:56-66) is key mode
+only: each ray becomes M = n^(max_depth-1) leaf lanes, ray-major, whose
+draws are shared by the lanes of one path prefix (`ops.rng.prefix_tape`),
+and a ray's radiance is the mean of its lanes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -38,7 +44,8 @@ from drt_tpu_torch.config import RenderConfig
 from drt_tpu_torch.constants import RAY_EPS
 from drt_tpu_torch.ops.bxdf import eval_scale, sample_bxdf
 from drt_tpu_torch.ops.intersect import intersect_scene
-from drt_tpu_torch.ops.rng import bounce_tape, camera_draws
+from drt_tpu_torch.ops.rng import (bounce_tape, camera_draws,
+                                   prefix_tape, split_lanes)
 from drt_tpu_torch.ops.vecmath import V3, dotv, gatherv, wherev
 from drt_tpu_torch.scene import Params, Scene, albedo_table, emission_table
 
@@ -130,9 +137,7 @@ def trace_segment(params: Params, scene: Scene, cfg: RenderConfig,
     i64[b_end - b_start, K], which is 0 on a miss and meaningful only where
     gate > 0)."""
     if cfg.bsdf_samples != 1:
-        raise NotImplementedError(
-            "bsdf_samples > 1 (per-vertex splitting) is key-driven in the "
-            "JAX renderer; it comes to the port with ROADMAP item A12")
+        raise ValueError("bsdf_samples > 1 is key-driven only")
     dtype = dir.x.dtype
     n = dir.x.shape[0]
     dev = dir.x.device
@@ -175,6 +180,52 @@ def trace_residuals(params: Params, scene: Scene, orig: V3, dir: V3,
     return L, residuals, shapes
 
 
+def lane_count(cfg: RenderConfig) -> int:
+    """Leaf lanes per primary ray under per-vertex splitting: bounces
+    0..max_depth-2 each branch bsdf_samples ways (the last bounce's
+    sampled direction is never traced)."""
+    return split_lanes(cfg.bsdf_samples, cfg.max_depth)
+
+
+def one_lane(cfg: RenderConfig) -> RenderConfig:
+    """The config that traces each leaf lane of a splitting config as a
+    ray of its own."""
+    return dataclasses.replace(cfg, bsdf_samples=1)
+
+
+def expand_lanes(v, m: int):
+    """Rays -> their m lanes each, ray-major: a V3 of f[N] (or a tensor
+    f[3, N]) -> the same of f[N * m]; v itself at m == 1."""
+    if m == 1:
+        return v
+    if torch.is_tensor(v):
+        return v.repeat_interleave(m, dim=-1)
+    return V3(*(c.repeat_interleave(m) for c in v))
+
+
+def _trace_rays_splitting(params: Params, scene: Scene, orig: V3, dir: V3,
+                          cfg: RenderConfig, seeds, pix: torch.Tensor,
+                          sample: torch.Tensor, collect: bool = False):
+    """The n-sample-per-vertex tree estimator (integrate.hpp:56-66) as a
+    flat wavefront over N * M leaf lanes, ray-major, M = `lane_count(cfg)`
+    (drt_tpu/renderer.py:_trace_rays_splitting). Lanes of one path prefix
+    read the same draws (`prefix_tape`), so the per-ray lane MEAN is the
+    recursive estimator: the emission of bounce b appears in
+    n^(D-1-b) of a ray's n^(D-1) lanes, the product of b nested 1/n
+    averages. Returns the per-ray radiance, with collect=True also the
+    PER-LANE BounceResiduals f[D, N * M] (the adjoint gives each lane the
+    cotangent g / M, `adjoint._lane_cotangent`)."""
+    M = lane_count(cfg)
+    n = dir.x.shape[0]
+    tape = prefix_tape(int(seeds[1]), pix, sample, cfg.bsdf_samples,
+                       cfg.max_depth, dir.x.dtype)
+    L, residuals, _ = trace_residuals(params, scene, expand_lanes(orig, M),
+                                      expand_lanes(dir, M), one_lane(cfg),
+                                      tape)
+    L_ray = V3(*(c.reshape(n, M).mean(dim=1) for c in L))
+    return (L_ray, residuals) if collect else L_ray
+
+
 def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
                cfg: RenderConfig, tape: torch.Tensor | None = None,
                collect: bool = False, *, seeds=None, pix=None, sample=None):
@@ -186,6 +237,11 @@ def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
     slots are drawn from `seeds` for rays (pix, sample) (i64[N] each); by
     default ray i is pixel i at sample 0. Returns radiance as a V3 of
     f[N], or with collect=True (radiance, BounceResiduals).
+
+    bsdf_samples > 1 splits each ray into `lane_count(cfg)` lanes
+    (`_trace_rays_splitting`): key mode only, since one stream of draws
+    per ray cannot drive a branching tree; with collect=True the
+    residuals are per lane, ray-major.
     """
     if tape is None:
         if seeds is None:
@@ -195,8 +251,13 @@ def trace_rays(params: Params, scene: Scene, orig: V3, dir: V3,
             pix = torch.arange(n, device=dir.x.device)
         if sample is None:
             sample = torch.zeros_like(pix)
+        if cfg.bsdf_samples > 1:
+            return _trace_rays_splitting(params, scene, orig, dir, cfg,
+                                         seeds, pix, sample, collect)
         tape = bounce_tape(int(seeds[1]), pix, sample, cfg.max_depth,
                            dir.x.dtype)
+    elif cfg.bsdf_samples > 1:
+        raise ValueError("bsdf_samples > 1 is key-driven only")
     L, residuals, _ = trace_residuals(params, scene, orig, dir, cfg, tape)
     return (L, residuals) if collect else L
 

@@ -183,11 +183,11 @@ def test_bwd_tape_unbiased_matches_jax_and_reduces_to_biased():
 
 @pytest.mark.parametrize("build,err,match", [
     (lambda s, c: make_diff_renderer(
-        s, dataclasses.replace(CFG, bsdf_samples=2)), NotImplementedError,
-     "A12"),
-    (lambda s, c: make_diff_image_renderer(
-        s, c, dataclasses.replace(CFG, bsdf_samples=2)), NotImplementedError,
-     "A12"),
+        s, dataclasses.replace(CFG, bsdf_samples=2), use_tape=True),
+     ValueError, "key-driven only"),
+    (lambda s, c: make_diff_renderer(
+        s, dataclasses.replace(CFG, bsdf_samples=2, unbiased=True),
+        use_tape=True, bwd_tape=True), ValueError, "single-BSDF-sample only"),
     (lambda s, c: make_diff_renderer(s, CFG, use_tape=True, bwd_tape=True),
      ValueError, "bwd_tape requires"),
     (lambda s, c: make_diff_renderer(
@@ -200,6 +200,33 @@ def test_forms_not_ported_or_invalid_raise(build, err, match):
     scene, _, cam = cbox.build(device="cpu")
     with pytest.raises(err, match=match):
         build(scene, cam)
+
+
+@pytest.mark.parametrize("unbiased", [False, True])
+def test_diff_image_renderer_splits_lanes(unbiased):
+    """bsdf_samples > 1 on the wavefront image renderer (plain twins on the
+    CPU): biased, its gradient is autograd's through the splitting
+    `render_image` (float64); unbiased, the salted lanes' estimate, which
+    differs from it."""
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.renderer import render_image
+
+    scene, params, cam = cbox.build(dtype=torch.float64, device="cpu")
+    cfg = RenderConfig(width=8, height=6, spp=2, spp_chunks=2, max_depth=3,
+                       bsdf_samples=2, unbiased=unbiased)
+    seeds = (5, -6)
+    p = _leaves(params)
+    img = make_diff_image_renderer(scene, cam, cfg)(p, seeds)
+    (img ** 2).sum().backward()
+    p_ref = _leaves(params)
+    ref = render_image(p_ref, scene, cam, seeds, cfg)
+    (ref ** 2).sum().backward()
+    np.testing.assert_allclose(img.detach().numpy(), ref.detach().numpy(),
+                               **TOL)
+    for a, b in ((p.albedo, p_ref.albedo), (p.emission, p_ref.emission)):
+        assert torch.isfinite(a.grad).all() and b.grad.abs().max() > 0
+        assert np.allclose(a.grad.numpy(), b.grad.numpy(),
+                           **TOL) != unbiased
 
 
 def test_no_grad_flows_to_rays_or_tape():

@@ -2,8 +2,9 @@
 memory-resident ("dyn"): tracer, collect tracer, sweep adjoint and retrace
 adjoint, the path-regeneration tracers and sweep adjoints of both, the
 key-driven wavefront tracer and adjoint, the segment forms of the tracer
-and the retrace adjoint and the early-exit tracer, against their plain
-PyTorch versions on the card. Every test needs
+and the retrace adjoint and the early-exit tracer, and the lane-splitting
+renderers over the tape forms, against their plain PyTorch versions on
+the card. Every test needs
 an NVIDIA GPU, nvcc and sm_90a: marked `cuda`, they skip without a card.
 Run them there with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`
@@ -2128,3 +2129,119 @@ def test_segment_tracer_forms_and_counts(dev):
     after = mk.launch_counts()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]
             } == dict(segment_tracer=2)
+
+
+# Per-vertex splitting (bsdf_samples > 1): the tape forms of B1-B4, B6-B9
+# and B5a/B5b on M leaf lanes per camera sample.
+
+SPLIT_FAMILIES = {
+    "split": ("cuda-split", "torch-split", ("fused_tracer", "fused_collect",
+                                            "fused_sweep", "fused_adjoint")),
+    "split-dyn": ("cuda-split-dyn", "torch-split-dyn",
+                  ("dyn_tracer", "dyn_collect", "dyn_sweep", "dyn_adjoint")),
+}
+SPLIT_CASES = [("split", cbox.build, 2, 1), ("split", gallery.build_glossy,
+                                             3, 2),
+               ("split-dyn", _mesh(1), 2, 2), ("split-dyn", _mesh(1), 3, 1)]
+SPLIT_IDS = ["split-cbox-n2-c1", "split-glossy-n3-c2", "split-dyn-mesh87-n2-c2",
+             "split-dyn-mesh87-n3-c1"]
+
+
+def _split_cfg(n, chunks):
+    return RenderConfig(width=16, height=12, spp=2 * chunks,
+                        spp_chunks=chunks, max_depth=4 if n == 2 else 3,
+                        bsdf_samples=n)
+
+
+def _split_step(render, params, seeds):
+    from drt_tpu_torch.scene import Params
+
+    p = Params(*(t.clone().requires_grad_() for t in params))
+    img = render(p, seeds)
+    (img ** 2).mean().backward()
+    return img.detach(), p.albedo.grad, p.emission.grad
+
+
+@pytest.mark.parametrize("family,builder,n,chunks", SPLIT_CASES,
+                         ids=SPLIT_IDS)
+def test_split_kernels_match_plain_versions(dev, family, builder, n, chunks):
+    """The "cuda-split*" renderer against its plain version at the same
+    seeds (image per pixel, gradient tables), stored = retrace bit for
+    bit, and each path's launch counts: one launch of each of its kernels
+    per chunk."""
+    from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+
+    backend, plain, (tracer, collect, sweep, adjoint) = \
+        SPLIT_FAMILIES[family]
+    cfg = _split_cfg(n, chunks)
+    scene, params, cam, _, _ = _setup(builder, dev)
+    seeds = torch.tensor([13, -14], dtype=torch.int32)
+    if family == "split":
+        assert resolve_backend(scene, cfg) == backend
+    mk.reset_launch_counts()
+    img = make_renderer(scene, cfg, cam, differentiable=False,
+                        backend=backend)(params, seeds)
+    torch.cuda.synchronize()
+    assert mk.launch_counts() == {**{k: 0 for k in mk.launch_counts()},
+                                  tracer: chunks}
+    ref = make_renderer(scene, cfg, cam, differentiable=False,
+                        backend=plain)(params, seeds)
+    assert torch.isfinite(img).all() and ref.mean() > 0
+    assert _share_beyond(img.permute(2, 0, 1).reshape(3, -1),
+                         ref.permute(2, 0, 1).reshape(3, -1),
+                         2e-5, 2e-6) <= 1e-3
+    steps = {}
+    for adj, launched in (("stored", {collect: chunks, sweep: chunks}),
+                          ("retrace", {tracer: chunks, adjoint: chunks})):
+        make = (fused.make_split_fused_image_renderer if family == "split"
+                else fused.make_split_dyn_image_renderer)
+        mk.reset_launch_counts()
+        steps[adj] = _split_step(make(scene, cam, cfg, adjoint=adj),
+                                 params, seeds)
+        torch.cuda.synchronize()
+        assert mk.launch_counts() == {**{k: 0 for k in mk.launch_counts()},
+                                      **launched}
+    for a, b in zip(steps["stored"], steps["retrace"]):
+        assert torch.equal(a, b)
+    ref_step = _split_step(make_renderer(scene, cfg, cam, backend=plain),
+                           params, seeds)
+    _grads_close(steps["stored"][1:], ref_step[1:])
+
+
+@pytest.mark.parametrize("n,chunks", [(2, 1), (3, 2)])
+def test_split_wavefront_matches_plain_and_split(dev, n, chunks):
+    """"cuda-wavefront" at bsdf_samples > 1: B5a's and B5b's tape forms on
+    each chunk's ray-major lanes, against "torch-wavefront" (image and
+    gradients), and its image against "cuda-split"'s at the same seeds
+    (the same draws and paths in another lane order); one launch of each
+    kernel per chunk."""
+    from drt_tpu_torch.parallel.render import make_renderer
+
+    cfg = _split_cfg(n, chunks)
+    scene, params, cam, _, _ = _setup(cbox.build, dev)
+    seeds = torch.tensor([15, 16], dtype=torch.int32)
+    mk.reset_launch_counts()
+    got = _split_step(make_renderer(scene, cfg, cam,
+                                    backend="cuda-wavefront"), params, seeds)
+    torch.cuda.synchronize()
+    assert mk.launch_counts() == {**{k: 0 for k in mk.launch_counts()},
+                                  "ray_tracer": chunks,
+                                  "ray_adjoint": chunks}
+    ref = _split_step(make_renderer(scene, cfg, cam,
+                                    backend="torch-wavefront"), params,
+                      seeds)
+    split = make_renderer(scene, cfg, cam, differentiable=False,
+                          backend="cuda-split")(params, seeds)
+    for other in (ref[0], split):
+        assert _share_beyond(got[0].permute(2, 0, 1).reshape(3, -1),
+                             other.permute(2, 0, 1).reshape(3, -1),
+                             2e-5, 2e-6) <= 1e-3
+    _grads_close(got[1:], ref[1:])
+
+
+def test_split_tape_on_the_card_is_the_cpu_tape(dev):
+    cfg = _split_cfg(2, 2)
+    for chunk in (0, 1):
+        for a, b in zip(fused.split_prefix_tape([3, 4], chunk, cfg, dev),
+                        fused.split_prefix_tape([3, 4], chunk, cfg)):
+            assert torch.equal(a.cpu(), b)

@@ -275,7 +275,8 @@ def test_renderer_forms_agree_with_the_dyn_lockstep_renderer(glossy, kw):
 
 @pytest.mark.parametrize("make,kw,err,match", [
     ("regen", dict(cfg=dict(unbiased=True)), ValueError, "biased-only"),
-    ("regen", dict(cfg=dict(bsdf_samples=2)), NotImplementedError, "A12"),
+    ("regen", dict(cfg=dict(bsdf_samples=2)), ValueError,
+     "'cuda-split' / 'cuda-split-dyn'"),
     ("router", dict(backend="pallas-dyn-regen"), ValueError,
      "'pallas-dyn-regen' is 'cuda-dyn-regen'"),
     ("router", dict(backend="cuda-dyn-regen"), ValueError, "CUDA device"),

@@ -107,9 +107,12 @@ def test_biased_only_and_one_lane(fn):
     with pytest.raises(ValueError, match="unbiased=False"):
         fn(scene, cam, dataclasses.replace(CFG, unbiased=True), params,
            SEEDS)
-    with pytest.raises(NotImplementedError, match="A12"):
-        fn(scene, cam, dataclasses.replace(CFG, bsdf_samples=2,
-                                           max_depth=3), params, SEEDS)
+    # bsdf_samples > 1 runs on each ray's lanes (checked against forward
+    # mode in tests/test_torch_split.py).
+    out = fn(scene, cam, dataclasses.replace(CFG, bsdf_samples=2,
+                                             max_depth=3), params, SEEDS)
+    assert all(np.isfinite(np.asarray(x)).all() for x in
+               (out if isinstance(out, list) else [out]))
 
 
 @pytest.mark.parametrize("param", ["albedo:3", "albedo:-1", "emission:1",

@@ -177,7 +177,7 @@ def test_wavefront_trace_fn_takes_the_keyed_form(scenes, card,
     def no_tape(*args, **kw):
         raise AssertionError("a tape was drawn")
 
-    monkeypatch.setattr(adjoint, "bounce_tape", no_tape)
+    monkeypatch.setattr(adjoint, "prefix_tape", no_tape)
     monkeypatch.setattr(mk, "bounce_tape", no_tape)
     trace_fn = adjoint.make_wavefront_trace_fn(scene, CFG)
     xy = chunk_pixel_ids(CFG)

@@ -357,7 +357,8 @@ def test_image_is_the_lockstep_image_up_to_summation_order(both):
     ("regen", dict(cfg=dict(unbiased=True)), ValueError, "biased-only"),
     ("regen", dict(cfg=dict(unbiased=True), adjoint="retrace"), ValueError,
      "biased-only"),
-    ("regen", dict(cfg=dict(bsdf_samples=2)), NotImplementedError, "A12"),
+    ("regen", dict(cfg=dict(bsdf_samples=2)), ValueError,
+     "'cuda-split' / 'cuda-split-dyn'"),
     ("regen", dict(adjoint="bogus"), ValueError, "unknown adjoint"),
     ("router", dict(backend="pallas-regen"), ValueError,
      "'pallas-regen' is 'cuda-regen'"),

@@ -105,7 +105,8 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
     (dict(backend="cuda-regen"), ValueError, "CUDA device"),
     (dict(backend="cuda-dyn-regen"), ValueError, "CUDA device"),
     (dict(backend="pallas-regen-sharded"), NotImplementedError, "A14"),
-    (dict(backend="pallas-split"), NotImplementedError, "A12"),
+    (dict(backend="pallas-split"), ValueError,
+     "'pallas-split' is 'cuda-split'"),
     (dict(backend="bogus"), ValueError, "unknown backend"),
 ])
 def test_make_renderer_refuses(kw, err, match):

@@ -60,12 +60,23 @@ def test_trace_rays_tape_matches(model, dtype):
 
 
 def test_bsdf_splitting_not_ported():
+    """Splitting (bsdf_samples > 1) is key mode only, as in the JAX
+    package: a tape raises; key mode traces M lanes a ray and returns
+    each ray's lane mean (tests/test_torch_split.py holds it against the
+    JAX tracer)."""
     from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.renderer import chunk_pixel_ids, chunk_rays
 
     scene, params, cam = cbox.build(device="cpu")
     cfg = RenderConfig(width=4, height=4, spp=1, max_depth=2,
                        bsdf_samples=2)
     z = torch.zeros(16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="key-driven only"):
         trace_rays(params, scene, V3(z, z, z), V3(z, z, z), cfg,
                    tape=torch.zeros(2, 3, 16))
+    o, d, _ = chunk_rays(cam, cfg, chunk_pixel_ids(cfg), (1, 2), 0)
+    L, res = trace_rays(params, scene, o, d, cfg, seeds=(1, 2),
+                        collect=True)
+    assert L.x.shape == (16,) and res.sc.shape == (2, 32)
+    assert all(torch.isfinite(c).all() for c in L)
+    assert float(L.x.sum() + L.y.sum() + L.z.sum()) > 0

@@ -393,10 +393,16 @@ def test_routing_of_the_wavefront_backends():
                         backend="torch-wavefront")(_leaves(params), SEEDS)
     assert img.grad_fn is None and torch.isfinite(img).all()
     assert mk.launch_counts() == before
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_renderer(scene, dataclasses.replace(CFG, bsdf_samples=2,
-                                                 max_depth=3), cam,
-                      differentiable=False, backend="torch-wavefront")
+    # Splitting: the plain wavefront on M lanes a ray gives the image of
+    # the plain split renderer at the same seeds, with no launch.
+    cfg2 = dataclasses.replace(CFG, bsdf_samples=2, max_depth=3)
+    img2 = make_renderer(scene, cfg2, cam, differentiable=False,
+                         backend="torch-wavefront")(_leaves(params), SEEDS)
+    ref2 = make_renderer(scene, cfg2, cam, differentiable=False,
+                         backend="torch-split")(params, SEEDS)
+    assert img2.grad_fn is None and mk.launch_counts() == before
+    np.testing.assert_allclose(img2.numpy(), ref2.numpy(), rtol=2e-5,
+                               atol=2e-6)
 
 
 def test_wrappers_run_twins_only_on_cpu():
