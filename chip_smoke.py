@@ -1,7 +1,8 @@
 """Drive drt_tpu_torch's render and training paths on one NVIDIA GPU.
 
   python3 chip_smoke.py [--keep-going]
-                        [--only=dyn|regen|wavefront|compact|fused|sweep|split]
+                        [--only=dyn|regen|wavefront|compact|fused|sweep|split|
+                                invert]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -162,14 +163,27 @@ Phases (any failure raises, exits non-zero and prints no result line):
      retrace; "cuda-wavefront" at 640x480x16 spp in 16 chunks: forward
      (its image = "cuda-split"'s at the same seeds, per pixel) and a step,
      and gradcheck.check_gradients at 64x48x4, depth 3;
- 19. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
+ 19. the inverse-rendering entry point, cli.main(["invert", ...]) in
+     process at the CLI's full default shape (640x480x100 spp, depth 32,
+     one chunk; B1 for the target, then B2 + B3 twice a step), 60 steps a
+     run: launched B1 once and B2, B3 120 times each, and nothing else;
+     checkpoints at 50 and 60 and the metrics lines --log-every selects;
+     50 steps, then the same command with --steps 60 resuming from the
+     checkpoint, equals the uninterrupted run, and --steps-per-call 1
+     equals 8, bit for bit (outputs and checkpoint 60); validate_scene and
+     assert_finite on the card; one block of 8 steps under
+     torch.cuda.set_sync_debug_mode("error"); profiling.trace of one step
+     names B2's and B3's kernels; trainer seconds a step at 1 and 8 steps
+     a block, and of one save_dir;
+ 20. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7, 10, 13, 14, 15 and 18 the launch
+Before each of the paths of 5, 6, 7, 10, 13, 14, 15, 18 and 19 the launch
 counts are set to 0, and read just after. --only=dyn (phases 8-10),
 --only=regen (phases 11-13), --only=wavefront (phase 14), --only=compact
-(phase 15), --only=fused (phase 16), --only=sweep (phase 17) and
---only=split (phase 18) build, run those phases and stop without a result
-line (exit 1): short runs while working on them.
+(phase 15), --only=fused (phase 16), --only=sweep (phase 17),
+--only=split (phase 18) and --only=invert (phase 19) build, run those
+phases and stop without a result line (exit 1): short runs while working
+on them.
 
 Imports nothing of JAX. Refuses to run without a card, or without the
 repository beside it.
@@ -180,6 +194,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -203,6 +218,9 @@ RSC_SHARE_SMALL = 5e-3
 GRAD_RTOL_SMALL = 2e-5
 GRAD_RTOL_MAIN = 1e-4
 MAIN = dict(width=640, height=480, spp=256, max_depth=5, spp_chunks=16)
+# The CLI's default shape (src/args.hpp:19-67 and --max-depth), which
+# phase 19 runs `cli invert` at, passing no shape flag.
+CLI_SHAPE = dict(width=640, height=480, spp=100, max_depth=32)
 # The card's published peaks (H100 SXM data sheet): device memory rate and
 # float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -3530,6 +3548,179 @@ def split_phase(dev, smi_line: str, timing: dict) -> dict:
     return extra
 
 
+def invert_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 19: the inverse-rendering entry point, `cli invert`, in
+    process at the CLI's full default shape (640x480x100 spp, depth 32,
+    one chunk: "auto" takes "cuda", the stored adjoint), 60 steps a run:
+    a run resumed from its checkpoint at 50 equals the uninterrupted one,
+    and --steps-per-call 1 equals 8, bit for bit; the launch counts of a
+    run; its metrics file; the utilities on the card (validate_scene,
+    assert_finite, a block of 8 steps with no synchronizing call, a
+    profiler trace of a step that names B2's and B3's kernels); seconds a
+    trainer step at 1 and 8 steps a block and of one save_dir. Returns,
+    for B1, B2 and B3, their launches in one run as `invert_launches`."""
+    import tempfile
+
+    from drt_tpu_torch import cli, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params
+    from drt_tpu_torch.utils import checkpoint, debug, profiling
+
+    t_phase = time.time()
+    steps, every = 60, 50  # every: inverse_render's checkpoint_every
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def invert(name, *argv):
+            out = tmp / f"{name}.json"
+            t0 = time.perf_counter()
+            rc = cli.main(["invert", "-o", str(out), *argv])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(rc == 0, f"cli invert {argv} returned {rc}")
+            return json.loads(out.read_text()), seconds
+
+        def saved(directory, step):
+            state, gen_state, _ = checkpoint.restore_dir(
+                str(directory), like, step)
+            return [*state.params, *state.opt_state.mu, *state.opt_state.nu,
+                    torch.tensor(state.step), gen_state]
+
+        scene, params, cam = cbox.build(device=dev)
+        debug.validate_scene(scene, params)
+        like = optim.init_state(params)
+        ck_a, jsonl = tmp / "a", tmp / "a.jsonl"
+        mk.reset_launch_counts()
+        a, t_a = invert("a", "--steps", str(steps), "--checkpoint-dir",
+                        str(ck_a), "--metrics-jsonl", str(jsonl))
+        counts = mk.launch_counts()
+        print(f"[invert] cli invert 640x480x100 depth 32, {steps} steps, "
+              f"--steps-per-call 8: {t_a!r} s with the target render and "
+              f"the renderers' set-up; launches={counts}; final_loss="
+              f"{a['final_loss']!r}; recovered albedo "
+              f"{a['recovered_albedo']} (true {a['true_albedo']}), "
+              f"emission {a['recovered_emission']} (true "
+              f"{a['true_emission']})", flush=True)
+        check(counts == only(fused_tracer=1, fused_collect=2 * steps,
+                             fused_sweep=2 * steps),
+              f"cli invert launched {counts}")
+        debug.assert_finite({k: torch.tensor(a[k]) for k in a},
+                            "cli invert output")
+        check(sorted(p.name for p in ck_a.iterdir())
+              == [f"{every}.npz", f"{steps}.npz"],
+              f"checkpoints written: {sorted(ck_a.iterdir())}")
+        recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+        print(f"[invert] metrics file: {recs}", flush=True)
+        check([r["step"] for r in recs] == [0, 20, 40, steps - 1]
+              and all({"step", "t", "loss", "grad_norm"} <= set(r)
+                      and math.isfinite(r["loss"])
+                      and math.isfinite(r["grad_norm"])
+                      for r in recs),
+              "the metrics file lacks the lines --log-every 20 selects")
+
+        ck_b = tmp / "b"
+        invert("b50", "--steps", str(every), "--checkpoint-dir", str(ck_b),
+               "--log-every", "0")
+        check(checkpoint.latest_step(str(ck_b)) == every,
+              f"the 50-step run saved {sorted(ck_b.iterdir())}")
+        b, _ = invert("b", "--steps", str(steps), "--checkpoint-dir",
+                      str(ck_b), "--log-every", "0")
+        check(b == a, "the run resumed at 50 differs from the "
+              f"uninterrupted one: {b} against {a}")
+        for k, (x, y) in enumerate(zip(saved(ck_b, steps),
+                                       saved(ck_a, steps))):
+            check(torch.equal(x, y), f"checkpoint {steps} of the resumed "
+                  f"run differs from the uninterrupted one's in leaf {k}")
+        c, _ = invert("c", "--steps", str(steps), "--steps-per-call", "1",
+                      "--log-every", "0")
+        check(c == a, "--steps-per-call 1 differs from 8: "
+              f"{c} against {a}")
+        print(f"[invert] resumed at {every} = uninterrupted (outputs and "
+              f"checkpoint {steps}: params, moments, step, generator); "
+              "--steps-per-call 1 = 8: bit-equal" if b == c == a else
+              "[invert] resumed or single-step run differs", flush=True)
+
+        # The trainer under the utilities: the CLI's target and start.
+        cfg = RenderConfig(**CLI_SHAPE)
+        target = make_renderer(scene, cfg, cam, differentiable=False)(
+            params, seeds_from_generator(torch.Generator().manual_seed(1)))
+        init = Params(torch.full_like(params.albedo, 0.25),
+                      torch.full_like(params.emission, 0.5))
+        block = optim.make_train_block(scene, cfg, cam, target,
+                                       optim.Adam(2e-2))
+        gen = torch.Generator().manual_seed(0)
+        state, _ = block(optim.init_state(init), gen, 8)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = block(state, gen, 8)
+            synced = None
+        except RuntimeError as e:
+            synced = str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(synced is None, f"a block of 8 steps synchronized: {synced}")
+        debug.assert_finite(metrics, "block metrics")
+        debug.assert_finite(state, "trainer state")
+        print(f"[invert] one block of 8 steps under "
+              f"set_sync_debug_mode('error'): no synchronizing call; "
+              f"loss={metrics['loss'].tolist()}", flush=True)
+
+        step = optim.make_train_step(scene, cfg, cam, target,
+                                     optim.Adam(2e-2))
+        with profiling.trace(str(tmp / "trace")) as prof:
+            step(state, gen)
+            torch.cuda.synchronize()
+        text = (tmp / "trace" / profiling.TRACE_FILE).read_text()
+        from torch.autograd import DeviceType
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[invert] profiling.trace of one step: {len(text)} bytes; "
+              "device ms by name: "
+              + "; ".join(f"{n[:50]} {ms!r}" for n, ms in top), flush=True)
+        for kernel in ("queue_trace_kernel", "fused_sweep_kernel"):
+            check(kernel in text, f"the step's trace does not name {kernel}")
+
+        n_timed = 16
+        t_step = {}
+        for k in (1, 8, 8, 1):
+            best, _ = profiling.timed(
+                lambda: optim.inverse_render(
+                    scene, cfg, cam, target, init,
+                    torch.Generator().manual_seed(0), steps=n_timed,
+                    steps_per_call=k), warmup=1, reps=2)
+            t_step.setdefault(k, []).append(best / n_timed)
+        t_save, _ = profiling.timed(
+            lambda: checkpoint.save_dir(str(tmp / "t"), state, gen),
+            warmup=1, reps=5)
+        # The same save from a copy of the state on the host: the file
+        # write alone, without the reads from the card.
+        host_state, _, _ = checkpoint.restore_dir(
+            str(tmp / "t"), optim.init_state(Params(*(t.cpu()
+                                                      for t in init))))
+        t_host, _ = profiling.timed(
+            lambda: checkpoint.save_dir(str(tmp / "h"), host_state, gen),
+            warmup=1, reps=5)
+        print(f"[time] trainer s/step at the CLI shape (inverse_render, "
+              f"{n_timed} steps a call, best of 2 after a warm-up, in "
+              f"turns 1, 8, 8, 1): steps_per_call=1 {t_step[1]!r}, "
+              f"steps_per_call=8 {t_step[8]!r}; one save_dir "
+              f"{t_save * 1e3!r} ms, of a host copy of the state "
+              f"{t_host * 1e3!r} ms (best of 5) on {smi_line}", flush=True)
+    print(f"[phase] 19 (invert): {time.time() - t_phase:.1f}s", flush=True)
+    return {"fused_tracer": dict(invert_launches=counts["fused_tracer"]),
+            "fused_collect": dict(invert_launches=counts["fused_collect"]),
+            "fused_sweep": dict(invert_launches=counts["fused_sweep"])}
+
+
 def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
@@ -3585,7 +3776,7 @@ def main() -> int:
         phase = {"dyn": dyn_phases, "regen": regen_phases,
                  "wavefront": wavefront_phase, "compact": compact_phase,
                  "fused": fused_phase, "sweep": sweep_phase,
-                 "split": split_phase}[ONLY]
+                 "split": split_phase, "invert": invert_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -3940,6 +4131,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     split_extra = split_phase(dev, smi_line,
                               dict(reps=10, warmup=10, windows=3))
+    torch.cuda.empty_cache()
+    invert_extra = invert_phase(dev, smi_line, {})
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -3952,7 +4145,7 @@ def main() -> int:
     rows.update(regen_rows)
     rows.update(wave_rows)
     rows.update(compact_rows)
-    for extra in (fused_extra, sweep_extra, split_extra):
+    for extra in (fused_extra, sweep_extra, split_extra, invert_extra):
         for name, keys in extra.items():
             rows[name].update(keys)
     # name -> (source under csrc/, the TPU kernel's file and def line)
@@ -3988,7 +4181,8 @@ def main() -> int:
     # split_launches are a kernel's launches on a lane-splitting path
     # (phase 18: a forward or a step), split_ms its time per launch on one
     # chunk of the Cornell box split cell, split_tape_ms that chunk's
-    # split_prefix_tape.
+    # split_prefix_tape. invert_launches are B1's, B2's and B3's launches
+    # in one 60-step run of `cli invert` at the CLI's shape (phase 19).
     # The dyn and regeneration kernels' plain_ms is of one chunk of `chunks`
     # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
     # launch. A regeneration tracer's entry is its forward form; collect_*

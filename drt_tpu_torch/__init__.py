@@ -19,8 +19,10 @@ kernels: backend "cuda-wavefront"), per-vertex splitting (bsdf_samples >
 1: `fused.make_split_fused_image_renderer` and
 `make_split_dyn_image_renderer` over the tape forms of both fused
 families, backends "cuda-split" and "cuda-split-dyn", and the wavefront),
-`adjoint.make_diff_renderer`, `gradcheck`, `integrate`, and the Adam loop
-of `optim`.
+`adjoint.make_diff_renderer`, `gradcheck`, `integrate`, the Adam loop
+of `optim` with checkpoint and resume (`utils.checkpoint`) and its
+metrics stream (`utils.logging`), `cli` (render, grad, grad-image,
+invert), and `utils.profiling`, `utils.debug` and `utils.image`.
 """
 
 from drt_tpu_torch.adjoint import make_diff_image_renderer, make_diff_renderer

@@ -1,17 +1,18 @@
-"""Command-line renderer: the `render`, `grad` and `grad-image`
-subcommands of `drt_tpu.cli`.
+"""Command-line renderer: the `render`, `grad`, `grad-image` and
+`invert` subcommands of `drt_tpu.cli`.
 
 Reference flags and defaults (src/args.hpp:19-67: width 640, height 480,
 samples 100, min-bounces 1, absorb-prob 0.5, required output path) on the
 sample scene (src/render.cpp:26-65), plus max depth, spp chunking, seed,
 f64 tracing (on the CPU), backend, device, the unbiased gradient mode and
 BSDF samples per vertex (per-vertex splitting).
-The `invert` subcommand comes with ROADMAP A9-A10.
 
 Usage:
   python -m drt_tpu_torch.cli render -o out.png [-x W -y H -n SPP ...]
   python -m drt_tpu_torch.cli grad -o grads.json [-x W -y H -n SPP ...]
   python -m drt_tpu_torch.cli grad-image -o grad.exr [--param albedo:0 ...]
+  python -m drt_tpu_torch.cli invert -o recovered.json [--steps 200
+      --checkpoint-dir DIR --metrics-jsonl FILE --steps-per-call 8 ...]
 """
 
 from __future__ import annotations
@@ -210,6 +211,44 @@ def cmd_grad_image(args) -> int:
     return 0
 
 
+def cmd_invert(args) -> int:
+    """Inverse rendering: recover the albedo and emission tables from a
+    ground-truth render of the sample scene, by Adam through radiative
+    backprop (`optim.inverse_render`), resumable from `--checkpoint-dir`."""
+    import torch
+
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.optim import inverse_render
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params
+
+    scene, params, cam, cfg = _build(args)
+    render = make_renderer(scene, cfg, cam, differentiable=False,
+                           backend=args.backend)
+    target = render(params, seeds_from_generator(
+        torch.Generator().manual_seed(args.seed + 1)))
+    init = Params(albedo=torch.full_like(params.albedo, 0.25),
+                  emission=torch.full_like(params.emission, 0.5))
+    recovered, metrics = inverse_render(
+        scene, cfg, cam, target, init,
+        torch.Generator().manual_seed(args.seed), steps=args.steps,
+        learning_rate=args.lr, log_every=args.log_every,
+        backend=args.backend, checkpoint_dir=args.checkpoint_dir,
+        metrics_jsonl=args.metrics_jsonl,
+        steps_per_call=args.steps_per_call)
+    out = {
+        "true_albedo": params.albedo.cpu().tolist(),
+        "recovered_albedo": recovered.albedo.cpu().tolist(),
+        "true_emission": params.emission.cpu().tolist(),
+        "recovered_emission": recovered.emission.cpu().tolist(),
+        "final_loss": float(metrics["loss"][-1]),
+    }
+    with open(args.output, "w") as f:
+        json.dump(out, f, indent=2)
+    print(f"recovered params -> {args.output}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="drt_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -227,6 +266,21 @@ def main(argv=None) -> int:
     pgi.add_argument("--param", default="albedo:0",
                      help="parameter row, e.g. albedo:0 or emission:0")
     pgi.set_defaults(fn=cmd_grad_image)
+    pi = sub.add_parser("invert", help="inverse rendering recovery loop")
+    _add_render_flags(pi)
+    pi.add_argument("--steps", type=int, default=200)
+    pi.add_argument("--lr", type=float, default=2e-2)
+    pi.add_argument("--log-every", type=int, default=20)
+    pi.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint directory (one npz file a saved "
+                         "step); resumes from its latest if it has one")
+    pi.add_argument("--metrics-jsonl", default=None,
+                    help="stream per-step metrics to this JSONL file")
+    pi.add_argument("--steps-per-call", type=int, default=8,
+                    help="optimizer steps per block, in which the host "
+                         "reads nothing from the card (bit-equal to 1: "
+                         "the same draws)")
+    pi.set_defaults(fn=cmd_invert)
     args = parser.parse_args(argv)
     return args.fn(args)
 

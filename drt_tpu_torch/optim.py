@@ -9,6 +9,7 @@ follows the JAX package's step for step from the same state.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -133,10 +134,13 @@ def make_train_block(scene: Scene, cfg: RenderConfig, cam: Camera,
                      paired: bool = True, backend: str = "auto",
                      render=None):
     """Build `run(state, gen, length) -> (state, stacked_metrics)`:
-    `length` optimizer steps in a row. The JAX package folds them into
-    one `lax.scan` dispatch; PyTorch launches eagerly and the host never
-    waits for the device between steps, so there is no scan to fold on
-    this side and this is the same loop as `length` calls of the step."""
+    `length` optimizer steps in a row, bit-equal to `length` calls of the
+    step (the same draws from `gen`). The JAX package's block is one
+    `lax.scan` dispatch that syncs once; its counterpart here is that the
+    host reads nothing from the device inside a block: the steps' kernels
+    are enqueued back to back, each step's metrics stay on the device,
+    and they are stacked there, for the caller to read (and log) after
+    the block."""
     step = make_train_step(scene, cfg, cam, target, optimizer, mesh=mesh,
                            paired=paired, backend=backend, render=render)
 
@@ -156,33 +160,75 @@ def inverse_render(scene: Scene, cfg: RenderConfig, cam: Camera,
                    steps: int = 200, learning_rate: float = 2e-2,
                    mesh=None, log_every: int = 0, logger=None,
                    backend: str = "auto", checkpoint_dir: str | None = None,
-                   metrics_jsonl: str | None = None):
-    """Run the recovery loop as a host loop. Returns (final params,
-    per-step metrics dict of stacked tensors `loss`, `grad_norm`).
+                   checkpoint_every: int = 50,
+                   metrics_jsonl: str | None = None,
+                   steps_per_call: int = 1):
+    """Run the recovery loop. Returns (final params, per-step metrics
+    dict of stacked tensors `loss`, `grad_norm`: of the steps this call
+    ran, none if a checkpoint was already past `steps`).
 
     gen: the `torch.Generator` the steps draw their seeds from.
-    log_every: print the loss every so many steps (reading it waits for
-    the device). Checkpoints and the metrics file are not ported yet
-    and raise; the JAX package's `steps_per_call` has no counterpart
-    (see `make_train_block`).
+    checkpoint_dir: if given, resumes from the latest checkpoint there
+    (params, Adam moments, step and `gen`'s state: `utils.checkpoint`)
+    and saves every `checkpoint_every` steps and at the last. A resume
+    sets `gen` to the saved state (`gen.set_state`), so the steps after
+    it draw the seeds an uninterrupted run draws, bit for bit: the seeds
+    come from the generator's stream, not from (seed, step).
+    log_every: log the loss every so many steps and at the last, to
+    `metrics_jsonl` (a `MetricsLogger` JSONL file, the grad norm with
+    it) if given, else as a line to `logger` (default print). Reading a
+    loss waits for the device.
+    steps_per_call: optimizer steps per block (`make_train_block`), in
+    which the host reads nothing from the device; bit-equal to 1. Blocks
+    shorten so that checkpoints still land exactly on `checkpoint_every`
+    boundaries.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint and resume are not ported "
-                                  "yet: ROADMAP A9 (utils/checkpoint)")
-    if metrics_jsonl is not None:
-        raise NotImplementedError("the metrics JSONL stream is not ported "
-                                  "yet: ROADMAP A10 (utils/logging)")
+    from drt_tpu_torch.utils import checkpoint
+    from drt_tpu_torch.utils.logging import MetricsLogger
+
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     optimizer = Adam(learning_rate)
-    step_fn = make_train_step(scene, cfg, cam, target, optimizer, mesh=mesh,
-                              backend=backend)
+    block_fn = make_train_block(scene, cfg, cam, target, optimizer,
+                                mesh=mesh, backend=backend)
     state = init_state(init_params, optimizer)
+    start = 0
+    if checkpoint_dir is not None:
+        last = checkpoint.latest_step(checkpoint_dir)
+        if last is not None:
+            state, gen_state, start = checkpoint.restore_dir(
+                checkpoint_dir, state, last)
+            if gen_state is None:
+                raise ValueError(f"checkpoint {last} under {checkpoint_dir} "
+                                 "holds no generator state")
+            gen.set_state(gen_state)
+
     losses, grad_norms = [], []
-    for i in range(steps):
-        state, metrics = step_fn(state, gen)
-        losses.append(metrics["loss"])
-        grad_norms.append(metrics["grad_norm"])
-        if log_every and (i % log_every == 0 or i == steps - 1):
-            (logger or print)(f"step {i:4d} loss {float(losses[-1]):.6g}")
+    with (contextlib.closing(MetricsLogger(metrics_jsonl)) if metrics_jsonl
+          else contextlib.nullcontext()) as mlog:
+        i = start
+        while i < steps:
+            n = min(steps - i, steps_per_call)
+            if checkpoint_dir is not None and checkpoint_every:
+                # Shorten the block so the save still lands exactly on the
+                # checkpoint_every boundary (bit-exact resume).
+                n = min(n, checkpoint_every - i % checkpoint_every)
+            state, metrics = block_fn(state, gen, n)
+            for j in range(n):  # after the block: reading a loss waits
+                loss, grad_norm = metrics["loss"][j], metrics["grad_norm"][j]
+                losses.append(loss)
+                grad_norms.append(grad_norm)
+                k = i + j
+                if log_every and (k % log_every == 0 or k == steps - 1):
+                    if mlog:
+                        mlog.log(k, loss=loss, grad_norm=grad_norm)
+                    else:
+                        (logger or print)(f"step {k:4d} loss "
+                                          f"{float(loss):.6g}")
+            i += n
+            if (checkpoint_dir is not None and checkpoint_every
+                    and (i % checkpoint_every == 0 or i == steps)):
+                checkpoint.save_dir(checkpoint_dir, state, gen, i)
     if not losses:
         empty = torch.zeros(0)
         return state.params, {"loss": empty, "grad_norm": empty}

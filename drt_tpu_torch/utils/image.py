@@ -1,4 +1,5 @@
-"""Host-side image output: EXR (half RGBA, uncompressed) and PNG.
+"""Host-side image files: EXR (half RGBA, uncompressed; written and read
+back) and PNG.
 
 A numpy-only copy of `drt_tpu.utils.image` (whose package imports jax).
 The reference writes RGBA half EXRs through OpenEXR
@@ -70,6 +71,47 @@ def write_exr(path: str, img: np.ndarray) -> None:
             f.write(half[y, :, 2].tobytes())
             f.write(half[y, :, 1].tobytes())
             f.write(half[y, :, 0].tobytes())
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read back EXRs written by `write_exr` (uncompressed half RGBA only).
+    Returns f32[H,W,4]. For test roundtrips; not a general EXR reader."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if struct.unpack("<i", data[0:4])[0] != 20000630:
+        raise ValueError(f"{path} is not an EXR")
+    pos = 8
+    attrs = {}
+    while data[pos] != 0:
+        e = data.index(b"\x00", pos)
+        name = data[pos:e]
+        pos = e + 1
+        e = data.index(b"\x00", pos)
+        type_ = data[pos:e]
+        pos = e + 1
+        size = struct.unpack("<i", data[pos:pos + 4])[0]
+        pos += 4
+        attrs[name] = (type_, data[pos:pos + size])
+        pos += size
+    pos += 1
+    x0, y0, x1, y1 = struct.unpack("<iiii", attrs[b"dataWindow"][1])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    if attrs[b"compression"][1] != b"\x00":
+        raise ValueError(f"{path}: only NONE compression is read")
+    pos += 8 * h  # skip offset table
+    out = np.zeros((h, w, 4), np.float32)
+    for y in range(h):
+        _, size = struct.unpack("<ii", data[pos:pos + 8])
+        pos += 8
+        row = np.frombuffer(data[pos:pos + size], np.float16)
+        pos += size
+        a, b, g, r = (row[0:w], row[w:2 * w], row[2 * w:3 * w],
+                      row[3 * w:4 * w])
+        out[y, :, 0] = r
+        out[y, :, 1] = g
+        out[y, :, 2] = b
+        out[y, :, 3] = a
+    return out
 
 
 def write_png(path: str, img: np.ndarray, gamma: float = 2.2) -> None:

@@ -45,7 +45,8 @@ def test_validation_errors_match(kw):
 def test_import_leaves_jax_out():
     """Every module of the port imports in a fresh interpreter without
     pulling in jax (or the JAX package): among them the early-exit tracer
-    and the segment forms (`ops.megakernel`, `fused`)."""
+    and the segment forms (`ops.megakernel`, `fused`), and the
+    checkpoint, logging, profiling and debug utilities."""
     mods = [m.name for m in pkgutil.walk_packages(
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
     assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.ops.dynkernel",
@@ -54,7 +55,10 @@ def test_import_leaves_jax_out():
             "drt_tpu_torch.adjoint", "drt_tpu_torch.gradcheck",
             "drt_tpu_torch.integrate", "drt_tpu_torch.renderer",
             "drt_tpu_torch.optim", "drt_tpu_torch.fused",
-            "drt_tpu_torch.cli", "drt_tpu_torch.utils.native"} <= set(mods)
+            "drt_tpu_torch.cli", "drt_tpu_torch.utils.native",
+            "drt_tpu_torch.utils.checkpoint", "drt_tpu_torch.utils.logging",
+            "drt_tpu_torch.utils.profiling",
+            "drt_tpu_torch.utils.debug"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

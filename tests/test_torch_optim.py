@@ -1,9 +1,10 @@
 """drt_tpu_torch.optim on the CPU: the Adam step against optax.adam over
 the JAX tape renderer from the same numpy state (float32, parameters to
 rtol 1e-5 after 3 steps), the physical clip, and the host loop of
-inverse_render."""
+inverse_render (its checkpoints: tests/test_torch_checkpoint.py)."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -147,7 +148,7 @@ def test_train_block_is_the_step_loop(paired):
     assert torch.equal(m2["loss"][1], m1["loss"])
 
 
-def test_inverse_render_returns_stacked_metrics():
+def test_inverse_render_returns_stacked_metrics(tmp_path):
     scene, params, cam = cbox.build(device="cpu")
     cfg = RenderConfig(width=8, height=6, spp=4, spp_chunks=2, max_depth=3)
     from drt_tpu_torch.parallel.render import make_renderer
@@ -167,8 +168,11 @@ def test_inverse_render_returns_stacked_metrics():
     _, empty = optim.inverse_render(scene, cfg, cam, target, start,
                                     torch.Generator(), steps=0)
     assert empty["loss"].shape == (0,)
-    for kw, item in ((dict(checkpoint_dir="x"), "A9"),
-                     (dict(metrics_jsonl="x"), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            optim.inverse_render(scene, cfg, cam, target, start,
-                                 torch.Generator(), steps=1, **kw)
+    # With a metrics file the logged steps go there, not to the logger.
+    jsonl = tmp_path / "m.jsonl"
+    lines.clear()
+    optim.inverse_render(scene, cfg, cam, target, start, torch.Generator(),
+                         steps=2, log_every=1, logger=lines.append,
+                         metrics_jsonl=str(jsonl))
+    assert not lines
+    assert [json.loads(line)["step"] for line in open(jsonl)] == [0, 1]
