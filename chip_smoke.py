@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--keep-going]
                         [--only=dyn|regen|wavefront|compact|fused|sweep|split|
-                                invert]
+                                invert|mesh]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -175,13 +175,30 @@ Phases (any failure raises, exits non-zero and prints no result line):
      torch.cuda.set_sync_debug_mode("error"); profiling.trace of one step
      names B2's and B3's kernels; trainer seconds a step at 1 and 8 steps
      a block, and of one save_dir;
- 20. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
+ 20. rendering over a device mesh whose shards share the card: through
+     make_renderer(mesh=make_mesh(devices=[card] * 2)), "auto" takes
+     "cuda-sharded" on the Cornell box at the main shape, and
+     "cuda-dyn-sharded" the 1287-shape mesh at its main shape over 4
+     shards, "cuda-split-sharded" 640x480x16 in 4 chunks at 2 samples a
+     vertex; "cuda-regen-sharded" and "cuda-dyn-regen-sharded" at those
+     shapes, "cuda-wavefront" on a mesh at 640x480x64 in 16 chunks: each
+     forward image bit for bit the one device's, a stored and a retrace
+     step's image bit for bit and their gradients within rtol 2e-5 /
+     atol 1e-7, a trainer's Adam steps on the mesh, the launches of each
+     path, the sharded step's time against the one device's; two
+     processes sharing the card over gloo with CUDA tensors (this script
+     with --mesh-worker RANK WORLD INIT DIR, one a rank): heartbeat 2,
+     the one process's image bit for bit and its gradients, the same Adam
+     steps on both ranks; TileScheduler(fault_rate=0.25) over the card
+     equal to the fault-free run;
+ 21. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7, 10, 13, 14, 15, 18 and 19 the launch
-counts are set to 0, and read just after. --only=dyn (phases 8-10),
+Before each of the paths of 5, 6, 7, 10, 13, 14, 15, 18, 19 and 20 the
+launch counts are set to 0, and read just after. --only=dyn (phases 8-10),
 --only=regen (phases 11-13), --only=wavefront (phase 14), --only=compact
 (phase 15), --only=fused (phase 16), --only=sweep (phase 17),
---only=split (phase 18) and --only=invert (phase 19) build, run those
+--only=split (phase 18), --only=invert (phase 19) and --only=mesh (phase
+20) build, run those
 phases and stop without a result line (exit 1): short runs while working
 on them.
 
@@ -3721,6 +3738,374 @@ def invert_phase(dev, smi_line: str, timing: dict) -> dict:
             "fused_sweep": dict(invert_launches=counts["fused_sweep"])}
 
 
+# Phase 20's tolerance of a sharded render's gradients against one
+# device's: the same partials summed in another order.
+MESH_GRAD_TOL = dict(rtol=2e-5, atol=1e-7)
+# Phase 20's two-process leg: its ranks' time limit, in seconds.
+MESH_WORKER_TIMEOUT = 300
+
+
+def mesh_step(render_fn, p, s, tgt):
+    """A forward + backward of the mean squared image loss: (loss,
+    (d_albedo, d_emission), image)."""
+    from drt_tpu_torch.scene import Params
+
+    p = Params(*(t.detach().clone().requires_grad_() for t in p))
+    img = render_fn(p, s)
+    check(img.grad_fn is not None, "the image carries no grad_fn")
+    loss = ((img - tgt) ** 2).mean()
+    loss.backward()
+    return loss.detach(), (p.albedo.grad, p.emission.grad), img.detach()
+
+
+def grads_allclose(name: str, got, ref) -> float:
+    """(d_albedo, d_emission) within MESH_GRAD_TOL of one device's;
+    returns the larger max abs error."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for label, g, r in zip(("d_albedo", "d_emission"), got, ref):
+        err = (g - r).abs().max().item()
+        print(f"[compare] {name}: {label} max_abs={err!r} max|ref|="
+              f"{r.abs().max().item()!r}", flush=True)
+        check(bool(r.abs().max() > 0), f"{name}: {label} is all zero")
+        check(torch.allclose(g, r, **MESH_GRAD_TOL),
+              f"{name}: {label} beyond rtol 2e-5 / atol 1e-7")
+        worst = max(worst, err)
+    return worst
+
+
+def mesh_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 20: rendering over a device mesh (`parallel.mesh`,
+    `parallel.multihost`), its shards on the one card: make_renderer on a
+    mesh through "auto" and each "-sharded" backend and the wavefront,
+    each against the same backend on one device (image bit for bit,
+    stored and retrace gradients within rtol 2e-5 / atol 1e-7, a trainer's
+    Adam steps), the launches of each path; two processes sharing the card
+    over gloo (CUDA tensors); the tile scheduler with injected faults over
+    the card. Returns, per kernel these paths launch, its launches here
+    as `mesh_launches`."""
+    import tempfile
+
+    import numpy as np
+
+    from drt_tpu_torch import fused, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.parallel.mesh import make_mesh
+    from drt_tpu_torch.parallel.multihost import (TileScheduler,
+                                                  make_tile_renderer)
+    from drt_tpu_torch.parallel.render import make_renderer, resolve_backend
+    from drt_tpu_torch.renderer import render_image
+    from drt_tpu_torch.scene import Params
+
+    t_phase = time.time()
+    mesh_launches: dict = {}
+    seeds = seeds_from_generator(torch.Generator().manual_seed(0))
+
+    def counted(label, fn, expected):
+        """fn() with the launch counts set to 0 just before and read just
+        after; they must be `expected`."""
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = mk.launch_counts()
+        check(counts == only(**expected), f"{label} launched {counts}")
+        for name, n in counts.items():
+            if n:
+                mesh_launches[name] = mesh_launches.get(name, 0) + n
+        return out
+
+    def host_ms(fn, reps=5):
+        """Median of `reps` synchronized calls on the host clock, after
+        two warm-ups."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    def cell(label, scene, params, cam, cfg, mesh, backend, forward,
+             stored, retrace, trainer_steps, one_backend=None,
+             sharded_retrace=None, one_retrace=None):
+        """One backend on `mesh` against one device: the forward image
+        bit for bit, a stored-adjoint step's and a retrace step's image bit
+        for bit and gradients within MESH_GRAD_TOL (`stored`, `retrace`:
+        the launches each makes on the mesh; the retrace renderers by
+        default the backend's own), and trainer_steps Adam steps on the
+        mesh."""
+        t0 = time.time()
+        one_backend = one_backend or backend.replace("-sharded", "")
+        fwd_one = make_renderer(scene, cfg, cam, differentiable=False,
+                                backend=one_backend)
+        fwd_mesh = make_renderer(scene, cfg, cam, mesh=mesh,
+                                 differentiable=False, backend=backend)
+        img_one = fwd_one(params, seeds)
+        img = counted(f"{label}: forward", lambda: fwd_mesh(params, seeds),
+                      forward)
+        same_bits(f"{label}: {backend} forward on {mesh.size} shards = "
+                  f"{one_backend}", (img,), (img_one,))
+        reads_right(img, f"{label}: {backend} forward")
+        target = img_one
+        p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+        first = "step" if backend.endswith("wavefront") else "stored"
+        forms = ((first, make_renderer(scene, cfg, cam, mesh=mesh,
+                                          backend=backend),
+                  make_renderer(scene, cfg, cam, backend=one_backend),
+                  stored),
+                 ("retrace", sharded_retrace, one_retrace, retrace))
+        worst = 0.0
+        for form, r_mesh, r_one, expected in forms:
+            if r_mesh is None:
+                continue
+            loss1, g1, i1 = mesh_step(r_one, p_off, seeds, target)
+            loss, g, i = counted(f"{label}: {form} step",
+                                 lambda: mesh_step(r_mesh, p_off, seeds,
+                                                   target), expected)
+            same_bits(f"{label}: {form} step image on the mesh = one "
+                      "device's", (i,), (i1,))
+            worst = max(worst, grads_allclose(
+                f"{label}: {form} step on the mesh vs one device", g, g1))
+            if form == first:
+                ms_mesh = host_ms(lambda: mesh_step(r_mesh, p_off, seeds,
+                                                    target))
+                ms_one = host_ms(lambda: mesh_step(r_one, p_off, seeds,
+                                                   target))
+                print(f"[time] {label}: {form} step {backend} on "
+                      f"{mesh.size} shards of one card {ms_mesh!r} ms "
+                      f"against {one_backend} {ms_one!r} ms (overhead "
+                      f"{ms_mesh / ms_one - 1.0:+.1%}; host clock, median "
+                      f"of 5) on {smi_line}", flush=True)
+        if trainer_steps:
+            start = params.albedo.clone()
+            start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+            per_step = {k: 2 * trainer_steps * v for k, v in stored.items()}
+            fitted, metrics = counted(
+                f"{label}: trainer", lambda: optim.inverse_render(
+                    scene, cfg, cam, target, Params(start, params.emission),
+                    torch.Generator().manual_seed(5), steps=trainer_steps,
+                    mesh=mesh, backend=backend), per_step)
+            check(bool(torch.isfinite(metrics["loss"]).all())
+                  and not torch.equal(fitted.albedo, start),
+                  f"{label}: the trainer on the mesh took no finite step")
+            print(f"[train] {label}: {trainer_steps} Adam steps on the mesh,"
+                  f" loss={metrics['loss'].tolist()}", flush=True)
+        print(f"[mesh] {label}: {time.time() - t0:.1f}s", flush=True)
+        return worst
+
+    # 20.1: the Cornell box at the main shape through "auto" on a mesh of
+    # two shards of the card.
+    mesh2 = make_mesh(devices=[dev, dev])
+    scene, params, cam = cbox.build(device=dev)
+    cfg_m = RenderConfig(**MAIN)
+    check(resolve_backend(scene, cfg_m, "auto", mesh2) == "cuda-sharded",
+          "'auto' on a mesh must take 'cuda-sharded'")
+    cell("cbox 640x480x256 (16 chunks)", scene, params, cam, cfg_m, mesh2,
+         "cuda-sharded", dict(fused_tracer=2),
+         dict(fused_collect=2, fused_sweep=2),
+         dict(fused_tracer=2, fused_adjoint=2), 3,
+         sharded_retrace=fused.make_sharded_fused_image_renderer(
+             scene, cam, cfg_m, mesh2, adjoint="retrace"),
+         one_retrace=fused.make_fused_image_renderer(scene, cam, cfg_m,
+                                                     adjoint="retrace"))
+    # 20.2: the 1287-shape mesh over 4 shards.
+    mesh4 = make_mesh(devices=[dev] * 4)
+    m_scene, m_params, m_cam = gallery.build_mesh(3, device=dev)
+    cfg_d = RenderConfig(**MESH_MAIN)
+    check(resolve_backend(m_scene, cfg_d, "auto", mesh4)
+          == "cuda-dyn-sharded", "'auto' must take 'cuda-dyn-sharded'")
+    cell("mesh 640x480x64 (4 chunks)", m_scene, m_params, m_cam, cfg_d,
+         mesh4, "cuda-dyn-sharded", dict(dyn_tracer=4),
+         dict(dyn_collect=4, dyn_sweep=4), dict(dyn_tracer=4,
+                                                 dyn_adjoint=4), 2,
+         sharded_retrace=fused.make_sharded_dyn_image_renderer(
+             m_scene, m_cam, cfg_d, mesh4, adjoint="retrace"),
+         one_retrace=fused.make_dyn_image_renderer(m_scene, m_cam, cfg_d,
+                                                   adjoint="retrace"))
+    # 20.3: per-vertex splitting, 2 samples a vertex, 4 chunks of
+    # 19,660,800 lanes over 2 shards.
+    cfg_s = RenderConfig(width=640, height=480, spp=16, max_depth=5,
+                         spp_chunks=4, bsdf_samples=2)
+    check(resolve_backend(scene, cfg_s, "auto", mesh2)
+          == "cuda-split-sharded", "'auto' must take 'cuda-split-sharded'")
+    cell("cbox split 640x480x16 (4 chunks)", scene, params, cam, cfg_s,
+         mesh2, "cuda-split-sharded", dict(fused_tracer=8),
+         dict(fused_collect=8, fused_sweep=8),
+         dict(fused_tracer=8, fused_adjoint=8), 2,
+         sharded_retrace=fused.make_sharded_split_image_renderer(
+             scene, cam, cfg_s, mesh2, adjoint="retrace"),
+         one_retrace=fused.make_split_fused_image_renderer(
+             scene, cam, cfg_s, adjoint="retrace"))
+    # 20.4: both regeneration backends, each shard a range of pixels.
+    cell("cbox regen 640x480x256 (16 chunks)", scene, params, cam, cfg_m,
+         mesh2, "cuda-regen-sharded", dict(regen_tracer=2),
+         dict(regen_collect=2, regen_sweep=2),
+         dict(regen_tracer=2, regen_collect=32, regen_sweep=32), 2,
+         sharded_retrace=fused.make_sharded_regen_image_renderer(
+             scene, cam, cfg_m, mesh2, adjoint="retrace"),
+         one_retrace=fused.make_regen_image_renderer(scene, cam, cfg_m,
+                                                     adjoint="retrace"))
+    cell("mesh regen 640x480x64 (4 chunks)", m_scene, m_params, m_cam,
+         cfg_d, mesh4, "cuda-dyn-regen-sharded", dict(dyn_regen_tracer=4),
+         dict(dyn_regen_collect=4, dyn_regen_sweep=4),
+         dict(dyn_regen_tracer=4, dyn_regen_collect=16, dyn_regen_sweep=16),
+         2, sharded_retrace=fused.make_sharded_dyn_regen_image_renderer(
+             m_scene, m_cam, cfg_d, mesh4, adjoint="retrace"),
+         one_retrace=fused.make_dyn_regen_image_renderer(
+             m_scene, m_cam, cfg_d, adjoint="retrace"))
+    # 20.5: the wavefront on a mesh, 16 chunks of 1,228,800 rays.
+    cfg_w = RenderConfig(width=640, height=480, spp=64, max_depth=5,
+                         spp_chunks=16)
+    cell("cbox wavefront 640x480x64 (16 chunks)", scene, params, cam, cfg_w,
+         mesh2, "cuda-wavefront", dict(ray_tracer=32),
+         dict(ray_tracer=32, ray_adjoint=32), {}, 1)
+    del m_scene, m_params, m_cam
+    torch.cuda.empty_cache()
+
+    # 20.6: two processes sharing the card over gloo: a mesh of one shard
+    # each, at the main shape.
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{Path(tmp) / 'rendezvous'}"
+        procs = [subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--mesh-worker",
+             str(rank), "2", init, tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for rank in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+            print(out.decode().rstrip(), flush=True)
+            check(p.returncode == 0, f"mesh worker {rank} exited "
+                  f"{p.returncode}: {err.decode()[-2000:]}")
+        r0, r1 = (dict(np.load(Path(tmp) / f"rank{r}.npz"))
+                  for r in range(2))
+    check(int(r0["heartbeat"]) == int(r1["heartbeat"]) == 2,
+          f"heartbeat gave {r0['heartbeat']}, {r1['heartbeat']}")
+    for key in ("img", "d_albedo", "d_emission", "adam_albedo",
+                "adam_emission"):
+        check(np.array_equal(r0[key], r1[key]),
+              f"two processes: the ranks' {key} differ")
+    check(np.array_equal(r0["img"], r0["img_one"]),
+          "two processes: the image is not the one process's")
+    grads_allclose("two processes vs one", tuple(
+        torch.from_numpy(r0[k]) for k in ("d_albedo", "d_emission")),
+        tuple(torch.from_numpy(r0[k + "_one"])
+              for k in ("d_albedo", "d_emission")))
+    print(f"[mesh] two processes over gloo on one card: heartbeat 2, "
+          f"images bit-equal, Adam steps identical across the ranks, "
+          f"launches rank 0 {str(r0['counts'])}, {time.time() - t0:.1f}s",
+          flush=True)
+
+    # 20.7: the tile scheduler with injected faults over the card.
+    t0 = time.time()
+    cfg_t = RenderConfig(width=640, height=480, spp=4, max_depth=5)
+    sched = TileScheduler(640, 480, tile=128, fault_rate=0.25, fault_seed=0)
+    tiles = make_tile_renderer(scene, cam, cfg_t, params)
+    img = sched.run(tiles, seed=3)
+    clean = TileScheduler(640, 480, tile=128).run(tiles, seed=3)
+    check(sched.retries > 0, "no injected fault fired")
+    check(np.array_equal(img, clean),
+          "the tiles after faults differ from the fault-free run")
+    mono = render_image(params, scene, cam, seeds_from_generator(
+        torch.Generator().manual_seed(3)), cfg_t).cpu().numpy()
+    print(f"[mesh] TileScheduler(fault_rate=0.25) over the card: "
+          f"{len(sched.jobs)} tiles, {sched.retries} retries, image = the "
+          f"fault-free run's bit for bit, max abs against the monolithic "
+          f"wavefront {float(np.abs(img - mono).max())!r}, mean "
+          f"{float(img.mean())!r}, {time.time() - t0:.1f}s", flush=True)
+    print(f"[phase] 20 (mesh): {time.time() - t_phase:.1f}s", flush=True)
+    # A regeneration tracer's collect form counts apart and reports in its
+    # tracer's entry (collect_*).
+    rows: dict = {}
+    for name, n in mesh_launches.items():
+        if name.endswith("regen_collect"):
+            rows.setdefault(name.replace("collect", "tracer"), {})[
+                "collect_mesh_launches"] = n
+        else:
+            rows.setdefault(name, {})["mesh_launches"] = n
+    return rows
+
+
+def mesh_worker(rank: str, world: str, init: str, out: str) -> int:
+    """One rank of phase 20's two-process leg: a process group over gloo
+    on the shared card, heartbeat, a mesh of one shard per rank on the
+    card at the main shape: the image and a stored step's gradients, and
+    3 Adam steps; rank 0 also renders on one process for the
+    reference."""
+    import numpy as np
+
+    from drt_tpu_torch import optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.parallel.mesh import make_mesh
+    from drt_tpu_torch.parallel.multihost import heartbeat, initialize
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import Params
+
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize(init_method=init, num_processes=world, process_id=rank,
+               backend="gloo")
+    res = dict(heartbeat=heartbeat(device=dev))
+    mesh = make_mesh()
+    assert mesh.size == world and mesh.local_shards() == [rank]
+    scene, params, cam = cbox.build(device=dev)
+    cfg = RenderConfig(**MAIN)
+    seeds = seeds_from_generator(torch.Generator().manual_seed(0))
+    target = make_renderer(scene, cfg, cam, mesh=mesh,
+                           differentiable=False)(params, seeds)
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    render = make_renderer(scene, cfg, cam, mesh=mesh)
+    mk.reset_launch_counts()
+    _, grads, res["img"] = mesh_step(render, p_off, seeds, target)
+    torch.cuda.synchronize()
+    res["counts"] = json.dumps({k: v for k, v in mk.launch_counts().items()
+                                if v})
+    ts = []
+    for _ in range(4):  # the first is a warm-up
+        t0 = time.perf_counter()
+        mesh_step(render, p_off, seeds, target)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    print(f"[time] two processes over gloo on one card, rank {rank}: "
+          f"stored step at the main shape {statistics.median(ts[1:])!r} ms "
+          f"(host clock, median of 3: {ts[1:]!r})", flush=True)
+    res["d_albedo"], res["d_emission"] = grads
+    if rank == 0:
+        _, grads, res["img_one"] = mesh_step(
+            make_renderer(scene, cfg, cam), p_off, seeds, target)
+        res["d_albedo_one"], res["d_emission_one"] = grads
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+    fitted, _ = optim.inverse_render(
+        scene, cfg, cam, target, Params(start, params.emission),
+        torch.Generator().manual_seed(5), steps=3, mesh=mesh)
+    res["adam_albedo"], res["adam_emission"] = fitted
+    np.savez(Path(out) / f"rank{rank}.npz",
+             **{k: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+                for k, v in res.items()})
+    print(f"[mesh] worker {rank}/{world}: heartbeat {res['heartbeat']}, "
+          f"launches {res['counts']}", flush=True)
+    return 0
+
+
 def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
@@ -3776,7 +4161,8 @@ def main() -> int:
         phase = {"dyn": dyn_phases, "regen": regen_phases,
                  "wavefront": wavefront_phase, "compact": compact_phase,
                  "fused": fused_phase, "sweep": sweep_phase,
-                 "split": split_phase, "invert": invert_phase}[ONLY]
+                 "split": split_phase, "invert": invert_phase,
+                 "mesh": mesh_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -4133,6 +4519,8 @@ def main() -> int:
                               dict(reps=10, warmup=10, windows=3))
     torch.cuda.empty_cache()
     invert_extra = invert_phase(dev, smi_line, {})
+    torch.cuda.empty_cache()
+    mesh_extra = mesh_phase(dev, smi_line, {})
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -4145,7 +4533,8 @@ def main() -> int:
     rows.update(regen_rows)
     rows.update(wave_rows)
     rows.update(compact_rows)
-    for extra in (fused_extra, sweep_extra, split_extra, invert_extra):
+    for extra in (fused_extra, sweep_extra, split_extra, invert_extra,
+                  mesh_extra):
         for name, keys in extra.items():
             rows[name].update(keys)
     # name -> (source under csrc/, the TPU kernel's file and def line)
@@ -4183,6 +4572,7 @@ def main() -> int:
     # chunk of the Cornell box split cell, split_tape_ms that chunk's
     # split_prefix_tape. invert_launches are B1's, B2's and B3's launches
     # in one 60-step run of `cli invert` at the CLI's shape (phase 19).
+    # mesh_launches are a kernel's launches on phase 20's mesh paths.
     # The dyn and regeneration kernels' plain_ms is of one chunk of `chunks`
     # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
     # launch. A regeneration tracer's entry is its forward form; collect_*
@@ -4206,4 +4596,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(*sys.argv[2:6]))
     sys.exit(main())

@@ -224,7 +224,7 @@ def make_diff_renderer(scene: Scene, cfg: RenderConfig,
 
 
 def make_wavefront_trace_fn(scene: Scene, cfg: RenderConfig,
-                            plain: bool = False):
+                            plain: bool = False, mesh=None):
     """The `trace_fn` of `renderer.render_image` over the wavefront tracer
     kernel (B5a; its plain twin, `trace_rays`, for a CPU scene or
     plain=True). At bsdf_samples == 1 its keyed form: one launch on a
@@ -233,28 +233,43 @@ def make_wavefront_trace_fn(scene: Scene, cfg: RenderConfig,
     bsdf_samples > 1 its tape form on the chunk's rays expanded to
     `lane_count(cfg)` ray-major lanes and their prefix-shared draws
     (`ops.rng.prefix_tape`), which the keyed form cannot key; a ray's
-    radiance is the mean of its lanes."""
+    radiance is the mean of its lanes. With a mesh (`parallel.mesh`) each
+    shard traces its contiguous range of the chunk's rays on its device
+    (their lanes and draws its own), and the radiance is gathered in ray
+    order."""
     M = lane_count(cfg)
     if M == 1:
         trace = make_pallas_tracer(scene, cfg, plain=plain, keyed=True)
     else:
         trace = make_pallas_tracer(scene, one_lane(cfg), plain=plain)
 
-    def trace_fn(params, o, d, seeds, pix, s):
-        alb = albedo_table(scene, params).contiguous()
-        emi = emission_table(scene, params).contiguous()
+    def trace_rays_of(alb, emi, o, d, seeds, pix, s):
+        """Radiance f[3, n] of rays o, d f[3, n] with ids (pix, s)."""
         if M == 1:
             return trace(alb, emi, o, d, seeds, pix.int(), s.int())
         u = _tape_of(cfg, seeds, pix, s, alb.dtype, n_samples=cfg.spp)
-        L = trace(alb, emi, expand_lanes(torch.stack(tuple(o)), M),
-                  expand_lanes(torch.stack(tuple(d)), M), u)
+        L = trace(alb, emi, expand_lanes(o, M), expand_lanes(d, M), u)
         return L.reshape(3, -1, M).mean(dim=2)
+
+    def trace_fn(params, o, d, seeds, pix, s):
+        alb = albedo_table(scene, params).contiguous()
+        emi = emission_table(scene, params).contiguous()
+        o, d = torch.stack(tuple(o)), torch.stack(tuple(d))
+        if mesh is None:
+            return trace_rays_of(alb, emi, o, d, seeds, pix, s)
+        from drt_tpu_torch.parallel.mesh import gather, per_shard, take
+
+        return gather(mesh, per_shard(
+            mesh, pix.shape[0], lambda k, a, b, dev: trace_rays_of(
+                alb.to(dev), emi.to(dev), take(o, a, b, dev),
+                take(d, a, b, dev), seeds, take(pix, a, b, dev),
+                take(s, a, b, dev))), alb.device)
 
     return trace_fn
 
 
 def make_diff_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
-                             plain: bool = False):
+                             plain: bool = False, mesh=None):
     """Build `render(params, seeds: i32[2]) -> image f[H, W, 3]`,
     differentiable in params, with the spp-chunk loop inside one
     `torch.autograd.Function`: the forward keeps only (params, seeds),
@@ -268,14 +283,32 @@ def make_diff_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
     the scene's device. At bsdf_samples > 1 both kernels run on the
     chunk's rays split into `lane_count(cfg)` ray-major lanes and their
     prefix-shared tape, the adjoint with the cotangent g / M a lane; the
-    unbiased mode redraws the lanes' tape from salted bounce seeds. The
-    JAX package's mesh sharding constraint (`constrain`) comes with
-    ROADMAP A14.
+    unbiased mode redraws the lanes' tape from salted bounce seeds. With
+    a mesh (`parallel.mesh`; the JAX package's `constrain`) each shard
+    runs both kernels on its contiguous range of every chunk's rays, the
+    radiance gathered in ray order and the shards' gradient partials
+    summed.
     """
     spp_c = cfg.spp // cfg.spp_chunks
     M = lane_count(cfg)
-    trace_fn = make_wavefront_trace_fn(scene, cfg, plain=plain)
+    trace_fn = make_wavefront_trace_fn(scene, cfg, plain=plain, mesh=mesh)
     adjoint = make_pallas_adjoint(scene, one_lane(cfg), plain=plain)
+
+    def chunk_grads(alb, emi, o, d, pix, s, g_ray, bwd_seeds, da=0.0,
+                    de=0.0):
+        """(da, de) plus the (d_albedo, d_emission) of the rays o, d
+        f[3, n] (ids pix, s) under their cotangent g_ray f[3, n], averaged
+        over bwd_seeds: each seed's term added in turn."""
+        dtype = o.dtype
+        g_lane = _lane_cotangent(g_ray, cfg)
+        o, d = expand_lanes(o, M), expand_lanes(d, M)
+        for sd in bwd_seeds:
+            da_s, de_s = adjoint(
+                alb, emi, o, d,
+                _tape_of(cfg, sd, pix, s, dtype, n_samples=cfg.spp), g_lane)
+            da = da + da_s / len(bwd_seeds)
+            de = de + de_s / len(bwd_seeds)
+        return da, de
 
     def image(params, seeds):
         return render_image(params, scene, cam, seeds, cfg,
@@ -305,15 +338,21 @@ def make_diff_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
             for c in range(cfg.spp_chunks):
                 pix, s = chunk_sample_ids(cfg, xy_rep, c)
                 o, d, pdf = chunk_rays(cam, cfg, xy_rep, ctx.seeds, c)
-                g_ray = _lane_cotangent(g_planes[:, pix] / pdf, cfg)
-                o, d = expand_lanes(o, M), expand_lanes(d, M)
-                for sd in bwd_seeds:
-                    da_s, de_s = adjoint(
-                        alb, emi, o, d,
-                        _tape_of(cfg, sd, pix, s, dtype, n_samples=cfg.spp),
-                        g_ray)
-                    da = da + da_s / len(bwd_seeds)
-                    de = de + de_s / len(bwd_seeds)
+                rays = (torch.stack(tuple(o)), torch.stack(tuple(d)), pix, s,
+                        g_planes[:, pix] / pdf)
+                if mesh is None:
+                    da, de = chunk_grads(alb, emi, *rays, bwd_seeds, da, de)
+                else:
+                    from drt_tpu_torch.parallel.mesh import (per_shard,
+                                                             sum_partials,
+                                                             take)
+
+                    da_c, de_c = sum_partials(mesh, per_shard(
+                        mesh, pix.shape[0], lambda k, a, b, dev: chunk_grads(
+                            alb.to(dev), emi.to(dev),
+                            *(take(t, a, b, dev) for t in rays), bwd_seeds)),
+                        alb.device)
+                    da, de = da + da_c, de + de_c
             k, l = albedo.shape[0], emission.shape[0]
             return da[:k].to(albedo.dtype), de[:l].to(emission.dtype), None
 

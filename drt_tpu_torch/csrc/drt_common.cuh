@@ -32,6 +32,11 @@ struct DrtTrace {
   int n_shapes, n_alb, n_emi, internal_rng, fast;
   float absorb, inv_keep;
   uint32_t seed0, seed1;
+  // The global index of slot 0 (a ray, or a pixel of the regeneration
+  // kernels): a shard of a mesh traces slots [ray_base, ray_base + n_rays)
+  // of the image's. The keyed draws, the camera ray and the pixel read it;
+  // tapes, cotangents and outputs are indexed by the local slot.
+  int ray_base;
 };
 
 static __device__ __forceinline__ uint32_t fmix(uint32_t x) {
@@ -121,16 +126,18 @@ static __device__ __forceinline__ void camera_uniforms(
   ut = hash_uniform(cfg.seed0, (uint32_t)pix, smp, 0u, 1u);
 }
 
-// Primary ray of ray slot i in spp chunk c. Rays are spp-outer: slot i
-// covers pixel i % (W*H) and sample c*spp_c + i / (W*H).
+// Primary ray of ray slot i in spp chunk c. Rays are spp-outer: the
+// slot's global ray g = ray_base + i covers pixel g % (W*H) and sample
+// c*spp_c + g / (W*H); a tape's cam_u is read at the local slot i.
 template <bool FAST, bool INTERNAL>
 static __device__ __forceinline__ void primary_ray(
     const DrtTrace& cfg, const DrtCamera& cam,
     const float* __restrict__ cam_u, int i, int c, int& pix, uint32_t& smp,
     float& dx, float& dy, float& dz) {
   const int npix = cfg.width * cfg.height;
-  pix = i % npix;
-  smp = (uint32_t)(c * cfg.spp_c + i / npix);
+  const int g = cfg.ray_base + i;
+  pix = g % npix;
+  smp = (uint32_t)(c * cfg.spp_c + g / npix);
   float us, ut;
   if (INTERNAL) {
     camera_uniforms(cfg, pix, smp, us, ut);

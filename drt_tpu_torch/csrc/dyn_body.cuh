@@ -521,7 +521,7 @@ static __device__ __forceinline__ void dyn_bounce(
 static inline bool dyn_tables_ok(const DrtTrace* cfg) {
   return cfg->n_alb >= 1 && cfg->n_alb <= DYN_MAX_ROWS && cfg->n_emi >= 1 &&
          cfg->n_emi <= DYN_MAX_ROWS && cfg->n_rays > 0 &&
-         cfg->max_depth >= 1;
+         cfg->max_depth >= 1 && cfg->ray_base >= 0;
 }
 
 static inline bool dyn_cfg_ok(const DrtTrace* cfg, const DynLayout* lay) {

@@ -92,6 +92,8 @@ dyn_regen_trace_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = slot < n;
   const int pix = lane ? slot : n - 1;
+  // The slot's pixel in the image: a shard's pixels start at ray_base.
+  const int gpix = cfg.ray_base + pix;
   const size_t t_cap = (size_t)cfg.spp_c * cfg.max_depth;
 
   PathState p;
@@ -112,8 +114,8 @@ dyn_regen_trace_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
     if (want) {
       ++s;
       float us, ut;
-      camera_uniforms(cfg, pix, sbase + (uint32_t)s, us, ut);
-      primary_dir<FAST>(cfg, cam, pix, us, ut, p.dx, p.dy, p.dz);
+      camera_uniforms(cfg, gpix, sbase + (uint32_t)s, us, ut);
+      primary_dir<FAST>(cfg, cam, gpix, us, ut, p.dx, p.dy, p.dz);
       p.ox = cam.eye[0]; p.oy = cam.eye[1]; p.oz = cam.eye[2];
       p.Tx = 1.0f; p.Ty = 1.0f; p.Tz = 1.0f;
       p.alive = true;
@@ -125,11 +127,11 @@ dyn_regen_trace_kernel(DrtTrace cfg, DynLayout lay, DrtCamera cam,
       const size_t k = ((size_t)c * t_cap + trip) * n + pix;
       DynRegenStore hook{rsc + k, rrow + k, cfg.min_bounces, want ? 1 : 0,
                          work};
-      dyn_bounce<FAST, COUNT>(cfg, lay, scn, tab, pix, smp, b, hook, p,
+      dyn_bounce<FAST, COUNT>(cfg, lay, scn, tab, gpix, smp, b, hook, p,
                               stats);
     } else {
       DynNoResidual hook;
-      dyn_bounce<FAST, COUNT>(cfg, lay, scn, tab, pix, smp, b, hook, p,
+      dyn_bounce<FAST, COUNT>(cfg, lay, scn, tab, gpix, smp, b, hook, p,
                               stats);
     }
     if (COUNT)
@@ -165,7 +167,8 @@ static int launch(const DrtTrace* cfg, const DynLayout* lay,
                   unsigned long long* stats, void* stream) {
   if (!dyn_cfg_ok(cfg, lay) || !cfg->internal_rng || cfg->spp_c < 1 ||
       cfg->n_chunks < 1 || sample_base < 0 ||
-      cfg->n_rays != cfg->width * cfg->height)
+      cfg->ray_base < 0 ||
+      cfg->n_rays > cfg->width * cfg->height - cfg->ray_base)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;

@@ -257,5 +257,6 @@ static __device__ __forceinline__ void fused_bounce(
 static inline bool drt_cfg_ok(const DrtTrace* cfg) {
   return cfg->n_shapes >= 1 && cfg->n_shapes <= DRT_MAX_SHAPES &&
          cfg->n_alb >= 1 && cfg->n_alb <= DRT_MAX_ROWS &&
-         cfg->n_emi >= 1 && cfg->n_emi <= DRT_MAX_ROWS && cfg->n_rays > 0;
+         cfg->n_emi >= 1 && cfg->n_emi <= DRT_MAX_ROWS && cfg->n_rays > 0 &&
+         cfg->ray_base >= 0;
 }

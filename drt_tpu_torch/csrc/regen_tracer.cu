@@ -191,24 +191,26 @@ static __device__ __forceinline__ void regen_trips(
     // A lane with a unit whose path has died starts its next sample in
     // this trip.
     const uint32_t sbase = (uint32_t)(sample_base + c * cfg.spp_c);
+    // The unit's pixel in the image: a shard's pixels start at ray_base.
+    const int gpix = cfg.ray_base + pix;
     const bool want = work && !alive;
     if (want) {
       ++s;
       float us, ut;
-      camera_uniforms(cfg, pix, sbase + (uint32_t)s, us, ut);
-      primary_dir<FAST>(cfg, cam, pix, us, ut, p.dx, p.dy, p.dz);
+      camera_uniforms(cfg, gpix, sbase + (uint32_t)s, us, ut);
+      primary_dir<FAST>(cfg, cam, gpix, us, ut, p.dx, p.dy, p.dz);
       p.ox = cam.eye[0]; p.oy = cam.eye[1]; p.oz = cam.eye[2];
       p.Tx = 1.0f; p.Ty = 1.0f; p.Tz = 1.0f;
       alive = true;
       bnc = 0;
-      key = path_key(cfg.seed1, (uint32_t)pix, sbase + (uint32_t)s);
+      key = path_key(cfg.seed1, (uint32_t)gpix, sbase + (uint32_t)s);
     }
     marks.at(SEC_CAMERA, bnc, alive);
     const size_t base = (size_t)c * t_cap * n + pix;
     if (work) {
       auto hook = regen_hook<COLLECT>(rsc, rmeta, base, (size_t)n,
                                       cfg.min_bounces, trip, want ? 1 : 0);
-      fused_bounce<FAST>(cfg, tab, pix, sbase + (uint32_t)s, bnc, hook, p,
+      fused_bounce<FAST>(cfg, tab, gpix, sbase + (uint32_t)s, bnc, hook, p,
                          marks);
     }
     marks.step(work, alive);
@@ -307,7 +309,8 @@ regen_sum_kernel(int n, int C, const float* __restrict__ sums,
 static bool regen_cfg_ok(const DrtTrace* cfg, int sample_base) {
   return drt_cfg_ok(cfg) && cfg->internal_rng && cfg->spp_c >= 1 &&
          cfg->n_chunks >= 1 && cfg->max_depth >= 1 && sample_base >= 0 &&
-         cfg->n_rays == cfg->width * cfg->height;
+         cfg->ray_base >= 0 &&
+         cfg->n_rays <= cfg->width * cfg->height - cfg->ray_base;
 }
 
 // The kernel of a form and the grid it launches on.

@@ -30,6 +30,15 @@ tensor ops (`split_prefix_tape`).
 `make_regen_image_renderer` and `make_dyn_regen_image_renderer` are the
 ports of the JAX package's regeneration renderers over `ops.regen` and
 `ops.dynregen`: the same samples, one thread per pixel.
+
+`make_sharded_fused_image_renderer`, `make_sharded_dyn_image_renderer`,
+`make_sharded_split_image_renderer`, `make_sharded_regen_image_renderer`
+and `make_sharded_dyn_regen_image_renderer` run the same renderers over
+a device mesh (`parallel.mesh`): each shard launches the kernels on its
+contiguous range of every launch's slots from its global offset
+(`ray_base`), the per-slot radiance is gathered in global order, so the
+image is the one device's bit for bit, and the shards' gradient
+partials are summed (`_shard_kernels`).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from drt_tpu_torch.camera import Camera
 from drt_tpu_torch.config import RenderConfig
@@ -90,18 +100,20 @@ def stored_bytes(cfg: RenderConfig) -> int:
     return n * lane_count(cfg) * cfg.spp_chunks * cfg.max_depth * 8
 
 
-def _resolve_adjoint(cfg: RenderConfig, adjoint: str, device="cpu") -> str:
+def _resolve_adjoint(cfg: RenderConfig, adjoint: str, device="cpu",
+                     share: float = 1.0) -> str:
     """'auto' -> 'stored' (the forward writes the (sc, best) residuals,
     the backward is a cheap reverse sweep) when the mode is biased and
-    `stored_bytes(cfg)` fits `stored_budget_bytes(device)`: a quarter of
-    the device's total memory, see `_STORED_SHARE`; 'retrace' otherwise.
+    `stored_bytes(cfg)` (times `share`, the part of them one device of a
+    mesh holds) fits `stored_budget_bytes(device)`: a quarter of the
+    device's total memory, see `_STORED_SHARE`; 'retrace' otherwise.
     The unbiased adjoint needs fresh retraces (integrate.hpp:11-24)."""
     if adjoint not in ("auto", "stored", "retrace"):
         raise ValueError(f"unknown adjoint mode {adjoint!r}")
     if adjoint == "auto":
         if cfg.unbiased:
             return "retrace"
-        fits = stored_bytes(cfg) <= stored_budget_bytes(device)
+        fits = stored_bytes(cfg) * share <= stored_budget_bytes(device)
         return "stored" if fits else "retrace"
     if adjoint == "stored" and cfg.unbiased:
         raise ValueError("adjoint='stored' replays the forward's stream; "
@@ -180,27 +192,43 @@ def _sum(parts):
     return functools.reduce(operator.add, parts)
 
 
+def _save(ctx, albedo, emission, rows=()) -> None:
+    """Keep (albedo, emission) and the forward's residual rows (lists,
+    tuples and per-shard dicts of tensors) with `save_for_backward`: the
+    backward frees them, and saved-tensor hooks see them."""
+    leaves, ctx.rows_spec = tree_flatten(rows)
+    ctx.save_for_backward(albedo, emission, *leaves)
+
+
+def _saved(ctx):
+    """(albedo, emission, rows) as `_save` kept them."""
+    albedo, emission, *leaves = ctx.saved_tensors
+    return albedo, emission, tree_unflatten(leaves, ctx.rows_spec)
+
+
 def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
-                    trace_fn, collect_fn, sweep_fn, adj_fn, tape_fn=None):
+                    trace_fn, collect_fn, sweep_fn, adj_fn,
+                    per_chunk: bool = False):
     """`render(params, *uniforms) -> image` with the radiative-backprop
-    backward. Without tape_fn, one launch of each kernel callable takes
+    backward. Without per_chunk, one launch of each kernel callable takes
     `uniforms` as given: (seeds,) for the internal RNG, which covers
-    every chunk, or (cam_u, tape). With tape_fn (the lane-splitting
+    every chunk, or (cam_u, tape). With per_chunk (the lane-splitting
     renderers) `uniforms` is (seeds,) and chunk c is a launch of its own
-    on tape_fn(seeds, c), `lane_count(cfg)` lanes a camera sample; the
-    stored form keeps every chunk's residuals, the retrace form draws
-    each chunk's tape again in the backward. The image is the mean over
-    chunks of each pixel's spp_c * M lanes, so the adjoints take every
-    lane's cotangent g[pixel] / (spp_c * M * chunks) in `_g_pix_of`'s
-    per-pixel form."""
+    on (seeds, c), whose callables draw the chunk's tape, `lane_count(cfg)`
+    lanes a camera sample; the stored form keeps every chunk's residuals,
+    the retrace form draws each chunk's tape again in the backward. The
+    image is the mean over chunks of each pixel's spp_c * M lanes, so the
+    adjoints take every lane's cotangent g[pixel] / (spp_c * M * chunks)
+    in `_g_pix_of`'s per-pixel form. collect_fn returns (L, *rows), which
+    the forward keeps for sweep_fn(alb, emi, *rows, g)."""
     w, h = cfg.width, cfg.height
     n_chunks = cfg.spp_chunks
     spp_l = cfg.spp // n_chunks * lane_count(cfg)
     n_adj = cfg.adjoint_samples if cfg.unbiased else 1
-    n_launch = n_chunks if tape_fn is not None else 1
+    n_launch = n_chunks if per_chunk else 1
 
     def launch(uniforms, c):
-        return uniforms if tape_fn is None else tape_fn(uniforms[0], c)
+        return (uniforms[0], c) if per_chunk else uniforms
 
     def tables(albedo, emission):
         params = Params(albedo, emission)
@@ -220,27 +248,26 @@ def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
             alb, emi = tables(albedo, emission)
             ctx.n_uniforms = len(uniforms)
             if adjoint != "stored":
-                ctx.save_for_backward(albedo, emission)
+                _save(ctx, albedo, emission)
                 ctx.uniforms = uniforms  # seeds, or the caller's tapes
                 return trace(alb, emi, uniforms)
-            images, residuals = [], []
+            images, rows = [], []
             for c in range(n_launch):
-                L, rsc, rbest = collect_fn(alb, emi, *launch(uniforms, c))
+                L, *rows_c = collect_fn(alb, emi, *launch(uniforms, c))
                 images.append(image(L))
-                residuals += [rsc, rbest]
-            ctx.save_for_backward(albedo, emission, *residuals)
+                rows.append(rows_c)
+            _save(ctx, albedo, emission, rows)
             return _sum(images)
 
         @staticmethod
         def backward(ctx, g):
-            albedo, emission, *residuals = ctx.saved_tensors
+            albedo, emission, rows = _saved(ctx)
             params = Params(albedo, emission)
             alb, emi = tables(albedo, emission)
             g_pix = _g_pix_of(g, spp_l, n_chunks, alb.dtype)
             if adjoint == "stored":
                 da, de = (_sum(d) for d in zip(*(
-                    sweep_fn(alb, emi, *residuals[2 * c:2 * c + 2], g_pix)
-                    for c in range(n_launch))))
+                    sweep_fn(alb, emi, *rows_c, g_pix) for rows_c in rows)))
             else:
                 da = de = 0.0
                 for s in range(n_adj):
@@ -264,6 +291,75 @@ def _build_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
     return render
 
 
+def _on(dev, *tensors):
+    return tuple(t.to(dev) for t in tensors)
+
+
+def _shard_kernels(mesh, n: int, home, fns, tape: bool):
+    """A family's kernel callables `fns` = (trace, collect, sweep, adjoint),
+    made for n // mesh.size slots, run on each of this process's shards of
+    `mesh` with the shard's ray_base (`parallel.mesh.ray_range` of n
+    slots: rays of a chunk, lanes, or pixels), with the same signatures:
+    trace's per-slot output (the first of a tuple) gathered in global
+    order on `home`; collect's rows kept per shard, its radiance gathered;
+    sweep and adjoint on each shard's slots of the per-pixel cotangent,
+    their partials summed (`parallel.mesh.sum_partials`). tape: the
+    uniforms are the caller's global (cam_u, tape), sliced per shard;
+    otherwise (seeds, ...) reach every shard as they are."""
+    from drt_tpu_torch.parallel.mesh import (gather, per_shard, sum_partials,
+                                             take)
+
+    trace_fn, collect_fn, sweep_fn, adj_fn = fns
+
+    def uniforms_of(uniforms, a, b, dev):
+        if not tape:
+            return uniforms
+        return tuple(take(u, a, b, dev) for u in uniforms)
+
+    def g_of(g, a, b, dev):
+        """Slots [a, b) of the per-pixel cotangent f[3, W*H]: slot i
+        covers pixel i % (W*H) (rays and lanes are spp-outer)."""
+        idx = torch.arange(a, b, device=g.device) % g.shape[1]
+        return g[:, idx].to(dev).contiguous()
+
+    def forward(fn):
+        """The tracer or collect tracer fn on every shard: its per-slot
+        output gathered, and with a tuple the rest kept per shard."""
+        def run(alb, emi, *uniforms):
+            outs = per_shard(mesh, n, lambda k, a, b, dev: fn(
+                *_on(dev, alb, emi), *uniforms_of(uniforms, a, b, dev),
+                ray_base=a))
+            if not isinstance(outs[min(outs)], tuple):
+                return gather(mesh, outs, home)
+            return (gather(mesh, {k: o[0] for k, o in outs.items()}, home),
+                    {k: o[1:] for k, o in outs.items()})
+        return run
+
+    def sweep(alb, emi, rows, g):
+        return sum_partials(mesh, per_shard(
+            mesh, n, lambda k, a, b, dev: sweep_fn(
+                *_on(dev, alb, emi), *rows[k], g_of(g, a, b, dev))), home)
+
+    def adjoint(alb, emi, *args):
+        *uniforms, g = args
+        return sum_partials(mesh, per_shard(
+            mesh, n, lambda k, a, b, dev: adj_fn(
+                *_on(dev, alb, emi), *uniforms_of(uniforms, a, b, dev),
+                g_of(g, a, b, dev), ray_base=a)), home)
+
+    return (forward(trace_fn), forward(collect_fn) if collect_fn else None,
+            sweep if sweep_fn else None, adjoint if adj_fn else None)
+
+
+def _mesh_share(mesh) -> float:
+    """The part of a render's residuals the busiest device of `mesh`
+    holds (1 without a mesh)."""
+    if mesh is None:
+        return 1.0
+    mine = [mesh.devices[k] for k in mesh.local_shards()]
+    return max(mine.count(d) for d in mine) / mesh.size
+
+
 def split_chunk_cfg(cfg: RenderConfig) -> RenderConfig:
     """The kernels' config of one chunk of a lane-splitting config:
     `one_lane(cfg)` whose rays are the chunk's n_lanes = W*H*spp_c * M,
@@ -276,23 +372,21 @@ def split_chunk_cfg(cfg: RenderConfig) -> RenderConfig:
 
 def _make_image_renderer(factories, scene: Scene, kernel_scene, cam: Camera,
                          cfg: RenderConfig, rng: str, adjoint: str, fastmath,
-                         plain: bool, differentiable: bool, tape_fn=None):
+                         plain: bool, differentiable: bool, tape_fn=None,
+                         mesh=None):
     """The image renderer over one kernel family: `factories` are its
     (tracer, collect tracer, sweep adjoint, retrace adjoint) makers and
     `kernel_scene` what they take for the scene. rng="split" is the
     lane-splitting renderer: the makers' tape forms built for
-    `split_chunk_cfg(cfg)`, one launch a chunk on tape_fn(seeds, chunk)
-    (by default `split_prefix_tape`)."""
+    `split_chunk_cfg(cfg)`, one launch a chunk on the chunk's lanes'
+    draws (by default `split_prefix_tape`'s; tape_fn(seeds, chunk) gives
+    the whole chunk's instead). With a mesh each shard launches the
+    kernels on its slots of every launch (`_shard_kernels`): a chunk's
+    rays, or lanes, split into mesh.size contiguous ranges."""
     make_tracer, make_collect, make_sweep, make_adjoint = factories
     if rng == "split":
         _check_split_cfg(cfg)
         cfg_k, rng_k = split_chunk_cfg(cfg), "tape"
-        if tape_fn is None:
-            dtype = scene.shape_geo.dtype
-
-            def tape_fn(seeds, chunk):
-                return split_prefix_tape(seeds, chunk, cfg, scene.device,
-                                         dtype)
     else:
         _check_fused_cfg(cfg)
         if rng == "tape":
@@ -303,23 +397,53 @@ def _make_image_renderer(factories, scene: Scene, kernel_scene, cam: Camera,
                 raise ValueError("tape-mode fused renderer is biased-only: "
                                  "the tape IS the sample stream")
         cfg_k, rng_k = cfg, rng
-    adjoint = _resolve_adjoint(cfg, adjoint, scene.device)
+    n = cfg_k.width * cfg_k.height * (cfg_k.spp // cfg_k.spp_chunks)
+    n_local = n
+    if mesh is not None:
+        from drt_tpu_torch.parallel.mesh import local_count
+
+        n_local = local_count(n, mesh, "lanes per chunk" if rng == "split"
+                              else "rays per chunk")
+    adjoint = _resolve_adjoint(cfg, adjoint, scene.device, _mesh_share(mesh))
     k_chunks = cfg.spp_chunks if rng_k == "internal" else 1
     kw = dict(rng=rng_k, fastmath=_resolve_fastmath(fastmath, rng_k),
-              n_chunks=k_chunks, plain=plain)
-    tracer = make_tracer(kernel_scene, cam, cfg_k, **kw)
-    collect = sweep = adj = None
+              n_chunks=k_chunks, plain=plain, n_rays=n_local)
+    fns = [make_tracer(kernel_scene, cam, cfg_k, **kw), None, None, None]
     if differentiable and adjoint == "stored":
-        collect = make_collect(kernel_scene, cam, cfg_k, **kw)
-        sweep = make_sweep(kernel_scene, cfg_k, n_chunks=k_chunks,
-                           plain=plain)
+        fns[1] = make_collect(kernel_scene, cam, cfg_k, **kw)
+        fns[2] = make_sweep(kernel_scene, cfg_k, n_chunks=k_chunks,
+                            plain=plain, n_rays=n_local)
     elif differentiable:
-        adj = make_adjoint(kernel_scene, cam, cfg_k, **kw)
-    render = _build_renderer(scene, cfg, adjoint, tracer, collect, sweep,
-                             adj, tape_fn)
+        fns[3] = make_adjoint(kernel_scene, cam, cfg_k, **kw)
+    if rng == "split":  # the sweep (fns[2]) reads rows, not draws
+        fns = [f if k == 2 or f is None else _drawn(f, cfg, n_local, tape_fn)
+               for k, f in enumerate(fns)]
+    if mesh is not None:
+        fns = _shard_kernels(mesh, n, scene.device, fns, rng == "tape")
+    render = _build_renderer(scene, cfg, adjoint, *fns,
+                             per_chunk=rng == "split")
     if differentiable:
         return render
     return torch.no_grad()(render)
+
+
+def _drawn(fn, cfg: RenderConfig, n_local: int, tape_fn=None):
+    """A tape-form kernel callable `fn(alb, emi, cam_u, tape, *rest,
+    ray_base=)` of the lane-splitting renderers as `run(alb, emi, seeds,
+    chunk, *rest, ray_base=0)`: it draws the chunk's lanes [ray_base,
+    ray_base + n_local) (`split_prefix_tape`; or slices them from
+    tape_fn(seeds, chunk)) on the tables' device and launches on them."""
+    def run(alb, emi, seeds, chunk, *rest, ray_base: int = 0):
+        lanes = (ray_base, ray_base + n_local)
+        if tape_fn is None:
+            cam_u, tape = split_prefix_tape(seeds, chunk, cfg, alb.device,
+                                            alb.dtype, lanes=lanes)
+        else:
+            cam_u, tape = (u[..., lanes[0]:lanes[1]].to(alb.device)
+                           .contiguous() for u in tape_fn(seeds, chunk))
+        return fn(alb, emi, cam_u, tape, *rest, ray_base=ray_base)
+
+    return run
 
 
 def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -347,10 +471,9 @@ def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
     differentiable=False renders under `torch.no_grad()` whatever the
     params ask for.
     """
-    return _make_image_renderer(
-        (make_fused_tracer, make_fused_collect_tracer,
-         make_fused_sweep_adjoint, make_fused_adjoint), scene, scene, cam,
-        cfg, rng, adjoint, fastmath, plain, differentiable)
+    return _make_image_renderer(_FUSED_FACTORIES, scene, scene, cam, cfg,
+                                rng, adjoint, fastmath, plain,
+                                differentiable)
 
 
 def make_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
@@ -365,20 +488,16 @@ def make_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
     values change often. `scene` is a Scene or a prebuilt `DynScene`
     (for a `cluster_k` of the caller's own). plain=True runs the plain
     PyTorch versions (the "torch-dyn" backend)."""
-    from drt_tpu_torch.ops.dynkernel import (DynScene, make_dyn_adjoint,
-                                             make_dyn_collect_tracer,
-                                             make_dyn_sweep_adjoint,
-                                             make_dyn_tracer)
+    from drt_tpu_torch.ops.dynkernel import DynScene
 
     ds = DynScene.of(scene)
-    return _make_image_renderer(
-        (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
-         make_dyn_adjoint), ds.scene, ds, cam, cfg, rng, adjoint, fastmath,
-        plain, differentiable)
+    return _make_image_renderer(_dyn_factories(), ds.scene, ds, cam, cfg,
+                                rng, adjoint, fastmath, plain,
+                                differentiable)
 
 
 def split_prefix_tape(seeds, chunk: int, cfg: RenderConfig,
-                      device=None, dtype=torch.float32):
+                      device=None, dtype=torch.float32, lanes=None):
     """One spp chunk's uniforms for the lane-splitting renderers: (cam_u
     f[2, n_lanes], tape f[D, 3, n_lanes]), n_lanes = W*H*spp_c * M,
     lanes M-outer (lane m * n_cam + ray, the rays spp-outer as the fused
@@ -390,18 +509,25 @@ def split_prefix_tape(seeds, chunk: int, cfg: RenderConfig,
     recursive n-sample tree estimator (drt_tpu/fused.py:split_prefix_tape
     draws the same pattern from threefry). At M = 1 these are
     `hash_tapes` of the chunk. Deterministic in (seeds, chunk): the
-    retrace backward draws it again."""
+    retrace backward draws it again. lanes=(start, stop) draws those
+    lanes alone (a shard's; `prefix_tape(..., lanes=)`), bit for bit the
+    slice [start, stop) of the whole chunk's."""
     M = lane_count(cfg)
     npix = cfg.width * cfg.height
     spp_c = cfg.spp // cfg.spp_chunks
-    i = torch.arange(npix * spp_c, dtype=torch.int64, device=device)
-    pix = i % npix
-    s = chunk * spp_c + i // npix
+    n_cam = npix * spp_c
+    start, stop = (0, n_cam * M) if lanes is None else lanes
     words = [int(v) for v in (seeds.tolist() if torch.is_tensor(seeds)
                               else seeds)]
-    cam_u = camera_draws(words[0], pix, s, dtype).repeat(1, M)
+    i = torch.arange(n_cam, dtype=torch.int64, device=device)
+    pix = i % npix
+    s = chunk * spp_c + i // npix
+    m_lo, m_hi = start // n_cam, -(-stop // n_cam)  # the leaves crossed
+    cam_u = camera_draws(words[0], pix, s, dtype).repeat(1, m_hi - m_lo)[
+        :, start - m_lo * n_cam:stop - m_lo * n_cam].contiguous()
     tape = prefix_tape(words[1], pix, s, cfg.bsdf_samples, cfg.max_depth,
-                       dtype, lanes_outer=True, n_samples=cfg.spp)
+                       dtype, lanes_outer=True, n_samples=cfg.spp,
+                       lanes=(start, stop))
     return cam_u, tape
 
 
@@ -437,10 +563,9 @@ def make_split_fused_image_renderer(scene: Scene, cam: Camera,
     backend); differentiable=False renders under `torch.no_grad()`.
     tape_fn(seeds, chunk) -> (cam_u, tape) replaces `split_prefix_tape`
     (the tests feed the JAX package's draws)."""
-    return _make_image_renderer(
-        (make_fused_tracer, make_fused_collect_tracer,
-         make_fused_sweep_adjoint, make_fused_adjoint), scene, scene, cam,
-        cfg, "split", adjoint, False, plain, differentiable, tape_fn)
+    return _make_image_renderer(_FUSED_FACTORIES, scene, scene, cam, cfg,
+                                "split", adjoint, False, plain,
+                                differentiable, tape_fn)
 
 
 def make_split_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
@@ -451,19 +576,16 @@ def make_split_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
     (`ops.dynkernel`: B6, B7 + B8 stored, B6 + B9 retrace) for scenes of
     up to `MAX_DYN_SHAPES` shapes. `scene` is a Scene or a prebuilt
     `DynScene`; plain=True is the "torch-split-dyn" backend."""
-    from drt_tpu_torch.ops.dynkernel import (DynScene, make_dyn_adjoint,
-                                             make_dyn_collect_tracer,
-                                             make_dyn_sweep_adjoint,
-                                             make_dyn_tracer)
+    from drt_tpu_torch.ops.dynkernel import DynScene
 
     ds = DynScene.of(scene)
-    return _make_image_renderer(
-        (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
-         make_dyn_adjoint), ds.scene, ds, cam, cfg, "split", adjoint, False,
-        plain, differentiable, tape_fn)
+    return _make_image_renderer(_dyn_factories(), ds.scene, ds, cam, cfg,
+                                "split", adjoint, False, plain,
+                                differentiable, tape_fn)
 
 
-def _check_regen_cfg(cfg: RenderConfig, adjoint: str, device) -> str:
+def _check_regen_cfg(cfg: RenderConfig, adjoint: str, device,
+                     share: float = 1.0) -> str:
     """The regeneration renderers' limits, and the adjoint they take:
     biased mode only (the stored or replayed keyed streams ARE the
     sample). The residual footprint is the lockstep one (`stored_bytes`:
@@ -474,7 +596,7 @@ def _check_regen_cfg(cfg: RenderConfig, adjoint: str, device) -> str:
             "the regen renderer is biased-only (stored/replayed keyed "
             "streams); use the lockstep cuda or cuda-dyn backend for "
             "unbiased gradients (integrate.hpp:11-24)")
-    return _resolve_adjoint(cfg, adjoint, device)
+    return _resolve_adjoint(cfg, adjoint, device, share)
 
 
 def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
@@ -483,8 +605,8 @@ def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
     """`render(params, seeds) -> image` over a regeneration kernel family
     (drt_tpu/fused.py:_build_regen_renderer):
       trace_fn(alb, emi, seeds, sample_base) -> (L f[3, n_pix], trips)
-      collect_fn(...) -> (L, rsc, rows, trips)
-      sweep_fn(alb, emi, rsc, rows, trips, g f[3, n_pix]) -> (da, de)
+      collect_fn(...) -> (L, *rows): (L, rsc, rows, trips)
+      sweep_fn(alb, emi, *rows, g f[3, n_pix]) -> (da, de)
     n_chunks == cfg.spp_chunks: the tracer covers every chunk in one
     launch; n_chunks == 1: a host loop of cfg.spp_chunks launches with
     sample_base = c * spp_c. bwd_chunks is the same switch for the collect
@@ -521,20 +643,19 @@ def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
             alb, emi = tables(albedo, emission)
             ctx.seeds = seeds
             if adjoint != "stored":
-                ctx.save_for_backward(albedo, emission)
+                _save(ctx, albedo, emission)
                 return image(trace(alb, emi, seeds))
-            L = 0.0
-            residuals = []
+            L, rows = 0.0, []
             for sb in bases(bwd_chunks):
-                L_c, *rows = collect_fn(alb, emi, seeds, sb)
-                residuals += rows
+                L_c, *rows_c = collect_fn(alb, emi, seeds, sb)
+                rows.append(rows_c)
                 L = L + L_c
-            ctx.save_for_backward(albedo, emission, *residuals)
+            _save(ctx, albedo, emission, rows)
             return image(L)
 
         @staticmethod
         def backward(ctx, g):
-            albedo, emission, *residuals = ctx.saved_tensors
+            albedo, emission, stored = _saved(ctx)
             params = Params(albedo, emission)
             alb, emi = tables(albedo, emission)
             # Lanes are pixels: one cotangent per pixel, the same for all
@@ -544,7 +665,7 @@ def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
             da = de = 0.0
             for k, sb in enumerate(bases(bwd_chunks)):
                 if adjoint == "stored":
-                    rows = residuals[3 * k:3 * k + 3]
+                    rows = stored[k]
                 else:
                     rows = collect_fn(alb, emi, ctx.seeds, sb)[1:]
                 da_c, de_c = sweep_fn(alb, emi, *rows, g_pix)
@@ -565,24 +686,36 @@ def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
 def _make_regen_renderer(make_tracer, make_sweep, scene: Scene, kernel_scene,
                          cam: Camera, cfg: RenderConfig, adjoint: str,
                          fastmath, chunked: bool, plain: bool,
-                         differentiable: bool):
-    """The image renderer over one regeneration kernel family."""
-    adjoint = _check_regen_cfg(cfg, adjoint, scene.device)
+                         differentiable: bool, mesh=None):
+    """The image renderer over one regeneration kernel family. With a
+    mesh each shard renders a contiguous range of W*H / mesh.size pixels
+    (`_shard_kernels`): any whole number of pixels; a multiple of 32
+    keeps every batch of the scene-table tracer's warps (32 pixels of a
+    chunk) whole."""
+    npix = cfg.width * cfg.height
+    n_pix = npix
+    if mesh is not None:
+        from drt_tpu_torch.parallel.mesh import local_count
+
+        n_pix = local_count(npix, mesh, "pixels")
+    adjoint = _check_regen_cfg(cfg, adjoint, scene.device, _mesh_share(mesh))
     fm = _resolve_fastmath(fastmath, "internal")
     n_chunks = cfg.spp_chunks if chunked else 1
     # The retrace backward exists to hold one chunk's residuals at a time:
     # its collect and sweep stay per-chunk launches.
     bwd_chunks = n_chunks if adjoint == "stored" else 1
-    kw = dict(fastmath=fm, plain=plain)
-    tracer = make_tracer(kernel_scene, cam, cfg, n_chunks=n_chunks, **kw)
-    collect = sweep = None
+    kw = dict(fastmath=fm, plain=plain, n_pix=n_pix)
+    fns = [make_tracer(kernel_scene, cam, cfg, n_chunks=n_chunks, **kw),
+           None, None, None]
     if differentiable:
-        collect = make_tracer(kernel_scene, cam, cfg, collect=True,
-                              n_chunks=bwd_chunks, **kw)
-        sweep = make_sweep(kernel_scene, cfg, n_chunks=bwd_chunks,
-                           plain=plain)
-    render = _build_regen_renderer(scene, cfg, adjoint, tracer, collect,
-                                   sweep, n_chunks, bwd_chunks)
+        fns[1] = make_tracer(kernel_scene, cam, cfg, collect=True,
+                             n_chunks=bwd_chunks, **kw)
+        fns[2] = make_sweep(kernel_scene, cfg, n_chunks=bwd_chunks,
+                            plain=plain, n_pix=n_pix)
+    if mesh is not None:
+        fns = _shard_kernels(mesh, npix, scene.device, fns, False)
+    render = _build_regen_renderer(scene, cfg, adjoint, *fns[:3], n_chunks,
+                                   bwd_chunks)
     if differentiable:
         return render
     return torch.no_grad()(render)
@@ -634,6 +767,128 @@ def make_dyn_regen_image_renderer(scene, cam: Camera, cfg: RenderConfig,
                                 make_dyn_regen_sweep_adjoint, ds.scene, ds,
                                 cam, cfg, adjoint, fastmath, chunked, plain,
                                 differentiable)
+
+
+def _dyn_factories():
+    from drt_tpu_torch.ops.dynkernel import (make_dyn_adjoint,
+                                             make_dyn_collect_tracer,
+                                             make_dyn_sweep_adjoint,
+                                             make_dyn_tracer)
+
+    return (make_dyn_tracer, make_dyn_collect_tracer, make_dyn_sweep_adjoint,
+            make_dyn_adjoint)
+
+
+_FUSED_FACTORIES = (make_fused_tracer, make_fused_collect_tracer,
+                    make_fused_sweep_adjoint, make_fused_adjoint)
+
+
+def make_sharded_fused_image_renderer(scene: Scene, cam: Camera,
+                                      cfg: RenderConfig, mesh,
+                                      rng: str = "internal",
+                                      adjoint: str = "auto",
+                                      fastmath: bool | str = "auto",
+                                      plain: bool = False,
+                                      differentiable: bool = True):
+    """`make_fused_image_renderer` over a device mesh
+    (`parallel.mesh.make_mesh`; drt_tpu/fused.py:1017): the same
+    `render(params, seeds)` or `render(params, cam_u, tape)`, adjoint
+    modes and unbiased reseed. Shard k of S launches every kernel on the
+    slots [k N / S, (k + 1) N / S) of each launch's N = W*H*spp_c rays,
+    with ray_base = k N / S (its pixels and samples those of the global
+    slots; a tape is sliced to its slots); the radiance is gathered in
+    global order, so the image is the one device's bit for bit, and each
+    shard's sweep or retrace adjoint takes its slots of the cotangent,
+    the shards' gradient partials summed. N must split into whole shards.
+    plain=True runs the plain versions on the shards' devices."""
+    return _make_image_renderer(_FUSED_FACTORIES, scene, scene, cam, cfg,
+                                rng, adjoint, fastmath, plain,
+                                differentiable, mesh=mesh)
+
+
+def make_sharded_dyn_image_renderer(scene, cam: Camera, cfg: RenderConfig,
+                                    mesh, rng: str = "internal",
+                                    adjoint: str = "auto",
+                                    fastmath: bool | str = "auto",
+                                    plain: bool = False,
+                                    differentiable: bool = True):
+    """`make_sharded_fused_image_renderer` over the memory-resident
+    kernels (drt_tpu/fused.py:684), for scenes of up to `MAX_DYN_SHAPES`
+    shapes; `scene` is a Scene or a prebuilt DynScene."""
+    from drt_tpu_torch.ops.dynkernel import DynScene
+
+    ds = DynScene.of(scene)
+    return _make_image_renderer(_dyn_factories(), ds.scene, ds, cam, cfg,
+                                rng, adjoint, fastmath, plain,
+                                differentiable, mesh=mesh)
+
+
+def make_sharded_split_image_renderer(scene, cam: Camera, cfg: RenderConfig,
+                                      mesh, adjoint: str = "auto",
+                                      dyn: bool = False, plain: bool = False,
+                                      differentiable: bool = True,
+                                      tape_fn=None):
+    """bsdf_samples > 1 over a device mesh (drt_tpu/fused.py:507):
+    `make_split_fused_image_renderer` (dyn=True:
+    `make_split_dyn_image_renderer`) whose every chunk's n_lanes =
+    W*H*spp_c * M lanes split into mesh.size contiguous ranges, each
+    shard drawing its own lanes' prefix-shared uniforms
+    (`split_prefix_tape(..., lanes=)`, at the lanes' global pixel and
+    sample ids) and launching the tape-form kernels on them from its
+    ray_base. Any spp_chunks; n_lanes must split into whole shards."""
+    if dyn:
+        from drt_tpu_torch.ops.dynkernel import DynScene
+
+        ds = DynScene.of(scene)
+        return _make_image_renderer(_dyn_factories(), ds.scene, ds, cam,
+                                    cfg, "split", adjoint, False, plain,
+                                    differentiable, tape_fn, mesh)
+    return _make_image_renderer(_FUSED_FACTORIES, scene, scene, cam, cfg,
+                                "split", adjoint, False, plain,
+                                differentiable, tape_fn, mesh)
+
+
+def make_sharded_regen_image_renderer(scene: Scene, cam: Camera,
+                                      cfg: RenderConfig, mesh,
+                                      adjoint: str = "auto",
+                                      fastmath: bool | str = "auto",
+                                      chunked: bool = True,
+                                      plain: bool = False,
+                                      differentiable: bool = True):
+    """`make_regen_image_renderer` over a device mesh
+    (drt_tpu/fused.py:1401): shard k of S renders the pixels [k P / S,
+    (k + 1) P / S) of the P = W*H, with the kernels' pixel offset
+    ray_base = k P / S; the per-pixel sums are gathered in pixel order
+    (the image is the one device's bit for bit), and each shard's sweep
+    takes its pixels' cotangent, the partials summed. P must split into
+    whole shards."""
+    from drt_tpu_torch.ops.regen import (make_regen_sweep_adjoint,
+                                         make_regen_tracer)
+
+    return _make_regen_renderer(make_regen_tracer, make_regen_sweep_adjoint,
+                                scene, scene, cam, cfg, adjoint, fastmath,
+                                chunked, plain, differentiable, mesh)
+
+
+def make_sharded_dyn_regen_image_renderer(scene, cam: Camera,
+                                          cfg: RenderConfig, mesh,
+                                          adjoint: str = "auto",
+                                          fastmath: bool | str = "auto",
+                                          chunked: bool = True,
+                                          plain: bool = False,
+                                          differentiable: bool = True):
+    """`make_sharded_regen_image_renderer` over the memory-resident
+    kernels (drt_tpu/fused.py:1542); `scene` is a Scene or a prebuilt
+    DynScene."""
+    from drt_tpu_torch.ops.dynkernel import DynScene
+    from drt_tpu_torch.ops.dynregen import (make_dyn_regen_sweep_adjoint,
+                                            make_dyn_regen_tracer)
+
+    ds = DynScene.of(scene)
+    return _make_regen_renderer(make_dyn_regen_tracer,
+                                make_dyn_regen_sweep_adjoint, ds.scene, ds,
+                                cam, cfg, adjoint, fastmath, chunked, plain,
+                                differentiable, mesh)
 
 
 def _round_up(x: int, m: int) -> int:

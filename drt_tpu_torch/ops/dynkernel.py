@@ -687,19 +687,21 @@ RAY_BLOCK = 1 << 20
 
 def _plain_chunks(ds: DynScene, cc, cfg: RenderConfig, alb, emi, seeds,
                   cam_u, tape, n_chunks: int, fastmath: bool, collect: bool,
-                  stats: dict | None):
+                  stats: dict | None, ray_base: int = 0,
+                  n_rays: int | None = None):
     """Radiance summed over the chunks and, with `collect`, the stacked
-    residuals of every chunk."""
-    npix = cfg.width * cfg.height
-    n = npix * (cfg.spp // cfg.spp_chunks)
+    residuals of every chunk, of the n_rays slots from ray_base on (by
+    default one chunk's W*H*spp_c from 0)."""
+    n, pix_all, smp = mk._slots(cfg, n_rays, ray_base, alb.device)
     L = None
     rsc, rrow = [], []
     for c in range(n_chunks):
-        cu, tp = mk._chunk_uniforms(cfg, alb, seeds, cam_u, tape, c)
+        cu, tp = mk._chunk_uniforms(cfg, alb, seeds, cam_u, tape, c, pix_all,
+                                    smp)
         Lc, sc_c, row_c = [], [], []
         for r0 in range(0, n, RAY_BLOCK):
             r1 = min(r0 + RAY_BLOCK, n)
-            pix = torch.arange(r0, r1, device=alb.device) % npix
+            pix = pix_all[r0:r1]
             o, d = mk.camera_ray_from_pix(cc, pix, cu[0, r0:r1],
                                           cu[1, r0:r1])
             sc_b = [None] * cfg.max_depth
@@ -733,24 +735,27 @@ def _plain_chunks(ds: DynScene, cc, cfg: RenderConfig, alb, emi, seeds,
 def dyn_trace_plain(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
                     emi: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
                     n_chunks: int = 1, fastmath: bool = False,
-                    stats: dict | None = None) -> torch.Tensor:
+                    stats: dict | None = None, ray_base: int = 0,
+                    n_rays: int | None = None) -> torch.Tensor:
     """The plain PyTorch version of the dyn tracer, on the tensors'
     device. Pass `seeds` (internal RNG, any n_chunks) or `cam_u` and
     `tape`. Returns radiance f[3, N] summed over the chunks. `fastmath`
-    takes the kernel's fast forms except the camera's rsqrt."""
+    takes the kernel's fast forms except the camera's rsqrt. ray_base and
+    n_rays select a shard's slots, as `megakernel.fused_trace_plain`'s."""
     return _plain_chunks(ds, cc, cfg, alb, emi, seeds, cam_u, tape, n_chunks,
-                         fastmath, False, stats)
+                         fastmath, False, stats, ray_base, n_rays)
 
 
 def dyn_collect_plain(ds: DynScene, cc, cfg: RenderConfig,
                       alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
                       cam_u=None, tape=None, n_chunks: int = 1,
-                      fastmath: bool = False):
+                      fastmath: bool = False, ray_base: int = 0,
+                      n_rays: int | None = None):
     """The plain version of the dyn collect tracer: (radiance f[3, N]
     summed over the chunks, rsc f[C, D, N], rrow i32[C, D, N]), the chunk
     dimension dropped when n_chunks == 1."""
     return _plain_chunks(ds, cc, cfg, alb, emi, seeds, cam_u, tape, n_chunks,
-                         fastmath, True, None)
+                         fastmath, True, None, ray_base, n_rays)
 
 
 def dyn_sweep_plain(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
@@ -774,12 +779,14 @@ def dyn_sweep_plain(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
 def dyn_adjoint_plain(ds: DynScene, cc, cfg: RenderConfig,
                       alb: torch.Tensor, emi: torch.Tensor, g: torch.Tensor,
                       *, seeds=None, cam_u=None, tape=None,
-                      n_chunks: int = 1, fastmath: bool = False):
+                      n_chunks: int = 1, fastmath: bool = False,
+                      ray_base: int = 0, n_rays: int | None = None):
     """The plain version of the dyn retrace adjoint: the collect version,
     then the sweep version on its residuals."""
     _, rsc, rrow = dyn_collect_plain(ds, cc, cfg, alb, emi, seeds=seeds,
                                      cam_u=cam_u, tape=tape,
-                                     n_chunks=n_chunks, fastmath=fastmath)
+                                     n_chunks=n_chunks, fastmath=fastmath,
+                                     ray_base=ray_base, n_rays=n_rays)
     return dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g)
 
 
@@ -839,12 +846,18 @@ def _adjoint_library() -> ctypes.CDLL:
 
 
 def _dyn_config(cfg: RenderConfig, n_shapes: int, alb, emi, *, seeds=None,
-                fastmath: bool = False, n_chunks: int = 1) -> mk._DrtTrace:
+                fastmath: bool = False, n_chunks: int = 1,
+                n_rays: int | None = None,
+                ray_base: int = 0) -> mk._DrtTrace:
     """Check the parameter tables on the card and fill the kernels'
-    config."""
+    config: n_rays slots from ray_base on (by default one chunk's
+    W*H*spp_c from 0)."""
     dev = alb.device
     spp_c = cfg.spp // cfg.spp_chunks
-    n = cfg.width * cfg.height * spp_c
+    n_total = cfg.width * cfg.height * spp_c
+    n = n_total if n_rays is None else n_rays
+    if ray_base:
+        mk.check_ray_base(ray_base, n, n_total)
     for name, tab in (("albedo", alb), ("emission", emi)):
         if tab.ndim != 2 or not 1 <= tab.shape[0] <= _ROW_CAP:
             raise ValueError(f"{name} table {tuple(tab.shape)}: "
@@ -859,7 +872,8 @@ def _dyn_config(cfg: RenderConfig, n_shapes: int, alb, emi, *, seeds=None,
                         cfg.max_depth, cfg.min_bounces, n_shapes,
                         alb.shape[0], emi.shape[0], int(seeds is not None),
                         int(bool(fastmath)), cfg.absorb_prob,
-                        1.0 / (1.0 - cfg.absorb_prob), *seed_words)
+                        1.0 / (1.0 - cfg.absorb_prob), *seed_words,
+                        ray_base)
 
 
 def _scene_structs(ds: DynScene, dev):
@@ -886,12 +900,14 @@ def _scene_structs(ds: DynScene, dev):
 
 def _launch_trace(wrapper, what: str, entry_name: str, ds: DynScene, cc,
                   cfg: RenderConfig, alb, emi, seeds, cam_u, tape,
-                  fastmath: bool, n_chunks: int) -> torch.Tensor:
+                  fastmath: bool, n_chunks: int, ray_base: int = 0,
+                  n_rays: int | None = None) -> torch.Tensor:
     """Launch one of the tracer library's radiance-only entry points and
     return its radiance f32[3, N]."""
     dev = alb.device
     tcfg = _dyn_config(cfg, ds.n_shapes, alb, emi, seeds=seeds,
-                       fastmath=fastmath, n_chunks=n_chunks)
+                       fastmath=fastmath, n_chunks=n_chunks, n_rays=n_rays,
+                       ray_base=ray_base)
     cu_ptr, tape_ptr = mk._uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lay, ops = _scene_structs(ds, dev)
     lib = _library()
@@ -906,16 +922,19 @@ def _launch_trace(wrapper, what: str, entry_name: str, ds: DynScene, cc,
 
 def dyn_trace(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
               emi: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
-              fastmath: bool = False, n_chunks: int = 1) -> torch.Tensor:
+              fastmath: bool = False, n_chunks: int = 1, ray_base: int = 0,
+              n_rays: int | None = None) -> torch.Tensor:
     """Radiance f32[3, N] of the dyn tracer. CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise. A shard traces the
+    n_rays slots from ray_base on (`megakernel.fused_trace`)."""
     if mk._device_of("dyn_trace", alb) == "cpu":
         return dyn_trace_plain(ds, cc, cfg, alb, emi, seeds=seeds,
                                cam_u=cam_u, tape=tape, n_chunks=n_chunks,
-                               fastmath=fastmath)
+                               fastmath=fastmath, ray_base=ray_base,
+                               n_rays=n_rays)
     return _launch_trace(dyn_trace, "dyn tracer", "drt_dyn_trace", ds, cc,
                          cfg, alb, emi, seeds, cam_u, tape, fastmath,
-                         n_chunks)
+                         n_chunks, ray_base, n_rays)
 
 
 def dyn_trace_lanes(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
@@ -966,7 +985,8 @@ def dyn_cull_stats(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
 
 def dyn_collect(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
                 emi: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
-                fastmath: bool = False, n_chunks: int = 1):
+                fastmath: bool = False, n_chunks: int = 1, ray_base: int = 0,
+                n_rays: int | None = None):
     """(radiance f32[3, N], rsc f32[C, D, N], rrow i32[C, D, N]) of the
     dyn collect tracer, the chunk dimension dropped when n_chunks == 1.
     The radiance equals `dyn_trace`'s bit for bit. CPU tensors run the
@@ -979,10 +999,12 @@ def dyn_collect(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
     if mk._device_of("dyn_collect", alb) == "cpu":
         return dyn_collect_plain(ds, cc, cfg, alb, emi, seeds=seeds,
                                  cam_u=cam_u, tape=tape, n_chunks=n_chunks,
-                                 fastmath=fastmath)
+                                 fastmath=fastmath, ray_base=ray_base,
+                                 n_rays=n_rays)
     dev = alb.device
     tcfg = _dyn_config(cfg, ds.n_shapes, alb, emi, seeds=seeds,
-                       fastmath=fastmath, n_chunks=n_chunks)
+                       fastmath=fastmath, n_chunks=n_chunks, n_rays=n_rays,
+                       ray_base=ray_base)
     cu_ptr, tape_ptr = mk._uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lay, ops = _scene_structs(ds, dev)
     lib = _library()
@@ -1022,7 +1044,7 @@ def dyn_sweep_stages(n_alb: int, n_emi: int, max_depth: int) -> int:
 
 def dyn_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
               rsc: torch.Tensor, rrow: torch.Tensor, g: torch.Tensor, *,
-              n_chunks: int = 1):
+              n_chunks: int = 1, n_rays: int | None = None):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the dyn sweep
     adjoint from the collect tracer's residuals and a cotangent g. CPU
     tensors run the plain version; CUDA tensors launch the kernel or
@@ -1032,11 +1054,12 @@ def dyn_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
     table rows' accumulator leaves (`dyn_sweep_stages`: 3 stages up to 128
     real rows), and through registers where fewer than two stages fit, as
     at the 144-row limit, where the accumulator fills the block's shared
-    memory."""
+    memory. A shard's sweep (n_rays slots) draws nothing and takes no ray
+    offset."""
     if mk._device_of("dyn_sweep", alb) == "cpu":
         return dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g)
     dev = alb.device
-    tcfg = _dyn_config(cfg, 0, alb, emi, n_chunks=n_chunks)
+    tcfg = _dyn_config(cfg, 0, alb, emi, n_chunks=n_chunks, n_rays=n_rays)
     n, D = tcfg.n_rays, cfg.max_depth
     res_shape = (D, n) if n_chunks == 1 else (n_chunks, D, n)
     mk._check("rsc", rsc, res_shape, dev)
@@ -1054,18 +1077,22 @@ def dyn_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
 def dyn_adjoint(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
                 emi: torch.Tensor, g: torch.Tensor, *, seeds=None,
                 cam_u=None, tape=None, fastmath: bool = False,
-                n_chunks: int = 1):
+                n_chunks: int = 1, ray_base: int = 0,
+                n_rays: int | None = None):
     """(d_albedo, d_emission) of the dyn retrace adjoint: the forward
     traced again in the kernel from `seeds` (or `cam_u`, `tape`), then
     the sweep. CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise. ray_base and n_rays as `dyn_trace`'s; from ray_base
+    > 0, g is per ray."""
     if mk._device_of("dyn_adjoint", alb) == "cpu":
         return dyn_adjoint_plain(ds, cc, cfg, alb, emi, g, seeds=seeds,
                                  cam_u=cam_u, tape=tape, n_chunks=n_chunks,
-                                 fastmath=fastmath)
+                                 fastmath=fastmath, ray_base=ray_base,
+                                 n_rays=n_rays)
     dev = alb.device
     tcfg = _dyn_config(cfg, ds.n_shapes, alb, emi, seeds=seeds,
-                       fastmath=fastmath, n_chunks=n_chunks)
+                       fastmath=fastmath, n_chunks=n_chunks, n_rays=n_rays,
+                       ray_base=ray_base)
     cu_ptr, tape_ptr = mk._uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lay, ops = _scene_structs(ds, dev)
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
@@ -1086,28 +1113,31 @@ mk.register_wrappers(dyn_tracer=dyn_trace, dyn_collect=dyn_collect,
 
 def make_dyn_tracer(scene, cam, cfg: RenderConfig, rng: str = "internal",
                     fastmath: bool = False, n_chunks: int = 1,
-                    plain: bool = False):
+                    plain: bool = False, n_rays: int | None = None):
     """Build `trace(alb, emi, seeds)` (rng="internal") or `trace(alb, emi,
     cam_u, tape)` (rng="tape") -> radiance f32[3, N] over a Scene or a
     prebuilt DynScene. n_chunks > 1 (internal RNG only) runs the spp
     chunks in one launch and sums their radiance per ray slot. plain=True
     runs the plain version on whatever device the tensors lie on (the
-    "torch-dyn" backend)."""
+    "torch-dyn" backend). n_rays and `trace(..., ray_base=)` select a
+    shard's slots (`megakernel.make_fused_tracer`)."""
     mk._check_rng(rng, n_chunks)
     ds = DynScene.of(scene)
     cc = mk.camera_consts(cam, cfg.width, cfg.height)
     fn = dyn_trace_plain if plain else dyn_trace
 
-    def trace(alb, emi, *args):
+    def trace(alb, emi, *args, ray_base: int = 0):
         return fn(ds, cc, cfg, alb, emi, fastmath=fastmath,
-                  n_chunks=n_chunks, **mk._uniform_kw(rng, args))
+                  n_chunks=n_chunks, ray_base=ray_base, n_rays=n_rays,
+                  **mk._uniform_kw(rng, args))
 
     return trace
 
 
 def make_dyn_collect_tracer(scene, cam, cfg: RenderConfig,
                             rng: str = "internal", fastmath: bool = False,
-                            n_chunks: int = 1, plain: bool = False):
+                            n_chunks: int = 1, plain: bool = False,
+                            n_rays: int | None = None):
     """Build `trace(alb, emi, seeds | cam_u, tape) -> (L f32[3, N], rsc,
     rrow)`: the tracer that also stores the adjoint's residuals, 8 bytes
     per bounce-ray. L is `make_dyn_tracer`'s radiance bit for bit."""
@@ -1116,15 +1146,16 @@ def make_dyn_collect_tracer(scene, cam, cfg: RenderConfig,
     cc = mk.camera_consts(cam, cfg.width, cfg.height)
     fn = dyn_collect_plain if plain else dyn_collect
 
-    def trace(alb, emi, *args):
+    def trace(alb, emi, *args, ray_base: int = 0):
         return fn(ds, cc, cfg, alb, emi, fastmath=fastmath,
-                  n_chunks=n_chunks, **mk._uniform_kw(rng, args))
+                  n_chunks=n_chunks, ray_base=ray_base, n_rays=n_rays,
+                  **mk._uniform_kw(rng, args))
 
     return trace
 
 
 def make_dyn_sweep_adjoint(scene, cfg: RenderConfig, n_chunks: int = 1,
-                           plain: bool = False):
+                           plain: bool = False, n_rays: int | None = None):
     """Build `sweep(alb, emi, rsc, rrow, g) -> (d_albedo, d_emission)`:
     the backward from the collect tracer's residuals, with g f32[3, N] per
     ray slot (identical across chunks) or f32[3, W*H] per pixel. `scene`
@@ -1133,14 +1164,15 @@ def make_dyn_sweep_adjoint(scene, cfg: RenderConfig, n_chunks: int = 1,
     def sweep(alb, emi, rsc, rrow, g):
         if plain:
             return dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g)
-        return dyn_sweep(cfg, alb, emi, rsc, rrow, g, n_chunks=n_chunks)
+        return dyn_sweep(cfg, alb, emi, rsc, rrow, g, n_chunks=n_chunks,
+                         n_rays=n_rays)
 
     return sweep
 
 
 def make_dyn_adjoint(scene, cam, cfg: RenderConfig, rng: str = "internal",
                      fastmath: bool = False, n_chunks: int = 1,
-                     plain: bool = False):
+                     plain: bool = False, n_rays: int | None = None):
     """Build `adj(alb, emi, seeds, g)` (rng="internal") or `adj(alb, emi,
     cam_u, tape, g)` (rng="tape") -> (d_albedo, d_emission): the retrace
     adjoint. Pass the forward's seeds for biased mode or a fresh seeds[1]
@@ -1150,9 +1182,10 @@ def make_dyn_adjoint(scene, cam, cfg: RenderConfig, rng: str = "internal",
     cc = mk.camera_consts(cam, cfg.width, cfg.height)
     fn = dyn_adjoint_plain if plain else dyn_adjoint
 
-    def adjoint(alb, emi, *args):
+    def adjoint(alb, emi, *args, ray_base: int = 0):
         *uniforms, g = args
         return fn(ds, cc, cfg, alb, emi, g, fastmath=fastmath,
-                  n_chunks=n_chunks, **mk._uniform_kw(rng, tuple(uniforms)))
+                  n_chunks=n_chunks, ray_base=ray_base, n_rays=n_rays,
+                  **mk._uniform_kw(rng, tuple(uniforms)))
 
     return adjoint

@@ -55,7 +55,8 @@ _RRON_BIT = _LIVE_BIT + 2
 
 def _dyn_regen_plain(ds: DynScene, cc, cfg: RenderConfig, alb, emi, seeds,
                      n_chunks: int, sample_base: int, fastmath: bool,
-                     collect: bool, stats: dict | None = None):
+                     collect: bool, stats: dict | None = None,
+                     ray_base: int = 0, n_pix: int | None = None):
     def bounce(state, b, u):
         state, (_, sc, _, ar, er, alive) = dk._dyn_bounce(
             ds, cfg, alb, emi, state, b, u, fastmath=fastmath, stats=stats)
@@ -68,31 +69,37 @@ def _dyn_regen_plain(ds: DynScene, cc, cfg: RenderConfig, alb, emi, seeds,
                 + (rr_on.long() << _RRON_BIT)).to(torch.int32)
 
     return rg.trip_loop_plain(cfg, cc, seeds, bounce, pack, n_chunks,
-                              sample_base, collect, alb.dtype, alb.device)
+                              sample_base, collect, alb.dtype, alb.device,
+                              ray_base, n_pix)
 
 
 def dyn_regen_trace_plain(ds: DynScene, cc, cfg: RenderConfig,
                           alb: torch.Tensor, emi: torch.Tensor, seeds, *,
                           n_chunks: int = 1, sample_base: int = 0,
                           fastmath: bool = False,
-                          stats: dict | None = None):
+                          stats: dict | None = None, ray_base: int = 0,
+                          n_pix: int | None = None):
     """The plain version of the dyn regeneration tracer: (L f[3, n_pix]
-    summed over the chunks, trips i32[C, n_pix]). `fastmath` takes the
-    kernel's fast forms except the camera's rsqrt; `stats` gains the
-    counts of `ops.dynkernel.dyn_intersect`."""
+    summed over the chunks, trips i32[C, n_pix]) of the n_pix pixels from
+    ray_base on (by default all W*H). `fastmath` takes the kernel's fast
+    forms except the camera's rsqrt; `stats` gains the counts of
+    `ops.dynkernel.dyn_intersect`."""
     return _dyn_regen_plain(ds, cc, cfg, alb, emi, seeds, n_chunks,
-                            sample_base, fastmath, False, stats)
+                            sample_base, fastmath, False, stats, ray_base,
+                            n_pix)
 
 
 def dyn_regen_collect_plain(ds: DynScene, cc, cfg: RenderConfig,
                             alb: torch.Tensor, emi: torch.Tensor, seeds, *,
                             n_chunks: int = 1, sample_base: int = 0,
-                            fastmath: bool = False):
+                            fastmath: bool = False, ray_base: int = 0,
+                            n_pix: int | None = None):
     """The plain version of the collect form: (L, rsc f[C, t_cap, n_pix],
     rrow i32[C, t_cap, n_pix], trips i32[C, n_pix]); rows beyond a
     pixel's trips are zero."""
     return _dyn_regen_plain(ds, cc, cfg, alb, emi, seeds, n_chunks,
-                            sample_base, fastmath, True)
+                            sample_base, fastmath, True, None, ray_base,
+                            n_pix)
 
 
 def dyn_regen_sweep_plain(cfg: RenderConfig, alb: torch.Tensor,
@@ -162,14 +169,16 @@ def _adjoint_library() -> ctypes.CDLL:
 
 def _launch_tracer(wrapper, what: str, entry_name: str, ds: DynScene, cc,
                    cfg: RenderConfig, alb, emi, seeds, fastmath: bool,
-                   n_chunks: int, sample_base: int, buffers) -> None:
+                   n_chunks: int, sample_base: int, buffers,
+                   ray_base: int = 0, n_pix: int | None = None) -> None:
     """Launch one of the tracer library's forms into `buffers` (out,
     trips and, for the collect form, rsc and rrow; for the checking
     build, stats) and count it on `wrapper` (None: not counted)."""
     dev = alb.device
     tcfg = rg.per_pixel(dk._dyn_config(cfg, ds.n_shapes, alb, emi,
                                        seeds=seeds, fastmath=fastmath,
-                                       n_chunks=n_chunks), cfg)
+                                       n_chunks=n_chunks), cfg, n_pix,
+                        ray_base)
     lay, ops = dk._scene_structs(ds, dev)
     lib = _library()
     mk._launch(wrapper, what, lib.drt_dyn_regen_error_string,
@@ -181,31 +190,37 @@ def _launch_tracer(wrapper, what: str, entry_name: str, ds: DynScene, cc,
 
 def dyn_regen_trace(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
                     emi: torch.Tensor, seeds, *, fastmath: bool = False,
-                    n_chunks: int = 1, sample_base: int = 0):
+                    n_chunks: int = 1, sample_base: int = 0,
+                    ray_base: int = 0, n_pix: int | None = None):
     """(L f32[3, n_pix] radiance sums, trips i32[C, n_pix]) of the dyn
     regeneration tracer. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. A shard renders the n_pix pixels from
+    ray_base on (by default all W*H from 0)."""
     rg.check_regen_args(cfg, seeds, n_chunks, sample_base)
     if mk._device_of("dyn_regen_trace", alb) == "cpu":
         return dyn_regen_trace_plain(ds, cc, cfg, alb, emi, seeds,
                                      n_chunks=n_chunks,
                                      sample_base=sample_base,
-                                     fastmath=fastmath)
-    out, trips = rg.trip_buffers(cfg, n_chunks, False, alb.device)
+                                     fastmath=fastmath, ray_base=ray_base,
+                                     n_pix=n_pix)
+    out, trips = rg.trip_buffers(cfg, n_chunks, False, alb.device, n_pix)
     _launch_tracer(dyn_regen_trace, "dyn regeneration tracer",
                    "drt_dyn_regen_trace", ds, cc, cfg, alb, emi, seeds,
-                   fastmath, n_chunks, sample_base, (out, trips))
+                   fastmath, n_chunks, sample_base, (out, trips), ray_base,
+                   n_pix)
     return out, trips
 
 
 def dyn_regen_collect(ds: DynScene, cc, cfg: RenderConfig,
                       alb: torch.Tensor, emi: torch.Tensor, seeds, *,
                       fastmath: bool = False, n_chunks: int = 1,
-                      sample_base: int = 0):
+                      sample_base: int = 0, ray_base: int = 0,
+                      n_pix: int | None = None):
     """(L, rsc f32[C, t_cap, n_pix], rrow i32[C, t_cap, n_pix], trips) of
     the collect form. L equals `dyn_regen_trace`'s bit for bit. On the
     card a pixel's rows beyond its trips are uninitialized. CPU tensors
-    run the plain version; CUDA tensors launch the kernel or raise."""
+    run the plain version; CUDA tensors launch the kernel or raise.
+    ray_base and n_pix as `dyn_regen_trace`'s."""
     rg.check_regen_args(cfg, seeds, n_chunks, sample_base)
     if alb.shape[0] > dk._ROW_CAP or emi.shape[0] > dk._ROW_CAP:
         raise ValueError(
@@ -216,11 +231,14 @@ def dyn_regen_collect(ds: DynScene, cc, cfg: RenderConfig,
         return dyn_regen_collect_plain(ds, cc, cfg, alb, emi, seeds,
                                        n_chunks=n_chunks,
                                        sample_base=sample_base,
-                                       fastmath=fastmath)
-    out, trips, rsc, rrow = rg.trip_buffers(cfg, n_chunks, True, alb.device)
+                                       fastmath=fastmath, ray_base=ray_base,
+                                       n_pix=n_pix)
+    out, trips, rsc, rrow = rg.trip_buffers(cfg, n_chunks, True, alb.device,
+                                            n_pix)
     _launch_tracer(dyn_regen_collect, "dyn regeneration collect tracer",
                    "drt_dyn_regen_collect", ds, cc, cfg, alb, emi, seeds,
-                   fastmath, n_chunks, sample_base, (out, trips, rsc, rrow))
+                   fastmath, n_chunks, sample_base, (out, trips, rsc, rrow),
+                   ray_base, n_pix)
     return out, rsc, rrow, trips
 
 
@@ -260,7 +278,8 @@ def dyn_regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
 def dyn_regen_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                     rsc: torch.Tensor, rrow: torch.Tensor,
                     trips: torch.Tensor, g: torch.Tensor, *,
-                    n_chunks: int = 1, build: str = "queue"):
+                    n_chunks: int = 1, build: str = "queue",
+                    n_pix: int | None = None):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the dyn
     regeneration sweep adjoint from the collect form's rows and a
     per-pixel cotangent g f32[3, n_pix]. CPU tensors run the plain
@@ -269,14 +288,15 @@ def dyn_regen_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
     adjacent pixels' rows (`dyn_regen_sweep_form`: "window"), or one
     pixel's rows a thread where the windows do not fit; build="lockstep"
     launches the per-pixel kernel at every call, the bit reference, and
-    is not counted."""
+    is not counted. A shard's sweep takes its n_pix pixels' rows and
+    cotangent, and no pixel offset: it draws nothing."""
     entry = mk._build_entry("drt_dyn_regen_sweep", build)
     if mk._device_of("dyn_regen_sweep", alb) == "cpu":
         return dyn_regen_sweep_plain(cfg, alb, emi, rsc, rrow, trips, g)
     dev = alb.device
     tcfg = rg.per_pixel(dk._dyn_config(cfg, 0, alb, emi, n_chunks=n_chunks),
-                        cfg)
-    rg.check_rows(cfg, n_chunks, rsc, rrow, trips, g, dev)
+                        cfg, n_pix)
+    rg.check_rows(cfg, n_chunks, rsc, rrow, trips, g, dev, tcfg.n_rays)
     partials, da, de = dk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
     mk._launch(dyn_regen_sweep if build == "queue" else None,
@@ -296,12 +316,14 @@ mk.register_wrappers(dyn_regen_tracer=dyn_regen_trace,
 
 def make_dyn_regen_tracer(scene, cam, cfg: RenderConfig,
                           fastmath: bool = False, collect: bool = False,
-                          n_chunks: int = 1, plain: bool = False):
+                          n_chunks: int = 1, plain: bool = False,
+                          n_pix: int | None = None):
     """Build `trace(alb, emi, seeds, sample_base=0) -> (L f32[3, n_pix],
     trips i32[C, n_pix])`, or with collect=True `-> (L, rsc, rrow,
     trips)`, over a Scene or a prebuilt DynScene. plain=True runs the
     plain version on whatever device the tensors lie on (the
-    "torch-dyn-regen" backend)."""
+    "torch-dyn-regen" backend). n_pix and `trace(..., ray_base=)` select a
+    shard's pixels (`ops.regen.make_regen_tracer`)."""
     ds = DynScene.of(scene)
     cc = mk.camera_consts(cam, cfg.width, cfg.height)
     if plain:
@@ -309,15 +331,17 @@ def make_dyn_regen_tracer(scene, cam, cfg: RenderConfig,
     else:
         fn = dyn_regen_collect if collect else dyn_regen_trace
 
-    def trace(alb, emi, seeds, sample_base=0):
+    def trace(alb, emi, seeds, sample_base=0, ray_base: int = 0):
         return fn(ds, cc, cfg, alb, emi, seeds, fastmath=fastmath,
-                  n_chunks=n_chunks, sample_base=sample_base)
+                  n_chunks=n_chunks, sample_base=sample_base,
+                  ray_base=ray_base, n_pix=n_pix)
 
     return trace
 
 
 def make_dyn_regen_sweep_adjoint(scene, cfg: RenderConfig, n_chunks: int = 1,
-                                 plain: bool = False, build: str = "queue"):
+                                 plain: bool = False, build: str = "queue",
+                                 n_pix: int | None = None):
     """Build `sweep(alb, emi, rsc, rrow, trips, g) -> (d_albedo,
     d_emission)` with g f32[3, n_pix] per pixel. `scene` is taken for the
     JAX package's signature; the sweep reads rows, not shapes. `build`
@@ -328,6 +352,6 @@ def make_dyn_regen_sweep_adjoint(scene, cfg: RenderConfig, n_chunks: int = 1,
         if plain:
             return dyn_regen_sweep_plain(cfg, alb, emi, rsc, rrow, trips, g)
         return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g,
-                               n_chunks=n_chunks, build=build)
+                               n_chunks=n_chunks, build=build, n_pix=n_pix)
 
     return sweep

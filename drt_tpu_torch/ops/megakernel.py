@@ -40,6 +40,12 @@ Uniforms, in spp-outer ray order (ray i is pixel i % (W*H)):
 The cotangent g is f[3, N] per ray slot (identical across chunks), or
 f[3, W*H] per pixel, which the kernels index by pixel themselves.
 
+A shard of a device mesh launches on n_rays slots from `ray_base` (the
+`DrtTrace` field, by default 0): its slot i is the image's slot ray_base
++ i, whose pixel and sample the camera ray and the keyed draws take; a
+tape, the cotangent (per ray) and the outputs hold the shard's slots
+alone. The sweeps read residuals and draw nothing: they take no offset.
+
 `fused_trace`, `fused_collect`, `fused_sweep`, `fused_adjoint`, `ray_trace`
 and `ray_adjoint` are the wrappers: for tensors on the CPU each runs its
 plain twin (the fused camera math, `renderer.trace_residuals`, and the
@@ -196,31 +202,54 @@ def camera_ray_from_pix(cc: CameraConsts, pix: torch.Tensor,
     return o, V3(dx * inv, dy * inv, dz * inv)
 
 
-def _chunk_uniforms(cfg: RenderConfig, alb, seeds, cam_u, tape, c: int):
-    """Chunk c's (cam_u, tape): the hash tapes of the internal RNG, or
-    the caller's."""
+def ray_ids(cfg: RenderConfig, n: int, ray_base: int = 0, device=None):
+    """(pixel i64[n], sample in the chunk i64[n]) of the ray slots
+    [ray_base, ray_base + n) of one chunk, spp-outer: the global slot g
+    covers pixel g % (W*H) and sample g // (W*H)."""
+    npix = cfg.width * cfg.height
+    g = torch.arange(ray_base, ray_base + n, dtype=torch.int64,
+                     device=device)
+    return g % npix, g // npix
+
+
+def _chunk_uniforms(cfg: RenderConfig, alb, seeds, cam_u, tape, c: int,
+                    pix=None, s=None):
+    """Chunk c's (cam_u, tape): the keyed draws of the internal RNG at the
+    rays (pix, s) (`ray_ids`; by default every slot of the chunk), the
+    hash tapes of the chunk, or the caller's."""
     if seeds is None:
         return cam_u, tape
-    return hash_tapes(seeds, cfg.width * cfg.height,
-                      cfg.spp // cfg.spp_chunks, cfg.max_depth, alb.dtype,
-                      sample_base=c * (cfg.spp // cfg.spp_chunks),
-                      device=alb.device)
+    if pix is None:
+        pix, s = ray_ids(cfg, cfg.width * cfg.height
+                         * (cfg.spp // cfg.spp_chunks), device=alb.device)
+    s0, s1 = _seed_words(seeds, 0)
+    smp = c * (cfg.spp // cfg.spp_chunks) + s
+    return (camera_draws(s0, pix, smp, alb.dtype),
+            bounce_tape(s1, pix, smp, cfg.max_depth, alb.dtype))
+
+
+def _slots(cfg: RenderConfig, n_rays, ray_base: int, device):
+    """The n slots of a launch, n_rays of them from ray_base on (by
+    default the chunk's), as (n, pixel, sample in the chunk)."""
+    npix = cfg.width * cfg.height
+    n = npix * (cfg.spp // cfg.spp_chunks) if n_rays is None else n_rays
+    return (n, *ray_ids(cfg, n, ray_base, device))
 
 
 def fused_trace_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
                       alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
-                      cam_u=None, tape=None, n_chunks: int = 1
+                      cam_u=None, tape=None, n_chunks: int = 1,
+                      ray_base: int = 0, n_rays: int | None = None
                       ) -> torch.Tensor:
     """The plain PyTorch twin of the tracer, on the tensors' device.
     Pass `seeds` (internal RNG, any n_chunks) or `cam_u` and `tape`.
-    Returns radiance f[3, N] summed over the chunks."""
-    npix = cfg.width * cfg.height
-    n = npix * (cfg.spp // cfg.spp_chunks)
+    Returns radiance f[3, N] summed over the chunks, N = n_rays slots
+    from ray_base on (by default one chunk's W*H*spp_c from 0)."""
+    _, pix, smp = _slots(cfg, n_rays, ray_base, alb.device)
     params = Params(albedo=alb[:-1], emission=emi[:-1])
-    pix = torch.arange(n, device=alb.device) % npix
     L = None
     for c in range(n_chunks):
-        cu, tp = _chunk_uniforms(cfg, alb, seeds, cam_u, tape, c)
+        cu, tp = _chunk_uniforms(cfg, alb, seeds, cam_u, tape, c, pix, smp)
         o, d = camera_ray_from_pix(cc, pix, cu[0], cu[1])
         Lc = torch.stack(trace_rays(params, scene, o, d, cfg, tape=tp))
         L = Lc if L is None else L + Lc
@@ -229,18 +258,17 @@ def fused_trace_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
 
 def fused_collect_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
                         alb: torch.Tensor, emi: torch.Tensor, *, seeds=None,
-                        cam_u=None, tape=None, n_chunks: int = 1):
+                        cam_u=None, tape=None, n_chunks: int = 1,
+                        ray_base: int = 0, n_rays: int | None = None):
     """The plain twin of the collect tracer: (radiance f[3, N] summed over
     the chunks, rsc f[C, D, N], rbest i32[C, D, N]), the chunk dimension
-    dropped when n_chunks == 1."""
-    npix = cfg.width * cfg.height
-    n = npix * (cfg.spp // cfg.spp_chunks)
+    dropped when n_chunks == 1; the slots as `fused_trace_plain`'s."""
+    _, pix, smp = _slots(cfg, n_rays, ray_base, alb.device)
     params = Params(albedo=alb[:-1], emission=emi[:-1])
-    pix = torch.arange(n, device=alb.device) % npix
     L = None
     rsc, rbest = [], []
     for c in range(n_chunks):
-        cu, tp = _chunk_uniforms(cfg, alb, seeds, cam_u, tape, c)
+        cu, tp = _chunk_uniforms(cfg, alb, seeds, cam_u, tape, c, pix, smp)
         o, d = camera_ray_from_pix(cc, pix, cu[0], cu[1])
         Lc, res, shape = trace_residuals(params, scene, o, d, cfg, tp)
         Lc = torch.stack(Lc)
@@ -329,12 +357,14 @@ def fused_sweep_plain(scene: Scene, cfg: RenderConfig, alb: torch.Tensor,
 def fused_adjoint_plain(scene: Scene, cc: CameraConsts, cfg: RenderConfig,
                         alb: torch.Tensor, emi: torch.Tensor,
                         g: torch.Tensor, *, seeds=None, cam_u=None,
-                        tape=None, n_chunks: int = 1):
+                        tape=None, n_chunks: int = 1, ray_base: int = 0,
+                        n_rays: int | None = None):
     """The plain twin of the retrace adjoint: the collect twin, then the
     sweep twin on its residuals."""
     _, rsc, rbest = fused_collect_plain(scene, cc, cfg, alb, emi,
                                         seeds=seeds, cam_u=cam_u, tape=tape,
-                                        n_chunks=n_chunks)
+                                        n_chunks=n_chunks, ray_base=ray_base,
+                                        n_rays=n_rays)
     return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
 
 
@@ -349,7 +379,8 @@ class _DrtTrace(ctypes.Structure):
         "width", "height", "n_rays", "spp_c", "n_chunks", "max_depth",
         "min_bounces", "n_shapes", "n_alb", "n_emi", "internal_rng",
         "fast")] + [("absorb", ctypes.c_float), ("inv_keep", ctypes.c_float),
-                    ("seed0", ctypes.c_uint32), ("seed1", ctypes.c_uint32)]
+                    ("seed0", ctypes.c_uint32), ("seed1", ctypes.c_uint32),
+                    ("ray_base", ctypes.c_int)]
 
 
 def _bind(lib, name: str, n_pointers: int, structs=(), n_ints_at=()) -> None:
@@ -512,14 +543,27 @@ def _seed_words(seeds, n_samples: int) -> list:
     return words
 
 
+def check_ray_base(ray_base: int, n: int, n_total: int) -> None:
+    """A launch's slots [ray_base, ray_base + n) must lie among the
+    n_total slots of one chunk of the image."""
+    if ray_base < 0 or ray_base + n > n_total:
+        raise ValueError(f"slots [{ray_base}, {ray_base + n}) lie outside "
+                         f"the {n_total} of one chunk")
+
+
 def _trace_config(cfg: RenderConfig, table, alb, emi, *, seeds=None,
                   fastmath: bool = False, n_chunks: int = 1,
-                  n_rays: int | None = None) -> _DrtTrace:
+                  n_rays: int | None = None,
+                  ray_base: int = 0) -> _DrtTrace:
     """Check the tables on the card and fill the kernels' config; n_rays
-    defaults to the ray slots of one chunk of the image."""
+    defaults to the ray slots of one chunk of the image, and ray_base,
+    the global index of slot 0, to 0."""
     dev = alb.device
     spp_c = cfg.spp // cfg.spp_chunks
-    n = cfg.width * cfg.height * spp_c if n_rays is None else n_rays
+    n_total = cfg.width * cfg.height * spp_c
+    n = n_total if n_rays is None else n_rays
+    if ray_base:
+        check_ray_base(ray_base, n, n_total)
     if alb.ndim != 2 or not 1 <= alb.shape[0] <= MAX_ROWS:
         raise ValueError(f"albedo table {tuple(alb.shape)}: 1..{MAX_ROWS} "
                          "rows of 3")
@@ -540,7 +584,7 @@ def _trace_config(cfg: RenderConfig, table, alb, emi, *, seeds=None,
                      cfg.max_depth, cfg.min_bounces, table.shape[0],
                      alb.shape[0], emi.shape[0], int(seeds is not None),
                      int(bool(fastmath)), cfg.absorb_prob,
-                     1.0 / (1.0 - cfg.absorb_prob), *seed_words)
+                     1.0 / (1.0 - cfg.absorb_prob), *seed_words, ray_base)
 
 
 def _uniform_pointers(tcfg: _DrtTrace, seeds, cam_u, tape, dev):
@@ -580,19 +624,23 @@ def _launch(wrapper, what: str, error_string, entry, dev, *args) -> None:
 def fused_trace(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                 cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor, *,
                 seeds=None, cam_u=None, tape=None, fastmath: bool = False,
-                n_chunks: int = 1, build: str = "queue") -> torch.Tensor:
+                n_chunks: int = 1, build: str = "queue", ray_base: int = 0,
+                n_rays: int | None = None) -> torch.Tensor:
     """Radiance f32[3, N] of the fused tracer. CPU tensors run the plain
     twin (which has one form, so `fastmath` and `build` select only the
     kernel); CUDA tensors launch the kernel or raise. build="lockstep"
     launches the checking build of the lockstep loop, which is not
-    counted."""
+    counted. A shard traces the n_rays slots from ray_base on (by default
+    the chunk's W*H*spp_c from 0); a tape holds the shard's slots."""
     entry = _build_entry("drt_fused_trace", build)
     if _device_of("fused_trace", alb) == "cpu":
         return fused_trace_plain(scene, cc, cfg, alb, emi, seeds=seeds,
-                                 cam_u=cam_u, tape=tape, n_chunks=n_chunks)
+                                 cam_u=cam_u, tape=tape, n_chunks=n_chunks,
+                                 ray_base=ray_base, n_rays=n_rays)
     dev = alb.device
     tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
-                         fastmath=fastmath, n_chunks=n_chunks)
+                         fastmath=fastmath, n_chunks=n_chunks, n_rays=n_rays,
+                         ray_base=ray_base)
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lib = _library()
     out = torch.empty((3, tcfg.n_rays), dtype=torch.float32, device=dev)
@@ -622,21 +670,24 @@ def fused_collect(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                   *, seeds=None, cam_u=None, tape=None,
                   fastmath: bool = False, n_chunks: int = 1,
-                  build: str = "queue"):
+                  build: str = "queue", ray_base: int = 0,
+                  n_rays: int | None = None):
     """(radiance f32[3, N], rsc f32[C, D, N], rbest i32[C, D, N]) of the
     collect tracer, the chunk dimension dropped when n_chunks == 1. The
     radiance equals `fused_trace`'s bit for bit. CPU tensors run the
     plain twin; CUDA tensors launch the kernel or raise. build="lockstep"
     launches the checking build of the lockstep loop, which is not
-    counted."""
+    counted. ray_base and n_rays as `fused_trace`'s."""
     entry = _build_entry("drt_fused_collect", build)
     if _device_of("fused_collect", alb) == "cpu":
         return fused_collect_plain(scene, cc, cfg, alb, emi, seeds=seeds,
                                    cam_u=cam_u, tape=tape,
-                                   n_chunks=n_chunks)
+                                   n_chunks=n_chunks, ray_base=ray_base,
+                                   n_rays=n_rays)
     dev = alb.device
     tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
-                         fastmath=fastmath, n_chunks=n_chunks)
+                         fastmath=fastmath, n_chunks=n_chunks, n_rays=n_rays,
+                         ray_base=ray_base)
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lib = _library()
     out, rsc, rbest = _collect_buffers(cfg, tcfg, n_chunks, dev)
@@ -761,6 +812,9 @@ def _adjoint_buffers(cfg: RenderConfig, tcfg: _DrtTrace, g: torch.Tensor,
         raise ValueError(f"g has shape {tuple(g.shape)}, expected "
                          f"(3, {tcfg.n_rays}) per ray or (3, {npix}) per "
                          "pixel")
+    if tcfg.ray_base and g.shape[1] != tcfg.n_rays:
+        raise ValueError("a launch from ray_base > 0 takes its slots' "
+                         f"cotangent per ray, (3, {tcfg.n_rays})")
     _check("g", g, (3, g.shape[1]), dev)
     entries = (tcfg.n_alb - 1 + tcfg.n_emi - 1) * 3
     n_blocks = -(-tcfg.n_rays // BLOCK)
@@ -792,7 +846,8 @@ def fused_sweep_stages(n_alb: int, n_emi: int, max_depth: int) -> int:
 
 def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
                 alb: torch.Tensor, emi: torch.Tensor, rsc: torch.Tensor,
-                rbest: torch.Tensor, g: torch.Tensor, *, n_chunks: int = 1):
+                rbest: torch.Tensor, g: torch.Tensor, *, n_chunks: int = 1,
+                n_rays: int | None = None):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the sweep adjoint
     from the collect tracer's residuals and a cotangent g. CPU tensors run
     the plain twin; CUDA tensors launch the kernel or raise. The kernel
@@ -800,11 +855,14 @@ def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     further. It takes each slot's first rows through a ring in shared
     memory, sized at launch from what the table rows' accumulator leaves
     (`fused_sweep_stages`: 3 stages up to the tables' 63 + 63 real rows),
-    and takes them through registers where fewer than two stages fit."""
+    and takes them through registers where fewer than two stages fit.
+    The sweep draws nothing: a shard's sweep takes its n_rays slots'
+    residuals and their cotangent per ray, and no ray offset."""
     if _device_of("fused_sweep", alb) == "cpu":
         return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
     dev = alb.device
-    tcfg = _trace_config(cfg, table, alb, emi, n_chunks=n_chunks)
+    tcfg = _trace_config(cfg, table, alb, emi, n_chunks=n_chunks,
+                         n_rays=n_rays)
     n, D = tcfg.n_rays, cfg.max_depth
     res_shape = (D, n) if n_chunks == 1 else (n_chunks, D, n)
     _check("rsc", rsc, res_shape, dev)
@@ -823,20 +881,24 @@ def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                   g: torch.Tensor, *, seeds=None, cam_u=None, tape=None,
                   fastmath: bool = False, n_chunks: int = 1,
-                  build: str = "queue"):
+                  build: str = "queue", ray_base: int = 0,
+                  n_rays: int | None = None):
     """(d_albedo, d_emission) of the retrace adjoint: the forward traced
     again in the kernel from `seeds` (or `cam_u`, `tape`), then the sweep.
     CPU tensors run the plain twin (`build` selects only the kernel); CUDA
     tensors launch the kernel or raise. build="lockstep" launches the
-    checking build of the lockstep loop, which is not counted."""
+    checking build of the lockstep loop, which is not counted. ray_base
+    and n_rays as `fused_trace`'s; from ray_base > 0, g is per ray."""
     entry = _build_entry("drt_fused_adjoint", build)
     if _device_of("fused_adjoint", alb) == "cpu":
         return fused_adjoint_plain(scene, cc, cfg, alb, emi, g, seeds=seeds,
                                    cam_u=cam_u, tape=tape,
-                                   n_chunks=n_chunks)
+                                   n_chunks=n_chunks, ray_base=ray_base,
+                                   n_rays=n_rays)
     dev = alb.device
     tcfg = _trace_config(cfg, table, alb, emi, seeds=seeds,
-                         fastmath=fastmath, n_chunks=n_chunks)
+                         fastmath=fastmath, n_chunks=n_chunks, n_rays=n_rays,
+                         ray_base=ray_base)
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     queue = build == "queue"
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
@@ -1332,85 +1394,94 @@ def _uniform_kw(rng: str, args: tuple) -> dict:
 
 def make_fused_tracer(scene: Scene, cam, cfg: RenderConfig,
                       rng: str = "internal", fastmath: bool = False,
-                      n_chunks: int = 1, plain: bool = False):
+                      n_chunks: int = 1, plain: bool = False,
+                      n_rays: int | None = None):
     """Build `trace(alb, emi, seeds)` (rng="internal") or `trace(alb, emi,
     cam_u, tape)` (rng="tape") -> radiance f32[3, N].
 
     n_chunks > 1 (internal RNG only) runs the spp chunks in one launch
     and sums their radiance per ray slot. plain=True runs the plain twin
-    on whatever device the tensors lie on (the "torch" backend)."""
+    on whatever device the tensors lie on (the "torch" backend). n_rays
+    (by default one chunk's W*H*spp_c) is a shard's count of slots, and
+    `trace(..., ray_base=k * n_rays)` traces shard k's."""
     _check_rng(rng, n_chunks)
     cc = camera_consts(cam, cfg.width, cfg.height)
     table = None if plain else scene_table(scene)
 
-    def trace(alb, emi, *args):
-        kw = _uniform_kw(rng, args)
+    def trace(alb, emi, *args, ray_base: int = 0):
+        kw = dict(_uniform_kw(rng, args), n_chunks=n_chunks,
+                  ray_base=ray_base, n_rays=n_rays)
         if plain:
-            return fused_trace_plain(scene, cc, cfg, alb, emi,
-                                     n_chunks=n_chunks, **kw)
+            return fused_trace_plain(scene, cc, cfg, alb, emi, **kw)
         return fused_trace(scene, table, cc, cfg, alb, emi,
-                           fastmath=fastmath, n_chunks=n_chunks, **kw)
+                           fastmath=fastmath, **kw)
 
     return trace
 
 
 def make_fused_collect_tracer(scene: Scene, cam, cfg: RenderConfig,
                               rng: str = "internal", fastmath: bool = False,
-                              n_chunks: int = 1, plain: bool = False):
+                              n_chunks: int = 1, plain: bool = False,
+                              n_rays: int | None = None):
     """Build `trace(alb, emi, seeds | cam_u, tape) -> (L f32[3, N], rsc,
     rbest)`: the tracer that also stores the adjoint's residuals, 8 bytes
     per bounce-ray (rsc f32, rbest i32, each [D, N], or [C, D, N] for
-    n_chunks > 1). L is `make_fused_tracer`'s radiance bit for bit."""
+    n_chunks > 1). L is `make_fused_tracer`'s radiance bit for bit;
+    n_rays and ray_base as there."""
     _check_rng(rng, n_chunks)
     cc = camera_consts(cam, cfg.width, cfg.height)
     table = None if plain else scene_table(scene)
 
-    def trace(alb, emi, *args):
-        kw = _uniform_kw(rng, args)
+    def trace(alb, emi, *args, ray_base: int = 0):
+        kw = dict(_uniform_kw(rng, args), n_chunks=n_chunks,
+                  ray_base=ray_base, n_rays=n_rays)
         if plain:
-            return fused_collect_plain(scene, cc, cfg, alb, emi,
-                                       n_chunks=n_chunks, **kw)
+            return fused_collect_plain(scene, cc, cfg, alb, emi, **kw)
         return fused_collect(scene, table, cc, cfg, alb, emi,
-                             fastmath=fastmath, n_chunks=n_chunks, **kw)
+                             fastmath=fastmath, **kw)
 
     return trace
 
 
 def make_fused_sweep_adjoint(scene: Scene, cfg: RenderConfig,
-                             n_chunks: int = 1, plain: bool = False):
+                             n_chunks: int = 1, plain: bool = False,
+                             n_rays: int | None = None):
     """Build `sweep(alb, emi, rsc, rbest, g) -> (d_albedo, d_emission)`:
     the backward from the collect tracer's residuals, with g f32[3, N]
-    per ray slot (identical across chunks) or f32[3, W*H] per pixel."""
+    per ray slot (identical across chunks) or f32[3, W*H] per pixel; a
+    shard's sweep (n_rays slots) takes its slots' g per ray."""
     table = None if plain else scene_table(scene)
 
     def sweep(alb, emi, rsc, rbest, g):
         if plain:
             return fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest, g)
         return fused_sweep(scene, table, cfg, alb, emi, rsc, rbest, g,
-                           n_chunks=n_chunks)
+                           n_chunks=n_chunks, n_rays=n_rays)
 
     return sweep
 
 
 def make_fused_adjoint(scene: Scene, cam, cfg: RenderConfig,
                        rng: str = "internal", fastmath: bool = False,
-                       n_chunks: int = 1, plain: bool = False):
+                       n_chunks: int = 1, plain: bool = False,
+                       n_rays: int | None = None):
     """Build `adj(alb, emi, seeds, g)` (rng="internal") or `adj(alb, emi,
     cam_u, tape, g)` (rng="tape") -> (d_albedo, d_emission): the retrace
     adjoint. Pass the forward's seeds for biased mode or a fresh seeds[1]
-    for unbiased mode (integrate.hpp:39-52)."""
+    for unbiased mode (integrate.hpp:39-52). n_rays and ray_base as
+    `make_fused_tracer`'s."""
     _check_rng(rng, n_chunks)
     cc = camera_consts(cam, cfg.width, cfg.height)
     table = None if plain else scene_table(scene)
 
-    def adjoint(alb, emi, *args):
+    def adjoint(alb, emi, *args, ray_base: int = 0):
         *uniforms, g = args
-        kw = _uniform_kw(rng, tuple(uniforms))
+        kw = dict(_uniform_kw(rng, tuple(uniforms)), n_chunks=n_chunks,
+                  ray_base=ray_base, n_rays=n_rays)
         if plain:
-            return fused_adjoint_plain(scene, cc, cfg, alb, emi, g,
-                                       n_chunks=n_chunks, **kw)
+            return fused_adjoint_plain(scene, cc, cfg, alb, emi, g, **kw)
         return fused_adjoint(scene, table, cc, cfg, alb, emi, g,
-                             fastmath=fastmath, n_chunks=n_chunks, **kw)
+                             fastmath=fastmath, **kw)
 
     return adjoint
 

@@ -97,7 +97,8 @@ def t_cap(cfg: RenderConfig) -> int:
 
 def trip_loop_plain(cfg: RenderConfig, cc: mk.CameraConsts, seeds, bounce,
                     pack, n_chunks: int, sample_base: int, collect: bool,
-                    dtype, device):
+                    dtype, device, ray_base: int = 0,
+                    n_pix: int | None = None):
     """The trip loop of both regeneration families over all pixels as
     tensors (regen.py:242-336). `bounce(state, b, u) -> (state, sc, hit)`
     runs one bounce of every lane at its own depth b i64[n] on state =
@@ -106,12 +107,14 @@ def trip_loop_plain(cfg: RenderConfig, cc: mk.CameraConsts, seeds, bounce,
 
     Returns (L f[3, n] summed over the chunks, trips i32[C, n]) and with
     `collect` also (rsc, rcode), each [C, t_cap, n] with zeros beyond a
-    pixel's own trips."""
-    npix = cfg.width * cfg.height
+    pixel's own trips, for the n = n_pix pixels from ray_base on (by
+    default all W*H from 0)."""
+    npix = cfg.width * cfg.height if n_pix is None else n_pix
     spp_c = cfg.spp // cfg.spp_chunks
     cap = t_cap(cfg)
     seed_cam, seed_bnc = (int(v) for v in seeds)
-    pix = torch.arange(npix, dtype=torch.int64, device=device)
+    pix = torch.arange(ray_base, ray_base + npix, dtype=torch.int64,
+                       device=device)
     L_all = None
     trips_all, rsc_all, rcode_all = [], [], []
     for c in range(n_chunks):
@@ -170,7 +173,8 @@ def trip_loop_plain(cfg: RenderConfig, cc: mk.CameraConsts, seeds, bounce,
 
 
 def _regen_plain(scene: Scene, cc: mk.CameraConsts, cfg: RenderConfig, alb,
-                 emi, seeds, n_chunks: int, sample_base: int, collect: bool):
+                 emi, seeds, n_chunks: int, sample_base: int, collect: bool,
+                 ray_base: int = 0, n_pix: int | None = None):
     tabs = (alb, emi)
 
     def bounce(state, b, u):
@@ -186,26 +190,30 @@ def _regen_plain(scene: Scene, cc: mk.CameraConsts, cfg: RenderConfig, alb,
                 | (rr_on.long() << _RRON_BIT)).to(torch.int32)
 
     return trip_loop_plain(cfg, cc, seeds, bounce, pack, n_chunks,
-                           sample_base, collect, alb.dtype, alb.device)
+                           sample_base, collect, alb.dtype, alb.device,
+                           ray_base, n_pix)
 
 
 def regen_trace_plain(scene: Scene, cc: mk.CameraConsts, cfg: RenderConfig,
                       alb: torch.Tensor, emi: torch.Tensor, seeds, *,
-                      n_chunks: int = 1, sample_base: int = 0):
+                      n_chunks: int = 1, sample_base: int = 0,
+                      ray_base: int = 0, n_pix: int | None = None):
     """The plain version of the regeneration tracer: (L f[3, n_pix] summed
-    over the chunks, trips i32[C, n_pix])."""
+    over the chunks, trips i32[C, n_pix]) of the n_pix pixels from
+    ray_base on (by default all W*H from 0)."""
     return _regen_plain(scene, cc, cfg, alb, emi, seeds, n_chunks,
-                        sample_base, False)
+                        sample_base, False, ray_base, n_pix)
 
 
 def regen_collect_plain(scene: Scene, cc: mk.CameraConsts, cfg: RenderConfig,
                         alb: torch.Tensor, emi: torch.Tensor, seeds, *,
-                        n_chunks: int = 1, sample_base: int = 0):
+                        n_chunks: int = 1, sample_base: int = 0,
+                        ray_base: int = 0, n_pix: int | None = None):
     """The plain version of the collect form: (L, rsc f[C, t_cap, n_pix],
     rmeta i32[C, t_cap, n_pix], trips i32[C, n_pix]); rows beyond a
     pixel's trips are zero."""
     return _regen_plain(scene, cc, cfg, alb, emi, seeds, n_chunks,
-                        sample_base, True)
+                        sample_base, True, ray_base, n_pix)
 
 
 def sweep_trips_plain(cfg: RenderConfig, alb: torch.Tensor,
@@ -374,16 +382,23 @@ def check_regen_args(cfg: RenderConfig, seeds, n_chunks: int,
                          "stay within 31 bits")
 
 
-def per_pixel(tcfg: mk._DrtTrace, cfg: RenderConfig) -> mk._DrtTrace:
-    """A kernel config whose slots are pixels: one thread per pixel."""
-    tcfg.n_rays = cfg.width * cfg.height
+def per_pixel(tcfg: mk._DrtTrace, cfg: RenderConfig,
+              n_pix: int | None = None, ray_base: int = 0) -> mk._DrtTrace:
+    """A kernel config whose slots are pixels: one thread per pixel, the
+    n_pix pixels from ray_base on (a shard's; by default all W*H)."""
+    npix = cfg.width * cfg.height
+    tcfg.n_rays = npix if n_pix is None else n_pix
+    if ray_base:
+        mk.check_ray_base(ray_base, tcfg.n_rays, npix)
+    tcfg.ray_base = ray_base
     return tcfg
 
 
-def trip_buffers(cfg: RenderConfig, n_chunks: int, collect: bool, dev):
+def trip_buffers(cfg: RenderConfig, n_chunks: int, collect: bool, dev,
+                 n_pix: int | None = None):
     """(out, trips) and, with `collect`, (rsc, rcode): uninitialized, a
     pixel's rows beyond its trips stay so."""
-    npix = cfg.width * cfg.height
+    npix = cfg.width * cfg.height if n_pix is None else n_pix
     out = torch.empty((3, npix), dtype=torch.float32, device=dev)
     trips = torch.empty((n_chunks, npix), dtype=torch.int32, device=dev)
     if not collect:
@@ -393,18 +408,18 @@ def trip_buffers(cfg: RenderConfig, n_chunks: int, collect: bool, dev):
             torch.empty(shape, dtype=torch.int32, device=dev))
 
 
-def _scratch(cfg: RenderConfig, n_chunks: int, dev) -> torch.Tensor:
+def _scratch(n_pix: int, n_chunks: int, dev) -> torch.Tensor:
     """The tracer's scratch: its batch counter (16 bytes) and, over more
     than one chunk, the radiance of each (pixel, chunk) unit f32[C, 3,
     n_pix] after it."""
-    sums = 3 * n_chunks * cfg.width * cfg.height if n_chunks > 1 else 0
+    sums = 3 * n_chunks * n_pix if n_chunks > 1 else 0
     return torch.empty(4 + sums, dtype=torch.float32, device=dev)
 
 
 def check_rows(cfg: RenderConfig, n_chunks: int, rsc, rcode, trips, g,
-               dev) -> None:
+               dev, n_pix: int | None = None) -> None:
     """Shapes and types of what a sweep kernel reads."""
-    npix = cfg.width * cfg.height
+    npix = cfg.width * cfg.height if n_pix is None else n_pix
     shape = (n_chunks, t_cap(cfg), npix)
     mk._check("rsc", rsc, shape, dev)
     mk._check("residual rows", rcode, shape, dev, torch.int32)
@@ -440,7 +455,8 @@ def _launch_tracer(wrapper, what: str, entry_name: str,
                    table: torch.Tensor, cc: mk.CameraConsts,
                    cfg: RenderConfig, alb, emi, seeds, fastmath: bool,
                    n_chunks: int, sample_base: int, buffers,
-                   stats=None) -> None:
+                   stats=None, ray_base: int = 0,
+                   n_pix: int | None = None) -> None:
     """Launch one of the tracer library's forms into `buffers` (out, trips
     and, for the collect form, rsc and rmeta), with its scratch and, for
     the checking build, stats; count it on `wrapper` (None: not
@@ -448,8 +464,8 @@ def _launch_tracer(wrapper, what: str, entry_name: str,
     dev = alb.device
     tcfg = per_pixel(mk._trace_config(cfg, table, alb, emi, seeds=seeds,
                                       fastmath=fastmath, n_chunks=n_chunks),
-                     cfg)
-    scratch = _scratch(cfg, n_chunks, dev)
+                     cfg, n_pix, ray_base)
+    scratch = _scratch(tcfg.n_rays, n_chunks, dev)
     lib = _library()
     mk._launch(wrapper, what, lib.drt_regen_error_string,
                getattr(lib, entry_name), dev, ctypes.byref(tcfg),
@@ -462,39 +478,47 @@ def _launch_tracer(wrapper, what: str, entry_name: str,
 def regen_trace(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
                 cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                 seeds, *, fastmath: bool = False, n_chunks: int = 1,
-                sample_base: int = 0):
+                sample_base: int = 0, ray_base: int = 0,
+                n_pix: int | None = None):
     """(L f32[3, n_pix] radiance sums, trips i32[C, n_pix]) of the
     regeneration tracer. CPU tensors run the plain version (which has one
     form, so `fastmath` selects only the kernel's variant); CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. A shard renders the n_pix pixels from
+    ray_base on (by default all W*H from 0)."""
     check_regen_args(cfg, seeds, n_chunks, sample_base)
     if mk._device_of("regen_trace", alb) == "cpu":
         return regen_trace_plain(scene, cc, cfg, alb, emi, seeds,
-                                 n_chunks=n_chunks, sample_base=sample_base)
-    out, trips = trip_buffers(cfg, n_chunks, False, alb.device)
+                                 n_chunks=n_chunks, sample_base=sample_base,
+                                 ray_base=ray_base, n_pix=n_pix)
+    out, trips = trip_buffers(cfg, n_chunks, False, alb.device, n_pix)
     _launch_tracer(regen_trace, "regeneration tracer", "drt_regen_trace",
                    table, cc, cfg, alb, emi, seeds, fastmath, n_chunks,
-                   sample_base, (out, trips))
+                   sample_base, (out, trips), None, ray_base, n_pix)
     return out, trips
 
 
 def regen_collect(scene: Scene, table: torch.Tensor, cc: mk.CameraConsts,
                   cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
                   seeds, *, fastmath: bool = False, n_chunks: int = 1,
-                  sample_base: int = 0):
+                  sample_base: int = 0, ray_base: int = 0,
+                  n_pix: int | None = None):
     """(L, rsc f32[C, t_cap, n_pix], rmeta i32[C, t_cap, n_pix], trips) of
     the collect form. L equals `regen_trace`'s bit for bit. On the card a
     pixel's rows beyond its trips are uninitialized. CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel or raise. ray_base and
+    n_pix as `regen_trace`'s."""
     check_regen_args(cfg, seeds, n_chunks, sample_base)
     if mk._device_of("regen_collect", alb) == "cpu":
         return regen_collect_plain(scene, cc, cfg, alb, emi, seeds,
                                    n_chunks=n_chunks,
-                                   sample_base=sample_base)
-    out, trips, rsc, rmeta = trip_buffers(cfg, n_chunks, True, alb.device)
+                                   sample_base=sample_base,
+                                   ray_base=ray_base, n_pix=n_pix)
+    out, trips, rsc, rmeta = trip_buffers(cfg, n_chunks, True, alb.device,
+                                          n_pix)
     _launch_tracer(regen_collect, "regeneration collect tracer",
                    "drt_regen_collect", table, cc, cfg, alb, emi, seeds,
-                   fastmath, n_chunks, sample_base, (out, trips, rsc, rmeta))
+                   fastmath, n_chunks, sample_base, (out, trips, rsc, rmeta),
+                   None, ray_base, n_pix)
     return out, rsc, rmeta, trips
 
 
@@ -557,7 +581,8 @@ def regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
 def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
                 alb: torch.Tensor, emi: torch.Tensor, rsc: torch.Tensor,
                 rmeta: torch.Tensor, trips: torch.Tensor, g: torch.Tensor,
-                *, n_chunks: int = 1, build: str = "queue"):
+                *, n_chunks: int = 1, build: str = "queue",
+                n_pix: int | None = None):
     """(d_albedo f32[K+1, 3], d_emission f32[L+1, 3]) of the regeneration
     sweep adjoint from the collect form's rows and a per-pixel cotangent
     g f32[3, n_pix]. CPU tensors run the plain version (`build` selects
@@ -565,14 +590,16 @@ def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     reads each warp's rows in windows of adjacent pixels' rows
     (`regen_sweep_form`: "window"), or one pixel's rows a thread where the
     windows do not fit; build="lockstep" launches the per-pixel kernel at
-    every call, the bit reference, and is not counted."""
+    every call, the bit reference, and is not counted. A shard's sweep
+    takes its n_pix pixels' rows and cotangent, and no pixel offset: it
+    draws nothing."""
     entry = mk._build_entry("drt_regen_sweep", build)
     if mk._device_of("regen_sweep", alb) == "cpu":
         return regen_sweep_plain(scene, cfg, alb, emi, rsc, rmeta, trips, g)
     dev = alb.device
     tcfg = per_pixel(mk._trace_config(cfg, table, alb, emi,
-                                      n_chunks=n_chunks), cfg)
-    check_rows(cfg, n_chunks, rsc, rmeta, trips, g, dev)
+                                      n_chunks=n_chunks), cfg, n_pix)
+    check_rows(cfg, n_chunks, rsc, rmeta, trips, g, dev, tcfg.n_rays)
     partials, da, de = mk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
     mk._launch(regen_sweep if build == "queue" else None,
@@ -591,17 +618,21 @@ mk.register_wrappers(regen_tracer=regen_trace, regen_collect=regen_collect,
 
 def make_regen_tracer(scene: Scene, cam, cfg: RenderConfig,
                       fastmath: bool = False, collect: bool = False,
-                      n_chunks: int = 1, plain: bool = False):
+                      n_chunks: int = 1, plain: bool = False,
+                      n_pix: int | None = None):
     """Build `trace(alb, emi, seeds, sample_base=0) -> (L f32[3, n_pix],
     trips i32[C, n_pix])`, or with collect=True `-> (L, rsc, rmeta,
     trips)`. L holds per-pixel radiance SUMS over all n_chunks * spp_c
     samples from `sample_base` on. plain=True runs the plain version on
-    whatever device the tensors lie on (the "torch-regen" backend)."""
+    whatever device the tensors lie on (the "torch-regen" backend).
+    n_pix (by default W*H) is a shard's count of pixels, and `trace(...,
+    ray_base=k * n_pix)` renders shard k's."""
     cc = mk.camera_consts(cam, cfg.width, cfg.height)
     table = None if plain else mk.scene_table(scene)
 
-    def trace(alb, emi, seeds, sample_base=0):
-        kw = dict(n_chunks=n_chunks, sample_base=sample_base)
+    def trace(alb, emi, seeds, sample_base=0, ray_base: int = 0):
+        kw = dict(n_chunks=n_chunks, sample_base=sample_base,
+                  ray_base=ray_base, n_pix=n_pix)
         if plain:
             fn = regen_collect_plain if collect else regen_trace_plain
             return fn(scene, cc, cfg, alb, emi, seeds, **kw)
@@ -614,7 +645,7 @@ def make_regen_tracer(scene: Scene, cam, cfg: RenderConfig,
 
 def make_regen_sweep_adjoint(scene: Scene, cfg: RenderConfig,
                              n_chunks: int = 1, plain: bool = False,
-                             build: str = "queue"):
+                             build: str = "queue", n_pix: int | None = None):
     """Build `sweep(alb, emi, rsc, rmeta, trips, g) -> (d_albedo,
     d_emission)`: the backward from the collect form's rows, with g
     f32[3, n_pix] per pixel, the same for all of a pixel's samples.
@@ -627,6 +658,6 @@ def make_regen_sweep_adjoint(scene: Scene, cfg: RenderConfig,
             return regen_sweep_plain(scene, cfg, alb, emi, rsc, rmeta, trips,
                                      g)
         return regen_sweep(scene, table, cfg, alb, emi, rsc, rmeta, trips, g,
-                           n_chunks=n_chunks, build=build)
+                           n_chunks=n_chunks, build=build, n_pix=n_pix)
 
     return sweep

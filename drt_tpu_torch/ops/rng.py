@@ -118,8 +118,8 @@ def split_lanes(n_split: int, depth: int) -> int:
 
 def prefix_tape(seed, pix: torch.Tensor, s: torch.Tensor, n_split: int,
                 depth: int, dtype=torch.float32, lanes_outer: bool = False,
-                n_samples: int | None = None, first: int = 0
-                ) -> torch.Tensor:
+                n_samples: int | None = None, first: int = 0,
+                lanes: tuple | None = None) -> torch.Tensor:
     """The prefix-shared bounce draws f[depth - first, 3, N * M] of the
     rays (pix, s) (i64[N] each) at the bounces first..depth-1, each ray
     split into M = `split_lanes(n_split, depth)` leaf lanes, from `seed`
@@ -139,7 +139,11 @@ def prefix_tape(seed, pix: torch.Tensor, s: torch.Tensor, n_split: int,
     lanes_outer, M-outer (lane m * N + r, the fused kernels' order, whose
     pixel is lane % (W*H)). The samples must lie below n_samples (by
     default read from s) with n_samples * M <= 2^31: the kernels carry
-    sample indices in 31 bits.
+    sample indices in 31 bits. lanes=(start, stop), M-outer only, draws
+    those lanes alone (a shard's), f[depth - first, 3, stop - start], bit
+    for bit that slice of the whole: the leaves m = start // N ..
+    (stop - 1) // N it crosses are drawn (over the range's own rays where
+    it lies in one leaf) and the range cut from them.
 
     The draws are made group by group: the word of (seed, pix) once, the
     word of each group's sample index once for every bounce and slot that
@@ -154,9 +158,21 @@ def prefix_tape(seed, pix: torch.Tensor, s: torch.Tensor, n_split: int,
         if n_samples * M > 2 ** 31:
             raise ValueError(f"sample index exceeds 31 bits: {n_samples} "
                              f"samples x {M} split lanes")
+    m_lo, m_hi, cut = 0, M, None  # the leaves drawn; the lanes kept
+    if lanes is not None:
+        if not lanes_outer:
+            raise ValueError("a lane range is of the M-outer order")
+        start, stop = lanes
+        m_lo, m_hi = start // n, -(-stop // n)
+        if m_hi - m_lo == 1:
+            pix, s = (t[start - m_lo * n:stop - m_lo * n] for t in (pix, s))
+            n = stop - start
+        else:
+            cut = (start - m_lo * n, stop - m_lo * n)
     key = _key_word(_u32(seed, dev), _u32(pix, dev))
     base = _u32(s, dev) * M
-    tape = torch.empty((depth - first, 3, n * M), dtype=dtype, device=dev)
+    tape = torch.empty((depth - first, 3, n * (m_hi - m_lo)), dtype=dtype,
+                       device=dev)
     words = {}  # lanes per group -> the group's word, [G, N] or [N, G]
     for b in range(first, depth):
         rr_size = M // min(n_split ** b, M)
@@ -164,19 +180,38 @@ def prefix_tape(seed, pix: torch.Tensor, s: torch.Tensor, n_split: int,
         for size in [k for k in words if k > rr_size]:
             del words[size]  # the groups only shrink with the bounce
         for dim, size in ((0, rr_size), (1, u_size), (2, u_size)):
-            groups = M // size
             if size not in words:
-                m0 = torch.arange(groups, dtype=torch.int64,
-                                  device=dev) * size
+                m0 = torch.arange(m_lo // size, -(-m_hi // size),
+                                  dtype=torch.int64, device=dev) * size
                 idx = (base[None, :] + m0[:, None] if lanes_outer
                        else base[:, None] + m0[None, :])
                 kk = key[None, :] if lanes_outer else key[:, None]
                 words[size] = kk ^ _mul32(idx, C1)
             u = _uniform(_draw_bits(words[size], b, dim), dtype)
             if lanes_outer:
-                tape[b - first, dim].view(groups, size, n).copy_(
-                    u[:, None, :])
+                _spread(tape[b - first, dim].view(m_hi - m_lo, n), u, m_lo,
+                        m_hi, size)
             else:
-                tape[b - first, dim].view(n, groups, size).copy_(
+                tape[b - first, dim].view(n, M // size, size).copy_(
                     u[:, :, None])
+    if cut is not None:
+        tape = tape[..., cut[0]:cut[1]].contiguous()
     return tape
+
+
+def _spread(out: torch.Tensor, u: torch.Tensor, m_lo: int, m_hi: int,
+            size: int) -> None:
+    """out[L, N] holds the leaves m_lo..m_hi - 1 of an M-outer tape; leaf m
+    takes the draws u[m // size - m_lo // size] of its group (u[G, N], the
+    groups the leaves fall in): a group cut by the range's first or last
+    leaf is one broadcast copy, the whole groups between one more."""
+    g_lo = m_lo // size
+    a = min(-(-m_lo // size) * size, m_hi)  # the first group edge
+    z = max(m_hi // size * size, a)  # the last
+    if a > m_lo:
+        out[:a - m_lo].copy_(u[0])
+    if z > a:
+        out[a - m_lo:z - m_lo].view((z - a) // size, size, out.shape[1]) \
+            .copy_(u[a // size - g_lo:z // size - g_lo, None, :])
+    if m_hi > z:
+        out[z - m_lo:].copy_(u[z // size - g_lo])

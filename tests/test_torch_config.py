@@ -45,8 +45,9 @@ def test_validation_errors_match(kw):
 def test_import_leaves_jax_out():
     """Every module of the port imports in a fresh interpreter without
     pulling in jax (or the JAX package): among them the early-exit tracer
-    and the segment forms (`ops.megakernel`, `fused`), and the
-    checkpoint, logging, profiling and debug utilities."""
+    and the segment forms (`ops.megakernel`, `fused`), the checkpoint,
+    logging, profiling and debug utilities, and the device mesh and the
+    multi-process runtime (`parallel.mesh`, `parallel.multihost`)."""
     mods = [m.name for m in pkgutil.walk_packages(
         drt_tpu_torch.__path__, "drt_tpu_torch.")]
     assert {"drt_tpu_torch.ops.megakernel", "drt_tpu_torch.ops.dynkernel",
@@ -58,7 +59,9 @@ def test_import_leaves_jax_out():
             "drt_tpu_torch.cli", "drt_tpu_torch.utils.native",
             "drt_tpu_torch.utils.checkpoint", "drt_tpu_torch.utils.logging",
             "drt_tpu_torch.utils.profiling",
-            "drt_tpu_torch.utils.debug"} <= set(mods)
+            "drt_tpu_torch.utils.debug", "drt_tpu_torch.parallel.render",
+            "drt_tpu_torch.parallel.mesh",
+            "drt_tpu_torch.parallel.multihost"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

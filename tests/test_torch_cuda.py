@@ -2245,3 +2245,135 @@ def test_split_tape_on_the_card_is_the_cpu_tape(dev):
         for a, b in zip(fused.split_prefix_tape([3, 4], chunk, cfg, dev),
                         fused.split_prefix_tape([3, 4], chunk, cfg)):
             assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# The global ray offset (ray_base): a shard's launch is the slice of the
+# launch from 0.
+
+OFFSET_SHARDS = 4
+
+
+def _offset_family(family):
+    """(scene constructor, prepare the scene, tracer, collect, sweep, retrace
+    adjoint makers) of a lockstep family."""
+    if family == "fused":
+        return (cbox.build, lambda s: s, mk.make_fused_tracer,
+                mk.make_fused_collect_tracer, mk.make_fused_sweep_adjoint,
+                mk.make_fused_adjoint)
+    return (_mesh(1), dk.DynScene, dk.make_dyn_tracer,
+            dk.make_dyn_collect_tracer, dk.make_dyn_sweep_adjoint,
+            dk.make_dyn_adjoint)
+
+
+@pytest.mark.parametrize("rng", ["internal", "tape"])
+@pytest.mark.parametrize("family", ["fused", "dyn"])
+def test_ray_base_gives_the_slice_of_the_launch_from_0(dev, family, rng):
+    """B1/B6 and B2/B7 at ray_base = k n / 4 on n / 4 slots equal the
+    slice [k n / 4, (k + 1) n / 4) of their launch from 0 bit for bit
+    (internal RNG over 2 chunks, and tape form); B4/B9 there equal B3/B8
+    on that slice of B2/B7's residuals bit for bit; each matches its plain
+    version at that offset (C.4 tolerances)."""
+    build, prep, make_t, make_c, make_s, make_a = _offset_family(family)
+    scene, params, cam, alb, emi = _setup(build, dev)
+    ks = prep(scene)
+    chunks = 2 if rng == "internal" else 1
+    cfg = RenderConfig(width=64, height=48, spp=4 * chunks,
+                       spp_chunks=chunks, max_depth=5)
+    n = 64 * 48 * 4
+    q = n // OFFSET_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.rand((3, 64 * 48), generator=gen, device=dev)
+    g_ray = g.repeat(1, 4)
+    if rng == "internal":
+        uniforms = (torch.tensor([41, -42], dtype=torch.int32),)
+    else:
+        uniforms = (torch.rand((2, n), generator=gen, device=dev),
+                    torch.rand((5, 3, n), generator=gen, device=dev))
+    kw = dict(rng=rng, n_chunks=chunks)
+    full_L = make_t(ks, cam, cfg, **kw)(alb, emi, *uniforms)
+    full_c = make_c(ks, cam, cfg, **kw)(alb, emi, *uniforms)
+    assert torch.equal(full_c[0], full_L) and full_L.mean() > 0
+    for k in range(OFFSET_SHARDS):
+        a, b = k * q, (k + 1) * q
+        mine = tuple(u if rng == "internal" else u[..., a:b].contiguous()
+                     for u in uniforms)
+        shard = dict(n_rays=q, **kw)
+        L = make_t(ks, cam, cfg, **shard)(alb, emi, *mine, ray_base=a)
+        assert torch.equal(L, full_L[:, a:b])
+        coll = make_c(ks, cam, cfg, **shard)(alb, emi, *mine, ray_base=a)
+        for x, y in zip(coll, full_c):
+            assert torch.equal(x, y[..., a:b])
+        g_k = g_ray[:, a:b].contiguous()
+        adj = make_a(ks, cam, cfg, **shard)(alb, emi, *mine, g_k,
+                                            ray_base=a)
+        sweep = make_s(ks, cfg, n_chunks=chunks, n_rays=q)(
+            alb, emi, *(r.contiguous() for r in coll[1:]), g_k)
+        for x, y in zip(adj, sweep):
+            assert torch.equal(x, y)
+        if k in (0, OFFSET_SHARDS - 1):
+            ref = make_t(ks, cam, cfg, plain=True, **shard)(
+                alb, emi, *mine, ray_base=a)
+            assert _share_beyond(L, ref, 2e-5, 2e-6) <= 1e-3
+            _grads_close(adj, make_a(ks, cam, cfg, plain=True, **shard)(
+                alb, emi, *mine, g_k, ray_base=a))
+    half = n // 2  # a per-pixel cotangent does not fit a shard's slots
+    with pytest.raises(ValueError, match="per ray"):
+        make_a(ks, cam, cfg, n_rays=half, **kw)(alb, emi, *(
+            uniforms if rng == "internal" else
+            (u[..., half:].contiguous() for u in uniforms)), g,
+            ray_base=half)
+
+
+def test_earlyexit_ray_base_gives_the_slice(dev):
+    from drt_tpu_torch.ops.earlyexit import make_earlyexit_tracer
+
+    scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    cfg = RenderConfig(width=64, height=48, spp=8, spp_chunks=2,
+                       max_depth=5)
+    n = 64 * 48 * 4
+    q = n // OFFSET_SHARDS
+    seeds = torch.tensor([5, 9], dtype=torch.int32)
+    full = make_earlyexit_tracer(scene, cam, cfg, n_chunks=2)(alb, emi,
+                                                               seeds)
+    for k in range(OFFSET_SHARDS):
+        got = make_earlyexit_tracer(scene, cam, cfg, n_rays=q, n_chunks=2)(
+            alb, emi, seeds, ray_base=k * q)
+        assert torch.equal(got, full[:, k * q:(k + 1) * q])
+
+
+@pytest.mark.parametrize("family,make", [REGEN_CASES[0], REGEN_CASES[5]],
+                         ids=["regen-cbox", "dyn-mesh87"])
+def test_regen_ray_base_gives_the_pixel_slice(dev, family, make):
+    """B10/B12 (tracer and collect forms) at the pixel offset k P / 4 on
+    P / 4 pixels equal the slice of their launch from 0: radiance and
+    trips bit for bit, and every row below each pixel's trips; their
+    plain versions at that offset agree (C.4 tolerances)."""
+    prep, make_t = _regen_family(family)[:2]
+    scene, params, cam, alb, emi = _setup(make, dev)
+    ks = prep(scene)
+    cfg = RenderConfig(width=64, height=48, spp=8, spp_chunks=2,
+                       max_depth=5)
+    npix = 64 * 48
+    q = npix // OFFSET_SHARDS
+    seeds = torch.tensor([17, 18], dtype=torch.int32)
+    full_L, full_trips = make_t(ks, cam, cfg, n_chunks=2)(alb, emi, seeds)
+    full = make_t(ks, cam, cfg, collect=True, n_chunks=2)(alb, emi, seeds)
+    for k in range(OFFSET_SHARDS):
+        a, b = k * q, (k + 1) * q
+        L, trips = make_t(ks, cam, cfg, n_chunks=2, n_pix=q)(
+            alb, emi, seeds, ray_base=a)
+        assert torch.equal(L, full_L[:, a:b])
+        assert torch.equal(trips, full_trips[:, a:b])
+        Lc, rsc, rows, trips_c = make_t(ks, cam, cfg, collect=True,
+                                        n_chunks=2, n_pix=q)(
+            alb, emi, seeds, ray_base=a)
+        assert torch.equal(Lc, L) and torch.equal(trips_c, trips)
+        own = (torch.arange(rsc.shape[1], device=dev)[None, :, None]
+               < trips[:, None, :])
+        assert torch.equal(rsc[own], full[1][..., a:b][own])
+        assert torch.equal(rows[own], full[2][..., a:b][own])
+        if k in (0, OFFSET_SHARDS - 1):
+            ref = make_t(ks, cam, cfg, n_chunks=2, n_pix=q, plain=True)(
+                alb, emi, seeds, ray_base=a)[0]
+            assert _share_beyond(L, ref, 2e-5, 2e-6) <= 1e-3

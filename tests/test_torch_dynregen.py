@@ -280,8 +280,8 @@ def test_renderer_forms_agree_with_the_dyn_lockstep_renderer(glossy, kw):
     ("router", dict(backend="pallas-dyn-regen"), ValueError,
      "'pallas-dyn-regen' is 'cuda-dyn-regen'"),
     ("router", dict(backend="cuda-dyn-regen"), ValueError, "CUDA device"),
-    ("router", dict(backend="pallas-dyn-regen-sharded"), NotImplementedError,
-     "A14"),
+    ("router", dict(backend="pallas-dyn-regen-sharded"), ValueError,
+     "'pallas-dyn-regen-sharded' is 'cuda-dyn-regen-sharded'"),
 ])
 def test_dyn_regen_renderers_refuse(glossy, make, kw, err, match):
     _, (scene, _, cam) = glossy

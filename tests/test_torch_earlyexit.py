@@ -87,7 +87,8 @@ def test_bit_equal_to_the_fused_tracer(name):
 
 def test_exits_early_and_refuses_a_pixel_offset():
     """At depth 16 the plain loop leaves once no ray lives, and the
-    radiance is the full loop's; a tile_base other than 0 raises."""
+    radiance is the full loop's; a tile_base other than 0 raises, naming
+    the ray offset the port's tracers take instead."""
     scene, cam, alb, emi = _port("cbox")
     cfg = dataclasses.replace(CFG, max_depth=16)
     r = np.random.default_rng(2)
@@ -97,5 +98,5 @@ def test_exits_early_and_refuses_a_pixel_offset():
     L = trace(alb, emi, cam_u, tape)
     assert torch.equal(L, mk.make_fused_tracer(scene, cam, cfg, rng="tape")(
         alb, emi, cam_u, tape))
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="ray_base"):
         trace(alb, emi, cam_u, tape, tile_base=1)

@@ -363,8 +363,8 @@ def test_image_is_the_lockstep_image_up_to_summation_order(both):
     ("router", dict(backend="pallas-regen"), ValueError,
      "'pallas-regen' is 'cuda-regen'"),
     ("router", dict(backend="cuda-regen"), ValueError, "CUDA device"),
-    ("router", dict(backend="pallas-regen-sharded"), NotImplementedError,
-     "A14"),
+    ("router", dict(backend="pallas-regen-sharded"), ValueError,
+     "'pallas-regen-sharded' is 'cuda-regen-sharded'"),
 ])
 def test_regen_renderers_refuse(both, make, kw, err, match):
     _, (scene, _, cam) = both

@@ -94,17 +94,19 @@ def test_fastmath_auto_is_fast_for_internal_rng(fastmath, rng, fast):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(backend="cuda"), ValueError, "CUDA device"),
     (dict(backend="xla"), ValueError, "'xla' is 'cuda-wavefront'"),
-    (dict(mesh=object()), NotImplementedError, "A14"),
+    (dict(mesh=object()), TypeError, "parallel.mesh.Mesh"),
     (dict(backend="pallas-dyn"), ValueError, "'pallas-dyn' is 'cuda-dyn'"),
     (dict(backend="cuda-dyn"), ValueError, "CUDA device"),
-    (dict(backend="pallas-dyn-sharded"), NotImplementedError, "A14"),
+    (dict(backend="pallas-dyn-sharded"), ValueError,
+     "'pallas-dyn-sharded' is 'cuda-dyn-sharded'"),
     (dict(backend="pallas-regen"), ValueError,
      "'pallas-regen' is 'cuda-regen'"),
     (dict(backend="pallas-dyn-regen"), ValueError,
      "'pallas-dyn-regen' is 'cuda-dyn-regen'"),
     (dict(backend="cuda-regen"), ValueError, "CUDA device"),
     (dict(backend="cuda-dyn-regen"), ValueError, "CUDA device"),
-    (dict(backend="pallas-regen-sharded"), NotImplementedError, "A14"),
+    (dict(backend="pallas-regen-sharded"), ValueError,
+     "'pallas-regen-sharded' is 'cuda-regen-sharded'"),
     (dict(backend="pallas-split"), ValueError,
      "'pallas-split' is 'cuda-split'"),
     (dict(backend="bogus"), ValueError, "unknown backend"),

@@ -6,6 +6,7 @@ sitting; and break the tracers' time down by section.
   python3 tools/bench_torch_fused.py --segments
   python3 tools/bench_torch_fused.py --regen-sweep
   python3 tools/bench_torch_fused.py --breakdown [--queue] [--root DIR]
+  python3 tools/bench_torch_fused.py --split-tape [--root DIR]
 
 Imports drt_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels from DIR's sources, and prints JSON lines:
@@ -66,6 +67,13 @@ branches) of a shape test and of shade in the fast builds, from nvdisasm
 of a -lineinfo cubin of csrc/fused_tracer.cu; and with --queue the
 queue's checking build (lane-trips, warp-trips, sections, and its trip
 counter against ops.megakernel.trip_counts_plain).
+With --split-tape it builds no kernel and prints "tape" lines: one
+chunk's `fused.split_prefix_tape` at chip_smoke.py's split cells (phases
+18 and 20: Cornell box, 640x480x16 spp, 4 chunks, depth 5, bsdf_samples
+2, 19,660,800 lanes a chunk), device ms as "kernel" lines time them, and
+the SHA-256 of (cam_u, tape): the whole chunk and, where the checkout's
+`split_prefix_tape` takes lanes=, shards 0 and 1 of 2 (whole leaves) and
+shard 1 of 3 (parts of leaves).
 Run the comparison on the checkouts in turns (A, B, B, A) to see the
 card's drift.
 """
@@ -1209,6 +1217,31 @@ def compare(torch, label: str) -> None:
          s_per_step_of_5=t5 / 5, s_per_step_of_10=t10 / 10)
 
 
+def split_tape(torch, label: str) -> None:
+    """The "tape" lines of --split-tape (the module docstring)."""
+    from drt_tpu_torch import fused
+    from drt_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=640, height=480, spp=16, spp_chunks=4,
+                       max_depth=5, bsdf_samples=2)
+    n = fused.split_chunk_cfg(cfg).spp * cfg.width * cfg.height
+    seeds = [7, 8]
+    ranges = [None]
+    if "lanes" in inspect.signature(fused.split_prefix_tape).parameters:
+        ranges += [(0, n // 2), (n // 2, n), (n // 3, 2 * n // 3)]
+    for lanes in ranges:
+        kw = {} if lanes is None else dict(lanes=lanes)
+        ms, means, (cam_u, tape) = cuda_ms(
+            torch, lambda: fused.split_prefix_tape(seeds, 1, cfg, "cuda",
+                                                   **kw))
+        h = hashlib.sha256()
+        for t in (cam_u, tape):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        emit("tape", label, lanes=lanes or [0, n], ms=ms, window_ms=means,
+             digest=h.hexdigest())
+        del cam_u, tape
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -1219,6 +1252,8 @@ def main() -> int:
                     help="only B14, B4-seg and the compacted renderer")
     ap.add_argument("--regen-sweep", action="store_true",
                     help="only B11 and the cuda-regen paths")
+    ap.add_argument("--split-tape", action="store_true",
+                    help="only split_prefix_tape, whole and a shard's lanes")
     ap.add_argument("--parts", action="store_true",
                     help="only the parts of the wavefront's chunk and B10's "
                          "launch")
@@ -1239,6 +1274,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     emit("card", label, smi=smi, torch=torch.__version__)
+    if args.split_tape:
+        split_tape(torch, label)
+        return 0
     built = native.build_all()
     for source in sorted(built):
         lines = [ln.strip() for ln in
