@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--keep-going]
                         [--only=dyn|regen|wavefront|compact|fused|sweep|split|
-                                invert|mesh]
+                                invert|mesh|deep]
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. the card's name and power limit, torch and CUDA versions;
@@ -191,14 +191,42 @@ Phases (any failure raises, exits non-zero and prints no result line):
      the one process's image bit for bit and its gradients, the same Adam
      steps on both ranks; TileScheduler(fault_rate=0.25) over the card
      equal to the fault-free run;
- 21. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
+ 21. deep paths and wide tables, the adjoint kernels' deep forms (rows
+     past the 32 a thread keeps, and accumulators past the 144 table rows
+     a block's shared memory holds, in device memory): each lifted kernel
+     (B3, B4, B5b, B4-seg, B8, B9, B11, B13) at depths 33, 40 and 64 with
+     absorb_prob 0.1 (the live bounce-slots past 32 counted), per-ray and
+     per-pixel cotangents, tape mode, the internal RNG in 2 chunks and the
+     unbiased salted seed: with every albedo 0.8 (so that the rows past
+     32 weigh) the sweeps against their plain versions on the kernels'
+     rows and, bit for bit, retrace = sweep(collect), B5b = B4 on B4's
+     rays, B4-seg's queue = its lockstep build and [0, D) = B4; the
+     retrace forms against their plain versions on the scenes' own
+     tables; the memory-resident kernels at 100 + 45 and 255 + 255 real
+     table rows;
+     then at full width: the Cornell box at 640x480x256 in 16 chunks,
+     depth 64, through make_renderer "auto" (which retraces: 40 GB of
+     rows would exceed the stored budget): forward, a retrace step, a
+     stored step (the same gradients bit for bit), one chunk against
+     backend="torch", an unbiased step (2 adjoint samples), a step of
+     the compacted renderer (against the exact retrace) and of
+     "cuda-regen", 5 optim.inverse_render steps; `cli invert` at the
+     CLI's 640x480x100 with --max-depth 64 -p 0.1; "cuda-wavefront" at
+     640x480x64 in 16 chunks, depth 64, one step; the 1287-shape mesh
+     with 255 + 255 real rows at 640x480x64 in 4 chunks, depth 64,
+     through "auto" ("cuda-dyn", stored) and retrace, the same gradients
+     bit for bit, and "cuda-dyn-regen"; each lifted kernel timed at depth
+     64 beside depth 32 on one shape, B8, B9 and B13 also at 255 + 255
+     rows, with the bound of the depth-64 work and its tables' SHA-256
+     digests (at depth 32 those of the parent's instance);
+ 22. a line {"kernels": [...]} of seventeen entries, the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
-Before each of the paths of 5, 6, 7, 10, 13, 14, 15, 18, 19 and 20 the
+Before each of the paths of 5, 6, 7, 10, 13, 14, 15, 18, 19, 20 and 21 the
 launch counts are set to 0, and read just after. --only=dyn (phases 8-10),
 --only=regen (phases 11-13), --only=wavefront (phase 14), --only=compact
 (phase 15), --only=fused (phase 16), --only=sweep (phase 17),
---only=split (phase 18), --only=invert (phase 19) and --only=mesh (phase
-20) build, run those
+--only=split (phase 18), --only=invert (phase 19), --only=mesh (phase
+20) and --only=deep (phase 21) build, run those
 phases and stop without a result line (exit 1): short runs while working
 on them.
 
@@ -4106,6 +4134,773 @@ def mesh_worker(rank: str, world: str, init: str, out: str) -> int:
     return 0
 
 
+# Phase 21: paths past the 32 rows a thread keeps and tables past the 144
+# rows a block's shared memory accumulates (the adjoint kernels' deep
+# forms, csrc/grad_accum.cuh). absorb_prob 0.1 keeps paths alive past
+# bounce 32 (at the default 0.5 a path reaches bounce 33 with probability
+# 2e-10); each check counts the live bounce-slots past 32.
+DEEP_DEPTHS = (33, 40, 64)
+DEEP_ABSORB = 0.1
+# The lifted kernels of the full-width runs, with the row of each.
+DEEP_KERNELS = ("fused_sweep", "fused_adjoint", "ray_adjoint",
+                "segment_adjoint", "dyn_sweep", "dyn_adjoint",
+                "regen_sweep", "dyn_regen_sweep")
+
+
+def wide_tables(builder, n_alb: int, n_emi: int, faces):
+    """Add to `builder` the box of gallery.build_mesh (red, green and white
+    walls, the light) and the triangles `faces` (k, 3, 3), face k diffuse
+    with albedo row 3 + k % (n_alb - 3) and every fifth face an emitter of
+    row 1 + k // 5 % (n_emi - 1): a scene of n_alb + n_emi real table
+    rows, of which the faces use as many as they reach (all of them with
+    the 1280 faces of the icosphere)."""
+    red = builder.albedo_param([0.5, 0.1, 0.1])
+    green = builder.albedo_param([0.1, 0.5, 0.1])
+    white = builder.albedo_param([0.5, 0.5, 0.5])
+    light = builder.emission_param([2.0, 2.0, 2.0])
+    mats = [builder.diffuse(builder.albedo_param(
+        [0.2 + 0.6 * ((k * 37) % 11) / 10, 0.2 + 0.6 * ((k * 53) % 7) / 6,
+         0.2 + 0.6 * ((k * 71) % 5) / 4])) for k in range(n_alb - 3)]
+    emits = [builder.emission_param([0.02 * (1 + k % 3), 0.03, 0.02])
+             for k in range(n_emi - 1)]
+    for k, v in enumerate(faces):
+        builder.triangle(*v, mats[k % len(mats)],
+                         emits[k // 5 % len(emits)] if k % 5 == 0 else None)
+    builder.plane([-1.0, 0.0, 0.0], -3.0, builder.diffuse(red))
+    builder.plane([1.0, 0.0, 0.0], -3.0, builder.diffuse(green))
+    for n, off in (([0.0, 0.0, -1.0], -6.5), ([0.0, 0.0, 1.0], 0.0),
+                   ([0.0, 1.0, 0.0], -3.0), ([0.0, -1.0, 0.0], -3.0)):
+        builder.plane(n, off, builder.diffuse(white))
+    builder.sphere([0.0, 2.9, 3.8], 0.8, None, light)
+    return builder
+
+
+def deep_phase(dev, smi_line: str, timing: dict) -> dict:
+    """Phase 21: deep paths and wide tables. Each lifted kernel (B3, B4,
+    B5b, B4-seg, B8, B9, B11, B13) against its plain version or another
+    form at depths 33, 40 and 64 (absorb_prob 0.1; every albedo 0.8 for
+    the sweeps and the bit-equalities), per-ray and per-pixel cotangents,
+    tape mode and the internal RNG in 2 chunks, the unbiased salted seed;
+    retrace = sweep(collect) bit for bit; the memory-resident kernels at
+    145 and 255 + 255 real table rows; then at full width: the Cornell
+    box at 640x480x256 in 16 chunks, depth 64, through make_renderer
+    "auto" (forward, a step in the mode "auto" picks, a step in the other
+    mode, an unbiased step, 5 optim.inverse_render steps; a step of the
+    compacted renderer and of "cuda-regen"); `cli invert` at the CLI's
+    640x480x100, --max-depth 64 -p 0.1; "cuda-wavefront" at 640x480x64
+    in 16 chunks, depth 64; the 1287-shape mesh with 255 + 255 real rows
+    at 640x480x64 in 4 chunks, depth 64, through "auto" ("cuda-dyn"),
+    stored and retrace, and "cuda-dyn-regen". Each lifted kernel timed
+    (and its tables' digests printed) at depth 64 beside depth
+    32 at one shape (the memory-resident ones also at 255 + 255 rows).
+    Then B3, B8, B11 and B13 at full width on one chunk, past the items a
+    deep form's grid holds, against their plain versions. Printed, not
+    checked: `[witness]` lines of B4 against the plain retrace on bright
+    glossy tables at depths 8-64 (ROADMAP C.4).
+    Returns per lifted kernel `deep_launches` (its launches on the
+    full-width paths), `deep_ms`, `deep_ms_at_32`, `deep_bound_ms` and,
+    for B8, B9 and B13, `wide_ms` (255 + 255 rows, depth 64)."""
+    import tempfile
+
+    from drt_tpu_torch import cli, fused, optim
+    from drt_tpu_torch.config import RenderConfig
+    from drt_tpu_torch.fused import seeds_from_generator
+    from drt_tpu_torch.models import cbox, gallery
+    from drt_tpu_torch.ops import dynkernel as dk
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import megakernel as mk
+    from drt_tpu_torch.ops import regen as rg
+    from drt_tpu_torch.ops.rng import hash_tapes
+    from drt_tpu_torch.parallel.render import make_renderer
+    from drt_tpu_torch.scene import (TRIANGLE, Params, SceneBuilder,
+                                     albedo_table, emission_table)
+
+    t_phase = time.time()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {name: {} for name in DEEP_KERNELS}
+
+    def tables(scene, params):
+        return albedo_table(scene, params), emission_table(scene, params)
+
+    def bright(scene, params):
+        """The tables with every albedo 0.8: a path keeps 0.8 / (1 - 0.1)
+        of its throughput a bounce, so its rows past 32 weigh 2e-2 of its
+        first in the gradients (at the scenes' own albedos of 0.5, 1e-8:
+        below any tolerance)."""
+        return tables(scene, Params(torch.full_like(params.albedo, 0.8),
+                                    params.emission))
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def nonzero(t):
+        """Non-zero entries of t, counted a leading index at a time (a
+        count over 40 GB of rows takes an int64 copy of them)."""
+        return sum(int(torch.count_nonzero(x).item())
+                   for x in (t if t.ndim == 3 else (t,)))
+
+    def past_32(label, live):
+        """Live bounce-slots past bounce 32 of rows live[..., D, N]."""
+        n = nonzero(live[..., 32:, :])
+        print(f"[deep] {label}: {n} live bounce-slots past bounce 32",
+              flush=True)
+        check(n > 0, f"{label}: no path lives past bounce 32")
+
+    mesh_scene, _, mesh_cam = gallery.build_mesh(3, device=dev)
+    tri = mesh_scene.shape_type == TRIANGLE
+    mesh_faces = mesh_scene.shape_geo[tri][:, :9].reshape(-1, 3, 3).tolist()
+
+    def wide(n_alb, n_emi, faces):
+        scene, params = wide_tables(SceneBuilder(), n_alb, n_emi,
+                                    faces).build(device=dev)
+        return scene, params
+
+    # Small shapes: 32x24x4 spp (3072 rays), tape mode.
+    W, H, S = 32, 24, 4
+    n, npix = W * H * S, W * H
+    g_ray, g_pix = rand(3, n), rand(3, npix)
+    cots = (("per ray", g_ray), ("per pixel", g_pix))
+    seeds = torch.tensor([2026, -21], dtype=torch.int32)
+    for label, build in (("cbox", cbox.build),
+                         ("glossy", gallery.build_glossy)):
+        scene, params, cam = build(device=dev)
+        own = tables(scene, params)
+        alb, emi = bright(scene, params)
+        table = mk.scene_table(scene)
+        cc = mk.camera_consts(cam, W, H)
+        # The kernels against their plain versions where each reads the
+        # other's rows (the sweeps; bright tables, so the rows past 32
+        # weigh), and the retrace forms against the sweep or the queue
+        # against the lockstep loop, bit for bit, bright too. Retrace
+        # against the plain retrace: on the scenes' own tables, since over
+        # 33-64 bright bounces the ulps of libm turn paths (0.1-0.8% of the
+        # tables at 0.8). On the glossy scene the specular weight's
+        # sqrt(1 - cos_h^2) loses digits as cos_h -> 1 (ROADMAP C.4): the
+        # main shape's tolerance there.
+        rtol = GRAD_RTOL_SMALL if label == "cbox" else GRAD_RTOL_MAIN
+        for D in DEEP_DEPTHS:
+            cfg = RenderConfig(width=W, height=H, spp=S, max_depth=D,
+                               absorb_prob=DEEP_ABSORB)
+            tag = f"{label}, depth {D}"
+            cam_u, tape = rand(2, n), rand(D, 3, n)
+            _, rsc, rbest = mk.make_fused_collect_tracer(
+                scene, cam, cfg, rng="tape")(alb, emi, cam_u, tape)
+            past_32(f"B2 rows, {tag}", rbest > 0)
+            sweep = mk.make_fused_sweep_adjoint(scene, cfg)
+            adj = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")
+            plain = mk.make_fused_adjoint(scene, cam, cfg, rng="tape",
+                                          plain=True)
+            for cot, g in cots:
+                d3 = sweep(alb, emi, rsc, rbest, g)
+                compare_grads(f"B3 vs plain on its rows, {tag}, {cot}", d3,
+                              mk.fused_sweep_plain(scene, cfg, alb, emi, rsc,
+                                                   rbest, g),
+                              rtol)
+                same_bits(f"B4 = B3(B2), {tag}, {cot}",
+                          adj(alb, emi, cam_u, tape, g), d3)
+                compare_grads(f"B4 vs plain, own tables, {tag}, {cot}",
+                              adj(*own, cam_u, tape, g),
+                              plain(*own, cam_u, tape, g), rtol)
+            # B5b on B4's own rays (divided as the kernel divides) = B4;
+            # and against its plain version on the own tables.
+            o, d = (torch.stack(tuple(v)) for v in mk.camera_ray_from_pix(
+                cc._replace(width=torch.tensor(W, device=dev),
+                            height=torch.tensor(H, device=dev)),
+                torch.arange(n, device=dev) % npix, cam_u[0], cam_u[1]))
+            same_bits(f"B5b = B4 on B4's rays, {tag}", mk.ray_adjoint(
+                scene, table, cfg, alb, emi, o, d, tape, g_ray),
+                adj(alb, emi, cam_u, tape, g_ray))
+            compare_grads(f"B5b vs plain, own tables, {tag}", mk.ray_adjoint(
+                scene, table, cfg, *own, o, d, tape, g_ray),
+                mk.ray_adjoint_plain(scene, cfg, *own, o, d, tape, g_ray),
+                rtol)
+            # B4-seg: [0, 2) traced, then [2, D) (the queue's deep form) =
+            # its lockstep build (the lockstep loop's deep form), and
+            # against the plain version on the own tables; [0, D) from the
+            # camera = B4.
+            check(mk.segment_form(2, scene.num_shapes, alb.shape[0],
+                                  emi.shape[0]) == "queue",
+                  "segment [2, D) does not take the queue")
+            u2 = tape[2:].contiguous()
+            for tabs, name in (((alb, emi), "bright"), (own, "own tables")):
+                _, (ray, alive) = mk.make_fused_segment_tracer(
+                    scene, cam, cfg, 0, 2, rng="tape")(
+                        *tabs, cam_u, tape[:2].contiguous())
+                seg = [mk.make_fused_segment_adjoint(
+                    scene, cam, cfg, 2, D, rng="tape", **kw)(
+                        *tabs, u2, ray, alive, g_ray)
+                    for kw in ({}, dict(build="lockstep"),
+                               dict(plain=True))]
+                same_bits(f"B4-seg [2, {D}) = its lockstep build, {name}, "
+                          f"{label}", seg[0], seg[1])
+                if name == "bright":
+                    continue
+                compare_grads(f"B4-seg [2, {D}) vs plain, {name}, {label}",
+                              seg[0][:2], seg[2][:2], rtol)
+                compare(f"B4-seg [2, {D}) S_start vs plain, {name}, "
+                        f"{label}", seg[0][2], seg[2][2], EXACT_TOL, None)
+            same_bits(f"B4-seg [0, {D}) = B4, {tag}",
+                      mk.make_fused_segment_adjoint(
+                          scene, cam, cfg, 0, D, rng="tape")(
+                              alb, emi, cam_u, tape, g_ray),
+                      adj(alb, emi, cam_u, tape, g_ray))
+            # B11: the regeneration rows of the keyed draws.
+            check(rg.regen_sweep_form(cfg, alb, emi) == "deep",
+                  f"B11 at depth {D} does not take its deep form")
+            _, rr_sc, rr_meta, trips = rg.regen_collect(
+                scene, table, cc, cfg, alb, emi, seeds)
+            compare_grads(f"B11 vs plain on its rows, {tag}", rg.regen_sweep(
+                scene, table, cfg, alb, emi, rr_sc, rr_meta, trips, g_pix),
+                rg.regen_sweep_plain(scene, cfg, alb, emi, rr_sc, rr_meta,
+                                     trips, g_pix), rtol)
+            del rsc, rbest, rr_sc, rr_meta
+        # The internal RNG over 2 chunks, exact and fast, and the unbiased
+        # salted seed.
+        cfg2 = RenderConfig(width=W, height=H, spp=2 * S, spp_chunks=2,
+                            max_depth=40, absorb_prob=DEEP_ABSORB)
+        for fm in (False, True):
+            kw2 = dict(n_chunks=2, fastmath=fm)
+            _, rsc, rbest = mk.make_fused_collect_tracer(
+                scene, cam, cfg2, **kw2)(alb, emi, seeds)
+            past_32(f"B2 rows, {label}, internal RNG, 2 chunks, fast={fm}",
+                    rbest > 0)
+            for cot, g in cots:
+                d3 = mk.make_fused_sweep_adjoint(scene, cfg2, n_chunks=2)(
+                    alb, emi, rsc, rbest, g)
+                same_bits(f"B4 = B3(B2), {label}, internal, 2 chunks, "
+                          f"fast={fm}, {cot}",
+                          mk.make_fused_adjoint(scene, cam, cfg2, **kw2)(
+                              alb, emi, seeds, g), d3)
+        cfg1 = RenderConfig(width=W, height=H, spp=S, max_depth=40,
+                            absorb_prob=DEEP_ABSORB)
+        salted = fused._salted(seeds, 1)
+        s_u, s_t = hash_tapes(salted, npix, S, 40, device=dev)
+        same_bits(f"salted B4 = tape B4 of hash_tapes(salted), {label}",
+                  mk.make_fused_adjoint(scene, cam, cfg1)(alb, emi, salted,
+                                                          g_pix),
+                  mk.make_fused_adjoint(scene, cam, cfg1, rng="tape")(
+                      alb, emi, s_u, s_t, g_pix))
+
+    # A witness for the retrace-vs-plain checks' tables above: on bright
+    # tables B4 parts from the plain retrace at depths 33-64. Printed, not
+    # checked: the same comparison at depths 8-32, where every launch runs
+    # the parent's in-thread instance, and the collect tracer's rows
+    # against the plain collect's (the share of bounce-slots whose row
+    # differs, and the first bounce at which one does), say whether the
+    # tracer's paths turn (libm's ulps) or the deep form errs.
+    scene, params, cam = gallery.build_glossy(device=dev)
+    alb, emi = bright(scene, params)
+    for D in (8, 16, 32, 33, 40, 64):
+        cfg = RenderConfig(width=W, height=H, spp=S, max_depth=D,
+                           absorb_prob=DEEP_ABSORB)
+        cam_u, tape = rand(2, n), rand(D, 3, n)
+        got = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(
+            alb, emi, cam_u, tape, g_ray)
+        ref = mk.make_fused_adjoint(scene, cam, cfg, rng="tape",
+                                    plain=True)(alb, emi, cam_u, tape, g_ray)
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got, ref)]
+        _, _, rbest = mk.make_fused_collect_tracer(
+            scene, cam, cfg, rng="tape")(alb, emi, cam_u, tape)
+        _, _, rbest_p = mk.make_fused_collect_tracer(
+            scene, cam, cfg, rng="tape", plain=True)(alb, emi, cam_u, tape)
+        differs = rbest != rbest_p
+        at = differs.any(dim=1).nonzero()
+        print(f"[witness] glossy, bright tables, depth {D}: B4 vs plain "
+              f"retrace rel (d_albedo, d_emission) = {rel!r}; B2 rows vs "
+              f"plain collect's: {differs.sum().item()} of "
+              f"{nonzero(rbest_p)} live bounce-slots differ, first at "
+              f"bounce {at[0].item() if at.numel() else None}", flush=True)
+
+    # The memory-resident kernels: cbox at every depth, the wide tables at
+    # depth 5 (the accumulator's deep form alone) and 40.
+    scene, params, cam = cbox.build(device=dev)
+    cases = [("cbox", scene, params, cam, DEEP_DEPTHS)]
+    small_faces = mesh_faces[:320]
+    for n_alb, n_emi in ((100, 45), (255, 255)):
+        ws, wp = wide(n_alb, n_emi, small_faces)
+        cases.append((f"{n_alb} + {n_emi} rows", ws, wp, mesh_cam, (5, 40)))
+    for label, scene, params, cam, depths in cases:
+        alb, emi = bright(scene, params)
+        ds = dk.DynScene(scene)
+        cc = mk.camera_consts(cam, W, H)
+        for D in depths:
+            cfg = RenderConfig(width=W, height=H, spp=S, max_depth=D,
+                               absorb_prob=DEEP_ABSORB)
+            tag = f"{label}, depth {D}"
+            cam_u, tape = rand(2, n), rand(D, 3, n)
+            _, rsc, rrow = dk.make_dyn_collect_tracer(
+                ds, cam, cfg, rng="tape")(alb, emi, cam_u, tape)
+            if D > 32:
+                past_32(f"B7 rows, {tag}", (rrow >> 16) & 1)
+            adj = dk.make_dyn_adjoint(ds, cam, cfg, rng="tape")
+            for cot, g in cots:
+                d8 = dk.make_dyn_sweep_adjoint(ds, cfg)(alb, emi, rsc, rrow,
+                                                        g)
+                compare_grads(f"B8 vs plain on its rows, {tag}, {cot}", d8,
+                              dk.dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g),
+                              GRAD_RTOL_SMALL)
+                same_bits(f"B9 = B8(B7), {tag}, {cot}",
+                          adj(alb, emi, cam_u, tape, g), d8)
+            check(dr.dyn_regen_sweep_form(cfg, alb, emi) == "deep",
+                  f"B13, {tag}, does not take its deep form")
+            _, rr_sc, rr_row, trips = dr.dyn_regen_collect(
+                ds, cc, cfg, alb, emi, seeds)
+            compare_grads(f"B13 vs plain on its rows, {tag}",
+                          dr.dyn_regen_sweep(cfg, alb, emi, rr_sc, rr_row,
+                                             trips, g_pix),
+                          dr.dyn_regen_sweep_plain(cfg, alb, emi, rr_sc,
+                                                   rr_row, trips, g_pix),
+                          GRAD_RTOL_SMALL)
+            del rsc, rrow, rr_sc, rr_row
+        cfg2 = RenderConfig(width=W, height=H, spp=2 * S, spp_chunks=2,
+                            max_depth=40, absorb_prob=DEEP_ABSORB)
+        for fm in (False, True):
+            _, rsc, rrow = dk.make_dyn_collect_tracer(
+                ds, cam, cfg2, n_chunks=2, fastmath=fm)(alb, emi, seeds)
+            same_bits(f"B9 = B8(B7), {label}, internal RNG, 2 chunks, "
+                      f"fast={fm}",
+                      dk.make_dyn_adjoint(ds, cam, cfg2, n_chunks=2,
+                                          fastmath=fm)(alb, emi, seeds,
+                                                       g_pix),
+                      dk.make_dyn_sweep_adjoint(ds, cfg2, n_chunks=2)(
+                          alb, emi, rsc, rrow, g_pix))
+            del rsc, rrow
+    print(f"[deep] small shapes done in {time.time() - t_phase:.1f}s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    def leaves_of(p):
+        return Params(*(t.detach().clone().requires_grad_() for t in p))
+
+    def step(render_fn, p, s, tgt):
+        p = leaves_of(p)
+        img = render_fn(p, s)
+        check(img.grad_fn is not None, "the image carries no grad_fn")
+        loss = ((img - tgt) ** 2).mean()
+        loss.backward()
+        return loss.detach(), (p.albedo.grad, p.emission.grad)
+
+    def counted(label, fn, expected=None):
+        """fn() with the launch counts set to 0 before and read after."""
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in mk.launch_counts().items() if v}
+        print(f"[deep] {label}: {seconds!r} s, launches={counts}",
+              flush=True)
+        if expected is not None:
+            check(counts == expected, f"{label} launched {counts}")
+        for k, v in counts.items():
+            if k in out:
+                out[k]["deep_launches"] = out[k].get("deep_launches", 0) + v
+        return res, seconds
+
+    def bound(name, n_bytes, n_ops, note):
+        t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_o = n_ops / PEAK_F32_OPS_PER_S * 1e3
+        out[name]["deep_bound_ms"] = max(t_b, t_o)
+        out[name]["deep_bound_by"] = "bytes" if t_b >= t_o else "operations"
+        print(f"[bound] {name} at depth 64 ({note}): bytes={n_bytes} "
+              f"({t_b!r} ms) operations={n_ops} ({t_o!r} ms)", flush=True)
+
+    def timed(name, label, fn, key="deep_ms"):
+        """fn's device ms as out[name][key], and the SHA-256 digests of
+        its tables: at depth 32 those of the parent's instance."""
+        ms, windows, res = cuda_ms(fn, **timing)
+        out[name][key] = ms
+        print(f"[time] {name} {label}: {ms!r} ms (windows {windows!r}) on "
+              f"{smi_line}", flush=True)
+        print(f"[digest] {name} {label}: {[digest(t) for t in res]}",
+              flush=True)
+        return res
+
+    # The Cornell box at 640x480x256 in 16 chunks, depth 64.
+    scene, params, cam = cbox.build(device=dev)
+    alb, emi = tables(scene, params)
+    cfg_c = RenderConfig(**{**MAIN, "max_depth": 64},
+                         absorb_prob=DEEP_ABSORB)
+    n_rays = cfg_c.width * cfg_c.height * cfg_c.spp
+    mode = fused._resolve_adjoint(cfg_c, "auto", dev)
+    other = "stored" if mode == "retrace" else "retrace"
+    print(f"[deep] Cornell box 640x480x256 depth 64: residuals "
+          f"{fused.stored_bytes(cfg_c)} B of a budget of "
+          f"{fused.stored_budget_bytes(dev)} B; auto takes {mode!r}",
+          flush=True)
+    check(mode == "retrace", "auto should retrace 40 GB of rows")
+    s_list = [seeds_from_generator(torch.Generator().manual_seed(k))
+              for k in (0, 1)]
+    render = make_renderer(scene, cfg_c, cam, differentiable=False)
+    render(params, s_list[0])
+    target, _ = counted("Cornell forward, depth 64",
+                        lambda: render(params, s_list[1]),
+                        dict(fused_tracer=1))
+    reads_right(target, "Cornell, depth 64")
+    p_off = Params(params.albedo * 0.8, params.emission * 1.1)
+    forms = {mode: make_renderer(scene, cfg_c, cam),
+             other: fused.make_fused_image_renderer(scene, cam, cfg_c,
+                                                    adjoint=other)}
+    expect = {"retrace": dict(fused_tracer=1, fused_adjoint=1),
+              "stored": dict(fused_collect=1, fused_sweep=1)}
+    grads = {}
+    for m, fn in forms.items():
+        step(fn, p_off, s_list[0], target)
+        (loss, grads[m]), _ = counted(
+            f"Cornell step, depth 64, {m}{' (auto)' if m == mode else ''}",
+            lambda: step(fn, p_off, s_list[0], target), expect[m])
+        torch.cuda.empty_cache()
+    same_bits("Cornell depth 64: stored step's grads = retrace step's",
+              grads["stored"], grads["retrace"])
+    # One chunk (640x480x16) against backend="torch".
+    one = RenderConfig(width=640, height=480, spp=16, max_depth=64,
+                       absorb_prob=DEEP_ABSORB)
+    compare_grads("Cornell depth 64, one chunk: grads vs backend='torch'",
+                  step(make_renderer(scene, one, cam), p_off, s_list[0],
+                       target)[1],
+                  step(make_renderer(scene, one, cam, backend="torch"),
+                       p_off, s_list[0], target)[1], GRAD_RTOL_MAIN)
+    # The other paths of the lifted kernels at this shape: unbiased (2
+    # adjoint samples: B4's deep form on salted seeds), the compacted
+    # renderer (B4-seg's queue over [2, 64) in its deep form) against the
+    # exact retrace, and "cuda-regen" (B11's deep form, per chunk: 40 GB
+    # of rows would exceed the stored budget).
+    cfg_u = dataclasses.replace(cfg_c, unbiased=True, adjoint_samples=2)
+    counted("Cornell step, depth 64, unbiased x 2",
+            lambda: step(make_renderer(scene, cfg_u, cam), p_off, s_list[0],
+                         target), dict(fused_tracer=1, fused_adjoint=2))
+    compacted = fused.make_compacted_image_renderer(scene, cam, cfg_c)
+    step(compacted, p_off, s_list[0], target)
+    (_, g_cmp), _ = counted(
+        "compacted step, depth 64, split at 2",
+        lambda: step(compacted, p_off, s_list[0], target),
+        dict(segment_tracer=2 * cfg_c.spp_chunks,
+             segment_adjoint=2 * cfg_c.spp_chunks))
+    compare_grads("compacted, depth 64: grads vs 'cuda' retrace (exact)",
+                  g_cmp, step(fused.make_fused_image_renderer(
+                      scene, cam, cfg_c, adjoint="retrace", fastmath=False),
+                      p_off, s_list[0], target)[1], GRAD_RTOL_MAIN)
+    del compacted
+    regen = make_renderer(scene, cfg_c, cam, backend="cuda-regen")
+    step(regen, p_off, s_list[0], target)
+    counted("cuda-regen step, depth 64",
+            lambda: step(regen, p_off, s_list[0], target))
+    del regen
+    torch.cuda.empty_cache()
+    start = params.albedo.clone()
+    start[cbox.RED] = torch.tensor([0.2, 0.15, 0.1], device=dev)
+    (fitted, metrics), t5 = counted(
+        "Cornell depth 64: 5 optim.inverse_render steps",
+        lambda: optim.inverse_render(scene, cfg_c, cam, target,
+                                     Params(start, params.emission),
+                                     torch.Generator().manual_seed(5),
+                                     steps=5))
+    check(bool(torch.isfinite(metrics["loss"]).all()),
+          "the trainer's losses at depth 64 are not finite")
+    print(f"[deep] trainer depth 64: {t5 / 5!r} s a step, loss "
+          f"{metrics['loss'].tolist()}", flush=True)
+    del forms, grads, target
+    torch.cuda.empty_cache()
+    # B4 and B3 at depth 64 beside depth 32, the main path's calls.
+    g_main = rand(3, cfg_c.width * cfg_c.height) / cfg_c.spp
+    kw_m = dict(fastmath=True, n_chunks=cfg_c.spp_chunks)
+    for D, key in ((64, "deep_ms"), (32, "deep_ms_at_32")):
+        cfg_d = dataclasses.replace(cfg_c, max_depth=D)
+        adj = mk.make_fused_adjoint(scene, cam, cfg_d, **kw_m)
+        d4 = timed("fused_adjoint", f"main shape, depth {D}",
+                   lambda: adj(alb, emi, s_list[1], g_main), key)
+        _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg_d,
+                                                     **kw_m)(alb, emi,
+                                                             s_list[1])
+        sweep = mk.make_fused_sweep_adjoint(scene, cfg_d,
+                                            n_chunks=cfg_c.spp_chunks)
+        d3 = timed("fused_sweep", f"main shape, depth {D}",
+                   lambda: sweep(alb, emi, rsc, rbest, g_main), key)
+        same_bits(f"B4 = B3(B2) at the main shape, depth {D}", d4, d3)
+        if D == 64:
+            past_32("B2 rows, main shape, depth 64", rbest > 0)
+            live = nonzero(rbest)
+            need = 4 * (2 * live + sum(nonzero((c == 0).any(dim=0))
+                                       for c in rbest))
+            ops_hit = sum(OPS_SHAPE[t] for t in scene.shape_type.tolist())
+            tb = 4 * (mk.scene_table(scene).numel() + 2 * alb.numel()
+                      + 2 * emi.numel()) + 4 * g_main.numel()
+            bound("fused_adjoint", tb, n_rays * OPS_CAMERA
+                  + live * (ops_hit + OPS_SHADE + OPS_SWEEP),
+                  f"{live} live bounce-rays")
+            bound("fused_sweep", tb + need, live * OPS_SWEEP,
+                  f"{need} bytes of rows up to each first dead row")
+        del rsc, rbest
+        torch.cuda.empty_cache()
+
+    # B4-seg at depth 64 beside 32: one chunk of the main shape, [0, 2)
+    # traced, then [2, D) over its 4,915,200 lanes (the queue).
+    spp_c = cfg_c.spp // cfg_c.spp_chunks
+    K = cfg_c.width * cfg_c.height * spp_c
+    for D, key in ((64, "deep_ms"), (32, "deep_ms_at_32")):
+        cfg_s = RenderConfig(width=640, height=480, spp=spp_c, max_depth=D,
+                             absorb_prob=DEEP_ABSORB)
+        _, (ray, alive) = mk.make_fused_segment_tracer(
+            scene, cam, cfg_s, 0, 2)(alb, emi, s_list[1])
+        idx = torch.arange(K, dtype=torch.int32, device=dev)
+        g_k = rand(3, K)
+        seg = mk.make_fused_segment_adjoint(scene, cam, cfg_s, 2, D)
+        timed("segment_adjoint", f"[2, {D}) on one chunk of the main shape",
+              lambda: seg(alb, emi, s_list[1], ray, alive, idx, g_k), key)
+        if D == 64:
+            # The segment's live bounces: the collect tracer's chunk 0 at
+            # the same seeds from bounce 2 on.
+            _, _, rbest = mk.make_fused_collect_tracer(scene, cam, cfg_s)(
+                alb, emi, s_list[1])
+            live = nonzero(rbest[2:])
+            bound("segment_adjoint", tb + 4 * (9 * K + K + 3 * K + 3 * K),
+                  live * (ops_hit + OPS_SHADE + OPS_SWEEP),
+                  f"the lanes' state, g and S_start; {live} live bounces")
+            del rbest
+        del ray, alive
+    torch.cuda.empty_cache()
+
+    # cli invert at the CLI's default shape, --max-depth 64 -p 0.1.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "deep.json"
+        rc, t_cli = counted(
+            "cli invert 640x480x100 --max-depth 64 -p 0.1, 4 steps",
+            lambda: cli.main(["invert", "-o", str(path), "--max-depth", "64",
+                              "-p", str(DEEP_ABSORB), "--steps", "4",
+                              "--log-every", "0"]))
+        check(rc == 0, f"cli invert at depth 64 returned {rc}")
+        res = json.loads(path.read_text())
+        check(all(math.isfinite(v) for v in [res["final_loss"]]),
+              "cli invert at depth 64: loss not finite")
+        print(f"[deep] cli invert depth 64: {res}", flush=True)
+
+    # "cuda-wavefront" at 640x480x64 in 16 chunks, depth 64: one step;
+    # B5b at depth 64 beside 32 on one chunk.
+    cfg_w = RenderConfig(width=640, height=480, spp=64, spp_chunks=16,
+                         max_depth=64, absorb_prob=DEEP_ABSORB)
+    wave = make_renderer(scene, cfg_w, cam, backend="cuda-wavefront")
+    target = make_renderer(scene, cfg_w, cam, differentiable=False)(
+        params, s_list[1])
+    counted("cuda-wavefront 640x480x64 depth 64, one step",
+            lambda: step(wave, p_off, s_list[0], target))
+    del wave, target
+    torch.cuda.empty_cache()
+    table = mk.scene_table(scene)
+    nw = 640 * 480 * 4
+    cc = mk.camera_consts(cam, 640, 480)
+    cu = rand(2, nw)
+    o, d = (torch.stack(tuple(v)) for v in mk.camera_ray_from_pix(
+        cc, torch.arange(nw, device=dev) % (640 * 480), cu[0], cu[1]))
+    g_w = rand(3, nw)
+    for D, key in ((64, "deep_ms"), (32, "deep_ms_at_32")):
+        cfg_r = RenderConfig(width=640, height=480, spp=4, max_depth=D,
+                             absorb_prob=DEEP_ABSORB)
+        u = rand(D, 3, nw)
+        timed("ray_adjoint", f"one chunk of 640x480x4 rays, depth {D}",
+              lambda: mk.ray_adjoint(scene, table, cfg_r, alb, emi, o, d, u,
+                                     g_w), key)
+        if D == 64:
+            # The same paths' live bounces: the tape-mode collect tracer
+            # on the camera draws these rays were made from.
+            _, _, rbest = mk.make_fused_collect_tracer(
+                scene, cam, cfg_r, rng="tape")(alb, emi, cu, u)
+            live = nonzero(rbest)
+            bound("ray_adjoint", tb + 4 * (6 * nw + 3 * nw) + 12 * live,
+                  live * (ops_hit + OPS_SHADE + OPS_SWEEP),
+                  f"rays and g read once, the tape's 12 B for each of "
+                  f"{live} live bounces")
+            del rbest
+    del u, o, d
+    torch.cuda.empty_cache()
+
+    # B11 at the CLI's shape (one chunk), depth 64 beside 32.
+    seeds_r = torch.tensor([5, 6], dtype=torch.int32)
+    cc = mk.camera_consts(cam, 640, 480)
+    for D, key in ((64, "deep_ms"), (32, "deep_ms_at_32")):
+        cfg_r = RenderConfig(**{**CLI_SHAPE, "max_depth": D},
+                             absorb_prob=DEEP_ABSORB)
+        _, r_sc, r_meta, trips = rg.regen_collect(scene, table, cc, cfg_r,
+                                                  alb, emi, seeds_r)
+        g_p = rand(3, 640 * 480)
+        timed("regen_sweep", f"640x480x100, depth {D} ({rg.regen_sweep_form(cfg_r, alb, emi)})",
+              lambda: rg.regen_sweep(scene, table, cfg_r, alb, emi, r_sc,
+                                     r_meta, trips, g_p), key)
+        if D == 64:
+            n_trips = int(trips.sum().item())
+            bound("regen_sweep", 8 * n_trips + 4 * (trips.numel() + 3 * 640
+                                                    * 480),
+                  n_trips * OPS_SWEEP, f"{n_trips} trips")
+        del r_sc, r_meta
+        torch.cuda.empty_cache()
+
+    # The 1287-shape mesh with 255 + 255 real rows at 640x480x64 in 4
+    # chunks, depth 64, through "auto" ("cuda-dyn"): stored and retrace.
+    ws, wp = wide(255, 255, mesh_faces)
+    walb, wemi = tables(ws, wp)
+    cfg_m = RenderConfig(**{**MESH_MAIN, "max_depth": 64},
+                         absorb_prob=DEEP_ABSORB)
+    n_mesh = cfg_m.width * cfg_m.height * cfg_m.spp
+    print(f"[deep] mesh of 255 + 255 rows at 640x480x64 depth 64: "
+          f"residuals {fused.stored_bytes(cfg_m)} B, auto takes "
+          f"{fused._resolve_adjoint(cfg_m, 'auto', dev)!r}", flush=True)
+    target = make_renderer(ws, cfg_m, mesh_cam, differentiable=False)(
+        wp, s_list[1])
+    check(bool(torch.isfinite(target).all()), "wide mesh image not finite")
+    wp_off = Params(wp.albedo * 0.8, wp.emission * 1.1)
+    grads = {}
+    for m, fn, expected in (
+            ("stored (auto)", make_renderer(ws, cfg_m, mesh_cam),
+             dict(dyn_collect=1, dyn_sweep=1)),
+            ("retrace", fused.make_dyn_image_renderer(ws, mesh_cam, cfg_m,
+                                                      adjoint="retrace"),
+             dict(dyn_tracer=1, dyn_adjoint=1))):
+        step(fn, wp_off, s_list[0], target)
+        (_, grads[m]), _ = counted(f"wide mesh step, depth 64, {m}",
+                                   lambda: step(fn, wp_off, s_list[0],
+                                                target), expected)
+    same_bits("wide mesh depth 64: stored grads = retrace grads",
+              grads["stored (auto)"], grads["retrace"])
+    dregen = make_renderer(ws, cfg_m, mesh_cam, backend="cuda-dyn-regen")
+    step(dregen, wp_off, s_list[0], target)
+    counted("wide mesh cuda-dyn-regen step, depth 64",
+            lambda: step(dregen, wp_off, s_list[0], target))
+    del dregen
+    del target, grads
+    torch.cuda.empty_cache()
+    # B8, B9 and B13 at depth 64 beside 32 on the mesh's own 4 + 1 rows,
+    # and at depth 64 with 255 + 255.
+    ds_w = dk.DynScene(ws)
+    mesh_scene, mesh_params, _ = gallery.build_mesh(3, device=dev)
+    ds_m = dk.DynScene(mesh_scene)
+    malb, memi = tables(mesh_scene, mesh_params)
+    g_m = rand(3, 640 * 480) / cfg_m.spp
+    cc_m = mk.camera_consts(mesh_cam, 640, 480)
+    kw_d = dict(fastmath=True, n_chunks=cfg_m.spp_chunks)
+    for ds, a, e, D, key in ((ds_m, malb, memi, 64, "deep_ms"),
+                             (ds_m, malb, memi, 32, "deep_ms_at_32"),
+                             (ds_w, walb, wemi, 64, "wide_ms")):
+        cfg_d = dataclasses.replace(cfg_m, max_depth=D)
+        tag = (f"mesh main shape, depth {D}, {a.shape[0] - 1} + "
+               f"{e.shape[0] - 1} rows")
+        adj = dk.make_dyn_adjoint(ds, mesh_cam, cfg_d, **kw_d)
+        d9 = timed("dyn_adjoint", tag, lambda: adj(a, e, s_list[1], g_m),
+                   key)
+        _, rsc, rrow = dk.make_dyn_collect_tracer(ds, mesh_cam, cfg_d,
+                                                  **kw_d)(a, e, s_list[1])
+        sweep = dk.make_dyn_sweep_adjoint(ds, cfg_d,
+                                          n_chunks=cfg_m.spp_chunks)
+        d8 = timed("dyn_sweep", tag, lambda: sweep(a, e, rsc, rrow, g_m),
+                   key)
+        same_bits(f"B9 = B8(B7), {tag}", d9, d8)
+        if key == "deep_ms":
+            live_m = sum(nonzero((c >> 16) & 1) for c in rrow)
+            need = 4 * (2 * live_m + sum(nonzero((((c >> 16) & 1) == 0).any(
+                dim=0)) for c in rrow))
+            tb = 4 * (2 * a.numel() + 2 * e.numel()) + 4 * g_m.numel()
+            bound("dyn_sweep", tb + need, live_m * OPS_SWEEP,
+                  f"{need} bytes of rows")
+            cs = dk.dyn_cull_stats(ds, cc_m, cfg_d, a, e, s_list[1],
+                                   n_chunks=cfg_m.spp_chunks)
+            bound("dyn_adjoint", tb + sum(t.numel() * 4
+                                          for t in ds.operands),
+                  n_mesh * OPS_CAMERA + cs["lane_leaves"] * ds.cluster_k
+                  * OPS_SHAPE[2] + live_m * (OPS_SHADE + OPS_SWEEP),
+                  f"{live_m} live bounce-rays, {cs['lane_leaves']} leaf "
+                  "tests (box tests not counted)")
+        del rsc, rrow
+        torch.cuda.empty_cache()
+        _, r_sc, r_row, trips = dr.dyn_regen_collect(
+            ds, cc_m, cfg_d, a, e, s_list[1], n_chunks=cfg_m.spp_chunks)
+        timed("dyn_regen_sweep",
+              f"{tag} ({dr.dyn_regen_sweep_form(cfg_d, a, e)})",
+              lambda: dr.dyn_regen_sweep(cfg_d, a, e, r_sc, r_row, trips,
+                                         g_m * cfg_m.spp,
+                                         n_chunks=cfg_m.spp_chunks), key)
+        if key == "deep_ms":
+            n_trips = int(trips.sum().item())
+            bound("dyn_regen_sweep", 8 * n_trips + 4 * (trips.numel()
+                                                        + 3 * 640 * 480),
+                  n_trips * OPS_SWEEP, f"{n_trips} trips")
+        del r_sc, r_row
+        torch.cuda.empty_cache()
+    # The deep forms at full width against their plain versions on the
+    # same inputs, one chunk each, on bright tables (so that the rows past
+    # 32 weigh): a block of a deep form walks more than one 128-item group
+    # only past deep_blocks x 128 items, and only these shapes pass it.
+    props = torch.cuda.get_device_properties(dev)
+    walk = props.multi_processor_count * (
+        props.max_threads_per_multi_processor // mk.BLOCK) * mk.BLOCK
+    print(f"[deep] a deep form's grid holds {walk} items; past them its "
+          "blocks walk groups", flush=True)
+    scene, params, cam = cbox.build(device=dev)
+    table = mk.scene_table(scene)
+    alb, emi = bright(scene, params)
+    one = RenderConfig(width=640, height=480, spp=16, max_depth=64,
+                       absorb_prob=DEEP_ABSORB)
+    check(one.width * one.height * one.spp > walk, "B3's chunk is too small")
+    g_1 = rand(3, 640 * 480) / one.spp
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, one,
+                                                 fastmath=True)(
+                                                     alb, emi, s_list[1])
+    past_32("B2 rows, 640x480x16, depth 64, bright", rbest > 0)
+    compare_grads("B3 deep form vs plain on its rows, 640x480x16, depth 64, "
+                  "bright", mk.make_fused_sweep_adjoint(scene, one)(
+                      alb, emi, rsc, rbest, g_1),
+                  mk.fused_sweep_plain(scene, one, alb, emi, rsc, rbest, g_1),
+                  GRAD_RTOL_MAIN)
+    del rsc, rbest
+    torch.cuda.empty_cache()
+    cfg_r = RenderConfig(**{**CLI_SHAPE, "max_depth": 64},
+                         absorb_prob=DEEP_ABSORB)
+    check(cfg_r.width * cfg_r.height > walk, "B11's pixels are too few")
+    _, r_sc, r_meta, trips = rg.regen_collect(
+        scene, table, mk.camera_consts(cam, 640, 480), cfg_r, alb, emi,
+        seeds_r)
+    g_p = rand(3, 640 * 480)
+    compare_grads("B11 deep form vs plain on its rows, 640x480x100, depth "
+                  "64, bright", rg.regen_sweep(scene, table, cfg_r, alb, emi,
+                                               r_sc, r_meta, trips, g_p),
+                  rg.regen_sweep_plain(scene, cfg_r, alb, emi, r_sc, r_meta,
+                                       trips, g_p), GRAD_RTOL_MAIN)
+    del r_sc, r_meta, trips
+    torch.cuda.empty_cache()
+    one_m = dataclasses.replace(one, spp=cfg_m.spp // cfg_m.spp_chunks)
+    g_1m = rand(3, 640 * 480) / one_m.spp
+    for label, (s_m, p_m) in (("4 + 1 rows", (mesh_scene, mesh_params)),
+                              ("255 + 255 rows", (ws, wp))):
+        a, e = bright(s_m, p_m)
+        ds = dk.DynScene(s_m)
+        tag = f"mesh 640x480x{one_m.spp}, depth 64, {label}, bright"
+        _, rsc, rrow = dk.make_dyn_collect_tracer(ds, mesh_cam, one_m,
+                                                  fastmath=True)(
+                                                      a, e, s_list[1])
+        past_32(f"B7 rows, {tag}", (rrow >> 16) & 1)
+        compare_grads(f"B8 deep form vs plain on its rows, {tag}",
+                      dk.make_dyn_sweep_adjoint(ds, one_m)(a, e, rsc, rrow,
+                                                           g_1m),
+                      dk.dyn_sweep_plain(one_m, a, e, rsc, rrow, g_1m),
+                      GRAD_RTOL_MAIN)
+        del rsc, rrow
+        torch.cuda.empty_cache()
+        _, r_sc, r_row, trips = dr.dyn_regen_collect(ds, cc_m, one_m, a, e,
+                                                     s_list[1])
+        g_pm = g_1m * one_m.spp
+        compare_grads(f"B13 deep form vs plain on its rows, {tag}",
+                      dr.dyn_regen_sweep(one_m, a, e, r_sc, r_row, trips,
+                                         g_pm),
+                      dr.dyn_regen_sweep_plain(one_m, a, e, r_sc, r_row,
+                                               trips, g_pm), GRAD_RTOL_MAIN)
+        del r_sc, r_row, trips
+        torch.cuda.empty_cache()
+    print(f"[deep] phase 21 in {time.time() - t_phase:.1f}s; {out}",
+          flush=True)
+    for name in DEEP_KERNELS:
+        check({"deep_ms", "deep_ms_at_32", "deep_bound_ms"} <= set(out[name]),
+              f"{name}: phase 21 measured {sorted(out[name])}")
+    return out
+
+
 def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
@@ -4162,7 +4957,7 @@ def main() -> int:
                  "wavefront": wavefront_phase, "compact": compact_phase,
                  "fused": fused_phase, "sweep": sweep_phase,
                  "split": split_phase, "invert": invert_phase,
-                 "mesh": mesh_phase}[ONLY]
+                 "mesh": mesh_phase, "deep": deep_phase}[ONLY]
         phase(dev, smi_line, dict(reps=10, warmup=10, windows=3))
         print(f"[partial] --only={ONLY}, {time.time() - t_start:.1f}s; "
               f"failed checks: {FAILED}", flush=True)
@@ -4521,6 +5316,8 @@ def main() -> int:
     invert_extra = invert_phase(dev, smi_line, {})
     torch.cuda.empty_cache()
     mesh_extra = mesh_phase(dev, smi_line, {})
+    torch.cuda.empty_cache()
+    deep_extra = deep_phase(dev, smi_line, dict(reps=3, warmup=2, windows=3))
     print(f"[total] {time.time() - t_start:.1f}s", flush=True)
     if FAILED:
         raise RuntimeError(f"{len(FAILED)} checks failed: {FAILED}")
@@ -4534,7 +5331,7 @@ def main() -> int:
     rows.update(wave_rows)
     rows.update(compact_rows)
     for extra in (fused_extra, sweep_extra, split_extra, invert_extra,
-                  mesh_extra):
+                  mesh_extra, deep_extra):
         for name, keys in extra.items():
             rows[name].update(keys)
     # name -> (source under csrc/, the TPU kernel's file and def line)
@@ -4573,6 +5370,13 @@ def main() -> int:
     # split_prefix_tape. invert_launches are B1's, B2's and B3's launches
     # in one 60-step run of `cli invert` at the CLI's shape (phase 19).
     # mesh_launches are a kernel's launches on phase 20's mesh paths.
+    # deep_launches are a lifted adjoint kernel's launches on phase 21's
+    # full-width paths at depth 64 (absorb_prob 0.1), deep_ms its time at
+    # depth 64 and deep_ms_at_32 at depth 32 on the same shape (B3, B4:
+    # the main shape; B5b: one chunk of 640x480x4; B4-seg: [2, D) on one
+    # chunk of the main shape; B11: 640x480x100; B8, B9, B13: the mesh's
+    # main shape), deep_bound_ms / deep_bound_by the bound of the depth-64
+    # work, wide_ms (B8, B9, B13) the time at depth 64 with 255 + 255 rows.
     # The dyn and regeneration kernels' plain_ms is of one chunk of `chunks`
     # (ms_one_chunk is the kernel on the same inputs); ms is the main path's
     # launch. A regeneration tracer's entry is its forward form; collect_*

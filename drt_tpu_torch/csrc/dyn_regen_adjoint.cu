@@ -22,7 +22,9 @@
 // per-pixel kernel's bit for bit. As in dyn_adjoint.cu the accumulator
 // takes (real albedo rows + real emission rows) x 3 x 512 bytes of
 // dynamic shared memory, which holds DYN_MAX_GRAD_ROWS = 144 real rows;
-// above that the launch is refused (the wrapper raises with the count).
+// above that, or beyond DRT_MAX_DEPTH bounces, both builds take the deep
+// form (regen_window.cuh: dyn_regen_sweep_deep_kernel), whose accumulator
+// and rows past DEEP_WINDOW live in device memory (grad_accum.cuh).
 // The per-pixel kernel stages the 6 KB of parameter tables beside it; the
 // window kernel stages only the tables' own rows, after its ring, so that
 // at the mesh's 4 + 1 rows 5 blocks of it fit an SM. With the rings of 32
@@ -39,6 +41,8 @@
 #define DRT_MAX_DEPTH 32
 #define DRT_SMALL_DEPTH 8
 #define DYN_MAX_GRAD_ROWS 144
+static_assert(DYN_MAX_GRAD_ROWS == DEEP_MAX_ACC_ROWS,
+              "above these rows the deep form holds the accumulator");
 
 #include "regen_window.cuh"
 
@@ -89,6 +93,23 @@ dyn_regen_sweep_kernel(DrtTrace cfg, const float* __restrict__ alb,
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
+// The deep form (regen_window.cuh:regen_deep_groups), beyond
+// DRT_MAX_DEPTH bounces or DYN_MAX_GRAD_ROWS real table rows.
+__global__ void __launch_bounds__(DRT_BLOCK)
+dyn_regen_sweep_deep_kernel(DrtTrace cfg, const float* __restrict__ alb,
+                            const float* __restrict__ emi,
+                            const float* __restrict__ rsc,
+                            const int* __restrict__ rrow,
+                            const int* __restrict__ trips,
+                            const float* __restrict__ g, DeepScratch deep,
+                            float* __restrict__ partials) {
+  extern __shared__ float s_dyn[];
+  __shared__ DynTables tab;
+  dyn_stage_tables(cfg, alb, emi, tab);
+  regen_deep_groups(cfg, tab, RowDecode{cfg}, rsc, rrow, trips, g, deep,
+                    s_dyn, partials);
+}
+
 // Bytes of the window kernel's dynamic shared memory: window_bytes, then
 // the albedo and emission tables.
 template <int DMAX>
@@ -128,6 +149,10 @@ dyn_regen_window_kernel(DrtTrace cfg, const float* __restrict__ alb,
 // decides).
 static cudaError_t dyn_sweep_takes_window(int max_depth, int n_alb,
                                           int n_emi, bool* window) {
+  if (takes_deep(max_depth, n_alb, n_emi)) {
+    *window = false;
+    return cudaSuccess;
+  }
   return max_depth <= DRT_SMALL_DEPTH
              ? takes_window(dyn_regen_window_kernel<DRT_SMALL_DEPTH>,
                             dyn_window_bytes<DRT_SMALL_DEPTH>(n_alb, n_emi),
@@ -138,19 +163,22 @@ static cudaError_t dyn_sweep_takes_window(int max_depth, int n_alb,
 }
 
 // The per-pixel kernel (lockstep != 0 or where the window kernel does not
-// fit) or the window kernel, then the reduction of the partials.
+// fit) or the window kernel, beyond DRT_MAX_DEPTH bounces or
+// DYN_MAX_GRAD_ROWS real rows the deep form in both builds, then the
+// reduction of the partials.
 static int dyn_regen_sweep(const DrtTrace* cfg, const float* alb,
                            const float* emi, const float* rsc,
                            const int* rrow, const int* trips, const float* g,
-                           float* partials, float* da, float* de,
-                           int lockstep, void* stream) {
-  if (!dyn_tables_ok(cfg) || cfg->max_depth > DRT_MAX_DEPTH ||
-      cfg->n_alb - 1 + cfg->n_emi - 1 > DYN_MAX_GRAD_ROWS)
-    return (int)cudaErrorInvalidValue;
+                           void* scratch, float* partials, float* da,
+                           float* de, int lockstep, void* stream) {
+  if (!dyn_tables_ok(cfg)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n = cfg->n_rays, na = cfg->n_alb, ne = cfg->n_emi;
   const int rc =
-      cfg->max_depth <= DRT_SMALL_DEPTH
+      takes_deep(cfg->max_depth, na, ne)
+          ? launch_regen_deep(dyn_regen_sweep_deep_kernel, cfg, scratch,
+                              partials, s, alb, emi, rsc, rrow, trips, g)
+      : cfg->max_depth <= DRT_SMALL_DEPTH
           ? launch_sweep(lockstep, dyn_regen_window_kernel<DRT_SMALL_DEPTH>,
                          dyn_window_bytes<DRT_SMALL_DEPTH>(na, ne),
                          dyn_regen_sweep_kernel<DRT_SMALL_DEPTH>,
@@ -186,13 +214,17 @@ int drt_dyn_regen_adjoint_limits(int* max_rows, int* max_grad_rows,
 // returns the first CUDA error (0 on success). cfg->n_rays is the number
 // of pixels; `partials` is scratch of ceil(n_pix / block) x entries floats.
 // It runs the window kernel where its ring fits (dyn_sweep_takes_window),
-// else the per-pixel kernel.
+// else the per-pixel kernel; beyond DRT_MAX_DEPTH bounces or
+// DYN_MAX_GRAD_ROWS real rows the deep form on `scratch`
+// (drt_deep_bytes(n_pix, max_depth, n_alb, n_emi) bytes; unread
+// otherwise).
 int drt_dyn_regen_sweep(const DrtTrace* cfg, const float* alb,
                         const float* emi, const float* rsc, const int* rrow,
-                        const int* trips, const float* g, float* partials,
-                        float* da, float* de, void* stream) {
-  return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g, partials, da,
-                         de, 0, stream);
+                        const int* trips, const float* g, void* scratch,
+                        float* partials, float* da, float* de,
+                        void* stream) {
+  return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g, scratch,
+                         partials, da, de, 0, stream);
 }
 
 // The checking build: the per-pixel kernel at every launch, the bit
@@ -200,20 +232,21 @@ int drt_dyn_regen_sweep(const DrtTrace* cfg, const float* alb,
 int drt_dyn_regen_sweep_lockstep(const DrtTrace* cfg, const float* alb,
                                  const float* emi, const float* rsc,
                                  const int* rrow, const int* trips,
-                                 const float* g, float* partials, float* da,
-                                 float* de, void* stream) {
-  return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g, partials, da,
-                         de, 1, stream);
+                                 const float* g, void* scratch,
+                                 float* partials, float* da, float* de,
+                                 void* stream) {
+  return dyn_regen_sweep(cfg, alb, emi, rsc, rrow, trips, g, scratch,
+                         partials, da, de, 1, stream);
 }
 
-// Whether drt_dyn_regen_sweep runs the window kernel (*window = 1) or the
-// per-pixel kernel (0) at this depth and these table rows on the current
-// card, for its checks.
+// Whether drt_dyn_regen_sweep runs the window kernel (*window = 1), the
+// per-pixel kernel (0) or the deep form (2) at this depth and these table
+// rows on the current card, for its checks.
 int drt_dyn_regen_sweep_form(int max_depth, int n_alb, int n_emi,
                              int* window) {
   bool w = false;
   const cudaError_t e = dyn_sweep_takes_window(max_depth, n_alb, n_emi, &w);
-  *window = w;
+  *window = takes_deep(max_depth, n_alb, n_emi) ? 2 : w;
   return (int)e;
 }
 
@@ -222,3 +255,5 @@ const char* drt_dyn_regen_adjoint_error_string(int code) {
 }
 
 }  // extern "C"
+
+DRT_DEEP_BYTES_ENTRY

@@ -105,7 +105,20 @@
 //    into local memory (built once for max_depth <= 8, once beyond). The
 //    retrace adjoint indexes its arrays by the bounce counter of the
 //    shared body, so they live in local memory and it is built for
-//    DRT_MAX_DEPTH = 32. Deeper paths are refused.
+//    DRT_MAX_DEPTH = 32 rows a path. Deeper paths (a segment's rows, for
+//    the segment adjoint) take the deep forms (grad_accum.cuh): instances
+//    that keep rows DEEP_WINDOW = 32 on in device memory, a scratch buffer
+//    the caller passes (drt_deep_bytes), on a grid of at most the threads
+//    the card holds at once; B3's through sweep_rows.cuh with the rows in
+//    registers (fused_sweep_deep_kernel), B4's and B5b's queue
+//    (queue_adjoint_deep_kernel) and both loops of the segment adjoint
+//    (segment_queue_deep_kernel, segment_adjoint_deep_kernel) on the
+//    bodies of the in-thread kernels with DeepPathRows. The launch takes
+//    them only beyond 32 rows, so up to 32 the kernels and bits are as
+//    they were; they run the same statements on the same values in the
+//    same order, so retrace = sweep(collect) and queue = lockstep build
+//    hold bit for bit at every depth. The lockstep checking builds of B4
+//    and B5b keep 32 rows and refuse deeper paths.
 //
 // What bounds them: the sweep adjoint is bound by device memory. It reads
 // at most 8 bytes per bounce-ray once (3.15 GB at 640x480x256 spp, depth
@@ -212,20 +225,11 @@ struct FusedSweepDecode {
   }
 };
 
-// B3: the body of sweep_rows.cuh on the scene-table residuals (rsc,
-// rbest). TAIL: max_depth > SWEEP_HEAD; RING: the rows come through the
-// ring of `stages` items, else through registers (launch_sweep chooses).
-template <bool TAIL, bool RING>
-__global__ void __launch_bounds__(DRT_BLOCK, SWEEP_MIN_BLOCKS)
-fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
-                   const float* __restrict__ alb,
-                   const float* __restrict__ emi,
-                   const float* __restrict__ rsc,
-                   const int* __restrict__ rbest,
-                   const float* __restrict__ g, int g_n, int stages,
-                   float* __restrict__ partials) {
-  extern __shared__ float s_acc[];
-  __shared__ FusedSweepTables tab;
+// The block's sweep tables, then a barrier.
+static __device__ __forceinline__ void stage_sweep_tables(
+    const DrtTrace& cfg, const float* __restrict__ scene,
+    const float* __restrict__ alb, const float* __restrict__ emi,
+    FusedSweepTables& tab) {
   for (int k = threadIdx.x; k <= cfg.n_shapes; k += blockDim.x) {
     int code = 0;
     if (k > 0) {
@@ -240,9 +244,45 @@ fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
   for (int k = threadIdx.x; k < cfg.n_emi * 3; k += blockDim.x)
     tab.emi[k] = emi[k];
   __syncthreads();
+}
+
+// B3: the body of sweep_rows.cuh on the scene-table residuals (rsc,
+// rbest). TAIL: max_depth > SWEEP_HEAD; RING: the rows come through the
+// ring of `stages` items, else through registers (launch_sweep chooses).
+template <bool TAIL, bool RING>
+__global__ void __launch_bounds__(DRT_BLOCK, SWEEP_MIN_BLOCKS)
+fused_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                   const float* __restrict__ alb,
+                   const float* __restrict__ emi,
+                   const float* __restrict__ rsc,
+                   const int* __restrict__ rbest,
+                   const float* __restrict__ g, int g_n, int stages,
+                   float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ FusedSweepTables tab;
+  stage_sweep_tables(cfg, scene, alb, emi, tab);
   sweep_groups<TAIL, RING>(
       cfg, FusedSweepDecode{tab.code}, tab.alb, tab.emi, rsc, rbest, g, g_n,
       stages, s_acc, partials);
+}
+
+// B3's deep form, taken beyond DEEP_WINDOW bounces (launch_sweep_deep):
+// the rows through registers, those past DEEP_WINDOW in device memory.
+__global__ void __launch_bounds__(DRT_BLOCK, SWEEP_MIN_BLOCKS)
+fused_sweep_deep_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                        const float* __restrict__ alb,
+                        const float* __restrict__ emi,
+                        const float* __restrict__ rsc,
+                        const int* __restrict__ rbest,
+                        const float* __restrict__ g, int g_n,
+                        DeepScratch deep, float* __restrict__ partials) {
+  extern __shared__ float s_acc[];
+  __shared__ FusedSweepTables tab;
+  stage_sweep_tables(cfg, scene, alb, emi, tab);
+  sweep_groups<true, false, true>(
+      cfg, FusedSweepDecode{tab.code}, tab.alb, tab.emi, rsc, rbest, g, g_n,
+      0, deep.block_acc(n_entries(cfg.n_alb, cfg.n_emi), s_acc), partials,
+      deep.rows);
 }
 
 // The lockstep loop: one thread per ray slot runs all max_depth bounces
@@ -323,30 +363,60 @@ ray_adjoint_kernel(DrtTrace cfg, const float* __restrict__ scene,
 struct PathRows {
   float4 Psc[DRT_MAX_DEPTH];
   int best[DRT_MAX_DEPTH];
+  __device__ __forceinline__ float4 psc_of(int b) const { return Psc[b]; }
+  __device__ __forceinline__ int best_of(int b) const { return best[b]; }
+  __device__ __forceinline__ void put(int b, float4 v, int w) {
+    Psc[b] = v;
+    best[b] = w;
+  }
 };
 
+// The rows of a path in a deep form (grad_accum.cuh): rows below
+// DEEP_WINDOW in the thread as PathRows, the rest in device memory.
+struct DeepPathRows {
+  PathRows head;
+  DeepRows tail;
+  __device__ __forceinline__ explicit DeepPathRows(const DeepRows& t)
+      : tail(t) {}
+  __device__ __forceinline__ float4 psc_of(int b) const {
+    return b < DEEP_WINDOW ? head.Psc[b] : tail.psc[tail.at(b)];
+  }
+  __device__ __forceinline__ int best_of(int b) const {
+    return b < DEEP_WINDOW ? head.best[b] : tail.word[tail.at(b)];
+  }
+  __device__ __forceinline__ void put(int b, float4 v, int w) {
+    if (b < DEEP_WINDOW)
+      head.put(b, v, w);
+    else
+      tail.put(b, v, w);
+  }
+};
+static_assert(DRT_MAX_DEPTH == DEEP_WINDOW,
+              "a deep form keeps the rows past the thread's in memory");
+
+template <class Rows>
 struct KeepPathRow {
-  PathRows& r;
+  Rows& r;
   __device__ __forceinline__ void operator()(int b, float Px, float Py,
                                              float Pz, float sc, float,
                                              int best) const {
-    r.Psc[b] = make_float4(Px, Py, Pz, sc);
-    r.best[b] = best;
+    r.put(b, make_float4(Px, Py, Pz, sc), best);
   }
 };
 
 // reverse_sweep over the n rows of a path, from its last with S = 0, with
 // a run-time loop: the same statements on the same values, row for row.
+template <class Rows>
 static __device__ __forceinline__ void sweep_path(const DrtTrace& cfg,
                                                   const DrtTables& tab,
-                                                  const PathRows& r, int n,
+                                                  const Rows& r, int n,
                                                   const float g[3],
                                                   float* acc) {
   float S[3] = {0.0f, 0.0f, 0.0f};
   float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
   for (int b = n - 1; b >= 0; --b) {
-    const float4 Psc = r.Psc[b];
-    const int best = r.best[b];
+    const float4 Psc = r.psc_of(b);
+    const int best = r.best_of(b);
     float e[3] = {0.0f, 0.0f, 0.0f};
     float a[3] = {1.0f, 1.0f, 1.0f};
     int erow = -1, arow = -1;
@@ -395,21 +465,18 @@ static __host__ __device__ __forceinline__ int slot_stride(int E) {
 // writes the column to the slot's row of slot_acc and zeroes it.
 // slot_reduce_kernel then sums each 128 slots with block_reduce_write
 // into the partials of the lockstep loop's ray -> block map.
+// The kernels' body, on the lane's rows `rows` (PathRows, or
+// DeepPathRows in the deep form).
 #undef DRT_MARK
 #define DRT_MARK(k) marks.at(k, bnc, alive)
-template <bool FAST, bool INTERNAL, bool RAYS, bool COUNT>
-__global__ void __launch_bounds__(DRT_BLOCK)
-queue_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
-                     const float* __restrict__ scene,
-                     const float* __restrict__ alb,
-                     const float* __restrict__ emi,
-                     const float* __restrict__ cam_u,
-                     const float* __restrict__ o,
-                     const float* __restrict__ d,
-                     const float* __restrict__ tape,
-                     const float* __restrict__ g, int g_n,
-                     float* __restrict__ slot_acc,
-                     unsigned long long* stats) {
+template <bool FAST, bool INTERNAL, bool RAYS, bool COUNT, class Rows>
+static __device__ __forceinline__ void queue_adjoint_body(
+    const DrtTrace& cfg, const DrtCamera& cam,
+    const float* __restrict__ scene, const float* __restrict__ alb,
+    const float* __restrict__ emi, const float* __restrict__ cam_u,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tape, const float* __restrict__ g, int g_n,
+    float* __restrict__ slot_acc, unsigned long long* stats, Rows& rows) {
   extern __shared__ float s_acc[];
   __shared__ DrtTables tab;
   stage_tables(cfg, scene, alb, emi, tab);
@@ -436,8 +503,7 @@ queue_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
   bool work = false, alive = false;
   bool open = false;  // the lane holds a slot with chunks left
   QueueTape qt{tape, 0u, 0.0f};
-  PathRows rows;  // the rows of the lane's path
-  KeepPathRow hook{rows};
+  KeepPathRow<Rows> hook{rows};  // the rows of the lane's path
   typename AdjointMarksOf<COUNT>::type marks;
   if constexpr (COUNT) marks.start(nullptr);
 
@@ -521,6 +587,46 @@ queue_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
 }
 #undef DRT_MARK
 #define DRT_MARK(k)
+
+template <bool FAST, bool INTERNAL, bool RAYS, bool COUNT>
+__global__ void __launch_bounds__(DRT_BLOCK)
+queue_adjoint_kernel(DrtTrace cfg, DrtCamera cam,
+                     const float* __restrict__ scene,
+                     const float* __restrict__ alb,
+                     const float* __restrict__ emi,
+                     const float* __restrict__ cam_u,
+                     const float* __restrict__ o,
+                     const float* __restrict__ d,
+                     const float* __restrict__ tape,
+                     const float* __restrict__ g, int g_n,
+                     float* __restrict__ slot_acc,
+                     unsigned long long* stats) {
+  PathRows rows;
+  queue_adjoint_body<FAST, INTERNAL, RAYS, COUNT>(
+      cfg, cam, scene, alb, emi, cam_u, o, d, tape, g, g_n, slot_acc, stats,
+      rows);
+}
+
+// The deep form of B4 and B5b (grad_accum.cuh), taken beyond DEEP_WINDOW
+// bounces: a path's rows from DEEP_WINDOW on in device memory. Its grid is
+// at most deep_blocks, so every thread has its rows there.
+template <bool FAST, bool INTERNAL, bool RAYS>
+__global__ void __launch_bounds__(DRT_BLOCK)
+queue_adjoint_deep_kernel(DrtTrace cfg, DrtCamera cam,
+                          const float* __restrict__ scene,
+                          const float* __restrict__ alb,
+                          const float* __restrict__ emi,
+                          const float* __restrict__ cam_u,
+                          const float* __restrict__ o,
+                          const float* __restrict__ d,
+                          const float* __restrict__ tape,
+                          const float* __restrict__ g, int g_n,
+                          float* __restrict__ slot_acc, DeepRows deep) {
+  DeepPathRows rows(deep);
+  queue_adjoint_body<FAST, INTERNAL, RAYS, false>(
+      cfg, cam, scene, alb, emi, cam_u, o, d, tape, g, g_n, slot_acc,
+      nullptr, rows);
+}
 
 // Block b of the second kernel copies the rows of slots [128 b, 128 b +
 // 128) of slot_acc into the block's accumulator columns (zeros past
@@ -638,14 +744,14 @@ segment_adjoint_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1,
 
 // The rows of a segment's path in a queue lane: bounce b of a segment that
 // starts at b0 is row b - b0 (KeepPathRow's words).
+template <class Rows>
 struct KeepSegmentPathRow {
-  PathRows& r;
+  Rows& r;
   int b0;
   __device__ __forceinline__ void operator()(int b, float Px, float Py,
                                              float Pz, float sc, float,
                                              int best) const {
-    r.Psc[b - b0] = make_float4(Px, Py, Pz, sc);
-    r.best[b - b0] = best;
+    r.put(b - b0, make_float4(Px, Py, Pz, sc), best);
   }
 };
 
@@ -660,13 +766,14 @@ struct TableRows {
 // sweep_path over the n rows of a segment's path that starts at bounce
 // b0, from the seed S; leaves S at the segment's entry in S. The gate of
 // row k is that of the absolute bounce b0 + k.
+template <class Rows>
 static __device__ __forceinline__ void sweep_segment_path(
-    const DrtTrace& cfg, const TableRows& tab, const PathRows& r, int b0,
+    const DrtTrace& cfg, const TableRows& tab, const Rows& r, int b0,
     int n, const float g[3], float S[3], float* acc) {
   float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
   for (int k = n - 1; k >= 0; --k) {
-    const float4 Psc = r.Psc[k];
-    const int best = r.best[k];
+    const float4 Psc = r.psc_of(k);
+    const int best = r.best_of(k);
     float e[3] = {0.0f, 0.0f, 0.0f};
     float a[3] = {1.0f, 1.0f, 1.0f};
     int erow = -1, arow = -1;
@@ -752,21 +859,17 @@ static __host__ __device__ __forceinline__ int segment_floats(int n_shapes,
 // once all its lanes are dealt and added, into its row of partials: the
 // lockstep loop's sums, bit for bit. A warp holds SEGMENT_RING groups open.
 // g is per lane (g_n = n_rays when b0 > 0).
-template <bool FAST, bool INTERNAL>
-__global__ void __launch_bounds__(DRT_BLOCK)
-segment_queue_kernel(DrtTrace cfg, int b0, int b1, int chunk,
-                     const float* __restrict__ scene,
-                     const float* __restrict__ alb,
-                     const float* __restrict__ emi,
-                     const float* __restrict__ tape,
-                     const float* __restrict__ ray,
-                     const int* __restrict__ alive_in,
-                     const int* __restrict__ ray_idx,
-                     const float* __restrict__ g,
-                     const float* __restrict__ s_end,
-                     int* __restrict__ next_group,
-                     float* __restrict__ partials,
-                     float* __restrict__ s_start) {
+// The segment queue's body, on the lane's rows `rows` (PathRows, or
+// DeepPathRows in the deep form).
+template <bool FAST, bool INTERNAL, class Rows>
+static __device__ __forceinline__ void segment_queue_body(
+    const DrtTrace& cfg, int b0, int b1, int chunk,
+    const float* __restrict__ scene, const float* __restrict__ alb,
+    const float* __restrict__ emi, const float* __restrict__ tape,
+    const float* __restrict__ ray, const int* __restrict__ alive_in,
+    const int* __restrict__ ray_idx, const float* __restrict__ g,
+    const float* __restrict__ s_end, int* __restrict__ next_group,
+    float* __restrict__ partials, float* __restrict__ s_start, Rows& rows) {
   extern __shared__ float s_dyn[];
   const int E = n_entries(cfg.n_alb, cfg.n_emi);
   float* const s_scene = s_dyn;
@@ -822,8 +925,7 @@ segment_queue_kernel(DrtTrace cfg, int b0, int b1, int chunk,
   int at_m = 0, at_l = 0, at_k = 0;  // the lane's group, l and k
   float* const acc = s_acc + threadIdx.x;
   SegmentQueueTape qt{tape, 0u, 0.0f, b0};
-  PathRows rows;  // the rows of the lane's path
-  KeepSegmentPathRow hook{rows, b0};
+  KeepSegmentPathRow<Rows> hook{rows, b0};  // the rows of the lane's path
 
   // The lane's cotangent and S_end (+0 without one), loaded when its path
   // starts and read when it ends.
@@ -1002,30 +1104,126 @@ segment_queue_kernel(DrtTrace cfg, int b0, int b1, int chunk,
   }
 }
 
-static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
-  return drt_cfg_ok(cfg) && cfg->max_depth >= 1 &&
-         cfg->max_depth <= DRT_MAX_DEPTH && g_n > 0;
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_queue_kernel(DrtTrace cfg, int b0, int b1, int chunk,
+                     const float* __restrict__ scene,
+                     const float* __restrict__ alb,
+                     const float* __restrict__ emi,
+                     const float* __restrict__ tape,
+                     const float* __restrict__ ray,
+                     const int* __restrict__ alive_in,
+                     const int* __restrict__ ray_idx,
+                     const float* __restrict__ g,
+                     const float* __restrict__ s_end,
+                     int* __restrict__ next_group,
+                     float* __restrict__ partials,
+                     float* __restrict__ s_start) {
+  PathRows rows;
+  segment_queue_body<FAST, INTERNAL>(cfg, b0, b1, chunk, scene, alb, emi,
+                                     tape, ray, alive_in, ray_idx, g, s_end,
+                                     next_group, partials, s_start, rows);
 }
 
-// The queue kernel, then the sum of each 128 slots' columns into the
-// partials, then reduce_partials.
+// The segment queue's deep form, for segments of more than DRT_MAX_DEPTH
+// bounces: a path's rows from DEEP_WINDOW on in device memory (grid at
+// most deep_blocks).
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_queue_deep_kernel(DrtTrace cfg, int b0, int b1, int chunk,
+                          const float* __restrict__ scene,
+                          const float* __restrict__ alb,
+                          const float* __restrict__ emi,
+                          const float* __restrict__ tape,
+                          const float* __restrict__ ray,
+                          const int* __restrict__ alive_in,
+                          const int* __restrict__ ray_idx,
+                          const float* __restrict__ g,
+                          const float* __restrict__ s_end,
+                          int* __restrict__ next_group,
+                          float* __restrict__ partials,
+                          float* __restrict__ s_start, DeepRows deep) {
+  DeepPathRows rows(deep);
+  segment_queue_body<FAST, INTERNAL>(cfg, b0, b1, chunk, scene, alb, emi,
+                                     tape, ray, alive_in, ray_idx, g, s_end,
+                                     next_group, partials, s_start, rows);
+}
+
+// The lockstep loop's deep form, for segments of more than DRT_MAX_DEPTH
+// bounces: every bounce of every lane, all b1 - b0 rows swept from S_end
+// (sweep_segment_path on the rows of the loop, which derives each row's
+// gate as the bounce set it), rows from DEEP_WINDOW on in device memory;
+// a grid of at most deep_blocks walks the 128-lane groups in turn and
+// writes group k's row of partials, as block k of segment_adjoint_kernel.
+template <bool FAST, bool INTERNAL>
+__global__ void __launch_bounds__(DRT_BLOCK)
+segment_adjoint_deep_kernel(DrtTrace cfg, DrtCamera cam, int b0, int b1,
+                            int chunk, const float* __restrict__ scene,
+                            const float* __restrict__ alb,
+                            const float* __restrict__ emi,
+                            const float* __restrict__ cam_u,
+                            const float* __restrict__ tape,
+                            const float* __restrict__ ray,
+                            const int* __restrict__ alive_in,
+                            const int* __restrict__ ray_idx,
+                            const float* __restrict__ g, int g_n,
+                            const float* __restrict__ s_end,
+                            float* __restrict__ partials,
+                            float* __restrict__ s_start, DeepRows deep) {
+  extern __shared__ float s_acc[];
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  const TableRows rows_tab{tab.scene, tab.alb, tab.emi};
+  const int K = cfg.n_rays;
+  deep_groups(cfg.n_alb, cfg.n_emi, K, s_acc, partials, [&](int i) {
+    if (i >= K) return;
+    DeepPathRows r(deep);
+    KeepSegmentPathRow<DeepPathRows> hook{r, b0};
+    PathState p;
+    trace_segment<FAST, INTERNAL>(cfg, cam, tab, cam_u,
+                                  SegmentTape{tape, b0}, ray, alive_in,
+                                  ray_idx, b1, i, chunk, hook, p);
+    const int gi = i % g_n;
+    const float gv[3] = {g[gi], g[g_n + gi], g[2 * g_n + gi]};
+    float S[3] = {0.0f, 0.0f, 0.0f};
+    if (s_end != nullptr) {
+      S[0] = s_end[i]; S[1] = s_end[K + i]; S[2] = s_end[2 * K + i];
+    }
+    sweep_segment_path(cfg, rows_tab, r, b0, b1 - b0, gv, S,
+                       s_acc + threadIdx.x);
+    if (s_start != nullptr) {
+      s_start[i] = S[0]; s_start[K + i] = S[1]; s_start[2 * K + i] = S[2];
+    }
+  });
+}
+
+// Any depth: beyond DRT_MAX_DEPTH the queue takes its deep form. The
+// lockstep checking builds keep their rows in the thread (lockstep_ok).
+static bool adjoint_cfg_ok(const DrtTrace* cfg, int g_n) {
+  return drt_cfg_ok(cfg) && cfg->max_depth >= 1 && g_n > 0;
+}
+
+static bool lockstep_ok(const DrtTrace* cfg, int g_n) {
+  return adjoint_cfg_ok(cfg, g_n) && cfg->max_depth <= DRT_MAX_DEPTH;
+}
+
+// The queue kernel (its deep form beyond DRT_MAX_DEPTH bounces, on
+// `scratch` of deep_bytes(n_rays, max_depth, ...)), then the sum of each
+// 128 slots' columns into the partials, then reduce_partials.
 template <bool FAST, bool INTERNAL, bool RAYS, bool COUNT>
 static int launch_queue(const DrtTrace* cfg, const DrtCamera& cam,
                         const float* scene, const float* alb,
                         const float* emi, const float* cam_u, const float* o,
                         const float* d, const float* tape, const float* g,
-                        int g_n, float* slot_acc, float* partials, float* da,
-                        float* de, unsigned long long* stats,
-                        cudaStream_t s) {
-  if (!slot_acc && n_entries(cfg->n_alb, cfg->n_emi) > 0)
+                        int g_n, float* slot_acc, void* scratch,
+                        float* partials, float* da, float* de,
+                        unsigned long long* stats, cudaStream_t s) {
+  const bool deep = cfg->max_depth > DRT_MAX_DEPTH;
+  if ((!slot_acc && n_entries(cfg->n_alb, cfg->n_emi) > 0) ||
+      (deep && COUNT))
     return (int)cudaErrorInvalidValue;
-  auto kernel = queue_adjoint_kernel<FAST, INTERNAL, RAYS, COUNT>;
   const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
-  int rc = allow_shared(kernel, bytes);
-  if (rc) return rc;
-  int grid = 0;
-  rc = (int)queue_grid(kernel, cfg->n_rays, &grid, bytes);
-  if (rc) return rc;
+  int rc;
   if (cfg->n_chunks == 1 && slot_acc) {  // mostly +0: see the flush
     const int E = n_entries(cfg->n_alb, cfg->n_emi);
     rc = (int)cudaMemsetAsync(
@@ -1033,10 +1231,29 @@ static int launch_queue(const DrtTrace* cfg, const DrtCamera& cam,
         s);
     if (rc) return rc;
   }
-  kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, cam, scene, alb, emi, cam_u, o,
-                                        d, tape, g, g_n, slot_acc, stats);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
+  if (deep) {
+    auto kernel = queue_adjoint_deep_kernel<FAST, INTERNAL, RAYS>;
+    rc = launch_deep(kernel, scratch, cfg->n_rays, cfg->max_depth,
+                     cfg->n_alb, cfg->n_emi, bytes, cfg->n_rays,
+                     [&](int grid, int b, const DeepScratch& view) {
+                       kernel<<<grid, DRT_BLOCK, b, s>>>(
+                           *cfg, cam, scene, alb, emi, cam_u, o, d, tape, g,
+                           g_n, slot_acc, view.rows);
+                     });
+    if (rc) return rc;
+  } else {
+    auto kernel = queue_adjoint_kernel<FAST, INTERNAL, RAYS, COUNT>;
+    rc = allow_shared(kernel, bytes);
+    if (rc) return rc;
+    int grid = 0;
+    rc = (int)queue_grid(kernel, cfg->n_rays, &grid, bytes);
+    if (rc) return rc;
+    kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, cam, scene, alb, emi, cam_u,
+                                          o, d, tape, g, g_n, slot_acc,
+                                          stats);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
   rc = allow_shared(slot_reduce_kernel, bytes);
   if (rc) return rc;
   const int groups = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
@@ -1069,7 +1286,8 @@ static cudaError_t segment_takes_queue(int b_start, int n_shapes, int n_alb,
   return e;
 }
 
-// The segment queue, then reduce_partials.
+// The segment queue (its deep form beyond DRT_MAX_DEPTH bounces, on
+// `scratch` of deep_bytes(n_rays, b1 - b0, ...)), then reduce_partials.
 template <bool FAST, bool INTERNAL>
 static int launch_segment_queue(const DrtTrace* cfg, int b0, int b1,
                                 int chunk, const float* scene,
@@ -1077,44 +1295,75 @@ static int launch_segment_queue(const DrtTrace* cfg, int b0, int b1,
                                 const float* tape, const float* ray,
                                 const int* alive, const int* ray_idx,
                                 const float* g, const float* s_end,
-                                int* next_group, float* partials, float* da,
-                                float* de, float* s_start, cudaStream_t s) {
+                                int* next_group, void* scratch,
+                                float* partials, float* da, float* de,
+                                float* s_start, cudaStream_t s) {
   if (!next_group) return (int)cudaErrorInvalidValue;
   const int K = cfg->n_rays;
-  auto kernel = segment_queue_kernel<FAST, INTERNAL>;
   const int bytes = (int)sizeof(float) *
       segment_floats(cfg->n_shapes, cfg->n_alb, cfg->n_emi);
-  int rc = allow_shared(kernel, bytes);
-  if (rc) return rc;
   const int n_groups = (K + DRT_BLOCK - 1) / DRT_BLOCK;
-  int grid = 0;
   // A warp takes whole groups: at most n_groups warps.
-  rc = (int)queue_grid(kernel, (n_groups + SEGMENT_WARPS - 1) /
-                                   SEGMENT_WARPS * DRT_BLOCK, &grid, bytes);
+  const int items = (n_groups + SEGMENT_WARPS - 1) / SEGMENT_WARPS *
+                    DRT_BLOCK;
+  int rc = (int)cudaMemsetAsync(next_group, 0, sizeof(int), s);
   if (rc) return rc;
-  rc = (int)cudaMemsetAsync(next_group, 0, sizeof(int), s);
-  if (rc) return rc;
-  kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, b0, b1, chunk, scene, alb, emi,
-                                        tape, ray, alive, ray_idx, g, s_end,
-                                        next_group, partials, s_start);
-  rc = (int)cudaGetLastError();
+  if (b1 - b0 > DRT_MAX_DEPTH) {
+    auto kernel = segment_queue_deep_kernel<FAST, INTERNAL>;
+    rc = launch_deep(kernel, scratch, K, b1 - b0, cfg->n_alb, cfg->n_emi,
+                     bytes, items,
+                     [&](int grid, int b, const DeepScratch& view) {
+                       kernel<<<grid, DRT_BLOCK, b, s>>>(
+                           *cfg, b0, b1, chunk, scene, alb, emi, tape, ray,
+                           alive, ray_idx, g, s_end, next_group, partials,
+                           s_start, view.rows);
+                     });
+  } else {
+    auto kernel = segment_queue_kernel<FAST, INTERNAL>;
+    rc = allow_shared(kernel, bytes);
+    if (rc) return rc;
+    int grid = 0;
+    rc = (int)queue_grid(kernel, items, &grid, bytes);
+    if (rc) return rc;
+    kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, b0, b1, chunk, scene, alb,
+                                          emi, tape, ray, alive, ray_idx, g,
+                                          s_end, next_group, partials,
+                                          s_start);
+    rc = (int)cudaGetLastError();
+  }
   if (rc) return rc;
   return reduce_partials(K, cfg->n_alb, cfg->n_emi, partials, da, de, s);
 }
 
-// The lockstep loop of a segment (segment_adjoint_kernel), then
-// reduce_partials.
+// The lockstep loop of a segment (segment_adjoint_kernel; its deep form
+// beyond DRT_MAX_DEPTH bounces, on `scratch` of deep_bytes(n_rays, b1 -
+// b0, ...)), then reduce_partials.
 template <bool FAST, bool INTERNAL>
 static int launch_segment_lockstep(
     const DrtTrace* cfg, const DrtCamera& cam, int b0, int b1, int chunk,
     const float* scene, const float* alb, const float* emi,
     const float* cam_u, const float* tape, const float* ray,
     const int* alive, const int* ray_idx, const float* g, int g_n,
-    const float* s_end, float* partials, float* da, float* de,
-    float* s_start, cudaStream_t s) {
-  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+    const float* s_end, void* scratch, float* partials, float* da,
+    float* de, float* s_start, cudaStream_t s) {
   const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
-  int rc = allow_shared(segment_adjoint_kernel<FAST, INTERNAL>, bytes);
+  int rc;
+  if (b1 - b0 > DRT_MAX_DEPTH) {
+    auto kernel = segment_adjoint_deep_kernel<FAST, INTERNAL>;
+    rc = launch_deep(kernel, scratch, cfg->n_rays, b1 - b0, cfg->n_alb,
+                     cfg->n_emi, bytes, 0,
+                     [&](int grid, int b, const DeepScratch& view) {
+                       kernel<<<grid, DRT_BLOCK, b, s>>>(
+                           *cfg, cam, b0, b1, chunk, scene, alb, emi, cam_u,
+                           tape, ray, alive, ray_idx, g, g_n, s_end,
+                           partials, s_start, view.rows);
+                     });
+    if (rc) return rc;
+    return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials,
+                           da, de, s);
+  }
+  const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
+  rc = allow_shared(segment_adjoint_kernel<FAST, INTERNAL>, bytes);
   if (rc) return rc;
   segment_adjoint_kernel<FAST, INTERNAL><<<grid, DRT_BLOCK, bytes, s>>>(
       *cfg, cam, b0, b1, chunk, scene, alb, emi, cam_u, tape, ray, alive,
@@ -1169,12 +1418,18 @@ int drt_fused_sweep_stages(int n_alb, int n_emi, int max_depth,
 // partials on `stream` and returns the first CUDA error (0 on success).
 // `partials` is scratch of ceil(n_rays / block) x entries floats; g is
 // f32[3, g_n] with g_n = n_rays (per ray) or width * height (per pixel).
+// Beyond SWEEP_MAX_DEPTH bounces the sweep takes its deep form on
+// `scratch` (drt_deep_bytes(n_rays, max_depth, n_alb, n_emi) bytes; unread
+// otherwise).
 int drt_fused_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
                     const float* emi, const float* rsc, const int* rbest,
-                    const float* g, int g_n, float* partials, float* da,
-                    float* de, void* stream) {
+                    const float* g, int g_n, void* scratch, float* partials,
+                    float* da, float* de, void* stream) {
   if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cfg->max_depth > SWEEP_MAX_DEPTH)
+    return launch_sweep_deep(fused_sweep_deep_kernel, cfg, scratch, partials,
+                             da, de, s, scene, alb, emi, rsc, rbest, g, g_n);
   if (cfg->max_depth > SWEEP_HEAD)
     return launch_sweep(fused_sweep_kernel<true, true>,
                         fused_sweep_kernel<true, false>, cfg, partials, da,
@@ -1185,19 +1440,20 @@ int drt_fused_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
 }
 
 // The queue needs slot_acc f32[n_rays, slot_stride(E)] as scratch, E =
-// n_entries.
+// n_entries, and beyond DRT_MAX_DEPTH bounces `scratch` for its deep form
+// (drt_deep_bytes(n_rays, max_depth, n_alb, n_emi) bytes).
 int drt_fused_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
                       const float* scene, const float* alb, const float* emi,
                       const float* cam_u, const float* tape, const float* g,
-                      int g_n, float* slot_acc, float* partials, float* da,
-                      float* de, void* stream) {
+                      int g_n, float* slot_acc, void* scratch,
+                      float* partials, float* da, float* de, void* stream) {
   if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define DRT_LAUNCH(F, I)                                                   \
   return launch_queue<F, I, false, false>(cfg, *cam, scene, alb, emi, cam_u, \
                                           nullptr, nullptr, tape, g, g_n,  \
-                                          slot_acc, partials, da, de,      \
-                                          nullptr, s)
+                                          slot_acc, scratch, partials, da, \
+                                          de, nullptr, s)
   if (cfg->fast) {
     if (cfg->internal_rng) DRT_LAUNCH(true, true);
     DRT_LAUNCH(true, false);
@@ -1216,7 +1472,7 @@ int drt_fused_adjoint_lockstep(const DrtTrace* cfg, const DrtCamera* cam,
                                const float* tape, const float* g, int g_n,
                                float* partials, float* da, float* de,
                                void* stream) {
-  if (!adjoint_cfg_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
+  if (!lockstep_ok(cfg, g_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
   const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
@@ -1250,17 +1506,17 @@ int drt_fused_adjoint_stats(const DrtTrace* cfg, const DrtCamera* cam,
                             float* slot_acc, float* partials, float* da,
                             float* de, unsigned long long* stats, int queue,
                             void* stream) {
-  if (!adjoint_cfg_ok(cfg, g_n) || !cfg->internal_rng || !stats)
+  if (!lockstep_ok(cfg, g_n) || !cfg->internal_rng || !stats)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (queue) {
     if (cfg->fast)
       return launch_queue<true, true, false, true>(
           cfg, *cam, scene, alb, emi, nullptr, nullptr, nullptr, nullptr, g,
-          g_n, slot_acc, partials, da, de, stats, s);
+          g_n, slot_acc, nullptr, partials, da, de, stats, s);
     return launch_queue<false, true, false, true>(
         cfg, *cam, scene, alb, emi, nullptr, nullptr, nullptr, nullptr, g,
-        g_n, slot_acc, partials, da, de, stats, s);
+        g_n, slot_acc, nullptr, partials, da, de, stats, s);
   }
   const int grid = (cfg->n_rays + DRT_BLOCK - 1) / DRT_BLOCK;
   const int bytes = acc_bytes(cfg->n_alb, cfg->n_emi);
@@ -1281,18 +1537,19 @@ int drt_fused_adjoint_stats(const DrtTrace* cfg, const DrtCamera* cam,
 }
 
 // g is f32[3, n_rays], one cotangent per ray; one chunk, exact variant,
-// tape mode only; slot_acc as drt_fused_adjoint's.
+// tape mode only; slot_acc and scratch as drt_fused_adjoint's.
 int drt_ray_adjoint(const DrtTrace* cfg, const float* scene, const float* alb,
                     const float* emi, const float* o, const float* d,
                     const float* tape, const float* g, float* slot_acc,
-                    float* partials, float* da, float* de, void* stream) {
+                    void* scratch, float* partials, float* da, float* de,
+                    void* stream) {
   if (!adjoint_cfg_ok(cfg, cfg->n_rays) || cfg->n_chunks != 1 ||
       cfg->internal_rng || cfg->fast)
     return (int)cudaErrorInvalidValue;
   const DrtCamera cam{};  // unread: the paths start from o, d
   return launch_queue<false, false, true, false>(
       cfg, cam, scene, alb, emi, nullptr, o, d, tape, g, cfg->n_rays,
-      slot_acc, partials, da, de, nullptr, (cudaStream_t)stream);
+      slot_acc, scratch, partials, da, de, nullptr, (cudaStream_t)stream);
 }
 
 // The checking build of the lockstep loop, the bit reference of
@@ -1303,7 +1560,7 @@ int drt_ray_adjoint_lockstep(const DrtTrace* cfg, const float* scene,
                              const float* tape, const float* g,
                              float* partials, float* da, float* de,
                              void* stream) {
-  if (!adjoint_cfg_ok(cfg, cfg->n_rays) || cfg->n_chunks != 1 ||
+  if (!lockstep_ok(cfg, cfg->n_rays) || cfg->n_chunks != 1 ||
       cfg->internal_rng || cfg->fast)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1340,9 +1597,9 @@ static int segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
                            const float* tape, const float* ray,
                            const int* alive, const int* ray_idx,
                            const float* g, int g_n, const float* s_end,
-                           int* next_group, float* partials, float* da,
-                           float* de, float* s_start, int lockstep,
-                           void* stream) {
+                           int* next_group, void* scratch, float* partials,
+                           float* da, float* de, float* s_start,
+                           int lockstep, void* stream) {
   if (!segment_args_ok(cfg, b_start, b_end, chunk, cam_u, tape, ray, alive,
                        ray_idx, g_n, s_end, s_start))
     return (int)cudaErrorInvalidValue;
@@ -1358,12 +1615,12 @@ static int segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
 #define DRT_LAUNCH(F, I)                                                   \
   return queue ? launch_segment_queue<F, I>(                               \
                      cfg, b_start, b_end, chunk, scene, alb, emi, tape,    \
-                     ray, alive, ray_idx, g, se, next_group, partials, da, \
-                     de, ss, s)                                            \
+                     ray, alive, ray_idx, g, se, next_group, scratch,      \
+                     partials, da, de, ss, s)                              \
                : launch_segment_lockstep<F, I>(                            \
                      cfg, *cam, b_start, b_end, chunk, scene, alb, emi,    \
                      cam_u, tape, ray, alive, ray_idx, g, g_n, se,         \
-                     partials, da, de, ss, s)
+                     scratch, partials, da, de, ss, s)
   if (cfg->fast) {
     if (cfg->internal_rng) DRT_LAUNCH(true, true);
     DRT_LAUNCH(true, false);
@@ -1378,7 +1635,10 @@ static int segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
 // n_rays per lane, or W*H per pixel when b_start == 0); s_end f32[3,
 // n_rays] is read iff b_end < max_depth and s_start written iff
 // b_start > 0. It runs the segment queue or the lockstep loop
-// (segment_takes_queue); next_group is an int of scratch for the queue.
+// (segment_takes_queue); next_group is an int of scratch for the queue,
+// and beyond DRT_MAX_DEPTH bounces a segment takes the deep form of its
+// loop on `scratch` (drt_deep_bytes(n_rays, b_end - b_start, n_alb, n_emi)
+// bytes; unread otherwise).
 int drt_fused_segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
                               int b_start, int b_end, int chunk,
                               const float* scene, const float* alb,
@@ -1386,11 +1646,13 @@ int drt_fused_segment_adjoint(const DrtTrace* cfg, const DrtCamera* cam,
                               const float* tape, const float* ray,
                               const int* alive, const int* ray_idx,
                               const float* g, int g_n, const float* s_end,
-                              int* next_group, float* partials, float* da,
-                              float* de, float* s_start, void* stream) {
+                              int* next_group, void* scratch,
+                              float* partials, float* da, float* de,
+                              float* s_start, void* stream) {
   return segment_adjoint(cfg, cam, b_start, b_end, chunk, scene, alb, emi,
                          cam_u, tape, ray, alive, ray_idx, g, g_n, s_end,
-                         next_group, partials, da, de, s_start, 0, stream);
+                         next_group, scratch, partials, da, de, s_start, 0,
+                         stream);
 }
 
 // The checking build of the lockstep loop at every launch (one thread per
@@ -1404,12 +1666,13 @@ int drt_fused_segment_adjoint_lockstep(const DrtTrace* cfg,
                                        const float* tape, const float* ray,
                                        const int* alive, const int* ray_idx,
                                        const float* g, int g_n,
-                                       const float* s_end, float* partials,
-                                       float* da, float* de, float* s_start,
-                                       void* stream) {
+                                       const float* s_end, void* scratch,
+                                       float* partials, float* da, float* de,
+                                       float* s_start, void* stream) {
   return segment_adjoint(cfg, cam, b_start, b_end, chunk, scene, alb, emi,
                          cam_u, tape, ray, alive, ray_idx, g, g_n, s_end,
-                         nullptr, partials, da, de, s_start, 1, stream);
+                         nullptr, scratch, partials, da, de, s_start, 1,
+                         stream);
 }
 
 const char* drt_adjoint_error_string(int code) {
@@ -1417,3 +1680,5 @@ const char* drt_adjoint_error_string(int code) {
 }
 
 }  // extern "C"
+
+DRT_DEEP_BYTES_ENTRY

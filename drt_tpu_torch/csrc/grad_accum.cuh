@@ -117,3 +117,172 @@ static int allow_shared(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
+
+// The deep forms of the adjoint kernels: instances that the launch takes
+// only where the in-thread and shared-memory forms end, paths of more than
+// DEEP_WINDOW bounces (rows, or a segment's rows) and accumulators of more
+// than DEEP_MAX_ACC_ROWS real table rows. They keep what does not fit in a
+// scratch buffer in device memory that the caller passes (deep_bytes says
+// how large):
+//  - a thread's rows DEEP_WINDOW, DEEP_WINDOW + 1, ... (rows below stay in
+//    the thread, as in the in-thread forms): row b of the grid's thread t
+//    at psc[(b - DEEP_WINDOW) * threads + t] (P and sc, 16 bytes) and
+//    word[...] (the row's word), so a warp's row is one coalesced line;
+//  - with more rows, each block's accumulator columns, E x DRT_BLOCK floats
+//    at acc + blockIdx.x * E * DRT_BLOCK: the layout of the shared-memory
+//    accumulator, so zero_column, sweep_bounce and block_reduce_row run on
+//    it unchanged and give its bits (each column is still one thread's,
+//    summed in the same order; no float atomics).
+// The grid of a deep form is at most deep_blocks(n) blocks, the threads
+// an SM can hold on every SM, and walks its 128-item groups in turn, so
+// the scratch grows with the card and the depth, not with the items.
+#define DEEP_WINDOW 32
+#define DEEP_MAX_ACC_ROWS 144
+
+struct DeepRows {
+  float4* psc;
+  int* word;
+  int threads;
+  __device__ __forceinline__ size_t at(int b) const {
+    return (size_t)(b - DEEP_WINDOW) * threads + blockIdx.x * DRT_BLOCK +
+           threadIdx.x;
+  }
+  __device__ __forceinline__ void put(int b, float4 v, int w) const {
+    const size_t k = at(b);
+    psc[k] = v;
+    word[k] = w;
+  }
+};
+
+struct DeepScratch {
+  float* acc;  // null: the accumulator is in shared memory
+  DeepRows rows;
+  // The block's accumulator: its columns in acc, else s_acc.
+  __device__ __forceinline__ float* block_acc(int E, float* s_acc) const {
+    return acc ? acc + (size_t)blockIdx.x * E * DRT_BLOCK : s_acc;
+  }
+};
+
+// Whether a launch over these tables and rows per path takes a deep form.
+static inline bool deep_acc(int n_alb, int n_emi) {
+  return n_alb - 1 + n_emi - 1 > DEEP_MAX_ACC_ROWS;
+}
+static inline bool takes_deep(int depth, int n_alb, int n_emi) {
+  return depth > DEEP_WINDOW || deep_acc(n_alb, n_emi);
+}
+
+// Blocks of a deep form's grid over n items: at most as many as the card
+// holds at once (its threads per SM in blocks of DRT_BLOCK on every SM).
+static cudaError_t deep_blocks(int n, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  const int need = (n + DRT_BLOCK - 1) / DRT_BLOCK;
+  const int most = sms * (per_sm / DRT_BLOCK);
+  *blocks = need < most ? need : most;
+  if (*blocks < 1) *blocks = 1;
+  return e;
+}
+
+// Bytes of a deep form's scratch over n items, `depth` rows a path: the
+// accumulator where the tables' rows take it out of shared memory, then
+// the rows past DEEP_WINDOW, for deep_blocks(n) blocks. 0: no deep form.
+static cudaError_t deep_bytes(int n, int depth, int n_alb, int n_emi,
+                              size_t* bytes) {
+  *bytes = 0;
+  if (!takes_deep(depth, n_alb, n_emi)) return cudaSuccess;
+  int blocks = 0;
+  const cudaError_t e = deep_blocks(n, &blocks);
+  const size_t threads = (size_t)blocks * DRT_BLOCK;
+  if (deep_acc(n_alb, n_emi))
+    *bytes += threads * n_entries(n_alb, n_emi) * sizeof(float);
+  if (depth > DEEP_WINDOW)
+    *bytes += threads * (depth - DEEP_WINDOW) * (sizeof(float4) + sizeof(int));
+  return e;
+}
+
+// The deep form's view of `scratch` (deep_bytes of it) and its grid.
+static cudaError_t deep_scratch(void* scratch, int n, int depth, int n_alb,
+                                int n_emi, DeepScratch* d, int* blocks) {
+  const cudaError_t e = deep_blocks(n, blocks);
+  const size_t threads = (size_t)*blocks * DRT_BLOCK;
+  char* p = (char*)scratch;
+  d->acc = nullptr;
+  if (deep_acc(n_alb, n_emi)) {
+    d->acc = (float*)p;
+    p += threads * n_entries(n_alb, n_emi) * sizeof(float);
+  }
+  const size_t rows = depth > DEEP_WINDOW ? depth - DEEP_WINDOW : 0;
+  d->rows.psc = (float4*)p;
+  d->rows.word = (int*)(p + threads * rows * sizeof(float4));
+  d->rows.threads = (int)threads;
+  return e;
+}
+
+// The dynamic shared memory of a deep form: its accumulator, where the
+// accumulator is not in device memory.
+static int deep_shared_bytes(int n_alb, int n_emi) {
+  return deep_acc(n_alb, n_emi) ? 0 : acc_bytes(n_alb, n_emi);
+}
+
+// The launch of every deep form: its view of `scratch` (deep_bytes(n,
+// depth, n_alb, n_emi) of it), `bytes` of dynamic shared memory allowed
+// for `kernel` (-1: deep_shared_bytes), a grid of at most deep_blocks(n)
+// blocks, and of at most queue_grid(kernel, items) where items > 0 (a
+// persistent grid); then launch(grid, bytes, view) makes the launch.
+// Returns the first CUDA error.
+template <class Kernel, class Launch>
+static int launch_deep(Kernel kernel, void* scratch, int n, int depth,
+                       int n_alb, int n_emi, int bytes, int items,
+                       Launch launch) {
+  if (!scratch) return (int)cudaErrorInvalidValue;
+  DeepScratch view;
+  int grid = 0;
+  int rc = (int)deep_scratch(scratch, n, depth, n_alb, n_emi, &view, &grid);
+  if (rc) return rc;
+  if (bytes < 0) bytes = deep_shared_bytes(n_alb, n_emi);
+  rc = allow_shared(kernel, bytes);
+  if (rc) return rc;
+  if (items > 0) {
+    int most = 0;
+    rc = (int)queue_grid(kernel, items, &most, bytes);
+    if (rc) return rc;
+    if (most < grid) grid = most;
+  }
+  launch(grid, bytes, view);
+  return (int)cudaGetLastError();
+}
+
+// The group walk of a deep form that is not a persistent queue: block k
+// takes the 128-item groups k, k + gridDim.x, ...; for each, every thread
+// runs body(item) on its item (which may lie past the last, n - 1), then
+// the block writes the group's row of partials from its accumulator
+// s_acc, as block k of the in-thread form's grid does, and zeroes it.
+template <class Body>
+static __device__ __forceinline__ void deep_groups(
+    int n_alb, int n_emi, int n, float* s_acc, float* __restrict__ partials,
+    Body body) {
+  zero_column(n_alb, n_emi, s_acc);
+  const int groups = (n + DRT_BLOCK - 1) / DRT_BLOCK;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    body(grp * DRT_BLOCK + (int)threadIdx.x);
+    block_reduce_row(n_alb, n_emi, s_acc, partials, (unsigned)grp);
+    __syncthreads();
+    zero_column(n_alb, n_emi, s_acc);
+  }
+}
+
+// Every library with a deep form exports its scratch size under this name
+// (each library is its own module).
+#define DRT_DEEP_BYTES_ENTRY                                                \
+  extern "C" int drt_deep_bytes(int n, int depth, int n_alb, int n_emi,   \
+                                unsigned long long* bytes) {              \
+    size_t b = 0;                                                         \
+    const int rc = (int)deep_bytes(n, depth, n_alb, n_emi, &b);           \
+    *bytes = b;                                                           \
+    return rc;                                                            \
+  }

@@ -16,6 +16,10 @@
 // The per-sample values live in thread arrays of a compile-time size
 // whose loops are unrolled: built for 8 bounces (registers) and for
 // DRT_MAX_DEPTH = 32, the launch takes the smaller that holds max_depth.
+// Deeper, both builds take the deep form (regen_window.cuh:
+// regen_sweep_deep_kernel over regen_deep_groups): the per-pixel kernel's
+// work in loops of run-time length, a sample's rows from DEEP_WINDOW = 32
+// on in a scratch buffer in device memory (grad_accum.cuh).
 //
 // What bounds it: device memory, 8 bytes per trip run read once against
 // about 20 f32 operations and the accumulator's read-modify-writes in
@@ -98,6 +102,24 @@ regen_sweep_kernel(DrtTrace cfg, const float* __restrict__ scene,
   block_reduce_write(cfg.n_alb, cfg.n_emi, s_acc, partials);
 }
 
+// The deep form (regen_window.cuh:regen_deep_groups), beyond
+// DRT_MAX_DEPTH bounces.
+__global__ void __launch_bounds__(DRT_BLOCK)
+regen_sweep_deep_kernel(DrtTrace cfg, const float* __restrict__ scene,
+                        const float* __restrict__ alb,
+                        const float* __restrict__ emi,
+                        const float* __restrict__ rsc,
+                        const int* __restrict__ rmeta,
+                        const int* __restrict__ trips,
+                        const float* __restrict__ g, DeepScratch deep,
+                        float* __restrict__ partials) {
+  extern __shared__ float s_dyn[];
+  __shared__ DrtTables tab;
+  stage_tables(cfg, scene, alb, emi, tab);
+  regen_deep_groups(cfg, tab, TableDecode{cfg, tab}, rsc, rmeta, trips, g,
+                    deep, s_dyn, partials);
+}
+
 // TableDecode from the block's code word per shape (albedo row + 1 |
 // emission row + 1 << 8, 0 for a sentinel row): the same rows.
 struct CodeDecode {
@@ -152,9 +174,14 @@ regen_window_kernel(DrtTrace cfg, const float* __restrict__ scene,
 
 // Whether drt_regen_sweep runs the window kernel for these table rows and
 // depth on the current card (its ring and accumulator fit in a block's
-// shared memory), else the per-pixel kernel (as launch_sweep decides).
+// shared memory), else the per-pixel kernel (as launch_sweep decides);
+// beyond DRT_MAX_DEPTH neither (the deep form).
 static cudaError_t sweep_takes_window(int max_depth, int n_alb, int n_emi,
                                       bool* window) {
+  if (max_depth > DRT_MAX_DEPTH) {
+    *window = false;
+    return cudaSuccess;
+  }
   return max_depth <= DRT_SMALL_DEPTH
              ? takes_window(regen_window_kernel<DRT_SMALL_DEPTH>,
                             window_bytes<DRT_SMALL_DEPTH>(n_alb, n_emi),
@@ -165,19 +192,23 @@ static cudaError_t sweep_takes_window(int max_depth, int n_alb, int n_emi,
 }
 
 // The per-pixel kernel (lockstep != 0 or where the window kernel does not
-// fit) or the window kernel, then the reduction of the partials.
+// fit) or the window kernel, beyond DRT_MAX_DEPTH bounces the deep form
+// in both builds, then the reduction of the partials.
 static int regen_sweep(const DrtTrace* cfg, const float* scene,
                        const float* alb, const float* emi, const float* rsc,
                        const int* rmeta, const int* trips, const float* g,
-                       float* partials, float* da, float* de, int lockstep,
-                       void* stream) {
-  if (!drt_cfg_ok(cfg) || cfg->max_depth < 1 ||
-      cfg->max_depth > DRT_MAX_DEPTH)
+                       void* scratch, float* partials, float* da, float* de,
+                       int lockstep, void* stream) {
+  if (!drt_cfg_ok(cfg) || cfg->max_depth < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n = cfg->n_rays, na = cfg->n_alb, ne = cfg->n_emi;
   const int rc =
-      cfg->max_depth <= DRT_SMALL_DEPTH
+      cfg->max_depth > DRT_MAX_DEPTH
+          ? launch_regen_deep(regen_sweep_deep_kernel, cfg, scratch,
+                              partials, s, scene, alb, emi, rsc, rmeta,
+                              trips, g)
+      : cfg->max_depth <= DRT_SMALL_DEPTH
           ? launch_sweep(lockstep, regen_window_kernel<DRT_SMALL_DEPTH>,
                          window_bytes<DRT_SMALL_DEPTH>(na, ne),
                          regen_sweep_kernel<DRT_SMALL_DEPTH>,
@@ -213,13 +244,15 @@ int drt_regen_adjoint_limits(int* max_shapes, int* max_rows, int* rec,
 // returns the first CUDA error (0 on success). cfg->n_rays is the number
 // of pixels; `partials` is scratch of ceil(n_pix / block) x entries floats.
 // It runs the window kernel where its ring fits (sweep_takes_window),
-// else the per-pixel kernel.
+// else the per-pixel kernel; beyond DRT_MAX_DEPTH bounces the deep form on
+// `scratch` (drt_deep_bytes(n_pix, max_depth, n_alb, n_emi) bytes; unread
+// otherwise).
 int drt_regen_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
                     const float* emi, const float* rsc, const int* rmeta,
-                    const int* trips, const float* g, float* partials,
-                    float* da, float* de, void* stream) {
-  return regen_sweep(cfg, scene, alb, emi, rsc, rmeta, trips, g, partials,
-                     da, de, 0, stream);
+                    const int* trips, const float* g, void* scratch,
+                    float* partials, float* da, float* de, void* stream) {
+  return regen_sweep(cfg, scene, alb, emi, rsc, rmeta, trips, g, scratch,
+                     partials, da, de, 0, stream);
 }
 
 // The checking build: the per-pixel kernel at every launch, the bit
@@ -227,20 +260,20 @@ int drt_regen_sweep(const DrtTrace* cfg, const float* scene, const float* alb,
 int drt_regen_sweep_lockstep(const DrtTrace* cfg, const float* scene,
                              const float* alb, const float* emi,
                              const float* rsc, const int* rmeta,
-                             const int* trips, const float* g,
+                             const int* trips, const float* g, void* scratch,
                              float* partials, float* da, float* de,
                              void* stream) {
-  return regen_sweep(cfg, scene, alb, emi, rsc, rmeta, trips, g, partials,
-                     da, de, 1, stream);
+  return regen_sweep(cfg, scene, alb, emi, rsc, rmeta, trips, g, scratch,
+                     partials, da, de, 1, stream);
 }
 
-// Whether drt_regen_sweep runs the window kernel (*window = 1) or the
-// per-pixel kernel (0) at this depth and these table rows on the current
-// card, for its checks.
+// Whether drt_regen_sweep runs the window kernel (*window = 1), the
+// per-pixel kernel (0) or the deep form (2) at this depth and these table
+// rows on the current card, for its checks.
 int drt_regen_sweep_form(int max_depth, int n_alb, int n_emi, int* window) {
   bool w = false;
   const cudaError_t e = sweep_takes_window(max_depth, n_alb, n_emi, &w);
-  *window = w;
+  *window = max_depth > DRT_MAX_DEPTH ? 2 : w;
   return (int)e;
 }
 
@@ -249,3 +282,5 @@ const char* drt_regen_adjoint_error_string(int code) {
 }
 
 }  // extern "C"
+
+DRT_DEEP_BYTES_ENTRY

@@ -266,6 +266,123 @@ static __device__ __forceinline__ void window_sweep(
   }
 }
 
+// regen_body.cuh:regen_sweep_chunk of the deep form (grad_accum.cuh),
+// for any max_depth: the same statements in loops of run-time length, a
+// segment's rows below DEEP_WINDOW in the thread and the rest in `tail`
+// (P and sc, and the row's word, decoded again by the sweep).
+template <class Tables, class Decode>
+static __device__ __forceinline__ void regen_sweep_chunk_deep(
+    const DrtTrace& cfg, const Tables& tab, const Decode& decode,
+    const float* __restrict__ rsc, const int* __restrict__ rmeta, size_t n,
+    int t_act, const float g[3], float* acc, const DeepRows& tail) {
+  float* acc_e = acc + (cfg.n_alb - 1) * 3 * DRT_BLOCK;
+  int t = 0;
+  int meta = t_act > 0 ? rmeta[0] : 0;  // of row t + k below
+  while (t < t_act) {
+    float4 Psc[DEEP_WINDOW];
+    int word[DEEP_WINDOW];
+    float Tx = 1.0f, Ty = 1.0f, Tz = 1.0f;
+    int len = 0;
+    bool open = true;
+    for (int k = 0; open && k < cfg.max_depth; ++k) {
+      const RegenRow r = decode.row(meta);
+      const float sc_k = rsc[(size_t)(t + k) * n];
+      const float rr = r.rr_on ? cfg.inv_keep : 1.0f;
+      const float gate_k = r.live ? rr : 0.0f;
+      const float Px = Tx * gate_k, Py = Ty * gate_k, Pz = Tz * gate_k;
+      float ax = 1.0f, ay = 1.0f, az = 1.0f;
+      if (r.arow >= 0) {
+        ax = tab.alb[r.arow * 3 + 0];
+        ay = tab.alb[r.arow * 3 + 1];
+        az = tab.alb[r.arow * 3 + 2];
+      }
+      Tx = Px * ax * sc_k;
+      Ty = Py * ay * sc_k;
+      Tz = Pz * az * sc_k;
+      const float4 v = make_float4(Px, Py, Pz, sc_k);
+      if (k < DEEP_WINDOW) {
+        Psc[k] = v;
+        word[k] = meta;
+      } else {
+        tail.put(k, v, meta);
+      }
+      len = k + 1;
+      // The segment ends before the next want row, or with the rows.
+      open = false;
+      if (t + k + 1 < t_act) {
+        meta = rmeta[(size_t)(t + k + 1) * n];
+        open = !decode.want(meta);
+      }
+    }
+    float S[3] = {0.0f, 0.0f, 0.0f};
+    for (int k = len - 1; k >= 0; --k) {
+      const float4 v = k < DEEP_WINDOW ? Psc[k] : tail.psc[tail.at(k)];
+      const RegenRow r =
+          decode.row(k < DEEP_WINDOW ? word[k] : tail.word[tail.at(k)]);
+      const float gate = r.live ? (r.rr_on ? cfg.inv_keep : 1.0f) : 0.0f;
+      float e[3] = {0.0f, 0.0f, 0.0f};
+      float a[3] = {1.0f, 1.0f, 1.0f};
+      if (r.erow >= 0) {
+        e[0] = tab.emi[r.erow * 3 + 0];
+        e[1] = tab.emi[r.erow * 3 + 1];
+        e[2] = tab.emi[r.erow * 3 + 2];
+      }
+      if (r.arow >= 0) {
+        a[0] = tab.alb[r.arow * 3 + 0];
+        a[1] = tab.alb[r.arow * 3 + 1];
+        a[2] = tab.alb[r.arow * 3 + 2];
+      }
+      const float P[3] = {v.x, v.y, v.z};
+      sweep_bounce(acc, acc_e, r.arow, r.erow, a, e, P, v.w, gate, g, S);
+    }
+    t += len;
+  }
+}
+
+// The deep form of both families' sweeps (B11, B13), taken beyond
+// DEEP_WINDOW bounces or DEEP_MAX_ACC_ROWS real table rows: the per-pixel
+// kernel's work, one thread a pixel, on a grid of at most deep_blocks
+// blocks that walks the 128-pixel groups in turn and writes group k's row
+// of partials, as block k of the per-pixel kernel does; its rows past
+// DEEP_WINDOW and, with more table rows, its accumulator in device memory.
+// The kernel has staged `tab` (and synchronized); s_dyn is its dynamic
+// shared memory (deep_shared_bytes).
+template <class Tables, class Decode>
+static __device__ __forceinline__ void regen_deep_groups(
+    const DrtTrace& cfg, const Tables& tab, const Decode& decode,
+    const float* __restrict__ rsc, const int* __restrict__ rmeta,
+    const int* __restrict__ trips, const float* __restrict__ g,
+    const DeepScratch& deep, float* s_dyn, float* __restrict__ partials) {
+  float* const s_acc = deep.block_acc(n_entries(cfg.n_alb, cfg.n_emi), s_dyn);
+  const int n = cfg.n_rays;  // pixels
+  const size_t t_cap = (size_t)cfg.spp_c * cfg.max_depth;
+  deep_groups(cfg.n_alb, cfg.n_emi, n, s_acc, partials, [&](int pix) {
+    if (pix >= n) return;
+    const float gp[3] = {g[pix], g[n + pix], g[2 * n + pix]};
+    for (int c = 0; c < cfg.n_chunks; ++c) {
+      const size_t base = (size_t)c * t_cap * n + pix;
+      regen_sweep_chunk_deep(cfg, tab, decode, rsc + base, rmeta + base,
+                             (size_t)n, trips[(size_t)c * n + pix], gp,
+                             s_acc + threadIdx.x, deep.rows);
+    }
+  });
+}
+
+// Launch a family's deep kernel over `scratch` (deep_bytes(n_pix,
+// max_depth, ...)); args follow its cfg and precede its scratch and
+// partials. Returns the first CUDA error.
+template <class Kernel, class... Args>
+static int launch_regen_deep(Kernel kernel, const DrtTrace* cfg,
+                             void* scratch, float* partials, cudaStream_t s,
+                             Args... args) {
+  return launch_deep(kernel, scratch, cfg->n_rays, cfg->max_depth,
+                     cfg->n_alb, cfg->n_emi, -1, 0,
+                     [&](int grid, int bytes, const DeepScratch& deep) {
+                       kernel<<<grid, DRT_BLOCK, bytes, s>>>(
+                           *cfg, args..., deep, partials);
+                     });
+}
+
 // Whether a window kernel with `bytes` of dynamic shared memory fits in a
 // block of the current card (its static shared memory beside them), else
 // its launch takes the family's per-pixel kernel.

@@ -56,8 +56,11 @@
 
 #define SWEEP_HEAD 8        // rows of an item that come through the ring
 #define SWEEP_MAX_STAGES 3  // items in the ring
-#define SWEEP_MAX_DEPTH 32
+#define SWEEP_MAX_DEPTH 32  // in the thread; beyond, the deep form
 #define SWEEP_MIN_BLOCKS 8  // __launch_bounds__: blocks an SM must hold
+
+static_assert(SWEEP_MAX_DEPTH == DEEP_WINDOW,
+              "the deep form keeps rows past the thread's in device memory");
 
 // A row code from table rows (sentinel rows give 0 in their field).
 static __device__ __forceinline__ int sweep_code(int ar, int er, int n_alb,
@@ -144,12 +147,14 @@ struct RegisterRows {
 // The replay and reverse sweep of one slot's chunk whose first H rows are
 // `head`; `base` indexes row 0 of the slot's chunk in rsc and rword (rows
 // N apart), read past the head only.
-template <bool TAIL, class Decode, class Head>
+// DEEP (the deep form, grad_accum.cuh): rows from DEEP_WINDOW on go to
+// `deep` in device memory, so max_depth has no bound.
+template <bool TAIL, bool DEEP, class Decode, class Head>
 static __device__ __forceinline__ void sweep_item(
     const DrtTrace& cfg, const Decode& decode, const float* s_alb,
     const float* s_emi, const float* __restrict__ rsc,
     const int* __restrict__ rword, size_t base, int H, const Head& head,
-    const float g[3], float* acc, float* acc_e) {
+    const float g[3], float* acc, float* acc_e, const DeepRows& deep) {
   float P[SWEEP_HEAD][3];
   int code[SWEEP_HEAD];
   float T[3] = {1.0f, 1.0f, 1.0f};
@@ -180,18 +185,23 @@ static __device__ __forceinline__ void sweep_item(
       if ((cd >> 16) == 0) break;
       float Pb[3];
       replay_row(cfg, s_alb, b, cd, sc, T, Pb);
-      t.Psc[b - SWEEP_HEAD] = make_float4(Pb[0], Pb[1], Pb[2], sc);
-      t.code[b - SWEEP_HEAD] = cd;
+      if (!DEEP || b < DEEP_WINDOW) {
+        t.Psc[b - SWEEP_HEAD] = make_float4(Pb[0], Pb[1], Pb[2], sc);
+        t.code[b - SWEEP_HEAD] = cd;
+      } else {
+        deep.put(b, make_float4(Pb[0], Pb[1], Pb[2], sc), cd);
+      }
       L = b + 1;
     }
   }
   float S[3] = {0.0f, 0.0f, 0.0f};
   if (TAIL) {
     for (int b = L - 1; b >= SWEEP_HEAD; --b) {
-      const float4 v = t.Psc[b - SWEEP_HEAD];
+      const bool here = !DEEP || b < DEEP_WINDOW;
+      const float4 v = here ? t.Psc[b - SWEEP_HEAD] : deep.psc[deep.at(b)];
+      const int cd = here ? t.code[b - SWEEP_HEAD] : deep.word[deep.at(b)];
       const float Pb[3] = {v.x, v.y, v.z};
-      sweep_row(cfg, s_alb, s_emi, acc, acc_e, b, t.code[b - SWEEP_HEAD], Pb,
-                v.w, g, S);
+      sweep_row(cfg, s_alb, s_emi, acc, acc_e, b, cd, Pb, v.w, g, S);
     }
   }
 #pragma unroll
@@ -219,12 +229,16 @@ struct ItemCursor {
 // floats, and with RING the ring behind it: `stages` (2 to
 // SWEEP_MAX_STAGES) x 2 x H x DRT_BLOCK words. Every thread of the block
 // runs it to the end (it holds barriers).
-template <bool TAIL, bool RING, class Decode>
+// DEEP: the deep form (registers, not the ring), whose rows past
+// DEEP_WINDOW and, with acc set, accumulator are in device memory.
+template <bool TAIL, bool RING, bool DEEP = false, class Decode>
 static __device__ __forceinline__ void sweep_groups(
     const DrtTrace& cfg, const Decode& decode, const float* s_alb,
     const float* s_emi, const float* __restrict__ rsc,
     const int* __restrict__ rword, const float* __restrict__ g, int g_n,
-    int stages, float* s_acc, float* __restrict__ partials) {
+    int stages, float* s_acc, float* __restrict__ partials,
+    const DeepRows& deep = DeepRows{}) {
+  static_assert(!(DEEP && RING), "the deep form takes its rows in registers");
   const int N = cfg.n_rays, D = cfg.max_depth, C = cfg.n_chunks;
   const int H = D < SWEEP_HEAD ? D : SWEEP_HEAD;
   const int groups = (N + DRT_BLOCK - 1) / DRT_BLOCK;
@@ -286,8 +300,8 @@ static __device__ __forceinline__ void sweep_groups(
       const RingRows head{st, reinterpret_cast<const int*>(st) +
                                   H * DRT_BLOCK};
       if (ok)
-        sweep_item<TAIL>(cfg, decode, s_alb, s_emi, rsc, rword, base, H,
-                         head, gv, acc, acc_e);
+        sweep_item<TAIL, DEEP>(cfg, decode, s_alb, s_emi, rsc, rword, base,
+                               H, head, gv, acc, acc_e, deep);
     } else {
       RegisterRows head;
       const float* ps = rsc + base;
@@ -302,8 +316,8 @@ static __device__ __forceinline__ void sweep_groups(
         }
       }
       if (ok)
-        sweep_item<TAIL>(cfg, decode, s_alb, s_emi, rsc, rword, base, H,
-                         head, gv, acc, acc_e);
+        sweep_item<TAIL, DEEP>(cfg, decode, s_alb, s_emi, rsc, rword, base,
+                               H, head, gv, acc, acc_e, deep);
     }
     if (it.c == C - 1) {
       block_reduce_row(cfg.n_alb, cfg.n_emi, s_acc, partials,
@@ -370,6 +384,24 @@ static int launch_sweep(Kernel ring, Kernel regs, const DrtTrace* cfg,
   if (rc) return rc;
   kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, args..., stages, partials);
   rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
+                         de, s);
+}
+
+// Launch a sweep's deep form (sweep_groups<TAIL, false, true>) over the
+// scratch of deep_bytes(n_rays, max_depth, ...) on at most deep_blocks
+// blocks, then reduce_partials; returns the first CUDA error. `args`
+// follow the kernel's cfg and precede its scratch and partials.
+template <class Kernel, class... Args>
+static int launch_sweep_deep(Kernel kernel, const DrtTrace* cfg,
+                             void* scratch, float* partials, float* da,
+                             float* de, cudaStream_t s, Args... args) {
+  const int rc = launch_deep(
+      kernel, scratch, cfg->n_rays, cfg->max_depth, cfg->n_alb, cfg->n_emi,
+      -1, cfg->n_rays, [&](int grid, int bytes, const DeepScratch& deep) {
+        kernel<<<grid, DRT_BLOCK, bytes, s>>>(*cfg, args..., deep, partials);
+      });
   if (rc) return rc;
   return reduce_partials(cfg->n_rays, cfg->n_alb, cfg->n_emi, partials, da,
                          de, s);

@@ -59,7 +59,8 @@ ADJOINT_SOURCE = "dyn_adjoint.cu"
 MAX_DYN_SHAPES = 2048
 # Most real (non-sentinel) albedo + emission rows whose gradient
 # accumulator fits a block's shared memory (DYN_MAX_GRAD_ROWS in
-# csrc/dyn_adjoint.cu).
+# csrc/dyn_adjoint.cu); beyond, up to 255 + 255, the adjoint kernels'
+# deep forms keep it in device memory (csrc/grad_accum.cuh).
 MAX_GRAD_ROWS = 144
 N_STATS = 4
 
@@ -616,7 +617,11 @@ def _dyn_bounce(ds: DynScene, cfg: RenderConfig, alb, emi, state, b, u,
     if torch.is_tensor(b):
         rr_on = b >= cfg.min_bounces
         alive = alive & ~(rr_on & (u_rr < cfg.absorb_prob))
-        rr_scale = torch.where(rr_on, inv_keep, 1.0)
+        # inv_keep rounded to dtype once (a Python float in torch.where
+        # would make a float32 tensor).
+        rr_scale = torch.where(
+            rr_on, torch.tensor(inv_keep, dtype=dtype, device=dx.device),
+            1.0)
     else:
         rr_scale = 1.0
         if b >= cfg.min_bounces:
@@ -831,11 +836,12 @@ def _adjoint_library() -> ctypes.CDLL:
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_dyn_sweep.argtypes is None:
-        # alb, emi, rsc, rrow, g, g_n, partials, da, de, stream
-        mk._bind(lib, "drt_dyn_sweep", 10, (mk._DrtTrace,), n_ints_at=(5,))
+        # alb, emi, rsc, rrow, g, g_n, scratch, partials, da, de, stream
+        mk._bind(lib, "drt_dyn_sweep", 11, (mk._DrtTrace,), n_ints_at=(5,))
         mk._bind_stages(lib, "drt_dyn_sweep_stages")
-        # alb, emi, cam_u, tape, g, g_n, partials, da, de, stream
-        mk._bind(lib, "drt_dyn_adjoint", 10,
+        mk._bind_deep_bytes(lib)
+        # alb, emi, cam_u, tape, g, g_n, scratch, partials, da, de, stream
+        mk._bind(lib, "drt_dyn_adjoint", 11,
                  (mk._DrtTrace, _DynLayout, mk._DrtCamera, _DynOperands),
                  n_ints_at=(5,))
         lib.drt_dyn_adjoint_error_string.argtypes = [ctypes.c_int]
@@ -1021,19 +1027,6 @@ def dyn_collect(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
     return out, rsc, rrow
 
 
-def _adjoint_buffers(cfg: RenderConfig, tcfg: mk._DrtTrace, g: torch.Tensor,
-                     dev):
-    """Check the row count for the shared-memory accumulator, then depth
-    and cotangent; allocate the per-block partials and gradient tables."""
-    rows = tcfg.n_alb - 1 + tcfg.n_emi - 1
-    if rows > MAX_GRAD_ROWS:
-        raise ValueError(
-            f"{tcfg.n_alb - 1} albedo + {tcfg.n_emi - 1} emission rows: the "
-            f"dyn adjoint kernels accumulate at most {MAX_GRAD_ROWS} "
-            "parameter rows in a block's shared memory")
-    return mk._adjoint_buffers(cfg, tcfg, g, dev)
-
-
 def dyn_sweep_stages(n_alb: int, n_emi: int, max_depth: int) -> int:
     """The ring stages `dyn_sweep`'s kernel launches with on the current
     card for tables of n_alb and n_emi rows (the sentinel rows included):
@@ -1053,9 +1046,11 @@ def dyn_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
     rows through a ring in shared memory, sized at launch from what the
     table rows' accumulator leaves (`dyn_sweep_stages`: 3 stages up to 128
     real rows), and through registers where fewer than two stages fit, as
-    at the 144-row limit, where the accumulator fills the block's shared
-    memory. A shard's sweep (n_rays slots) draws nothing and takes no ray
-    offset."""
+    at 144 rows, where the accumulator fills the block's shared memory.
+    Above MAX_GRAD_ROWS real rows (up to 255 + 255) or mk.MAX_DEPTH
+    bounces it takes its deep form, whose accumulator and rows past 32
+    live in device memory (`mk.deep_scratch`). A shard's sweep (n_rays
+    slots) draws nothing and takes no ray offset."""
     if mk._device_of("dyn_sweep", alb) == "cpu":
         return dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g)
     dev = alb.device
@@ -1064,13 +1059,15 @@ def dyn_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
     res_shape = (D, n) if n_chunks == 1 else (n_chunks, D, n)
     mk._check("rsc", rsc, res_shape, dev)
     mk._check("rrow", rrow, res_shape, dev, torch.int32)
-    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    partials, da, de = mk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
+    deep = mk.deep_scratch(lib, n, D, tcfg.n_alb, tcfg.n_emi, dev)
     mk._launch(dyn_sweep, "dyn sweep adjoint",
                lib.drt_dyn_adjoint_error_string, lib.drt_dyn_sweep, dev,
                ctypes.byref(tcfg), alb.data_ptr(), emi.data_ptr(),
                rsc.data_ptr(), rrow.data_ptr(), g.data_ptr(), g.shape[1],
-               partials.data_ptr(), da.data_ptr(), de.data_ptr())
+               mk._ptr(deep), partials.data_ptr(), da.data_ptr(),
+               de.data_ptr())
     return da, de
 
 
@@ -1095,15 +1092,17 @@ def dyn_adjoint(ds: DynScene, cc, cfg: RenderConfig, alb: torch.Tensor,
                        ray_base=ray_base)
     cu_ptr, tape_ptr = mk._uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     lay, ops = _scene_structs(ds, dev)
-    partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
+    partials, da, de = mk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
+    deep = mk.deep_scratch(lib, tcfg.n_rays, cfg.max_depth, tcfg.n_alb,
+                           tcfg.n_emi, dev)
     mk._launch(dyn_adjoint, "dyn retrace adjoint",
                lib.drt_dyn_adjoint_error_string, lib.drt_dyn_adjoint, dev,
                ctypes.byref(tcfg), ctypes.byref(lay),
                ctypes.byref(mk._camera_struct(cc)), ctypes.byref(ops),
                alb.data_ptr(), emi.data_ptr(), cu_ptr, tape_ptr,
-               g.data_ptr(), g.shape[1], partials.data_ptr(), da.data_ptr(),
-               de.data_ptr())
+               g.data_ptr(), g.shape[1], mk._ptr(deep), partials.data_ptr(),
+               da.data_ptr(), de.data_ptr())
     return da, de
 
 

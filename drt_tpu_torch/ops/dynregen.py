@@ -20,8 +20,9 @@ it shares with `ops.regen`'s, where its ring fits
 (`dyn_regen_sweep_form`). Per-pixel `trips`,
 unwritten rows beyond them, the chunk dimension, the keyed hash and
 `sample_base` are as `ops.regen` says; the limits are the dyn family's
-(2048 shapes, 256 rows a table, of which the sweep accumulates at most
-`MAX_GRAD_ROWS` real albedo + emission rows, 32 bounces). Sample s of a
+(2048 shapes, 256 rows a table; above `MAX_GRAD_ROWS` real albedo +
+emission rows or 32 bounces the sweep takes its deep form, whose
+accumulator and rows live in device memory). Sample s of a
 pixel is the path of `ops.dynkernel`'s ray slot for that sample, and on a
 scene that both families take, of `ops.regen`'s.
 
@@ -152,9 +153,10 @@ def _adjoint_library() -> ctypes.CDLL:
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_dyn_regen_sweep.argtypes is None:
-        # alb, emi, rsc, rrow, trips, g, partials, da, de, stream
-        mk._bind(lib, "drt_dyn_regen_sweep", 10, (mk._DrtTrace,))
-        mk._bind(lib, "drt_dyn_regen_sweep_lockstep", 10, (mk._DrtTrace,))
+        # alb, emi, rsc, rrow, trips, g, scratch, partials, da, de, stream
+        mk._bind(lib, "drt_dyn_regen_sweep", 11, (mk._DrtTrace,))
+        mk._bind(lib, "drt_dyn_regen_sweep_lockstep", 11, (mk._DrtTrace,))
+        mk._bind_deep_bytes(lib)
         fn = lib.drt_dyn_regen_sweep_form
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
@@ -263,7 +265,9 @@ def dyn_regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
     """The kernel `dyn_regen_sweep` runs at cfg's depth for tables of
     alb's and emi's rows (the sentinel rows included) on the current
     card: "window" where its ring of rows fits in a block's shared memory
-    beside the accumulator and the tables, else "per-pixel"."""
+    beside the accumulator and the tables, else "per-pixel"; beyond
+    mk.MAX_DEPTH bounces or MAX_GRAD_ROWS real rows "deep", the deep form
+    of the per-pixel kernel (csrc/regen_window.cuh)."""
     lib = _adjoint_library()
     window = ctypes.c_int()
     rc = lib.drt_dyn_regen_sweep_form(cfg.max_depth, alb.shape[0],
@@ -272,7 +276,7 @@ def dyn_regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
         raise RuntimeError("dyn regeneration sweep form query: "
                            + lib.drt_dyn_regen_adjoint_error_string(rc)
                            .decode())
-    return "window" if window.value else "per-pixel"
+    return rg.SWEEP_FORMS[window.value]
 
 
 def dyn_regen_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
@@ -297,15 +301,17 @@ def dyn_regen_sweep(cfg: RenderConfig, alb: torch.Tensor, emi: torch.Tensor,
     tcfg = rg.per_pixel(dk._dyn_config(cfg, 0, alb, emi, n_chunks=n_chunks),
                         cfg, n_pix)
     rg.check_rows(cfg, n_chunks, rsc, rrow, trips, g, dev, tcfg.n_rays)
-    partials, da, de = dk._adjoint_buffers(cfg, tcfg, g, dev)
+    partials, da, de = mk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
+    deep = mk.deep_scratch(lib, tcfg.n_rays, cfg.max_depth, tcfg.n_alb,
+                           tcfg.n_emi, dev)
     mk._launch(dyn_regen_sweep if build == "queue" else None,
                "dyn regeneration sweep adjoint",
                lib.drt_dyn_regen_adjoint_error_string, getattr(lib, entry),
                dev, ctypes.byref(tcfg), alb.data_ptr(), emi.data_ptr(),
                rsc.data_ptr(), rrow.data_ptr(), trips.data_ptr(),
-               g.data_ptr(), partials.data_ptr(), da.data_ptr(),
-               de.data_ptr())
+               g.data_ptr(), mk._ptr(deep), partials.data_ptr(),
+               da.data_ptr(), de.data_ptr())
     return da, de
 
 

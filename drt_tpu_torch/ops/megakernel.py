@@ -88,7 +88,9 @@ from drt_tpu_torch.scene import Params, Scene, SPHERE, TRIANGLE
 SOURCE = "fused_tracer.cu"
 ADJOINT_SOURCE = "fused_adjoint.cu"
 # Bounds of the kernels' shared-memory tables (DRT_* in the sources), the
-# deepest path the adjoint kernels keep per thread, and their block size.
+# deepest path the adjoint kernels keep per thread (beyond it their deep
+# forms keep the rest in device memory, csrc/grad_accum.cuh), and their
+# block size.
 MAX_SHAPES = 64
 MAX_ROWS = 64
 REC = 32
@@ -317,7 +319,7 @@ def sweep_rows_plain(cfg: RenderConfig, alb: torch.Tensor,
             live, arow, erow = rows_of(c, b)
             sc = rsc[c, b]
             rr = inv_keep if b >= cfg.min_bounces else 1.0
-            gate = torch.where(live, rr, 0.0).to(dtype)
+            gate = live.to(dtype) * rr  # rr rounded to dtype once
             P = T * gate
             a = alb[arow].T
             T = P * a * sc
@@ -411,6 +413,31 @@ def _stages(fn, what: str, n_alb: int, n_emi: int, max_depth: int) -> int:
     return got.value
 
 
+def _bind_deep_bytes(lib) -> None:
+    """argtypes of an adjoint library's drt_deep_bytes: n, depth, n_alb,
+    n_emi and the u64 it writes."""
+    fn = lib.drt_deep_bytes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_ulonglong)]
+    fn.restype = ctypes.c_int
+
+
+def deep_scratch(lib, n: int, depth: int, n_alb: int, n_emi: int,
+                 dev) -> torch.Tensor | None:
+    """The device-memory scratch of an adjoint kernel's deep form over n
+    items (ray slots, pixels or lanes) of `depth` rows a path, as large as
+    the library's drt_deep_bytes says; None where it says 0: the launch
+    takes the in-thread form (up to DEEP_WINDOW rows and DEEP_MAX_ACC_ROWS
+    real table rows, csrc/grad_accum.cuh)."""
+    got = ctypes.c_ulonglong()
+    with torch.cuda.device(dev):
+        rc = lib.drt_deep_bytes(n, depth, n_alb, n_emi, ctypes.byref(got))
+    if rc:
+        raise RuntimeError(f"deep scratch size: CUDA error {rc}")
+    if not got.value:
+        return None
+    return torch.empty(got.value, dtype=torch.uint8, device=dev)
+
+
 def _check_limits(source: str, fn, expected: list) -> None:
     got = [ctypes.c_int() for _ in expected]
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(expected)
@@ -473,25 +500,27 @@ def _adjoint_library() -> ctypes.CDLL:
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_fused_sweep.argtypes is None:
-        # scene, alb, emi, rsc, rbest, g, g_n, partials, da, de, stream
-        _bind(lib, "drt_fused_sweep", 11, (_DrtTrace,), n_ints_at=(6,))
+        # scene, alb, emi, rsc, rbest, g, g_n, scratch, partials, da, de,
+        # stream
+        _bind(lib, "drt_fused_sweep", 12, (_DrtTrace,), n_ints_at=(6,))
         _bind_stages(lib, "drt_fused_sweep_stages")
-        # scene, alb, emi, cam_u, tape, g, g_n, [slot_acc,] partials, da,
-        # de, stream
-        _bind(lib, "drt_fused_adjoint", 12, (_DrtTrace, _DrtCamera),
+        _bind_deep_bytes(lib)
+        # scene, alb, emi, cam_u, tape, g, g_n, [slot_acc, scratch,]
+        # partials, da, de, stream
+        _bind(lib, "drt_fused_adjoint", 13, (_DrtTrace, _DrtCamera),
               n_ints_at=(6,))
         _bind(lib, "drt_fused_adjoint_lockstep", 11,
               (_DrtTrace, _DrtCamera), n_ints_at=(6,))
-        # scene, alb, emi, o, d, tape, g, [slot_acc,] partials, da, de,
-        # stream
-        _bind(lib, "drt_ray_adjoint", 12, (_DrtTrace,))
+        # scene, alb, emi, o, d, tape, g, [slot_acc, scratch,] partials,
+        # da, de, stream
+        _bind(lib, "drt_ray_adjoint", 13, (_DrtTrace,))
         _bind(lib, "drt_ray_adjoint_lockstep", 11, (_DrtTrace,))
         # b_start, b_end, chunk, scene, alb, emi, cam_u, tape, ray, alive,
-        # ray_idx, g, g_n, s_end, partials, da, de, s_start, stream
-        _bind(lib, "drt_fused_segment_adjoint_lockstep", 19,
+        # ray_idx, g, g_n, s_end, scratch, partials, da, de, s_start, stream
+        _bind(lib, "drt_fused_segment_adjoint_lockstep", 20,
               (_DrtTrace, _DrtCamera), n_ints_at=(0, 1, 2, 12))
-        # ... s_end, next_group, partials, da, de, s_start, stream
-        _bind(lib, "drt_fused_segment_adjoint", 20, (_DrtTrace, _DrtCamera),
+        # ... s_end, next_group, scratch, partials, da, de, s_start, stream
+        _bind(lib, "drt_fused_segment_adjoint", 21, (_DrtTrace, _DrtCamera),
               n_ints_at=(0, 1, 2, 12))
         fn = lib.drt_fused_segment_form
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
@@ -801,12 +830,9 @@ def trip_counts_plain(cfg: RenderConfig, rbest: torch.Tensor, *,
 
 def _adjoint_buffers(cfg: RenderConfig, tcfg: _DrtTrace, g: torch.Tensor,
                      dev):
-    """Check depth and cotangent for the adjoint kernels; allocate the
-    per-block partials and the gradient tables."""
-    if cfg.max_depth > MAX_DEPTH:
-        raise ValueError(f"max_depth {cfg.max_depth} exceeds the "
-                         f"{MAX_DEPTH} bounces the adjoint kernels keep "
-                         "per thread")
+    """Check the cotangent for the adjoint kernels; allocate the
+    per-block partials and the gradient tables. Any depth: beyond
+    MAX_DEPTH the kernels take their deep forms (`deep_scratch`)."""
     npix = cfg.width * cfg.height
     if g.ndim != 2 or g.shape[1] not in (tcfg.n_rays, npix):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected "
@@ -833,6 +859,15 @@ def _slot_columns(tcfg: _DrtTrace, dev) -> torch.Tensor:
     entries = (tcfg.n_alb - 1 + tcfg.n_emi - 1) * 3
     return torch.empty((tcfg.n_rays, (entries + 3) // 4 * 4),
                        dtype=torch.float32, device=dev)
+
+
+def _queue_scratch(lib, cfg: RenderConfig, tcfg: _DrtTrace, dev) -> tuple:
+    """The adjoint queue's scratch: its slot columns and, beyond MAX_DEPTH
+    bounces, its deep form's rows (None up to it). The caller holds both
+    until the launch is queued, so neither takes the other's memory."""
+    return (_slot_columns(tcfg, dev),
+            deep_scratch(lib, tcfg.n_rays, cfg.max_depth, tcfg.n_alb,
+                         tcfg.n_emi, dev))
 
 
 def fused_sweep_stages(n_alb: int, n_emi: int, max_depth: int) -> int:
@@ -869,11 +904,13 @@ def fused_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     _check("rbest", rbest, res_shape, dev, torch.int32)
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
+    deep = deep_scratch(lib, n, D, tcfg.n_alb, tcfg.n_emi, dev)
     _launch(fused_sweep, "fused sweep adjoint",
             lib.drt_adjoint_error_string, lib.drt_fused_sweep, dev,
             ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
             emi.data_ptr(), rsc.data_ptr(), rbest.data_ptr(), g.data_ptr(),
-            g.shape[1], partials.data_ptr(), da.data_ptr(), de.data_ptr())
+            g.shape[1], _ptr(deep), partials.data_ptr(), da.data_ptr(),
+            de.data_ptr())
     return da, de
 
 
@@ -901,16 +938,18 @@ def fused_adjoint(scene: Scene, table: torch.Tensor, cc: CameraConsts,
                          ray_base=ray_base)
     cu_ptr, tape_ptr = _uniform_pointers(tcfg, seeds, cam_u, tape, dev)
     queue = build == "queue"
+    if not queue and cfg.max_depth > MAX_DEPTH:
+        raise ValueError(f"the lockstep build keeps at most {MAX_DEPTH} "
+                         "rows a path in the thread")
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
-    slot_acc = (_slot_columns(tcfg, dev),) if queue else ()
     lib = _adjoint_library()
+    scratch = _queue_scratch(lib, cfg, tcfg, dev) if queue else ()
     _launch(fused_adjoint if queue else None, "fused retrace adjoint",
             lib.drt_adjoint_error_string, getattr(lib, entry), dev,
             ctypes.byref(tcfg), ctypes.byref(_camera_struct(cc)),
             table.data_ptr(), alb.data_ptr(), emi.data_ptr(), cu_ptr,
-            tape_ptr, g.data_ptr(), g.shape[1],
-            *(t.data_ptr() for t in slot_acc), partials.data_ptr(),
-            da.data_ptr(), de.data_ptr())
+            tape_ptr, g.data_ptr(), g.shape[1], *map(_ptr, scratch),
+            partials.data_ptr(), da.data_ptr(), de.data_ptr())
     return da, de
 
 
@@ -1078,15 +1117,18 @@ def ray_adjoint(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     _ray_inputs(tcfg, o, d, u, dev)
     _check("g", g, (3, tcfg.n_rays), dev)  # one cotangent per ray
     queue = build == "queue"
+    if not queue and cfg.max_depth > MAX_DEPTH:
+        raise ValueError(f"the lockstep build keeps at most {MAX_DEPTH} "
+                         "rows a path in the thread")
     partials, da, de = _adjoint_buffers(cfg, tcfg, g, dev)
-    slot_acc = (_slot_columns(tcfg, dev),) if queue else ()
     lib = _adjoint_library()
+    scratch = _queue_scratch(lib, cfg, tcfg, dev) if queue else ()
     _launch(ray_adjoint if queue else None, "wavefront adjoint",
             lib.drt_adjoint_error_string, getattr(lib, entry), dev,
             ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
             emi.data_ptr(), o.data_ptr(), d.data_ptr(), u.data_ptr(),
-            g.data_ptr(), *(t.data_ptr() for t in slot_acc),
-            partials.data_ptr(), da.data_ptr(), de.data_ptr())
+            g.data_ptr(), *map(_ptr, scratch), partials.data_ptr(),
+            da.data_ptr(), de.data_ptr())
     return da, de
 
 
@@ -1338,14 +1380,17 @@ def fused_segment_adjoint(scene: Scene, table: torch.Tensor,
     # The entry point's group counter for the queue, an int of scratch.
     next_group = (torch.empty(1, dtype=torch.int32, device=dev),
                   ) if queue else ()
+    # A segment of more than MAX_DEPTH bounces takes its loop's deep form.
+    deep = deep_scratch(lib, K, b_end - b_start, tcfg.n_alb, tcfg.n_emi,
+                        dev)
     _launch(fused_segment_adjoint if queue else None,
             "fused segment adjoint", lib.drt_adjoint_error_string,
             getattr(lib, entry), dev, ctypes.byref(tcfg),
             ctypes.byref(_camera_struct(cc)), b_start, b_end, chunk,
             table.data_ptr(), alb.data_ptr(), emi.data_ptr(), *ptrs,
             g.data_ptr(), g.shape[1], None if final else S_end.data_ptr(),
-            *(t.data_ptr() for t in next_group), partials.data_ptr(),
-            da.data_ptr(), de.data_ptr(),
+            *(t.data_ptr() for t in next_group), _ptr(deep),
+            partials.data_ptr(), da.data_ptr(), de.data_ptr(),
             None if s_start is None else s_start.data_ptr())
     return (da, de) if s_start is None else (da, de, s_start)
 
@@ -1521,8 +1566,8 @@ def make_pallas_adjoint(scene: Scene, cfg: RenderConfig, plain: bool = False):
     """Build `adj(alb, emi, o, d, u, g) -> (d_albedo f32[K+1, 3],
     d_emission f32[L+1, 3])`: the parameter gradients of sum_rays g . L
     for the rays and tape of `make_pallas_tracer` and a per-ray cotangent
-    g (V3 of f32[N], or f32[3, N]), sentinel rows zero; at most
-    `MAX_DEPTH` bounces on the card."""
+    g (V3 of f32[N], or f32[3, N]), sentinel rows zero; any depth (past
+    `MAX_DEPTH` bounces the kernel's deep form)."""
     table = None if plain else scene_table(scene)
 
     def adjoint(alb, emi, o, d, u, g):

@@ -82,6 +82,10 @@ _RRON_BIT = 9
 WINDOW_ROWS = 8
 
 
+# The kernel of a sweep launch by the code its form query gives.
+SWEEP_FORMS = ("per-pixel", "window", "deep")
+
+
 def ring_windows(max_depth: int) -> int:
     """Windows in the ring of the kernel instance that takes max_depth."""
     return 4 if max_depth <= 8 else 8
@@ -231,7 +235,10 @@ def sweep_trips_plain(cfg: RenderConfig, alb: torch.Tensor,
     n_chunks, _, n = rsc.shape
     dtype, dev = alb.dtype, alb.device
     n_alb, n_emi = alb.shape[0], emi.shape[0]
-    inv_keep = 1.0 / (1.0 - cfg.absorb_prob)
+    # The roulette scale rounded to dtype once (a Python float in
+    # torch.where would make a float32 tensor).
+    keep = torch.tensor(1.0 / (1.0 - cfg.absorb_prob), dtype=dtype,
+                        device=dev)
     da = torch.zeros((n_alb, 3), dtype=dtype, device=dev)
     de = torch.zeros((n_emi, 3), dtype=dtype, device=dev)
 
@@ -248,8 +255,7 @@ def sweep_trips_plain(cfg: RenderConfig, alb: torch.Tensor,
             live, arow, erow, want, rr_on = decode(
                 torch.where(own, rcode[c, t].long(), dead_code))
             T = torch.where(want, 1.0, T)
-            gate = torch.where(live, torch.where(rr_on, inv_keep, 1.0),
-                               0.0).to(dtype)
+            gate = torch.where(live, torch.where(rr_on, keep, 1.0), 0.0)
             P = T * gate
             a = alb[arow].T
             T = P * a * sc
@@ -354,9 +360,11 @@ def _adjoint_library() -> ctypes.CDLL:
 
     lib = native.load(ADJOINT_SOURCE)
     if lib.drt_regen_sweep.argtypes is None:
-        # scene, alb, emi, rsc, rmeta, trips, g, partials, da, de, stream
-        mk._bind(lib, "drt_regen_sweep", 11, (mk._DrtTrace,))
-        mk._bind(lib, "drt_regen_sweep_lockstep", 11, (mk._DrtTrace,))
+        # scene, alb, emi, rsc, rmeta, trips, g, scratch, partials, da, de,
+        # stream
+        mk._bind(lib, "drt_regen_sweep", 12, (mk._DrtTrace,))
+        mk._bind(lib, "drt_regen_sweep_lockstep", 12, (mk._DrtTrace,))
+        mk._bind_deep_bytes(lib)
         fn = lib.drt_regen_sweep_form
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
@@ -567,7 +575,8 @@ def regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
     """The kernel `regen_sweep` runs at cfg's depth for tables of alb's
     and emi's rows (the sentinel rows included) on the current card:
     "window" where its ring of rows fits in a block's shared memory beside
-    the accumulator, else "per-pixel"."""
+    the accumulator, else "per-pixel"; beyond mk.MAX_DEPTH bounces "deep",
+    the deep form of the per-pixel kernel (csrc/regen_window.cuh)."""
     window = ctypes.c_int()
     rc = _adjoint_library().drt_regen_sweep_form(
         cfg.max_depth, alb.shape[0], emi.shape[0], ctypes.byref(window))
@@ -575,7 +584,7 @@ def regen_sweep_form(cfg: RenderConfig, alb: torch.Tensor,
         raise RuntimeError("regeneration sweep form query: "
                            + _adjoint_library()
                            .drt_regen_adjoint_error_string(rc).decode())
-    return "window" if window.value else "per-pixel"
+    return SWEEP_FORMS[window.value]
 
 
 def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
@@ -602,13 +611,15 @@ def regen_sweep(scene: Scene, table: torch.Tensor, cfg: RenderConfig,
     check_rows(cfg, n_chunks, rsc, rmeta, trips, g, dev, tcfg.n_rays)
     partials, da, de = mk._adjoint_buffers(cfg, tcfg, g, dev)
     lib = _adjoint_library()
+    deep = mk.deep_scratch(lib, tcfg.n_rays, cfg.max_depth, tcfg.n_alb,
+                           tcfg.n_emi, dev)
     mk._launch(regen_sweep if build == "queue" else None,
                "regeneration sweep adjoint",
                lib.drt_regen_adjoint_error_string, getattr(lib, entry), dev,
                ctypes.byref(tcfg), table.data_ptr(), alb.data_ptr(),
                emi.data_ptr(), rsc.data_ptr(), rmeta.data_ptr(),
-               trips.data_ptr(), g.data_ptr(), partials.data_ptr(),
-               da.data_ptr(), de.data_ptr())
+               trips.data_ptr(), g.data_ptr(), mk._ptr(deep),
+               partials.data_ptr(), da.data_ptr(), de.data_ptr())
     return da, de
 
 

@@ -82,7 +82,11 @@ def _bounce(tabs, scene: Scene, cfg: RenderConfig, carry, b, u):
     if torch.is_tensor(b):
         rr_on = b >= cfg.min_bounces
         alive = alive & ~(rr_on & (u_rr < cfg.absorb_prob))
-        rr_scale = torch.where(rr_on, inv_keep, 1.0).to(dtype)
+        # inv_keep rounded to dtype once (a Python float in torch.where
+        # would make a float32 tensor).
+        rr_scale = torch.where(
+            rr_on, torch.tensor(inv_keep, dtype=dtype, device=u1.device),
+            1.0)
     else:
         do_rr = b >= cfg.min_bounces
         if do_rr:

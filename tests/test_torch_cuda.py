@@ -16,6 +16,8 @@ rtol 2e-3 / atol 1e-4; at most 0.1% of rays beyond, for the paths whose
 hit or flip choice an ulp of libm difference turns. Gradient tables to
 2e-5 of the table's largest entry (summation order)."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -226,10 +228,17 @@ def test_adjoint_wrappers_check_inputs(dev):
         sweep(alb, emi, rsc, rbest, g[:, :100])
     with pytest.raises(ValueError, match="is on"):
         sweep(alb, emi, rsc, rbest, g.cpu())
-    deep = RenderConfig(width=8, height=8, spp=2, max_depth=mk.MAX_DEPTH + 1)
-    with pytest.raises(ValueError, match="exceeds the 32 bounces"):
-        mk.make_fused_adjoint(scene, cam, deep)(
-            alb, emi, [1, 2], torch.rand((3, 64), device=dev))
+    # Deeper than the rows a thread keeps: the deep forms, bit-consistent.
+    deep = RenderConfig(width=8, height=8, spp=2, max_depth=mk.MAX_DEPTH + 1,
+                        absorb_prob=0.1)
+    g_deep = torch.rand((3, 64), device=dev)
+    _, rsc_d, rbest_d = mk.make_fused_collect_tracer(scene, cam, deep)(
+        alb, emi, [1, 2])
+    for a, b in zip(mk.make_fused_adjoint(scene, cam, deep)(alb, emi, [1, 2],
+                                                            g_deep),
+                    mk.make_fused_sweep_adjoint(scene, deep)(
+                        alb, emi, rsc_d, rbest_d, g_deep)):
+        assert torch.equal(a, b)
     # Per-pixel and per-ray cotangents agree bit for bit.
     g_pix = g[:, :64].contiguous()
     for a, b in zip(sweep(alb, emi, rsc, rbest, g_pix),
@@ -542,17 +551,26 @@ def test_dyn_wrappers_check_inputs(dev):
         sweep(alb, emi, rsc, rrow.long(), g)
     with pytest.raises(ValueError, match="per ray or"):
         sweep(alb, emi, rsc, rrow, g[:, :100])
-    # More parameter rows than the gradient accumulator holds.
+    # More parameter rows than a block's shared memory accumulates: the
+    # accumulator's deep form, against the plain version.
     wide = torch.cat([alb[:-1]] * 40 + [alb[-1:]])
     assert wide.shape[0] - 1 + emi.shape[0] - 1 > dk.MAX_GRAD_ROWS
-    with pytest.raises(ValueError, match="accumulate at most 144"):
-        sweep(wide, emi, rsc, rrow, g)
+    _grads_close(sweep(wide, emi, rsc, rrow, g),
+                 dk.dyn_sweep_plain(cfg, wide, emi, rsc, rrow, g))
     # The forward kernels take them (up to 256 rows a table).
     assert torch.isfinite(trace(wide, emi, cam_u, tape)).all()
-    deep = RenderConfig(width=8, height=8, spp=2, max_depth=mk.MAX_DEPTH + 1)
-    with pytest.raises(ValueError, match="exceeds the 32 bounces"):
-        dk.make_dyn_adjoint(scene, cam, deep)(
-            alb, emi, [1, 2], torch.rand((3, 64), device=dev))
+    # Deeper than the rows a thread keeps: the retrace adjoint's deep form
+    # = the sweep's on the collect tracer's rows.
+    deep = RenderConfig(width=8, height=8, spp=2, max_depth=mk.MAX_DEPTH + 1,
+                        absorb_prob=0.1)
+    g_deep = torch.rand((3, 64), device=dev)
+    _, rsc_d, rrow_d = dk.make_dyn_collect_tracer(scene, cam, deep)(
+        alb, emi, [1, 2])
+    for a, b in zip(dk.make_dyn_adjoint(scene, cam, deep)(alb, emi, [1, 2],
+                                                          g_deep),
+                    dk.make_dyn_sweep_adjoint(scene, deep)(
+                        alb, emi, rsc_d, rrow_d, g_deep)):
+        assert torch.equal(a, b)
     # Per-pixel and per-ray cotangents agree bit for bit.
     g_pix = g[:, :64].contiguous()
     for a, b in zip(sweep(alb, emi, rsc, rrow, g_pix),
@@ -832,13 +850,16 @@ def test_regen_wrappers_check_inputs(dev):
         sweep(alb, emi, rsc, rmeta, trips.long(), g)
     with pytest.raises(ValueError, match="shape"):
         sweep(alb, emi, rsc, rmeta, trips, g.repeat(1, 2))
+    # Deeper than the rows a thread keeps: the deep form.
     deep = RenderConfig(width=8, height=8, spp=1, max_depth=33,
-                        min_bounces=1)
+                        min_bounces=1, absorb_prob=0.1)
     _, rsc, rmeta, trips = rg.make_regen_tracer(scene, cam, deep,
                                                 collect=True)(alb, emi, seeds)
-    with pytest.raises(ValueError, match="32 bounces"):
-        rg.make_regen_sweep_adjoint(scene, deep)(alb, emi, rsc, rmeta, trips,
-                                                 g)
+    assert rg.regen_sweep_form(deep, alb, emi) == "deep"
+    _grads_close(rg.make_regen_sweep_adjoint(scene, deep)(alb, emi, rsc,
+                                                          rmeta, trips, g),
+                 rg.regen_sweep_plain(scene, deep, alb, emi, rsc, rmeta,
+                                      trips, g))
 
 
 def _wavefront_rays(cam, cfg, cam_u, exact_division=False):
@@ -940,10 +961,13 @@ def test_wavefront_wrappers_check_inputs(dev):
         adj(alb, emi, o, d, tape, g[:, :32])
     with pytest.raises(ValueError, match="is on"):
         adj(alb, emi, o, d, tape.cpu(), g)
-    deep = RenderConfig(width=8, height=8, spp=1, max_depth=33)
-    with pytest.raises(ValueError, match="32 bounces"):
-        mk.make_pallas_adjoint(scene, deep)(
-            alb, emi, o, d, torch.rand((33, 3, 64), device=dev), g)
+    # Deeper than the rows a thread keeps: the deep form.
+    deep = RenderConfig(width=8, height=8, spp=1, max_depth=33,
+                        absorb_prob=0.1)
+    u = torch.rand((33, 3, 64), device=dev)
+    _grads_close(mk.make_pallas_adjoint(scene, deep)(alb, emi, o, d, u, g),
+                 mk.make_pallas_adjoint(scene, deep, plain=True)(
+                     alb, emi, o, d, u, g))
 
 
 @pytest.mark.parametrize("depth", [1, 5, 32])
@@ -2377,3 +2401,305 @@ def test_regen_ray_base_gives_the_pixel_slice(dev, family, make):
             ref = make_t(ks, cam, cfg, n_chunks=2, n_pix=q, plain=True)(
                 alb, emi, seeds, ray_base=a)[0]
             assert _share_beyond(L, ref, 2e-5, 2e-6) <= 1e-3
+
+
+# The deep forms of the adjoint kernels (csrc/grad_accum.cuh): paths past
+# the 32 rows a thread keeps and tables past the 144 real rows whose
+# accumulator a block's shared memory holds, against the plain versions.
+# absorb_prob 0.1 keeps paths alive past bounce 32 (each test counts them)
+# and albedo 0.8 (`_bright`) keeps their rows' weight.
+DEEP_DEPTHS = [33, 40, 64]
+
+
+def _deep_cfg(depth, **kw):
+    return RenderConfig(width=16, height=12, spp=4, max_depth=depth,
+                        absorb_prob=0.1, **kw)
+
+
+def _wide_scene(dev, n_alb, n_emi):
+    """A box of white walls around 60 triangles that use albedo rows
+    spread over [0, n_alb) and emission rows over [0, n_emi)."""
+    from drt_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    alb = [b.albedo_param([0.3 + 0.4 * (k % 5) / 4, 0.5, 0.7 - 0.4 * (k % 3)
+                           / 2]) for k in range(n_alb)]
+    emi = [b.emission_param([0.05, 0.02 * (1 + k % 4), 0.05])
+           for k in range(n_emi)]
+    for n, off in (([-1.0, 0.0, 0.0], -3.0), ([1.0, 0.0, 0.0], -3.0),
+                   ([0.0, 0.0, -1.0], -6.0), ([0.0, 0.0, 1.0], 0.0),
+                   ([0.0, 1.0, 0.0], -3.0), ([0.0, -1.0, 0.0], -3.0)):
+        b.plane(n, off, b.diffuse(alb[0]))
+    for k in range(60):
+        x, y = -2.5 + 0.5 * (k % 10), -2.5 + 0.8 * (k // 10)
+        b.triangle([x, y, 5.0], [x + 0.5, y, 5.0], [x, y + 0.8, 5.0],
+                   b.diffuse(alb[k * (n_alb - 1) // 59]),
+                   emi[k * (n_emi - 1) // 59])
+    scene, params = b.build(device=dev)
+    _, _, cam = cbox.build(device=dev)
+    return scene, params, cam, albedo_table(scene, params), \
+        emission_table(scene, params)
+
+
+def _past_32(live):
+    assert int(live[..., 32:, :].sum()) > 0, "no path lives past bounce 32"
+
+
+def _bright(alb):
+    """The albedo table with every real row 0.8: a path keeps 0.8 / (1 -
+    0.1) of its throughput a bounce, so its rows past 32 weigh 2e-2 of its
+    first in the gradients (at albedo 0.5, 1e-8: below the tolerance)."""
+    return torch.cat([torch.full_like(alb[:-1], 0.8), alb[-1:]])
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("depth", DEEP_DEPTHS)
+def test_deep_fused_sweep_and_retrace_adjoint(dev, depth, per_pixel):
+    """B3 past 32 bounces against the plain sweep on its rows, and B4 =
+    sweep(collect) bit for bit, in tape mode and over 2 chunks of the
+    internal RNG, on bright tables; B4 against the plain retrace on the
+    scene's own (over 33-64 bright bounces the ulps of libm turn paths)."""
+    cfg = _deep_cfg(depth)
+    scene, params, cam, own_alb, emi = _setup(gallery.build_glossy, dev)
+    alb = _bright(own_alb)
+    n = 16 * 12 * 4
+    cam_u, tape, g = _tape_inputs(dev, n, depth=depth, seed=depth)
+    if per_pixel:
+        g = g[:, :16 * 12].contiguous()
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg,
+                                                 rng="tape")(alb, emi, cam_u,
+                                                             tape)
+    _past_32(rbest > 0)
+    d3 = mk.make_fused_sweep_adjoint(scene, cfg)(alb, emi, rsc, rbest, g)
+    _grads_close(d3, mk.fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest,
+                                          g))
+    adj = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")
+    for a, b in zip(adj(alb, emi, cam_u, tape, g), d3):
+        assert torch.equal(a, b)
+    _grads_close(adj(own_alb, emi, cam_u, tape, g),
+                 mk.make_fused_adjoint(scene, cam, cfg, rng="tape",
+                                       plain=True)(own_alb, emi, cam_u, tape,
+                                                   g), 1e-4)
+    cfg2 = _deep_cfg(depth, spp_chunks=2)
+    seeds = torch.tensor([depth, -7], dtype=torch.int32)
+    g2 = g if per_pixel else g[:, :16 * 12 * 2].contiguous()  # a chunk's
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg2,
+                                                 n_chunks=2)(alb, emi, seeds)
+    for a, b in zip(mk.make_fused_adjoint(scene, cam, cfg2, n_chunks=2)(
+            alb, emi, seeds, g2),
+            mk.make_fused_sweep_adjoint(scene, cfg2, n_chunks=2)(
+                alb, emi, rsc, rbest, g2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth", DEEP_DEPTHS)
+def test_deep_wavefront_adjoint_matches_plain(dev, depth):
+    """B5b past 32 bounces on B4's own rays = B4 bit for bit (bright
+    tables), and against its plain version on the scene's own."""
+    cfg = _deep_cfg(depth)
+    scene, params, cam, own_alb, emi = _setup(cbox.build, dev)
+    alb = _bright(own_alb)
+    cam_u, tape, g = _tape_inputs(dev, 16 * 12 * 4, depth=depth)
+    o, d = _wavefront_rays(cam, cfg, cam_u, exact_division=True)
+    adj = mk.make_pallas_adjoint(scene, cfg)
+    for a, b in zip(adj(alb, emi, o, d, tape, g),
+                    mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(
+                        alb, emi, cam_u, tape, g)):
+        assert torch.equal(a, b)
+    _grads_close(adj(own_alb, emi, o, d, tape, g),
+                 mk.make_pallas_adjoint(scene, cfg, plain=True)(
+                     own_alb, emi, o, d, tape, g))
+
+
+@pytest.mark.parametrize("depth", DEEP_DEPTHS)
+def test_deep_segment_adjoint_forms(dev, depth):
+    """B4-seg over [2, D) (the queue's deep form) = its lockstep build
+    (the lockstep loop's deep form) bit for bit, and [0, D) from the
+    camera = B4, on bright tables; against the plain version on the
+    scene's own."""
+    cfg = _deep_cfg(depth)
+    scene, params, cam, own_alb, emi = _setup(cbox.build, dev)
+    cam_u, tape, g = _tape_inputs(dev, 16 * 12 * 4, depth=depth)
+    u = tape[2:].contiguous()
+    for alb in (_bright(own_alb), own_alb):
+        _, (ray, alive) = mk.make_fused_segment_tracer(
+            scene, cam, cfg, 0, 2, rng="tape")(alb, emi, cam_u,
+                                                tape[:2].contiguous())
+        got, lock, plain = (mk.make_fused_segment_adjoint(
+            scene, cam, cfg, 2, depth, rng="tape", **kw)(alb, emi, u, ray,
+                                                         alive, g)
+            for kw in ({}, dict(build="lockstep"), dict(plain=True)))
+        for a, b in zip(got, lock):
+            assert torch.equal(a, b)
+    _grads_close(got[:2], plain[:2])
+    assert _share_beyond(got[2], plain[2], 2e-5, 2e-6) <= 1e-3
+    alb = _bright(own_alb)
+    for a, b in zip(mk.make_fused_segment_adjoint(
+            scene, cam, cfg, 0, depth, rng="tape")(alb, emi, cam_u, tape, g),
+            mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(
+                alb, emi, cam_u, tape, g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth,rows", [
+    *((d, None) for d in DEEP_DEPTHS),
+    *((d, r) for d in [5] + DEEP_DEPTHS
+      for r in ((100, 45), (145, 1), (255, 255)))])
+def test_deep_dyn_sweep_and_retrace_adjoint(dev, depth, rows):
+    """B8 and B9 past 32 bounces and past 144 table rows (the mesh's own
+    rows where `rows` is None) against the plain version; B9 =
+    sweep(collect) bit for bit."""
+    if rows is None:
+        scene, params, cam, alb, emi = _setup(_mesh(1), dev)
+    else:
+        scene, params, cam, alb, emi = _wide_scene(dev, *rows)
+        assert alb.shape[0] + emi.shape[0] - 2 > dk.MAX_GRAD_ROWS
+    alb = _bright(alb)
+    cfg = _deep_cfg(depth)
+    cam_u, tape, g = _tape_inputs(dev, 16 * 12 * 4, depth=depth)
+    _, rsc, rrow = dk.make_dyn_collect_tracer(scene, cam, cfg, rng="tape")(
+        alb, emi, cam_u, tape)
+    if depth > 32:
+        _past_32((rrow >> 16) & 1)
+    for g_k in (g, g[:, :16 * 12].contiguous()):
+        d8 = dk.make_dyn_sweep_adjoint(scene, cfg)(alb, emi, rsc, rrow, g_k)
+        _grads_close(d8, dk.dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g_k))
+        for a, b in zip(dk.make_dyn_adjoint(scene, cam, cfg, rng="tape")(
+                alb, emi, cam_u, tape, g_k), d8):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family", ["fused", "dyn", "dyn wide"])
+@pytest.mark.parametrize("depth", DEEP_DEPTHS)
+def test_deep_regen_sweeps_match_plain(dev, depth, family):
+    """B11 and B13 past 32 bounces (B13 also with 255 + 255 rows) against
+    their plain versions; their checking builds take the same deep form."""
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import regen as rg
+
+    cfg = _deep_cfg(depth, spp_chunks=2)
+    seeds = torch.tensor([depth, 9], dtype=torch.int32)
+    g = torch.rand((3, 16 * 12), device=dev)
+    if family == "fused":
+        scene, params, cam, alb, emi = _setup(cbox.build, dev)
+        alb = _bright(alb)
+        trace = rg.make_regen_tracer(scene, cam, cfg, collect=True,
+                                     n_chunks=2)
+        assert rg.regen_sweep_form(cfg, alb, emi) == "deep"
+        _, rsc, rmeta, trips = trace(alb, emi, seeds)
+        got = [rg.make_regen_sweep_adjoint(scene, cfg, n_chunks=2, **kw)(
+            alb, emi, rsc, rmeta, trips, g)
+            for kw in ({}, dict(build="lockstep"))]
+        ref = rg.regen_sweep_plain(scene, cfg, alb, emi, rsc, rmeta, trips, g)
+    else:
+        scene, params, cam, alb, emi = (
+            _setup(cbox.build, dev) if family == "dyn"
+            else _wide_scene(dev, 255, 255))
+        alb = _bright(alb)
+        trace = dr.make_dyn_regen_tracer(scene, cam, cfg, collect=True,
+                                         n_chunks=2)
+        assert dr.dyn_regen_sweep_form(cfg, alb, emi) == "deep"
+        _, rsc, rrow, trips = trace(alb, emi, seeds)
+        got = [dr.make_dyn_regen_sweep_adjoint(scene, cfg, n_chunks=2, **kw)(
+            alb, emi, rsc, rrow, trips, g)
+            for kw in ({}, dict(build="lockstep"))]
+        ref = dr.dyn_regen_sweep_plain(cfg, alb, emi, rsc, rrow, trips, g)
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    _grads_close(got[0], ref)
+
+
+def _walk_items(dev):
+    """Items a deep form's grid holds at once (deep_blocks x 128 in
+    csrc/grad_accum.cuh); past them its blocks walk 128-item groups."""
+    p = torch.cuda.get_device_properties(dev)
+    return p.multi_processor_count * (
+        p.max_threads_per_multi_processor // mk.BLOCK) * mk.BLOCK
+
+
+@pytest.mark.parametrize("family", ["fused", "dyn", "regen", "dyn-regen"])
+def test_deep_forms_walk_many_groups(dev, family):
+    """The deep forms over 307,200 items in one launch, more than their
+    grid holds (270,336 on an H100), so that each block walks more than
+    one group, at depth 40 on bright tables (255 + 255 rows for the
+    memory-resident family): B3, B8, B11 and B13 against their plain
+    versions on their rows; B4 = B3, B4-seg [0, D) = B4 and [2, D) = its
+    lockstep build, B9 = B8 and the checking builds of B11 and B13 = the
+    fast ones, bit for bit."""
+    from drt_tpu_torch.ops import dynregen as dr
+    from drt_tpu_torch.ops import regen as rg
+
+    depth = 40
+    if family in ("fused", "regen"):
+        scene, params, cam, alb, emi = _setup(cbox.build, dev)
+    else:
+        scene, params, cam, alb, emi = _wide_scene(dev, 255, 255)
+    alb = _bright(alb)
+    if family in ("regen", "dyn-regen"):
+        cfg = _deep_cfg(depth)
+        cfg = dataclasses.replace(cfg, width=640, height=480, spp=1)
+        n = 640 * 480
+        assert n > _walk_items(dev)
+        seeds = torch.tensor([depth, 5], dtype=torch.int32)
+        g = torch.rand((3, n), device=dev)
+        if family == "regen":
+            _, rsc, rmeta, trips = rg.make_regen_tracer(
+                scene, cam, cfg, collect=True)(alb, emi, seeds)
+            got = [rg.make_regen_sweep_adjoint(scene, cfg, **kw)(
+                alb, emi, rsc, rmeta, trips, g)
+                for kw in ({}, dict(build="lockstep"))]
+            ref = rg.regen_sweep_plain(scene, cfg, alb, emi, rsc, rmeta,
+                                       trips, g)
+        else:
+            _, rsc, rrow, trips = dr.make_dyn_regen_tracer(
+                scene, cam, cfg, collect=True)(alb, emi, seeds)
+            got = [dr.make_dyn_regen_sweep_adjoint(scene, cfg, **kw)(
+                alb, emi, rsc, rrow, trips, g)
+                for kw in ({}, dict(build="lockstep"))]
+            ref = dr.dyn_regen_sweep_plain(cfg, alb, emi, rsc, rrow, trips,
+                                           g)
+        for a, b in zip(*got):
+            assert torch.equal(a, b)
+        _grads_close(got[0], ref, 1e-4)
+        return
+    cfg = dataclasses.replace(_deep_cfg(depth), width=320, height=240)
+    n = 320 * 240 * 4
+    assert n > _walk_items(dev)
+    cam_u, tape, g = _tape_inputs(dev, n, depth=depth, seed=3)
+    if family == "dyn":
+        _, rsc, rrow = dk.make_dyn_collect_tracer(scene, cam, cfg,
+                                                  rng="tape")(
+                                                      alb, emi, cam_u, tape)
+        _past_32((rrow >> 16) & 1)
+        d8 = dk.make_dyn_sweep_adjoint(scene, cfg)(alb, emi, rsc, rrow, g)
+        _grads_close(d8, dk.dyn_sweep_plain(cfg, alb, emi, rsc, rrow, g),
+                     1e-4)
+        for a, b in zip(dk.make_dyn_adjoint(scene, cam, cfg, rng="tape")(
+                alb, emi, cam_u, tape, g), d8):
+            assert torch.equal(a, b)
+        return
+    _, rsc, rbest = mk.make_fused_collect_tracer(scene, cam, cfg,
+                                                 rng="tape")(alb, emi, cam_u,
+                                                             tape)
+    _past_32(rbest > 0)
+    d3 = mk.make_fused_sweep_adjoint(scene, cfg)(alb, emi, rsc, rbest, g)
+    _grads_close(d3, mk.fused_sweep_plain(scene, cfg, alb, emi, rsc, rbest,
+                                          g), 1e-4)
+    d4 = mk.make_fused_adjoint(scene, cam, cfg, rng="tape")(alb, emi, cam_u,
+                                                            tape, g)
+    for a, b in zip(d4, d3):
+        assert torch.equal(a, b)
+    for a, b in zip(mk.make_fused_segment_adjoint(
+            scene, cam, cfg, 0, depth, rng="tape")(alb, emi, cam_u, tape, g),
+            d4):
+        assert torch.equal(a, b)
+    _, (ray, alive) = mk.make_fused_segment_tracer(
+        scene, cam, cfg, 0, 2, rng="tape")(alb, emi, cam_u,
+                                            tape[:2].contiguous())
+    u = tape[2:].contiguous()
+    got, lock = (mk.make_fused_segment_adjoint(
+        scene, cam, cfg, 2, depth, rng="tape", **kw)(alb, emi, u, ray, alive,
+                                                     g)
+        for kw in ({}, dict(build="lockstep")))
+    for a, b in zip(got, lock):
+        assert torch.equal(a, b)

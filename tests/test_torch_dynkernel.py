@@ -611,8 +611,9 @@ def test_wrappers_run_plain_versions_only_on_cpu_and_check_limits():
     """CPU tensors take the plain versions without counting a launch; any
     other device than cpu or cuda is refused; the limits of the CUDA
     branch that need no card (they are checked before a library loads):
-    2048 shapes, 256 table rows, and the rows whose gradient accumulator
-    fits a block's shared memory."""
+    2048 shapes and 256 table rows. Tables whose gradient accumulator does
+    not fit a block's shared memory (above MAX_GRAD_ROWS real rows, up to
+    255 + 255) are taken, by the adjoint kernels' deep forms."""
     scene, params, cam = gallery.build_mesh(1, device="cpu")
     ds = dk.DynScene(scene)
     alb, emi = _tables(scene, params)
@@ -637,12 +638,14 @@ def test_wrappers_run_plain_versions_only_on_cpu_and_check_limits():
         dk.dyn_collect(ds, cc, cfg, wide, emi, seeds=[1, 2])
     with pytest.raises(ValueError, match="1..256 rows"):
         dk._dyn_config(cfg, ds.n_shapes, wide, emi)
-    rows = torch.zeros((dk.MAX_GRAD_ROWS + 1, 3))
-    tcfg = dk._dyn_config(cfg, ds.n_shapes, rows, rows)
-    with pytest.raises(ValueError, match="accumulate at most 144"):
-        dk._adjoint_buffers(cfg, tcfg, torch.zeros(3, 16), alb.device)
+    for n_rows in (dk.MAX_GRAD_ROWS + 1, dk._ROW_CAP):
+        rows = torch.zeros((n_rows, 3))
+        tcfg = dk._dyn_config(cfg, ds.n_shapes, rows, rows)
+        partials, _, _ = mk._adjoint_buffers(cfg, tcfg, torch.zeros(3, 16),
+                                             alb.device)
+        assert partials.shape == (1, (n_rows - 1) * 6)
     tcfg = dk._dyn_config(cfg, ds.n_shapes, alb, emi)
-    partials, da, de = dk._adjoint_buffers(cfg, tcfg, torch.zeros(3, 16),
+    partials, da, de = mk._adjoint_buffers(cfg, tcfg, torch.zeros(3, 16),
                                            alb.device)
     assert partials.shape == (1, (alb.shape[0] + emi.shape[0] - 2) * 3)
     assert da.shape == alb.shape and de.shape == emi.shape

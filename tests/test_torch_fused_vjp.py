@@ -10,6 +10,7 @@ rtol 2e-5 / atol 1e-7 (tests/test_fused.py:350-356) where both sides run
 the kernels' op order, and atol 2e-6 against the JAX wavefront path, whose
 throughput product is associated differently."""
 
+import contextlib
 import dataclasses
 import functools
 
@@ -371,15 +372,42 @@ def test_make_renderer_is_differentiable_by_default():
         assert p.emission.grad.abs().max() > 0
 
 
-def test_adjoint_kernels_refuse_deep_paths_and_bad_cotangents():
+def test_adjoint_kernels_refuse_deep_paths_and_bad_cotangents(monkeypatch):
     """Input checks of the CUDA branch that need no card: they run before
-    any library is loaded. (The rest are in tests/test_torch_cuda.py.)"""
+    any library is loaded. (The rest are in tests/test_torch_cuda.py.)
+    Paths deeper than the MAX_DEPTH rows a thread keeps are taken, by the
+    kernels' deep forms: their buffers are the in-thread forms', and only
+    they need the device-memory scratch of `deep_scratch`, which is as
+    large as the library says (none where it says 0)."""
     _, (scene, params, cam) = _both("cbox")
     alb, emi = albedo_table(scene, params), emission_table(scene, params)
-    deep = RenderConfig(width=4, height=4, spp=1, max_depth=mk.MAX_DEPTH + 1)
-    tcfg = mk._trace_config(deep, mk.scene_table(scene), alb, emi)
-    with pytest.raises(ValueError, match="exceeds the 32 bounces"):
-        mk._adjoint_buffers(deep, tcfg, torch.zeros(3, 16), alb.device)
+    for depth in (mk.MAX_DEPTH + 1, 64):
+        deep = RenderConfig(width=4, height=4, spp=1, max_depth=depth)
+        tcfg = mk._trace_config(deep, mk.scene_table(scene), alb, emi)
+        partials, da, de = mk._adjoint_buffers(deep, tcfg,
+                                               torch.zeros(3, 16),
+                                               alb.device)
+        assert partials.shape == (1, (alb.shape[0] + emi.shape[0] - 2) * 3)
+    # deep_scratch asks the library (a stub here: the size is the card's)
+    # and allocates what it says; 0 bytes, the in-thread forms, no scratch.
+    class Lib:
+        def __init__(self, size):
+            self.size, self.calls = size, []
+
+        def drt_deep_bytes(self, *args):
+            self.calls.append(args[:4])
+            args[4]._obj.value = self.size
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    for size, depth in ((0, mk.MAX_DEPTH), (96, mk.MAX_DEPTH + 1)):
+        lib = Lib(size)
+        got = mk.deep_scratch(lib, 16, depth, alb.shape[0], emi.shape[0],
+                              alb.device)
+        assert lib.calls == [(16, depth, alb.shape[0], emi.shape[0])]
+        assert got is None if size == 0 else (
+            got.dtype == torch.uint8 and got.shape == (size,))
     ok = RenderConfig(width=4, height=4, spp=2, max_depth=3)
     tcfg = mk._trace_config(ok, mk.scene_table(scene), alb, emi)
     with pytest.raises(ValueError, match="per ray or"):

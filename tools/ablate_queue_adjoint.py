@@ -34,10 +34,8 @@ SWEEP = "    sweep_path(cfg, tab, rows, bnc, gv, acc);\n"
 NO_SWEEP = "    if (bnc < 0) sweep_path(cfg, tab, rows, bnc, gv, acc);\n"
 FLUSH = "    for (int e = 0; e < E; e += 4) {\n      float4 v;"
 NO_FLUSH = "    for (int e = 0; e < E && i < 0; e += 4) {\n      float4 v;"
-ROWS = ("    r.Psc[b] = make_float4(Px, Py, Pz, sc);\n"
-        "    r.best[b] = best;")
-NO_ROWS = ("    if (b < 0) r.Psc[b] = make_float4(Px, Py, Pz, sc);\n"
-           "    if (b < 0) r.best[b] = best;")
+ROWS = "    r.put(b, make_float4(Px, Py, Pz, sc), best);"
+NO_ROWS = "    if (b < 0) r.put(b, make_float4(Px, Py, Pz, sc), best);"
 # name -> text edits (old, new) of csrc/fused_adjoint.cu
 VARIANTS = {
     "as is": [],

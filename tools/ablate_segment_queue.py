@@ -48,20 +48,20 @@ import ablate_variants as ablate
 
 # The queue's parts.
 SWEEP = "        sweep_segment_path(cfg, tab, rows, b0, bnc - b0, gv, S, acc);\n"
-ROWS = ("    r.Psc[b - b0] = make_float4(Px, Py, Pz, sc);\n"
-        "    r.best[b - b0] = best;\n")
+ROWS = "    r.put(b - b0, make_float4(Px, Py, Pz, sc), best);\n"
 ADD = "          sum[e * 32] = sum[e * 32] + acc[e * DRT_BLOCK];\n"
 LOADS = ("        gv[0] = g[i]; gv[1] = g[n + i]; gv[2] = g[2 * n + i];\n"
          "        if (s_end != nullptr) {\n")
 OPEN = "        atomicOr(open_w + (at_m % SEGMENT_RING) * 32 + at_l, 1 << at_k);\n"
 CLOSE = "        atomicAnd(open_w + slot * 32 + at_l, ~(1 << at_k));\n"
 BARE = [(SWEEP, "        if (b0 < 0)\n" + SWEEP),
-        (ROWS, "    if (b < 0) r.Psc[b - b0] = make_float4(Px, Py, Pz, sc);\n"
-               "    if (b < 0) r.best[b - b0] = best;\n"),
+        (ROWS, "    if (b < 0) r.put(b - b0, make_float4(Px, Py, Pz, sc), "
+               "best);\n"),
         (ADD, "          if (E < 0)\n" + ADD)]
 KERNEL = ("__global__ void __launch_bounds__(DRT_BLOCK)\n"
           "segment_queue_kernel(")
-LAUNCH = "                                        next_group, partials, s_start);\n"
+LAUNCH = ("                                          s_end, next_group, partials,\n"
+          "                                          s_start);\n")
 COUNTER = """  {  // counted: the launch's trips, to stderr
     unsigned long long h[2] = {0, 0};
     cudaStreamSynchronize(s);

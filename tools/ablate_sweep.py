@@ -161,8 +161,8 @@ PARENT_VARIANTS = {
 # ... and the persistent ring of csrc/sweep_rows.cuh.
 S = "sweep_rows.cuh"
 _RING_CALL = """      if (ok)
-        sweep_item<TAIL>(cfg, decode, s_alb, s_emi, rsc, rword, base, H,
-                         head, gv, acc, acc_e);
+        sweep_item<TAIL, DEEP>(cfg, decode, s_alb, s_emi, rsc, rword, base,
+                               H, head, gv, acc, acc_e, deep);
     } else {"""
 _RING_ALONE = """      if (ok) {
         float d = 0.0f;
